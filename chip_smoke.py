@@ -6,11 +6,15 @@
 Phases, one JSON line each (any failure raises and exits non-zero):
 
   1. the card (``nvidia-smi`` name and power limit), then the build of
-     every hand kernel from ``paralleljohnson_tpu_torch/csrc``;
+     every hand kernel from ``paralleljohnson_tpu_torch/csrc`` (``ptxas``
+     registers and spills) and the sweep kernel's resident blocks per SM;
   2. each kernel against its plain PyTorch version on the card
-     (``torch.equal``): the fan-out sweep at RMAT-20 with B = 128 and
-     B = 512, the min-plus product at 1024^3, 1000x777x513 and with
-     all-+inf rows;
+     (``torch.equal``, same flag): the fan-out sweep under both gather
+     schedules at RMAT-20 with B = 128 and B = 512 and on a hub graph
+     (one row of 5 L + 3 in-edges, rows of L and L + 1, an empty row,
+     +inf weights) at B = 1, 5, 128, 200, 512, so the split rows'
+     partial minima and their combine run; the min-plus product at
+     1024^3, 1000x777x513 and with all-+inf rows;
   3. ``solve()`` on ``rmat:scale=20,ef=16,seed=0`` over 512 sources
      (route ``pallas-vm``), 2 rows checked against scipy Dijkstra;
   4. ``solve()`` on ``grid:rows=512,cols=512,neg=0.2,seed=0`` over 256
@@ -19,18 +23,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      reweighted with them;
   5. ``solve()`` on ``er:n=1024,p=0.1,seed=0`` for all sources (route
      ``dense-squaring-pallas``), the whole matrix against scipy;
-  6. the fan-out sweep against its plain version (``torch.equal`` and the
-     same flag, every sweep) on the grid solve's own inputs: the
+  6. the fan-out sweep, under both gather schedules, against its plain
+     version (``torch.equal`` and the same flag, every sweep) on the grid
+     solve's own inputs: the
      reweighted in-edge layout the solve ran on, B = 256, from the
      sources to the fixpoint, which must take the solve's sweep count
      and un-reweight to the solve's rows bitwise;
   7. a 4-edge negative cycle raises ``NegativeCycleError`` on the card;
   8. CUDA-event times of each kernel and its plain version at the main
-     path's shapes, with the bound the card could reach.
+     path's shapes, with the bound the card could reach: the sweep under
+     both gather schedules and at work items of L = 128..1024 in-edges
+     (RMAT-20, B = 128 and 512; grid, B = 256), and the grid fixpoint's
+     host clock per sweep with one host read per sweep (K = 1) and per
+     group (K = ``SWEEPS_PER_SYNC``).
 
-Phases 3-5 are the main path: the kernels' launch counters are set to 0
-just before and read just after. The last two lines are the ``kernels``
-summary and ``{"ok": true, "device": {...}}``.
+Phases 3-5 are the main path: the kernels' launch counters (and the
+fixpoint's host reads) are set to 0 just before and read just after.
+The last two lines are the ``kernels`` summary and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -64,6 +74,29 @@ def bound(bytes_moved: float, instructions: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def hub_graph(pjt, np):
+    """R-MAT-16 with a hub (vertex 0) of 5 L + 3 in-edges, rows of exactly
+    L and L + 1 in-edges (vertices 1, 2), an empty row (vertex 3) and 30%
+    of the weights +inf, for L = ``fanout_sweep.ITEM_EDGES``."""
+    from paralleljohnson_tpu_torch.ops.fanout_sweep import ITEM_EDGES
+
+    degrees = {0: 5 * ITEM_EDGES + 3, 1: ITEM_EDGES, 2: ITEM_EDGES + 1, 3: 0}
+    g = pjt.load_graph("rmat:scale=16,ef=8,seed=2")
+    rng = np.random.default_rng(11)
+    e = g.num_real_edges
+    keep = ~np.isin(g.indices[:e], list(degrees))
+    src, dst, w = [g.src[:e][keep]], [g.indices[:e][keep]], [g.weights[:e][keep]]
+    for v, n in degrees.items():
+        others = np.setdiff1d(np.arange(g.num_nodes), [v])
+        src.append(rng.choice(others, n, replace=False))
+        dst.append(np.full(n, v))
+        w.append(rng.integers(1, 10, n).astype(np.float32))
+    w = np.concatenate(w)
+    w[rng.random(w.shape[0]) < 0.3] = np.inf
+    return pjt.CSRGraph.from_edges(np.concatenate(src), np.concatenate(dst),
+                                   w, g.num_nodes)
+
+
 def main() -> int:
     import torch
 
@@ -78,8 +111,10 @@ def main() -> int:
     import paralleljohnson_tpu_torch as pjt
     from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
     from paralleljohnson_tpu_torch.ops import _cuda
+    from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
     from paralleljohnson_tpu_torch.ops.fanout_sweep import (
-        fanout_sweep, fanout_sweep_plain,
+        GATHERS, build_work_items, fanout_fixpoint, fanout_sweep,
+        fanout_sweep_plain,
     )
     from paralleljohnson_tpu_torch.ops.minplus import (
         minplus_kernel, minplus_plain,
@@ -133,9 +168,32 @@ def main() -> int:
                if "registers" in ln or "spill" in ln]
         for name, log in logs.items()
     }
+    occupancy = {f"B{b}_{g}": fs.occupancy(b, g)
+                 for b in (128, 256, 512) for g in GATHERS}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": kind})
+          "sweep_occupancy": occupancy, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": kind})
+    low = {k: o for k, o in occupancy.items() if o["blocks_per_sm"] < 2}
+    if low:
+        raise AssertionError(f"sweep kernel below 2 blocks per SM: {low}")
+
+    def sweep_equal(d, layout, items, label):
+        """Each gather schedule against the plain sweep on ``d``: raises
+        unless ``torch.equal`` with the same flag. Returns (largest
+        absolute error, flag, the plain sweep's result)."""
+        want, imp = fanout_sweep_plain(d, *layout)
+        err = 0.0
+        for gather in GATHERS:
+            got, flag = fanout_sweep(d, *layout, items=items, gather=gather)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, want))
+            if not torch.equal(got, want) or bool(flag.item()) != bool(imp):
+                raise AssertionError(
+                    f"fanout_sweep ({gather}) disagrees with plain on {label}: "
+                    f"max_abs_err {err}, flag {bool(flag.item())}, plain flag "
+                    f"{bool(imp)}")
+            del got
+        return err, bool(imp), want
 
     # -- phase 2: each kernel against its plain version ---------------------
     t0 = time.perf_counter()
@@ -144,6 +202,7 @@ def main() -> int:
     v, e = rmat.num_nodes, rmat.num_real_edges
     layout_graph = TorchBackend(pjt.SolverConfig(), device=dev).upload(rmat)
     layout = layout_graph.by_dst()
+    items = layout_graph.work_items()
     rng = np.random.default_rng(0)
     sweep_states = {}
     sweep_checks = []
@@ -153,18 +212,29 @@ def main() -> int:
         d[src, torch.arange(b, device=dev)] = 0.0
         for _ in range(3):  # a block with finite values to fold
             d, _ = fanout_sweep_plain(d, *layout)
-        got, flag = fanout_sweep(d, *layout)
-        want, imp = fanout_sweep_plain(d, *layout)
-        torch.cuda.synchronize()
-        equal = torch.equal(got, want)
-        err = max_abs_err(got, want)
-        sweep_checks.append({"B": b, "equal": equal, "max_abs_err": err,
-                             "flag": bool(flag.item()), "plain_flag": bool(imp)})
-        if not equal or bool(flag.item()) != bool(imp):
-            raise AssertionError(f"fanout_sweep disagrees with plain at B={b}: "
-                                 f"{sweep_checks[-1]}")
+        err, flag, _ = sweep_equal(d, layout, items, f"RMAT-20 B={b}")
+        sweep_checks.append({"graph": "rmat20", "B": b, "equal": True,
+                             "max_abs_err": err, "flag": flag,
+                             "gathers": sorted(GATHERS)})
         sweep_states[b] = (d, err)
-        del got, want
+    hub = hub_graph(pjt, np)
+    hub_layout_graph = TorchBackend(pjt.SolverConfig(), device=dev).upload(hub)
+    hub_layout = hub_layout_graph.by_dst()
+    hub_items = hub_layout_graph.work_items()
+    hub_rng = np.random.default_rng(3)
+    hub_errs = []
+    for b in (1, 5, 128, 200, 512):
+        src = torch.as_tensor(hub_rng.integers(0, hub.num_nodes, b)).to(dev)
+        d = torch.full((hub.num_nodes, b), float("inf"), device=dev)
+        d[src, torch.arange(b, device=dev)] = 0.0
+        for _ in range(3):
+            d, _ = fanout_sweep_plain(d, *hub_layout)
+        err, flag, _ = sweep_equal(d, hub_layout, hub_items,
+                                   f"the hub graph B={b}")
+        sweep_checks.append({"graph": "hub", "B": b, "equal": True,
+                             "max_abs_err": err, "flag": flag,
+                             "gathers": sorted(GATHERS)})
+        hub_errs.append(err)
     mp_checks = []
     mp_err = {}
     for (i, k, j, inf_rows) in ((1024, 1024, 1024, False),
@@ -189,14 +259,24 @@ def main() -> int:
             raise AssertionError(f"minplus disagrees with plain: {mp_checks[-1]}")
         mp_err[(i, k, j)] = err
     in_deg = (layout[0][1:] - layout[0][:-1]).cpu()
+    hub_deg = (hub_layout[0][1:] - hub_layout[0][:-1]).cpu()
     emit({"phase": "kernel_vs_plain", "rmat_gen_s": gen_s, "V": v, "E": e,
           "max_in_degree": int(in_deg.max()),
           "rows_in_degree_ge_10000": int((in_deg >= 10000).sum()),
+          "item_edges": items.item_edges,
+          "items": v - items.split_rows.shape[0] + items.n_split,
+          "split_items": items.n_split,
+          "split_rows": items.split_rows.shape[0],
+          "hub_graph": {"V": hub.num_nodes, "E": hub.num_real_edges,
+                        "max_in_degree": int(hub_deg.max()),
+                        "split_items": hub_items.n_split,
+                        "split_rows": hub_items.split_rows.shape[0]},
           "fanout_sweep": sweep_checks, "minplus": mp_checks})
 
     # -- phases 3-5: the main path ------------------------------------------
     fanout_sweep.launches = 0
     minplus_kernel.launches = 0
+    fanout_fixpoint.host_reads = 0
     per_solve = {}
 
     class FanoutGraphProbe(TorchBackend):
@@ -210,13 +290,15 @@ def main() -> int:
             return super().multi_source(dgraph, sources)
 
     def run_solve(label, graph, sources, backend=None):
-        before = (fanout_sweep.launches, minplus_kernel.launches)
+        before = (fanout_sweep.launches, minplus_kernel.launches,
+                  fanout_fixpoint.host_reads)
         solver = pjt.ParallelJohnsonSolver(pjt.SolverConfig(), backend=backend,
                                            device="cuda")
         res, secs = sync_time(lambda: solver.solve(graph, sources))
         per_solve[label] = {
             "fanout_sweep": fanout_sweep.launches - before[0],
             "minplus": minplus_kernel.launches - before[1],
+            "fanout_host_reads": fanout_fixpoint.host_reads - before[2],
         }
         return res, secs
 
@@ -301,41 +383,39 @@ def main() -> int:
 
     # -- phase 6: the sweep against its plain version on the grid's inputs ---
     # The layout the grid solve's fan-out ran on: reweighted weights,
-    # clamped at 0, and B = 256 (two column tiles of the kernel). Kernel
-    # and plain version run in lockstep from the sources to the fixpoint.
+    # clamped at 0, and B = 256 (two float4 per lane). Both gather
+    # schedules and the plain version run in lockstep from the sources to
+    # the fixpoint.
     g_layout = probe.fanout_graph.by_dst()
+    g_items = probe.fanout_graph.work_items()
     gv, ge, gb = grid.num_nodes, grid.num_real_edges, len(gsrc)
     d = torch.full((gv, gb), float("inf"), device=dev)
     d[torch.as_tensor(gsrc, device=dev), torch.arange(gb, device=dev)] = 0.0
+    d0_grid = d.clone()
     grid_err, sweeps, improving, d_timing = 0.0, 0, True, None
     while improving:
-        got, flag = fanout_sweep(d, *g_layout)
-        want, imp = fanout_sweep_plain(d, *g_layout)
-        improving = bool(flag.item())
-        if not torch.equal(got, want) or improving != bool(imp):
-            raise AssertionError(
-                f"fanout_sweep disagrees with plain on the grid at sweep "
-                f"{sweeps}: max_abs_err {max_abs_err(got, want)}, flag "
-                f"{improving}, plain flag {bool(imp)}")
-        grid_err = max(grid_err, max_abs_err(got, want))
-        d = got
+        err, improving, d = sweep_equal(d, g_layout, g_items,
+                                        f"the grid at sweep {sweeps}")
+        grid_err = max(grid_err, err)
         sweeps += 1
         if sweeps == min(50, grid_sweeps):
-            d_timing = d.clone()
+            d_timing = d
         if sweeps > grid_sweeps:
             break
     if sweeps != grid_sweeps:
         raise AssertionError(f"lockstep fixpoint took {sweeps} sweeps, the "
                              f"solve {grid_sweeps}")
+    d_fix = d
     rows = _unreweight(d.t().contiguous(), grid_res.potentials, gsrc)
     if not torch.equal(rows, grid_res.dist):
         raise AssertionError("the lockstep fixpoint, un-reweighted, differs "
                              "from the grid solve's rows")
     emit({"phase": "kernel_vs_plain_grid", "spec": GRID_SPEC, "B": gb,
           "sweeps_checked": sweeps, "equal": True, "max_abs_err": grid_err,
+          "gathers": sorted(GATHERS),
           "zero_weight_fraction": float((g_layout[2] == 0).float().mean()),
           "rows_equal_solve": True})
-    del grid_res, rows, got, want
+    del grid_res, rows
 
     # -- phase 7: negative cycle on the card ---------------------------------
     cyc = pjt.CSRGraph.from_edges([0, 1, 2, 3], [1, 2, 3, 1],
@@ -348,32 +428,88 @@ def main() -> int:
         raise AssertionError("negative cycle not detected on the card")
 
     # -- phase 8: times at the main path's shapes ----------------------------
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+
+    def sweep_ms(d, lay, itm, gather, reps):
+        """Each sweep (and the warm-up) sets a flag of its own, zeroed
+        before the timed run, as in the fixpoint."""
+        out = torch.empty_like(d)
+        flags = torch.zeros((reps + 1) * fs.FLAG_STRIDE, dtype=torch.int32,
+                            device=dev)
+        words = iter(range(0, flags.numel(), fs.FLAG_STRIDE))
+        scratch = torch.empty((itm.n_split, d.shape[1]), device=dev)
+
+        def sweep():
+            j = next(words)
+            fanout_sweep(d, *lay, items=itm, out=out,
+                         improved=flags[j:j + 1], prev=one, scratch=scratch,
+                         gather=gather)
+
+        return event_ms(sweep, reps=reps)
+
     timings = {}
     for b, (d, _) in sweep_states.items():
-        out = torch.empty_like(d)
-        flag = torch.zeros(1, dtype=torch.int32, device=dev)
-        ms = event_ms(lambda: fanout_sweep(d, *layout, out=out,
-                                           improved=flag), reps=10)
+        by_gather = {g: sweep_ms(d, layout, items, g, 10) for g in GATHERS}
+        by_l = {}
+        for l in (128, 256, 512, 1024):  # work items of at most L in-edges
+            itm = build_work_items(layout[0], l)
+            by_l[l] = {"split_items": itm.n_split,
+                       "scratch_bytes": 4 * itm.n_split * b,
+                       **{g: sweep_ms(d, layout, itm, g, 5) for g in GATHERS}}
+            del itm
         plain = event_ms(lambda: fanout_sweep_plain(d, *layout), reps=2)
-        bytes_moved = 4 * (2 * v * b + (v + 1) + 2 * e)
-        bms, by = bound(bytes_moved, 2 * e * b)
+        bms, by = bound(4 * (2 * v * b + (v + 1) + 2 * e), 2 * e * b)
         timings[f"fanout_sweep_B{b}"] = {
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "gathered_GB": 4 * e * b / 1e9,
+            "ms": by_gather[fs.GATHER], "gather": fs.GATHER,
+            "ms_by_gather": by_gather, "ms_by_item_edges": by_l,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "gathered_GB": 4 * e * b / 1e9, "item_edges": items.item_edges,
+            "items": v - items.split_rows.shape[0] + items.n_split,
+            "split_items": items.n_split,
+            "scratch_bytes": 4 * items.n_split * b,
+            "gather_depth": {g: fs.occupancy(b, g)["gather_depth"]
+                             for g in GATHERS},
         }
-        del out
-    # The grid fan-out's inputs 50 sweeps in (phase 6's layout), to split
-    # its per-sweep solve time into kernel and host-loop time.
+    # The grid fan-out's inputs 50 sweeps in (phase 6's layout).
     d = d_timing
-    out = torch.empty_like(d)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    ms = event_ms(lambda: fanout_sweep(d, *g_layout, out=out, improved=flag),
-                  reps=50)
+    by_gather = {g: sweep_ms(d, g_layout, g_items, g, 50) for g in GATHERS}
+    # The same sweep at the fixpoint, where no row drops and no warp
+    # touches the flag.
+    at_fixpoint = {g: sweep_ms(d_fix, g_layout, g_items, g, 50)
+                   for g in GATHERS}
     plain = event_ms(lambda: fanout_sweep_plain(d, *g_layout), reps=5)
     bms, by = bound(4 * (2 * gv * gb + (gv + 1) + 2 * ge), 2 * ge * gb)
+    kernel_ms = by_gather[fs.GATHER]
+    # The grid fixpoint from the sources on the host clock, with one host
+    # read per sweep (K = 1) and one per group, in turns: what each sweep
+    # costs beyond its kernel is the host loop.
+    host_loop = {}
+    k_group = fs.SWEEPS_PER_SYNC
+    for k in (1, k_group, k_group, 1):
+        start = d0_grid.clone()
+        reads = fanout_fixpoint.host_reads
+        fs.SWEEPS_PER_SYNC = k
+        try:
+            (fix, it_fix, imp_fix), secs = sync_time(lambda: fanout_fixpoint(
+                start, *g_layout, max_iter=gv, items=g_items))
+        finally:
+            fs.SWEEPS_PER_SYNC = k_group
+        if it_fix != grid_sweeps or imp_fix or not torch.equal(fix, d_fix):
+            raise AssertionError(f"grid fixpoint with K={k}: {it_fix} sweeps "
+                                 f"(solve {grid_sweeps}), improving {imp_fix}")
+        host_loop.setdefault(f"K{k}", []).append({
+            "s": secs, "ms_per_sweep": secs * 1e3 / it_fix,
+            "host_loop_ms_per_sweep": secs * 1e3 / it_fix - kernel_ms,
+            "host_reads": fanout_fixpoint.host_reads - reads})
+        del start, fix
     timings["fanout_sweep_grid512_B256"] = {
-        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "ms": kernel_ms, "gather": fs.GATHER, "ms_by_gather": by_gather,
+        "ms_at_fixpoint_by_gather": at_fixpoint,
+        "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "solve_s_per_sweep": grid_fanout_s / grid_sweeps,
+        "solve_host_loop_ms_per_sweep":
+            grid_fanout_s * 1e3 / grid_sweeps - kernel_ms,
+        "fixpoint_host_clock": host_loop,
     }
     i = k = j = 1024
     g_rng = np.random.default_rng(7)
@@ -394,7 +530,7 @@ def main() -> int:
          "source": "paralleljohnson_tpu_torch/csrc/fanout_sweep.cu",
          "replaces": "paralleljohnson_tpu/ops/pallas_sweep.py:255",
          "launches": launches["fanout_sweep"],
-         "max_abs_err": max(grid_err,
+         "max_abs_err": max(grid_err, *hub_errs,
                             *(err for _, err in sweep_states.values())),
          "ms": t_sw["ms"], "plain_ms": t_sw["plain_ms"],
          "bound_ms": t_sw["bound_ms"], "bound_by": t_sw["bound_by"],

@@ -29,6 +29,7 @@ from paralleljohnson_tpu_torch.backends.base import (
 from paralleljohnson_tpu_torch.graphs import CSRGraph
 from paralleljohnson_tpu_torch.ops import relax
 from paralleljohnson_tpu_torch.ops.fanout_sweep import (
+    WorkItems,
     build_in_edge_layout,
     fanout_fixpoint,
 )
@@ -36,7 +37,8 @@ from paralleljohnson_tpu_torch.ops.minplus import minplus_kernel
 
 # Distance blocks of [B, V] the source batch is budgeted for: the
 # reference's six. The sweep's two alternating [V, B] buffers, the
-# transposed [B, V] result and the un-reweight's two temporaries fit.
+# transposed [B, V] result and the un-reweight's two temporaries fit;
+# the sweep's partial-minimum scratch (n_split rows) is budgeted on top.
 BATCH_BLOCKS = 6
 # Memory budget of one fan-out call on the CPU (the reference's constant).
 CPU_BUDGET_BYTES = 4 << 30
@@ -59,8 +61,9 @@ class TorchDeviceGraph:
     """Device-resident COO buffers (padded edges are (0, 0, +inf) no-ops)
     plus cached layouts.
 
-    ``_struct_cache`` holds weight-independent structure (the in-edge CSC
-    and its sort permutation) and survives :meth:`TorchBackend.reweight`;
+    ``_struct_cache`` holds weight-independent structure (the in-edge CSC,
+    its sort permutation and the sweep kernel's work items) and survives
+    :meth:`TorchBackend.reweight`;
     ``_by_dst_cache`` holds what is gathered from the current weights and
     is dropped by it.
     """
@@ -82,23 +85,32 @@ class TorchDeviceGraph:
     def device(self) -> torch.device:
         return self.weights.device
 
+    def _in_edges(self) -> dict:
+        struct = self._struct_cache.get("in_edges")
+        if struct is None:
+            e = self.num_real_edges
+            struct = build_in_edge_layout(
+                self.src[:e], self.dst[:e], self.num_nodes
+            )
+            self._struct_cache["in_edges"] = struct
+        return struct
+
     def by_dst(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The real edges sorted by destination (stable), as the in-edge
         CSC the fan-out sweep pulls over: (indptr_in int32[V+1], src_in
         int32[E], w_in f32[E]), with ``w_in`` gathered from the CURRENT
         weights."""
         e = self.num_real_edges
-        struct = self._struct_cache.get("in_edges")
-        if struct is None:
-            struct = build_in_edge_layout(
-                self.src[:e], self.dst[:e], self.num_nodes
-            )
-            self._struct_cache["in_edges"] = struct
+        struct = self._in_edges()
         w_in = self._by_dst_cache.get("w_in")
         if w_in is None:
             w_in = self.weights[:e][struct["order"]].contiguous()
             self._by_dst_cache["w_in"] = w_in
         return struct["indptr_in"], struct["src_in"], w_in
+
+    def work_items(self) -> WorkItems:
+        """The sweep kernel's work items over the in-edge CSC."""
+        return self._in_edges()["work_items"]
 
 
 class TorchBackend(Backend):
@@ -148,15 +160,19 @@ class TorchBackend(Backend):
     def suggested_source_batch(self, dgraph: TorchDeviceGraph) -> int:
         """Cap the [B, V] distance block to the memory budget: half the
         card's free memory (``torch.cuda.mem_get_info``), or a 4 GB
-        constant on the CPU, over ``BATCH_BLOCKS`` blocks."""
+        constant on the CPU, over ``BATCH_BLOCKS`` blocks plus, on the
+        card's sparse route, the sweep's scratch rows."""
         v = max(dgraph.num_nodes, 1)
         itemsize = torch.empty((), dtype=self._dtype).element_size()
+        rows = BATCH_BLOCKS * v
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
             budget = free // 2
+            if not self._use_dense(dgraph):
+                rows += dgraph.work_items().n_split
         else:
             budget = CPU_BUDGET_BYTES
-        b = budget // (BATCH_BLOCKS * v * itemsize)
+        b = budget // (rows * itemsize)
         return int(max(1, min(b, 1 << 16)))
 
     def bellman_ford(self, dgraph: TorchDeviceGraph,
@@ -233,7 +249,8 @@ class TorchBackend(Backend):
                            device=self.device)
         dist0[sources, torch.arange(b, device=self.device)] = 0.0
         dist_vm, iters, improving = fanout_fixpoint(
-            dist0, indptr_in, src_in, w_in, max_iter=max_iter
+            dist0, indptr_in, src_in, w_in, max_iter=max_iter,
+            items=dgraph.work_items(),
         )
         return KernelResult(
             dist=dist_vm.t().contiguous(),

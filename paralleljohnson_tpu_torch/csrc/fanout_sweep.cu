@@ -7,118 +7,538 @@
 // (pallas_call at :255). That kernel buckets edges by (dst block, src
 // block) so that two [vb, B] blocks sit in the TPU's 16 MB of VMEM. A
 // Hopper block has 227 KB of shared memory, so the bucket grid is not
-// carried over: each warp owns one destination row and gathers its
-// in-neighbours' rows straight from device memory (through L1/L2). The
-// result is the same Jacobi sweep: candidates read only `old`, and the
-// minimum of exactly rounded f32 sums does not depend on order, so the
-// kernel agrees bitwise with the plain PyTorch version.
+// carried over: warps gather in-neighbours' rows straight from device
+// memory (through L1/L2). Every candidate reads `old` and the minimum of
+// exactly rounded f32 sums does not depend on order, so the kernel agrees
+// bitwise with the plain PyTorch version however the edges are split.
 //
 // Bound on the H100: bytes. At least the [V, B] read and the [V, B] write
-// plus the CSC edges (4(V+1) + 8E bytes); at most E*B*4 bytes of gathered
-// rows when no gathered row hits in cache. The design keeps each gather
-// wide: a lane reads 4 contiguous floats (16 bytes), so a warp reads one
-// 512-byte row segment per in-edge, and column tiles beyond 128 take the
-// y grid dimension. Skewed in-degrees (R-MAT) leave a few warps walking
-// 10^4-edge lists while the rest of the card idles at the end of a sweep.
+// plus the CSC (4(V+1) + 8E bytes); at most E*B*4 bytes of gathered rows
+// when no gathered row hits in cache. What the design does about it:
 //
-// The `improved` flag is set (plain store of 1) when any entry strictly
-// drops; the caller zeroes it before the launch and reads it after.
+// - Edge-balanced work items of at most L in-edges, one warp each, so a
+//   skewed in-degree (R-MAT hubs of 10^4 edges) no longer leaves one warp
+//   walking a whole row while the card idles. A row of at most L in-edges
+//   is one item, found by its row number (warp n_pieces + v), so its own
+//   chain of dependent loads stays indptr -> (src, w) -> gathers. A longer
+//   row is cut into pieces of L edges, listed once per graph in a table
+//   of (row, first edge, end edge) (ops/fanout_sweep.py,
+//   build_work_items) and taken first (warps 0 .. n_pieces - 1); piece k
+//   writes the partial minimum of its edges to `partial[k, :]`. A second,
+//   small kernel folds old[v, :] and the row's partials into out[v, :]
+//   and sets the flag there, against old, after every partial is in.
+// - One warp covers all B columns of its item: 128 * NV columns per pass
+//   (NV float4 per lane), and a column loop inside the warp for B > 512.
+//   Each (src, w) pair is fetched once per edge and pass.
+// - Many gathers in flight. A warp reads 32 (src, w) pairs with one
+//   coalesced load and hands them out with __shfl_sync, so no lane waits
+//   on an index load before a gather. Two gather schedules, chosen by the
+//   caller: `registers` issues U independent row gathers per lane before
+//   folding any of them; `async` keeps a per-warp ring of S stages in
+//   shared memory filled by cp.async.cg 16-byte copies, S gathers in
+//   flight while the warp folds the oldest. TMA does not fit: it has no
+//   row gather, and the rows are not a tile.
+// - One host sync per group of sweeps. Each launch reads the previous
+//   sweep's flag (`prev`) and returns at entry when it is 0, so the host
+//   can launch K sweeps ahead and read K flags at once; a skipped sweep
+//   writes nothing.
+//
+// The `improved` flag is set when any entry strictly drops; the caller
+// zeroes it before the launch. Up to one warp per row finds a drop, and
+// ~10^5 stores to one word serialise on the L2 slice that holds it, so a
+// warp stores only when an L1-cached read of the flag still shows 0 (a
+// stale 0 costs one redundant store, never a lost one: the driver
+// invalidates L1 between dependent launches). The caller keeps each
+// sweep's flag on a 128-byte line of its own, apart from the `prev` flag
+// that every warp reads at entry.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = 32 * kWarpsPerBlock;
-constexpr int kTileCols = 128;  // columns per warp: 32 lanes x 4
+constexpr int kWarps = 8;  // warps per block
+constexpr int kThreads = 32 * kWarps;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kAsync = 1;  // gather schedule 1 (0 is `registers`)
 
-// VEC: B % 4 == 0 and 16-byte aligned rows, so a lane loads one float4.
+// Columns of one pass: 128 * NV starting at col0. VEC (B % 4 == 0, 16-byte
+// aligned rows): group q of a lane is the float4 at col0 + 4 (lane + 32 q).
+// Scalar: element i of group q is column col0 + lane + 32 (4 q + i).
 template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-fanout_sweep_kernel(const float* __restrict__ old, float* __restrict__ out,
-                    const int* __restrict__ indptr,
-                    const int* __restrict__ src,
-                    const float* __restrict__ w,
-                    int* __restrict__ improved, int64_t V, int64_t B) {
-  const int64_t v =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (v >= V) return;  // whole warps leave together
-  const int64_t col0 = (int64_t)blockIdx.y * kTileCols;
-  const int e0 = indptr[v];
-  const int e1 = indptr[v + 1];
-  bool dropped = false;
+__device__ __forceinline__ int64_t col_of(int64_t col0, int lane, int q,
+                                          int i) {
+  return VEC ? col0 + 4 * (lane + 32 * q) + i : col0 + lane + 32 * (4 * q + i);
+}
 
-  if (VEC) {
-    const int64_t c = col0 + 4 * lane;
-    if (c < B) {
-      const float4 init =
-          *reinterpret_cast<const float4*>(old + v * B + c);
-      float4 acc = init;
-      for (int e = e0; e < e1; ++e) {
-        const int64_t u = __ldg(src + e);
-        const float we = __ldg(w + e);
-        const float4 du =
-            __ldg(reinterpret_cast<const float4*>(old + u * B + c));
-        acc.x = fminf(acc.x, du.x + we);
-        acc.y = fminf(acc.y, du.y + we);
-        acc.z = fminf(acc.z, du.z + we);
-        acc.w = fminf(acc.w, du.w + we);
-      }
-      *reinterpret_cast<float4*>(out + v * B + c) = acc;
-      dropped = acc.x < init.x || acc.y < init.y || acc.z < init.z ||
-                acc.w < init.w;
-    }
-  } else {
-    float init[4], acc[4];
+__device__ __forceinline__ float4 inf4() {
+  return make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+}
+
+__device__ __forceinline__ float& at(float4& f, int i) {
+  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
+}
+
+// Lane's columns of `row` (+inf outside [0, B)).
+template <int NV, bool VEC>
+__device__ __forceinline__ void load_row(const float* __restrict__ row,
+                                         int64_t col0, int lane, int64_t B,
+                                         float4 (&f)[NV]) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int64_t c = col0 + lane + 32 * k;
-      init[k] = c < B ? old[v * B + c] : 0.0f;
-      acc[k] = init[k];
-    }
-    for (int e = e0; e < e1; ++e) {
-      const int64_t u = __ldg(src + e);
-      const float we = __ldg(w + e);
+  for (int q = 0; q < NV; ++q) {
+    if (VEC) {
+      const int64_t c = col_of<true>(col0, lane, q, 0);
+      f[q] = c < B ? __ldg(reinterpret_cast<const float4*>(row + c)) : inf4();
+    } else {
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int64_t c = col0 + lane + 32 * k;
-        if (c < B) acc[k] = fminf(acc[k], __ldg(old + u * B + c) + we);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int64_t c = col0 + lane + 32 * k;
-      if (c < B) {
-        out[v * B + c] = acc[k];
-        dropped = dropped || acc[k] < init[k];
+      for (int i = 0; i < 4; ++i) {
+        const int64_t c = col_of<false>(col0, lane, q, i);
+        at(f[q], i) = c < B ? __ldg(row + c) : CUDART_INF_F;
       }
     }
   }
-  if (__any_sync(0xffffffffu, dropped) && lane == 0) *improved = 1;
+}
+
+template <int NV, bool VEC>
+__device__ __forceinline__ void store_row(float* __restrict__ row,
+                                          int64_t col0, int lane, int64_t B,
+                                          const float4 (&f)[NV]) {
+#pragma unroll
+  for (int q = 0; q < NV; ++q) {
+    if (VEC) {
+      const int64_t c = col_of<true>(col0, lane, q, 0);
+      if (c < B) *reinterpret_cast<float4*>(row + c) = f[q];
+    } else {
+      float4 v = f[q];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t c = col_of<false>(col0, lane, q, i);
+        if (c < B) row[c] = at(v, i);
+      }
+    }
+  }
+}
+
+// Whether any in-range column of acc is strictly below init.
+template <int NV, bool VEC>
+__device__ __forceinline__ bool any_drop(int64_t col0, int lane, int64_t B,
+                                         const float4 (&acc)[NV],
+                                         const float4 (&init)[NV]) {
+  bool dropped = false;
+#pragma unroll
+  for (int q = 0; q < NV; ++q) {
+    float4 a = acc[q], b = init[q];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (col_of<VEC>(col0, lane, q, i) < B) dropped |= at(a, i) < at(b, i);
+    }
+  }
+  return dropped;
+}
+
+__device__ __forceinline__ void fold4(float4& acc, const float4& x, float w) {
+  acc.x = fminf(acc.x, x.x + w);
+  acc.y = fminf(acc.y, x.y + w);
+  acc.z = fminf(acc.z, x.z + w);
+  acc.w = fminf(acc.w, x.w + w);
+}
+
+// End of a pass: a whole row folds old[v] in last (the min does not
+// depend on order) and notes whether any column dropped below it; old is
+// read only here, so it holds no registers during the edge loop. Then
+// the pass's columns are stored (to out[v], or to partial[slot]).
+template <int NV, bool VEC>
+__device__ __forceinline__ bool finish_pass(const float* __restrict__ own,
+                                            float* __restrict__ dst,
+                                            bool whole, int64_t col0,
+                                            int lane, int64_t B,
+                                            float4 (&acc)[NV]) {
+  bool dropped = false;
+  if (whole) {
+    float4 init[NV];
+    load_row<NV, VEC>(own, col0, lane, B, init);
+    dropped = any_drop<NV, VEC>(col0, lane, B, acc, init);
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      acc[q].x = fminf(init[q].x, acc[q].x);
+      acc[q].y = fminf(init[q].y, acc[q].y);
+      acc[q].z = fminf(init[q].z, acc[q].z);
+      acc[q].w = fminf(init[q].w, acc[q].w);
+    }
+  }
+  store_row<NV, VEC>(dst, col0, lane, B, acc);
+  return dropped;
+}
+
+__device__ __forceinline__ void cp_async16(float4* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_l2(const float* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Lane 0 of a warp in which any lane dropped sets the flag (see the top).
+__device__ __forceinline__ void raise_flag(bool dropped, int lane,
+                                           int* improved) {
+  if (__any_sync(kFull, dropped) && lane == 0 && __ldca(improved) == 0)
+    *improved = 1;
+}
+
+// The item of warp k. Warps below n_pieces take piece k of a split row
+// from the table (row, first edge, end edge) and store partial[k]; warp
+// n_pieces + v takes row v whole and stores out[v], unless v has more
+// than L in-edges (its pieces cover it). False: nothing to do. A whole
+// row's own old[v] is prefetched into L2 first (it is folded in last),
+// so the chain of dependent loads is indptr, (src, w), the gathers.
+struct Item {
+  int64_t row;
+  int e0, e1;
+  bool whole;
+};
+
+__device__ __forceinline__ bool fetch_item(
+    const int* __restrict__ indptr, const int* __restrict__ pieces,
+    int64_t n_pieces, int64_t V, int L, const float* __restrict__ old,
+    int64_t B, int lane, int64_t k, Item& it) {
+  if (k < n_pieces) {
+    it.row = __ldg(pieces + 3 * k);
+    it.e0 = __ldg(pieces + 3 * k + 1);
+    it.e1 = __ldg(pieces + 3 * k + 2);
+    it.whole = false;
+    return true;
+  }
+  const int64_t v = k - n_pieces;
+  if (v >= V) return false;
+  for (int64_t c = 4 * lane; c < B; c += 128) prefetch_l2(old + v * B + c);
+  it.row = v;
+  it.e0 = __ldg(indptr + v);
+  it.e1 = __ldg(indptr + v + 1);
+  it.whole = true;
+  return it.e1 - it.e0 <= L;
+}
+
+// `registers`: per lane, U row gathers (NV float4 each) issued back to
+// back, then folded. The scalar path's column arithmetic needs more
+// registers: at NV >= 2 it holds 2 blocks per SM instead of spilling.
+template <int NV, bool VEC, int U>
+__global__ void __launch_bounds__(kThreads, NV >= 4 || (!VEC && NV >= 2) ? 2 : 3)
+items_registers(const float* __restrict__ old, float* __restrict__ out,
+                const int* __restrict__ src, const float* __restrict__ w,
+                const int* __restrict__ indptr,
+                const int* __restrict__ pieces, int64_t n_pieces, int64_t V,
+                int L, float* __restrict__ partial,
+                const int* __restrict__ prev, int* __restrict__ improved,
+                int64_t B) {
+  if (*prev == 0) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t k = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  Item it;
+  if (!fetch_item(indptr, pieces, n_pieces, V, L, old, B, lane, k, it))
+    return;
+  const bool whole = it.whole;
+  float* dst = whole ? out + it.row * B : partial + k * B;
+  bool dropped = false;
+  for (int64_t col0 = 0; col0 < B; col0 += 128 * NV) {
+    float4 acc[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) acc[q] = inf4();
+    for (int eb = it.e0; eb < it.e1; eb += 32) {
+      const int n = min(32, it.e1 - eb);
+      const int my_u = lane < n ? __ldg(src + eb + lane) : 0;
+      const float my_w = lane < n ? __ldg(w + eb + lane) : 0.0f;
+      for (int j = 0; j < n; j += U) {
+        float4 g[U][NV];
+        float wj[U];
+#pragma unroll
+        for (int t = 0; t < U; ++t) {
+          const int u = __shfl_sync(kFull, my_u, (j + t) & 31);
+          wj[t] = __shfl_sync(kFull, my_w, (j + t) & 31);
+          if (j + t < n) load_row<NV, VEC>(old + (int64_t)u * B, col0, lane, B, g[t]);
+        }
+#pragma unroll
+        for (int t = 0; t < U; ++t) {
+          if (j + t < n) {
+#pragma unroll
+            for (int q = 0; q < NV; ++q) fold4(acc[q], g[t][q], wj[t]);
+          }
+        }
+      }
+    }
+    dropped |= finish_pass<NV, VEC>(old + it.row * B, dst, whole, col0, lane,
+                                    B, acc);
+  }
+  if (whole) raise_flag(dropped, lane, improved);
+}
+
+// `async` (VEC only): a per-warp ring of S stages, stage s holding one
+// gathered row segment (NV float4 per lane). Each lane copies and later
+// reads back only its own 16-byte slots, so cp.async.wait_group alone
+// orders them; no block barrier is needed.
+template <int NV, int S>
+__global__ void __launch_bounds__(kThreads, NV >= 4 ? 2 : 3)
+items_async(const float* __restrict__ old, float* __restrict__ out,
+            const int* __restrict__ src, const float* __restrict__ w,
+            const int* __restrict__ indptr, const int* __restrict__ pieces,
+            int64_t n_pieces, int64_t V, int L, float* __restrict__ partial,
+            const int* __restrict__ prev, int* __restrict__ improved,
+            int64_t B) {
+  extern __shared__ float4 ring[];
+  if (*prev == 0) return;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t k = (int64_t)blockIdx.x * kWarps + warp;
+  Item it;
+  if (!fetch_item(indptr, pieces, n_pieces, V, L, old, B, lane, k, it))
+    return;
+  const bool whole = it.whole;
+  float* dst = whole ? out + it.row * B : partial + k * B;
+  // Slot (stage s, group q) of this lane: mine[(s * NV + q) * 32].
+  float4* mine = ring + (int64_t)warp * S * NV * 32 + lane;
+  const int n = it.e1 - it.e0;
+  const int* esrc = src + it.e0;
+  const float* ew = w + it.e0;
+  bool dropped = false;
+  for (int64_t col0 = 0; col0 < B; col0 += 128 * NV) {
+    float4 acc[NV];
+    bool live[NV];
+#pragma unroll
+    for (int q = 0; q < NV; ++q) {
+      acc[q] = inf4();
+      live[q] = col_of<true>(col0, lane, q, 0) < B;
+    }
+    // (src, w) of the batch of 32 edges holding the issue pointer, and of
+    // the batch after it (loaded a batch early).
+    int cur_u = lane < n ? __ldg(esrc + lane) : 0;
+    float cur_w = lane < n ? __ldg(ew + lane) : 0.0f;
+    int nxt_u = lane + 32 < n ? __ldg(esrc + 32 + lane) : 0;
+    float nxt_w = lane + 32 < n ? __ldg(ew + 32 + lane) : 0.0f;
+    float wst[S];  // weight of the edge in flight in each stage
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int u = __shfl_sync(kFull, cur_u, s);
+      wst[s] = __shfl_sync(kFull, cur_w, s);
+      if (s < n) {
+        const float* row = old + (int64_t)u * B + col0 + 4 * lane;
+#pragma unroll
+        for (int q = 0; q < NV; ++q)
+          if (live[q]) cp_async16(mine + (s * NV + q) * 32, row + 128 * q);
+      }
+      cp_async_commit();
+    }
+    for (int t = 0; t < n; t += S) {
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int tf = t + s;  // edge folded from stage s
+        const int ti = tf + S;  // edge issued into stage s after it
+        if (tf < n) {
+          cp_async_wait<S - 1>();
+#pragma unroll
+          for (int q = 0; q < NV; ++q)
+            if (live[q]) fold4(acc[q], mine[(s * NV + q) * 32], wst[s]);
+        }
+        __syncwarp();
+        if (ti < n) {
+          if ((ti & 31) == 0) {
+            cur_u = nxt_u;
+            cur_w = nxt_w;
+            const int nb = ti + 32 + lane;
+            nxt_u = nb < n ? __ldg(esrc + nb) : 0;
+            nxt_w = nb < n ? __ldg(ew + nb) : 0.0f;
+          }
+          const int u = __shfl_sync(kFull, cur_u, ti & 31);
+          wst[s] = __shfl_sync(kFull, cur_w, ti & 31);
+          const float* row = old + (int64_t)u * B + col0 + 4 * lane;
+#pragma unroll
+          for (int q = 0; q < NV; ++q)
+            if (live[q]) cp_async16(mine + (s * NV + q) * 32, row + 128 * q);
+        }
+        cp_async_commit();
+      }
+    }
+    cp_async_wait_all();
+    __syncwarp();
+    dropped |= finish_pass<NV, true>(old + it.row * B, dst, whole, col0, lane,
+                                     B, acc);
+  }
+  if (whole) raise_flag(dropped, lane, improved);
+}
+
+// Split rows: out[v] = min(old[v], partials of v's pieces); one warp per
+// row, every column.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+combine_split_rows(const float* __restrict__ old, float* __restrict__ out,
+                   const float* __restrict__ partial,
+                   const int* __restrict__ split_rows,
+                   const int* __restrict__ split_ptr, int64_t n_rows,
+                   const int* __restrict__ prev, int* __restrict__ improved,
+                   int64_t B) {
+  if (*prev == 0) return;
+  const int64_t r = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (r >= n_rows) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = __ldg(split_rows + r);
+  const int p0 = __ldg(split_ptr + r);
+  const int p1 = __ldg(split_ptr + r + 1);
+  bool dropped = false;
+  if (VEC) {
+    for (int64_t c = 4 * lane; c < B; c += 128) {
+      const float4 init = __ldg(reinterpret_cast<const float4*>(old + row * B + c));
+      float4 acc = init;
+#pragma unroll 4
+      for (int p = p0; p < p1; ++p) {
+        const float4 x =
+            __ldg(reinterpret_cast<const float4*>(partial + (int64_t)p * B + c));
+        acc.x = fminf(acc.x, x.x);
+        acc.y = fminf(acc.y, x.y);
+        acc.z = fminf(acc.z, x.z);
+        acc.w = fminf(acc.w, x.w);
+      }
+      *reinterpret_cast<float4*>(out + row * B + c) = acc;
+      dropped |= acc.x < init.x || acc.y < init.y || acc.z < init.z ||
+                 acc.w < init.w;
+    }
+  } else {
+    for (int64_t c = lane; c < B; c += 32) {
+      const float init = __ldg(old + row * B + c);
+      float acc = init;
+#pragma unroll 4
+      for (int p = p0; p < p1; ++p)
+        acc = fminf(acc, __ldg(partial + (int64_t)p * B + c));
+      out[row * B + c] = acc;
+      dropped |= acc < init;
+    }
+  }
+  raise_flag(dropped, lane, improved);
+}
+
+using ItemsFn = void (*)(const float*, float*, const int*, const float*,
+                         const int*, const int*, int64_t, int64_t, int, float*,
+                         const int*, int*, int64_t);
+
+struct Plan {
+  ItemsFn fn;
+  int smem;   // dynamic shared memory, bytes
+  int depth;  // ring stages S (async) or gathers per batch U (registers)
+};
+
+// 16 float4 per lane in flight at most: S = 8 stages below NV = 4, then 4;
+// U = 8 gathers at NV = 1, then 4, so the register schedule stays within
+// the launch bounds (3 blocks per SM below NV = 4, 2 at NV = 4 and on
+// the scalar path from NV = 2).
+template <int NV>
+constexpr int ring_stages() {
+  return NV >= 4 ? 4 : 8;
+}
+
+template <int NV>
+constexpr int batch_gathers() {
+  return NV >= 2 ? 4 : 8;
+}
+
+template <int NV>
+Plan plan_nv(bool vec, int gather) {
+  constexpr int S = ring_stages<NV>();
+  constexpr int U = batch_gathers<NV>();
+  if (vec && gather == kAsync)
+    return {items_async<NV, S>, kWarps * S * NV * 32 * (int)sizeof(float4), S};
+  if (vec) return {items_registers<NV, true, U>, 0, U};
+  return {items_registers<NV, false, U>, 0, U};
+}
+
+// NV by B: one pass of 128, 256 or 512 columns; wider B loops over
+// 512-column passes inside the warp.
+Plan plan(int64_t B, bool vec, int gather) {
+  if (B <= 128) return plan_nv<1>(vec, gather);
+  if (B <= 256) return plan_nv<2>(vec, gather);
+  return plan_nv<4>(vec, gather);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+cudaError_t allow_smem(const Plan& p) {
+  if (p.smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(reinterpret_cast<const void*>(p.fn),
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              p.smem);
 }
 
 }  // namespace
 
+// One sweep over V rows: the items kernel (n_pieces pieces of split rows,
+// then every row of at most L in-edges whole), then the split-row
+// combine. `gather` is 0 (registers) or 1 (async; B % 4 != 0 or unaligned
+// rows take registers).
 extern "C" int pj_fanout_sweep(const float* old, float* out,
                                const int* indptr, const int* src,
-                               const float* w, int* improved, long long V,
-                               long long B, void* stream) {
-  if (V > 0 && B > 0) {
-    const dim3 grid((unsigned)((V + kWarpsPerBlock - 1) / kWarpsPerBlock),
-                    (unsigned)((B + kTileCols - 1) / kTileCols));
-    const bool vec = (B % 4 == 0) &&
-                     (reinterpret_cast<uintptr_t>(old) % 16 == 0) &&
-                     (reinterpret_cast<uintptr_t>(out) % 16 == 0);
+                               const float* w, const int* pieces,
+                               long long n_pieces, long long V, int L,
+                               float* partial, const int* split_rows,
+                               const int* split_ptr, long long n_split_rows,
+                               const int* prev, int* improved, long long B,
+                               int gather, void* stream) {
+  if (B > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (vec) {
-      fanout_sweep_kernel<true><<<grid, kThreads, 0, s>>>(
-          old, out, indptr, src, w, improved, V, B);
-    } else {
-      fanout_sweep_kernel<false><<<grid, kThreads, 0, s>>>(
-          old, out, indptr, src, w, improved, V, B);
+    const bool vec = B % 4 == 0 && aligned16(old) && aligned16(out) &&
+                     aligned16(partial);
+    const long long n_items = n_pieces + V;
+    if (n_items > 0) {
+      const Plan p = plan(B, vec, gather);
+      const cudaError_t e = allow_smem(p);
+      if (e != cudaSuccess) return (int)e;
+      const unsigned grid = (unsigned)((n_items + kWarps - 1) / kWarps);
+      p.fn<<<grid, kThreads, p.smem, s>>>(old, out, src, w, indptr, pieces,
+                                          n_pieces, V, L, partial, prev,
+                                          improved, B);
+    }
+    if (n_split_rows > 0) {
+      const unsigned grid = (unsigned)((n_split_rows + kWarps - 1) / kWarps);
+      if (vec) {
+        combine_split_rows<true><<<grid, kThreads, 0, s>>>(
+            old, out, partial, split_rows, split_ptr, n_split_rows, prev,
+            improved, B);
+      } else {
+        combine_split_rows<false><<<grid, kThreads, 0, s>>>(
+            old, out, partial, split_rows, split_ptr, n_split_rows, prev,
+            improved, B);
+      }
     }
   }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM, dynamic shared memory and gather depth (ring
+// stages S, or gathers per batch U) of the items kernel that a sweep at
+// width B with this gather schedule launches.
+extern "C" int pj_fanout_sweep_occupancy(long long B, int vec, int gather,
+                                         int* blocks_per_sm, int* smem,
+                                         int* gather_depth) {
+  const Plan p = plan(B, vec != 0, gather);
+  cudaError_t e = allow_smem(p);
+  if (e != cudaSuccess) return (int)e;
+  *smem = p.smem;
+  *gather_depth = p.depth;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, reinterpret_cast<const void*>(p.fn), kThreads, p.smem);
+  return (int)e;
 }

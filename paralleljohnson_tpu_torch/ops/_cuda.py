@@ -33,12 +33,16 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _L = ctypes.c_longlong
-# C entry point and its argument types, per source file.
+_I = ctypes.c_int
+# C functions and their argument types, per source file. Each source's
+# launch entry point is ``pj_<name>``, its last argument the stream.
 SIGNATURES = {
-    "fanout_sweep": (
-        "pj_fanout_sweep", (_P, _P, _P, _P, _P, _P, _L, _L, _P),
-    ),
-    "minplus": ("pj_minplus", (_P, _P, _P, _L, _L, _L, _P)),
+    "fanout_sweep": {
+        "pj_fanout_sweep": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P,
+                            _L, _P, _P, _L, _I, _P),
+        "pj_fanout_sweep_occupancy": (_L, _I, _I, _P, _P, _P),
+    },
+    "minplus": {"pj_minplus": (_P, _P, _P, _L, _L, _L, _P)},
 }
 
 _lock = threading.Lock()
@@ -118,10 +122,10 @@ def lib(name: str) -> ctypes.CDLL:
             return cached
         _finish_build(name, _start_build(name))
         handle = ctypes.CDLL(str(_target(name)))
-        fn_name, argtypes = SIGNATURES[name]
-        fn = getattr(handle, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(handle, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
         _libs[name] = handle
         return handle
 
@@ -130,8 +134,7 @@ def launch(name: str, *args, device: torch.device) -> None:
     """Call ``csrc/<name>.cu``'s entry point on ``device``'s current
     stream; raise if the launch was refused (the C function returns
     ``cudaGetLastError()``)."""
-    handle = lib(name)
-    fn = getattr(handle, SIGNATURES[name][0])
+    fn = getattr(lib(name), f"pj_{name}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)

@@ -9,6 +9,8 @@ This file imports nothing of JAX, so it runs where JAX is not installed:
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX for
 the reference's tests.)"""
 
+import math
+
 import numpy as np
 import pytest
 
@@ -50,23 +52,73 @@ def _operands(rng, i, k, j, inf_frac=0.3):
     return d, a
 
 
-@pytest.mark.parametrize("b", [1, 5, 128, 200, 512])
-def test_fanout_sweep_kernel_equals_plain(cuda, b):
-    """B=1/5/200 take the scalar lane path, 128/512 the float4 path; 200
-    also has a ragged second column tile."""
-    g = pjt.load_graph("rmat:scale=12,ef=16,seed=3")
+def _hub_graph(seed=11):
+    """R-MAT with a hub (vertex 0) of 5 L + 3 in-edges, rows of exactly L
+    and L + 1 in-edges (vertices 1, 2), an empty row (vertex 3), and 30%
+    of the weights +inf; L = ``fs.ITEM_EDGES``."""
+    l = fs.ITEM_EDGES
+    degrees = {0: 5 * l + 3, 1: l, 2: l + 1, 3: 0}
+    g = pjt.load_graph(f"rmat:scale={max(12, (5 * l + 8).bit_length())},"
+                       f"ef=8,seed=2")
+    rng = np.random.default_rng(seed)
+    e = g.num_real_edges
+    keep = ~np.isin(g.indices[:e], list(degrees))
+    src, dst, w = [g.src[:e][keep]], [g.indices[:e][keep]], [g.weights[:e][keep]]
+    for v, n in degrees.items():
+        others = np.setdiff1d(np.arange(g.num_nodes), [v])
+        src.append(rng.choice(others, n, replace=False))
+        dst.append(np.full(n, v))
+        w.append(rng.integers(1, 10, n).astype(np.float32))
+    w = np.concatenate(w)
+    w[rng.random(w.shape[0]) < 0.3] = np.inf
+    return pjt.CSRGraph.from_edges(np.concatenate(src), np.concatenate(dst),
+                                   w, g.num_nodes)
+
+
+SWEEP_GRAPHS = {
+    "rmat12": lambda: pjt.load_graph("rmat:scale=12,ef=16,seed=3"),
+    "hub": _hub_graph,
+    "tiny": lambda: pjt.load_graph("rmat:scale=4,ef=4,seed=1"),  # V < 32
+}
+
+
+@pytest.mark.parametrize("gather", sorted(fs.GATHERS))
+@pytest.mark.parametrize("graph", sorted(SWEEP_GRAPHS))
+@pytest.mark.parametrize("b", [1, 5, 128, 200, 512, 700])
+def test_fanout_sweep_kernel_equals_plain(cuda, b, graph, gather):
+    """B=1/5 take the scalar lane path (and the registers schedule under
+    either name), 128/200/512/700 the float4 path; 200 has a ragged pass,
+    700 a second 512-column pass inside the warp. The hub graph splits
+    its hub and the L + 1 row into pieces, so the partial-minimum pass
+    and the combine run against the plain version."""
+    g = SWEEP_GRAPHS[graph]()
     layout = _layout(g, cuda)
+    items = fs.build_work_items(layout[0])
+    if graph == "hub":
+        assert items.n_split >= 5 + 2
     sources = np.random.default_rng(b).integers(0, g.num_nodes, b)
     d = _dist0(sources, g.num_nodes, b, cuda)
     for _ in range(3):  # a block with finite values to fold
         d, _ = fs.fanout_sweep_plain(d, *layout)
     before = fs.fanout_sweep.launches
-    got, flag = fs.fanout_sweep(d, *layout)
+    got, flag = fs.fanout_sweep(d, *layout, items=items, gather=gather)
     want, imp = fs.fanout_sweep_plain(d, *layout)
     torch.cuda.synchronize()
     assert fs.fanout_sweep.launches == before + 1
     assert torch.equal(got, want)
     assert bool(flag.item()) == bool(imp)
+
+
+def test_fanout_sweep_skipped_writes_nothing(cuda):
+    g = _hub_graph()
+    layout = _layout(g, cuda)
+    d = _dist0([0, 5, 9], g.num_nodes, 3, cuda)
+    out = torch.full_like(d, 7.0)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    fs.fanout_sweep(d, *layout, out=out, improved=flag,
+                    prev=torch.zeros(1, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and int(flag.item()) == 0
 
 
 def test_fanout_fixpoint_on_card_equals_cpu(cuda):
@@ -83,6 +135,41 @@ def test_fanout_fixpoint_on_card_equals_cpu(cuda):
     )
     assert torch.equal(got.cpu(), want)
     assert (it, imp) == (it_w, imp_w)
+
+
+@pytest.mark.parametrize("k", [3, 16])
+@pytest.mark.parametrize("graph,max_iter", [("grid", None), ("grid", 5),
+                                            ("hub", None)])
+def test_grouped_fixpoint_on_card_equals_cpu(cuda, monkeypatch, k, graph,
+                                             max_iter):
+    """K sweeps launched per host read on the card, against the CPU
+    fixpoint: dist, iterations, flag; host reads <= ceil(it / K) + 1."""
+    monkeypatch.setattr(fs, "SWEEPS_PER_SYNC", k)
+    g = (pjt.load_graph("grid:rows=30,cols=40,seed=7") if graph == "grid"
+         else _hub_graph())
+    cap = max_iter or g.num_nodes
+    sources = np.arange(0, g.num_nodes, 97)
+    b = len(sources)
+    want, it_w, imp_w = fs.fanout_fixpoint(
+        _dist0(sources, g.num_nodes, b, "cpu"), *_layout(g, "cpu"),
+        max_iter=cap,
+    )
+    before = fs.fanout_fixpoint.host_reads
+    got, it, imp = fs.fanout_fixpoint(
+        _dist0(sources, g.num_nodes, b, cuda), *_layout(g, cuda),
+        max_iter=cap,
+    )
+    assert torch.equal(got.cpu(), want)
+    assert (it, imp) == (it_w, imp_w)
+    assert fs.fanout_fixpoint.host_reads - before <= math.ceil(it / k) + 1
+
+
+def test_fanout_sweep_occupancy(cuda):
+    """The items kernel keeps at least 2 blocks resident per SM at the
+    main path's widths, under both gather schedules."""
+    for b in (128, 256, 512):
+        for gather in fs.GATHERS:
+            assert fs.occupancy(b, gather)["blocks_per_sm"] >= 2, (b, gather)
 
 
 def test_fanout_sweep_rejects_bad_inputs(cuda):
