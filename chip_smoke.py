@@ -9,12 +9,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      every hand kernel from ``paralleljohnson_tpu_torch/csrc`` (``ptxas``
      registers and spills) and the sweep kernel's resident blocks per SM;
   2. each kernel against its plain PyTorch version on the card
-     (``torch.equal``, same flag): the fan-out sweep under both gather
-     schedules at RMAT-20 with B = 128 and B = 512 and on a hub graph
-     (one row of 5 L + 3 in-edges, rows of L and L + 1, an empty row,
-     +inf weights) at B = 1, 5, 128, 200, 512, so the split rows'
-     partial minima and their combine run; the min-plus product at
-     1024^3, 1000x777x513 and with all-+inf rows;
+     (``torch.equal``, same flag): the fan-out sweep at RMAT-20 with
+     B = 128 and B = 512 and on a hub graph (one row of 5 L + 3
+     in-edges, rows of L and L + 1, an empty row, +inf weights) at
+     B = 1, 5, 128, 200, 512, so the split rows' partial minima and
+     their combine run; the min-plus product at 1024^3, 1000x777x513
+     and with all-+inf rows;
   3. ``solve()`` on ``rmat:scale=20,ef=16,seed=0`` over 512 sources
      (route ``pallas-vm``), 2 rows checked against scipy Dijkstra;
   4. ``solve()`` on ``grid:rows=512,cols=512,neg=0.2,seed=0`` over 256
@@ -23,19 +23,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      reweighted with them;
   5. ``solve()`` on ``er:n=1024,p=0.1,seed=0`` for all sources (route
      ``dense-squaring-pallas``), the whole matrix against scipy;
-  6. the fan-out sweep, under both gather schedules, against its plain
-     version (``torch.equal`` and the same flag, every sweep) on the grid
-     solve's own inputs: the
+  6. the fan-out sweep against its plain version (``torch.equal`` and
+     the same flag, every sweep) on the grid solve's own inputs: the
      reweighted in-edge layout the solve ran on, B = 256, from the
      sources to the fixpoint, which must take the solve's sweep count
      and un-reweight to the solve's rows bitwise;
   7. a 4-edge negative cycle raises ``NegativeCycleError`` on the card;
   8. CUDA-event times of each kernel and its plain version at the main
-     path's shapes, with the bound the card could reach: the sweep under
-     both gather schedules and at work items of L = 128..1024 in-edges
-     (RMAT-20, B = 128 and 512; grid, B = 256), and the grid fixpoint's
-     host clock per sweep with one host read per sweep (K = 1) and per
-     group (K = ``SWEEPS_PER_SYNC``).
+     path's shapes, with the bound the card could reach: the sweep at
+     work items of L = 128..1024 in-edges (RMAT-20, B = 128 and 512;
+     grid, B = 256, also at its fixpoint, where no row drops), and the
+     grid fixpoint's host clock per sweep with one host read per sweep
+     (K = 1) and per group (K = ``SWEEPS_PER_SYNC``).
 
 Phases 3-5 are the main path: the kernels' launch counters (and the
 fixpoint's host reads) are set to 0 just before and read just after.
@@ -113,8 +112,7 @@ def main() -> int:
     from paralleljohnson_tpu_torch.ops import _cuda
     from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
     from paralleljohnson_tpu_torch.ops.fanout_sweep import (
-        GATHERS, build_work_items, fanout_fixpoint, fanout_sweep,
-        fanout_sweep_plain,
+        build_work_items, fanout_fixpoint, fanout_sweep, fanout_sweep_plain,
     )
     from paralleljohnson_tpu_torch.ops.minplus import (
         minplus_kernel, minplus_plain,
@@ -168,8 +166,7 @@ def main() -> int:
                if "registers" in ln or "spill" in ln]
         for name, log in logs.items()
     }
-    occupancy = {f"B{b}_{g}": fs.occupancy(b, g)
-                 for b in (128, 256, 512) for g in GATHERS}
+    occupancy = {f"B{b}": fs.occupancy(b) for b in (128, 256, 512)}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
           "sweep_occupancy": occupancy, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": kind})
@@ -178,21 +175,17 @@ def main() -> int:
         raise AssertionError(f"sweep kernel below 2 blocks per SM: {low}")
 
     def sweep_equal(d, layout, items, label):
-        """Each gather schedule against the plain sweep on ``d``: raises
-        unless ``torch.equal`` with the same flag. Returns (largest
-        absolute error, flag, the plain sweep's result)."""
+        """The kernel against the plain sweep on ``d``: raises unless
+        ``torch.equal`` with the same flag. Returns (largest absolute
+        error, flag, the plain sweep's result)."""
         want, imp = fanout_sweep_plain(d, *layout)
-        err = 0.0
-        for gather in GATHERS:
-            got, flag = fanout_sweep(d, *layout, items=items, gather=gather)
-            torch.cuda.synchronize()
-            err = max(err, max_abs_err(got, want))
-            if not torch.equal(got, want) or bool(flag.item()) != bool(imp):
-                raise AssertionError(
-                    f"fanout_sweep ({gather}) disagrees with plain on {label}: "
-                    f"max_abs_err {err}, flag {bool(flag.item())}, plain flag "
-                    f"{bool(imp)}")
-            del got
+        got, flag = fanout_sweep(d, *layout, items=items)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if not torch.equal(got, want) or bool(flag.item()) != bool(imp):
+            raise AssertionError(
+                f"fanout_sweep disagrees with plain on {label}: max_abs_err "
+                f"{err}, flag {bool(flag.item())}, plain flag {bool(imp)}")
         return err, bool(imp), want
 
     # -- phase 2: each kernel against its plain version ---------------------
@@ -214,8 +207,7 @@ def main() -> int:
             d, _ = fanout_sweep_plain(d, *layout)
         err, flag, _ = sweep_equal(d, layout, items, f"RMAT-20 B={b}")
         sweep_checks.append({"graph": "rmat20", "B": b, "equal": True,
-                             "max_abs_err": err, "flag": flag,
-                             "gathers": sorted(GATHERS)})
+                             "max_abs_err": err, "flag": flag})
         sweep_states[b] = (d, err)
     hub = hub_graph(pjt, np)
     hub_layout_graph = TorchBackend(pjt.SolverConfig(), device=dev).upload(hub)
@@ -232,8 +224,7 @@ def main() -> int:
         err, flag, _ = sweep_equal(d, hub_layout, hub_items,
                                    f"the hub graph B={b}")
         sweep_checks.append({"graph": "hub", "B": b, "equal": True,
-                             "max_abs_err": err, "flag": flag,
-                             "gathers": sorted(GATHERS)})
+                             "max_abs_err": err, "flag": flag})
         hub_errs.append(err)
     mp_checks = []
     mp_err = {}
@@ -383,9 +374,8 @@ def main() -> int:
 
     # -- phase 6: the sweep against its plain version on the grid's inputs ---
     # The layout the grid solve's fan-out ran on: reweighted weights,
-    # clamped at 0, and B = 256 (two float4 per lane). Both gather
-    # schedules and the plain version run in lockstep from the sources to
-    # the fixpoint.
+    # clamped at 0, and B = 256 (two float4 per lane). Kernel and plain
+    # version run in lockstep from the sources to the fixpoint.
     g_layout = probe.fanout_graph.by_dst()
     g_items = probe.fanout_graph.work_items()
     gv, ge, gb = grid.num_nodes, grid.num_real_edges, len(gsrc)
@@ -412,7 +402,6 @@ def main() -> int:
                              "from the grid solve's rows")
     emit({"phase": "kernel_vs_plain_grid", "spec": GRID_SPEC, "B": gb,
           "sweeps_checked": sweeps, "equal": True, "max_abs_err": grid_err,
-          "gathers": sorted(GATHERS),
           "zero_weight_fraction": float((g_layout[2] == 0).float().mean()),
           "rows_equal_solve": True})
     del grid_res, rows
@@ -430,7 +419,7 @@ def main() -> int:
     # -- phase 8: times at the main path's shapes ----------------------------
     one = torch.ones(1, dtype=torch.int32, device=dev)
 
-    def sweep_ms(d, lay, itm, gather, reps):
+    def sweep_ms(d, lay, itm, reps):
         """Each sweep (and the warm-up) sets a flag of its own, zeroed
         before the timed run, as in the fixpoint."""
         out = torch.empty_like(d)
@@ -442,44 +431,39 @@ def main() -> int:
         def sweep():
             j = next(words)
             fanout_sweep(d, *lay, items=itm, out=out,
-                         improved=flags[j:j + 1], prev=one, scratch=scratch,
-                         gather=gather)
+                         improved=flags[j:j + 1], prev=one, scratch=scratch)
 
         return event_ms(sweep, reps=reps)
 
     timings = {}
     for b, (d, _) in sweep_states.items():
-        by_gather = {g: sweep_ms(d, layout, items, g, 10) for g in GATHERS}
+        ms = sweep_ms(d, layout, items, 10)
         by_l = {}
         for l in (128, 256, 512, 1024):  # work items of at most L in-edges
             itm = build_work_items(layout[0], l)
             by_l[l] = {"split_items": itm.n_split,
                        "scratch_bytes": 4 * itm.n_split * b,
-                       **{g: sweep_ms(d, layout, itm, g, 5) for g in GATHERS}}
+                       "ms": sweep_ms(d, layout, itm, 10)}
             del itm
         plain = event_ms(lambda: fanout_sweep_plain(d, *layout), reps=2)
         bms, by = bound(4 * (2 * v * b + (v + 1) + 2 * e), 2 * e * b)
         timings[f"fanout_sweep_B{b}"] = {
-            "ms": by_gather[fs.GATHER], "gather": fs.GATHER,
-            "ms_by_gather": by_gather, "ms_by_item_edges": by_l,
+            "ms": ms, "ms_by_item_edges": by_l,
             "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "gathered_GB": 4 * e * b / 1e9, "item_edges": items.item_edges,
             "items": v - items.split_rows.shape[0] + items.n_split,
             "split_items": items.n_split,
             "scratch_bytes": 4 * items.n_split * b,
-            "gather_depth": {g: fs.occupancy(b, g)["gather_depth"]
-                             for g in GATHERS},
+            "gather_depth": fs.occupancy(b)["gather_depth"],
         }
     # The grid fan-out's inputs 50 sweeps in (phase 6's layout).
     d = d_timing
-    by_gather = {g: sweep_ms(d, g_layout, g_items, g, 50) for g in GATHERS}
+    kernel_ms = sweep_ms(d, g_layout, g_items, 50)
     # The same sweep at the fixpoint, where no row drops and no warp
     # touches the flag.
-    at_fixpoint = {g: sweep_ms(d_fix, g_layout, g_items, g, 50)
-                   for g in GATHERS}
+    at_fixpoint = sweep_ms(d_fix, g_layout, g_items, 50)
     plain = event_ms(lambda: fanout_sweep_plain(d, *g_layout), reps=5)
     bms, by = bound(4 * (2 * gv * gb + (gv + 1) + 2 * ge), 2 * ge * gb)
-    kernel_ms = by_gather[fs.GATHER]
     # The grid fixpoint from the sources on the host clock, with one host
     # read per sweep (K = 1) and one per group, in turns: what each sweep
     # costs beyond its kernel is the host loop.
@@ -503,8 +487,7 @@ def main() -> int:
             "host_reads": fanout_fixpoint.host_reads - reads})
         del start, fix
     timings["fanout_sweep_grid512_B256"] = {
-        "ms": kernel_ms, "gather": fs.GATHER, "ms_by_gather": by_gather,
-        "ms_at_fixpoint_by_gather": at_fixpoint,
+        "ms": kernel_ms, "ms_at_fixpoint": at_fixpoint,
         "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "solve_s_per_sweep": grid_fanout_s / grid_sweeps,
         "solve_host_loop_ms_per_sweep":

@@ -32,12 +32,11 @@
 //   Each (src, w) pair is fetched once per edge and pass.
 // - Many gathers in flight. A warp reads 32 (src, w) pairs with one
 //   coalesced load and hands them out with __shfl_sync, so no lane waits
-//   on an index load before a gather. Two gather schedules, chosen by the
-//   caller: `registers` issues U independent row gathers per lane before
-//   folding any of them; `async` keeps a per-warp ring of S stages in
-//   shared memory filled by cp.async.cg 16-byte copies, S gathers in
-//   flight while the warp folds the oldest. TMA does not fit: it has no
-//   row gather, and the rows are not a tile.
+//   on an index load before a gather, and each lane issues U independent
+//   row gathers into registers before folding any of them. (A per-warp
+//   cp.async.cg ring of S stages in shared memory was measured beside it
+//   on the H100 and was slower at every main-path width; PERF.md. TMA
+//   does not fit: it has no row gather, and the rows are not a tile.)
 // - One host sync per group of sweeps. Each launch reads the previous
 //   sweep's flag (`prev`) and returns at entry when it is 0, so the host
 //   can launch K sweeps ahead and read K flags at once; a skipped sweep
@@ -47,8 +46,9 @@
 // zeroes it before the launch. Up to one warp per row finds a drop, and
 // ~10^5 stores to one word serialise on the L2 slice that holds it, so a
 // warp stores only when an L1-cached read of the flag still shows 0 (a
-// stale 0 costs one redundant store, never a lost one: the driver
-// invalidates L1 between dependent launches). The caller keeps each
+// stale 0 costs one redundant store, never a lost one: L1 lines are
+// invalidated between dependent launches, so a stale 1 from an earlier
+// sweep cannot be read). The caller keeps each
 // sweep's flag on a 128-byte line of its own, apart from the `prev` flag
 // that every warp reads at entry.
 
@@ -61,7 +61,6 @@ namespace {
 constexpr int kWarps = 8;  // warps per block
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kAsync = 1;  // gather schedule 1 (0 is `registers`)
 
 // Columns of one pass: 128 * NV starting at col0. VEC (B % 4 == 0, 16-byte
 // aligned rows): group q of a lane is the float4 at col0 + 4 (lane + 32 q).
@@ -171,26 +170,6 @@ __device__ __forceinline__ bool finish_pass(const float* __restrict__ own,
   return dropped;
 }
 
-__device__ __forceinline__ void cp_async16(float4* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void prefetch_l2(const float* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
@@ -235,18 +214,17 @@ __device__ __forceinline__ bool fetch_item(
   return it.e1 - it.e0 <= L;
 }
 
-// `registers`: per lane, U row gathers (NV float4 each) issued back to
-// back, then folded. The scalar path's column arithmetic needs more
+// One warp per item: per lane, U row gathers (NV float4 each) issued back
+// to back, then folded. The scalar path's column arithmetic needs more
 // registers: at NV >= 2 it holds 2 blocks per SM instead of spilling.
 template <int NV, bool VEC, int U>
 __global__ void __launch_bounds__(kThreads, NV >= 4 || (!VEC && NV >= 2) ? 2 : 3)
-items_registers(const float* __restrict__ old, float* __restrict__ out,
-                const int* __restrict__ src, const float* __restrict__ w,
-                const int* __restrict__ indptr,
-                const int* __restrict__ pieces, int64_t n_pieces, int64_t V,
-                int L, float* __restrict__ partial,
-                const int* __restrict__ prev, int* __restrict__ improved,
-                int64_t B) {
+sweep_items(const float* __restrict__ old, float* __restrict__ out,
+            const int* __restrict__ src, const float* __restrict__ w,
+            const int* __restrict__ indptr, const int* __restrict__ pieces,
+            int64_t n_pieces, int64_t V, int L, float* __restrict__ partial,
+            const int* __restrict__ prev, int* __restrict__ improved,
+            int64_t B) {
   if (*prev == 0) return;
   const int lane = threadIdx.x & 31;
   const int64_t k = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -284,99 +262,6 @@ items_registers(const float* __restrict__ old, float* __restrict__ out,
     }
     dropped |= finish_pass<NV, VEC>(old + it.row * B, dst, whole, col0, lane,
                                     B, acc);
-  }
-  if (whole) raise_flag(dropped, lane, improved);
-}
-
-// `async` (VEC only): a per-warp ring of S stages, stage s holding one
-// gathered row segment (NV float4 per lane). Each lane copies and later
-// reads back only its own 16-byte slots, so cp.async.wait_group alone
-// orders them; no block barrier is needed.
-template <int NV, int S>
-__global__ void __launch_bounds__(kThreads, NV >= 4 ? 2 : 3)
-items_async(const float* __restrict__ old, float* __restrict__ out,
-            const int* __restrict__ src, const float* __restrict__ w,
-            const int* __restrict__ indptr, const int* __restrict__ pieces,
-            int64_t n_pieces, int64_t V, int L, float* __restrict__ partial,
-            const int* __restrict__ prev, int* __restrict__ improved,
-            int64_t B) {
-  extern __shared__ float4 ring[];
-  if (*prev == 0) return;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t k = (int64_t)blockIdx.x * kWarps + warp;
-  Item it;
-  if (!fetch_item(indptr, pieces, n_pieces, V, L, old, B, lane, k, it))
-    return;
-  const bool whole = it.whole;
-  float* dst = whole ? out + it.row * B : partial + k * B;
-  // Slot (stage s, group q) of this lane: mine[(s * NV + q) * 32].
-  float4* mine = ring + (int64_t)warp * S * NV * 32 + lane;
-  const int n = it.e1 - it.e0;
-  const int* esrc = src + it.e0;
-  const float* ew = w + it.e0;
-  bool dropped = false;
-  for (int64_t col0 = 0; col0 < B; col0 += 128 * NV) {
-    float4 acc[NV];
-    bool live[NV];
-#pragma unroll
-    for (int q = 0; q < NV; ++q) {
-      acc[q] = inf4();
-      live[q] = col_of<true>(col0, lane, q, 0) < B;
-    }
-    // (src, w) of the batch of 32 edges holding the issue pointer, and of
-    // the batch after it (loaded a batch early).
-    int cur_u = lane < n ? __ldg(esrc + lane) : 0;
-    float cur_w = lane < n ? __ldg(ew + lane) : 0.0f;
-    int nxt_u = lane + 32 < n ? __ldg(esrc + 32 + lane) : 0;
-    float nxt_w = lane + 32 < n ? __ldg(ew + 32 + lane) : 0.0f;
-    float wst[S];  // weight of the edge in flight in each stage
-#pragma unroll
-    for (int s = 0; s < S; ++s) {
-      const int u = __shfl_sync(kFull, cur_u, s);
-      wst[s] = __shfl_sync(kFull, cur_w, s);
-      if (s < n) {
-        const float* row = old + (int64_t)u * B + col0 + 4 * lane;
-#pragma unroll
-        for (int q = 0; q < NV; ++q)
-          if (live[q]) cp_async16(mine + (s * NV + q) * 32, row + 128 * q);
-      }
-      cp_async_commit();
-    }
-    for (int t = 0; t < n; t += S) {
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const int tf = t + s;  // edge folded from stage s
-        const int ti = tf + S;  // edge issued into stage s after it
-        if (tf < n) {
-          cp_async_wait<S - 1>();
-#pragma unroll
-          for (int q = 0; q < NV; ++q)
-            if (live[q]) fold4(acc[q], mine[(s * NV + q) * 32], wst[s]);
-        }
-        __syncwarp();
-        if (ti < n) {
-          if ((ti & 31) == 0) {
-            cur_u = nxt_u;
-            cur_w = nxt_w;
-            const int nb = ti + 32 + lane;
-            nxt_u = nb < n ? __ldg(esrc + nb) : 0;
-            nxt_w = nb < n ? __ldg(ew + nb) : 0.0f;
-          }
-          const int u = __shfl_sync(kFull, cur_u, ti & 31);
-          wst[s] = __shfl_sync(kFull, cur_w, ti & 31);
-          const float* row = old + (int64_t)u * B + col0 + 4 * lane;
-#pragma unroll
-          for (int q = 0; q < NV; ++q)
-            if (live[q]) cp_async16(mine + (s * NV + q) * 32, row + 128 * q);
-        }
-        cp_async_commit();
-      }
-    }
-    cp_async_wait_all();
-    __syncwarp();
-    dropped |= finish_pass<NV, true>(old + it.row * B, dst, whole, col0, lane,
-                                     B, acc);
   }
   if (whole) raise_flag(dropped, lane, improved);
 }
@@ -436,59 +321,36 @@ using ItemsFn = void (*)(const float*, float*, const int*, const float*,
 
 struct Plan {
   ItemsFn fn;
-  int smem;   // dynamic shared memory, bytes
-  int depth;  // ring stages S (async) or gathers per batch U (registers)
+  int depth;  // gathers per batch U
 };
 
-// 16 float4 per lane in flight at most: S = 8 stages below NV = 4, then 4;
-// U = 8 gathers at NV = 1, then 4, so the register schedule stays within
-// the launch bounds (3 blocks per SM below NV = 4, 2 at NV = 4 and on
-// the scalar path from NV = 2).
+// 16 float4 per lane in flight at most: U = 8 gathers at NV = 1, then 4,
+// so the schedule stays within the launch bounds (3 blocks per SM below
+// NV = 4, 2 at NV = 4 and on the scalar path from NV = 2).
 template <int NV>
-constexpr int ring_stages() {
-  return NV >= 4 ? 4 : 8;
-}
-
-template <int NV>
-constexpr int batch_gathers() {
-  return NV >= 2 ? 4 : 8;
-}
-
-template <int NV>
-Plan plan_nv(bool vec, int gather) {
-  constexpr int S = ring_stages<NV>();
-  constexpr int U = batch_gathers<NV>();
-  if (vec && gather == kAsync)
-    return {items_async<NV, S>, kWarps * S * NV * 32 * (int)sizeof(float4), S};
-  if (vec) return {items_registers<NV, true, U>, 0, U};
-  return {items_registers<NV, false, U>, 0, U};
+Plan plan_nv(bool vec) {
+  constexpr int U = NV >= 2 ? 4 : 8;
+  if (vec) return {sweep_items<NV, true, U>, U};
+  return {sweep_items<NV, false, U>, U};
 }
 
 // NV by B: one pass of 128, 256 or 512 columns; wider B loops over
 // 512-column passes inside the warp.
-Plan plan(int64_t B, bool vec, int gather) {
-  if (B <= 128) return plan_nv<1>(vec, gather);
-  if (B <= 256) return plan_nv<2>(vec, gather);
-  return plan_nv<4>(vec, gather);
+Plan plan(int64_t B, bool vec) {
+  if (B <= 128) return plan_nv<1>(vec);
+  if (B <= 256) return plan_nv<2>(vec);
+  return plan_nv<4>(vec);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-cudaError_t allow_smem(const Plan& p) {
-  if (p.smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(reinterpret_cast<const void*>(p.fn),
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              p.smem);
-}
-
 }  // namespace
 
 // One sweep over V rows: the items kernel (n_pieces pieces of split rows,
 // then every row of at most L in-edges whole), then the split-row
-// combine. `gather` is 0 (registers) or 1 (async; B % 4 != 0 or unaligned
-// rows take registers).
+// combine. B % 4 != 0 or unaligned rows take the scalar lane path.
 extern "C" int pj_fanout_sweep(const float* old, float* out,
                                const int* indptr, const int* src,
                                const float* w, const int* pieces,
@@ -496,20 +358,17 @@ extern "C" int pj_fanout_sweep(const float* old, float* out,
                                float* partial, const int* split_rows,
                                const int* split_ptr, long long n_split_rows,
                                const int* prev, int* improved, long long B,
-                               int gather, void* stream) {
+                               void* stream) {
   if (B > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool vec = B % 4 == 0 && aligned16(old) && aligned16(out) &&
                      aligned16(partial);
     const long long n_items = n_pieces + V;
     if (n_items > 0) {
-      const Plan p = plan(B, vec, gather);
-      const cudaError_t e = allow_smem(p);
-      if (e != cudaSuccess) return (int)e;
       const unsigned grid = (unsigned)((n_items + kWarps - 1) / kWarps);
-      p.fn<<<grid, kThreads, p.smem, s>>>(old, out, src, w, indptr, pieces,
-                                          n_pieces, V, L, partial, prev,
-                                          improved, B);
+      plan(B, vec).fn<<<grid, kThreads, 0, s>>>(old, out, src, w, indptr,
+                                                 pieces, n_pieces, V, L,
+                                                 partial, prev, improved, B);
     }
     if (n_split_rows > 0) {
       const unsigned grid = (unsigned)((n_split_rows + kWarps - 1) / kWarps);
@@ -527,18 +386,13 @@ extern "C" int pj_fanout_sweep(const float* old, float* out,
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM, dynamic shared memory and gather depth (ring
-// stages S, or gathers per batch U) of the items kernel that a sweep at
-// width B with this gather schedule launches.
-extern "C" int pj_fanout_sweep_occupancy(long long B, int vec, int gather,
-                                         int* blocks_per_sm, int* smem,
+// Resident blocks per SM and gather depth (gathers per batch U) of the
+// items kernel that a sweep at width B launches.
+extern "C" int pj_fanout_sweep_occupancy(long long B, int vec,
+                                         int* blocks_per_sm,
                                          int* gather_depth) {
-  const Plan p = plan(B, vec != 0, gather);
-  cudaError_t e = allow_smem(p);
-  if (e != cudaSuccess) return (int)e;
-  *smem = p.smem;
+  const Plan p = plan(B, vec != 0);
   *gather_depth = p.depth;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, reinterpret_cast<const void*>(p.fn), kThreads, p.smem);
-  return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, reinterpret_cast<const void*>(p.fn), kThreads, 0);
 }

@@ -39,8 +39,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "fanout_sweep": {
         "pj_fanout_sweep": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P,
-                            _L, _P, _P, _L, _I, _P),
-        "pj_fanout_sweep_occupancy": (_L, _I, _I, _P, _P, _P),
+                            _L, _P, _P, _L, _P),
+        "pj_fanout_sweep_occupancy": (_L, _I, _P, _P),
     },
     "minplus": {"pj_minplus": (_P, _P, _P, _L, _L, _L, _P)},
 }

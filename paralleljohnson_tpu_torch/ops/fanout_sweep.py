@@ -13,8 +13,9 @@ over destination-sorted in-edges (a CSC: ``indptr_in``, ``src_in``,
 ``w_in``) instead. On the card (``csrc/fanout_sweep.cu``) the CSC is cut
 into edge-balanced work items of at most ``ITEM_EDGES`` in-edges, one warp
 each: a row of at most that many in-edges is one item, a longer row is
-cut into pieces whose partial minima a second pass combines. Both compute the same sweep, so the fixpoint and its
-iteration count agree with ``pallas_fanout``.
+cut into pieces whose partial minima a second pass combines. Both
+compute the same sweep, so the fixpoint and its iteration count agree
+with ``pallas_fanout``.
 """
 
 from __future__ import annotations
@@ -34,11 +35,6 @@ ITEM_EDGES = 512
 SWEEPS_PER_SYNC = 16
 # int32 words between two sweeps' flags: one 128-byte cache line.
 FLAG_STRIDE = 32
-# Gather schedules of the kernel (csrc/fanout_sweep.cu), by argument value.
-GATHERS = {"registers": 0, "async": 1}
-# The schedule the sweep uses unless told otherwise (timed against the
-# other on the card, chip_smoke.py phase 8; PERF.md).
-GATHER = "registers"
 
 
 class WorkItems(NamedTuple):
@@ -135,7 +131,7 @@ def fanout_sweep_plain(dist, indptr_in, src_in, w_in):
 
 
 def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
-                 improved=None, prev=None, scratch=None, gather=None):
+                 improved=None, prev=None, scratch=None):
     """One Jacobi sweep into ``out``: returns (out, improved).
 
     ``improved`` is an int32[1] flag set to 1 when an entry dropped
@@ -144,10 +140,9 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
     writes nothing (``fanout_fixpoint`` chains sweeps on it).
 
     CUDA tensors run the hand kernel (``csrc/fanout_sweep.cu``) over
-    ``items`` (a :class:`WorkItems`; built from ``indptr_in`` when None)
-    with the ``gather`` schedule (``GATHER`` when None); ``scratch`` is
-    its f32[items.n_split, B] partial-minimum buffer (allocated when
-    None). Each call counts one launch in ``fanout_sweep.launches``. CPU
+    ``items`` (a :class:`WorkItems`; built from ``indptr_in`` when None);
+    ``scratch`` is its f32[items.n_split, B] partial-minimum buffer
+    (allocated when None). Each call counts one launch in ``fanout_sweep.launches``. CPU
     tensors run :func:`fanout_sweep_plain` and count nothing."""
     dev = dist.device
     if dev.type == "cpu":
@@ -206,7 +201,7 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
         items.n_split, v, items.item_edges, scratch.data_ptr(),
         items.split_rows.data_ptr(), items.split_ptr.data_ptr(),
         items.split_rows.shape[0], prev.data_ptr(), improved.data_ptr(), b,
-        GATHERS[gather or GATHER], device=dev,
+        device=dev,
     )
     fanout_sweep.launches += 1
     return out, improved
@@ -215,24 +210,21 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
 fanout_sweep.launches = 0
 
 
-def occupancy(b: int, gather: str | None = None, *, vec: bool = True) -> dict:
-    """Resident blocks per SM, dynamic shared memory (bytes) and gather
-    depth (``async``: ring stages S; ``registers``: gathers issued per
-    batch U) of the items kernel a sweep of width ``b`` launches (needs
+def occupancy(b: int, *, vec: bool = True) -> dict:
+    """Resident blocks per SM and gather depth (row gathers in flight per
+    lane, U) of the items kernel a sweep of width ``b`` launches (needs
     the card)."""
-    blocks, smem, depth = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    blocks, depth = ctypes.c_int(0), ctypes.c_int(0)
     err = _cuda.lib("fanout_sweep").pj_fanout_sweep_occupancy(
-        b, int(vec), GATHERS[gather or GATHER], ctypes.byref(blocks),
-        ctypes.byref(smem), ctypes.byref(depth),
+        b, int(vec), ctypes.byref(blocks), ctypes.byref(depth),
     )
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
-    return {"blocks_per_sm": blocks.value, "smem_bytes": smem.value,
-            "gather_depth": depth.value}
+    return {"blocks_per_sm": blocks.value, "gather_depth": depth.value}
 
 
 def fanout_fixpoint(dist0, indptr_in, src_in, w_in, *, max_iter: int,
-                    items=None, gather=None):
+                    items=None):
     """Iterate :func:`fanout_sweep` to its fixpoint, at most ``max_iter``
     sweeps. The same contract as the reference's ``pallas_fanout``:
     (dist [V, B], iterations, still_improving), the last two host values.
@@ -273,8 +265,7 @@ def fanout_fixpoint(dist0, indptr_in, src_in, w_in, *, max_iter: int,
             flag = flags[FLAG_STRIDE * j:FLAG_STRIDE * j + 1]
             fanout_sweep(bufs[(i + j) % 2], indptr_in, src_in, w_in,
                          items=items, out=bufs[(i + j + 1) % 2],
-                         improved=flag, prev=prev, scratch=scratch,
-                         gather=gather)
+                         improved=flag, prev=prev, scratch=scratch)
             prev = flag
         got = flags[:FLAG_STRIDE * k:FLAG_STRIDE].tolist()
         fanout_fixpoint.host_reads += 1

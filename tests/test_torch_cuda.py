@@ -82,15 +82,14 @@ SWEEP_GRAPHS = {
 }
 
 
-@pytest.mark.parametrize("gather", sorted(fs.GATHERS))
 @pytest.mark.parametrize("graph", sorted(SWEEP_GRAPHS))
 @pytest.mark.parametrize("b", [1, 5, 128, 200, 512, 700])
-def test_fanout_sweep_kernel_equals_plain(cuda, b, graph, gather):
-    """B=1/5 take the scalar lane path (and the registers schedule under
-    either name), 128/200/512/700 the float4 path; 200 has a ragged pass,
-    700 a second 512-column pass inside the warp. The hub graph splits
-    its hub and the L + 1 row into pieces, so the partial-minimum pass
-    and the combine run against the plain version."""
+def test_fanout_sweep_kernel_equals_plain(cuda, b, graph):
+    """B=1/5 take the scalar lane path, 128/200/512/700 the float4 path
+    (B % 4 == 0); 200 has a ragged pass, 700 a second 512-column pass
+    inside the warp. The hub graph splits its hub and the L + 1 row into
+    pieces, so the partial-minimum pass and the combine run against the
+    plain version."""
     g = SWEEP_GRAPHS[graph]()
     layout = _layout(g, cuda)
     items = fs.build_work_items(layout[0])
@@ -101,7 +100,7 @@ def test_fanout_sweep_kernel_equals_plain(cuda, b, graph, gather):
     for _ in range(3):  # a block with finite values to fold
         d, _ = fs.fanout_sweep_plain(d, *layout)
     before = fs.fanout_sweep.launches
-    got, flag = fs.fanout_sweep(d, *layout, items=items, gather=gather)
+    got, flag = fs.fanout_sweep(d, *layout, items=items)
     want, imp = fs.fanout_sweep_plain(d, *layout)
     torch.cuda.synchronize()
     assert fs.fanout_sweep.launches == before + 1
@@ -165,11 +164,11 @@ def test_grouped_fixpoint_on_card_equals_cpu(cuda, monkeypatch, k, graph,
 
 
 def test_fanout_sweep_occupancy(cuda):
-    """The items kernel keeps at least 2 blocks resident per SM at the
-    main path's widths, under both gather schedules."""
+    """The items kernel keeps at least 2 blocks resident per SM at every
+    pass width, on the float4 and the scalar lane path."""
     for b in (128, 256, 512):
-        for gather in fs.GATHERS:
-            assert fs.occupancy(b, gather)["blocks_per_sm"] >= 2, (b, gather)
+        for vec in (True, False):
+            assert fs.occupancy(b, vec=vec)["blocks_per_sm"] >= 2, (b, vec)
 
 
 def test_fanout_sweep_rejects_bad_inputs(cuda):
