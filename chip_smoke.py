@@ -31,10 +31,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   7. a 4-edge negative cycle raises ``NegativeCycleError`` on the card;
   8. CUDA-event times of each kernel and its plain version at the main
      path's shapes, with the bound the card could reach: the sweep at
-     work items of L = 128..1024 in-edges (RMAT-20, B = 128 and 512;
-     grid, B = 256, also at its fixpoint, where no row drops), and the
-     grid fixpoint's host clock per sweep with one host read per sweep
-     (K = 1) and per group (K = ``SWEEPS_PER_SYNC``).
+     L = ``ITEM_EDGES`` (RMAT-20, B = 128 and 512; grid, B = 256, also
+     at its fixpoint, where no row drops), and the grid fixpoint's host
+     clock per sweep at ``SWEEPS_PER_SYNC`` sweeps per host read.
 
 Phases 3-5 are the main path: the kernels' launch counters (and the
 fixpoint's host reads) are set to 0 just before and read just after.
@@ -45,6 +44,7 @@ The last two lines are the ``kernels`` summary and
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -73,29 +73,6 @@ def bound(bytes_moved: float, instructions: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hub_graph(pjt, np):
-    """R-MAT-16 with a hub (vertex 0) of 5 L + 3 in-edges, rows of exactly
-    L and L + 1 in-edges (vertices 1, 2), an empty row (vertex 3) and 30%
-    of the weights +inf, for L = ``fanout_sweep.ITEM_EDGES``."""
-    from paralleljohnson_tpu_torch.ops.fanout_sweep import ITEM_EDGES
-
-    degrees = {0: 5 * ITEM_EDGES + 3, 1: ITEM_EDGES, 2: ITEM_EDGES + 1, 3: 0}
-    g = pjt.load_graph("rmat:scale=16,ef=8,seed=2")
-    rng = np.random.default_rng(11)
-    e = g.num_real_edges
-    keep = ~np.isin(g.indices[:e], list(degrees))
-    src, dst, w = [g.src[:e][keep]], [g.indices[:e][keep]], [g.weights[:e][keep]]
-    for v, n in degrees.items():
-        others = np.setdiff1d(np.arange(g.num_nodes), [v])
-        src.append(rng.choice(others, n, replace=False))
-        dst.append(np.full(n, v))
-        w.append(rng.integers(1, 10, n).astype(np.float32))
-    w = np.concatenate(w)
-    w[rng.random(w.shape[0]) < 0.3] = np.inf
-    return pjt.CSRGraph.from_edges(np.concatenate(src), np.concatenate(dst),
-                                   w, g.num_nodes)
-
-
 def main() -> int:
     import torch
 
@@ -112,7 +89,7 @@ def main() -> int:
     from paralleljohnson_tpu_torch.ops import _cuda
     from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
     from paralleljohnson_tpu_torch.ops.fanout_sweep import (
-        build_work_items, fanout_fixpoint, fanout_sweep, fanout_sweep_plain,
+        fanout_fixpoint, fanout_sweep, fanout_sweep_plain,
     )
     from paralleljohnson_tpu_torch.ops.minplus import (
         minplus_kernel, minplus_plain,
@@ -209,7 +186,13 @@ def main() -> int:
         sweep_checks.append({"graph": "rmat20", "B": b, "equal": True,
                              "max_abs_err": err, "flag": flag})
         sweep_states[b] = (d, err)
-    hub = hub_graph(pjt, np)
+    # The hub graph of the card tests (JAX-free), on R-MAT-16.
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from test_torch_cuda import hub_graph
+
+    hub = hub_graph(pjt.load_graph("rmat:scale=16,ef=8,seed=2"),
+                    fs.ITEM_EDGES, inf_frac=0.3)
     hub_layout_graph = TorchBackend(pjt.SolverConfig(), device=dev).upload(hub)
     hub_layout = hub_layout_graph.by_dst()
     hub_items = hub_layout_graph.work_items()
@@ -438,18 +421,10 @@ def main() -> int:
     timings = {}
     for b, (d, _) in sweep_states.items():
         ms = sweep_ms(d, layout, items, 10)
-        by_l = {}
-        for l in (128, 256, 512, 1024):  # work items of at most L in-edges
-            itm = build_work_items(layout[0], l)
-            by_l[l] = {"split_items": itm.n_split,
-                       "scratch_bytes": 4 * itm.n_split * b,
-                       "ms": sweep_ms(d, layout, itm, 10)}
-            del itm
         plain = event_ms(lambda: fanout_sweep_plain(d, *layout), reps=2)
         bms, by = bound(4 * (2 * v * b + (v + 1) + 2 * e), 2 * e * b)
         timings[f"fanout_sweep_B{b}"] = {
-            "ms": ms, "ms_by_item_edges": by_l,
-            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
             "gathered_GB": 4 * e * b / 1e9, "item_edges": items.item_edges,
             "items": v - items.split_rows.shape[0] + items.n_split,
             "split_items": items.n_split,
@@ -464,24 +439,19 @@ def main() -> int:
     at_fixpoint = sweep_ms(d_fix, g_layout, g_items, 50)
     plain = event_ms(lambda: fanout_sweep_plain(d, *g_layout), reps=5)
     bms, by = bound(4 * (2 * gv * gb + (gv + 1) + 2 * ge), 2 * ge * gb)
-    # The grid fixpoint from the sources on the host clock, with one host
-    # read per sweep (K = 1) and one per group, in turns: what each sweep
-    # costs beyond its kernel is the host loop.
-    host_loop = {}
-    k_group = fs.SWEEPS_PER_SYNC
-    for k in (1, k_group, k_group, 1):
+    # The grid fixpoint from the sources on the host clock, twice, with
+    # SWEEPS_PER_SYNC sweeps per host read: what each sweep costs beyond
+    # its kernel is the host loop.
+    host_loop = []
+    for _ in range(2):
         start = d0_grid.clone()
         reads = fanout_fixpoint.host_reads
-        fs.SWEEPS_PER_SYNC = k
-        try:
-            (fix, it_fix, imp_fix), secs = sync_time(lambda: fanout_fixpoint(
-                start, *g_layout, max_iter=gv, items=g_items))
-        finally:
-            fs.SWEEPS_PER_SYNC = k_group
+        (fix, it_fix, imp_fix), secs = sync_time(lambda: fanout_fixpoint(
+            start, *g_layout, max_iter=gv, items=g_items))
         if it_fix != grid_sweeps or imp_fix or not torch.equal(fix, d_fix):
-            raise AssertionError(f"grid fixpoint with K={k}: {it_fix} sweeps "
-                                 f"(solve {grid_sweeps}), improving {imp_fix}")
-        host_loop.setdefault(f"K{k}", []).append({
+            raise AssertionError(f"grid fixpoint: {it_fix} sweeps (solve "
+                                 f"{grid_sweeps}), improving {imp_fix}")
+        host_loop.append({
             "s": secs, "ms_per_sweep": secs * 1e3 / it_fix,
             "host_loop_ms_per_sweep": secs * 1e3 / it_fix - kernel_ms,
             "host_reads": fanout_fixpoint.host_reads - reads})
@@ -492,6 +462,7 @@ def main() -> int:
         "solve_s_per_sweep": grid_fanout_s / grid_sweeps,
         "solve_host_loop_ms_per_sweep":
             grid_fanout_s * 1e3 / grid_sweeps - kernel_ms,
+        "sweeps_per_sync": fs.SWEEPS_PER_SYNC,
         "fixpoint_host_clock": host_loop,
     }
     i = k = j = 1024

@@ -29,7 +29,7 @@ from paralleljohnson_tpu_torch.ops import _cuda
 from paralleljohnson_tpu_torch.ops.relax import edge_chunk_for
 
 # L: the most in-edges one work item (one warp) takes. Chosen on the card
-# between 128 and 1024 (chip_smoke.py phase 8 times each; PERF.md).
+# from 128, 256, 512 and 1024 (the times are in PERF.md).
 ITEM_EDGES = 512
 # K: sweeps launched per host read of their flags in fanout_fixpoint.
 SWEEPS_PER_SYNC = 16
@@ -85,12 +85,11 @@ def build_work_items(indptr_in, item_edges: int = ITEM_EDGES) -> WorkItems:
                      split_ptr.to(torch.int32), item_edges)
 
 
-def build_in_edge_layout(src, dst, num_nodes: int,
-                         item_edges: int = ITEM_EDGES):
+def build_in_edge_layout(src, dst, num_nodes: int):
     """Weight-independent CSC structure of an edge list, on the edges'
     device: ``indptr_in`` int32[V+1], ``src_in`` int32[E], ``order``
     int64[E], the stable dst-sort permutation (``w_in = w[order]``), and
-    ``work_items``, the kernel's :class:`WorkItems`.
+    ``work_items``, the kernel's :class:`WorkItems` at ``ITEM_EDGES``.
 
     Pass real edges only (no padding tail)."""
     e = src.shape[0]
@@ -104,7 +103,7 @@ def build_in_edge_layout(src, dst, num_nodes: int,
         "indptr_in": indptr.to(torch.int32),
         "src_in": src[order].to(torch.int32).contiguous(),
         "order": order,
-        "work_items": build_work_items(indptr, item_edges),
+        "work_items": build_work_items(indptr),
     }
 
 
@@ -142,8 +141,13 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
     CUDA tensors run the hand kernel (``csrc/fanout_sweep.cu``) over
     ``items`` (a :class:`WorkItems`; built from ``indptr_in`` when None);
     ``scratch`` is its f32[items.n_split, B] partial-minimum buffer
-    (allocated when None). Each call counts one launch in ``fanout_sweep.launches``. CPU
-    tensors run :func:`fanout_sweep_plain` and count nothing."""
+    (allocated when None). Each call counts one in
+    ``fanout_sweep.launches``: one sweep, which is the items kernel and,
+    when the layout has split rows, the combine kernel after it. A sweep
+    skipped on ``prev`` launches both all the same (they return at entry)
+    and counts too, so ``launches`` can exceed the sweeps a fixpoint
+    used by up to ``SWEEPS_PER_SYNC - 1``. CPU tensors run
+    :func:`fanout_sweep_plain` and count nothing."""
     dev = dist.device
     if dev.type == "cpu":
         if improved is None:

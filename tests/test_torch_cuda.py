@@ -52,14 +52,13 @@ def _operands(rng, i, k, j, inf_frac=0.3):
     return d, a
 
 
-def _hub_graph(seed=11):
-    """R-MAT with a hub (vertex 0) of 5 L + 3 in-edges, rows of exactly L
-    and L + 1 in-edges (vertices 1, 2), an empty row (vertex 3), and 30%
-    of the weights +inf; L = ``fs.ITEM_EDGES``."""
-    l = fs.ITEM_EDGES
+def hub_graph(g, l, *, inf_frac=0.0, seed=11):
+    """``g`` with a hub (vertex 0) of 5 l + 3 in-edges, rows of exactly l
+    and l + 1 in-edges (vertices 1, 2) and an empty row (vertex 3), the
+    new in-edges from distinct other vertices with integer weights 1..9;
+    then a fraction ``inf_frac`` of all weights set to +inf. Takes and
+    returns either package's ``CSRGraph`` (``chip_smoke.py`` uses it too)."""
     degrees = {0: 5 * l + 3, 1: l, 2: l + 1, 3: 0}
-    g = pjt.load_graph(f"rmat:scale={max(12, (5 * l + 8).bit_length())},"
-                       f"ef=8,seed=2")
     rng = np.random.default_rng(seed)
     e = g.num_real_edges
     keep = ~np.isin(g.indices[:e], list(degrees))
@@ -70,9 +69,17 @@ def _hub_graph(seed=11):
         dst.append(np.full(n, v))
         w.append(rng.integers(1, 10, n).astype(np.float32))
     w = np.concatenate(w)
-    w[rng.random(w.shape[0]) < 0.3] = np.inf
-    return pjt.CSRGraph.from_edges(np.concatenate(src), np.concatenate(dst),
-                                   w, g.num_nodes)
+    w[rng.random(w.shape[0]) < inf_frac] = np.inf
+    return type(g).from_edges(np.concatenate(src), np.concatenate(dst), w,
+                              g.num_nodes)
+
+
+def _hub_graph():
+    """The hub graph at L = ``fs.ITEM_EDGES`` with 30% +inf weights."""
+    l = fs.ITEM_EDGES
+    g = pjt.load_graph(f"rmat:scale={max(12, (5 * l + 8).bit_length())},"
+                       f"ef=8,seed=2")
+    return hub_graph(g, l, inf_frac=0.3)
 
 
 SWEEP_GRAPHS = {

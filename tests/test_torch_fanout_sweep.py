@@ -20,12 +20,13 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
-from paralleljohnson_tpu.graphs import CSRGraph, erdos_renyi, grid2d, rmat
+from paralleljohnson_tpu.graphs import erdos_renyi, grid2d, rmat
 from paralleljohnson_tpu.ops.pallas_sweep import (
     build_pallas_sweep_layout, pallas_fanout, pallas_fanout_sweep,
 )
 
 from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
+from test_torch_cuda import hub_graph
 
 
 def _ref_inputs(g, vb, ec):
@@ -67,29 +68,11 @@ def _with_inf_edges(g, frac, seed):
     return g.with_weights(w)
 
 
-def _with_in_degrees(g, degrees, seed=11):
-    """``g`` with the in-edges of each vertex in ``degrees`` replaced by
-    exactly ``degrees[v]`` edges from distinct other vertices (integer
-    weights 1..9): a hub, rows at the split boundary, an empty row."""
-    rng = np.random.default_rng(seed)
-    e = g.num_real_edges
-    keep = ~np.isin(g.indices[:e], list(degrees))
-    src, dst, w = [g.src[:e][keep]], [g.indices[:e][keep]], [g.weights[:e][keep]]
-    for v, n in degrees.items():
-        others = np.setdiff1d(np.arange(g.num_nodes), [v])
-        src.append(rng.choice(others, n, replace=False))
-        dst.append(np.full(n, v))
-        w.append(rng.integers(1, 10, n).astype(np.float32))
-    return CSRGraph.from_edges(np.concatenate(src), np.concatenate(dst),
-                               np.concatenate(w), g.num_nodes)
-
-
 def _star(l):
     """An R-MAT graph with a hub of 5 * l + 3 in-edges, rows of exactly l
     and l + 1 in-edges, and an empty row (vertices 0, 1, 2, 3)."""
     scale = max(8, (5 * l + 8).bit_length())
-    return _with_in_degrees(rmat(scale, 8, seed=1),
-                            {0: 5 * l + 3, 1: l, 2: l + 1, 3: 0})
+    return hub_graph(rmat(scale, 8, seed=1), l)
 
 
 GRAPHS = [
