@@ -7,14 +7,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
   1. the card (``nvidia-smi`` name and power limit), then the build of
      every hand kernel from ``paralleljohnson_tpu_torch/csrc`` (``ptxas``
-     registers and spills) and the sweep kernel's resident blocks per SM;
+     registers and spills) and each kernel's resident blocks per SM;
   2. each kernel against its plain PyTorch version on the card
      (``torch.equal``, same flag): the fan-out sweep at RMAT-20 with
      B = 128 and B = 512 and on a hub graph (one row of 5 L + 3
      in-edges, rows of L and L + 1, an empty row, +inf weights) at
      B = 1, 5, 128, 200, 512, so the split rows' partial minima and
-     their combine run; the min-plus product at 1024^3, 1000x777x513
-     and with all-+inf rows;
+     their combine run; the min-plus product at I x 1024 x 1024 for I =
+     1, 16, 100, 128, 511, 1024 (every tile and split-K branch of
+     ``minplus_plan``), 1000x777x513, 300x400x200 with all-+inf rows,
+     negative finite entries, and ``d is a`` as in squaring;
   3. ``solve()`` on ``rmat:scale=20,ef=16,seed=0`` over 512 sources
      (route ``pallas-vm``), 2 rows checked against scipy Dijkstra;
   4. ``solve()`` on ``grid:rows=512,cols=512,neg=0.2,seed=0`` over 256
@@ -22,7 +24,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      feasible on every edge, 2 rows against scipy Dijkstra on the graph
      reweighted with them;
   5. ``solve()`` on ``er:n=1024,p=0.1,seed=0`` for all sources (route
-     ``dense-squaring-pallas``), the whole matrix against scipy;
+     ``dense-squaring-pallas``), the whole matrix against scipy; then for
+     128 sources (route ``dense-iterate-pallas``, ``minplus_fixpoint``:
+     at most ceil(iterations / 16) + 1 host reads), rows against scipy;
   6. the fan-out sweep against its plain version (``torch.equal`` and
      the same flag, every sweep) on the grid solve's own inputs: the
      reweighted in-edge layout the solve ran on, B = 256, from the
@@ -32,11 +36,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   8. CUDA-event times of each kernel and its plain version at the main
      path's shapes, with the bound the card could reach: the sweep at
      L = ``ITEM_EDGES`` (RMAT-20, B = 128 and 512; grid, B = 256, also
-     at its fixpoint, where no row drops), and the grid fixpoint's host
-     clock per sweep at ``SWEEPS_PER_SYNC`` sweeps per host read.
+     at its fixpoint, where no row drops), the grid fixpoint's host
+     clock per sweep at ``SWEEPS_PER_SYNC`` sweeps per host read, and the
+     min-plus product at I x 1024 x 1024 for I = 16, 128, 511, 1024 (the
+     dense route's iterate and squaring shapes) and at 4096^3: the card's
+     time from CUDA-graph replays, and the wrapper called back to back.
 
 Phases 3-5 are the main path: the kernels' launch counters (and the
-fixpoint's host reads) are set to 0 just before and read just after.
+fixpoints' host reads) are set to 0 just before and read just after.
 The last two lines are the ``kernels`` summary and
 ``{"ok": true, "device": {...}}``.
 """
@@ -45,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -91,8 +99,9 @@ def main() -> int:
     from paralleljohnson_tpu_torch.ops.fanout_sweep import (
         fanout_fixpoint, fanout_sweep, fanout_sweep_plain,
     )
+    from paralleljohnson_tpu_torch.ops import minplus as mp_mod
     from paralleljohnson_tpu_torch.ops.minplus import (
-        minplus_kernel, minplus_plain,
+        minplus_fixpoint, minplus_kernel, minplus_plain, minplus_plan,
     )
     from paralleljohnson_tpu_torch.solver.johnson import _unreweight, to_numpy
 
@@ -116,6 +125,27 @@ def main() -> int:
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def graph_ms(fn, reps: int) -> float:
+        """The card's time per call of ``fn``: ``reps`` calls captured in a
+        CUDA graph and replayed between two events, so that no host time
+        is in it (a min-plus product at V <= 1024 takes the card less
+        time than its wrapper takes the host)."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
@@ -144,12 +174,23 @@ def main() -> int:
         for name, log in logs.items()
     }
     occupancy = {f"B{b}": fs.occupancy(b) for b in (128, 256, 512)}
+    mp_occupancy = {rows: mp_mod.occupancy(rows) for rows in mp_mod.RESIDENT}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
-          "sweep_occupancy": occupancy, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device": kind})
+          "sweep_occupancy": occupancy,
+          "minplus_occupancy": {f"rows{r}": n for r, n in mp_occupancy.items()},
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": kind})
     low = {k: o for k, o in occupancy.items() if o["blocks_per_sm"] < 2}
     if low:
         raise AssertionError(f"sweep kernel below 2 blocks per SM: {low}")
+    low = {r: n for r, n in mp_occupancy.items() if n < mp_mod.RESIDENT[r]}
+    if low:
+        raise AssertionError(f"min-plus tiles below the plan's resident "
+                             f"blocks per SM: {low}")
+    spills = [ln for lines in ptxas.values() for ln in lines
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+    if spills:
+        raise AssertionError(f"ptxas reports spills: {spills}")
 
     def sweep_equal(d, layout, items, label):
         """The kernel against the plain sweep on ``d``: raises unless
@@ -211,27 +252,37 @@ def main() -> int:
         hub_errs.append(err)
     mp_checks = []
     mp_err = {}
-    for (i, k, j, inf_rows) in ((1024, 1024, 1024, False),
-                                (1000, 777, 513, False),
-                                (300, 400, 200, True)):
-        g_rng = np.random.default_rng(i + k + j)
+    mp_cases = [(i, 1024, 1024, "") for i in (1, 16, 100, 128, 511, 1024)]
+    mp_cases += [(1000, 777, 513, ""), (300, 400, 200, "inf_rows"),
+                 (1024, 1024, 1024, "negative"), (512, 512, 512, "negative"),
+                 (1024, 1024, 1024, "d_is_a"), (300, 300, 300, "d_is_a")]
+    for (i, k, j, case) in mp_cases:
+        g_rng = np.random.default_rng(i + k + j + len(case))
         dm = torch.as_tensor(g_rng.random((i, k), dtype=np.float32) * 10)
         am = torch.as_tensor(g_rng.random((k, j), dtype=np.float32) * 10)
         dm[torch.as_tensor(g_rng.random((i, k)) < 0.3)] = float("inf")
         am[torch.as_tensor(g_rng.random((k, j)) < 0.3)] = float("inf")
-        if inf_rows:
+        if case == "inf_rows":
             dm[::3] = float("inf")
+        if case == "negative":  # negative finite entries in both operands
+            dm[torch.as_tensor(g_rng.random((i, k)) < 0.3) & dm.isfinite()] *= -1
+            am[torch.as_tensor(g_rng.random((k, j)) < 0.3) & am.isfinite()] *= -1
         dm, am = dm.to(dev), am.to(dev)
+        if case == "d_is_a":
+            dm.fill_diagonal_(0.0)
+            am = dm
         got = minplus_kernel(dm, am)
         want = minplus_plain(dm, am)
         torch.cuda.synchronize()
         equal = torch.equal(got, want)
         err = max_abs_err(got, want)
-        mp_checks.append({"shape": [i, k, j], "inf_rows": inf_rows,
+        p = minplus_plan(i, k, j)
+        mp_checks.append({"shape": [i, k, j], "case": case,
+                          "tile_rows": p.rows, "splits": p.splits,
                           "equal": equal, "max_abs_err": err})
         if not equal:
             raise AssertionError(f"minplus disagrees with plain: {mp_checks[-1]}")
-        mp_err[(i, k, j)] = err
+        mp_err[(i, k, j, case)] = err
     in_deg = (layout[0][1:] - layout[0][:-1]).cpu()
     hub_deg = (hub_layout[0][1:] - hub_layout[0][:-1]).cpu()
     emit({"phase": "kernel_vs_plain", "rmat_gen_s": gen_s, "V": v, "E": e,
@@ -251,6 +302,7 @@ def main() -> int:
     fanout_sweep.launches = 0
     minplus_kernel.launches = 0
     fanout_fixpoint.host_reads = 0
+    minplus_fixpoint.host_reads = 0
     per_solve = {}
 
     class FanoutGraphProbe(TorchBackend):
@@ -265,7 +317,7 @@ def main() -> int:
 
     def run_solve(label, graph, sources, backend=None):
         before = (fanout_sweep.launches, minplus_kernel.launches,
-                  fanout_fixpoint.host_reads)
+                  fanout_fixpoint.host_reads, minplus_fixpoint.host_reads)
         solver = pjt.ParallelJohnsonSolver(pjt.SolverConfig(), backend=backend,
                                            device="cuda")
         res, secs = sync_time(lambda: solver.solve(graph, sources))
@@ -273,6 +325,7 @@ def main() -> int:
             "fanout_sweep": fanout_sweep.launches - before[0],
             "minplus": minplus_kernel.launches - before[1],
             "fanout_host_reads": fanout_fixpoint.host_reads - before[2],
+            "minplus_host_reads": minplus_fixpoint.host_reads - before[3],
         }
         return res, secs
 
@@ -348,6 +401,32 @@ def main() -> int:
           "route": route, "iterations": dict(res.stats.iterations_by_phase),
           "launches": per_solve["er1024"]})
     del res
+    # 128 sources: 2B < V, route dense-iterate-pallas (minplus_fixpoint).
+    esrc = np.sort(np.random.default_rng(4).choice(er.num_nodes, 128,
+                                                   replace=False))
+    res, secs = run_solve("er1024_b128", er, esrc)
+    route = res.stats.routes_by_phase["fanout"]
+    if route != "dense-iterate-pallas":
+        raise AssertionError(f"er1024 (128 sources) took route {route}")
+    rows = to_numpy(res.dist)
+    oracle = csgraph.dijkstra(er.to_scipy().astype(np.float64), directed=True,
+                              indices=esrc)
+    np.testing.assert_array_equal(np.isinf(rows), np.isinf(oracle))
+    np.testing.assert_allclose(rows, oracle, rtol=1e-5)
+    er_iters = res.stats.iterations_by_phase["fanout"]
+    er_reads = per_solve["er1024_b128"]["minplus_host_reads"]
+    if not 0 < er_reads <= -(-er_iters // mp_mod.PRODUCTS_PER_SYNC) + 1:
+        raise AssertionError(f"er1024 (128 sources): {er_reads} host reads "
+                             f"for {er_iters} products")
+    emit({"phase": "solve_er1024_b128", "spec": ER_SPEC, "V": er.num_nodes,
+          "sources": 128, "seconds": secs, "route": route,
+          "iterations": er_iters,
+          "products_per_sync": mp_mod.PRODUCTS_PER_SYNC,
+          "minplus_launches": per_solve["er1024_b128"]["minplus"],
+          "minplus_host_reads": er_reads,
+          "phase_seconds": dict(res.stats.phase_seconds),
+          "checked_rows": "all"})
+    del res, rows
 
     launches = {"fanout_sweep": fanout_sweep.launches,
                 "minplus": minplus_kernel.launches}
@@ -465,20 +544,34 @@ def main() -> int:
         "sweeps_per_sync": fs.SWEEPS_PER_SYNC,
         "fixpoint_host_clock": host_loop,
     }
-    i = k = j = 1024
-    g_rng = np.random.default_rng(7)
-    dm = torch.as_tensor(g_rng.random((i, k), dtype=np.float32)).to(dev)
-    am = torch.as_tensor(g_rng.random((k, j), dtype=np.float32)).to(dev)
-    ms = event_ms(lambda: minplus_kernel(dm, am), reps=20)
-    plain = event_ms(lambda: minplus_plain(dm, am), reps=3)
-    bms, by = bound(4 * (i * k + k * j + i * j), 2 * i * k * j)
-    timings["minplus_1024"] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
-                               "bound_by": by}
+    # Min-plus at the dense route's shapes: B x V x V for B = 16, 128, 511
+    # sources (iterate regime) and V^3 (squaring) at V = 1024; and 4096^3,
+    # off the main path, for information.
+    for (i, k, j) in ((16, 1024, 1024), (128, 1024, 1024),
+                      (511, 1024, 1024), (1024, 1024, 1024),
+                      (4096, 4096, 4096)):
+        g_rng = np.random.default_rng(7)
+        dm = torch.as_tensor(g_rng.random((i, k), dtype=np.float32)).to(dev)
+        am = torch.as_tensor(g_rng.random((k, j), dtype=np.float32)).to(dev)
+        big = i * k * j > 1 << 30
+        ms = graph_ms(lambda: minplus_kernel(dm, am), reps=3 if big else 50)
+        eager = event_ms(lambda: minplus_kernel(dm, am), reps=3 if big else 50)
+        plain = event_ms(lambda: minplus_plain(dm, am), reps=1 if big else 3)
+        bms, by = bound(4 * (i * k + k * j + i * j), 2 * i * k * j)
+        p = minplus_plan(i, k, j)
+        timings[f"minplus_{i}x{k}x{j}"] = {
+            "ms": ms, "wrapper_eager_ms": eager, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by,
+            "share_of_bound": bms / ms, "tile_rows": p.rows,
+            "splits": p.splits, "blocks": int(np.prod(p.grid(i, j))),
+            "partial_bytes": 4 * i * j * p.splits if p.splits > 1 else 0,
+        }
+        del dm, am
     emit({"phase": "timing", "device": kind, "power_limit": smi,
           "timings": timings})
 
     t_sw = timings["fanout_sweep_B512"]
-    t_mp = timings["minplus_1024"]
+    t_mp = timings["minplus_1024x1024x1024"]
     emit({"kernels": [
         {"name": "fanout_sweep", "route": "cuda",
          "source": "paralleljohnson_tpu_torch/csrc/fanout_sweep.cu",

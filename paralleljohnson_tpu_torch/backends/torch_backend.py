@@ -33,7 +33,11 @@ from paralleljohnson_tpu_torch.ops.fanout_sweep import (
     build_in_edge_layout,
     fanout_fixpoint,
 )
-from paralleljohnson_tpu_torch.ops.minplus import minplus_kernel
+from paralleljohnson_tpu_torch.ops.minplus import (
+    MAX_SPLITS,
+    minplus_fixpoint,
+    minplus_kernel,
+)
 
 # Distance blocks of [B, V] the source batch is budgeted for: the
 # reference's six. The sweep's two alternating [V, B] buffers, the
@@ -161,14 +165,17 @@ class TorchBackend(Backend):
         """Cap the [B, V] distance block to the memory budget: half the
         card's free memory (``torch.cuda.mem_get_info``), or a 4 GB
         constant on the CPU, over ``BATCH_BLOCKS`` blocks plus, on the
-        card's sparse route, the sweep's scratch rows."""
+        card, the sweep's scratch rows (sparse route) or the min-plus
+        split-K partials (dense route)."""
         v = max(dgraph.num_nodes, 1)
         itemsize = torch.empty((), dtype=self._dtype).element_size()
         rows = BATCH_BLOCKS * v
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
             budget = free // 2
-            if not self._use_dense(dgraph):
+            if self._use_dense(dgraph):
+                rows += MAX_SPLITS * v  # the min-plus split-K partials
+            else:
                 rows += dgraph.work_items().n_split
         else:
             budget = CPU_BUDGET_BYTES
@@ -235,6 +242,8 @@ class TorchBackend(Backend):
             )
             dist, iters, improving = relax.dense_fanout(
                 a, sources, max_iter=max_iter, mp=minplus_kernel,
+                fixpoint=(minplus_fixpoint if self.device.type == "cuda"
+                          else None),
             )
             regime, work_per_iter = relax.dense_fanout_regime(v, b)
             return KernelResult(

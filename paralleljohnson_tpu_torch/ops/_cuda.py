@@ -42,7 +42,10 @@ SIGNATURES = {
                             _L, _P, _P, _L, _P),
         "pj_fanout_sweep_occupancy": (_L, _I, _P, _P),
     },
-    "minplus": {"pj_minplus": (_P, _P, _P, _L, _L, _L, _P)},
+    "minplus": {
+        "pj_minplus": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _L, _P, _P, _P),
+        "pj_minplus_occupancy": (_I, _P),
+    },
 }
 
 _lock = threading.Lock()
@@ -135,9 +138,12 @@ def launch(name: str, *args, device: torch.device) -> None:
     stream; raise if the launch was refused (the C function returns
     ``cudaGetLastError()``)."""
     fn = getattr(lib(name), f"pj_{name}")
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {err}"

@@ -173,15 +173,18 @@ def apsp_minplus_squaring(a, *, mp=None):
     return d, steps
 
 
-def dense_fanout(a, sources, *, max_iter: int, mp=None):
+def dense_fanout(a, sources, *, max_iter: int, mp=None, fixpoint=None):
     """N-source fan-out on a dense adjacency (0 diagonal, +inf non-edges).
 
     Two regimes, picked by source count (:func:`dense_fanout_regime`):
       - 2B >= V: min-plus squaring of the whole matrix, then a row gather;
       - otherwise iterate D <- D (x) A to fixpoint (diameter iterations).
 
-    Returns (dist[B, V], iterations, still_improving), the last two host
-    values. Weights must be non-negative (post-reweighting).
+    ``fixpoint(d0, a, max_iter=)``, when given, runs the iterate regime's
+    loop (``ops.minplus.minplus_fixpoint`` on the card: one host read per
+    group of products); otherwise the loop below reads one flag per
+    product. Returns (dist[B, V], iterations, still_improving), the last
+    two host values. Weights must be non-negative (post-reweighting).
     """
     mp = mp or minplus
     v = a.shape[0]
@@ -190,6 +193,8 @@ def dense_fanout(a, sources, *, max_iter: int, mp=None):
         full, steps = apsp_minplus_squaring(a, mp=mp)
         return full[sources.long(), :], steps, False
     d = multi_source_init(sources, v, a.dtype)
+    if fixpoint is not None:
+        return fixpoint(d, a, max_iter=max_iter)
     improving = True
     i = 0
     while improving and i < max_iter:

@@ -18,7 +18,13 @@ torch = pytest.importorskip("torch")
 
 import paralleljohnson_tpu_torch as pjt
 from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
-from paralleljohnson_tpu_torch.ops.minplus import minplus_kernel, minplus_plain
+from paralleljohnson_tpu_torch.ops import minplus as mp_mod
+from paralleljohnson_tpu_torch.ops import relax
+from paralleljohnson_tpu_torch.ops.minplus import (
+    minplus_fixpoint,
+    minplus_kernel,
+    minplus_plain,
+)
 
 
 @pytest.fixture
@@ -191,12 +197,22 @@ def test_fanout_sweep_rejects_bad_inputs(cuda):
         fs.fanout_sweep(d, indptr_in.cpu(), src_in, w_in)
 
 
-@pytest.mark.parametrize("shape", [(5, 7, 9), (8, 128, 128), (100, 300, 50),
-                                   (1, 1, 1), (64, 33, 65), (3, 129, 2),
-                                   (1000, 777, 513)])
+# Every branch of minplus_plan: tiles of 16, 32, 64 and 128 rows, one
+# split or several, 16-byte and 4-byte copies of a (J % 4), ragged edges.
+MINPLUS_SHAPES = [(5, 7, 9), (8, 128, 128), (100, 300, 50), (1, 1, 1),
+                  (64, 33, 65), (3, 129, 2), (1000, 777, 513),
+                  (1, 1024, 1024), (16, 1024, 1024), (30, 1024, 1024),
+                  (64, 1024, 1024), (100, 1024, 1024), (128, 1024, 1024),
+                  (511, 1024, 1024), (1024, 1024, 1024), (300, 400, 200)]
+
+
+@pytest.mark.parametrize("shape", MINPLUS_SHAPES)
 def test_minplus_kernel_equals_plain(cuda, shape):
+    """Bitwise, with +inf and negative finite entries."""
     i, k, j = shape
-    d, a = _operands(np.random.default_rng(sum(shape)), i, k, j)
+    rng = np.random.default_rng(sum(shape))
+    d, a = _operands(rng, i, k, j)
+    d[(rng.random((i, k)) < 0.2) & np.isfinite(d)] *= -3
     d, a = torch.as_tensor(d).to(cuda), torch.as_tensor(a).to(cuda)
     before = minplus_kernel.launches
     got = minplus_kernel(d, a)
@@ -212,6 +228,76 @@ def test_minplus_all_inf_rows(cuda):
     got = minplus_kernel(d, a)
     assert torch.equal(got, minplus_plain(d, a))
     assert torch.isinf(got[torch.arange(70, device=cuda) != 5]).all()
+
+
+@pytest.mark.parametrize("v", [300, 1024])
+def test_minplus_kernel_squaring_aliased(cuda, v):
+    """``d is a``, as in min-plus squaring."""
+    d, _ = _operands(np.random.default_rng(v), v, v, 1)
+    np.fill_diagonal(d, 0.0)
+    d = torch.as_tensor(d).to(cuda)
+    assert torch.equal(minplus_kernel(d, d), minplus_plain(d, d))
+
+
+@pytest.mark.parametrize("shape", [(40, 40, 40), (128, 1024, 1024),
+                                   (16, 1000, 1000)])
+def test_minplus_kernel_flags_on_card(cuda, shape):
+    """The improved flag (epilogue at one split, the fold at several)
+    equals (out < d).any(), both where entries drop and at a fixpoint;
+    a product whose prev flag holds 0 writes nothing."""
+    i, k, j = shape
+    d, a = _operands(np.random.default_rng(i + k), i, k, j)
+    np.fill_diagonal(a, 0.0)
+    d, a = torch.as_tensor(d).to(cuda), torch.as_tensor(a).to(cuda)
+    eye = torch.full((k, k), float("inf"), device=cuda).fill_diagonal_(0.0)
+    for x, y, drops in ((d, a, True), (d, eye, False)):
+        flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+        got = minplus_kernel(x, y, improved=flag)
+        want = minplus_plain(x, y)
+        assert torch.equal(got, want)
+        assert int(flag.item()) == int(bool((want < x).any())) == int(drops)
+    out = torch.full_like(d, 7.0)
+    flag = torch.zeros(1, dtype=torch.int32, device=cuda)
+    minplus_kernel(d, a, out=out, improved=flag,
+                   prev=torch.zeros(1, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and int(flag.item()) == 0
+
+
+@pytest.mark.parametrize("group", [1, 3, 16])
+@pytest.mark.parametrize("cap", [None, 5])
+def test_minplus_fixpoint_on_card_equals_cpu(cuda, monkeypatch, group, cap):
+    """The grouped fixpoint on the card against the CPU loop of
+    ``dense_fanout`` (iterate regime): dist, iterations, flag; host reads
+    <= ceil(it / group) + 1."""
+    monkeypatch.setattr(mp_mod, "PRODUCTS_PER_SYNC", group)
+    g = pjt.load_graph("er:n=600,p=0.01,seed=4")
+    sources = np.arange(0, g.num_nodes, 5)  # 120 < V / 2: iterate
+    max_iter = cap or g.num_nodes
+
+    def run(device, fixpoint):
+        a = relax.dense_adjacency(
+            torch.as_tensor(g.src).to(device),
+            torch.as_tensor(g.indices).to(device),
+            torch.as_tensor(g.weights).to(device), g.num_nodes)
+        return relax.dense_fanout(a, torch.as_tensor(sources).to(device),
+                                  max_iter=max_iter, mp=minplus_kernel,
+                                  fixpoint=fixpoint)
+
+    want, it_w, imp_w = run("cpu", None)
+    before = minplus_fixpoint.host_reads
+    got, it, imp = run(cuda, minplus_fixpoint)
+    assert torch.equal(got.cpu(), want)
+    assert (it, imp) == (it_w, imp_w)
+    assert minplus_fixpoint.host_reads - before <= -(-it // group) + 1
+    assert imp == (cap is not None)
+
+
+def test_minplus_occupancy(cuda):
+    """Each tile kernel keeps the resident blocks per SM that
+    ``minplus_plan`` counts on."""
+    for rows, blocks in mp_mod.RESIDENT.items():
+        assert mp_mod.occupancy(rows) >= blocks, rows
 
 
 def test_minplus_rejects_bad_inputs(cuda):
