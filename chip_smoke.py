@@ -40,7 +40,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      clock per sweep at ``SWEEPS_PER_SYNC`` sweeps per host read, and the
      min-plus product at I x 1024 x 1024 for I = 16, 128, 511, 1024 (the
      dense route's iterate and squaring shapes) and at 4096^3: the card's
-     time from CUDA-graph replays, and the wrapper called back to back.
+     time from CUDA-graph replays, and the wrapper called back to back;
+     and the 128-source ER-1024 fixpoint on the host clock.
 
 Phases 3-5 are the main path: the kernels' launch counters (and the
 fixpoints' host reads) are set to 0 just before and read just after.
@@ -100,6 +101,7 @@ def main() -> int:
         fanout_fixpoint, fanout_sweep, fanout_sweep_plain,
     )
     from paralleljohnson_tpu_torch.ops import minplus as mp_mod
+    from paralleljohnson_tpu_torch.ops import relax
     from paralleljohnson_tpu_torch.ops.minplus import (
         minplus_fixpoint, minplus_kernel, minplus_plain, minplus_plan,
     )
@@ -567,6 +569,33 @@ def main() -> int:
             "partial_bytes": 4 * i * j * p.splits if p.splits > 1 else 0,
         }
         del dm, am
+    # The iterate regime's fixpoint on the 128-source ER-1024 solve's own
+    # inputs, on the host clock, twice: beside the products' card time
+    # (minplus_128x1024x1024), the rest is the host's share.
+    a_er = relax.dense_adjacency(
+        *(torch.as_tensor(x).to(dev) for x in (er.src, er.indices,
+                                               er.weights)), er.num_nodes)
+    d0_er = relax.multi_source_init(torch.as_tensor(esrc).to(dev),
+                                    er.num_nodes)
+    fix_runs = []
+    for _ in range(2):
+        start = d0_er.clone()
+        before = (minplus_kernel.launches, minplus_fixpoint.host_reads)
+        (fix, it_fix, imp_fix), secs = sync_time(lambda: minplus_fixpoint(
+            start, a_er, max_iter=er.num_nodes))
+        if it_fix != er_iters or imp_fix:
+            raise AssertionError(f"er1024 fixpoint: {it_fix} products (solve "
+                                 f"{er_iters}), improving {imp_fix}")
+        fix_runs.append({
+            "s": secs, "products": it_fix,
+            "launches": minplus_kernel.launches - before[0],
+            "host_reads": minplus_fixpoint.host_reads - before[1],
+            "ms_per_product": secs * 1e3 / it_fix})
+        del start, fix
+    timings["minplus_fixpoint_er1024_B128"] = {
+        "host_clock": fix_runs,
+        "kernel_ms": timings["minplus_128x1024x1024"]["ms"],
+        "products_per_sync": mp_mod.PRODUCTS_PER_SYNC}
     emit({"phase": "timing", "device": kind, "power_limit": smi,
           "timings": timings})
 

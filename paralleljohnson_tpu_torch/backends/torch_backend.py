@@ -7,7 +7,8 @@ Johnson's algorithm with the JAX package's own gates and route tags:
     plain PyTorch: the reference's is XLA code, not a Pallas kernel);
   - ``multi_source`` sends dense graphs (``_use_dense``: V <=
     ``dense_threshold`` and E >= ``dense_min_density`` x V^2) to
-    ``dense-{regime}-pallas`` through the hand min-plus kernel, and every
+    ``dense-{regime}-pallas`` through the hand min-plus kernel (the
+    iterate regime through ``minplus_fixpoint`` on the card), and every
     other graph to ``pallas-vm`` through the hand fan-out sweep.
 
 On a CUDA device the hand kernels are the main path; on the CPU their

@@ -20,8 +20,8 @@
 //   stored k-major ([k][BM + 4]), so a thread's rows are contiguous for
 //   the float4 read; a warp spans 4 thread rows x 8 thread columns, so
 //   both reads are one wavefront.
-// - Loads overlap math. A ring of kStages k-tiles (2 by default, BK = 16)
-//   in dynamic shared memory is filled by cp.async: the d tile element
+// - Loads overlap math. A ring of kStages = 2 k-tiles (BK = 16) in
+//   dynamic shared memory is filled by cp.async: the d tile element
 //   by element (4-byte copies, which also transpose it), the a tile by
 //   16-byte copies when J % 4 == 0, else 4-byte ones; tile t + 1 loads
 //   while tile t computes. One barrier per k-tile. Out-of-range elements
@@ -52,24 +52,11 @@
 
 namespace {
 
-// Tuning knobs, for builds that time alternatives
-// (scripts/torch_minplus_timing.py --variant); the defaults were chosen
-// on the H100 (PERF.md): the k-tile depth, the k-tiles in flight, and the
-// unrolling of the k loop.
-#ifndef PJ_MINPLUS_BK
-#define PJ_MINPLUS_BK 16
-#endif
-#ifndef PJ_MINPLUS_STAGES
-#define PJ_MINPLUS_STAGES 2
-#endif
-#ifndef PJ_MINPLUS_K_UNROLL
-#define PJ_MINPLUS_K_UNROLL PJ_MINPLUS_BK
-#endif
-
 constexpr int kBN = 128;     // output columns per block
-constexpr int kBK = PJ_MINPLUS_BK;  // k per stage
-constexpr int kStages = PJ_MINPLUS_STAGES;
-constexpr int kKUnroll = PJ_MINPLUS_K_UNROLL;
+constexpr int kBK = 16;      // k per stage
+// k-tiles in flight: 2 (tile t + 1 loads while tile t computes). 3 and 4
+// stages, and BK = 32, timed no faster on the H100 (PERF.md).
+constexpr int kStages = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
 // Block shape for BM output rows: 16 thread columns (8 output columns
@@ -150,8 +137,8 @@ __device__ __forceinline__ void load_stage(float* stage, const Copies<BM>& c,
       ds[q * C::DR] = CUDART_INF_F;
   }
   float* as = stage + T::kDFloats;
+  const float* asrc = c.asrc + (int64_t)t * kBK * J;
   if (VEC) {
-    const float* asrc = c.asrc + (int64_t)t * kBK * J;
 #pragma unroll
     for (int q = 0; q < kBK / C::AR; ++q) {
       float* dst = as + (c.ka0 + q * C::AR) * kBN + c.c0;
@@ -162,7 +149,6 @@ __device__ __forceinline__ void load_stage(float* stage, const Copies<BM>& c,
             make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
     }
   } else {
-    const float* asrc = c.asrc + (int64_t)t * kBK * J;
 #pragma unroll 1
     for (int idx = threadIdx.x; idx < kBK * kBN; idx += T::kThreads) {
       const int kk = idx / kBN;
@@ -243,7 +229,7 @@ minplus_tiles(const float* __restrict__ d, const float* __restrict__ a,
     const float* ds = smem + (t % kStages) * T::kStageFloats + ty * TM;
     const float* as = smem + (t % kStages) * T::kStageFloats + T::kDFloats +
                       tx * 4;
-#pragma unroll kKUnroll
+#pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
       float dv[TM];
 #pragma unroll

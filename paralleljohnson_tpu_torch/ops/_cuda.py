@@ -138,12 +138,9 @@ def launch(name: str, *args, device: torch.device) -> None:
     stream; raise if the launch was refused (the C function returns
     ``cudaGetLastError()``)."""
     fn = getattr(lib(name), f"pj_{name}")
-    index = torch.cuda.current_device() if device.index is None else device.index
-    if index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {err}"

@@ -42,22 +42,21 @@ PRODUCTS_PER_SYNC = 16
 
 class MinplusPlan(NamedTuple):
     """How the kernel cuts an [I, K] x [K, J] product: output tiles of
-    ``rows`` x ``cols``, and K in ``splits`` ranges of ``k_split`` (a
+    ``rows`` x ``TILE_COLS``, and K in ``splits`` ranges of ``k_split`` (a
     multiple of ``TILE_K``), split z covering [z k_split, min(K, (z + 1)
     k_split))."""
 
     rows: int
-    cols: int
     splits: int
     k_split: int
 
     def grid(self, i: int, j: int) -> tuple[int, int, int]:
         """Blocks along J, I and K."""
-        return -(-j // self.cols), -(-i // self.rows), self.splits
+        return -(-j // TILE_COLS), -(-i // self.rows), self.splits
 
 
 @functools.lru_cache(maxsize=1024)
-def minplus_plan(i: int, k: int, j: int, *, sms: int = SMS) -> MinplusPlan:
+def minplus_plan(i: int, k: int, j: int) -> MinplusPlan:
     """The kernel's plan for an [i, k] x [k, j] product, a pure function
     of the shape (tuned on the H100 at the dense route's shapes; PERF.md).
 
@@ -65,7 +64,7 @@ def minplus_plan(i: int, k: int, j: int, *, sms: int = SMS) -> MinplusPlan:
     is neither padded to a wide tile nor left with a handful of blocks;
     above that the 128-row tile (an 8x8 micro-tile per thread, the most
     math per shared-memory read) unless 32-row tiles pad fewer rows. K
-    is split as many times as the card's resident block slots (``sms`` x
+    is split as many times as the card's resident block slots (``SMS`` x
     ``RESIDENT``) can take more copies of the output tiles, at most
     ``MAX_SPLITS`` times and no split shallower than ``MIN_SPLIT_K``;
     splits that would be empty are dropped."""
@@ -77,10 +76,10 @@ def minplus_plan(i: int, k: int, j: int, *, sms: int = SMS) -> MinplusPlan:
     else:
         rows = 128
     tiles = -(-n // rows) * -(-max(j, 1) // TILE_COLS)
-    splits = min(MAX_SPLITS, max(1, sms * RESIDENT[rows] // tiles),
+    splits = min(MAX_SPLITS, max(1, SMS * RESIDENT[rows] // tiles),
                  max(1, k // MIN_SPLIT_K))
     k_split = TILE_K * max(1, math.ceil(math.ceil(k / splits) / TILE_K))
-    return MinplusPlan(rows, TILE_COLS, max(1, -(-k // k_split)), k_split)
+    return MinplusPlan(rows, max(1, -(-k // k_split)), k_split)
 
 
 def minplus_plain(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,8 @@ values:
 
 Every function takes and returns tensors on the caller's device; loops
 whose trip count depends on the data read one flag per iteration to the
-host.
+host, unless a grouped fixpoint is passed in (``dense_fanout``'s
+``fixpoint=``, ``ops.minplus.minplus_fixpoint`` on the card).
 """
 
 from __future__ import annotations

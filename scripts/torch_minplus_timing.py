@@ -18,16 +18,13 @@ the port's ``nvcc`` flags and timed on the same inputs in turns with the
 current kernel (baseline, current, current, baseline); both must agree
 bitwise with each other and, up to 1024^3, with ``minplus_plain``.
 
-``--variant NAME=FLAGS`` (repeatable) builds the tree's ``minplus.cu``
-again with extra comma-separated ``nvcc`` flags (its tuning macros, e.g.
-``stages4=-DPJ_MINPLUS_STAGES=4``), prints its ``ptxas`` registers and
-spills, and times it in the same turns, under the same plan.
-``--plans 64x16,32x8`` also times the tree's build under other plans
+``--plans 32x8,128x2`` also times the tree's build under other plans
 (tile rows x splits of K; up to 1024^3). Every time is the card's: the calls are
 captured in a CUDA graph and replayed between two CUDA events. Beside
 them, ``wrapper_eager_ms`` is ``minplus_kernel`` called back to back from
-the host, as a loop of products calls it. Prints one JSON line per shape
-and the card's name and power limit.
+the host, as a loop of products calls it, and the SM clock and power
+that ``nvidia-smi`` read while the turns ran. Prints one JSON line per
+shape and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -68,32 +65,11 @@ def build_baseline(src: Path, workdir: str):
     return handle.pj_minplus
 
 
-def build_variant(name: str, flags: list[str], workdir: str):
-    from paralleljohnson_tpu_torch.ops import _cuda
-
-    lib = Path(workdir) / f"libminplus_{name}.so"
-    res = subprocess.run(
-        [_cuda.nvcc(), *_cuda.NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o",
-         str(lib), str(_cuda.CSRC / "minplus.cu")],
-        check=True, capture_output=True, text=True)
-    ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(json.dumps({"variant": name, "flags": flags, "ptxas": ptxas}),
-          flush=True)
-    handle = ctypes.CDLL(str(lib))
-    fn = handle.pj_minplus
-    fn.argtypes = list(_cuda.SIGNATURES["minplus"]["pj_minplus"])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", type=Path)
-    ap.add_argument("--variant", action="append", default=[],
-                    metavar="NAME=FLAGS")
     ap.add_argument("--plans", default="", metavar="ROWSxSPLITS,...")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
@@ -159,10 +135,7 @@ def main() -> int:
              for p in args.plans.split(",") if p]
     with tempfile.TemporaryDirectory() as tmp:
         base_fn = build_baseline(args.baseline, tmp) if args.baseline else None
-        builds = {"current": _cuda.lib("minplus").pj_minplus}
-        for spec in args.variant:
-            name, _, flags = spec.partition("=")
-            builds[name] = build_variant(name, flags.split(","), tmp)
+        current = _cuda.lib("minplus").pj_minplus
         for (i, k, j) in SHAPES:
             rng = np.random.default_rng(i + k + j)
             d = torch.as_tensor(rng.random((i, k), dtype=np.float32)).to(dev)
@@ -180,23 +153,22 @@ def main() -> int:
                 kernels.append(("baseline", lambda: checked("baseline", base_fn(
                     d.data_ptr(), a.data_ptr(), out.data_ptr(), i, k, j,
                     stream()))))
-            # Each build under the plan, then the current build under each
-            # plan of --plans (rows x splits).
-            runs = [(name, fn, p.rows, p.splits) for name, fn in builds.items()]
-            runs += [(f"current_{r}x{n}", builds["current"], r, n)
-                     for r, n in plans if not big]
+            # The tree's kernel under its plan, then under each plan of
+            # --plans (rows x splits).
+            runs = [("current", p.rows, p.splits)]
+            runs += [(f"current_{r}x{n}", r, n) for r, n in plans if not big]
             scratch = torch.empty(
                 (max(n for *_, n in runs), i, j), device=dev)
-            for name, fn, rows, splits in runs:
-                k_split = mp.TILE_K * max(1, -(-(-(-k // splits)) // mp.TILE_K))
-                splits = max(1, -(-k // k_split))
+            for name, rows, splits in runs:
+                k_split = mp.TILE_K * -(-(-(-k // splits)) // mp.TILE_K)
+                splits = -(-k // k_split)
 
-                def call(fn=fn, rows=rows, splits=splits, k_split=k_split,
+                def call(rows=rows, splits=splits, k_split=k_split,
                          name=name):
-                    checked(name, fn(d.data_ptr(), a.data_ptr(),
-                                     out.data_ptr(), scratch.data_ptr(), i, k,
-                                     j, rows, splits, k_split, None, None,
-                                     stream()))
+                    checked(name, current(
+                        d.data_ptr(), a.data_ptr(), out.data_ptr(),
+                        scratch.data_ptr(), i, k, j, rows, splits, k_split,
+                        None, None, stream()))
 
                 kernels.append((name, call))
             for name, fn in kernels:
@@ -207,8 +179,23 @@ def main() -> int:
                     raise AssertionError(f"{name} != current at {(i, k, j)}")
             turns = kernels + kernels[::-1]
             times: dict[str, list[float]] = {}
+            # The SM clock and power while the turns run (nvidia-smi every
+            # 100 ms): the bound assumes the 1980 MHz boost clock.
+            smi_log = subprocess.Popen(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, text=True)
             for name, fn in turns:
                 times.setdefault(name, []).append(graph_ms(fn, reps))
+            smi_log.terminate()
+            samples = []
+            for ln in smi_log.communicate()[0].splitlines():
+                try:
+                    samples.append([float(x) for x in ln.split(",")])
+                except ValueError:
+                    continue
+            row["sm_clock_mhz"] = sorted(c for c, *_ in samples)
+            row["power_w"] = sorted(w for *_, w in samples)
             bms, by = bound(i, k, j)
             for name, ts in times.items():
                 row[f"{name}_ms"] = ts

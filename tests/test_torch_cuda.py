@@ -197,8 +197,8 @@ def test_fanout_sweep_rejects_bad_inputs(cuda):
         fs.fanout_sweep(d, indptr_in.cpu(), src_in, w_in)
 
 
-# Every branch of minplus_plan: tiles of 16, 32, 64 and 128 rows, one
-# split or several, 16-byte and 4-byte copies of a (J % 4), ragged edges.
+# Every branch of minplus_plan: tiles of 16, 32 and 128 rows, one split
+# or several, 16-byte and 4-byte copies of a (J % 4), ragged edges.
 MINPLUS_SHAPES = [(5, 7, 9), (8, 128, 128), (100, 300, 50), (1, 1, 1),
                   (64, 33, 65), (3, 129, 2), (1000, 777, 513),
                   (1, 1024, 1024), (16, 1024, 1024), (30, 1024, 1024),
