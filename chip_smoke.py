@@ -39,8 +39,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      at its fixpoint, where no row drops), the grid fixpoint's host
      clock per sweep at ``SWEEPS_PER_SYNC`` sweeps per host read, and the
      min-plus product at I x 1024 x 1024 for I = 16, 128, 511, 1024 (the
-     dense route's iterate and squaring shapes) and at 4096^3: the card's
-     time from CUDA-graph replays, and the wrapper called back to back;
+     dense route's iterate and squaring shapes) and at 4096^3, both as
+     the wrapper called back to back (``ms``, as the main path pays it)
+     and as the card's time alone from CUDA-graph replays (``card_ms``);
      and the 128-source ER-1024 fixpoint on the host clock.
 
 Phases 3-5 are the main path: the kernels' launch counters (and the
@@ -70,6 +71,11 @@ PEAK_F32_INSTR_S = PEAK_F32_OPS_S / 2
 RMAT_SPEC = "rmat:scale=20,ef=16,seed=0"
 GRID_SPEC = "grid:rows=512,cols=512,neg=0.2,seed=0"
 ER_SPEC = "er:n=1024,p=0.1,seed=0"
+# Min-plus shapes timed in phase 8 (I, K, J): B x V x V for B = 16, 128,
+# 511 sources (the iterate regime) and V^3 (squaring) at V = 1024; and
+# 4096^3, off the main path, for information.
+MINPLUS_SHAPES = ((16, 1024, 1024), (128, 1024, 1024), (511, 1024, 1024),
+                  (1024, 1024, 1024), (4096, 4096, 4096))
 
 
 def emit(obj) -> None:
@@ -80,6 +86,54 @@ def bound(bytes_moved: float, instructions: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
     t_ops = instructions / PEAK_F32_INSTR_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def minplus_bound(i: int, k: int, j: int) -> tuple[float, str]:
+    """The bound of an [i, k] x [k, j] min-plus product: both operands
+    read and the result written once; an add and a min per candidate."""
+    return bound(4 * (i * k + k * j + i * j), 2 * i * k * j)
+
+
+def event_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Milliseconds per call of ``fn``, called back to back from the host
+    between two CUDA events: what a loop of calls pays, host time
+    included when a call takes the host longer than the card."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """The card's milliseconds per call of ``fn``: ``reps`` calls captured
+    in a CUDA graph and replayed between two CUDA events, so that no host
+    time is in it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -117,40 +171,6 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
-
-    def event_ms(fn, reps: int, warmup: int = 1) -> float:
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def graph_ms(fn, reps: int) -> float:
-        """The card's time per call of ``fn``: ``reps`` calls captured in a
-        CUDA graph and replayed between two events, so that no host time
-        is in it (a min-plus product at V <= 1024 takes the card less
-        time than its wrapper takes the host)."""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
 
     def max_abs_err(got, want) -> float:
         if not torch.equal(torch.isinf(got), torch.isinf(want)):
@@ -546,25 +566,21 @@ def main() -> int:
         "sweeps_per_sync": fs.SWEEPS_PER_SYNC,
         "fixpoint_host_clock": host_loop,
     }
-    # Min-plus at the dense route's shapes: B x V x V for B = 16, 128, 511
-    # sources (iterate regime) and V^3 (squaring) at V = 1024; and 4096^3,
-    # off the main path, for information.
-    for (i, k, j) in ((16, 1024, 1024), (128, 1024, 1024),
-                      (511, 1024, 1024), (1024, 1024, 1024),
-                      (4096, 4096, 4096)):
+    # Min-plus at the dense route's shapes and 4096^3 (MINPLUS_SHAPES).
+    for (i, k, j) in MINPLUS_SHAPES:
         g_rng = np.random.default_rng(7)
         dm = torch.as_tensor(g_rng.random((i, k), dtype=np.float32)).to(dev)
         am = torch.as_tensor(g_rng.random((k, j), dtype=np.float32)).to(dev)
         big = i * k * j > 1 << 30
-        ms = graph_ms(lambda: minplus_kernel(dm, am), reps=3 if big else 50)
         eager = event_ms(lambda: minplus_kernel(dm, am), reps=3 if big else 50)
+        card = graph_ms(lambda: minplus_kernel(dm, am), reps=3 if big else 50)
         plain = event_ms(lambda: minplus_plain(dm, am), reps=1 if big else 3)
-        bms, by = bound(4 * (i * k + k * j + i * j), 2 * i * k * j)
+        bms, by = minplus_bound(i, k, j)
         p = minplus_plan(i, k, j)
         timings[f"minplus_{i}x{k}x{j}"] = {
-            "ms": ms, "wrapper_eager_ms": eager, "plain_ms": plain,
+            "ms": eager, "card_ms": card, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by,
-            "share_of_bound": bms / ms, "tile_rows": p.rows,
+            "card_share_of_bound": bms / card, "tile_rows": p.rows,
             "splits": p.splits, "blocks": int(np.prod(p.grid(i, j))),
             "partial_bytes": 4 * i * j * p.splits if p.splits > 1 else 0,
         }
@@ -594,7 +610,7 @@ def main() -> int:
         del start, fix
     timings["minplus_fixpoint_er1024_B128"] = {
         "host_clock": fix_runs,
-        "kernel_ms": timings["minplus_128x1024x1024"]["ms"],
+        "card_ms": timings["minplus_128x1024x1024"]["card_ms"],
         "products_per_sync": mp_mod.PRODUCTS_PER_SYNC}
     emit({"phase": "timing", "device": kind, "power_limit": smi,
           "timings": timings})
@@ -616,9 +632,9 @@ def main() -> int:
          "replaces": "paralleljohnson_tpu/ops/pallas_kernels.py:117",
          "launches": launches["minplus"],
          "max_abs_err": max(mp_err.values()),
-         "ms": t_mp["ms"], "plain_ms": t_mp["plain_ms"],
-         "bound_ms": t_mp["bound_ms"], "bound_by": t_mp["bound_by"],
-         "library_ms": None},
+         "ms": t_mp["ms"], "card_ms": t_mp["card_ms"],
+         "plain_ms": t_mp["plain_ms"], "bound_ms": t_mp["bound_ms"],
+         "bound_by": t_mp["bound_by"], "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

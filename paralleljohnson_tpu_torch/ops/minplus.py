@@ -144,29 +144,17 @@ def minplus_kernel(d: torch.Tensor, a: torch.Tensor, *, out=None,
             if scratch.shape != shape:
                 raise ValueError(f"scratch must be {list(shape)}, got "
                                  f"{list(scratch.shape)}")
-    with torch.cuda.device(dev):
-        _launch(torch.cuda.current_stream(dev).cuda_stream, d.data_ptr(),
-                a.data_ptr(), out.data_ptr(),
-                scratch.data_ptr() if plan.splits > 1 else None, (i, k, j),
-                plan, None if prev is None else prev.data_ptr(),
-                None if improved is None else improved.data_ptr())
+    _cuda.launch(
+        "minplus", d.data_ptr(), a.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if plan.splits > 1 else None, i, k, j, plan.rows,
+        plan.splits, plan.k_split, None if prev is None else prev.data_ptr(),
+        None if improved is None else improved.data_ptr(), device=dev,
+    )
+    minplus_kernel.launches += 1
     return out
 
 
 minplus_kernel.launches = 0
-
-
-def _launch(stream, d, a, out, scratch, shape, plan, prev, improved) -> None:
-    """Launch one product on raw device pointers (checked by the caller)
-    and count it in ``minplus_kernel.launches``; raise if the launch was
-    refused."""
-    err = _cuda.lib("minplus").pj_minplus(
-        d, a, out, scratch, *shape, plan.rows, plan.splits, plan.k_split,
-        prev, improved, stream)
-    if err != 0:
-        raise RuntimeError(f"CUDA kernel minplus failed to launch: "
-                           f"cudaError {err}")
-    minplus_kernel.launches += 1
 
 
 def occupancy(rows: int) -> int:
@@ -199,44 +187,24 @@ def minplus_fixpoint(d0, a, *, max_iter: int):
     if max_iter <= 0:
         return d0, 0, True
     dev = d0.device
+    plan = minplus_plan(b, v, v)
+    scratch = (torch.empty((plan.splits, b, v), dtype=d0.dtype, device=dev)
+               if dev.type == "cuda" and plan.splits > 1 else None)
     bufs = (d0, torch.empty_like(d0))
     one = torch.ones(1, dtype=torch.int32, device=dev)
-    flags = torch.zeros(PRODUCTS_PER_SYNC * FLAG_STRIDE, dtype=torch.int32,
+    flags = torch.empty(PRODUCTS_PER_SYNC * FLAG_STRIDE, dtype=torch.int32,
                         device=dev)
-    if dev.type == "cuda":
-        # Checked once here; each product is then one call of the C entry
-        # point on fixed pointers: the host's share of a product matters,
-        # since a product takes the card only ~10-100 us at V <= 1024.
-        _cuda.check(a, "a", torch.float32, dev, 2)
-        _cuda.check(d0, "d0", torch.float32, dev, 2)
-        plan = minplus_plan(b, v, v)
-        scratch = (torch.empty((plan.splits, b, v), dtype=d0.dtype,
-                               device=dev) if plan.splits > 1 else None)
-        s_ptr = None if scratch is None else scratch.data_ptr()
-        ptr = [t.data_ptr() for t in bufs]
-        flag_ptr = [flags.data_ptr() + 4 * FLAG_STRIDE * j
-                    for j in range(PRODUCTS_PER_SYNC)]
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-
-        def product(x, j):
-            with torch.cuda.device(dev):
-                _launch(stream, ptr[x], a.data_ptr(), ptr[1 - x], s_ptr,
-                        (b, v, v), plan,
-                        flag_ptr[j - 1] if j else one.data_ptr(), flag_ptr[j])
-    else:
-        def product(x, j):
-            minplus_kernel(bufs[x], a, out=bufs[1 - x],
-                           prev=flags[FLAG_STRIDE * (j - 1):][:1] if j else one,
-                           improved=flags[FLAG_STRIDE * j:][:1])
-
+    # Flag j at word FLAG_STRIDE * j, on a cache line of its own.
+    flag = [flags[FLAG_STRIDE * j:FLAG_STRIDE * j + 1]
+            for j in range(PRODUCTS_PER_SYNC)]
     i = 0
     while i < max_iter:
         n = min(PRODUCTS_PER_SYNC, max_iter - i)
-        if i:
-            flags.zero_()
+        flags.zero_()
         for j in range(n):
-            product((i + j) % 2, j)
+            minplus_kernel(bufs[(i + j) % 2], a, out=bufs[(i + j + 1) % 2],
+                           prev=flag[j - 1] if j else one, improved=flag[j],
+                           scratch=scratch)
         got = flags[:FLAG_STRIDE * n:FLAG_STRIDE].tolist()
         minplus_fixpoint.host_reads += 1
         if 0 in got:

@@ -1,30 +1,32 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's min-plus kernel on one CUDA card, at the dense
-route's shapes, against an earlier version of the kernel.
+"""Time the PyTorch port's min-plus product on one CUDA card against an
+earlier version of its kernel, and the dense iterate regime's grouped
+fixpoint against a loop that reads the host once per product.
 
-    python3 scripts/torch_minplus_timing.py [--baseline OLD.cu] [--reps N]
+    python3 scripts/torch_minplus_timing.py [--baseline OLD.cu]
 
-Shapes (I x K x J): I x 1024 x 1024 for I = 16, 128, 511, 1024 (the
-dense fan-out's iterate regime at B = I sources, and squaring at V =
-1024), and 4096^3. Each is timed with CUDA events over ``--reps``
-launches after a warm-up, beside its bound (the larger of the bytes over
-3.35 TB/s and two FP32 instructions per candidate over 33.5e12/s).
+1. The products of ``chip_smoke.MINPLUS_SHAPES`` (I x 1024 x 1024 for I
+   = 16, 128, 511, 1024, and 4096^3): the card's time per product from
+   CUDA-graph replays (``chip_smoke.graph_ms``) beside its bound
+   (``chip_smoke.minplus_bound``). ``--baseline`` names a min-plus source
+   whose C entry point is ``pj_minplus(d, a, out, I, K, J, stream)``, as
+   the first version of the kernel had (``git show
+   <commit>:paralleljohnson_tpu_torch/csrc/minplus.cu``). It is built with
+   the port's ``nvcc`` flags and timed on the same inputs in turns with
+   the current kernel (baseline, current, current, baseline); the two
+   must agree bitwise, and with ``minplus_plain`` up to 1024^3. The SM
+   clock and power that ``nvidia-smi`` read while the turns ran are
+   printed beside the times.
+2. The iterate regime of ``relax.dense_fanout`` on chip_smoke's
+   ``er:n=1024,p=0.1,seed=0`` with its 128 sources: the loop with one
+   host read per product (no ``fixpoint``) and ``minplus_fixpoint``
+   (``PRODUCTS_PER_SYNC`` products per read), in turns (loop, fixpoint,
+   fixpoint, loop), 5 runs each, on the host clock around a
+   ``torch.cuda.synchronize()``. Both must return the same rows and
+   iteration count.
 
-``--baseline`` names a min-plus source whose C entry point is
-``pj_minplus(d, a, out, I, K, J, stream)``, as the first version of the
-kernel had (e.g. the file from an earlier commit, ``git show
-<commit>:paralleljohnson_tpu_torch/csrc/minplus.cu``). It is built with
-the port's ``nvcc`` flags and timed on the same inputs in turns with the
-current kernel (baseline, current, current, baseline); both must agree
-bitwise with each other and, up to 1024^3, with ``minplus_plain``.
-
-``--plans 32x8,128x2`` also times the tree's build under other plans
-(tile rows x splits of K; up to 1024^3). Every time is the card's: the calls are
-captured in a CUDA graph and replayed between two CUDA events. Beside
-them, ``wrapper_eager_ms`` is ``minplus_kernel`` called back to back from
-the host, as a loop of products calls it, and the SM clock and power
-that ``nvidia-smi`` read while the turns ran. Prints one JSON line per
-shape and the card's name and power limit.
+Prints the card's name and power limit, then one JSON line per shape and
+one for the fixpoint.
 """
 
 from __future__ import annotations
@@ -35,21 +37,15 @@ import json
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_INSTR_S = 67e12 / 2
-SHAPES = [(16, 1024, 1024), (128, 1024, 1024), (511, 1024, 1024),
-          (1024, 1024, 1024), (4096, 4096, 4096)]
-
-
-def bound(i: int, k: int, j: int) -> tuple[float, str]:
-    t_bytes = 4 * (i * k + k * j + i * j) / PEAK_BYTES_S * 1e3
-    t_ops = 2 * i * k * j / PEAK_F32_INSTR_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+from chip_smoke import (  # noqa: E402
+    ER_SPEC, MINPLUS_SHAPES, graph_ms, minplus_bound,
+)
 
 
 def build_baseline(src: Path, workdir: str):
@@ -65,127 +61,49 @@ def build_baseline(src: Path, workdir: str):
     return handle.pj_minplus
 
 
-def main() -> int:
+def time_products(baseline: Path | None) -> None:
+    import numpy as np
     import torch
 
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--baseline", type=Path)
-    ap.add_argument("--plans", default="", metavar="ROWSxSPLITS,...")
-    ap.add_argument("--reps", type=int, default=20)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch.cuda.is_available() is False: this script times the "
-              "kernel on a CUDA card", file=sys.stderr)
-        return 2
-
-    import numpy as np
-
-    from paralleljohnson_tpu_torch.ops import _cuda
     from paralleljohnson_tpu_torch.ops import minplus as mp
 
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-
-    def eager_ms(fn, reps: int) -> float:
-        """Back-to-back calls from the host: what a loop of products sees
-        (host-bound when a call takes the host longer than the card)."""
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def graph_ms(fn, reps: int) -> float:
-        """The card's time per call: ``reps`` calls captured in a CUDA
-        graph, replayed between two events, so no host time is in it."""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        del graph
-        return start.elapsed_time(end) / reps
-
-    def stream() -> int:
-        return torch.cuda.current_stream().cuda_stream
-
-    def checked(name, err):
-        if err:
-            raise RuntimeError(f"{name} launch: cudaError {err}")
-
-    plans = [tuple(int(x) for x in p.split("x"))
-             for p in args.plans.split(",") if p]
     with tempfile.TemporaryDirectory() as tmp:
-        base_fn = build_baseline(args.baseline, tmp) if args.baseline else None
-        current = _cuda.lib("minplus").pj_minplus
-        for (i, k, j) in SHAPES:
+        base_fn = build_baseline(baseline, tmp) if baseline else None
+        for (i, k, j) in MINPLUS_SHAPES:
             rng = np.random.default_rng(i + k + j)
             d = torch.as_tensor(rng.random((i, k), dtype=np.float32)).to(dev)
             a = torch.as_tensor(rng.random((k, j), dtype=np.float32)).to(dev)
             big = i * k * j > 1 << 30
-            reps = max(2, args.reps // 10 if big else args.reps)
-            cur = mp.minplus_kernel(d, a)
-            if not big and not torch.equal(cur, mp.minplus_plain(d, a)):
-                raise AssertionError(f"kernel != plain at {(i, k, j)}")
-            p = mp.minplus_plan(i, k, j)
-            row = {"shape": [i, k, j], "reps": reps, "plan": p._asdict()}
+            reps = 2 if big else 20
             out = torch.empty((i, j), device=dev)
-            kernels = []
+            kernels = [("current", lambda: mp.minplus_kernel(d, a, out=out))]
             if base_fn is not None:
-                kernels.append(("baseline", lambda: checked("baseline", base_fn(
-                    d.data_ptr(), a.data_ptr(), out.data_ptr(), i, k, j,
-                    stream()))))
-            # The tree's kernel under its plan, then under each plan of
-            # --plans (rows x splits).
-            runs = [("current", p.rows, p.splits)]
-            runs += [(f"current_{r}x{n}", r, n) for r, n in plans if not big]
-            scratch = torch.empty(
-                (max(n for *_, n in runs), i, j), device=dev)
-            for name, rows, splits in runs:
-                k_split = mp.TILE_K * -(-(-(-k // splits)) // mp.TILE_K)
-                splits = -(-k // k_split)
-
-                def call(rows=rows, splits=splits, k_split=k_split,
-                         name=name):
-                    checked(name, current(
-                        d.data_ptr(), a.data_ptr(), out.data_ptr(),
-                        scratch.data_ptr(), i, k, j, rows, splits, k_split,
-                        None, None, stream()))
-
-                kernels.append((name, call))
+                def baseline_call():
+                    err = base_fn(d.data_ptr(), a.data_ptr(), out.data_ptr(),
+                                  i, k, j, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"baseline launch: cudaError {err}")
+                kernels.insert(0, ("baseline", baseline_call))
+            want = None if big else mp.minplus_plain(d, a)
+            results = []
             for name, fn in kernels:
                 out.fill_(0.0)
                 fn()
                 torch.cuda.synchronize()
-                if not torch.equal(out, cur):
-                    raise AssertionError(f"{name} != current at {(i, k, j)}")
-            turns = kernels + kernels[::-1]
-            times: dict[str, list[float]] = {}
+                results.append(out.clone())
+                if want is not None and not torch.equal(out, want):
+                    raise AssertionError(f"{name} != plain at {(i, k, j)}")
+            if not all(torch.equal(r, results[0]) for r in results):
+                raise AssertionError(f"baseline != current at {(i, k, j)}")
             # The SM clock and power while the turns run (nvidia-smi every
             # 100 ms): the bound assumes the 1980 MHz boost clock.
             smi_log = subprocess.Popen(
                 ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                  "--format=csv,noheader,nounits", "-lms", "100"],
                 stdout=subprocess.PIPE, text=True)
-            for name, fn in turns:
+            times: dict[str, list[float]] = {}
+            for name, fn in kernels + kernels[::-1]:
                 times.setdefault(name, []).append(graph_ms(fn, reps))
             smi_log.terminate()
             samples = []
@@ -194,19 +112,80 @@ def main() -> int:
                     samples.append([float(x) for x in ln.split(",")])
                 except ValueError:
                     continue
-            row["sm_clock_mhz"] = sorted(c for c, *_ in samples)
-            row["power_w"] = sorted(w for *_, w in samples)
-            bms, by = bound(i, k, j)
+            bms, by = minplus_bound(i, k, j)
+            p = mp.minplus_plan(i, k, j)
+            row = {"shape": [i, k, j], "reps": reps, "plan": p._asdict(),
+                   "bound_ms": bms, "bound_by": by,
+                   "sm_clock_mhz": sorted(c for c, *_ in samples),
+                   "power_w": sorted(w for *_, w in samples)}
             for name, ts in times.items():
-                row[f"{name}_ms"] = ts
+                row[f"{name}_card_ms"] = ts
                 row[f"{name}_share_of_bound"] = bms / min(ts)
-            # The wrapper as the solver calls it, from the host, eagerly.
-            row["wrapper_eager_ms"] = eager_ms(lambda: mp.minplus_kernel(d, a),
-                                               reps)
-            row.update({"bound_ms": bms, "bound_by": by, "device": smi})
             print(json.dumps(row), flush=True)
-            del d, a, cur, out, scratch
+            del d, a, out, want, results
             torch.cuda.empty_cache()
+
+
+def time_fixpoint() -> None:
+    import numpy as np
+    import torch
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.ops import minplus as mp
+    from paralleljohnson_tpu_torch.ops import relax
+
+    dev = torch.device("cuda")
+    er = pjt.load_graph(ER_SPEC)
+    v = er.num_nodes
+    a = relax.dense_adjacency(*(torch.as_tensor(x).to(dev) for x in (
+        er.src, er.indices, er.weights)), v)
+    src = torch.as_tensor(np.sort(np.random.default_rng(4).choice(
+        v, 128, replace=False))).to(dev)
+    runs = {"loop": None, "fixpoint": mp.minplus_fixpoint}
+    times: dict[str, list[float]] = {}
+    results = {}
+    for name in ["loop", "fixpoint", "fixpoint", "loop"]:
+        for _ in range(5):
+            launches = mp.minplus_kernel.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, iters, improving = relax.dense_fanout(
+                a, src, max_iter=v, mp=mp.minplus_kernel, fixpoint=runs[name])
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append(time.perf_counter() - t0)
+            results[name] = (d, iters, improving,
+                             mp.minplus_kernel.launches - launches)
+    (d_l, it_l, imp_l, n_l), (d_f, it_f, imp_f, n_f) = (
+        results["loop"], results["fixpoint"])
+    if not torch.equal(d_l, d_f) or (it_l, imp_l) != (it_f, imp_f):
+        raise AssertionError(f"loop ({it_l}, {imp_l}) and fixpoint "
+                             f"({it_f}, {imp_f}) disagree")
+    print(json.dumps({
+        "fixpoint": ER_SPEC, "sources": 128, "iterations": it_f,
+        "products_per_sync": mp.PRODUCTS_PER_SYNC,
+        "launches": {"loop": n_l, "fixpoint": n_f},
+        "host_clock_s": times,
+        "min_ms": {name: min(ts) * 1e3 for name, ts in times.items()}}),
+        flush=True)
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", type=Path)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: this script times the "
+              "kernel on a CUDA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    time_products(args.baseline)
+    time_fixpoint()
     return 0
 
 
