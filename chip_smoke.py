@@ -42,11 +42,30 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      dense route's iterate and squaring shapes) and at 4096^3, both as
      the wrapper called back to back (``ms``, as the main path pays it)
      and as the card's time alone from CUDA-graph replays (``card_ms``);
-     and the 128-source ER-1024 fixpoint on the host clock.
+     and the 128-source ER-1024 fixpoint on the host clock;
+  9. the pipelined batch driver: ``solve()`` on R-MAT-20 over phase 3's
+     512 sources and 512 more, in 4 batches of 256 (1 GiB of rows each),
+     at ``pipeline_depth`` 1, 2, 2, 1: rows equal bitwise across runs and
+     to phase 3's, 2 rows against scipy; each run's fan-out seconds,
+     download / wait / overlap seconds, ``clear_caches`` count, sweep
+     launches and host reads; the time of one layout rebuild;
+ 10. ``solve_reduced`` on the same sources with each built-in reducer,
+     against phase 9's rows reduced in numpy (``checksum`` to rtol 1e-6),
+     with no call of ``_download_rows``;
+ 11. checkpoint/resume on the grid (512 sources, batches of 128, depth
+     2): 4 batches written, all 4 resumed, an injected OOM in batch 1
+     that collapses the window, and an uncheckpointed solve, all
+     bitwise equal;
+ 12. ``sssp`` on the grid against phase 4's row (rtol 1e-5, atol 1e-3)
+     and on phase 7's negative cycle; ``multi_source`` on R-MAT-20 over
+     phase 3's sources (bitwise, rows still on the card); ``solve_batch``
+     of 4 ``er:n=256,p=0.1`` graphs against their ``solve()``s bitwise.
 
-Phases 3-5 are the main path: the kernels' launch counters (and the
-fixpoints' host reads) are set to 0 just before and read just after.
-The last two lines are the ``kernels`` summary and
+Each solving path is driven with the kernels' launch counters (and the
+fixpoints' host reads) set to 0 just before and read just after:
+phases 3-5 together, then each path of phases 9-12 on its own; a path
+whose kernel was never launched fails. The last two lines are the
+``kernels`` summary (launches summed over the paths, and by path) and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -71,6 +90,14 @@ PEAK_F32_INSTR_S = PEAK_F32_OPS_S / 2
 RMAT_SPEC = "rmat:scale=20,ef=16,seed=0"
 GRID_SPEC = "grid:rows=512,cols=512,neg=0.2,seed=0"
 ER_SPEC = "er:n=1024,p=0.1,seed=0"
+BATCH_SPEC = "er:n=256,p=0.1"  # phase 12's solve_batch, seeds 0-3
+# Phase 9: phase 3's 512 R-MAT-20 sources and this many more, in batches
+# of MULTI_BATCH (a [256, 2^20] f32 block is 1 GiB). Phase 11: the grid,
+# CKPT_SOURCES sources in batches of CKPT_BATCH.
+MULTI_EXTRA_SOURCES = 512
+MULTI_BATCH = 256
+CKPT_SOURCES = 512
+CKPT_BATCH = 128
 # Min-plus shapes timed in phase 8 (I, K, J): B x V x V for B = 16, 128,
 # 511 sources (the iterate regime) and V^3 (squaring) at V = 1024; and
 # 4096^3, off the main path, for information.
@@ -136,6 +163,284 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def sync_time(fn):
+    """(fn(), host seconds), between two ``torch.cuda.synchronize()``."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drive_entry_points(dev, rmat, rmat_sources, rmat_rows, grid, grid_source,
+                       grid_row, cycle_graph) -> dict:
+    """Phases 9-12: the solver's batch driver and its other entry points
+    on ``dev`` (the card). ``rmat_rows`` are phase 3's host rows over
+    ``rmat_sources``; ``grid_row`` is phase 4's row of ``grid_source``.
+    Each path runs with the kernels' launch counts set to 0 just before
+    and read just after; returns those counts by path."""
+    import tempfile
+
+    import numpy as np
+    import scipy.sparse.csgraph as csgraph
+    import torch
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
+    from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
+    from paralleljohnson_tpu_torch.ops import minplus as mp_mod
+    from paralleljohnson_tpu_torch.solver.johnson import _ROW_REDUCERS, to_numpy
+    from paralleljohnson_tpu_torch.utils.checkpoint import BatchCheckpointer
+
+    class CountingBackend(TorchBackend):
+        """The torch backend, counting ``clear_caches`` calls."""
+
+        clears = 0
+
+        def clear_caches(self, dgraph):
+            self.clears += 1
+            super().clear_caches(dgraph)
+
+    launches = {}
+
+    def counted(path, fn, needs=()):
+        """``fn()`` with the counts set to 0 just before and read just
+        after; raises if a kernel in ``needs`` was launched no time."""
+        fs.fanout_sweep.launches = 0
+        mp_mod.minplus_kernel.launches = 0
+        fs.fanout_fixpoint.host_reads = 0
+        out = sync_time(fn)
+        launches[path] = {"fanout_sweep": fs.fanout_sweep.launches,
+                          "minplus": mp_mod.minplus_kernel.launches,
+                          "fanout_host_reads": fs.fanout_fixpoint.host_reads}
+        for name in needs:
+            if launches[path][name] == 0:
+                raise AssertionError(f"{path} launched no {name} kernel")
+        return out
+
+    def solver_with(backend_cls=TorchBackend, **kw):
+        backend = backend_cls(pjt.SolverConfig(**kw), device=dev)
+        return pjt.ParallelJohnsonSolver(backend.config, backend=backend)
+
+    # -- phase 9: multi-batch solve() on R-MAT-20, depth 1 and 2 in turns ----
+    v = rmat.num_nodes
+    extra = np.random.default_rng(9).choice(
+        np.setdiff1d(np.arange(v), rmat_sources), MULTI_EXTRA_SOURCES,
+        replace=False)
+    sources = np.sort(np.concatenate([rmat_sources, extra]))
+    at_phase3 = np.searchsorted(sources, rmat_sources)
+    check = [int(np.searchsorted(sources, extra.min())),
+             int(np.searchsorted(sources, extra.max()))]
+    # What suggested_source_batch (the OOM degrader's re-consult) returns
+    # before the runs and after each, on one device graph at depth 2:
+    # mem_get_info counts the caching allocator's cached blocks as used.
+    probe = TorchBackend(pjt.SolverConfig(), device=dev)
+    dg = probe.upload(rmat)
+    suggested_before = probe.suggested_source_batch(dg)
+    free_before = torch.cuda.mem_get_info(dev)[0]
+    rows = None
+    runs = []
+    for run, depth in enumerate((1, 2, 2, 1)):
+        solver = solver_with(CountingBackend, source_batch_size=MULTI_BATCH,
+                             pipeline_depth=depth)
+        res, secs = counted(f"multi_batch_depth{depth}_run{run}",
+                            lambda: solver.solve(rmat, sources),
+                            needs=("fanout_sweep",))
+        st = res.stats
+        if (not isinstance(res.dist, np.ndarray)
+                or res.dist.shape != (len(sources), v)):
+            raise AssertionError(f"multi-batch rows: {type(res.dist)}")
+        if st.final_pipeline_depth != depth or st.final_batch != MULTI_BATCH:
+            raise AssertionError(f"depth {st.final_pipeline_depth}, batch "
+                                 f"{st.final_batch}")
+        if rows is None:
+            rows = res.dist
+            if not np.array_equal(rows[at_phase3], rmat_rows):
+                raise AssertionError("multi-batch rows differ from phase 3's")
+            oracle = csgraph.dijkstra(rmat.to_scipy().astype(np.float64),
+                                      directed=True, indices=sources[check])
+            np.testing.assert_array_equal(np.isinf(rows[check]),
+                                          np.isinf(oracle))
+            np.testing.assert_allclose(rows[check], oracle, rtol=1e-5)
+        elif not np.array_equal(res.dist, rows):
+            raise AssertionError(f"run {run} (depth {depth}) rows differ "
+                                 "from run 0 (depth 1)")
+        runs.append({
+            "run": run, "depth": depth, "seconds": secs,
+            "fanout_s": st.phase_seconds["fanout"],
+            "upload_s": st.phase_seconds["upload"],
+            "download_s": st.download_s, "ckpt_wait_s": st.ckpt_wait_s,
+            "overlap_saved_s": st.overlap_saved_s,
+            "final_pipeline_depth": st.final_pipeline_depth,
+            "clear_caches": solver.backend.clears,
+            "suggested_batch_after": probe.suggested_source_batch(dg),
+            "free_GB_after": torch.cuda.mem_get_info(dev)[0] / 1e9,
+            "reserved_GB_after": torch.cuda.memory_reserved(dev) / 1e9,
+            "sweeps": st.iterations_by_phase["fanout"],
+            "launches": launches[f"multi_batch_depth{depth}_run{run}"]})
+        del res
+    # One layout rebuild (what each batch pays after the download's clear).
+    rebuild_s = []
+    for _ in range(3):
+        probe.clear_caches(dg)
+        rebuild_s.append(sync_time(dg.fanout_layout)[1])
+    del dg
+    row_bytes = 4 * v * len(sources)
+    emit({"phase": "multi_batch_rmat20", "spec": RMAT_SPEC,
+          "sources": len(sources), "source_batch_size": MULTI_BATCH,
+          "row_GB": row_bytes / 1e9, "runs": runs,
+          "rows_equal_across_runs": True, "rows_equal_phase3": True,
+          "checked_rows": check, "layout_rebuild_s": rebuild_s,
+          "suggested_batch_before": suggested_before,
+          "free_GB_before": free_before / 1e9,
+          "depth1_download_GB_s": [row_bytes / r["download_s"] / 1e9
+                                   for r in runs if r["depth"] == 1]})
+
+    # -- phase 10: solve_reduced, no [B, V] block reaches the host -----------
+    reduced = {}
+    for name in ("reach_count", "eccentricity", "checksum"):
+        solver = solver_with(source_batch_size=MULTI_BATCH)
+        downloads = []
+        download_rows = solver._download_rows
+
+        def counting_download(*args, _inner=download_rows):
+            downloads.append(1)
+            return _inner(*args)
+
+        solver._download_rows = counting_download
+        red, secs = counted(
+            f"solve_reduced_{name}",
+            lambda: solver.solve_reduced(rmat, sources, reduce_rows=name),
+            needs=("fanout_sweep",))
+        if downloads:
+            raise AssertionError(f"solve_reduced({name}) downloaded rows")
+        fn = _ROW_REDUCERS[name]
+        want = [fn(rows[k:k + MULTI_BATCH], None)
+                for k in range(0, len(sources), MULTI_BATCH)]
+        if len(red.values) != len(want):
+            raise AssertionError(f"{name}: {len(red.values)} values")
+        for got, exp in zip(red.values, want):
+            if name == "checksum":
+                np.testing.assert_allclose(got, exp, rtol=1e-6)
+            elif not np.array_equal(np.asarray(got), exp):
+                raise AssertionError(f"solve_reduced({name}) disagrees with "
+                                     "phase 9's rows")
+        reduced[name] = {"seconds": secs,
+                         "fanout_s": red.stats.phase_seconds["fanout"],
+                         "download_rows_calls": len(downloads),
+                         "launches": launches[f"solve_reduced_{name}"]}
+    emit({"phase": "solve_reduced_rmat20", "sources": len(sources),
+          "reducers": reduced, "checksum_rtol": 1e-6})
+    del rows
+
+    # -- phase 11: checkpoint / resume / injected OOM on the grid ------------
+    gsrc = np.sort(np.random.default_rng(11).choice(
+        grid.num_nodes, CKPT_SOURCES, replace=False))
+    n_batches = -(-CKPT_SOURCES // CKPT_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        first_dir, fault_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        kw = dict(source_batch_size=CKPT_BATCH, pipeline_depth=2)
+        first, s_first = counted(
+            "checkpoint_write",
+            lambda: solver_with(checkpoint_dir=first_dir, **kw).solve(
+                grid, gsrc), needs=("fanout_sweep",))
+        done = BatchCheckpointer(first_dir, graph_key=grid).completed_batches()
+        if done != list(range(n_batches)) or first.stats.batches_resumed:
+            raise AssertionError(f"first checkpointed run wrote {done}")
+        again, s_again = counted(
+            "checkpoint_resume",
+            lambda: solver_with(checkpoint_dir=first_dir, **kw).solve(
+                grid, gsrc))
+        if again.stats.batches_resumed != n_batches:
+            raise AssertionError(f"resumed {again.stats.batches_resumed} of "
+                                 f"{n_batches} batches")
+        plan = pjt.FaultPlan([pjt.Fault(stage="fanout", kind="oom", batch=1)])
+        faulted, s_fault = counted(
+            "checkpoint_injected_oom",
+            lambda: solver_with(checkpoint_dir=fault_dir, fault_plan=plan,
+                                **kw).solve(grid, gsrc),
+            needs=("fanout_sweep",))
+        if faulted.stats.final_pipeline_depth != 1:
+            raise AssertionError("the injected OOM did not collapse the "
+                                 "window")
+        plain, _ = counted("checkpoint_plain_solve",
+                           lambda: solver_with(**kw).solve(grid, gsrc),
+                           needs=("fanout_sweep",))
+        for label, other in (("resumed", again), ("injected OOM", faulted),
+                             ("uncheckpointed", plain)):
+            if not np.array_equal(to_numpy(other.dist), first.dist):
+                raise AssertionError(f"the {label} run's rows differ")
+        emit({"phase": "checkpoint_grid512", "spec": GRID_SPEC,
+              "sources": CKPT_SOURCES, "source_batch_size": CKPT_BATCH,
+              "batches_written": len(done),
+              "batches_resumed": again.stats.batches_resumed,
+              "seconds": {"write": s_first, "resume": s_again,
+                          "injected_oom": s_fault},
+              "write_run": {"fanout_s": first.stats.phase_seconds["fanout"],
+                            "download_s": first.stats.download_s,
+                            "ckpt_wait_s": first.stats.ckpt_wait_s,
+                            "overlap_saved_s": first.stats.overlap_saved_s},
+              "injected_oom": {"fired": [list(f) for f in plan.fired],
+                               "final_pipeline_depth":
+                                   faulted.stats.final_pipeline_depth,
+                               "oom_degradations":
+                                   faulted.stats.oom_degradations},
+              "rows_equal": True})
+        del first, again, faulted, plain
+
+    # -- phase 12: sssp, multi_source, solve_batch ---------------------------
+    solver = solver_with()
+    res, s_sssp = counted("sssp_grid", lambda: solver.sssp(grid, grid_source))
+    got = to_numpy(res.dist)[0]
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(grid_row))
+    np.testing.assert_allclose(got, grid_row, rtol=1e-5, atol=1e-3)
+    sssp_err = float(np.abs(np.where(np.isfinite(got), got - grid_row, 0)).max())
+    try:
+        solver.sssp(cycle_graph, 0)
+    except pjt.NegativeCycleError:
+        pass
+    else:
+        raise AssertionError("sssp missed the negative cycle")
+    res, s_ms = counted("multi_source_rmat20",
+                        lambda: solver.multi_source(rmat, rmat_sources),
+                        needs=("fanout_sweep",))
+    if (not isinstance(res.dist, torch.Tensor)
+            or res.dist.device.type != dev.type):
+        raise AssertionError("multi_source's single batch left the card")
+    if not np.array_equal(to_numpy(res.dist), rmat_rows):
+        raise AssertionError("multi_source rows differ from phase 3's")
+    del res
+    graphs = [pjt.load_graph(f"{BATCH_SPEC},seed={seed}") for seed in range(4)]
+    batch, s_batch = counted("solve_batch_er256",
+                             lambda: solver.solve_batch(graphs),
+                             needs=("minplus",))
+    routes = []
+    for g, r in zip(graphs, batch):
+        single = solver.solve(g)
+        routes.append(r.stats.routes_by_phase["fanout"])
+        if not (routes[-1].startswith("dense-")
+                and routes[-1].endswith("-pallas")):
+            raise AssertionError(f"solve_batch took route {routes[-1]}")
+        if not np.array_equal(to_numpy(r.dist), to_numpy(single.dist)):
+            raise AssertionError("solve_batch differs from solve()")
+    emit({"phase": "entry_points", "sssp": {
+              "spec": GRID_SPEC, "source": int(grid_source),
+              "seconds": s_sssp, "max_abs_err_vs_phase4": sssp_err,
+              "rtol": 1e-5, "atol": 1e-3,
+              "negative_cycle": "NegativeCycleError"},
+          "multi_source": {"spec": RMAT_SPEC, "sources": len(rmat_sources),
+                           "seconds": s_ms, "rows_equal_phase3": True},
+          "solve_batch": {"spec": BATCH_SPEC, "graphs": len(graphs),
+                          "seconds": s_batch, "routes": routes,
+                          "equal_to_solve": True},
+          "launches": {k: launches[k] for k in ("sssp_grid",
+                                                "multi_source_rmat20",
+                                                "solve_batch_er256")}})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -164,13 +469,6 @@ def main() -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-
-    def sync_time(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     def max_abs_err(got, want) -> float:
         if not torch.equal(torch.isinf(got), torch.isinf(want)):
@@ -374,6 +672,7 @@ def main() -> int:
           "launches": per_solve["rmat20"],
           "reachable_fraction": float(np.isfinite(rows).mean()),
           "checked_rows": check})
+    rmat_sources, rmat_rows = sources, rows  # for phases 9 and 12
     del res, rows
 
     # 4: the 512x512 grid with negative weights, 256 sources.
@@ -403,6 +702,7 @@ def main() -> int:
           "phase_seconds": dict(res.stats.phase_seconds),
           "launches": per_solve["grid512"], "min_slack": float(slack.min()),
           "checked_rows": check})
+    grid_row = rows[0].copy()  # for phase 12's sssp from gsrc[0]
     grid_fanout_s = res.stats.phase_seconds["fanout"]
     grid_sweeps = res.stats.iterations_by_phase["fanout"]
     grid_res = res
@@ -455,6 +755,7 @@ def main() -> int:
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path never launched {name}")
+    by_path = {"solve_phases_3_5": dict(launches)}
 
     # -- phase 6: the sweep against its plain version on the grid's inputs ---
     # The layout the grid solve's fan-out ran on: reweighted weights,
@@ -614,6 +915,15 @@ def main() -> int:
         "products_per_sync": mp_mod.PRODUCTS_PER_SYNC}
     emit({"phase": "timing", "device": kind, "power_limit": smi,
           "timings": timings})
+    sweep_errs = [err for _, err in sweep_states.values()]
+    del sweep_states, d, d_fix, d_timing, d0_grid, d0_er, a_er
+    torch.cuda.empty_cache()
+
+    # -- phases 9-12: the batch driver and the other entry points -----------
+    by_path.update(drive_entry_points(dev, rmat, rmat_sources, rmat_rows,
+                                      grid, gsrc[0], grid_row, cyc))
+    for name in launches:
+        launches[name] = sum(p[name] for p in by_path.values())
 
     t_sw = timings["fanout_sweep_B512"]
     t_mp = timings["minplus_1024x1024x1024"]
@@ -622,8 +932,9 @@ def main() -> int:
          "source": "paralleljohnson_tpu_torch/csrc/fanout_sweep.cu",
          "replaces": "paralleljohnson_tpu/ops/pallas_sweep.py:255",
          "launches": launches["fanout_sweep"],
+         "launches_by_path": {k: p["fanout_sweep"] for k, p in by_path.items()},
          "max_abs_err": max(grid_err, *hub_errs,
-                            *(err for _, err in sweep_states.values())),
+                            *sweep_errs),
          "ms": t_sw["ms"], "plain_ms": t_sw["plain_ms"],
          "bound_ms": t_sw["bound_ms"], "bound_by": t_sw["bound_by"],
          "library_ms": None},
@@ -631,6 +942,7 @@ def main() -> int:
          "source": "paralleljohnson_tpu_torch/csrc/minplus.cu",
          "replaces": "paralleljohnson_tpu/ops/pallas_kernels.py:117",
          "launches": launches["minplus"],
+         "launches_by_path": {k: p["minplus"] for k, p in by_path.items()},
          "max_abs_err": max(mp_err.values()),
          "ms": t_mp["ms"], "card_ms": t_mp["card_ms"],
          "plain_ms": t_mp["plain_ms"], "bound_ms": t_mp["bound_ms"],

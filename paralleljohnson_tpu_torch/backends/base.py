@@ -79,14 +79,37 @@ class Backend(abc.ABC):
         """N-source shortest paths on a non-negative graph. Returns
         dist[B, V] in the order of ``sources``."""
 
-    def suggested_source_batch(self, dgraph: Any) -> int | None:
+    # -- optional capabilities ----------------------------------------------
+
+    def bellman_ford_pred(self, dgraph: Any, source: int | None) -> KernelResult:
+        """Like :meth:`bellman_ford` but fills ``KernelResult.pred`` with the
+        shortest-path tree (-1 at the source / unreached). Optional."""
+        raise NotImplementedError(f"{self.name} does not track predecessors")
+
+    def multi_source_pred(self, dgraph: Any, sources: np.ndarray) -> KernelResult:
+        """Like :meth:`multi_source` but fills ``KernelResult.pred`` [B, V].
+        Optional."""
+        raise NotImplementedError(f"{self.name} does not track predecessors")
+
+    def suggested_source_batch(
+        self, dgraph: Any, with_pred: bool = False
+    ) -> int | None:
         """Largest source batch one fan-out call should take when
-        ``config.source_batch_size`` is None; ``None`` = no cap."""
+        ``config.source_batch_size`` is None; ``None`` = no cap.
+        ``with_pred=True`` must also budget the extra int32 [B, V] pred
+        block a predecessor solve carries."""
         return None
 
     def clear_caches(self, dgraph: Any) -> None:
-        """Drop rebuildable device-side caches attached to ``dgraph``.
-        No-op for host backends."""
+        """Drop rebuildable device-side caches attached to ``dgraph`` so a
+        large host download has the memory they held. No-op for host
+        backends."""
+
+    def stage_rows_async(self, *arrays: Any) -> None:
+        """Start device-to-host copies of ``arrays`` WITHOUT blocking (a
+        scheduling hint, never correctness): the pipelined fan-out calls
+        this the moment a batch's rows pass the sanity guard, so the copy
+        runs under the next batch's compute. No-op for host backends."""
 
     def reweight(self, dgraph: Any, potentials) -> Any:
         """Return a device graph with w'(u,v) = w + h(u) - h(v) (>= 0)."""
@@ -96,6 +119,12 @@ class Backend(abc.ABC):
         # Guard tiny negative float residue so the fan-out's non-negativity
         # precondition holds exactly.
         return self.upload(graph.with_weights(np.maximum(wp, 0.0)))
+
+    def batch_apsp(self, batch: dict[str, np.ndarray]) -> KernelResult:
+        """Many-small-graphs mode: APSP for a padded batch (see
+        ``stack_graphs``), dist[B, V, V]. Backends with a vectorized path
+        override this; the solver falls back to one solve per graph."""
+        raise NotImplementedError(f"{self.name} has no batch_apsp")
 
     def download_graph(self, dgraph: Any) -> CSRGraph:
         """Inverse of upload, for host-side composition/debug."""

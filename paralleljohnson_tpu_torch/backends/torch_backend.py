@@ -13,11 +13,15 @@ Johnson's algorithm with the JAX package's own gates and route tags:
 
 On a CUDA device the hand kernels are the main path; on the CPU their
 plain PyTorch versions run (the wrappers choose by the tensors' device).
+
+``stage_rows_async`` starts a finished batch's device-to-host copy on a
+side stream, so the pipelined fan-out overlaps it with the next batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,6 +31,7 @@ from paralleljohnson_tpu_torch.backends.base import (
     KernelResult,
     register_backend,
 )
+from paralleljohnson_tpu_torch.config import DEFAULT_PIPELINE_DEPTH
 from paralleljohnson_tpu_torch.graphs import CSRGraph
 from paralleljohnson_tpu_torch.ops import relax
 from paralleljohnson_tpu_torch.ops.fanout_sweep import (
@@ -44,7 +49,11 @@ from paralleljohnson_tpu_torch.ops.minplus import (
 # reference's six. The sweep's two alternating [V, B] buffers, the
 # transposed [B, V] result and the un-reweight's two temporaries fit;
 # the sweep's partial-minimum scratch (n_split rows) is budgeted on top.
+# A predecessor solve carries three more (the int32 pred block and the
+# extraction's two scan carries), and the pipelined fan-out one more
+# [B, V] block (two with predecessors) per in-flight slot beyond the first.
 BATCH_BLOCKS = 6
+PRED_BATCH_BLOCKS = 9
 # Memory budget of one fan-out call on the CPU (the reference's constant).
 CPU_BUDGET_BYTES = 4 << 30
 
@@ -59,6 +68,20 @@ def resolve_device(device) -> torch.device:
             "is False; pass device='cpu' to run the plain PyTorch versions"
         )
     return dev
+
+
+class StagedCopy(NamedTuple):
+    """A device tensor's copy on its way to the host
+    (:meth:`TorchBackend.stage_rows_async`)."""
+
+    host: torch.Tensor        # page-locked, written by the side stream
+    done: torch.cuda.Event    # recorded on the side stream after the copy
+
+    def wait(self) -> np.ndarray:
+        """The host rows, once the copy has landed (errors of the copy
+        surface here)."""
+        self.done.synchronize()
+        return self.host.numpy()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,22 +123,32 @@ class TorchDeviceGraph:
             self._struct_cache["in_edges"] = struct
         return struct
 
-    def by_dst(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The real edges sorted by destination (stable), as the in-edge
-        CSC the fan-out sweep pulls over: (indptr_in int32[V+1], src_in
-        int32[E], w_in f32[E]), with ``w_in`` gathered from the CURRENT
-        weights."""
+    def _by_dst(self, struct: dict):
         e = self.num_real_edges
-        struct = self._in_edges()
         w_in = self._by_dst_cache.get("w_in")
         if w_in is None:
             w_in = self.weights[:e][struct["order"]].contiguous()
             self._by_dst_cache["w_in"] = w_in
         return struct["indptr_in"], struct["src_in"], w_in
 
+    def by_dst(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The real edges sorted by destination (stable), as the in-edge
+        CSC the fan-out sweep pulls over: (indptr_in int32[V+1], src_in
+        int32[E], w_in f32[E]), with ``w_in`` gathered from the CURRENT
+        weights."""
+        return self._by_dst(self._in_edges())
+
     def work_items(self) -> WorkItems:
         """The sweep kernel's work items over the in-edge CSC."""
         return self._in_edges()["work_items"]
+
+    def fanout_layout(self):
+        """``(by_dst(), work_items())`` from ONE read of the structure
+        cache. The pipelined fan-out's worker thread may clear the caches
+        while a batch starts; a sweep then still pairs its CSC with the
+        work items of the same build."""
+        struct = self._in_edges()
+        return self._by_dst(struct), struct["work_items"]
 
 
 class TorchBackend(Backend):
@@ -127,6 +160,7 @@ class TorchBackend(Backend):
     def __init__(self, config=None, device="cuda") -> None:
         super().__init__(config)
         self.device = resolve_device(device)
+        self._copy_stream = None  # side stream of stage_rows_async
 
     @property
     def _dtype(self) -> torch.dtype:
@@ -162,15 +196,27 @@ class TorchBackend(Backend):
         dgraph._struct_cache.clear()
         dgraph._by_dst_cache.clear()
 
-    def suggested_source_batch(self, dgraph: TorchDeviceGraph) -> int:
+    def _pipeline_depth(self, dgraph: TorchDeviceGraph) -> int:
+        """The fan-out's in-flight window: ``config.pipeline_depth``, else
+        ``DEFAULT_PIPELINE_DEPTH``. The solver resolves this same function
+        for its window, so the window and the memory budget agree."""
+        return max(1, int(self.config.pipeline_depth or DEFAULT_PIPELINE_DEPTH))
+
+    def suggested_source_batch(self, dgraph: TorchDeviceGraph,
+                               with_pred: bool = False) -> int:
         """Cap the [B, V] distance block to the memory budget: half the
-        card's free memory (``torch.cuda.mem_get_info``), or a 4 GB
-        constant on the CPU, over ``BATCH_BLOCKS`` blocks plus, on the
-        card, the sweep's scratch rows (sparse route) or the min-plus
-        split-K partials (dense route)."""
+        card's free memory (``torch.cuda.mem_get_info``, which counts the
+        caching allocator's cached blocks as used), or a 4 GB constant on
+        the CPU, over ``BATCH_BLOCKS`` blocks (``PRED_BATCH_BLOCKS`` with
+        predecessors) plus the pipeline's carry slots and, on the card,
+        the sweep's scratch rows (sparse route) or the min-plus split-K
+        partials (dense route)."""
         v = max(dgraph.num_nodes, 1)
         itemsize = torch.empty((), dtype=self._dtype).element_size()
-        rows = BATCH_BLOCKS * v
+        blocks = PRED_BATCH_BLOCKS if with_pred else BATCH_BLOCKS
+        carry_slots = self._pipeline_depth(dgraph) - 1
+        blocks += carry_slots * (2 if with_pred else 1)
+        rows = blocks * v
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
             budget = free // 2
@@ -182,6 +228,36 @@ class TorchBackend(Backend):
             budget = CPU_BUDGET_BYTES
         b = budget // (rows * itemsize)
         return int(max(1, min(b, 1 << 16)))
+
+    def stage_rows_async(self, *tensors) -> None:
+        """Start the device-to-host copy of each CUDA tensor of
+        ``tensors`` without blocking: an event recorded on the current
+        (compute) stream, a side stream that waits on it, and there a
+        ``non_blocking`` copy into fresh page-locked host memory.
+        ``record_stream`` keeps the caching allocator from handing the
+        tensor's block to later work before the copy has read it. The
+        copy rides on the tensor as ``staged_copy`` (a
+        :class:`StagedCopy`); ``solver.johnson.to_numpy`` collects it.
+        ``None``, CPU tensors and tensors already staged are skipped."""
+        todo = [t for t in tensors
+                if isinstance(t, torch.Tensor) and t.is_cuda
+                and getattr(t, "staged_copy", None) is None]
+        if not todo:
+            return
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        side = self._copy_stream
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            for t in todo:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                t.record_stream(side)
+                done = torch.cuda.Event(blocking=True)
+                done.record(side)
+                t.staged_copy = StagedCopy(host, done)
 
     def bellman_ford(self, dgraph: TorchDeviceGraph,
                      source: int | None) -> KernelResult:
@@ -254,13 +330,12 @@ class TorchBackend(Backend):
                 edges_relaxed=iters * work_per_iter,
                 route=f"dense-{regime}-pallas",
             )
-        indptr_in, src_in, w_in = dgraph.by_dst()
+        (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
         dist0 = torch.full((v, b), float("inf"), dtype=self._dtype,
                            device=self.device)
         dist0[sources, torch.arange(b, device=self.device)] = 0.0
         dist_vm, iters, improving = fanout_fixpoint(
-            dist0, indptr_in, src_in, w_in, max_iter=max_iter,
-            items=dgraph.work_items(),
+            dist0, indptr_in, src_in, w_in, max_iter=max_iter, items=items,
         )
         return KernelResult(
             dist=dist_vm.t().contiguous(),

@@ -16,6 +16,9 @@ import math
 import numpy as np
 
 BACKENDS = ("torch", "numpy")
+# Fan-out batches in flight when ``pipeline_depth`` is None: double
+# buffering, the JAX package's hand-tuned default.
+DEFAULT_PIPELINE_DEPTH = 2
 
 
 @dataclasses.dataclass
@@ -45,14 +48,23 @@ class SolverConfig:
       fanout_layout: ``"auto"`` / ``"vertex_major"``; ``"source_major"``
         is not ported yet.
       validate: cross-check the result against the scipy Johnson oracle.
+      checkpoint_dir: write each finished source batch there and resume
+        from it (the JAX package's on-disk format; either package resumes
+        the other's directory).
+      pipeline_depth: source batches in flight in the fan-out (``None`` =
+        2): batch k's download and checkpoint write run behind batch
+        k+1's compute; 1 is the serial loop.
+      retry_attempts / retry_backoff_s / stage_deadline_s: the retry
+        policy of every solve stage (:meth:`retry_policy`).
+      min_source_batch: the floor of the OOM batch halving.
+      fault_plan: a ``utils.faults.FaultPlan`` of injected failures.
 
     Kept for config parity; forcing them raises at solve time until the
     route is ported: ``frontier``, ``gauss_seidel``, ``dia``, ``bucket``,
     ``fw``, ``partitioned``, ``dirty_window``, ``edge_shard`` (``True``),
-    ``checkpoint_dir``, ``telemetry``, ``metrics``, ``fault_plan`` and
-    ``profile_store`` (set). The remaining knobs (``delta``,
-    ``gs_block_size``, ``fw_tile``, ``pipeline_depth``, ``retry_*``,
-    ...) only tune routes or layers the port does not have yet.
+    ``telemetry``, ``metrics`` and ``profile_store`` (set). The remaining
+    knobs (``delta``, ``gs_block_size``, ``fw_tile``, ...) only tune
+    routes or layers the port does not have yet.
     """
 
     backend: str = "torch"
@@ -121,8 +133,7 @@ class SolverConfig:
             bad.append(f"mesh_shape={self.mesh_shape}")
         if self.fanout_layout == "source_major":
             bad.append("fanout_layout='source_major'")
-        for name in ("checkpoint_dir", "profile_store", "telemetry",
-                     "metrics", "fault_plan"):
+        for name in ("profile_store", "telemetry", "metrics"):
             if getattr(self, name) is not None:
                 bad.append(f"{name} set")
         if self.precision == "f64" and device_type == "cuda":
@@ -133,6 +144,17 @@ class SolverConfig:
                 "are not ported)"
             )
         return bad
+
+    def retry_policy(self):
+        """The :class:`~paralleljohnson_tpu_torch.utils.resilience.RetryPolicy`
+        these knobs describe (one construction point for solver/backend)."""
+        from paralleljohnson_tpu_torch.utils.resilience import RetryPolicy
+
+        return RetryPolicy(
+            max_attempts=self.retry_attempts,
+            backoff_s=self.retry_backoff_s,
+            deadline_s=self.stage_deadline_s,
+        )
 
     def __post_init__(self) -> None:
         if self.backend not in BACKENDS:

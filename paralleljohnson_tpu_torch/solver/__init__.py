@@ -4,6 +4,7 @@ from paralleljohnson_tpu_torch.solver.johnson import (
     ConvergenceError,
     NegativeCycleError,
     ParallelJohnsonSolver,
+    ReducedResult,
     SolveResult,
     ValidationError,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "ConvergenceError",
     "NegativeCycleError",
     "ParallelJohnsonSolver",
+    "ReducedResult",
     "SolveResult",
     "ValidationError",
 ]

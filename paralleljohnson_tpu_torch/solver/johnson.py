@@ -10,23 +10,41 @@ package's ``solver/johnson.py``:
   phase 2  N-source fan-out on w' in source batches
   phase 3  un-reweight d(u,v) = d'(u,v) - h(u) + h(v), per batch
 
-The numeric kernels live in the configured backend. This slice has a
-plain batch loop; resilience, checkpointing, pipelining, predecessors and
-the condensed route are later slices.
+The solver owns phase structure, batching, checkpoint/resume and the
+resilience layer (retries, the watchdog, OOM degradation, the sanity
+guard); the numeric kernels live in the configured backend. The fan-out
+batches run as a pipeline: batch k's device-to-host copy and checkpoint
+write overlap batch k+1's compute. Predecessors, the condensed route,
+telemetry and the planner are later slices.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import dataclasses
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
 from paralleljohnson_tpu_torch.backends import Backend, get_backend
-from paralleljohnson_tpu_torch.config import SolverConfig
-from paralleljohnson_tpu_torch.graphs import CSRGraph
+from paralleljohnson_tpu_torch.config import DEFAULT_PIPELINE_DEPTH, SolverConfig
+from paralleljohnson_tpu_torch.graphs import CSRGraph, stack_graphs
+from paralleljohnson_tpu_torch.utils import resilience
 from paralleljohnson_tpu_torch.utils.metrics import SolverStats, phase_timer
+from paralleljohnson_tpu_torch.utils.reductions import finite_checksum, xp as _xp
+
+
+def _transient_error(e: BaseException) -> bool:
+    """Worth a plain (same-resource) retry: an injected stage failure.
+    A real CUDA error is not retried: it is sticky (the context stays
+    failed), so a retry reproduces it. Deterministic solver errors
+    (NegativeCycleError, ConvergenceError, ValueError,
+    SolveCorruptionError) are excluded too — re-running them reproduces
+    them."""
+    return type(e).__name__ == "InjectedFaultError"
 
 
 class NegativeCycleError(ValueError):
@@ -45,8 +63,13 @@ class ValidationError(AssertionError):
 
 
 def to_numpy(x) -> np.ndarray:
-    """Host copy of a tensor (any device) or array."""
+    """Host copy of a tensor (any device) or array. A tensor whose copy
+    the backend staged (``TorchBackend.stage_rows_async``) yields that
+    page-locked copy once it has landed."""
     if isinstance(x, torch.Tensor):
+        staged = getattr(x, "staged_copy", None)
+        if staged is not None:
+            return staged.wait()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -57,13 +80,15 @@ class SolveResult:
 
     dist: [N_sources, V] distance rows (+inf unreachable); row i holds the
       distances from ``sources[i]``. A single-batch solve on a device
-      backend leaves the rows on the device as a tensor; multi-batch
-      solves return a host numpy array (:func:`to_numpy` materializes
-      either).
+      backend leaves the rows on the device as a tensor; multi-batch and
+      checkpointed solves return a host numpy array (:func:`to_numpy`
+      materializes either).
     sources: the source vertex of each row.
     potentials: Johnson potentials h(v) (a device tensor when phase 1 ran,
       numpy zeros when no weight is negative).
     stats: per-phase wall-clock, iteration counts, edges-relaxed totals.
+    predecessors: shortest-path-tree rows; always None until the port has
+      predecessors (``predecessors=True`` raises).
     """
 
     dist: Any
@@ -78,17 +103,77 @@ class SolveResult:
         order = np.argsort(self.sources)
         return to_numpy(self.dist)[order]
 
+    def rows_by_source(self) -> dict:
+        """Source vertex -> its distance row, in whatever memory ``dist``
+        lives (device rows stay on the device — no implicit download)."""
+        return {int(s): self.dist[i] for i, s in enumerate(self.sources)}
+
+    def path(self, source: int, target: int) -> list[int]:
+        """Vertex sequence of a shortest ``source -> target`` path (empty if
+        unreachable). Requires a ``predecessors=True`` solve."""
+        if self.predecessors is None:
+            raise ValueError("solve was run without predecessors=True")
+        from paralleljohnson_tpu_torch.utils.paths import reconstruct_path
+
+        rows = np.flatnonzero(self.sources == source)
+        if rows.size == 0:
+            raise ValueError(f"vertex {source} was not a solve source")
+        return reconstruct_path(
+            to_numpy(self.predecessors[rows[0]]), source, target
+        )
+
+
+@dataclasses.dataclass
+class ReducedResult:
+    """Result of :meth:`ParallelJohnsonSolver.solve_reduced` — per-batch
+    reduction values instead of distance rows (streaming mode)."""
+
+    values: list
+    sources: np.ndarray
+    potentials: Any
+    stats: SolverStats
+
+
+def _reduce_checksum(rows, batch):
+    return finite_checksum(rows)
+
+
+def _reduce_eccentricity(rows, batch):
+    xp = _xp(rows)
+    return to_numpy(xp.amax(xp.where(xp.isfinite(rows), rows, -xp.inf),
+                            axis=1))
+
+
+def _reduce_reach_count(rows, batch):
+    xp = _xp(rows)
+    return to_numpy(xp.isfinite(rows).sum(axis=1))
+
+
+_ROW_REDUCERS = {
+    "checksum": _reduce_checksum,
+    "eccentricity": _reduce_eccentricity,
+    "reach_count": _reduce_reach_count,
+}
+
 
 def _unreweight(rows, h, row_sources):
     """Phase-3 arithmetic d(u,v) = (d'(u,v) - h(u)) + h(v), in the
     namespace where ``rows`` live (host rows get a host h; device rows a
-    device h). +inf - h + h stays +inf (h is always finite)."""
+    device h). +inf - h + h stays +inf (h is always finite).
+    Single source of truth for solve() and solve_reduced()."""
     if isinstance(rows, np.ndarray):
         hh = to_numpy(h)
         return rows - hh[row_sources][:, None] + hh[None, :]
     hh = torch.as_tensor(h).to(rows.device, rows.dtype)
     idx = torch.as_tensor(np.asarray(row_sources), dtype=torch.int64)
     return rows - hh[idx.to(rows.device)][:, None] + hh[None, :]
+
+
+# Row blocks at least this large make the solver clear the backend's
+# rebuildable device caches before the host download / reduction
+# materializes them, so the layout caches and the download never hold
+# device memory together at full scale (the JAX package's rule).
+_DOWNLOAD_CLEAR_MIN_BYTES = 1 << 30
 
 
 class ParallelJohnsonSolver:
@@ -121,6 +206,8 @@ class ParallelJohnsonSolver:
                 "not ported to paralleljohnson_tpu_torch yet: " + ", ".join(bad)
             )
 
+    # -- public API ---------------------------------------------------------
+
     def solve(
         self,
         graph: CSRGraph,
@@ -140,6 +227,8 @@ class ParallelJohnsonSolver:
         with phase_timer(stats, "upload"):
             dgraph = self.backend.upload(graph)
         h, dgraph = self._potentials(graph, dgraph, stats)
+        # Phase 3 rides inside each batch's finalize, so checkpointed rows
+        # are FINAL distances keyed by the ORIGINAL graph's digest.
         with phase_timer(stats, "fanout"):
             dist = self._fanout(dgraph, sources, stats, graph=graph, h=h)
         result = SolveResult(dist=dist, sources=sources, potentials=h,
@@ -148,6 +237,225 @@ class ParallelJohnsonSolver:
             self._validate(graph, result)
         return result
 
+    def solve_range(
+        self,
+        graph: CSRGraph,
+        start: int,
+        stop: int,
+        *,
+        predecessors: bool = False,
+    ) -> SolveResult:
+        """Johnson solve restricted to the contiguous source range
+        ``[start, stop)`` — a fleet lease's unit of work, with
+        checkpointing, resilience and pipelining unchanged."""
+        v = graph.num_nodes
+        if not 0 <= start < stop <= v:
+            raise ValueError(
+                f"source range [{start}, {stop}) is not a non-empty "
+                f"subrange of [0, {v})"
+            )
+        return self.solve(
+            graph,
+            sources=np.arange(start, stop, dtype=np.int64),
+            predecessors=predecessors,
+        )
+
+    def solve_reduced(
+        self,
+        graph: CSRGraph,
+        sources: np.ndarray | None = None,
+        *,
+        reduce_rows,
+    ) -> ReducedResult:
+        """Johnson APSP with per-batch row reduction — the streaming mode
+        for graphs whose distance matrix is never stored.
+
+        ``reduce_rows(dist_rows, batch_sources)`` is called once per source
+        batch with the UN-REWEIGHTED distance rows exactly as ``solve``
+        would return them — still on the backend's device, so reductions
+        written with torch run on the card and only their (small) results
+        reach the host. Built-in names: ``"checksum"`` (sum of finite
+        entries, float), ``"eccentricity"`` ([B] max finite distance per
+        source), ``"reach_count"`` ([B] finite entries per row).
+
+        Returns :class:`ReducedResult` with ``values`` = the per-batch
+        results in batch order. Checkpointing is not applied (rows are
+        never materialized), and ``config.validate`` is rejected: the
+        scipy oracle would need the full matrix.
+        """
+        if self.config.validate:
+            raise ValueError(
+                "config.validate is incompatible with solve_reduced: "
+                "streaming mode never materializes the rows the oracle "
+                "check needs"
+            )
+        self._check_supported(False)
+        if isinstance(reduce_rows, str):
+            try:
+                reduce_rows = _ROW_REDUCERS[reduce_rows]
+            except KeyError:
+                raise ValueError(
+                    f"unknown reducer {reduce_rows!r}; expected one of "
+                    f"{sorted(_ROW_REDUCERS)} or a callable"
+                ) from None
+        stats = SolverStats()
+        v = graph.num_nodes
+        sources = (
+            np.arange(v, dtype=np.int64)
+            if sources is None
+            else np.asarray(sources, np.int64)
+        )
+        with phase_timer(stats, "upload"):
+            dgraph = self.backend.upload(graph)
+        h, dgraph = self._potentials(graph, dgraph, stats)
+        n_src = len(sources)
+
+        def finalize(batch_idx, batch, res, resumed):
+            """Un-reweight + reduce; on the pipeline's worker thread at
+            depth > 1, behind the next batch's compute."""
+            rows = res.dist
+            if graph.has_negative_weights:
+                rows = _unreweight(rows, h, batch)
+            # The download path's memory-hygiene gate: a reducer may
+            # materialize the rows on the host.
+            if (
+                len(batch) < n_src
+                and int(getattr(rows, "nbytes", 0) or 0)
+                >= _DOWNLOAD_CLEAR_MIN_BYTES
+            ):
+                self.backend.clear_caches(dgraph)
+            return reduce_rows(rows, batch)
+
+        values = []
+        with phase_timer(stats, "fanout"):
+            for _, _, value, _ in self._resilient_batches(
+                dgraph, sources, stats, finalize=finalize
+            ):
+                values.append(value)
+        return ReducedResult(
+            values=values, sources=sources, potentials=h, stats=stats
+        )
+
+    def sssp(
+        self, graph: CSRGraph, source: int, *, predecessors: bool = False
+    ) -> SolveResult:
+        """Standalone Bellman-Ford SSSP — negative weights allowed, no
+        reweighting."""
+        self._check_supported(predecessors)
+        stats = SolverStats()
+        with phase_timer(stats, "upload"):
+            dgraph = self.backend.upload(graph)
+        with phase_timer(stats, "bellman_ford"):
+            bf = self._run_bf(dgraph, stats, source=int(source))
+        if bf.negative_cycle:
+            raise NegativeCycleError("negative-weight cycle reachable from source")
+        if not bf.converged:
+            raise ConvergenceError(
+                "Bellman-Ford hit max_iterations while still improving"
+            )
+        return SolveResult(
+            dist=bf.dist[None, :],
+            sources=np.array([source]),
+            potentials=np.zeros(graph.num_nodes, graph.dtype),
+            stats=stats,
+        )
+
+    def multi_source(
+        self,
+        graph: CSRGraph,
+        sources: np.ndarray,
+        *,
+        predecessors: bool = False,
+    ) -> SolveResult:
+        """Standalone batched N-source fan-out on a non-negative graph."""
+        if graph.has_negative_weights:
+            raise ValueError(
+                "multi_source requires non-negative weights; use solve()"
+            )
+        self._check_supported(predecessors)
+        stats = SolverStats()
+        sources = np.asarray(sources, np.int64)
+        with phase_timer(stats, "upload"):
+            dgraph = self.backend.upload(graph)
+        with phase_timer(stats, "fanout"):
+            dist = self._fanout(dgraph, sources, stats, graph=graph)
+        return SolveResult(
+            dist=dist,
+            sources=sources,
+            potentials=np.zeros(graph.num_nodes, graph.dtype),
+            stats=stats,
+        )
+
+    def solve_batch(self, graphs: list[CSRGraph]) -> list[SolveResult]:
+        """Many-small-graphs mode: APSP for each graph in one vectorized
+        run when the backend supports it, else one ``solve`` per graph."""
+        self._check_supported(False)
+        stats = SolverStats()
+        try:
+            with phase_timer(stats, "batch_apsp"):
+                batch = stack_graphs(graphs)
+                res = resilience.run_stage(
+                    lambda: self.backend.batch_apsp(batch),
+                    stage="batch_apsp",
+                    policy=self.config.retry_policy(),
+                    stats=stats,
+                    faults=self.config.fault_plan,
+                    retryable=_transient_error,
+                )
+        except NotImplementedError:
+            return [self.solve(g) for g in graphs]
+        stats.accumulate(res, phase="batch_apsp")
+        if res.negative_cycle:
+            raise NegativeCycleError("negative cycle in at least one batch graph")
+        dist = to_numpy(res.dist)
+        return [
+            SolveResult(
+                dist=dist[i, :g.num_nodes, :g.num_nodes],
+                sources=np.arange(g.num_nodes),
+                potentials=np.zeros(g.num_nodes, g.dtype),
+                stats=stats,
+            )
+            for i, g in enumerate(graphs)
+        ]
+
+    # -- internals ----------------------------------------------------------
+
+    def _run_bf(self, dgraph: Any, stats: SolverStats, *,
+                source: int | None):
+        """One Bellman-Ford stage through the resilience layer: bounded
+        retries with the watchdog deadline; a B=1 sweep has no batch to
+        shrink, so an OOM frees the rebuildable device caches and retries
+        with the memory they held. Converged non-cycle distances pass the
+        sanity guard before anyone consumes them."""
+
+        def retryable(e):
+            if resilience.is_oom_error(e):
+                try:
+                    self.backend.clear_caches(dgraph)
+                except Exception:  # noqa: BLE001 — hygiene only
+                    pass
+                return True
+            return _transient_error(e)
+
+        faults = self.config.fault_plan
+        bf = resilience.run_stage(
+            lambda: self.backend.bellman_ford(dgraph, source=source),
+            stage="bellman_ford",
+            policy=self.config.retry_policy(),
+            stats=stats,
+            faults=faults,
+            retryable=retryable,
+        )
+        stats.accumulate(bf, phase="bellman_ford")
+        if faults is not None:
+            bf.dist = faults.poison_rows("bellman_ford", bf.dist)
+        if bf.converged and not bf.negative_cycle:
+            resilience.check_rows_sane(
+                bf.dist, None, route=bf.route,
+                iteration=bf.iterations, stage="bellman_ford",
+            )
+        return bf
+
     def _potentials(self, graph: CSRGraph, dgraph: Any, stats: SolverStats):
         """Phase 1 + reweight: returns (h, reweighted dgraph). h stays on
         the backend's device. No negative weights -> h = 0 is already
@@ -155,8 +463,7 @@ class ParallelJohnsonSolver:
         if not graph.has_negative_weights:
             return np.zeros(graph.num_nodes, graph.dtype), dgraph
         with phase_timer(stats, "bellman_ford"):
-            bf = self.backend.bellman_ford(dgraph, source=None)
-        stats.accumulate(bf, phase="bellman_ford")
+            bf = self._run_bf(dgraph, stats, source=None)
         if bf.negative_cycle:
             raise NegativeCycleError(
                 "negative-weight cycle detected during reweighting"
@@ -171,37 +478,340 @@ class ParallelJohnsonSolver:
             dgraph = self.backend.reweight(dgraph, h)
         return h, dgraph
 
-    def _fanout(self, dgraph: Any, sources: np.ndarray, stats: SolverStats,
-                *, graph: CSRGraph, h) -> Any:
-        """Phase 2 in source batches of the backend's suggested size (or
-        ``config.source_batch_size``), with phase 3 applied per batch. A
-        single batch stays where the backend left it; several batches are
-        downloaded one by one, since batching exists because all rows
-        together exceed the device budget."""
+    def _pipeline_depth(self, dgraph: Any = None) -> int:
+        """The fan-out pipeline depth: the backend's own resolution where
+        it has one (the torch backend budgets its memory carry slots from
+        the same number, so the window and the budget agree), else
+        ``config.pipeline_depth``, else ``DEFAULT_PIPELINE_DEPTH``."""
+        resolver = getattr(self.backend, "_pipeline_depth", None)
+        if resolver is not None and dgraph is not None:
+            return int(resolver(dgraph))
+        return max(1, int(self.config.pipeline_depth or DEFAULT_PIPELINE_DEPTH))
+
+    def _initial_batch_size(self, sources: np.ndarray, dgraph: Any = None) -> int:
+        """Starting fan-out batch size: the explicit config value, else
+        the backend's fits-memory heuristic. The OOM degrader may shrink
+        it mid-solve (``_resilient_batches``)."""
         bs = self.config.source_batch_size
-        if bs is None:
+        if bs is None and dgraph is not None:
             bs = self.backend.suggested_source_batch(dgraph)
-        bs = int(bs or len(sources) or 1)
-        stats.final_batch = bs
-        unreweight = graph.has_negative_weights
-        rows = []
-        for lo in range(0, len(sources), bs):
-            batch = sources[lo:lo + bs]
-            res = self.backend.multi_source(dgraph, batch)
-            stats.accumulate(res, phase="fanout")
-            if not res.converged:
-                raise ConvergenceError(
-                    "fan-out hit max_iterations while still improving"
+        return int(bs or len(sources) or 1)
+
+    def _resilient_batches(
+        self,
+        dgraph: Any,
+        sources: np.ndarray,
+        stats: SolverStats,
+        *,
+        try_resume=None,
+        finalize=None,
+        stage_async=None,
+    ):
+        """Drive the fan-out batch loop through the resilience layer as a
+        pipeline.
+
+        Yields ``(batch_idx, batch, result, resumed)`` per batch, in batch
+        order. When a ``finalize`` stage is given (the download /
+        checkpoint / streaming-reduce step), ``result`` is its return
+        value; otherwise the raw payload — the checkpointer's cached rows
+        when ``resumed``, else the backend's KernelResult.
+
+        Pipeline (``pipeline_depth`` = max batches in flight; 1 = the
+        strictly serial loop, bitwise-identical results either way):
+
+        - batch k's ``finalize`` runs on a single background worker while
+          batch k+1's device compute proceeds on this thread
+          (``stage_async`` starts the device-to-host copy before the
+          worker even picks the batch up);
+        - at most ``pipeline_depth - 1`` finalizes sit in the window, each
+          carrying one computed [B, V] block in device memory;
+          ``suggested_source_batch`` budgets exactly that carry;
+        - ``finalize`` runs under the SAME retry policy / watchdog
+          deadline / fault plan as compute (stage ``"download"``);
+        - on device OOM the window COLLAPSES to 1 first — the in-flight
+          carry is the cheapest memory to give back — and only a repeat
+          OOM halves the batch (clear caches, halve, floor
+          ``min_source_batch``, resume the failed range);
+        - converged rows pass the distance-sanity guard BEFORE any
+          finalize can download or commit them; non-OOM background
+          failures surface as ``SolveCorruptionError``.
+        """
+        policy = self.config.retry_policy()
+        faults = self.config.fault_plan
+        degrader = resilience.OOMDegrader(
+            self.backend,
+            dgraph,
+            self._initial_batch_size(sources, dgraph),
+            min_batch=self.config.min_source_batch,
+        )
+        depth = self._pipeline_depth(dgraph) if finalize is not None else 1
+        stats.final_pipeline_depth = depth
+        n = len(sources)
+        pos = 0
+        batch_idx = 0
+        # In-flight finalize window: (batch_idx, batch, payload, future).
+        pending: collections.deque = collections.deque()
+        worker = None
+
+        def run_finalize(bi, b, payload, resumed):
+            """One finalize, timed, through the resilience layer (stage
+            "download"). Returns (result, duration) so the drain can price
+            the overlap."""
+            if finalize is None:
+                return payload, 0.0
+            if resumed:
+                return finalize(bi, b, payload, True), 0.0
+            t0 = time.perf_counter()
+            out = resilience.run_stage(
+                lambda: finalize(bi, b, payload, False),
+                stage="download",
+                policy=policy,
+                stats=stats,
+                faults=faults,
+                batch=bi,
+                retryable=_transient_error,
+            )
+            dur = time.perf_counter() - t0
+            stats.download_s += dur
+            return out, dur
+
+        def collapse_window() -> None:
+            """OOM step 0: go serial — give back the in-flight [B, V]
+            carry before any batch halving."""
+            nonlocal depth
+            depth = 1
+            stats.final_pipeline_depth = 1
+            try:
+                self.backend.clear_caches(dgraph)
+            except Exception:  # noqa: BLE001 — hygiene must not mask
+                pass
+
+        def drain_one():
+            """Wait for the oldest staged finalize; account the blocked
+            time (ckpt_wait_s) and the hidden time (overlap_saved_s)."""
+            bi, b, payload, fut = pending.popleft()
+            t0 = time.perf_counter()
+            try:
+                out, dur = fut.result()
+            except Exception as e:
+                stats.ckpt_wait_s += time.perf_counter() - t0
+                if resilience.is_oom_error(e):
+                    if depth > 1:
+                        # The staged materialization itself OOMed: give
+                        # back the window and retry THIS finalize
+                        # serially before anything harsher.
+                        collapse_window()
+                        out, _ = run_finalize(bi, b, payload, False)
+                        return bi, b, out, False
+                    raise
+                if isinstance(
+                    e,
+                    (
+                        resilience.StageAbandonedError,
+                        resilience.SolveCorruptionError,
+                    ),
+                ):
+                    raise
+                raise resilience.SolveCorruptionError(
+                    f"pipelined download/checkpoint stage failed for "
+                    f"batch {bi}: {type(e).__name__}: {e}"
+                ) from e
+            wait = time.perf_counter() - t0
+            stats.ckpt_wait_s += wait
+            stats.overlap_saved_s += max(0.0, dur - wait)
+            return bi, b, out, False
+
+        try:
+            while pos < n:
+                batch = sources[pos : pos + degrader.batch_size]
+                if try_resume is not None:
+                    cached = try_resume(batch_idx, batch)
+                    if cached is not None:
+                        while pending:  # keep yields in batch order
+                            yield drain_one()
+                        stats.batches_resumed += 1
+                        out, _ = run_finalize(batch_idx, batch, cached, True)
+                        pos += len(batch)
+                        batch_idx += 1
+                        yield batch_idx - 1, batch, out, True
+                        continue
+
+                try:
+                    res = resilience.run_stage(
+                        lambda b=batch: self.backend.multi_source(dgraph, b),
+                        stage="fanout",
+                        policy=policy,
+                        stats=stats,
+                        faults=faults,
+                        batch=batch_idx,
+                        retryable=_transient_error,
+                    )
+                except Exception as e:
+                    if resilience.is_oom_error(e):
+                        if depth > 1:
+                            while pending:  # commit the good in-flight work
+                                yield drain_one()
+                            collapse_window()
+                            continue  # retry THIS batch serially, same size
+                        degrader.degrade(e)  # re-raises at the floor
+                        stats.oom_degradations += 1
+                        continue  # re-split THIS range smaller; pos unchanged
+                    raise
+                stats.accumulate(res, phase="fanout")
+                if not res.converged:
+                    raise ConvergenceError(
+                        "fan-out hit max_iterations while still improving"
+                    )
+                if faults is not None:
+                    res.dist = faults.poison_rows(
+                        "fanout", res.dist, batch=batch_idx
+                    )
+                resilience.check_rows_sane(
+                    res.dist, batch, route=res.route, iteration=res.iterations
                 )
-            row = res.dist
-            if len(batch) < len(sources):
-                row = to_numpy(row)
-            if unreweight:
+                # A batch with nothing to overlap against (the only batch
+                # of the solve) stays inline — single-batch device solves
+                # keep their rows resident.
+                if depth > 1 and (pending or pos + len(batch) < n):
+                    if stage_async is not None:
+                        stage_async(res)
+                    if worker is None:
+                        worker = concurrent.futures.ThreadPoolExecutor(
+                            max_workers=1, thread_name_prefix="pj-pipeline"
+                        )
+                    fut = worker.submit(
+                        run_finalize, batch_idx, batch, res, False
+                    )
+                    pending.append((batch_idx, batch, res, fut))
+                    pos += len(batch)
+                    batch_idx += 1
+                    while len(pending) >= depth:
+                        yield drain_one()
+                else:
+                    out, _ = run_finalize(batch_idx, batch, res, False)
+                    pos += len(batch)
+                    batch_idx += 1
+                    yield batch_idx - 1, batch, out, False
+            while pending:
+                yield drain_one()
+            stats.final_batch = degrader.batch_size
+        finally:
+            if worker is not None:
+                worker.shutdown(wait=True, cancel_futures=True)
+
+    def _download_rows(self, dgraph: Any, rows):
+        """Materialize one batch's device rows on the host, clearing the
+        backend's rebuildable device caches first when the block is large
+        (``_DOWNLOAD_CLEAR_MIN_BYTES``). Rows the pipeline staged already
+        have their copy under way; others start theirs here (the same
+        page-locked copy, waited for at once)."""
+        if int(getattr(rows, "nbytes", 0) or 0) >= _DOWNLOAD_CLEAR_MIN_BYTES:
+            self.backend.clear_caches(dgraph)
+        self.backend.stage_rows_async(rows)
+        return to_numpy(rows)
+
+    def _fanout(
+        self,
+        dgraph: Any,
+        sources: np.ndarray,
+        stats: SolverStats,
+        *,
+        graph: CSRGraph,
+        h=None,
+    ):
+        """Run phase 2 in source batches; optionally checkpoint each batch
+        (the batch is the unit of recovery). Checkpoints are keyed by the
+        ORIGINAL graph's content, with the un-reweight (``h``) applied per
+        batch BEFORE the save: what lands on disk is final distances. The
+        loop runs through the pipelined resilience driver
+        (``_resilient_batches``); the solve does not return until the
+        checkpoint writer's flush barrier confirms every commit. Returns
+        the distance rows: device rows for a single uncheckpointed batch,
+        else one host array."""
+        from paralleljohnson_tpu_torch.utils.checkpoint import (
+            AsyncCheckpointWriter,
+            BatchCheckpointer,
+            checked_save,
+        )
+
+        unreweight = h is not None and graph.has_negative_weights
+        ckpt = None
+        try_resume = None
+        if self.config.checkpoint_dir:
+            ckpt = BatchCheckpointer(self.config.checkpoint_dir, graph_key=graph)
+
+            def try_resume(batch_idx, batch):
+                cached = ckpt.load(batch_idx, batch)
+                return None if cached is None else cached[0]
+
+        depth = self._pipeline_depth(dgraph)
+        faults = self.config.fault_plan
+        fault_hook = None
+        if faults is not None:
+            def fault_hook(batch_idx):
+                active = faults.fire("ckpt_write", batch=batch_idx)
+                if active is not None:
+                    active.wrap(lambda: None)()
+
+        writer = None
+        if ckpt is not None and depth > 1:
+            # Serialization + checksumming on a bounded background writer;
+            # flush() below is the commit barrier.
+            writer = AsyncCheckpointWriter(
+                ckpt, max_pending=depth, fault_hook=fault_hook
+            )
+
+        n_src = len(sources)
+
+        def finalize(batch_idx, batch, payload, resumed):
+            if resumed:
+                return payload  # host rows from the checkpoint
+            # A single-batch solve keeps the rows on the device;
+            # multi-batch solves stream each batch to the host (batching
+            # exists because all rows together exceed the device budget),
+            # and a checkpoint needs host rows either way.
+            row = payload.dist
+            if ckpt is not None or len(batch) < n_src:
+                row = self._download_rows(dgraph, row)
+                if unreweight:
+                    row = _unreweight(row, h, batch)
+                if writer is not None:
+                    writer.submit(batch_idx, batch, row)
+                elif ckpt is not None:
+                    checked_save(ckpt, batch_idx, batch, row,
+                                 fault_hook=fault_hook)
+            elif unreweight:
                 row = _unreweight(row, h, batch)
-            rows.append(row)
-        if len(rows) == 1:
-            return rows[0]
-        return np.concatenate(rows, axis=0)
+            return row
+
+        def stage_async(res):
+            # Start the device-to-host copy the moment the rows pass the
+            # sanity guard — it then runs under the next batch's compute.
+            self.backend.stage_rows_async(res.dist)
+
+        rows: list = []
+        gen = self._resilient_batches(
+            dgraph, sources, stats, try_resume=try_resume, finalize=finalize,
+            stage_async=stage_async,
+        )
+        try:
+            for _, _, row, _ in gen:
+                rows.append(row)
+            if writer is not None:
+                # Commit barrier: every batch on disk before success.
+                t0 = time.perf_counter()
+                writer.flush()
+                wait = time.perf_counter() - t0
+                stats.ckpt_wait_s += wait
+                stats.overlap_saved_s += max(0.0, writer.busy_s - wait)
+        finally:
+            gen.close()
+            if writer is not None:
+                # Teardown drains queued commits (completed batches stay
+                # resumable even when the solve is dying) without raising
+                # over the original error.
+                writer.close()
+        return rows[0] if len(rows) == 1 else np.concatenate(rows, axis=0)
 
     def _validate(self, graph: CSRGraph, result: SolveResult) -> None:
         """config.validate: cross-check against the scipy Johnson oracle."""

@@ -24,7 +24,29 @@ class SolverStats:
     edges_relaxed_by_phase / iterations_by_phase: breakdowns.
     routes_by_phase: the kernel route of each phase, every distinct route
       in order of first appearance joined by "+".
-    final_batch: the source-batch size the fan-out ran at.
+    batches_resumed: source batches skipped via checkpoint resume.
+    retries: stage attempts re-run after a transient failure (watchdog
+      abandon or retryable error — ``utils.resilience.run_stage``).
+    oom_degradations: times the fan-out batch was halved after a device
+      OOM (``utils.resilience.OOMDegrader``).
+    final_batch: the source-batch size the fan-out ENDED at (None until
+      a fan-out runs; equals the starting size when nothing degraded).
+    abandoned_stages: "<stage>[#b<batch>]@a<attempt>" tags of every
+      attempt the watchdog logged-and-abandoned past its deadline.
+    download_s: total wall-clock in the fan-out's download/finalize
+      stage (host copy of device rows + checkpoint submit, or the
+      streaming reducer). Serial (pipeline_depth=1) it sits on the
+      critical path; pipelined it runs behind the next batch's compute.
+    ckpt_wait_s: wall-clock the MAIN solve thread spent blocked on the
+      pipeline — draining staged downloads and the checkpoint writer's
+      flush barrier: the residual serial cost of the off-path work.
+    overlap_saved_s: estimated wall-clock the pipeline removed from the
+      critical path (background stage busy time minus the time the main
+      thread waited on it, floored at 0 per batch); exactly 0 at
+      pipeline_depth=1.
+    final_pipeline_depth: the in-flight window the fan-out ENDED at
+      (None until a fan-out runs): the configured depth, or 1 after an
+      OOM collapsed the window (which happens BEFORE any batch halving).
     """
 
     phase_seconds: dict = dataclasses.field(
@@ -38,7 +60,15 @@ class SolverStats:
         default_factory=lambda: defaultdict(int)
     )
     routes_by_phase: dict = dataclasses.field(default_factory=dict)
+    batches_resumed: int = 0
+    retries: int = 0
+    oom_degradations: int = 0
     final_batch: int | None = None
+    abandoned_stages: list = dataclasses.field(default_factory=list)
+    download_s: float = 0.0
+    ckpt_wait_s: float = 0.0
+    overlap_saved_s: float = 0.0
+    final_pipeline_depth: int | None = None
 
     def accumulate(self, result, phase: str) -> None:
         """Fold one KernelResult into the totals."""
@@ -76,7 +106,15 @@ class SolverStats:
             "edges_relaxed_by_phase": dict(self.edges_relaxed_by_phase),
             "iterations_by_phase": dict(self.iterations_by_phase),
             "routes_by_phase": dict(self.routes_by_phase),
+            "batches_resumed": self.batches_resumed,
+            "retries": self.retries,
+            "oom_degradations": self.oom_degradations,
             "final_batch": self.final_batch,
+            "abandoned_stages": list(self.abandoned_stages),
+            "download_s": self.download_s,
+            "ckpt_wait_s": self.ckpt_wait_s,
+            "overlap_saved_s": self.overlap_saved_s,
+            "final_pipeline_depth": self.final_pipeline_depth,
             "total_seconds": self.total_seconds,
             "edges_relaxed_per_sec": self.edges_relaxed_per_second(),
         }

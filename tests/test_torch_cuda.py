@@ -25,6 +25,8 @@ from paralleljohnson_tpu_torch.ops.minplus import (
     minplus_kernel,
     minplus_plain,
 )
+from paralleljohnson_tpu_torch.solver import johnson
+from paralleljohnson_tpu_torch.utils.resilience import is_oom_error
 
 
 @pytest.fixture
@@ -329,3 +331,71 @@ def test_use_pallas_false_raises_on_card(cuda):
     with pytest.raises(NotImplementedError, match="use_pallas"):
         pjt.ParallelJohnsonSolver(pjt.SolverConfig(use_pallas=False),
                                   device=cuda).solve(g)
+
+
+def test_staged_download_equals_blocking_copy(cuda):
+    """``stage_rows_async`` then ``_download_rows`` gives the rows
+    ``.cpu()`` gives, also when the tensor is dropped and its block asked
+    for again before the copy is collected (``record_stream``)."""
+    backend = pjt.get_backend("torch", pjt.SolverConfig(), device=cuda)
+    solver = pjt.ParallelJohnsonSolver(backend=backend)
+    dgraph = backend.upload(pjt.load_graph(SPECS[1]))
+    x = torch.rand((256, 40000), device=cuda)
+    x[::7, ::3] = float("inf")
+    want = x.cpu().numpy()
+    backend.stage_rows_async(x)
+    staged = x.staged_copy
+    assert staged.host.is_pinned()
+    got = solver._download_rows(dgraph, x)
+    np.testing.assert_array_equal(got, want)
+    y = x * 2
+    want_y = y.cpu().numpy()
+    backend.stage_rows_async(y)
+    staged = y.staged_copy
+    del y
+    torch.full((256, 40000), 7.0, device=cuda)  # may reuse y's block
+    np.testing.assert_array_equal(staged.wait(), want_y)
+    backend.stage_rows_async(x)  # already staged: a no-op
+    assert x.staged_copy is not None
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+@pytest.mark.parametrize("spec", ["rmat:scale=14,ef=8,seed=3",
+                                  "grid:rows=60,cols=70,neg=0.2,seed=2"])
+def test_pipelined_solve_on_card_equals_serial(cuda, monkeypatch, spec, depth):
+    """A 3-batch solve at depth 2 and 3 equals the serial one and the
+    single-batch one bitwise, with the layout cleared before every
+    download (threshold 0), so each batch rebuilds it."""
+    monkeypatch.setattr(johnson, "_DOWNLOAD_CLEAR_MIN_BYTES", 0)
+    g = pjt.load_graph(spec)
+    sources = np.arange(0, g.num_nodes, g.num_nodes // 384)[:384]
+
+    def run(**kw):
+        return pjt.ParallelJohnsonSolver(pjt.SolverConfig(**kw),
+                                         device=cuda).solve(g, sources)
+
+    one = run()
+    serial = run(source_batch_size=128, pipeline_depth=1)
+    piped = run(source_batch_size=128, pipeline_depth=depth)
+    assert isinstance(piped.dist, np.ndarray)
+    np.testing.assert_array_equal(piped.dist, serial.dist)
+    np.testing.assert_array_equal(piped.dist, johnson.to_numpy(one.dist))
+    assert piped.stats.final_pipeline_depth == depth
+
+
+def test_checkpointed_solve_on_card_resumes(cuda, tmp_path):
+    g = pjt.load_graph(SPECS[2])
+    cfg = pjt.SolverConfig(source_batch_size=32, checkpoint_dir=str(tmp_path))
+    first = pjt.ParallelJohnsonSolver(cfg, device=cuda).solve(g)
+    again = pjt.ParallelJohnsonSolver(cfg, device=cuda).solve(g)
+    assert again.stats.batches_resumed == -(-g.num_nodes // 32)
+    np.testing.assert_array_equal(again.dist, first.dist)
+    want = pjt.ParallelJohnsonSolver(device="cpu").solve(g)
+    np.testing.assert_array_equal(first.dist, johnson.to_numpy(want.dist))
+
+
+def test_real_cuda_oom_is_classified(cuda):
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    with pytest.raises(torch.OutOfMemoryError) as info:
+        torch.empty(2 * total, dtype=torch.uint8, device=cuda)
+    assert is_oom_error(info.value)

@@ -170,9 +170,9 @@ def test_numpy_backend_and_validate():
 @pytest.mark.parametrize("kw", [
     {"fw": True}, {"dia": True}, {"gauss_seidel": True}, {"bucket": True},
     {"frontier": True}, {"dirty_window": True}, {"partitioned": True},
-    {"edge_shard": True}, {"mesh_shape": (2,)}, {"checkpoint_dir": "ck"},
+    {"edge_shard": True}, {"mesh_shape": (2,)},
     {"fanout_layout": "source_major"}, {"profile_store": "ps"},
-    {"use_pallas": False},
+    {"telemetry": object()}, {"metrics": object()}, {"use_pallas": False},
 ])
 def test_unported_routes_raise_naming_the_field(kw):
     name = next(iter(kw))
@@ -196,20 +196,34 @@ def test_cuda_request_without_card_raises():
         pjt.get_backend("torch", pjt.SolverConfig())
 
 
-def test_port_imports_no_jax_and_no_reference():
-    """In a fresh interpreter with ``jax`` blocked, the port imports and
-    solves, and no module of the JAX package gets loaded."""
-    code = textwrap.dedent("""
-        import sys
+def test_port_imports_no_jax_and_no_reference(tmp_path):
+    """In a fresh interpreter with ``jax`` blocked, every module of the
+    port imports, and ``solve`` (checkpointed, then resumed),
+    ``solve_reduced`` and ``sssp`` run; no module of the JAX package gets
+    loaded, lazy imports inside the solver included."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
         sys.modules["jax"] = None
         import paralleljohnson_tpu_torch as pjt
+        mods = [m.name for m in pkgutil.walk_packages(
+            pjt.__path__, pjt.__name__ + ".")]
+        for name in mods:
+            importlib.import_module(name)
         g = pjt.load_graph("dag:n=30,p=0.2,neg=0.4,seed=1")
-        res = pjt.ParallelJohnsonSolver(device="cpu").solve(g)
+        cfg = pjt.SolverConfig(source_batch_size=8,
+                               checkpoint_dir={str(tmp_path)!r})
+        res = pjt.ParallelJohnsonSolver(cfg, device="cpu").solve(g)
         assert res.matrix.shape == (30, 30)
+        again = pjt.ParallelJohnsonSolver(cfg, device="cpu").solve(g)
+        assert again.stats.batches_resumed == 4
+        solver = pjt.ParallelJohnsonSolver(device="cpu")
+        red = solver.solve_reduced(g, reduce_rows="reach_count")
+        assert red.values[0].shape == (30,)
+        assert solver.sssp(g, 0).dist.shape == (1, 30)
         bad = [m for m in sys.modules
                if m == "paralleljohnson_tpu" or m.startswith("paralleljohnson_tpu.")]
         assert not bad, bad
-        print("isolated-ok")
+        print("isolated-ok", len(mods))
     """)
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -217,4 +231,4 @@ def test_port_imports_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stderr
     assert "isolated-ok" in out.stdout
-
+    assert int(out.stdout.split()[-1]) >= 25  # every module was walked
