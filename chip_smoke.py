@@ -16,7 +16,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      their combine run; the min-plus product at I x 1024 x 1024 for I =
      1, 16, 100, 128, 511, 1024 (every tile and split-K branch of
      ``minplus_plan``), 1000x777x513, 300x400x200 with all-+inf rows,
-     negative finite entries, and ``d is a`` as in squaring;
+     negative finite entries, and ``d is a`` as in squaring; the
+     tight-edge pass ``tight_pred`` (int32 trees, ``torch.equal``
+     against ``tight_pred_pass_plain``) on R-MAT-20's converged fan-out
+     at B = 128 and 512, split hub rows included;
   3. ``solve()`` on ``rmat:scale=20,ef=16,seed=0`` over 512 sources
      (route ``pallas-vm``), 2 rows checked against scipy Dijkstra;
   4. ``solve()`` on ``grid:rows=512,cols=512,neg=0.2,seed=0`` over 256
@@ -31,7 +34,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      the same flag, every sweep) on the grid solve's own inputs: the
      reweighted in-edge layout the solve ran on, B = 256, from the
      sources to the fixpoint, which must take the solve's sweep count
-     and un-reweight to the solve's rows bitwise;
+     and un-reweight to the solve's rows bitwise; ``tight_pred`` against
+     its plain version on that fixpoint (zero-weight ties throughout);
   7. a 4-edge negative cycle raises ``NegativeCycleError`` on the card;
   8. CUDA-event times of each kernel and its plain version at the main
      path's shapes, with the bound the card could reach: the sweep at
@@ -42,7 +46,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      dense route's iterate and squaring shapes) and at 4096^3, both as
      the wrapper called back to back (``ms``, as the main path pays it)
      and as the card's time alone from CUDA-graph replays (``card_ms``);
-     and the 128-source ER-1024 fixpoint on the host clock;
+     the 128-source ER-1024 fixpoint on the host clock; ``tight_pred``
+     at R-MAT-20's fixpoint (B = 512, 128) and the grid's (B = 256);
   9. the pipelined batch driver: ``solve()`` on R-MAT-20 over phase 3's
      512 sources and 512 more, in 4 batches of 256 (1 GiB of rows each),
      at ``pipeline_depth`` 1, 2, 2, 1: rows equal bitwise across runs and
@@ -52,18 +57,29 @@ Phases, one JSON line each (any failure raises and exits non-zero):
  10. ``solve_reduced`` on the same sources with each built-in reducer,
      against phase 9's rows reduced in numpy (``checksum`` to rtol 1e-6),
      with no call of ``_download_rows``;
- 11. checkpoint/resume on the grid (512 sources, batches of 128, depth
-     2): 4 batches written, all 4 resumed, an injected OOM in batch 1
+ 11. checkpoint/resume on the grid (256 sources, batches of 128, depth
+     2): 2 batches written, both resumed, an injected OOM in batch 1
      that collapses the window, and an uncheckpointed solve, all
      bitwise equal;
  12. ``sssp`` on the grid against phase 4's row (rtol 1e-5, atol 1e-3)
      and on phase 7's negative cycle; ``multi_source`` on R-MAT-20 over
      phase 3's sources (bitwise, rows still on the card); ``solve_batch``
-     of 4 ``er:n=256,p=0.1`` graphs against their ``solve()``s bitwise.
+     of 4 ``er:n=256,p=0.1`` graphs against their ``solve()``s bitwise;
+ 13. ``predecessors=True`` solves (``validate_pred_tree`` on their
+     trees): R-MAT-20 over phase 3's sources and the grid over phase 4's
+     (``pallas-vm+pred``, rows bitwise equal to theirs), ``sssp`` on the
+     grid (``sweep+pred``), the zero-weight tight cycle (``pred-sweep``
+     after a warning), a 2-batch checkpointed solve resumed, ER-1024
+     (``dense-squaring-pallas+pred``);
+ 14. the XLA routes in plain PyTorch beside the hand routes, rows
+     bitwise equal: ``use_pallas=False`` (``vm-blocked``) on R-MAT-20
+     at B = 128 and on the grid at B = 64, ``sweep-sm`` on R-MAT-16,
+     XLA ``dense-squaring`` on ER-1024; fan-out seconds per sweep of
+     each route and of its hand route.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-12 on its own; a path
+phases 3-5 together, then each path of phases 9-14 on its own; a path
 whose kernel was never launched fails. The last two lines are the
 ``kernels`` summary (launches summed over the paths, and by path) and
 ``{"ok": true, "device": {...}}``.
@@ -91,12 +107,14 @@ RMAT_SPEC = "rmat:scale=20,ef=16,seed=0"
 GRID_SPEC = "grid:rows=512,cols=512,neg=0.2,seed=0"
 ER_SPEC = "er:n=1024,p=0.1,seed=0"
 BATCH_SPEC = "er:n=256,p=0.1"  # phase 12's solve_batch, seeds 0-3
+PRED_CKPT_SPEC = "grid:rows=64,cols=64,neg=0.2,seed=3"  # phase 13
+SWEEP_SM_SPEC = "rmat:scale=16,ef=8,seed=2"  # phase 14
 # Phase 9: phase 3's 512 R-MAT-20 sources and this many more, in batches
 # of MULTI_BATCH (a [256, 2^20] f32 block is 1 GiB). Phase 11: the grid,
 # CKPT_SOURCES sources in batches of CKPT_BATCH.
 MULTI_EXTRA_SOURCES = 512
 MULTI_BATCH = 256
-CKPT_SOURCES = 512
+CKPT_SOURCES = 256
 CKPT_BATCH = 128
 # Min-plus shapes timed in phase 8 (I, K, J): B x V x V for B = 16, 128,
 # 511 sources (the iterate regime) and V^3 (squaring) at V = 1024; and
@@ -174,6 +192,44 @@ def sync_time(fn):
     return out, time.perf_counter() - t0
 
 
+def counter(launches: dict):
+    """``counted(path, fn, needs=())``: ``fn()`` on the host clock with
+    every kernel's launch count (and the fixpoints' host reads) set to 0
+    just before and read just after into ``launches[path]``; raises if a
+    kernel named in ``needs`` was launched no time. Returns (fn(), s)."""
+    from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
+    from paralleljohnson_tpu_torch.ops import minplus as mp_mod
+    from paralleljohnson_tpu_torch.ops import pred as pred_mod
+
+    def counted(path, fn, needs=()):
+        fs.fanout_sweep.launches = 0
+        mp_mod.minplus_kernel.launches = 0
+        pred_mod.tight_pred_pass.launches = 0
+        fs.fanout_fixpoint.host_reads = 0
+        out = sync_time(fn)
+        launches[path] = {"fanout_sweep": fs.fanout_sweep.launches,
+                          "minplus": mp_mod.minplus_kernel.launches,
+                          "tight_pred": pred_mod.tight_pred_pass.launches,
+                          "fanout_host_reads": fs.fanout_fixpoint.host_reads}
+        for name in needs:
+            if launches[path][name] == 0:
+                raise AssertionError(f"{path} launched no {name} kernel")
+        return out
+
+    return counted
+
+
+def solver_on(dev, backend_cls=None, **kw):
+    """A solver on ``dev`` over ``backend_cls`` (the torch backend by
+    default) with ``SolverConfig(**kw)``."""
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
+
+    backend = (backend_cls or TorchBackend)(pjt.SolverConfig(**kw),
+                                            device=dev)
+    return pjt.ParallelJohnsonSolver(backend.config, backend=backend)
+
+
 def drive_entry_points(dev, rmat, rmat_sources, rmat_rows, grid, grid_source,
                        grid_row, cycle_graph) -> dict:
     """Phases 9-12: the solver's batch driver and its other entry points
@@ -189,8 +245,6 @@ def drive_entry_points(dev, rmat, rmat_sources, rmat_rows, grid, grid_source,
 
     import paralleljohnson_tpu_torch as pjt
     from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
-    from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
-    from paralleljohnson_tpu_torch.ops import minplus as mp_mod
     from paralleljohnson_tpu_torch.solver.johnson import _ROW_REDUCERS, to_numpy
     from paralleljohnson_tpu_torch.utils.checkpoint import BatchCheckpointer
 
@@ -204,25 +258,10 @@ def drive_entry_points(dev, rmat, rmat_sources, rmat_rows, grid, grid_source,
             super().clear_caches(dgraph)
 
     launches = {}
-
-    def counted(path, fn, needs=()):
-        """``fn()`` with the counts set to 0 just before and read just
-        after; raises if a kernel in ``needs`` was launched no time."""
-        fs.fanout_sweep.launches = 0
-        mp_mod.minplus_kernel.launches = 0
-        fs.fanout_fixpoint.host_reads = 0
-        out = sync_time(fn)
-        launches[path] = {"fanout_sweep": fs.fanout_sweep.launches,
-                          "minplus": mp_mod.minplus_kernel.launches,
-                          "fanout_host_reads": fs.fanout_fixpoint.host_reads}
-        for name in needs:
-            if launches[path][name] == 0:
-                raise AssertionError(f"{path} launched no {name} kernel")
-        return out
+    counted = counter(launches)
 
     def solver_with(backend_cls=TorchBackend, **kw):
-        backend = backend_cls(pjt.SolverConfig(**kw), device=dev)
-        return pjt.ParallelJohnsonSolver(backend.config, backend=backend)
+        return solver_on(dev, backend_cls, **kw)
 
     # -- phase 9: multi-batch solve() on R-MAT-20, depth 1 and 2 in turns ----
     v = rmat.num_nodes
@@ -441,6 +480,153 @@ def drive_entry_points(dev, rmat, rmat_sources, rmat_rows, grid, grid_source,
     return launches
 
 
+def drive_pred_paths(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
+                     grid_rows, er, er_matrix) -> dict:
+    """Phase 13: ``predecessors=True`` solves on ``dev``, each path counted
+    from 0 (returns the counts by path): R-MAT-20 over phase 3's sources
+    and the grid over phase 4's (rows bitwise equal to theirs), ``sssp``
+    on the grid, the zero-weight tight cycle (``pred-sweep`` with a
+    warning), a checkpointed 2-batch solve resumed, and ER-1024 (dense).
+    Every tree passes ``validate_pred_tree`` (sampled rows on the large
+    graphs)."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+    from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
+
+    launches = {}
+    counted = counter(launches)
+    report = {}
+
+    def check(label, graph, res, route, rows=None, want_rows=None):
+        """Route, rows against ``want_rows`` (bitwise), and the trees of
+        ``rows`` (all when None) validated against their own rows."""
+        got_route = res.stats.routes_by_phase[
+            "fanout" if "fanout" in res.stats.routes_by_phase
+            else "bellman_ford"]
+        # (A multi-batch solve lists its route once per batch: the
+        # stats join distinct "+"-parts only.)
+        if set(got_route.split("+")) != set(route.split("+")):
+            raise AssertionError(f"{label} took route {got_route}")
+        dist, pred = to_numpy(res.dist), to_numpy(res.predecessors)
+        if want_rows is not None and not np.array_equal(
+                dist[:len(want_rows)], want_rows):
+            raise AssertionError(f"{label}: rows differ from the plain solve")
+        sel = slice(None) if rows is None else rows
+        validate_pred_tree(graph, dist[sel], pred[sel], res.sources[sel])
+        report[label] = {
+            "route": got_route, "rows": int(dist.shape[0]),
+            "validated_rows": "all" if rows is None else list(rows),
+            "fanout_s": res.stats.phase_seconds.get("fanout"),
+            "iterations": dict(res.stats.iterations_by_phase),
+            "launches": launches[label]}
+
+    pred_kernels = ("fanout_sweep", "tight_pred")
+    res, s_rmat = counted("pred_rmat20", lambda: solver_on(dev).solve(
+        rmat, rmat_sources, predecessors=True), needs=pred_kernels)
+    check("pred_rmat20", rmat, res, "pallas-vm+pred", [0, 255, 511],
+          rmat_rows)
+    report["pred_rmat20"]["seconds"] = s_rmat
+    del res
+    res, _ = counted("pred_grid512", lambda: solver_on(dev).solve(
+        grid, gsrc, predecessors=True), needs=pred_kernels)
+    check("pred_grid512", grid, res, "pallas-vm+pred", [0, 255], grid_rows)
+    del res
+    res, _ = counted("pred_sssp_grid512", lambda: solver_on(dev).sssp(
+        grid, gsrc[0], predecessors=True), needs=("tight_pred",))
+    check("pred_sssp_grid512", grid, res, "sweep+pred")
+    zero = pjt.CSRGraph.from_edges([0, 3, 1, 2], [3, 1, 2, 1],
+                                   [1.0, 0.0, 0.0, 0.0], 4)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res, _ = counted("pred_zero_cycle", lambda: solver_on(dev).multi_source(
+            zero, [0], predecessors=True), needs=("tight_pred",))
+    if not any("fell back" in str(w.message) for w in caught):
+        raise AssertionError("the zero-weight tight cycle did not warn")
+    check("pred_zero_cycle", zero, res, "pred-sweep")
+    small = pjt.load_graph(PRED_CKPT_SPEC)
+    ssrc = np.arange(0, small.num_nodes, small.num_nodes // 256)[:256]
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(source_batch_size=128, checkpoint_dir=tmp)
+        first, _ = counted("pred_checkpoint_write", lambda: solver_on(
+            dev, **kw).solve(small, ssrc, predecessors=True),
+            needs=pred_kernels)
+        again, _ = counted("pred_checkpoint_resume", lambda: solver_on(
+            dev, **kw).solve(small, ssrc, predecessors=True))
+    if (first.stats.batches_resumed, again.stats.batches_resumed) != (0, 2):
+        raise AssertionError("the checkpointed pred solve did not resume")
+    for name in ("dist", "predecessors"):
+        if not np.array_equal(getattr(first, name), getattr(again, name)):
+            raise AssertionError(f"resumed {name} differ")
+    check("pred_checkpoint_write", small, first, "pallas-vm+pred")
+    report["pred_checkpoint_write"]["batches_resumed_after"] = 2
+    res, _ = counted("pred_er1024", lambda: solver_on(dev).solve(
+        er, predecessors=True), needs=("minplus", "tight_pred"))
+    check("pred_er1024", er, res, "dense-squaring-pallas+pred", None,
+          er_matrix)
+    del res
+    emit({"phase": "pred_solves", "paths": report,
+          "zero_cycle_warning": True})
+    return launches
+
+
+def drive_xla_routes(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
+                     grid_rows, er, er_matrix) -> dict:
+    """Phase 14: the JAX package's XLA routes in plain PyTorch on ``dev``,
+    each beside the hand route on the same sources, rows bitwise equal:
+    ``vm-blocked`` on R-MAT-20 (B = 128) and on the grid (B = 64),
+    ``sweep-sm`` on R-MAT-16, XLA ``dense-squaring`` on ER-1024. Prints
+    each route's fan-out seconds and seconds per sweep."""
+    import numpy as np
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+
+    launches = {}
+    counted = counter(launches)
+    routes = {}
+
+    def both(label, graph, sources, kw, want_route, want_rows=None):
+        hand, s_hand = counted(f"{label}_hand", lambda: solver_on(dev).solve(
+            graph, sources))
+        xla, s_xla = counted(label, lambda: solver_on(dev, **kw).solve(
+            graph, sources))
+        got = xla.stats.routes_by_phase["fanout"]
+        if got != want_route:
+            raise AssertionError(f"{label} took route {got}")
+        rows = to_numpy(xla.dist)
+        if not np.array_equal(rows, to_numpy(hand.dist)):
+            raise AssertionError(f"{label}: rows differ from the hand route")
+        if want_rows is not None and not np.array_equal(rows, want_rows):
+            raise AssertionError(f"{label}: rows differ from the main path")
+        entry = {"route": got, "hand_route": hand.stats.routes_by_phase[
+            "fanout"], "sources": len(rows), "seconds": s_xla,
+                 "hand_seconds": s_hand}
+        for name, r in (("", xla), ("hand_", hand)):
+            fan = r.stats.phase_seconds["fanout"]
+            sweeps = r.stats.iterations_by_phase["fanout"]
+            entry[f"{name}fanout_s"] = fan
+            entry[f"{name}sweeps"] = sweeps
+            entry[f"{name}s_per_sweep"] = fan / max(sweeps, 1)
+        routes[label] = entry
+
+    both("xla_vm_blocked_rmat20", rmat, rmat_sources[:128],
+         {"use_pallas": False}, "vm-blocked", rmat_rows[:128])
+    both("xla_vm_blocked_grid512", grid, gsrc[:64], {"use_pallas": False},
+         "vm-blocked", grid_rows)
+    sm = pjt.load_graph(SWEEP_SM_SPEC)
+    both("xla_sweep_sm_rmat16", sm, np.arange(0, sm.num_nodes, 1024),
+         {"fanout_layout": "source_major"}, "sweep-sm")
+    both("xla_dense_er1024", er, np.arange(er.num_nodes),
+         {"use_pallas": False}, "dense-squaring", er_matrix)
+    emit({"phase": "xla_routes", "routes": routes})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -463,6 +649,9 @@ def main() -> int:
     from paralleljohnson_tpu_torch.ops import relax
     from paralleljohnson_tpu_torch.ops.minplus import (
         minplus_fixpoint, minplus_kernel, minplus_plain, minplus_plan,
+    )
+    from paralleljohnson_tpu_torch.ops.pred import (
+        certify_pred, tight_pred_pass, tight_pred_pass_plain,
     )
     from paralleljohnson_tpu_torch.solver.johnson import _unreweight, to_numpy
 
@@ -526,6 +715,20 @@ def main() -> int:
                 f"{err}, flag {bool(flag.item())}, plain flag {bool(imp)}")
         return err, bool(imp), want
 
+    def pred_equal(d, lay, itm, coo, label):
+        """tight_pred on the converged ``d`` [V, B] against the plain
+        pass over the COO ``coo`` on ``d``'s transpose: raises unless
+        ``torch.equal``. Returns (largest absolute difference of the int32
+        trees, share of entries with a tight in-edge)."""
+        got = tight_pred_pass(d, *lay, items=itm)
+        want = tight_pred_pass_plain(d.t().contiguous(), *coo).t()
+        torch.cuda.synchronize()
+        err = float((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"tight_pred disagrees with plain on {label}: "
+                                 f"max_abs_err {err}")
+        return err, float((got >= 0).float().mean())
+
     # -- phase 2: each kernel against its plain version ---------------------
     t0 = time.perf_counter()
     rmat = pjt.load_graph(RMAT_SPEC)
@@ -535,10 +738,11 @@ def main() -> int:
     layout = layout_graph.by_dst()
     items = layout_graph.work_items()
     rng = np.random.default_rng(0)
-    sweep_states = {}
+    sweep_states, sweep_sources = {}, {}
     sweep_checks = []
     for b in (128, 512):
         src = torch.as_tensor(rng.choice(v, b, replace=False)).to(dev)
+        sweep_sources[b] = src
         d = torch.full((v, b), float("inf"), device=dev)
         d[src, torch.arange(b, device=dev)] = 0.0
         for _ in range(3):  # a block with finite values to fold
@@ -547,6 +751,20 @@ def main() -> int:
         sweep_checks.append({"graph": "rmat20", "B": b, "equal": True,
                              "max_abs_err": err, "flag": flag})
         sweep_states[b] = (d, err)
+    # tight_pred on R-MAT-20's converged fan-out (its split hub rows
+    # included), B = 128 and 512; the states stay for phase 8's times.
+    rmat_coo = (layout_graph.src[:e], layout_graph.dst[:e],
+                layout_graph.weights[:e])
+    pred_states, pred_checks = {}, []
+    for b, (d, _) in sweep_states.items():
+        conv, sweeps, _ = fanout_fixpoint(d.clone(), *layout, max_iter=v,
+                                          items=items)
+        err, tight = pred_equal(conv, layout, items, rmat_coo,
+                                f"RMAT-20 B={b}")
+        pred_checks.append({"graph": "rmat20", "B": b, "equal": True,
+                            "max_abs_err": err, "tight_share": tight,
+                            "sweeps_to_fixpoint": sweeps})
+        pred_states[b] = conv
     # The hub graph of the card tests (JAX-free), on R-MAT-16.
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tests"))
@@ -616,7 +834,8 @@ def main() -> int:
                         "max_in_degree": int(hub_deg.max()),
                         "split_items": hub_items.n_split,
                         "split_rows": hub_items.split_rows.shape[0]},
-          "fanout_sweep": sweep_checks, "minplus": mp_checks})
+          "fanout_sweep": sweep_checks, "minplus": mp_checks,
+          "tight_pred": pred_checks})
 
     # -- phases 3-5: the main path ------------------------------------------
     fanout_sweep.launches = 0
@@ -703,6 +922,7 @@ def main() -> int:
           "launches": per_solve["grid512"], "min_slack": float(slack.min()),
           "checked_rows": check})
     grid_row = rows[0].copy()  # for phase 12's sssp from gsrc[0]
+    grid_rows = rows[:64].copy()  # for phases 13 and 14
     grid_fanout_s = res.stats.phase_seconds["fanout"]
     grid_sweeps = res.stats.iterations_by_phase["fanout"]
     grid_res = res
@@ -716,6 +936,7 @@ def main() -> int:
         raise AssertionError(f"er1024 fan-out took route {route}")
     oracle = csgraph.dijkstra(er.to_scipy().astype(np.float64), directed=True)
     np.testing.assert_allclose(res.matrix, oracle, rtol=1e-5)
+    er_matrix = to_numpy(res.dist)  # sources 0..V-1: for phases 13 and 14
     if per_solve["er1024"]["minplus"] == 0:
         raise AssertionError("er1024 solve launched no minplus kernel")
     emit({"phase": "solve_er1024", "spec": ER_SPEC, "V": er.num_nodes,
@@ -785,10 +1006,17 @@ def main() -> int:
     if not torch.equal(rows, grid_res.dist):
         raise AssertionError("the lockstep fixpoint, un-reweighted, differs "
                              "from the grid solve's rows")
+    # tight_pred on the same fixpoint, full of zero-weight ties.
+    fg = probe.fanout_graph
+    g_coo = (fg.src, fg.dst, fg.weights)  # padded: (0, 0, +inf) never tight
+    grid_pred_err, grid_tight = pred_equal(d_fix, g_layout, g_items, g_coo,
+                                           "the grid's reweighted fixpoint")
     emit({"phase": "kernel_vs_plain_grid", "spec": GRID_SPEC, "B": gb,
           "sweeps_checked": sweeps, "equal": True, "max_abs_err": grid_err,
           "zero_weight_fraction": float((g_layout[2] == 0).float().mean()),
-          "rows_equal_solve": True})
+          "rows_equal_solve": True,
+          "tight_pred": {"equal": True, "max_abs_err": grid_pred_err,
+                         "tight_share": grid_tight}})
     del grid_res, rows
 
     # -- phase 7: negative cycle on the card ---------------------------------
@@ -867,6 +1095,43 @@ def main() -> int:
         "sweeps_per_sync": fs.SWEEPS_PER_SYNC,
         "fixpoint_host_clock": host_loop,
     }
+    # tight_pred at R-MAT-20's converged fan-out (B = 512, 128) and the
+    # grid's fixpoint (B = 256): the kernel back to back, the plain pass
+    # on the transposed block, the bound. Bytes: dist read and pred
+    # written once, the CSC, the split rows' int64 partial keys written
+    # and read; operations: an add, a subtract and two compares per
+    # candidate (gathered rows count as cache hits, as for the sweep).
+    def pred_timing(d, lay, itm, coo, ne, reps, plain_reps):
+        vv, bb = d.shape
+        ms = event_ms(lambda: tight_pred_pass(d, *lay, items=itm), reps=reps)
+        dt = d.t().contiguous()
+        plain = event_ms(lambda: tight_pred_pass_plain(dt, *coo),
+                         reps=plain_reps)
+        bms, by = bound(8 * vv * bb + 4 * (vv + 1) + 8 * ne
+                        + 16 * itm.n_split * bb, 4 * ne * bb)
+        return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                "scratch_bytes": 8 * itm.n_split * bb,
+                "split_items": itm.n_split}
+
+    for b, d in sorted(pred_states.items(), reverse=True):
+        timings[f"tight_pred_B{b}"] = pred_timing(d, layout, items, rmat_coo,
+                                                  e, 10, 2)
+    # The tree check after the pass (source mask, coverage, pointer
+    # doubling; certify_pred) on the B = 512 trees.
+    d = pred_states[512]
+    p_bv = tight_pred_pass(d, *layout, items=items).t().contiguous()
+    d_bv = d.t().contiguous()
+    oks = []
+
+    def check_trees():
+        oks.append(bool(certify_pred(p_bv.clone(), d_bv,
+                                     sweep_sources[512])[1]))
+
+    timings["tight_pred_B512"]["certify_ms"] = event_ms(check_trees, reps=2)
+    timings["tight_pred_B512"]["certify_ok"] = all(oks)
+    del p_bv, d_bv
+    timings["tight_pred_grid512_B256"] = pred_timing(
+        d_fix, g_layout, g_items, g_coo, ge, 20, 3)
     # Min-plus at the dense route's shapes and 4096^3 (MINPLUS_SHAPES).
     for (i, k, j) in MINPLUS_SHAPES:
         g_rng = np.random.default_rng(7)
@@ -916,17 +1181,24 @@ def main() -> int:
     emit({"phase": "timing", "device": kind, "power_limit": smi,
           "timings": timings})
     sweep_errs = [err for _, err in sweep_states.values()]
-    del sweep_states, d, d_fix, d_timing, d0_grid, d0_er, a_er
+    pred_errs = [c["max_abs_err"] for c in pred_checks] + [grid_pred_err]
+    del sweep_states, pred_states, d, d_fix, d_timing, d0_grid, d0_er, a_er
     torch.cuda.empty_cache()
 
     # -- phases 9-12: the batch driver and the other entry points -----------
     by_path.update(drive_entry_points(dev, rmat, rmat_sources, rmat_rows,
                                       grid, gsrc[0], grid_row, cyc))
-    for name in launches:
-        launches[name] = sum(p[name] for p in by_path.values())
+    # -- phases 13-14: predecessor trees and the XLA routes -----------------
+    by_path.update(drive_pred_paths(dev, rmat, rmat_sources, rmat_rows, grid,
+                                    gsrc, grid_rows, er, er_matrix))
+    by_path.update(drive_xla_routes(dev, rmat, rmat_sources, rmat_rows, grid,
+                                    gsrc, grid_rows, er, er_matrix))
+    launches = {name: sum(p.get(name, 0) for p in by_path.values())
+                for name in ("fanout_sweep", "minplus", "tight_pred")}
 
     t_sw = timings["fanout_sweep_B512"]
     t_mp = timings["minplus_1024x1024x1024"]
+    t_tp = timings["tight_pred_B512"]
     emit({"kernels": [
         {"name": "fanout_sweep", "route": "cuda",
          "source": "paralleljohnson_tpu_torch/csrc/fanout_sweep.cu",
@@ -947,6 +1219,16 @@ def main() -> int:
          "ms": t_mp["ms"], "card_ms": t_mp["card_ms"],
          "plain_ms": t_mp["plain_ms"], "bound_ms": t_mp["bound_ms"],
          "bound_by": t_mp["bound_by"], "library_ms": None},
+        {"name": "tight_pred", "route": "cuda",
+         "source": "paralleljohnson_tpu_torch/csrc/tight_pred.cu",
+         "replaces": "paralleljohnson_tpu/ops/pred.py:69",
+         "launches": launches["tight_pred"],
+         "launches_by_path": {k: p.get("tight_pred", 0)
+                              for k, p in by_path.items()},
+         "max_abs_err": max(pred_errs),
+         "ms": t_tp["ms"], "plain_ms": t_tp["plain_ms"],
+         "bound_ms": t_tp["bound_ms"], "bound_by": t_tp["bound_by"],
+         "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -1,15 +1,26 @@
 """``TorchBackend`` — the device execution engine of the PyTorch port.
 
-Owns the device-resident COO buffers and dispatches the two kernels of
-Johnson's algorithm with the JAX package's own gates and route tags:
+Owns the device-resident COO buffers and dispatches the kernels of
+Johnson's algorithm with the JAX package's gates and route tags:
 
   - ``bellman_ford`` runs route ``sweep`` (``relax.bellman_ford_sweeps``,
     plain PyTorch: the reference's is XLA code, not a Pallas kernel);
-  - ``multi_source`` sends dense graphs (``_use_dense``: V <=
-    ``dense_threshold`` and E >= ``dense_min_density`` x V^2) to
-    ``dense-{regime}-pallas`` through the hand min-plus kernel (the
-    iterate regime through ``minplus_fixpoint`` on the card), and every
-    other graph to ``pallas-vm`` through the hand fan-out sweep.
+  - ``multi_source`` takes, in the reference's plan order: dense graphs
+    (``_use_dense``: V <= ``dense_threshold`` and E >=
+    ``dense_min_density`` x V^2) to ``dense-{regime}-pallas`` through the
+    hand min-plus kernel (the iterate regime through
+    ``minplus_fixpoint`` on the card), or to the plain product
+    ``dense-{regime}`` under ``use_pallas=False``; then
+    ``fanout_layout="source_major"`` to ``sweep-sm`` (the source-major
+    scatter sweep); then ``use_pallas=False`` to the reference's XLA
+    vertex-major routes in plain PyTorch, ``vm-blocked`` for V >
+    ``VM_BLOCK`` and ``vm`` below; and every other graph to
+    ``pallas-vm`` through the hand fan-out sweep;
+  - ``bellman_ford_pred`` / ``multi_source_pred`` run the same dispatch,
+    then one tight-edge pass over the converged distances (the hand
+    ``tight_pred`` kernel on the card, ``ops.pred``): route ``<route>+pred``.
+    A tree that fails its check (a zero-weight tight cycle) falls back,
+    with a warning, to the argmin sweep ``pred-sweep``.
 
 On a CUDA device the hand kernels are the main path; on the CPU their
 plain PyTorch versions run (the wrappers choose by the tensors' device).
@@ -21,6 +32,7 @@ side stream, so the pipelined fan-out overlaps it with the next batch.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -44,6 +56,7 @@ from paralleljohnson_tpu_torch.ops.minplus import (
     minplus_fixpoint,
     minplus_kernel,
 )
+from paralleljohnson_tpu_torch.ops.pred import certify_pred, tight_pred_pass
 
 # Distance blocks of [B, V] the source batch is budgeted for: the
 # reference's six. The sweep's two alternating [V, B] buffers, the
@@ -56,6 +69,12 @@ BATCH_BLOCKS = 6
 PRED_BATCH_BLOCKS = 9
 # Memory budget of one fan-out call on the CPU (the reference's constant).
 CPU_BUDGET_BYTES = 4 << 30
+# Destination-block height of ``vm-blocked``; graphs with V above it take
+# that route under use_pallas=False (the reference's constant).
+VM_BLOCK = 1 << 16
+# Edge count from which the vm-blocked layout is built on the device
+# instead of in host numpy (the reference's constant).
+VMB_DEVICE_BUILD_MIN_EDGES = 1 << 22
 
 
 def resolve_device(device) -> torch.device:
@@ -150,6 +169,62 @@ class TorchDeviceGraph:
         struct = self._in_edges()
         return self._by_dst(struct), struct["work_items"]
 
+    def vm_edges(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The padded COO sorted by destination (stable), the reference's
+        ``by_dst()``: (src, dst, w) for route ``vm``. The padding stays in
+        so the edge chunks, and so the sweep counts, match the
+        reference's."""
+        order = self._struct_cache.get("vm_order")
+        if order is None:
+            order = torch.argsort(self.dst, stable=True)
+            self._struct_cache["vm_order"] = order
+        cached = self._by_dst_cache.get("vm")
+        if cached is None:
+            cached = (self.src[order], self.dst[order], self.weights[order])
+            self._by_dst_cache["vm"] = cached
+        return cached
+
+    def vm_blocked_layout(self, vb: int, ec: int) -> dict:
+        """The ``vm-blocked`` layout (``relax.build_vm_blocked_layout``, or
+        its device builder from ``VMB_DEVICE_BUILD_MIN_EDGES`` edges): the
+        weight-independent chunk structure is cached across reweighting,
+        the chunk weights ``w_ck`` are gathered from the current weights.
+        ``base_ck`` stays a host array (the sweep's loop reads it)."""
+        key = ("vmb", vb, ec)
+        e = self.num_real_edges
+        struct = self._struct_cache.get(key)
+        if struct is None:
+            v_pad = vb * max(1, -(-self.num_nodes // vb))
+            if e >= VMB_DEVICE_BUILD_MIN_EDGES:
+                counts = torch.bincount(
+                    self.dst[:e].long() // vb, minlength=v_pad // vb
+                ).cpu().numpy()
+                lay = relax.build_vm_blocked_layout_device(
+                    self.src[:e], self.dst[:e], self.weights[:e], counts,
+                    vb=vb, ec=ec)
+                self._by_dst_cache[key] = lay.pop("w_ck")
+            else:
+                lay = relax.build_vm_blocked_layout(
+                    self.indptr, self.dst[:e].cpu().numpy(), self.num_nodes,
+                    vb=vb, ec=ec)
+                for name in ("src_ck", "dstl_ck", "edge_order"):
+                    lay[name] = torch.as_tensor(lay[name]).to(self.device)
+            struct = {**lay, "v_pad": v_pad}
+            self._struct_cache[key] = struct
+        w_ck = self._by_dst_cache.get(key)
+        if w_ck is None:
+            if "order" in struct:
+                w_ck = relax.regather_vm_blocked_weights(
+                    self.weights, struct["order"], struct["slots"],
+                    struct["src_ck"].numel(), tuple(struct["src_ck"].shape))
+            else:
+                holes = struct["edge_order"]
+                w_ck = torch.where(
+                    holes >= 0, self.weights[holes.clamp_min(0).long()],
+                    torch.full_like(self.weights[:1], float("inf")))
+            self._by_dst_cache[key] = w_ck
+        return {**struct, "w_ck": w_ck}
+
 
 class TorchBackend(Backend):
     """PyTorch backend: hand CUDA kernels on the card, plain PyTorch on
@@ -209,8 +284,9 @@ class TorchBackend(Backend):
         caching allocator's cached blocks as used), or a 4 GB constant on
         the CPU, over ``BATCH_BLOCKS`` blocks (``PRED_BATCH_BLOCKS`` with
         predecessors) plus the pipeline's carry slots and, on the card,
-        the sweep's scratch rows (sparse route) or the min-plus split-K
-        partials (dense route)."""
+        the sweep's scratch rows (sparse route; tight_pred's partial keys
+        with predecessors) or the min-plus split-K partials (dense
+        route)."""
         v = max(dgraph.num_nodes, 1)
         itemsize = torch.empty((), dtype=self._dtype).element_size()
         blocks = PRED_BATCH_BLOCKS if with_pred else BATCH_BLOCKS
@@ -223,7 +299,9 @@ class TorchBackend(Backend):
             if self._use_dense(dgraph):
                 rows += MAX_SPLITS * v  # the min-plus split-K partials
             else:
-                rows += dgraph.work_items().n_split
+                # The sweep's f32 partial minima; with predecessors,
+                # tight_pred's int64 partial keys after them (two rows).
+                rows += dgraph.work_items().n_split * (2 if with_pred else 1)
         else:
             budget = CPU_BUDGET_BYTES
         b = budget // (rows * itemsize)
@@ -308,19 +386,36 @@ class TorchBackend(Backend):
 
     def multi_source(self, dgraph: TorchDeviceGraph,
                      sources: np.ndarray) -> KernelResult:
+        return self._fanout(dgraph, sources)[0]
+
+    def _vm_lay_chunk(self, dgraph: TorchDeviceGraph, b: int) -> int:
+        """The vm-blocked layout's chunk: the reference's rule, from the
+        batch rounded up to a power of two so ragged last batches reuse
+        the layout."""
+        return relax.edge_chunk_for(1 << max(0, b - 1).bit_length(),
+                                    dgraph.src.shape[0])
+
+    def _fanout(self, dgraph: TorchDeviceGraph, sources: np.ndarray):
+        """The fan-out on the route the config and the graph select (see
+        the module docstring). Returns (KernelResult with dist [B, V], the
+        vertex-major [V, B] block the route converged, or None for the
+        dense and source-major routes)."""
         sources = torch.as_tensor(np.asarray(sources), dtype=torch.int64)
         sources = sources.to(self.device)
         b = int(sources.shape[0])
         v = dgraph.num_nodes
         max_iter = self.config.max_iterations or v
+        hand = self.config.use_pallas is not False
         if self._use_dense(dgraph):
             a = relax.dense_adjacency(
                 dgraph.src, dgraph.dst, dgraph.weights, v, dtype=self._dtype
             )
+            fixpoint = (minplus_fixpoint
+                        if hand and self.device.type == "cuda" else None)
             dist, iters, improving = relax.dense_fanout(
-                a, sources, max_iter=max_iter, mp=minplus_kernel,
-                fixpoint=(minplus_fixpoint if self.device.type == "cuda"
-                          else None),
+                a, sources, max_iter=max_iter,
+                mp=minplus_kernel if hand else relax.minplus,
+                fixpoint=fixpoint,
             )
             regime, work_per_iter = relax.dense_fanout_regime(v, b)
             return KernelResult(
@@ -328,22 +423,185 @@ class TorchBackend(Backend):
                 converged=not improving,
                 iterations=iters,
                 edges_relaxed=iters * work_per_iter,
-                route=f"dense-{regime}-pallas",
+                route=f"dense-{regime}" + ("-pallas" if hand else ""),
+            ), None
+        if self.config.fanout_layout == "source_major":
+            dist, iters, improving = relax.bellman_ford_sweeps(
+                relax.multi_source_init(sources, v, self._dtype),
+                dgraph.src, dgraph.dst, dgraph.weights, max_iter=max_iter,
+                edge_chunk=relax.edge_chunk_for(b, dgraph.src.shape[0]),
             )
-        (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
-        dist0 = torch.full((v, b), float("inf"), dtype=self._dtype,
+            return self._sweep_result(dgraph, dist, iters, improving, b,
+                                      "sweep-sm"), None
+        if not hand and v > VM_BLOCK:
+            lay = dgraph.vm_blocked_layout(VM_BLOCK,
+                                           self._vm_lay_chunk(dgraph, b))
+            dist0 = self._dist0_vm(lay["v_pad"], sources)
+            dist_vm, iters, improving = relax.bellman_ford_sweeps_vm_blocked(
+                dist0, lay["src_ck"], lay["dstl_ck"], lay["w_ck"],
+                lay["base_ck"], vb=lay["vb"], max_iter=max_iter,
+            )
+            dist_vm, route = dist_vm[:v], "vm-blocked"
+        elif not hand:
+            dist_vm, iters, improving = relax.bellman_ford_sweeps_vm(
+                self._dist0_vm(v, sources), *dgraph.vm_edges(),
+                max_iter=max_iter,
+                edge_chunk=relax.edge_chunk_for(b, dgraph.src.shape[0]),
+            )
+            route = "vm"
+        else:
+            (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
+            dist_vm, iters, improving = fanout_fixpoint(
+                self._dist0_vm(v, sources), indptr_in, src_in, w_in,
+                max_iter=max_iter, items=items,
+            )
+            route = "pallas-vm"
+        return self._sweep_result(dgraph, dist_vm.t().contiguous(), iters,
+                                  improving, b, route), dist_vm
+
+    def _dist0_vm(self, rows: int, sources: torch.Tensor) -> torch.Tensor:
+        """[rows, B] of +inf with 0 at (sources[c], c)."""
+        b = sources.shape[0]
+        dist0 = torch.full((rows, b), float("inf"), dtype=self._dtype,
                            device=self.device)
         dist0[sources, torch.arange(b, device=self.device)] = 0.0
-        dist_vm, iters, improving = fanout_fixpoint(
-            dist0, indptr_in, src_in, w_in, max_iter=max_iter, items=items,
-        )
+        return dist0
+
+    @staticmethod
+    def _sweep_result(dgraph, dist, iters, improving, b, route):
+        """A sweep route's result: every row takes every sweep, so the
+        work is iterations x B x E."""
         return KernelResult(
-            dist=dist_vm.t().contiguous(),
+            dist=dist,
             converged=not improving,
             iterations=iters,
             edges_relaxed=iters * b * dgraph.num_real_edges,
-            route="pallas-vm",
+            route=route,
         )
+
+    # -- predecessor trees ---------------------------------------------------
+
+    def _use_pred_extraction(self) -> bool:
+        """The tight-edge pass serves predecessor solves unless
+        ``pred_extraction=False`` asks for the argmin sweep."""
+        return self.config.pred_extraction is not False
+
+    def _pred_fallback(self, why: str) -> None:
+        """Send a predecessor solve to the argmin sweep with a warning, or
+        raise when ``pred_extraction=True`` forced the extraction."""
+        if self.config.pred_extraction is True:
+            raise RuntimeError(
+                f"pred_extraction=True but {why}; the legacy argmin "
+                "sweep (pred_extraction=False) handles this case"
+            )
+        warnings.warn(
+            "tight-edge predecessor extraction fell back to the legacy "
+            f"argmin sweep: {why}",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+    def _extract(self, dgraph: TorchDeviceGraph, dist_vm, dist, sources):
+        """(pred [B, V] int32, ok): the tight-edge pass over the in-edge
+        CSC on the vertex-major distances ``dist_vm`` (the hand kernel on
+        the card), then the source mask and the tree check against the
+        [B, V] ``dist``. Reads ``ok`` to the host."""
+        (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
+        pred = tight_pred_pass(dist_vm, indptr_in, src_in, w_in, items=items)
+        pred, ok = certify_pred(pred.t().contiguous(), dist,
+                                np.asarray(sources).reshape(-1))
+        return pred, bool(ok)
+
+    def bellman_ford_pred(self, dgraph: TorchDeviceGraph,
+                          source: int | None) -> KernelResult:
+        """``bellman_ford`` with its shortest-path tree: route
+        ``sweep+pred`` (one extraction pass: E more edges relaxed), else
+        ``pred-sweep``."""
+        if source is None:
+            raise NotImplementedError(
+                "virtual-source Bellman-Ford has no predecessor tree"
+            )
+        if self._use_pred_extraction():
+            res = self.bellman_ford(dgraph, source)
+            if res.negative_cycle or not res.converged:
+                return res  # no tree to extract
+            pred, ok = self._extract(dgraph, res.dist.unsqueeze(1),
+                                     res.dist.unsqueeze(0), [source])
+            if ok:
+                res.pred = pred[0]
+                res.route = f"{res.route}+pred"
+                res.edges_relaxed += dgraph.num_real_edges
+                return res
+            self._pred_fallback(
+                "the tree check rejected the one-pass extraction "
+                "(zero-weight tight cycle on a shortest path)"
+            )
+        return self._bellman_ford_pred_sweep(dgraph, source)
+
+    def _bellman_ford_pred_sweep(self, dgraph: TorchDeviceGraph,
+                                 source: int) -> KernelResult:
+        """The argmin-carrying sweep from one source (route
+        ``pred-sweep``)."""
+        v = dgraph.num_nodes
+        dist0 = torch.full((v,), float("inf"), dtype=self._dtype,
+                           device=self.device)
+        dist0[source] = 0.0
+        max_iter = self.config.max_iterations or v
+        dist, pred, iters, improving = relax.bellman_ford_sweeps_pred(
+            dist0, dgraph.src, dgraph.dst, dgraph.weights, max_iter=max_iter,
+            edge_chunk=relax.edge_chunk_for(1, dgraph.src.shape[0]),
+        )
+        return KernelResult(
+            dist=dist,
+            pred=pred,
+            negative_cycle=improving and max_iter >= v,
+            converged=not improving,
+            iterations=iters,
+            edges_relaxed=iters * dgraph.num_real_edges,
+            route="pred-sweep",
+        )
+
+    def multi_source_pred(self, dgraph: TorchDeviceGraph,
+                          sources: np.ndarray) -> KernelResult:
+        """``multi_source`` on the same route, then one tight-edge pass
+        (``<route>+pred``, B x E more edges relaxed). A zero-weight tight
+        cycle fails the tree check and falls back to ``pred-sweep``."""
+        if self._use_pred_extraction():
+            res, dist_vm = self._fanout(dgraph, sources)
+            if not res.converged:
+                return res  # the solver raises ConvergenceError; no tree
+            if dist_vm is None:
+                dist_vm = res.dist.t().contiguous()
+            pred, ok = self._extract(dgraph, dist_vm, res.dist, sources)
+            del dist_vm
+            if ok:
+                res.pred = pred
+                res.route = f"{res.route}+pred"
+                res.edges_relaxed += len(sources) * dgraph.num_real_edges
+                return res
+            self._pred_fallback(
+                "the tree check rejected the one-pass extraction "
+                "(zero-weight tight cycle on a shortest path)"
+            )
+        return self._multi_source_pred_sweep(dgraph, sources)
+
+    def _multi_source_pred_sweep(self, dgraph: TorchDeviceGraph,
+                                 sources: np.ndarray) -> KernelResult:
+        """The argmin-carrying fan-out (route ``pred-sweep``)."""
+        sources = torch.as_tensor(np.asarray(sources), dtype=torch.int64)
+        sources = sources.to(self.device)
+        b = int(sources.shape[0])
+        v = dgraph.num_nodes
+        dist, pred, iters, improving = relax.bellman_ford_sweeps_pred(
+            relax.multi_source_init(sources, v, self._dtype),
+            dgraph.src, dgraph.dst, dgraph.weights,
+            max_iter=self.config.max_iterations or v,
+            edge_chunk=relax.edge_chunk_for(b, dgraph.src.shape[0]),
+        )
+        res = self._sweep_result(dgraph, dist, iters, improving, b,
+                                 "pred-sweep")
+        res.pred = pred
+        return res
 
 
 register_backend("torch", TorchBackend)

@@ -42,11 +42,19 @@ class SolverConfig:
         multiple with (0, 0, +inf) no-op edges.
       use_pallas: ``True`` / ``"auto"`` run the hand-kernel routes
         (``pallas-vm`` and ``dense-*-pallas``: the CUDA kernels on the
-        card, their plain versions on the CPU). ``False`` forces the XLA
-        routes of the JAX package (``vm``, ``vm-blocked``, ``dense-*``),
-        which are not ported yet and raise on every device.
-      fanout_layout: ``"auto"`` / ``"vertex_major"``; ``"source_major"``
-        is not ported yet.
+        card, their plain versions on the CPU). ``False`` takes the XLA
+        routes of the JAX package in plain PyTorch: ``vm-blocked`` for V
+        above ``VM_BLOCK`` (2^16), ``vm`` below, ``dense-*`` on dense
+        graphs.
+      fanout_layout: ``"auto"`` / ``"vertex_major"`` (the routes above);
+        ``"source_major"`` takes the source-major scatter sweep
+        ``sweep-sm`` for every sparse graph.
+      pred_extraction: how ``predecessors=True`` solves get their trees.
+        ``"auto"`` / ``True``: the route's distances, then one tight-edge
+        pass (``ops.pred``; the hand ``tight_pred`` kernel on the card);
+        a tree that fails its check (a zero-weight tight cycle) falls
+        back to the argmin sweep ``pred-sweep`` with a warning, and
+        raises under ``True``. ``False``: ``pred-sweep`` always.
       validate: cross-check the result against the scipy Johnson oracle.
       checkpoint_dir: write each finished source batch there and resume
         from it (the JAX package's on-disk format; either package resumes
@@ -131,18 +139,11 @@ class SolverConfig:
         ]
         if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
             bad.append(f"mesh_shape={self.mesh_shape}")
-        if self.fanout_layout == "source_major":
-            bad.append("fanout_layout='source_major'")
         for name in ("profile_store", "telemetry", "metrics"):
             if getattr(self, name) is not None:
                 bad.append(f"{name} set")
         if self.precision == "f64" and device_type == "cuda":
             bad.append("precision='f64' on cuda (the kernels are f32)")
-        if self.use_pallas is False:
-            bad.append(
-                "use_pallas=False (the XLA routes vm / vm-blocked / dense "
-                "are not ported)"
-            )
         return bad
 
     def retry_policy(self):

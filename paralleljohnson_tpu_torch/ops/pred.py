@@ -1,0 +1,195 @@
+"""Post-fixpoint predecessor extraction: the tight-edge pass, its hand CUDA
+kernel, and the tree certificate.
+
+The counterpart of the JAX package's ``ops/pred.py``. Any route converges
+to its distances first; one pass over the edges then picks, for every
+(row, vertex), the predecessor
+
+    pred[b, v] = the (dist[b, u], u)-lexicographic minimum over in-edges
+                 (u, v, w) that are tight: |dist[b, u] + w - dist[b, v]|
+                 <= TOL_SCALE * eps * max(|dist[b, v]|, 1)
+
+(``NO_PRED`` where no in-edge is tight), computed in the distances'
+dtype. Preferring a strictly closer predecessor breaks would-be cycles,
+and the id breaks ties, so the tree does not depend on edge order. A
+zero-weight cycle whose members see only equal keys is the one case the
+rule cannot resolve; :func:`pred_reaches_root` finds it and the backend
+falls back to the argmin sweep (``relax.bellman_ford_sweeps_pred``).
+
+Two entry points, one result:
+
+  - :func:`tight_pred_pass_plain`: the reference's, over a COO edge list
+    in any order, with ``dist`` source-major ``[B, V]``;
+  - :func:`tight_pred_pass`: the wrapper the backend calls, over the
+    fan-out's in-edge CSC with ``dist`` vertex-major ``[V, B]``. CUDA
+    tensors run the hand kernel (``csrc/tight_pred.cu``), CPU tensors
+    :func:`tight_pred_pass_plain` over the CSC's edges.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from paralleljohnson_tpu_torch.ops import _cuda
+from paralleljohnson_tpu_torch.ops.fanout_sweep import build_work_items
+from paralleljohnson_tpu_torch.ops.relax import edge_chunk_for
+from paralleljohnson_tpu_torch.utils.paths import NO_PRED
+
+# Relative tolerance of the tight test, in units of eps(dtype) x |dist[v]|
+# (floored at eps x 1): the reference's 4 ULPs.
+TOL_SCALE = 4.0
+
+_I32_MAX = torch.iinfo(torch.int32).max
+
+
+def _tight(du, w, dv):
+    """The tight mask of candidates ``du + w`` against ``dv`` (broadcast
+    shapes), in the distances' dtype."""
+    eps = TOL_SCALE * torch.finfo(du.dtype).eps
+    cand = du + w
+    tol = eps * torch.clamp_min(dv.abs(), 1.0)
+    return torch.isfinite(cand) & torch.isfinite(dv) & ((cand - dv).abs() <= tol)
+
+
+def tight_pred_pass_plain(dist, src, dst, w, *, edge_chunk: int = 1 << 20):
+    """The reference's pass over a COO edge list (any order; padded
+    (0, 0, +inf) edges are never tight). ``dist`` [V] or [B, V], converged.
+    Returns int32 ``pred`` of ``dist``'s shape.
+
+    Two passes over edge chunks: the least tight ``du`` per (row, dst),
+    then the least source id among tight edges with that ``du`` (float
+    equality, so -0.0 and +0.0 tie)."""
+    squeeze = dist.dim() == 1
+    d = dist.unsqueeze(0) if squeeze else dist
+    b, v = d.shape
+    e = src.shape[0]
+    step = max(1, min(edge_chunk, e or 1))
+    best_du = torch.full((b, v), float("inf"), dtype=d.dtype, device=d.device)
+    best_u = torch.full((b, v), _I32_MAX, dtype=torch.int32, device=d.device)
+
+    def chunks():
+        for lo in range(0, e, step):
+            s = src[lo:lo + step].long()
+            t = dst[lo:lo + step].long()
+            du = d[:, s]
+            tight = _tight(du, w[lo:lo + step].to(d.dtype), d[:, t])
+            yield s, t.unsqueeze(0).expand_as(du), du, tight
+
+    inf = torch.tensor(float("inf"), dtype=d.dtype, device=d.device)
+    for _, t, du, tight in chunks():
+        best_du.scatter_reduce_(1, t, torch.where(tight, du, inf), "amin")
+    for s, t, du, tight in chunks():
+        win = tight & (du == best_du.gather(1, t))
+        u = torch.where(win, s.to(torch.int32), _I32_MAX)
+        best_u.scatter_reduce_(1, t, u, "amin")
+    pred = torch.where(best_u < _I32_MAX, best_u, NO_PRED).to(torch.int32)
+    return pred[0] if squeeze else pred
+
+
+def _rows_of_edges(indptr_in, e: int):
+    """int64[E]: the row (destination) of each CSC edge."""
+    indptr = indptr_in.long()
+    return torch.repeat_interleave(
+        torch.arange(indptr.shape[0] - 1, device=indptr.device),
+        indptr[1:] - indptr[:-1], output_size=e)
+
+
+def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None):
+    """The tight-edge pass on vertex-major distances ``dist_vm`` [V, B]
+    and the in-edge CSC (``indptr_in``, ``src_in``, ``w_in``) the fan-out
+    sweep pulls over. Returns int32 ``pred_vm`` [V, B], ``NO_PRED`` where
+    no in-edge is tight (sources are not masked here).
+
+    CUDA tensors run the hand kernel (``csrc/tight_pred.cu``) over
+    ``items`` (a ``WorkItems``; built from ``indptr_in`` when None), with
+    an int64[items.n_split, B] scratch for the split rows' partial keys;
+    each call counts one in ``tight_pred_pass.launches`` (the items kernel
+    and, when the layout has split rows, the combine kernel). CPU tensors
+    run :func:`tight_pred_pass_plain` over the CSC's edges, ``items``
+    unused, and count nothing."""
+    dev = dist_vm.device
+    if dev.type == "cpu":
+        return tight_pred_pass_plain(
+            dist_vm.t(), src_in, _rows_of_edges(indptr_in, src_in.shape[0]),
+            w_in, edge_chunk=edge_chunk_for(dist_vm.shape[1], src_in.shape[0]),
+        ).t().contiguous()
+    if dev.type != "cuda":
+        raise ValueError(f"tight_pred_pass takes cpu or cuda tensors, got {dev}")
+    _cuda.check(dist_vm, "dist_vm", torch.float32, dev, 2)
+    _cuda.check(indptr_in, "indptr_in", torch.int32, dev, 1)
+    _cuda.check(src_in, "src_in", torch.int32, dev, 1)
+    _cuda.check(w_in, "w_in", torch.float32, dev, 1)
+    v, b = dist_vm.shape
+    if indptr_in.shape[0] != v + 1 or src_in.shape != w_in.shape:
+        raise ValueError(
+            f"layout does not fit dist_vm[{v}, {b}]: indptr_in "
+            f"{tuple(indptr_in.shape)}, src_in {tuple(src_in.shape)}, "
+            f"w_in {tuple(w_in.shape)}"
+        )
+    if items is None:
+        items = build_work_items(indptr_in)
+    _cuda.check(items.pieces, "items.pieces", torch.int32, dev, 2)
+    _cuda.check(items.split_rows, "items.split_rows", torch.int32, dev, 1)
+    _cuda.check(items.split_ptr, "items.split_ptr", torch.int32, dev, 1)
+    out = torch.empty((v, b), dtype=torch.int32, device=dev)
+    scratch = torch.empty((items.n_split, b), dtype=torch.int64, device=dev)
+    _cuda.launch(
+        "tight_pred", dist_vm.data_ptr(), out.data_ptr(), indptr_in.data_ptr(),
+        src_in.data_ptr(), w_in.data_ptr(), items.pieces.data_ptr(),
+        items.n_split, v, items.item_edges, scratch.data_ptr(),
+        items.split_rows.data_ptr(), items.split_ptr.data_ptr(),
+        items.split_rows.shape[0], b, device=dev,
+    )
+    tight_pred_pass.launches += 1
+    return out
+
+
+tight_pred_pass.launches = 0
+
+
+def pred_reaches_root(pred):
+    """[.., V] bool: following ``pred`` from each vertex reaches the
+    ``NO_PRED`` root. False exactly on vertices on (or draining into) a
+    predecessor cycle. At most ceil(log2 V) pointer-doubling gathers:
+    after k of them each pointer has advanced 2^k hops, ``NO_PRED``
+    absorbing. The doubling stops once every pointer is at a root (one
+    host read per step): a tree of depth D takes ceil(log2 D) steps."""
+    squeeze = pred.dim() == 1
+    q = pred.unsqueeze(0) if squeeze else pred
+    steps = max(1, math.ceil(math.log2(max(q.shape[1], 2))))
+    for _ in range(steps):
+        pending = q >= 0
+        if not bool(pending.any()):
+            break
+        hop = torch.gather(q, 1, q.clamp_min(0).long())
+        q = torch.where(pending, hop, q)
+    reaches = q == NO_PRED
+    return reaches[0] if squeeze else reaches
+
+
+def certify_pred(pred, dist, sources):
+    """Force each row's source to ``NO_PRED`` (in place) and certify the
+    forest: returns (pred, ok) with ``ok`` a bool tensor, True iff every
+    finite-distance non-source vertex has a predecessor and every walk
+    ends at a root. ``pred`` / ``dist`` [B, V], ``sources`` [B]."""
+    b = pred.shape[0]
+    rows = torch.arange(b, device=pred.device)
+    src = torch.as_tensor(sources, device=pred.device).long()
+    pred[rows, src] = NO_PRED
+    covered = (pred != NO_PRED) | ~torch.isfinite(dist)
+    covered[rows, src] = True
+    return pred, pred_reaches_root(pred).all() & covered.all()
+
+
+def extract_pred(dist, sources, src, dst, w, *, edge_chunk: int = 1 << 20):
+    """The reference's checked extraction over a COO edge list: (pred
+    int32 of ``dist``'s shape, ok bool tensor). ``ok=False`` (a zero-weight
+    tight cycle, or distances that were not a fixpoint) is the backend's
+    signal to fall back to the argmin sweep."""
+    squeeze = dist.dim() == 1
+    d = dist.unsqueeze(0) if squeeze else dist
+    pred = tight_pred_pass_plain(d, src, dst, w, edge_chunk=edge_chunk)
+    pred, ok = certify_pred(pred, d, torch.as_tensor(sources).reshape(-1))
+    return (pred[0] if squeeze else pred), ok

@@ -26,9 +26,13 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from paralleljohnson_tpu_torch.utils.paths import NO_PRED
+
 INF = float("inf")
+_I32_MAX = torch.iinfo(torch.int32).max
 
 # Bound on the elements of one [rows, chunk] relaxation intermediate
 # (256 MB at f32), the JAX package's ``_edge_chunk_for`` budget.
@@ -77,11 +81,238 @@ def bellman_ford_sweeps(dist0, src, dst, w, *, max_iter: int,
     Returns (dist, iterations, still_improving) with the last two as host
     values; ``still_improving`` after exit is the negative-cycle flag.
     """
+    return _sweeps_to_fixpoint(
+        lambda d: relax_sweep(d, src, dst, w, edge_chunk=edge_chunk),
+        dist0, max_iter)
+
+
+def relax_sweep_pred(dist, pred, src, dst, w, *, edge_chunk: int = 1 << 20):
+    """:func:`relax_sweep` that also carries predecessors: ``pred[b, v]``
+    is the source of the edge that last lowered ``dist[b, v]`` (``NO_PRED``
+    for sources and unreached vertices). Among the edges reaching a
+    chunk's minimum the smallest source id wins. Returns new (dist, pred)."""
+    squeeze = dist.dim() == 1
+    d = dist.unsqueeze(0) if squeeze else dist
+    p = pred.unsqueeze(0) if squeeze else pred
+    d, p = d.clone(), p.clone()
+    e = src.shape[0]
+    step = max(1, min(edge_chunk, e or 1))
+    for lo in range(0, e, step):
+        s = src[lo:lo + step].long()
+        t = dst[lo:lo + step].long().unsqueeze(0).expand(d.shape[0], -1)
+        cand = d[:, s] + w[lo:lo + step].unsqueeze(0)
+        upd = torch.full_like(d, INF).scatter_reduce_(1, t, cand, "amin")
+        win = cand == upd.gather(1, t)
+        cand_src = torch.where(win, s.to(torch.int32), _I32_MAX)
+        winner = torch.full(d.shape, _I32_MAX, dtype=torch.int32,
+                            device=d.device).scatter_reduce_(1, t, cand_src,
+                                                             "amin")
+        p = torch.where(upd < d, winner, p)
+        d = torch.minimum(d, upd)
+    return (d[0], p[0]) if squeeze else (d, p)
+
+
+def bellman_ford_sweeps_pred(dist0, src, dst, w, *, max_iter: int,
+                             edge_chunk: int = 1 << 20):
+    """Predecessor-carrying :func:`bellman_ford_sweeps` (route
+    ``pred-sweep``): returns (dist, pred, iterations, still_improving),
+    ``pred`` int32 with ``NO_PRED`` at sources and unreached vertices."""
+    d = dist0
+    p = torch.full(dist0.shape, NO_PRED, dtype=torch.int32,
+                   device=dist0.device)
+    improving = bool(torch.isfinite(dist0).any())
+    i = 0
+    while improving and i < max_iter:
+        nd, p = relax_sweep_pred(d, p, src, dst, w, edge_chunk=edge_chunk)
+        improving = bool((nd < d).any())
+        d = nd
+        i += 1
+    return d, p, i, improving
+
+
+# -- vertex-major (dst-sorted) sweeps: routes vm and vm-blocked --------------
+#
+# The reference's default fan-out keeps dist vertex-major ([V, B]) over
+# destination-sorted edges: each chunk gathers source rows and min-reduces
+# them into destination rows. ``vm`` reduces every chunk into all V rows;
+# ``vm-blocked`` buckets the edges by destination block of ``vb`` vertices,
+# so a chunk touches one [vb, B] slice. Both carry the distances from
+# chunk to chunk (chunk-level Gauss-Seidel), as the reference does, so
+# the iteration counts agree with it.
+
+
+def relax_sweep_vm(dist_vm, src, dst, w, *, edge_chunk: int = 1 << 20):
+    """One sweep in vertex-major layout over edges sorted by ``dst``:
+    each chunk's candidates ``dist[src] + w`` are gathered from the carry
+    at the chunk's start and min-reduced into their rows. Returns a new
+    tensor."""
+    d = dist_vm.clone()
+    b = d.shape[1]
+    e = src.shape[0]
+    step = max(1, min(edge_chunk, e or 1))
+    for lo in range(0, e, step):
+        cand = d.index_select(0, src[lo:lo + step].long())
+        cand += w[lo:lo + step].unsqueeze(1)
+        idx = dst[lo:lo + step].long().unsqueeze(1).expand(-1, b)
+        d.scatter_reduce_(0, idx, cand, "amin")
+    return d
+
+
+def bellman_ford_sweeps_vm(dist0_vm, src, dst, w, *, max_iter: int,
+                           edge_chunk: int = 1 << 20):
+    """:func:`relax_sweep_vm` to its fixpoint: (dist_vm, iterations,
+    still_improving), the last two host values."""
+    return _sweeps_to_fixpoint(
+        lambda d: relax_sweep_vm(d, src, dst, w, edge_chunk=edge_chunk),
+        dist0_vm, max_iter)
+
+
+def bucket_edges_by_dst_block(dst, vb: int, nb: int):
+    """(order, counts) of host ``dst``: the edge permutation sorted by
+    (dst block, dst), stable, and the edges per block."""
+    block = dst // vb
+    order = np.lexsort((dst, block))
+    counts = np.bincount(block, minlength=nb)
+    return order, counts
+
+
+def build_vm_blocked_layout(indptr: np.ndarray, indices: np.ndarray,
+                            num_nodes: int, *, vb: int, ec: int) -> dict:
+    """Host layout of ``vm-blocked`` (numpy, once per graph structure):
+    edges sorted by destination, bucketed by destination block of ``vb``
+    vertices, each block padded to a multiple of the chunk size ``ec``.
+    int32 arrays ``src_ck`` [NC, ec] (0 at pads), ``dstl_ck`` [NC, ec]
+    (block-local destination, ``vb`` at pads), ``base_ck`` [NC] (each
+    chunk's first vertex) and ``edge_order`` [NC, ec] (CSR edge index, -1
+    at pads: the current weights are gathered through it, so the layout
+    survives reweighting), plus ``vb``. Real edges only (``indptr[-1]``)."""
+    v = num_nodes
+    e = int(indptr[-1])
+    src = np.repeat(np.arange(v, dtype=np.int32), np.diff(indptr))
+    dst = indices[:e].astype(np.int32)
+    nb = max(1, -(-v // vb))
+    order, counts = bucket_edges_by_dst_block(dst, vb, nb)
+    padded = -(-np.maximum(counts, 1) // ec) * ec  # >= 1 chunk per block
+    total = int(padded.sum())
+    src_f = np.zeros(total, np.int32)
+    dstl_f = np.full(total, vb, np.int32)
+    order_f = np.full(total, -1, np.int32)
+    base_f = np.empty(total, np.int32)
+    starts_in = np.concatenate([[0], np.cumsum(counts)])
+    starts_out = np.concatenate([[0], np.cumsum(padded)])
+    for j in range(nb):
+        c = int(counts[j])
+        o = int(starts_out[j])
+        sl = order[starts_in[j]: starts_in[j] + c]
+        src_f[o: o + c] = src[sl]
+        dstl_f[o: o + c] = dst[sl] - j * vb
+        order_f[o: o + c] = sl
+        base_f[o: o + int(padded[j])] = j * vb
+    nc = total // ec
+    return {
+        "src_ck": src_f.reshape(nc, ec),
+        "dstl_ck": dstl_f.reshape(nc, ec),
+        "base_ck": base_f.reshape(nc, ec)[:, 0].copy(),
+        "edge_order": order_f.reshape(nc, ec),
+        "vb": vb,
+    }
+
+
+def build_vm_blocked_layout_device(src, dst, weights, counts: np.ndarray, *,
+                                   vb: int, ec: int) -> dict:
+    """:func:`build_vm_blocked_layout` on the edges' device, for large
+    edge lists: a stable sort by ``dst`` (the same order as the host's
+    (block, dst) sort, block = dst // vb being monotone in dst) and a
+    scatter into the padded slots; only ``counts`` (real edges per block)
+    comes from the host. ``src`` / ``dst`` / ``weights`` are the real
+    edges. Returns the host builder's ``src_ck`` / ``dstl_ck`` as tensors
+    and its ``base_ck`` (no ``edge_order``), ``w_ck`` gathered from
+    ``weights``, and ``order`` / ``slots`` for
+    :func:`regather_vm_blocked_weights`."""
+    nb = counts.shape[0]
+    if int(counts.sum()) != int(dst.shape[0]):
+        raise ValueError(
+            f"counts sum ({int(counts.sum())}) != number of edges "
+            f"({int(dst.shape[0])}): pass real edges only"
+        )
+    dev = dst.device
+    padded = -(-np.maximum(counts, 1) // ec) * ec
+    total = int(padded.sum())
+    starts_in = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)])[:-1],
+                                device=dev)
+    starts_out = torch.as_tensor(
+        np.concatenate([[0], np.cumsum(padded)])[:-1], device=dev)
+    nc = total // ec
+    base_ck = np.repeat(np.arange(nb, dtype=np.int32) * vb,
+                        (padded // ec).astype(np.int64))
+    order = torch.argsort(dst, stable=True)
+    dst_s = dst[order].long()
+    block_s = dst_s // vb
+    # Slot of sorted edge p: starts_out[block] + (p - starts_in[block]).
+    p = torch.arange(dst.shape[0], device=dev)
+    slots = starts_out[block_s] + p - starts_in[block_s]
+    return {
+        "src_ck": _slot_scatter(src[order].to(torch.int32), slots, total,
+                                (nc, ec), 0),
+        "dstl_ck": _slot_scatter((dst_s - block_s * vb).to(torch.int32),
+                                 slots, total, (nc, ec), vb),
+        "base_ck": base_ck,
+        "w_ck": regather_vm_blocked_weights(weights, order, slots, total,
+                                            (nc, ec)),
+        "order": order,
+        "slots": slots,
+        "vb": vb,
+    }
+
+
+def _slot_scatter(vals, slots, total: int, shape, fill):
+    out = torch.full((total,), fill, dtype=vals.dtype, device=vals.device)
+    out[slots] = vals
+    return out.view(shape)
+
+
+def regather_vm_blocked_weights(weights, order, slots, total: int, shape):
+    """The current ``weights`` in the padded chunk slots of a device-built
+    layout (+inf at pads): the builder's and the post-reweight gather."""
+    return _slot_scatter(weights[order], slots, total, shape, INF)
+
+
+def relax_sweep_vm_blocked(dist_vm, src_ck, dstl_ck, w_ck, base_ck, *,
+                           vb: int):
+    """One vertex-major sweep over dst-blocked chunks: chunk k gathers its
+    candidates from the carry and min-reduces them into rows base_ck[k]
+    .. base_ck[k] + vb (``dist_vm`` has a multiple of ``vb`` rows, pad rows
+    +inf). Pad slots (+inf weight) are no-ops and go to the block's last
+    row. Returns a new tensor."""
+    d = dist_vm.clone()
+    b = d.shape[1]
+    for k in range(src_ck.shape[0]):
+        base = int(base_ck[k])
+        cand = d.index_select(0, src_ck[k].long())
+        cand += w_ck[k].unsqueeze(1)
+        idx = dstl_ck[k].long().clamp_max(vb - 1).unsqueeze(1).expand(-1, b)
+        d[base:base + vb].scatter_reduce_(0, idx, cand, "amin")
+    return d
+
+
+def bellman_ford_sweeps_vm_blocked(dist0_vm, src_ck, dstl_ck, w_ck, base_ck,
+                                   *, vb: int, max_iter: int):
+    """:func:`relax_sweep_vm_blocked` to its fixpoint: (dist_vm,
+    iterations, still_improving), the last two host values."""
+    return _sweeps_to_fixpoint(
+        lambda d: relax_sweep_vm_blocked(d, src_ck, dstl_ck, w_ck, base_ck,
+                                         vb=vb),
+        dist0_vm, max_iter)
+
+
+def _sweeps_to_fixpoint(sweep, dist0, max_iter: int):
+    """Apply ``sweep`` until nothing drops or ``max_iter`` sweeps ran:
+    (dist, iterations, still_improving), one host read per sweep."""
     d = dist0
     improving = bool(torch.isfinite(dist0).any())
     i = 0
     while improving and i < max_iter:
-        nd = relax_sweep(d, src, dst, w, edge_chunk=edge_chunk)
+        nd = sweep(d)
         improving = bool((nd < d).any())
         d = nd
         i += 1

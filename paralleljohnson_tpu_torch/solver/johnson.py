@@ -14,7 +14,9 @@ The solver owns phase structure, batching, checkpoint/resume and the
 resilience layer (retries, the watchdog, OOM degradation, the sanity
 guard); the numeric kernels live in the configured backend. The fan-out
 batches run as a pipeline: batch k's device-to-host copy and checkpoint
-write overlap batch k+1's compute. Predecessors, the condensed route,
+write overlap batch k+1's compute. ``predecessors=True`` carries a
+shortest-path tree block beside every distance block, through the
+batches, the downloads and the checkpoints. The condensed route,
 telemetry and the planner are later slices.
 """
 
@@ -87,8 +89,9 @@ class SolveResult:
     potentials: Johnson potentials h(v) (a device tensor when phase 1 ran,
       numpy zeros when no weight is negative).
     stats: per-phase wall-clock, iteration counts, edges-relaxed totals.
-    predecessors: shortest-path-tree rows; always None until the port has
-      predecessors (``predecessors=True`` raises).
+    predecessors: [N_sources, V] int32 shortest-path-tree rows (-1 =
+      source / unreachable) when the solve ran with ``predecessors=True``,
+      else None; in the same memory as ``dist``.
     """
 
     dist: Any
@@ -196,11 +199,9 @@ class ParallelJohnsonSolver:
             self.config.backend, self.config, device=device
         )
 
-    def _check_supported(self, predecessors: bool) -> None:
+    def _check_supported(self) -> None:
         device = getattr(self.backend, "device", torch.device("cpu"))
         bad = self.config.unsupported(torch.device(device).type)
-        if predecessors:
-            bad.append("predecessors=True")
         if bad:
             raise NotImplementedError(
                 "not ported to paralleljohnson_tpu_torch yet: " + ", ".join(bad)
@@ -215,8 +216,12 @@ class ParallelJohnsonSolver:
         *,
         predecessors: bool = False,
     ) -> SolveResult:
-        """Full Johnson APSP (or the given source subset)."""
-        self._check_supported(predecessors)
+        """Full Johnson APSP (or the given source subset).
+
+        ``predecessors=True`` also returns shortest-path trees
+        (:attr:`SolveResult.predecessors`): one extraction pass per batch
+        after the fan-out (the backend's ``multi_source_pred``)."""
+        self._check_supported()
         stats = SolverStats()
         v = graph.num_nodes
         sources = (
@@ -230,9 +235,11 @@ class ParallelJohnsonSolver:
         # Phase 3 rides inside each batch's finalize, so checkpointed rows
         # are FINAL distances keyed by the ORIGINAL graph's digest.
         with phase_timer(stats, "fanout"):
-            dist = self._fanout(dgraph, sources, stats, graph=graph, h=h)
+            dist, pred = self._fanout(dgraph, sources, stats,
+                                      with_pred=predecessors, graph=graph,
+                                      h=h)
         result = SolveResult(dist=dist, sources=sources, potentials=h,
-                             stats=stats)
+                             stats=stats, predecessors=pred)
         if self.config.validate:
             self._validate(graph, result)
         return result
@@ -289,7 +296,7 @@ class ParallelJohnsonSolver:
                 "streaming mode never materializes the rows the oracle "
                 "check needs"
             )
-        self._check_supported(False)
+        self._check_supported()
         if isinstance(reduce_rows, str):
             try:
                 reduce_rows = _ROW_REDUCERS[reduce_rows]
@@ -341,12 +348,13 @@ class ParallelJohnsonSolver:
     ) -> SolveResult:
         """Standalone Bellman-Ford SSSP — negative weights allowed, no
         reweighting."""
-        self._check_supported(predecessors)
+        self._check_supported()
         stats = SolverStats()
         with phase_timer(stats, "upload"):
             dgraph = self.backend.upload(graph)
         with phase_timer(stats, "bellman_ford"):
-            bf = self._run_bf(dgraph, stats, source=int(source))
+            bf = self._run_bf(dgraph, stats, source=int(source),
+                              pred=predecessors)
         if bf.negative_cycle:
             raise NegativeCycleError("negative-weight cycle reachable from source")
         if not bf.converged:
@@ -358,6 +366,7 @@ class ParallelJohnsonSolver:
             sources=np.array([source]),
             potentials=np.zeros(graph.num_nodes, graph.dtype),
             stats=stats,
+            predecessors=None if bf.pred is None else bf.pred[None, :],
         )
 
     def multi_source(
@@ -372,24 +381,26 @@ class ParallelJohnsonSolver:
             raise ValueError(
                 "multi_source requires non-negative weights; use solve()"
             )
-        self._check_supported(predecessors)
+        self._check_supported()
         stats = SolverStats()
         sources = np.asarray(sources, np.int64)
         with phase_timer(stats, "upload"):
             dgraph = self.backend.upload(graph)
         with phase_timer(stats, "fanout"):
-            dist = self._fanout(dgraph, sources, stats, graph=graph)
+            dist, pred = self._fanout(dgraph, sources, stats,
+                                      with_pred=predecessors, graph=graph)
         return SolveResult(
             dist=dist,
             sources=sources,
             potentials=np.zeros(graph.num_nodes, graph.dtype),
             stats=stats,
+            predecessors=pred,
         )
 
     def solve_batch(self, graphs: list[CSRGraph]) -> list[SolveResult]:
         """Many-small-graphs mode: APSP for each graph in one vectorized
         run when the backend supports it, else one ``solve`` per graph."""
-        self._check_supported(False)
+        self._check_supported()
         stats = SolverStats()
         try:
             with phase_timer(stats, "batch_apsp"):
@@ -421,12 +432,18 @@ class ParallelJohnsonSolver:
     # -- internals ----------------------------------------------------------
 
     def _run_bf(self, dgraph: Any, stats: SolverStats, *,
-                source: int | None):
-        """One Bellman-Ford stage through the resilience layer: bounded
-        retries with the watchdog deadline; a B=1 sweep has no batch to
-        shrink, so an OOM frees the rebuildable device caches and retries
-        with the memory they held. Converged non-cycle distances pass the
-        sanity guard before anyone consumes them."""
+                source: int | None, pred: bool = False):
+        """One Bellman-Ford stage through the resilience layer (with the
+        shortest-path tree when ``pred``): bounded retries with the
+        watchdog deadline; a B=1 sweep has no batch to shrink, so an OOM
+        frees the rebuildable device caches and retries with the memory
+        they held. Converged non-cycle distances pass the sanity guard
+        before anyone consumes them."""
+
+        def kernel():
+            if pred:
+                return self.backend.bellman_ford_pred(dgraph, source=source)
+            return self.backend.bellman_ford(dgraph, source=source)
 
         def retryable(e):
             if resilience.is_oom_error(e):
@@ -439,7 +456,7 @@ class ParallelJohnsonSolver:
 
         faults = self.config.fault_plan
         bf = resilience.run_stage(
-            lambda: self.backend.bellman_ford(dgraph, source=source),
+            kernel,
             stage="bellman_ford",
             policy=self.config.retry_policy(),
             stats=stats,
@@ -488,13 +505,16 @@ class ParallelJohnsonSolver:
             return int(resolver(dgraph))
         return max(1, int(self.config.pipeline_depth or DEFAULT_PIPELINE_DEPTH))
 
-    def _initial_batch_size(self, sources: np.ndarray, dgraph: Any = None) -> int:
+    def _initial_batch_size(self, sources: np.ndarray, dgraph: Any = None, *,
+                            with_pred: bool = False) -> int:
         """Starting fan-out batch size: the explicit config value, else
-        the backend's fits-memory heuristic. The OOM degrader may shrink
-        it mid-solve (``_resilient_batches``)."""
+        the backend's fits-memory heuristic (``with_pred`` budgets the
+        int32 [B, V] pred block and the extraction's temporaries too).
+        The OOM degrader may shrink it mid-solve (``_resilient_batches``)."""
         bs = self.config.source_batch_size
         if bs is None and dgraph is not None:
-            bs = self.backend.suggested_source_batch(dgraph)
+            bs = self.backend.suggested_source_batch(dgraph,
+                                                     with_pred=with_pred)
         return int(bs or len(sources) or 1)
 
     def _resilient_batches(
@@ -503,12 +523,13 @@ class ParallelJohnsonSolver:
         sources: np.ndarray,
         stats: SolverStats,
         *,
+        with_pred: bool = False,
         try_resume=None,
         finalize=None,
         stage_async=None,
     ):
         """Drive the fan-out batch loop through the resilience layer as a
-        pipeline.
+        pipeline (``multi_source_pred`` per batch when ``with_pred``).
 
         Yields ``(batch_idx, batch, result, resumed)`` per batch, in batch
         order. When a ``finalize`` stage is given (the download /
@@ -541,8 +562,9 @@ class ParallelJohnsonSolver:
         degrader = resilience.OOMDegrader(
             self.backend,
             dgraph,
-            self._initial_batch_size(sources, dgraph),
+            self._initial_batch_size(sources, dgraph, with_pred=with_pred),
             min_batch=self.config.min_source_batch,
+            with_pred=with_pred,
         )
         depth = self._pipeline_depth(dgraph) if finalize is not None else 1
         stats.final_pipeline_depth = depth
@@ -636,9 +658,14 @@ class ParallelJohnsonSolver:
                         yield batch_idx - 1, batch, out, True
                         continue
 
+                def kernel(b=batch):
+                    if with_pred:
+                        return self.backend.multi_source_pred(dgraph, b)
+                    return self.backend.multi_source(dgraph, b)
+
                 try:
                     res = resilience.run_stage(
-                        lambda b=batch: self.backend.multi_source(dgraph, b),
+                        kernel,
                         stage="fanout",
                         policy=policy,
                         stats=stats,
@@ -699,16 +726,18 @@ class ParallelJohnsonSolver:
             if worker is not None:
                 worker.shutdown(wait=True, cancel_futures=True)
 
-    def _download_rows(self, dgraph: Any, rows):
-        """Materialize one batch's device rows on the host, clearing the
-        backend's rebuildable device caches first when the block is large
+    def _download_rows(self, dgraph: Any, rows, pred=None):
+        """Materialize one batch's device rows (and pred rows, or None) on
+        the host as (rows, pred), clearing the backend's rebuildable device
+        caches first when the blocks are large
         (``_DOWNLOAD_CLEAR_MIN_BYTES``). Rows the pipeline staged already
         have their copy under way; others start theirs here (the same
         page-locked copy, waited for at once)."""
-        if int(getattr(rows, "nbytes", 0) or 0) >= _DOWNLOAD_CLEAR_MIN_BYTES:
+        nbytes = sum(int(getattr(x, "nbytes", 0) or 0) for x in (rows, pred))
+        if nbytes >= _DOWNLOAD_CLEAR_MIN_BYTES:
             self.backend.clear_caches(dgraph)
-        self.backend.stage_rows_async(rows)
-        return to_numpy(rows)
+        self.backend.stage_rows_async(rows, pred)
+        return to_numpy(rows), None if pred is None else to_numpy(pred)
 
     def _fanout(
         self,
@@ -716,18 +745,21 @@ class ParallelJohnsonSolver:
         sources: np.ndarray,
         stats: SolverStats,
         *,
+        with_pred: bool = False,
         graph: CSRGraph,
         h=None,
     ):
         """Run phase 2 in source batches; optionally checkpoint each batch
         (the batch is the unit of recovery). Checkpoints are keyed by the
         ORIGINAL graph's content, with the un-reweight (``h``) applied per
-        batch BEFORE the save: what lands on disk is final distances. The
-        loop runs through the pipelined resilience driver
-        (``_resilient_batches``); the solve does not return until the
-        checkpoint writer's flush barrier confirms every commit. Returns
-        the distance rows: device rows for a single uncheckpointed batch,
-        else one host array."""
+        batch BEFORE the save: what lands on disk is final distances (and
+        the pred block, which the un-reweight leaves alone: tight edges of
+        the reweighted graph are tight in the original). The loop runs
+        through the pipelined resilience driver (``_resilient_batches``);
+        the solve does not return until the checkpoint writer's flush
+        barrier confirms every commit. Returns (distance rows, pred rows or
+        None): device rows for a single uncheckpointed batch, else host
+        arrays."""
         from paralleljohnson_tpu_torch.utils.checkpoint import (
             AsyncCheckpointWriter,
             BatchCheckpointer,
@@ -741,8 +773,7 @@ class ParallelJohnsonSolver:
             ckpt = BatchCheckpointer(self.config.checkpoint_dir, graph_key=graph)
 
             def try_resume(batch_idx, batch):
-                cached = ckpt.load(batch_idx, batch)
-                return None if cached is None else cached[0]
+                return ckpt.load(batch_idx, batch, with_pred=with_pred)
 
         depth = self._pipeline_depth(dgraph)
         faults = self.config.fault_plan
@@ -765,38 +796,40 @@ class ParallelJohnsonSolver:
 
         def finalize(batch_idx, batch, payload, resumed):
             if resumed:
-                return payload  # host rows from the checkpoint
+                return payload  # (rows, pred) host arrays from the checkpoint
             # A single-batch solve keeps the rows on the device;
             # multi-batch solves stream each batch to the host (batching
             # exists because all rows together exceed the device budget),
             # and a checkpoint needs host rows either way.
-            row = payload.dist
+            row, pred = payload.dist, payload.pred
             if ckpt is not None or len(batch) < n_src:
-                row = self._download_rows(dgraph, row)
+                row, pred = self._download_rows(dgraph, row, pred)
                 if unreweight:
                     row = _unreweight(row, h, batch)
                 if writer is not None:
-                    writer.submit(batch_idx, batch, row)
+                    writer.submit(batch_idx, batch, row, pred=pred)
                 elif ckpt is not None:
-                    checked_save(ckpt, batch_idx, batch, row,
+                    checked_save(ckpt, batch_idx, batch, row, pred=pred,
                                  fault_hook=fault_hook)
             elif unreweight:
                 row = _unreweight(row, h, batch)
-            return row
+            return row, pred
 
         def stage_async(res):
             # Start the device-to-host copy the moment the rows pass the
             # sanity guard — it then runs under the next batch's compute.
-            self.backend.stage_rows_async(res.dist)
+            self.backend.stage_rows_async(res.dist, res.pred)
 
         rows: list = []
+        preds: list = []
         gen = self._resilient_batches(
-            dgraph, sources, stats, try_resume=try_resume, finalize=finalize,
-            stage_async=stage_async,
+            dgraph, sources, stats, with_pred=with_pred,
+            try_resume=try_resume, finalize=finalize, stage_async=stage_async,
         )
         try:
-            for _, _, row, _ in gen:
+            for _, _, (row, pred), _ in gen:
                 rows.append(row)
+                preds.append(pred)
             if writer is not None:
                 # Commit barrier: every batch on disk before success.
                 t0 = time.perf_counter()
@@ -811,7 +844,10 @@ class ParallelJohnsonSolver:
                 # resumable even when the solve is dying) without raising
                 # over the original error.
                 writer.close()
-        return rows[0] if len(rows) == 1 else np.concatenate(rows, axis=0)
+        if len(rows) == 1:
+            return rows[0], preds[0]
+        return (np.concatenate(rows, axis=0),
+                np.concatenate(preds, axis=0) if with_pred else None)
 
     def _validate(self, graph: CSRGraph, result: SolveResult) -> None:
         """config.validate: cross-check against the scipy Johnson oracle."""

@@ -41,15 +41,15 @@ def reconstruct_path(pred_row: np.ndarray, source: int, target: int) -> list[int
 def _min_weight_edge_map(graph):
     """(sorted int64 keys u*V+v, min weight per key) for O(log E) edge
     lookups; parallel edges resolve to their minimum weight (the only one
-    a shortest path can use)."""
+    a shortest path can use). An edgeless graph maps to two empty arrays."""
     v = graph.num_nodes
     keys = graph.src.astype(np.int64) * v + graph.indices.astype(np.int64)
+    if keys.size == 0:
+        return keys, graph.weights[:0]
     order = np.argsort(keys, kind="stable")
     keys, w = keys[order], graph.weights[order]
     first = np.concatenate(([True], keys[1:] != keys[:-1]))
-    starts = np.flatnonzero(first)
-    wmin = np.minimum.reduceat(w, starts) if keys.size else w
-    return keys[first], wmin
+    return keys[first], np.minimum.reduceat(w, np.flatnonzero(first))
 
 
 def validate_pred_tree(

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each hand CUDA kernel against its plain
-PyTorch version, and ``solve()`` on the card against ``solve()`` on the
-CPU. Every test needs a CUDA device and skips without one.
+PyTorch version, and ``solve()`` on the card (predecessor trees and the
+plain-torch XLA routes included) against ``solve()`` on the CPU. Every
+test needs a CUDA device and skips without one.
 
 This file imports nothing of JAX, so it runs where JAX is not installed:
 
@@ -17,8 +18,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import paralleljohnson_tpu_torch as pjt
+from paralleljohnson_tpu_torch.backends import torch_backend
 from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
 from paralleljohnson_tpu_torch.ops import minplus as mp_mod
+from paralleljohnson_tpu_torch.ops import pred as pred_mod
 from paralleljohnson_tpu_torch.ops import relax
 from paralleljohnson_tpu_torch.ops.minplus import (
     minplus_fixpoint,
@@ -26,6 +29,7 @@ from paralleljohnson_tpu_torch.ops.minplus import (
     minplus_plain,
 )
 from paralleljohnson_tpu_torch.solver import johnson
+from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
 from paralleljohnson_tpu_torch.utils.resilience import is_oom_error
 
 
@@ -326,11 +330,130 @@ def test_solve_on_card_equals_cpu(cuda, spec):
     np.testing.assert_array_equal(got.matrix, want.matrix)
 
 
-def test_use_pallas_false_raises_on_card(cuda):
-    g = pjt.load_graph(SPECS[0])
-    with pytest.raises(NotImplementedError, match="use_pallas"):
-        pjt.ParallelJohnsonSolver(pjt.SolverConfig(use_pallas=False),
-                                  device=cuda).solve(g)
+def _converged(g, b, layout, items):
+    """The fan-out fixpoint of ``g`` from ``b`` seeded sources over its
+    in-edge ``layout``, column 3 (when B > 3) all unreachable, and the
+    zeros of every other row made -0.0 (they tie with +0.0)."""
+    device = layout[0].device
+    sources = np.random.default_rng(b).choice(
+        np.flatnonzero(np.diff(g.indptr)), b)  # each with an out-edge
+    d0 = _dist0(sources, g.num_nodes, b, device)
+    if b > 3:
+        d0[:, 3] = float("inf")
+    d, _, _ = fs.fanout_fixpoint(d0, *layout, max_iter=g.num_nodes,
+                                 items=items)
+    odd = torch.arange(g.num_nodes, device=device).unsqueeze(1) % 2 == 1
+    d[(d == 0) & odd] = -0.0
+    return d
+
+
+def _zero_ties(g):
+    w = np.floor(g.weights)
+    w[np.random.default_rng(1).random(w.shape[0]) < 0.3] = 0.0
+    return g.with_weights(w.astype(np.float32))
+
+
+PRED_GRAPHS = {
+    "hub": lambda: _zero_ties(_hub_graph()),
+    "rmat12": lambda: _zero_ties(SWEEP_GRAPHS["rmat12"]()),
+    "grid": lambda: _zero_ties(pjt.load_graph("grid:rows=30,cols=40,seed=7")),
+}
+
+
+@pytest.mark.parametrize("graph", sorted(PRED_GRAPHS))
+@pytest.mark.parametrize("b", [1, 5, 128, 200, 512, 700])
+def test_tight_pred_kernel_equals_plain(cuda, b, graph):
+    """The tight_pred kernel against the plain COO pass on converged
+    distances with zero-weight ties, -0.0 against +0.0, an unreachable
+    column; B = 1 / 5 take the scalar lane path, 200 a ragged pass, 700 a
+    second pass; the hub graph splits rows into pieces."""
+    g = PRED_GRAPHS[graph]()
+    layout = _layout(g, cuda)
+    items = fs.build_work_items(layout[0])
+    if graph == "hub":
+        assert items.n_split >= 5 + 2
+    d = _converged(g, b, layout, items)
+    before = pred_mod.tight_pred_pass.launches
+    got = pred_mod.tight_pred_pass(d, *layout, items=items)
+    torch.cuda.synchronize()
+    assert pred_mod.tight_pred_pass.launches == before + 1
+    e = g.num_real_edges
+    coo = [torch.as_tensor(x[:e]).to(cuda)
+           for x in (g.src, g.indices, g.weights)]
+    want = pred_mod.tight_pred_pass_plain(d.t().contiguous(), *coo).t()
+    assert torch.equal(got, want)
+    assert bool((got >= 0).any())
+
+
+def test_tight_pred_rejects_bad_inputs(cuda):
+    g = pjt.load_graph("rmat:scale=6,ef=4,seed=0")
+    layout = _layout(g, cuda)
+    d = torch.zeros((g.num_nodes, 4), device=cuda)
+    with pytest.raises(TypeError):
+        pred_mod.tight_pred_pass(d.double(), *layout)
+    with pytest.raises(ValueError, match="contiguous"):
+        pred_mod.tight_pred_pass(
+            torch.zeros((4, g.num_nodes), device=cuda).t(), *layout)
+    with pytest.raises(ValueError, match="layout does not fit"):
+        pred_mod.tight_pred_pass(d[:-1], *layout)
+
+
+@pytest.mark.parametrize("spec", ["rmat:scale=14,ef=8,seed=3",
+                                  "grid:rows=60,cols=70,neg=0.2,seed=2"])
+def test_pred_solve_on_card_equals_cpu(cuda, spec):
+    """``solve(predecessors=True)`` on pallas-vm: the card's rows and
+    trees equal the CPU's bitwise (the kernel against the plain pass
+    inside the solver)."""
+    g = pjt.load_graph(spec)
+    sources = np.arange(0, g.num_nodes, g.num_nodes // 96)[:96]
+    want = pjt.ParallelJohnsonSolver(device="cpu").solve(
+        g, sources, predecessors=True)
+    before = pred_mod.tight_pred_pass.launches
+    got = pjt.ParallelJohnsonSolver(device=cuda).solve(
+        g, sources, predecessors=True)
+    assert pred_mod.tight_pred_pass.launches > before
+    assert got.stats.routes_by_phase["fanout"] == "pallas-vm+pred"
+    assert got.stats.routes_by_phase == want.stats.routes_by_phase
+    np.testing.assert_array_equal(johnson.to_numpy(got.dist),
+                                  johnson.to_numpy(want.dist))
+    np.testing.assert_array_equal(johnson.to_numpy(got.predecessors),
+                                  johnson.to_numpy(want.predecessors))
+    validate_pred_tree(g, johnson.to_numpy(got.dist),
+                       johnson.to_numpy(got.predecessors), sources)
+
+
+def test_vm_blocked_on_card_equals_pallas_vm(cuda, monkeypatch):
+    """use_pallas=False on a graph above VM_BLOCK (lowered here) runs
+    vm-blocked in plain torch ops on the card: rows bitwise equal to the
+    hand sweep's, trees equal to pallas-vm+pred's."""
+    monkeypatch.setattr(torch_backend, "VM_BLOCK", 1024)
+    g = pjt.load_graph("grid:rows=60,cols=70,neg=0.2,seed=2")
+    sources = np.arange(0, g.num_nodes, 53)
+    hand = pjt.ParallelJohnsonSolver(device=cuda).solve(
+        g, sources, predecessors=True)
+    xla = pjt.ParallelJohnsonSolver(pjt.SolverConfig(use_pallas=False),
+                                    device=cuda).solve(
+        g, sources, predecessors=True)
+    assert xla.stats.routes_by_phase["fanout"] == "vm-blocked+pred"
+    np.testing.assert_array_equal(johnson.to_numpy(xla.dist),
+                                  johnson.to_numpy(hand.dist))
+    np.testing.assert_array_equal(johnson.to_numpy(xla.predecessors),
+                                  johnson.to_numpy(hand.predecessors))
+
+
+@pytest.mark.parametrize("spec,kw,route", [
+    (SPECS[3], {"use_pallas": False}, "vm"),
+    (SPECS[3], {"fanout_layout": "source_major"}, "sweep-sm"),
+    (SPECS[1], {"use_pallas": False}, "dense-squaring"),
+])
+def test_xla_routes_on_card_equal_cpu(cuda, spec, kw, route):
+    g = pjt.load_graph(spec)
+    cfg = pjt.SolverConfig(**kw)
+    want = pjt.ParallelJohnsonSolver(cfg, device="cpu").solve(g)
+    got = pjt.ParallelJohnsonSolver(cfg, device=cuda).solve(g)
+    assert got.stats.routes_by_phase["fanout"] == route
+    assert got.stats.iterations_by_phase == want.stats.iterations_by_phase
+    np.testing.assert_array_equal(got.matrix, want.matrix)
 
 
 def test_staged_download_equals_blocking_copy(cuda):
@@ -346,8 +469,9 @@ def test_staged_download_equals_blocking_copy(cuda):
     backend.stage_rows_async(x)
     staged = x.staged_copy
     assert staged.host.is_pinned()
-    got = solver._download_rows(dgraph, x)
+    got, no_pred = solver._download_rows(dgraph, x)
     np.testing.assert_array_equal(got, want)
+    assert no_pred is None
     y = x * 2
     want_y = y.cpu().numpy()
     backend.stage_rows_async(y)
@@ -381,6 +505,29 @@ def test_pipelined_solve_on_card_equals_serial(cuda, monkeypatch, spec, depth):
     np.testing.assert_array_equal(piped.dist, serial.dist)
     np.testing.assert_array_equal(piped.dist, johnson.to_numpy(one.dist))
     assert piped.stats.final_pipeline_depth == depth
+
+
+def test_pipelined_pred_solve_on_card_equals_serial(cuda, monkeypatch):
+    """Pred blocks ride the pipeline: staged beside the rows, the trees
+    of a 3-batch solve at depth 2 equal the serial and single-batch
+    ones."""
+    monkeypatch.setattr(johnson, "_DOWNLOAD_CLEAR_MIN_BYTES", 0)
+    g = pjt.load_graph("grid:rows=60,cols=70,neg=0.2,seed=2")
+    sources = np.arange(0, g.num_nodes, 11)[:384]
+
+    def run(**kw):
+        return pjt.ParallelJohnsonSolver(pjt.SolverConfig(**kw),
+                                         device=cuda).solve(
+            g, sources, predecessors=True)
+
+    one = run()
+    serial = run(source_batch_size=128, pipeline_depth=1)
+    piped = run(source_batch_size=128, pipeline_depth=2)
+    for name in ("dist", "predecessors"):
+        np.testing.assert_array_equal(getattr(piped, name),
+                                      getattr(serial, name))
+        np.testing.assert_array_equal(getattr(piped, name),
+                                      johnson.to_numpy(getattr(one, name)))
 
 
 def test_checkpointed_solve_on_card_resumes(cuda, tmp_path):

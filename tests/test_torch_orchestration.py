@@ -375,11 +375,16 @@ def test_rows_by_source_and_path():
 @pytest.mark.parametrize("call", ["solve", "solve_range", "sssp",
                                   "multi_source"])
 def test_predecessors_raise_on_every_entry_point(call):
-    g = _port(GRAPHS["rmat-int"]())
-    solver = pjt.ParallelJohnsonSolver(device="cpu")
-    args = {"solve": (g,), "solve_range": (g, 0, 4), "sssp": (g, 0),
-            "multi_source": (g, [0, 1])}[call]
-    with pytest.raises(NotImplementedError, match="predecessors"):
+    """A zero-weight tight cycle defeats the one-pass extraction; with
+    ``pred_extraction=True`` forced, every entry point raises naming the
+    field instead of falling back to the argmin sweep."""
+    g = pjt.CSRGraph.from_edges([0, 3, 1, 2], [3, 1, 2, 1],
+                                [1.0, 0.0, 0.0, 0.0], 4)
+    solver = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(pred_extraction=True), device="cpu")
+    args = {"solve": (g, [0]), "solve_range": (g, 0, 1), "sssp": (g, 0),
+            "multi_source": (g, [0])}[call]
+    with pytest.raises(RuntimeError, match="pred_extraction=True"):
         getattr(solver, call)(*args, predecessors=True)
 
 

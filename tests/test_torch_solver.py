@@ -171,8 +171,8 @@ def test_numpy_backend_and_validate():
     {"fw": True}, {"dia": True}, {"gauss_seidel": True}, {"bucket": True},
     {"frontier": True}, {"dirty_window": True}, {"partitioned": True},
     {"edge_shard": True}, {"mesh_shape": (2,)},
-    {"fanout_layout": "source_major"}, {"profile_store": "ps"},
-    {"telemetry": object()}, {"metrics": object()}, {"use_pallas": False},
+    {"profile_store": "ps"},
+    {"telemetry": object()}, {"metrics": object()},
 ])
 def test_unported_routes_raise_naming_the_field(kw):
     name = next(iter(kw))
@@ -182,9 +182,12 @@ def test_unported_routes_raise_naming_the_field(kw):
 
 
 def test_predecessors_raise():
-    with pytest.raises(NotImplementedError, match="predecessors"):
-        pjt.ParallelJohnsonSolver(device="cpu").solve(
-            _port(GRAPHS["dag-neg"]()), predecessors=True)
+    """The virtual-source pass computes potentials, not paths: asking it
+    for a tree raises, as in the reference."""
+    backend = pjt.get_backend("torch", pjt.SolverConfig(), device="cpu")
+    dgraph = backend.upload(_port(GRAPHS["dag-neg"]()))
+    with pytest.raises(NotImplementedError, match="predecessor tree"):
+        backend.bellman_ford_pred(dgraph, None)
 
 
 def test_cuda_request_without_card_raises():
