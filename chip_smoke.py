@@ -7,7 +7,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
   1. the card (``nvidia-smi`` name and power limit), then the build of
      every hand kernel from ``paralleljohnson_tpu_torch/csrc`` (``ptxas``
-     registers and spills) and each kernel's resident blocks per SM;
+     registers and spills, by function; ``tight_pred``'s by template:
+     pass width NV, float4 or scalar lanes, gathers per batch U) and each
+     kernel's resident blocks per SM;
   2. each kernel against its plain PyTorch version on the card
      (``torch.equal``, same flag): the fan-out sweep at RMAT-20 with
      B = 128 and B = 512 and on a hub graph (one row of 5 L + 3
@@ -18,8 +20,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      ``minplus_plan``), 1000x777x513, 300x400x200 with all-+inf rows,
      negative finite entries, and ``d is a`` as in squaring; the
      tight-edge pass ``tight_pred`` (int32 trees, ``torch.equal``
-     against ``tight_pred_pass_plain``) on R-MAT-20's converged fan-out
-     at B = 128 and 512, split hub rows included;
+     against ``tight_pred_pass_plain``; with the sources, its source
+     mask and tree flags against ``tree_flags_plain``) on R-MAT-20's
+     converged fan-out at B = 128 and 512, split hub rows included,
+     where weights in [1, 10) raise neither flag;
   3. ``solve()`` on ``rmat:scale=20,ef=16,seed=0`` over 512 sources
      (route ``pallas-vm``), 2 rows checked against scipy Dijkstra;
   4. ``solve()`` on ``grid:rows=512,cols=512,neg=0.2,seed=0`` over 256
@@ -35,7 +39,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      reweighted in-edge layout the solve ran on, B = 256, from the
      sources to the fixpoint, which must take the solve's sweep count
      and un-reweight to the solve's rows bitwise; ``tight_pred`` against
-     its plain version on that fixpoint (zero-weight ties throughout);
+     its plain version on that fixpoint (zero-weight ties throughout: it
+     must raise the nondescending flag);
   7. a 4-edge negative cycle raises ``NegativeCycleError`` on the card;
   8. CUDA-event times of each kernel and its plain version at the main
      path's shapes, with the bound the card could reach: the sweep at
@@ -47,7 +52,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      the wrapper called back to back (``ms``, as the main path pays it)
      and as the card's time alone from CUDA-graph replays (``card_ms``);
      the 128-source ER-1024 fixpoint on the host clock; ``tight_pred``
-     at R-MAT-20's fixpoint (B = 512, 128) and the grid's (B = 256);
+     with the sources (as the pred solves call it) at R-MAT-20's fixpoint
+     (B = 512, 128) and the grid's (B = 256), each with its template's
+     registers and spills; the tree check (``certify_pred``) on those
+     trees with the kernel's flags beside the check without them (source
+     mask, coverage, pointer doubling): R-MAT-20 at B = 512 must certify
+     with no walk, the grid must walk and pass;
   9. the pipelined batch driver: ``solve()`` on R-MAT-20 over phase 3's
      512 sources and 512 more, in 4 batches of 256 (1 GiB of rows each),
      at ``pipeline_depth`` 1, 2, 2, 1: rows equal bitwise across runs and
@@ -190,6 +200,53 @@ def sync_time(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def ptxas_functions(log: str) -> list[dict]:
+    """Registers and spill bytes of each kernel function in a build's
+    ``-Xptxas -v`` output."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            cur = {"function": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return rows
+
+
+def tight_pred_templates(log: str) -> dict:
+    """``tight_pred``'s items kernels by template (``NV{nv}_{vec|scalar}
+    _U{u}``) and its combine kernels (``combine_{vec|scalar}``): registers
+    and spill bytes, from the build log."""
+    out = {}
+    for f in ptxas_functions(log):
+        m = re.search(r"pred_itemsILi(\d+)ELb([01])ELi(\d+)E", f["function"])
+        c = re.search(r"combine_split_rowsILb([01])E", f["function"])
+        if m:
+            name = (f"NV{m.group(1)}_{'vec' if m.group(2) == '1' else 'scalar'}"
+                    f"_U{m.group(3)}")
+        elif c:
+            name = f"combine_{'vec' if c.group(1) == '1' else 'scalar'}"
+        else:
+            continue
+        out[name] = {k: f.get(k) for k in ("registers", "spill_stores",
+                                           "spill_loads")}
+    return out
+
+
+def pred_template(b: int, vec: bool = True) -> str:
+    """The ``tight_pred_templates`` key prefix of the items kernel a pass
+    at width ``b`` runs (NV by B, as ``csrc/tight_pred.cu`` picks it)."""
+    return f"NV{1 if b <= 128 else 2}_{'vec' if vec else 'scalar'}_U"
 
 
 def counter(launches: dict):
@@ -650,8 +707,10 @@ def main() -> int:
     from paralleljohnson_tpu_torch.ops.minplus import (
         minplus_fixpoint, minplus_kernel, minplus_plain, minplus_plan,
     )
+    from paralleljohnson_tpu_torch.ops import pred as pred_mod
     from paralleljohnson_tpu_torch.ops.pred import (
-        certify_pred, tight_pred_pass, tight_pred_pass_plain,
+        certify_pred, pred_reaches_root, tight_pred_pass,
+        tight_pred_pass_plain, tree_flags_plain,
     )
     from paralleljohnson_tpu_torch.solver.johnson import _unreweight, to_numpy
 
@@ -684,7 +743,11 @@ def main() -> int:
     }
     occupancy = {f"B{b}": fs.occupancy(b) for b in (128, 256, 512)}
     mp_occupancy = {rows: mp_mod.occupancy(rows) for rows in mp_mod.RESIDENT}
+    pred_templates = tight_pred_templates(logs["tight_pred"])
+    pred_occupancy = {f"B{b}": pred_mod.occupancy(b) for b in (128, 256, 512)}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "tight_pred_templates": pred_templates,
+          "tight_pred_occupancy": pred_occupancy,
           "sweep_occupancy": occupancy,
           "minplus_occupancy": {f"rows{r}": n for r, n in mp_occupancy.items()},
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -715,19 +778,29 @@ def main() -> int:
                 f"{err}, flag {bool(flag.item())}, plain flag {bool(imp)}")
         return err, bool(imp), want
 
-    def pred_equal(d, lay, itm, coo, label):
+    def pred_equal(d, lay, itm, coo, sources, label):
         """tight_pred on the converged ``d`` [V, B] against the plain
-        pass over the COO ``coo`` on ``d``'s transpose: raises unless
-        ``torch.equal``. Returns (largest absolute difference of the int32
-        trees, share of entries with a tight in-edge)."""
+        pass over the COO ``coo`` on ``d``'s transpose, without and with
+        the column ``sources``: raises unless the trees are ``torch.equal``
+        and, with the sources, the masked trees and the flags equal
+        ``tree_flags_plain``'s. Returns (largest absolute difference of
+        the int32 trees, share of entries with a tight in-edge, flags)."""
         got = tight_pred_pass(d, *lay, items=itm)
-        want = tight_pred_pass_plain(d.t().contiguous(), *coo).t()
+        got_s, flags = tight_pred_pass(d, *lay, items=itm, sources=sources)
+        dt = d.t().contiguous()
+        plain = tight_pred_pass_plain(dt, *coo)
+        want_s, want_flags = tree_flags_plain(plain, dt, sources)
+        want = plain.t()
         torch.cuda.synchronize()
-        err = float((got.long() - want.long()).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"tight_pred disagrees with plain on {label}: "
-                                 f"max_abs_err {err}")
-        return err, float((got >= 0).float().mean())
+        err = max(float((got.long() - want.long()).abs().max()),
+                  float((got_s.t().long() - want_s.long()).abs().max()))
+        if not (torch.equal(got, want) and torch.equal(got_s.t(), want_s)
+                and torch.equal(flags, want_flags)):
+            raise AssertionError(
+                f"tight_pred disagrees with plain on {label}: max_abs_err "
+                f"{err}, flags {flags.tolist()}, plain {want_flags.tolist()}")
+        del dt, plain, want_s
+        return err, float((got >= 0).float().mean()), flags.tolist()
 
     # -- phase 2: each kernel against its plain version ---------------------
     t0 = time.perf_counter()
@@ -759,11 +832,13 @@ def main() -> int:
     for b, (d, _) in sweep_states.items():
         conv, sweeps, _ = fanout_fixpoint(d.clone(), *layout, max_iter=v,
                                           items=items)
-        err, tight = pred_equal(conv, layout, items, rmat_coo,
-                                f"RMAT-20 B={b}")
+        err, tight, flags = pred_equal(conv, layout, items, rmat_coo,
+                                       sweep_sources[b], f"RMAT-20 B={b}")
+        if flags != [0, 0]:  # weights in [1, 10): every tree descends
+            raise AssertionError(f"RMAT-20 B={b} raised tree flags {flags}")
         pred_checks.append({"graph": "rmat20", "B": b, "equal": True,
                             "max_abs_err": err, "tight_share": tight,
-                            "sweeps_to_fixpoint": sweeps})
+                            "flags": flags, "sweeps_to_fixpoint": sweeps})
         pred_states[b] = conv
     # The hub graph of the card tests (JAX-free), on R-MAT-16.
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
@@ -1009,14 +1084,19 @@ def main() -> int:
     # tight_pred on the same fixpoint, full of zero-weight ties.
     fg = probe.fanout_graph
     g_coo = (fg.src, fg.dst, fg.weights)  # padded: (0, 0, +inf) never tight
-    grid_pred_err, grid_tight = pred_equal(d_fix, g_layout, g_items, g_coo,
-                                           "the grid's reweighted fixpoint")
+    gsrc_dev = torch.as_tensor(gsrc, device=dev)
+    grid_pred_err, grid_tight, grid_flags = pred_equal(
+        d_fix, g_layout, g_items, g_coo, gsrc_dev,
+        "the grid's reweighted fixpoint")
+    if grid_flags != [0, 1]:  # zero-weight ties: predecessors at equal dist
+        raise AssertionError(f"the grid's tree flags are {grid_flags}, "
+                             "expected nondescending alone")
     emit({"phase": "kernel_vs_plain_grid", "spec": GRID_SPEC, "B": gb,
           "sweeps_checked": sweeps, "equal": True, "max_abs_err": grid_err,
           "zero_weight_fraction": float((g_layout[2] == 0).float().mean()),
           "rows_equal_solve": True,
           "tight_pred": {"equal": True, "max_abs_err": grid_pred_err,
-                         "tight_share": grid_tight}})
+                         "tight_share": grid_tight, "flags": grid_flags}})
     del grid_res, rows
 
     # -- phase 7: negative cycle on the card ---------------------------------
@@ -1096,42 +1176,68 @@ def main() -> int:
         "fixpoint_host_clock": host_loop,
     }
     # tight_pred at R-MAT-20's converged fan-out (B = 512, 128) and the
-    # grid's fixpoint (B = 256): the kernel back to back, the plain pass
-    # on the transposed block, the bound. Bytes: dist read and pred
-    # written once, the CSC, the split rows' int64 partial keys written
-    # and read; operations: an add, a subtract and two compares per
-    # candidate (gathered rows count as cache hits, as for the sweep).
-    def pred_timing(d, lay, itm, coo, ne, reps, plain_reps):
+    # grid's fixpoint (B = 256), with the sources as the pred solves call
+    # it: the kernel back to back, the plain pass and tree_flags_plain on
+    # the transposed block, the bound. Bytes: dist read and pred written
+    # once, the CSC, the split rows' int64 partial keys written and read;
+    # operations: an add, a subtract and two compares per candidate
+    # (gathered rows count as cache hits, as for the sweep).
+    def pred_timing(d, lay, itm, coo, ne, sources, reps, plain_reps):
         vv, bb = d.shape
-        ms = event_ms(lambda: tight_pred_pass(d, *lay, items=itm), reps=reps)
+        ms = event_ms(lambda: tight_pred_pass(d, *lay, items=itm,
+                                              sources=sources), reps=reps)
         dt = d.t().contiguous()
-        plain = event_ms(lambda: tight_pred_pass_plain(dt, *coo),
-                         reps=plain_reps)
+        plain = event_ms(lambda: tree_flags_plain(
+            tight_pred_pass_plain(dt, *coo), dt, sources), reps=plain_reps)
         bms, by = bound(8 * vv * bb + 4 * (vv + 1) + 8 * ne
                         + 16 * itm.n_split * bb, 4 * ne * bb)
+        tpl = {k: t for k, t in pred_templates.items()
+               if k.startswith(pred_template(bb))}
         return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                 "scratch_bytes": 8 * itm.n_split * bb,
-                "split_items": itm.n_split}
+                "split_items": itm.n_split, "template": tpl,
+                "occupancy": pred_mod.occupancy(bb)}
+
+    def certify_timing(d, lay, itm, sources, reps):
+        """The tree check on the pass's trees: ``certify_pred`` with the
+        kernel's flags (one host read; the walk only when a predecessor
+        is not strictly closer) beside the check without them (the source
+        mask, coverage and the pointer-doubling walk). Returns the times,
+        both answers and the walks each ran."""
+        p_vm, flags = tight_pred_pass(d, *lay, items=itm, sources=sources)
+        p_bv, d_bv = p_vm.t().contiguous(), d.t().contiguous()
+        del p_vm
+        out = {"flags": flags.tolist()}
+        for name, kw in (("with_flags", {"flags": flags}), ("without", {})):
+            oks = []
+            walks = pred_reaches_root.walks
+            out[f"certify_ms_{name}"] = event_ms(lambda: oks.append(bool(
+                certify_pred(p_bv.clone() if not kw else p_bv, d_bv, sources,
+                             **kw)[1])), reps=reps)
+            out[f"ok_{name}"] = all(oks)
+            out[f"walks_{name}"] = (pred_reaches_root.walks - walks) / (reps + 1)
+        return out
 
     for b, d in sorted(pred_states.items(), reverse=True):
-        timings[f"tight_pred_B{b}"] = pred_timing(d, layout, items, rmat_coo,
-                                                  e, 10, 2)
-    # The tree check after the pass (source mask, coverage, pointer
-    # doubling; certify_pred) on the B = 512 trees.
-    d = pred_states[512]
-    p_bv = tight_pred_pass(d, *layout, items=items).t().contiguous()
-    d_bv = d.t().contiguous()
-    oks = []
-
-    def check_trees():
-        oks.append(bool(certify_pred(p_bv.clone(), d_bv,
-                                     sweep_sources[512])[1]))
-
-    timings["tight_pred_B512"]["certify_ms"] = event_ms(check_trees, reps=2)
-    timings["tight_pred_B512"]["certify_ok"] = all(oks)
-    del p_bv, d_bv
+        timings[f"tight_pred_B{b}"] = pred_timing(
+            d, layout, items, rmat_coo, e, sweep_sources[b], 10, 2)
+    # The tree check on the B = 512 trees: weights in [1, 10), so the
+    # flags certify them with no walk.
+    cert = certify_timing(pred_states[512], layout, items,
+                          sweep_sources[512], 3)
+    if not (cert["ok_with_flags"] and cert["ok_without"]
+            and cert["walks_with_flags"] == 0):
+        raise AssertionError(f"R-MAT-20 B=512 tree check: {cert}")
+    timings["tight_pred_B512"].update(cert)
     timings["tight_pred_grid512_B256"] = pred_timing(
-        d_fix, g_layout, g_items, g_coo, ge, 20, 3)
+        d_fix, g_layout, g_items, g_coo, ge, gsrc_dev, 20, 3)
+    # The grid's trees tie at zero weights: the flags send the check to
+    # the walk, which passes.
+    cert = certify_timing(d_fix, g_layout, g_items, gsrc_dev, 3)
+    if not (cert["flags"] == [0, 1] and cert["ok_with_flags"]
+            and cert["ok_without"] and cert["walks_with_flags"] == 1):
+        raise AssertionError(f"the grid's tree check: {cert}")
+    timings["tight_pred_grid512_B256"].update(cert)
     # Min-plus at the dense route's shapes and 4096^3 (MINPLUS_SHAPES).
     for (i, k, j) in MINPLUS_SHAPES:
         g_rng = np.random.default_rng(7)

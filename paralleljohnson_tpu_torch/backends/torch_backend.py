@@ -504,12 +504,16 @@ class TorchBackend(Backend):
     def _extract(self, dgraph: TorchDeviceGraph, dist_vm, dist, sources):
         """(pred [B, V] int32, ok): the tight-edge pass over the in-edge
         CSC on the vertex-major distances ``dist_vm`` (the hand kernel on
-        the card), then the source mask and the tree check against the
-        [B, V] ``dist``. Reads ``ok`` to the host."""
+        the card), which masks the sources and raises the tree flags, then
+        the tree check on them: one host read of the flags, and the
+        pointer-doubling walk only when a predecessor is not strictly
+        closer (``ops.pred.certify_pred``)."""
         (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
-        pred = tight_pred_pass(dist_vm, indptr_in, src_in, w_in, items=items)
-        pred, ok = certify_pred(pred.t().contiguous(), dist,
-                                np.asarray(sources).reshape(-1))
+        sources = np.asarray(sources).reshape(-1)
+        pred, flags = tight_pred_pass(dist_vm, indptr_in, src_in, w_in,
+                                      items=items, sources=sources)
+        pred, ok = certify_pred(pred.t().contiguous(), dist, sources,
+                                flags=flags)
         return pred, bool(ok)
 
     def bellman_ford_pred(self, dgraph: TorchDeviceGraph,

@@ -48,7 +48,8 @@ SIGNATURES = {
     },
     "tight_pred": {
         "pj_tight_pred": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P,
-                          _L, _L, _P),
+                          _L, _P, _P, _L, _P),
+        "pj_tight_pred_occupancy": (_L, _I, _P, _P),
     },
 }
 
@@ -90,13 +91,17 @@ def _start_build(name: str):
 
 def _finish_build(name: str, started) -> str:
     """Wait for a build from :func:`_start_build`; move the library into
-    place (atomically, so a concurrent loader never sees half a file)."""
+    place (atomically, so a concurrent loader never sees half a file),
+    its compiler output beside it. Returns that output (the stored one
+    when the library was already built)."""
+    log = _target(name).with_suffix(".log")
     if started is None:
-        return ""
+        return log.read_text() if log.exists() else ""
     proc, tmp, target = started
     out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
+    log.write_text(out)
     os.replace(tmp, target)
     return out
 
@@ -104,8 +109,7 @@ def _finish_build(name: str, started) -> str:
 def build_all() -> dict[str, str]:
     """Compile every kernel source at once (one ``nvcc`` per file, all
     started together) and load them. Returns each build's compiler output
-    (``-Xptxas -v``: registers, shared memory, spills; empty when the
-    library was already built)."""
+    (``-Xptxas -v``: registers, shared memory, spills)."""
     logs, errors = {}, []
     with _lock:
         started = {name: _start_build(name) for name in SIGNATURES}

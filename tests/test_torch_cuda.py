@@ -331,9 +331,10 @@ def test_solve_on_card_equals_cpu(cuda, spec):
 
 
 def _converged(g, b, layout, items):
-    """The fan-out fixpoint of ``g`` from ``b`` seeded sources over its
-    in-edge ``layout``, column 3 (when B > 3) all unreachable, and the
-    zeros of every other row made -0.0 (they tie with +0.0)."""
+    """(d, sources): the fan-out fixpoint of ``g`` from ``b`` seeded
+    sources over its in-edge ``layout``, column 3 (when B > 3) all
+    unreachable, and the zeros of every other row made -0.0 (they tie
+    with +0.0)."""
     device = layout[0].device
     sources = np.random.default_rng(b).choice(
         np.flatnonzero(np.diff(g.indptr)), b)  # each with an out-edge
@@ -344,7 +345,7 @@ def _converged(g, b, layout, items):
                                  items=items)
     odd = torch.arange(g.num_nodes, device=device).unsqueeze(1) % 2 == 1
     d[(d == 0) & odd] = -0.0
-    return d
+    return d, torch.as_tensor(sources, device=device)
 
 
 def _zero_ties(g):
@@ -360,29 +361,67 @@ PRED_GRAPHS = {
 }
 
 
+def _coo(g, device):
+    e = g.num_real_edges
+    return [torch.as_tensor(x[:e]).to(device)
+            for x in (g.src, g.indices, g.weights)]
+
+
 @pytest.mark.parametrize("graph", sorted(PRED_GRAPHS))
-@pytest.mark.parametrize("b", [1, 5, 128, 200, 512, 700])
+@pytest.mark.parametrize("b", [1, 5, 128, 200, 256, 512, 700, 1024])
 def test_tight_pred_kernel_equals_plain(cuda, b, graph):
     """The tight_pred kernel against the plain COO pass on converged
     distances with zero-weight ties, -0.0 against +0.0, an unreachable
-    column; B = 1 / 5 take the scalar lane path, 200 a ragged pass, 700 a
-    second pass; the hub graph splits rows into pieces."""
+    column; B = 1 / 5 take the scalar lane path, 128 one pass of one
+    float4 per lane, 200 / 256 one pass of two (200 ragged), 512, 700
+    and 1024 two to four 256-column passes; the hub graph splits rows
+    into pieces."""
     g = PRED_GRAPHS[graph]()
     layout = _layout(g, cuda)
     items = fs.build_work_items(layout[0])
     if graph == "hub":
         assert items.n_split >= 5 + 2
-    d = _converged(g, b, layout, items)
+    d, _ = _converged(g, b, layout, items)
     before = pred_mod.tight_pred_pass.launches
     got = pred_mod.tight_pred_pass(d, *layout, items=items)
     torch.cuda.synchronize()
     assert pred_mod.tight_pred_pass.launches == before + 1
-    e = g.num_real_edges
-    coo = [torch.as_tensor(x[:e]).to(cuda)
-           for x in (g.src, g.indices, g.weights)]
-    want = pred_mod.tight_pred_pass_plain(d.t().contiguous(), *coo).t()
+    want = pred_mod.tight_pred_pass_plain(d.t().contiguous(),
+                                          *_coo(g, cuda)).t()
     assert torch.equal(got, want)
     assert bool((got >= 0).any())
+
+
+@pytest.mark.parametrize("graph", sorted(PRED_GRAPHS) + ["hub-pos",
+                                                         "rmat12-pos"])
+@pytest.mark.parametrize("b", [5, 128, 256, 700, 1024])
+def test_tight_pred_flags_equal_plain(cuda, b, graph):
+    """With ``sources``, the kernel's source mask and its two flags equal
+    ``tree_flags_plain`` on the plain pass. The zero-tie graphs raise
+    nondescending; weights in [1, 10) (``-pos``) raise neither flag; the
+    unreachable column 3 raises no uncovered."""
+    g = (PRED_GRAPHS[graph]() if graph in PRED_GRAPHS
+         else _hub_graph() if graph == "hub-pos"
+         else SWEEP_GRAPHS["rmat12"]())
+    layout = _layout(g, cuda)
+    items = fs.build_work_items(layout[0])
+    d, sources = _converged(g, b, layout, items)
+    before = pred_mod.tight_pred_pass.launches
+    got, flags = pred_mod.tight_pred_pass(d, *layout, items=items,
+                                          sources=sources)
+    torch.cuda.synchronize()
+    assert pred_mod.tight_pred_pass.launches == before + 1
+    dt = d.t().contiguous()
+    want, want_flags = pred_mod.tree_flags_plain(
+        pred_mod.tight_pred_pass_plain(dt, *_coo(g, cuda)), dt, sources)
+    assert torch.equal(got.t(), want)
+    assert flags.tolist() == want_flags.tolist()
+    assert flags.tolist() == ([0, 0] if graph.endswith("-pos") else [0, 1])
+    pred, ok = pred_mod.certify_pred(got.t().contiguous(), dt, sources,
+                                     flags=flags)
+    ref_pred, ref_ok = pred_mod.certify_pred(
+        pred_mod.tight_pred_pass_plain(dt, *_coo(g, cuda)), dt, sources)
+    assert torch.equal(pred, ref_pred) and bool(ok) == bool(ref_ok)
 
 
 def test_tight_pred_rejects_bad_inputs(cuda):

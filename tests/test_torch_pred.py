@@ -153,6 +153,131 @@ def test_tight_pass_and_extraction_match_reference(name):
         np.asarray(ref_pred.pred_reaches_root(ref_p)))
 
 
+def _certified(dist, rew, sources):
+    """The backend's path on the CPU: the CSC pass with ``sources`` (the
+    kernel's wrapper, here its plain version and ``tree_flags_plain``),
+    then ``certify_pred`` on its flags. Returns (pred, ok, flags)."""
+    src, dst, w = (torch.as_tensor(x) for x in (rew.src, rew.indices,
+                                                rew.weights))
+    lay = fs.build_in_edge_layout(src, dst, rew.num_nodes)
+    pred_vm, flags = port_pred.tight_pred_pass(
+        dist.t().contiguous(), lay["indptr_in"], lay["src_in"],
+        w[lay["order"]].contiguous(), sources=sources)
+    pred, ok = port_pred.certify_pred(pred_vm.t().contiguous(), dist,
+                                      sources, flags=flags)
+    return pred, ok, flags
+
+
+def _check_certificate(dist, rew, sources):
+    """The flags' certificate gives the reference's ``extract_pred``
+    tree and ``ok`` on the same distances; returns the flags."""
+    pred, ok, flags = _certified(dist, rew, sources)
+    ref_p, ref_ok = ref_pred.extract_pred(
+        jnp.asarray(dist.numpy()), jnp.asarray(sources, jnp.int32),
+        jnp.asarray(rew.src), jnp.asarray(rew.indices),
+        jnp.asarray(rew.weights))
+    np.testing.assert_array_equal(pred.numpy(), np.asarray(ref_p))
+    assert bool(ok) == bool(ref_ok)
+    assert flags.dtype == torch.int32 and flags.shape == (2,)
+    return flags
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS) + ["zero-cycle"])
+def test_certificate_with_flags_matches_reference(name):
+    """``certify_pred`` with the pass's flags (one host read, the walk
+    only on ties) gives the reference's ``pred`` and ``ok``; the flags
+    and source mask equal ``tree_flags_plain`` on the plain COO pass."""
+    g = _zero_cycle_graph() if name == "zero-cycle" else GRAPHS[name]()
+    sources = np.array([0]) if name == "zero-cycle" else _sources(g)
+    dist, rew = _fixpoint(g, sources)
+    flags = _check_certificate(dist, rew, sources)
+    plain = port_pred.tight_pred_pass_plain(
+        dist, *(torch.as_tensor(x) for x in (rew.src, rew.indices,
+                                             rew.weights)))
+    want_pred, want_flags = port_pred.tree_flags_plain(plain, dist, sources)
+    assert torch.equal(flags, want_flags)
+    assert torch.equal(_certified(dist, rew, sources)[0], want_pred)
+    if name == "zero-cycle":
+        assert flags.tolist() == [0, 1]
+
+
+def test_certificate_with_flags_on_hypothesis_graphs():
+    """The same on the reference's hypothesis graphs, weights rounded to
+    integers (negative ones on a DAG order, reweighted by the port's
+    potentials)."""
+    hypothesis = pytest.importorskip("hypothesis")
+    from hypothesis import given, settings
+
+    from tests.test_properties import graphs
+
+    @settings(max_examples=20, deadline=None)
+    @given(graphs(max_nodes=18, negative=True))
+    def run(g):
+        g = _int(g)
+        sources = np.arange(min(6, g.num_nodes))
+        dist, rew = _fixpoint(g, sources)
+        _check_certificate(dist, rew, sources)
+
+    run()
+    assert hypothesis is not None
+
+
+def test_tree_flags_plain_cases():
+    """Uncovered: a finite non-source entry without predecessor (never an
+    unreachable or source entry); nondescending: a predecessor not
+    strictly closer (-0.0 against +0.0 included); sources masked."""
+    dist = torch.tensor([[0.0, 1.0, 1.0, float("inf")],
+                         [-0.0, 0.0, 2.0, 3.0]])
+    pred = torch.tensor([[1, 0, 0, -1], [-1, 0, 1, 2]], dtype=torch.int32)
+    got, flags = port_pred.tree_flags_plain(pred, dist, [0, 0])
+    assert got.tolist() == [[-1, 0, 0, -1], [-1, 0, 1, 2]]
+    assert flags.tolist() == [0, 1]  # row 1: dist[0] = -0.0 == dist[1]
+    assert pred[0, 0] == 1  # the input is not masked in place
+    _, flags = port_pred.tree_flags_plain(
+        torch.tensor([[-1, 0, -1, -1]], dtype=torch.int32),
+        torch.tensor([[0.0, 1.0, 2.0, float("inf")]]), [0])
+    assert flags.tolist() == [1, 0]
+    _, flags = port_pred.tree_flags_plain(
+        torch.tensor([[-1, 0, 1, -1]], dtype=torch.int32),
+        torch.tensor([[0.0, 1.0, 2.0, float("inf")]]), [0])
+    assert flags.tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("name,walks", [("grid-int", 0), ("rmat-int", 0),
+                                        ("grid", 1)])
+def test_pred_solve_walks_only_on_ties(name, walks):
+    """Through the backend: a multi-source pred solve on strictly
+    positive weights certifies its trees with no pointer-doubling walk;
+    on the zero-tie grid the walk runs (and finds a zero-weight tight
+    cycle there, so both packages fall back to the argmin sweep); routes
+    and trees are the reference's."""
+    g = (_int(load_graph("rmat:scale=8,ef=8,seed=5")) if name == "rmat-int"
+         else GRAPHS[name]())
+    assert walks or (g.weights >= 1).all()
+    ref, port = _solvers()
+    sources = _sources(g, 12)
+    before = port_pred.pred_reaches_root.walks
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = port.multi_source(_port(g), sources, predecessors=True)
+        want = ref.multi_source(g, sources, predecessors=True)
+    ran = port_pred.pred_reaches_root.walks - before
+    assert ran == 0 if walks == 0 else ran >= walks
+    assert got.stats.routes_by_phase == want.stats.routes_by_phase
+    assert walks or got.stats.routes_by_phase["fanout"].endswith("+pred")
+    np.testing.assert_array_equal(to_numpy(got.predecessors),
+                                  np.asarray(want.predecessors))
+
+
+def test_pred_reaches_root_gathers_int32_indices():
+    """The doubling gathers on the int32 ``pred`` itself, with no int64
+    copy, and counts one walk per call."""
+    before = port_pred.pred_reaches_root.walks
+    chain = torch.tensor([[-1] + list(range(0, 99))], dtype=torch.int32)
+    assert bool(port_pred.pred_reaches_root(chain).all())
+    assert port_pred.pred_reaches_root.walks == before + 1
+
+
 def test_tight_pred_pass_lexicographic_tiebreak():
     """The reference's example: both in-edges of 1 are tight and the
     strictly closer predecessor 0 beats the zero edge from 2."""
