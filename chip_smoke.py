@@ -27,7 +27,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   3. ``solve()`` on ``rmat:scale=20,ef=16,seed=0`` over 512 sources
      (route ``pallas-vm``), 2 rows checked against scipy Dijkstra;
   4. ``solve()`` on ``grid:rows=512,cols=512,neg=0.2,seed=0`` over 256
-     sources (phase 1, reweight, un-reweight): the potentials checked
+     sources (phase 1 on ``frontier``, the reference's default route on
+     this low-degree graph; reweight, un-reweight): the potentials checked
      feasible on every edge, 2 rows against scipy Dijkstra on the graph
      reweighted with them;
   5. ``solve()`` on ``er:n=1024,p=0.1,seed=0`` for all sources (route
@@ -71,26 +72,41 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      2): 2 batches written, both resumed, an injected OOM in batch 1
      that collapses the window, and an uncheckpointed solve, all
      bitwise equal;
- 12. ``sssp`` on the grid against phase 4's row (rtol 1e-5, atol 1e-3)
+ 12. ``sssp`` on the grid (``frontier``) against phase 4's row (rtol
+     1e-5, atol 1e-3)
      and on phase 7's negative cycle; ``multi_source`` on R-MAT-20 over
      phase 3's sources (bitwise, rows still on the card); ``solve_batch``
      of 4 ``er:n=256,p=0.1`` graphs against their ``solve()``s bitwise;
  13. ``predecessors=True`` solves (``validate_pred_tree`` on their
      trees): R-MAT-20 over phase 3's sources and the grid over phase 4's
      (``pallas-vm+pred``, rows bitwise equal to theirs), ``sssp`` on the
-     grid (``sweep+pred``), the zero-weight tight cycle (``pred-sweep``
+     grid (``frontier+pred``), the zero-weight tight cycle (``pred-sweep``
      after a warning), a 2-batch checkpointed solve resumed, ER-1024
      (``dense-squaring-pallas+pred``);
  14. the XLA routes in plain PyTorch beside the hand routes, rows
      bitwise equal: ``use_pallas=False`` (``vm-blocked``) on R-MAT-20
      at B = 128 and on the grid at B = 64, ``sweep-sm`` on R-MAT-16,
      XLA ``dense-squaring`` on ER-1024; fan-out seconds per sweep of
-     each route and of its hand route.
+     each route and of its hand route;
+ 15. the B=1 routes on the grid, in plain PyTorch: ``sssp`` from phase
+     4's first source on ``sweep`` (``frontier=False``), ``frontier``
+     (the default config), ``dia``, ``gs`` and ``bucket`` (forced), rows
+     bitwise equal to ``sweep``'s, each with its seconds (the first call
+     and a second ``bellman_ford`` on the same device graph), rounds,
+     ``edges_relaxed`` and host reads; ``frontier+pred`` and ``dia+pred``
+     (``validate_pred_tree``, a ``tight_pred`` launch); phase 7's
+     negative cycle raised on each forced route; the default solve's
+     tags (``frontier``, ``pallas-vm``) and its phase-1 seconds beside a
+     ``frontier=False`` solve's (both warm, rows bitwise equal); the
+     forced ``dia`` and ``gs`` fan-outs at B = 64 (rows bitwise equal to
+     ``pallas-vm``'s) with seconds per round; a ``convergence=True``
+     ``use_pallas=False`` solve's trajectory summary (``vm-blocked``).
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-14 on its own; a path
-whose kernel was never launched fails. The last two lines are the
+phases 3-5 together, then each path of phases 9-15 on its own; a path
+whose kernel was never launched fails (the plain-torch B=1 routes of
+phase 15 need none). The last two lines are the
 ``kernels`` summary (launches summed over the paths, and by path) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -254,20 +270,31 @@ def counter(launches: dict):
     every kernel's launch count (and the fixpoints' host reads) set to 0
     just before and read just after into ``launches[path]``; raises if a
     kernel named in ``needs`` was launched no time. Returns (fn(), s)."""
+    from paralleljohnson_tpu_torch.ops import bucket as bucket_mod
     from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
+    from paralleljohnson_tpu_torch.ops import gauss_seidel as gs_mod
     from paralleljohnson_tpu_torch.ops import minplus as mp_mod
     from paralleljohnson_tpu_torch.ops import pred as pred_mod
+    from paralleljohnson_tpu_torch.ops import relax
+
+    # The host loops of the plain-torch routes, by the counter's name.
+    loops = {"fanout_host_reads": fs.fanout_fixpoint,
+             "sweep_host_reads": relax._sweeps_to_fixpoint,
+             "frontier_host_reads": relax.bellman_ford_frontier,
+             "gs_host_reads": gs_mod._gs_engine,
+             "bucket_host_reads": bucket_mod.bellman_ford_bucketed}
 
     def counted(path, fn, needs=()):
         fs.fanout_sweep.launches = 0
         mp_mod.minplus_kernel.launches = 0
         pred_mod.tight_pred_pass.launches = 0
-        fs.fanout_fixpoint.host_reads = 0
+        for loop in loops.values():
+            loop.host_reads = 0
         out = sync_time(fn)
         launches[path] = {"fanout_sweep": fs.fanout_sweep.launches,
                           "minplus": mp_mod.minplus_kernel.launches,
                           "tight_pred": pred_mod.tight_pred_pass.launches,
-                          "fanout_host_reads": fs.fanout_fixpoint.host_reads}
+                          **{k: f.host_reads for k, f in loops.items()}}
         for name in needs:
             if launches[path][name] == 0:
                 raise AssertionError(f"{path} launched no {name} kernel")
@@ -595,7 +622,7 @@ def drive_pred_paths(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     del res
     res, _ = counted("pred_sssp_grid512", lambda: solver_on(dev).sssp(
         grid, gsrc[0], predecessors=True), needs=("tight_pred",))
-    check("pred_sssp_grid512", grid, res, "sweep+pred")
+    check("pred_sssp_grid512", grid, res, "frontier+pred")
     zero = pjt.CSRGraph.from_edges([0, 3, 1, 2], [3, 1, 2, 1],
                                    [1.0, 0.0, 0.0, 0.0], 4)
     with warnings.catch_warnings(record=True) as caught:
@@ -681,6 +708,156 @@ def drive_xla_routes(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     both("xla_dense_er1024", er, np.arange(er.num_nodes),
          {"use_pallas": False}, "dense-squaring", er_matrix)
     emit({"phase": "xla_routes", "routes": routes})
+    return launches
+
+
+def drive_b1_routes(dev, grid, gsrc, grid_rows, grid_solve_stats,
+                    cycle_graph) -> dict:
+    """Phase 15: the B=1 routes on ``dev`` (the card), each path counted
+    from 0 (returns the counts by path). ``grid_rows`` are the default
+    grid solve's first 64 rows over ``gsrc[:64]`` and ``grid_solve_stats``
+    its stats (phase 4).
+
+    ``sssp`` from ``gsrc[0]`` on ``sweep`` (``frontier=False``),
+    ``frontier`` (the default config), ``dia``, ``gs`` and ``bucket``
+    (forced): rows bitwise equal to ``sweep``'s; the first call (upload
+    and layouts included) and a second ``bellman_ford`` on the same
+    device graph, each on the host clock; ``frontier+pred`` and
+    ``dia+pred`` trees validated; the negative cycle raised on each
+    forced route; the default solve's phase-1 seconds (phase 4's, and a
+    warm rerun) beside a ``frontier=False`` solve's; the ``dia`` and
+    ``gs`` fan-outs at
+    B = 64 beside ``pallas-vm``'s rows; a ``convergence=True``
+    ``use_pallas=False`` solve's trajectory summary."""
+    import numpy as np
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+    from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
+
+    launches = {}
+    counted = counter(launches)
+    src = int(gsrc[0])
+    routes = {"sweep": {"frontier": False}, "frontier": {},
+              "dia": {"dia": True}, "gs": {"gauss_seidel": True},
+              "bucket": {"bucket": True}}
+    report, sweep_row = {}, None
+    for name, kw in routes.items():
+        res, first_s = counted(f"sssp_{name}", lambda: solver_on(
+            dev, **kw).sssp(grid, src))
+        tag = res.stats.routes_by_phase["bellman_ford"]
+        if tag != name:
+            raise AssertionError(f"sssp with {kw} took route {tag}")
+        row = to_numpy(res.dist)[0]
+        if sweep_row is None:
+            sweep_row = row
+        elif not np.array_equal(row, sweep_row):
+            raise AssertionError(f"sssp on {name}: row differs from sweep's")
+        backend = solver_on(dev, **kw).backend
+        dgraph = backend.upload(grid)
+        backend.bellman_ford(dgraph, src)  # builds the route's layouts
+        again, bf_s = counted(f"sssp_{name}_again",
+                              lambda: backend.bellman_ford(dgraph, src))
+        if not np.array_equal(to_numpy(again.dist), sweep_row):
+            raise AssertionError(f"{name}: second run differs")
+        reads = {k: v for k, v in launches[f"sssp_{name}_again"].items()
+                 if k.endswith("host_reads") and v}
+        report[name] = {
+            "first_s": first_s, "bf_s": bf_s,
+            "iterations": again.iterations,
+            "edges_relaxed": again.edges_relaxed,
+            "host_reads": reads,
+            "s_per_iteration": bf_s / max(again.iterations, 1)}
+        del backend, dgraph, again
+    pred = {}
+    for name in ("frontier", "dia"):
+        res, secs = counted(f"sssp_{name}_pred", lambda: solver_on(
+            dev, **routes[name]).sssp(grid, src, predecessors=True),
+            needs=("tight_pred",))
+        tag = res.stats.routes_by_phase["bellman_ford"]
+        if tag != f"{name}+pred":
+            raise AssertionError(f"pred sssp took route {tag}")
+        dist = to_numpy(res.dist)
+        if not np.array_equal(dist[0], sweep_row):
+            raise AssertionError(f"{name}+pred: row differs from sweep's")
+        validate_pred_tree(grid, dist, to_numpy(res.predecessors),
+                           res.sources)
+        pred[name] = {"route": tag, "seconds": secs, "validated": True,
+                      "tight_pred": launches[f"sssp_{name}_pred"][
+                          "tight_pred"]}
+    cycle = {}
+    for name in ("frontier", "dia", "gs", "bucket"):
+        try:
+            solver_on(dev, **{**routes[name], "frontier": name == "frontier"}
+                      ).sssp(cycle_graph, 0)
+        except pjt.NegativeCycleError:
+            cycle[name] = "NegativeCycleError"
+        else:
+            raise AssertionError(f"{name} missed the negative cycle")
+    # The default grid solve (phase 4) against the same on sweep.
+    tags = dict(grid_solve_stats.routes_by_phase)
+    if tags != {"bellman_ford": "frontier", "fanout": "pallas-vm"}:
+        raise AssertionError(f"default grid solve took {tags}")
+    default = {"routes": tags, "phase4_bellman_ford_s":
+               grid_solve_stats.phase_seconds["bellman_ford"]}
+    # Warm, in turns: the default (frontier) solve, then frontier=False.
+    for name, kw in (("frontier", {}), ("sweep", {"frontier": False})):
+        res, secs = counted(f"solve_grid512_{name}", lambda: solver_on(
+            dev, **kw).solve(grid, gsrc), needs=("fanout_sweep",))
+        if res.stats.routes_by_phase != {"bellman_ford": name,
+                                         "fanout": "pallas-vm"}:
+            raise AssertionError(f"grid solve with {kw} took "
+                                 f"{res.stats.routes_by_phase}")
+        if not np.array_equal(to_numpy(res.dist)[:64], grid_rows):
+            raise AssertionError(f"grid solve with {kw}: rows differ")
+        default[name] = {
+            "solve_s": secs,
+            "bellman_ford_s": res.stats.phase_seconds["bellman_ford"],
+            "bellman_ford_iterations":
+                res.stats.iterations_by_phase["bellman_ford"],
+            "fanout_s": res.stats.phase_seconds["fanout"]}
+        del res
+    fanout = {}
+    for name in ("dia", "gs"):
+        res, secs = counted(f"fanout_{name}_grid512", lambda: solver_on(
+            dev, **routes[name]).solve(grid, gsrc[:64]))
+        if res.stats.routes_by_phase != {"bellman_ford": name,
+                                         "fanout": name}:
+            raise AssertionError(f"{name} solve took "
+                                 f"{res.stats.routes_by_phase}")
+        if not np.array_equal(to_numpy(res.dist), grid_rows):
+            raise AssertionError(f"{name} fan-out rows differ from "
+                                 "pallas-vm's")
+        fan = res.stats.phase_seconds["fanout"]
+        sweeps = res.stats.iterations_by_phase["fanout"]
+        fanout[name] = {"sources": 64, "seconds": secs, "fanout_s": fan,
+                        "iterations": sweeps,
+                        "s_per_iteration": fan / max(sweeps, 1),
+                        "bellman_ford_s": res.stats.phase_seconds[
+                            "bellman_ford"],
+                        "host_reads": {k: v for k, v in launches[
+                            f"fanout_{name}_grid512"].items()
+                            if k.endswith("host_reads") and v}}
+        del res
+    res, secs = counted("trajectory_grid512", lambda: solver_on(
+        dev, use_pallas=False, convergence=True).solve(grid, gsrc[:4]))
+    conv = res.stats.convergence or {}
+    if set(conv) != {"fanout"} or (
+            conv["fanout"]["iterations"]
+            != res.stats.iterations_by_phase["fanout"]):
+        raise AssertionError(f"trajectory: {sorted(conv)}")
+    if not np.array_equal(to_numpy(res.dist), grid_rows[:4]):
+        raise AssertionError("trajectory solve rows differ")
+    trajectory = {"routes": dict(res.stats.routes_by_phase), "seconds": secs,
+                  "keys": sorted(conv),
+                  "fanout": {k: conv["fanout"][k] for k in (
+                      "iterations", "frontier_peak", "frontier_half_life",
+                      "tail_iterations", "jfr_skippable_edge_frac",
+                      "relaxations_total")}}
+    emit({"phase": "b1_routes", "spec": GRID_SPEC, "source": src,
+          "sssp": report, "pred": pred, "negative_cycle": cycle,
+          "default_solve": default, "fanout_B64": fanout,
+          "trajectory": trajectory})
     return launches
 
 
@@ -999,6 +1176,7 @@ def main() -> int:
     grid_row = rows[0].copy()  # for phase 12's sssp from gsrc[0]
     grid_rows = rows[:64].copy()  # for phases 13 and 14
     grid_fanout_s = res.stats.phase_seconds["fanout"]
+    grid_solve_stats = res.stats  # for phase 15
     grid_sweeps = res.stats.iterations_by_phase["fanout"]
     grid_res = res
     del res, rows
@@ -1299,6 +1477,9 @@ def main() -> int:
                                     gsrc, grid_rows, er, er_matrix))
     by_path.update(drive_xla_routes(dev, rmat, rmat_sources, rmat_rows, grid,
                                     gsrc, grid_rows, er, er_matrix))
+    # -- phase 15: the B=1 routes ------------------------------------------
+    by_path.update(drive_b1_routes(dev, grid, gsrc, grid_rows,
+                                   grid_solve_stats, cyc))
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ("fanout_sweep", "minplus", "tight_pred")}
 

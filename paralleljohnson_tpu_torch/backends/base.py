@@ -41,6 +41,13 @@ class KernelResult:
       min-plus operations.
     route: the kernel route the backend resolved to, in the JAX package's
       vocabulary ("sweep", "pallas-vm", "dense-squaring-pallas", ...).
+    trajectory: the decoded per-iteration convergence trajectory
+      (``observe.convergence``): float64 ``[n, 3]`` host array, columns
+      (frontier_size, relaxations_applied, residual_mass). None unless
+      ``SolverConfig(convergence=True)`` and the route records one.
+    convergence: the trajectory's summary
+      (``observe.convergence.summarize_trajectory``); folds into
+      ``SolverStats.convergence``.
     """
 
     dist: Any
@@ -50,6 +57,8 @@ class KernelResult:
     converged: bool = True
     pred: np.ndarray | None = None
     route: str | None = None
+    trajectory: Any | None = None
+    convergence: dict | None = None
 
 
 class Backend(abc.ABC):

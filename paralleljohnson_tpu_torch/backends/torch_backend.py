@@ -3,9 +3,20 @@
 Owns the device-resident COO buffers and dispatches the kernels of
 Johnson's algorithm with the JAX package's gates and route tags:
 
-  - ``bellman_ford`` runs route ``sweep`` (``relax.bellman_ford_sweeps``,
-    plain PyTorch: the reference's is XLA code, not a Pallas kernel);
-  - ``multi_source`` takes, in the reference's plan order: dense graphs
+  - ``bellman_ford`` (B=1: phase 1's virtual-source pass and ``sssp``)
+    walks the reference's SSSP plans in their order: ``dia``
+    (``dia=True`` on a diagonal labeling, ``ops.dia``), ``bucket``
+    (``bucket=True``, ``ops.bucket``; ``bucket+sweep`` when its step
+    budget runs out), ``gs`` (``gauss_seidel=True``,
+    ``ops.gauss_seidel``), ``frontier`` (the low-degree family: V >= 512
+    and max out-degree in 1..32, or ``frontier=True``;
+    ``relax.bellman_ford_frontier``), else ``sweep``
+    (``relax.bellman_ford_sweeps``). All plain PyTorch: the reference's
+    are XLA code, not Pallas kernels. The auto gates of ``dia``, ``gs``
+    and ``bucket`` are TPU-only in the reference, so they stay off here;
+    ``True`` forces them;
+  - ``multi_source`` takes, in the reference's plan order: ``dia`` and
+    ``gs`` when forced (as above); dense graphs
     (``_use_dense``: V <= ``dense_threshold`` and E >=
     ``dense_min_density`` x V^2) to ``dense-{regime}-pallas`` through the
     hand min-plus kernel (the iterate regime through
@@ -24,6 +35,11 @@ Johnson's algorithm with the JAX package's gates and route tags:
 
 On a CUDA device the hand kernels are the main path; on the CPU their
 plain PyTorch versions run (the wrappers choose by the tensors' device).
+
+``SolverConfig(convergence=True)`` records the per-iteration trajectory
+counters (``observe.convergence``) on the routes the reference
+instruments: ``sweep``, ``sweep-sm``, ``vm``, ``vm-blocked``, ``dia``,
+``gs`` and ``bucket``.
 
 ``stage_rows_async`` starts a finished batch's device-to-host copy on a
 side stream, so the pipelined fan-out overlaps it with the next batch.
@@ -45,7 +61,14 @@ from paralleljohnson_tpu_torch.backends.base import (
 )
 from paralleljohnson_tpu_torch.config import DEFAULT_PIPELINE_DEPTH
 from paralleljohnson_tpu_torch.graphs import CSRGraph
+from paralleljohnson_tpu_torch.observe import convergence as conv
 from paralleljohnson_tpu_torch.ops import relax
+from paralleljohnson_tpu_torch.ops.bucket import (
+    auto_capacity,
+    auto_delta,
+    bellman_ford_bucketed,
+)
+from paralleljohnson_tpu_torch.ops.dia import build_dia_layout, dia_sweep
 from paralleljohnson_tpu_torch.ops.fanout_sweep import (
     WorkItems,
     build_in_edge_layout,
@@ -57,6 +80,15 @@ from paralleljohnson_tpu_torch.ops.minplus import (
     minplus_kernel,
 )
 from paralleljohnson_tpu_torch.ops.pred import certify_pred, tight_pred_pass
+from paralleljohnson_tpu_torch.ops.gauss_seidel import (
+    build_gs_layout,
+    fanout_gs_body,
+    sssp_gs_blocks,
+)
+from paralleljohnson_tpu_torch.utils.metrics import (
+    warn_if_counter_wrapped,
+    warn_if_traj_counter_wrapped,
+)
 
 # Distance blocks of [B, V] the source batch is budgeted for: the
 # reference's six. The sweep's two alternating [V, B] buffers, the
@@ -75,6 +107,16 @@ VM_BLOCK = 1 << 16
 # Edge count from which the vm-blocked layout is built on the device
 # instead of in host numpy (the reference's constant).
 VMB_DEVICE_BUILD_MIN_EDGES = 1 << 22
+
+
+def _gs_examined_exact(iters_blk, real_edges_host: np.ndarray, b: int, *,
+                       rounds: int, inner_cap: int) -> int:
+    """Exact candidate relaxations of a GS solve, in Python ints: the sum
+    over blocks of inner iterations x real edges, times the batch width,
+    after the reference's wrap guard on its int32 per-block counter."""
+    warn_if_counter_wrapped(rounds, inner_cap, where="gs")
+    iters = np.asarray(iters_blk, np.int64)
+    return int(np.dot(iters, real_edges_host.astype(np.int64))) * int(b)
 
 
 def resolve_device(device) -> torch.device:
@@ -109,10 +151,12 @@ class TorchDeviceGraph:
     plus cached layouts.
 
     ``_struct_cache`` holds weight-independent structure (the in-edge CSC,
-    its sort permutation and the sweep kernel's work items) and survives
-    :meth:`TorchBackend.reweight`;
+    its sort permutation, the sweep kernel's work items, the DIA and GS
+    layouts' edge ids) and survives :meth:`TorchBackend.reweight`;
     ``_by_dst_cache`` holds what is gathered from the current weights and
-    is dropped by it.
+    is dropped by it. ``host_graph`` is the uploaded host CSR (the
+    caller's arrays, no copy): the DIA and GS layouts are built from its
+    structure, whose weights go stale after a reweight.
     """
 
     src: torch.Tensor      # int32[E_pad]
@@ -121,6 +165,9 @@ class TorchDeviceGraph:
     indptr: np.ndarray     # host int32[V+1]
     num_nodes: int
     num_real_edges: int
+    host_graph: CSRGraph | None = dataclasses.field(
+        default=None, compare=False, repr=False
+    )
     _by_dst_cache: dict = dataclasses.field(
         default_factory=dict, compare=False, repr=False
     )
@@ -131,6 +178,100 @@ class TorchDeviceGraph:
     @property
     def device(self) -> torch.device:
         return self.weights.device
+
+    def indptr_dev(self) -> torch.Tensor:
+        """The CSR indptr on the device (int32[V+1]), cached."""
+        cached = self._struct_cache.get("indptr")
+        if cached is None:
+            cached = torch.as_tensor(self.indptr, dtype=torch.int32).to(
+                self.device)
+            self._struct_cache["indptr"] = cached
+        return cached
+
+    @property
+    def max_degree(self) -> int:
+        """Max out-degree (host int, cached): the frontier and bucket
+        kernels' out-edge tile width."""
+        cached = self._struct_cache.get("max_deg")
+        if cached is None:
+            deg = np.diff(self.indptr)
+            cached = int(deg.max()) if deg.size else 0
+            self._struct_cache["max_deg"] = cached
+        return cached
+
+    def _gather_weights_with_holes(self, edge_ids) -> torch.Tensor:
+        """The CURRENT weights at ``edge_ids`` (any shape), +inf at the
+        negative ids (layout holes): how every weight-independent layout
+        re-derives its weights after a reweight."""
+        return torch.where(
+            edge_ids >= 0, self.weights[edge_ids.clamp_min(0).long()],
+            torch.full_like(self.weights[:1], float("inf")))
+
+    def dia_layout(self, max_offsets: int) -> dict | None:
+        """The DIA layout (``ops.dia.build_dia_layout``): offsets and
+        per-slot edge ids cached across reweight, the [K, V] diagonal
+        weights gathered from the current weights. None without a host
+        CSR or when the labeling is not diagonal."""
+        if self.host_graph is None:
+            return None
+        key = ("dia", max_offsets)
+        struct = self._struct_cache.get(key)
+        if struct == "none":
+            return None
+        if struct is None:
+            g = self.host_graph
+            host = build_dia_layout(g.indptr, g.indices, g.num_nodes,
+                                    max_offsets=max_offsets)
+            if host is None:
+                self._struct_cache[key] = "none"
+                return None
+            struct = {
+                "offsets": host["offsets"],
+                "diag_edge": torch.as_tensor(host["diag_edge"]).to(
+                    self.device),
+                "num_entries": host["num_entries"],
+            }
+            self._struct_cache[key] = struct
+        w_diag = self._by_dst_cache.get(key)
+        if w_diag is None:
+            w_diag = self._gather_weights_with_holes(struct["diag_edge"])
+            self._by_dst_cache[key] = w_diag
+        return {**struct, "w_diag": w_diag}
+
+    def gs_layout(self, vb: int) -> dict | None:
+        """The blocked Gauss-Seidel layout (``ops.gauss_seidel
+        .build_gs_layout``: RCM relabeling and destination-block edge
+        buckets), structure cached across reweight, the block weights
+        gathered from the current weights. None without a host CSR."""
+        if self.host_graph is None:
+            return None
+        key = ("gs", vb)
+        struct = self._struct_cache.get(key)
+        if struct is None:
+            g = self.host_graph
+            host = build_gs_layout(g.indptr, g.indices, None, g.num_nodes,
+                                   vb=vb)
+            dev = self.device
+            struct = {
+                "rank_host": host["rank"],
+                "rank": torch.as_tensor(host["rank"]).to(dev),
+                "src_blk": torch.as_tensor(host["src_blk"]).to(dev),
+                "dstl_blk": torch.as_tensor(host["dstl_blk"]).to(dev),
+                "edge_order": torch.as_tensor(host["edge_order"]).to(dev),
+                # Host int64 per-block real-edge counts, for the exact
+                # work accounting.
+                "real_edges_host": host["real_edges_blk"],
+                "vb": host["vb"],
+                "v_pad": host["v_pad"],
+                "halo": host["halo"],
+                "in_adj": host["in_adj"],
+            }
+            self._struct_cache[key] = struct
+        w_blk = self._by_dst_cache.get(key)
+        if w_blk is None:
+            w_blk = self._gather_weights_with_holes(struct["edge_order"])
+            self._by_dst_cache[key] = w_blk
+        return {**struct, "w_blk": w_blk}
 
     def _in_edges(self) -> dict:
         struct = self._struct_cache.get("in_edges")
@@ -218,10 +359,7 @@ class TorchDeviceGraph:
                     self.weights, struct["order"], struct["slots"],
                     struct["src_ck"].numel(), tuple(struct["src_ck"].shape))
             else:
-                holes = struct["edge_order"]
-                w_ck = torch.where(
-                    holes >= 0, self.weights[holes.clamp_min(0).long()],
-                    torch.full_like(self.weights[:1], float("inf")))
+                w_ck = self._gather_weights_with_holes(struct["edge_order"])
             self._by_dst_cache[key] = w_ck
         return {**struct, "w_ck": w_ck}
 
@@ -253,6 +391,7 @@ class TorchBackend(Backend):
             indptr=graph.indptr,
             num_nodes=graph.num_nodes,
             num_real_edges=graph.num_real_edges,
+            host_graph=graph,
         )
 
     def download_graph(self, dgraph: TorchDeviceGraph) -> CSRGraph:
@@ -337,10 +476,128 @@ class TorchBackend(Backend):
                 done.record(side)
                 t.staged_copy = StagedCopy(host, done)
 
+    # -- convergence trajectory ---------------------------------------------
+
+    def _traj_cap(self) -> int | None:
+        """Trajectory buffer rows for this solve, or None when nothing is
+        recorded: ``convergence=True`` records. The reference's ``"auto"``
+        records when a telemetry sink or a profile store can consume the
+        trajectory; the port has neither, so ``"auto"`` records nothing."""
+        return conv.DEFAULT_TRAJ_CAP if self.config.convergence is True else None
+
+    def _attach_trajectory(self, res: KernelResult, counts, resid,
+                           dgraph: TorchDeviceGraph, batch: int = 1,
+                           iterations: int | None = None) -> KernelResult:
+        """Decode one kernel call's trajectory buffers onto ``res`` (their
+        one device-to-host copy) and summarize them, after the int32
+        addend wrap guard. Never fatal: a decode failure drops the
+        trajectory, not the solve."""
+        try:
+            warn_if_traj_counter_wrapped(batch, dgraph.num_nodes,
+                                         where=res.route or "trajectory")
+            iters = res.iterations if iterations is None else iterations
+            traj = conv.decode_trajectory(counts, resid, iters)
+            res.trajectory = traj
+            # Size-biased mean degree, cached per structure.
+            bias = dgraph._struct_cache.get("degree_bias", "unset")
+            if bias == "unset":
+                bias = conv.degree_bias_from_degrees(np.diff(dgraph.indptr))
+                dgraph._struct_cache["degree_bias"] = bias
+            res.convergence = conv.summarize_trajectory(
+                traj, num_nodes=dgraph.num_nodes, batch=batch,
+                num_edges=dgraph.num_real_edges, iterations=iters,
+                degree_bias=bias)
+        except Exception as e:  # noqa: BLE001 — observability is never fatal
+            warnings.warn(f"convergence trajectory dropped: "
+                          f"{type(e).__name__}: {e}", RuntimeWarning,
+                          stacklevel=2)
+        return res
+
+    def _fixpoint(self, sweep, dist0, max_iter: int, batch_axis):
+        """``relax._sweeps_to_fixpoint`` of ``sweep``, or its recording
+        twin under ``convergence=True``: (dist, iterations, improving,
+        trajectory buffers or None)."""
+        cap = self._traj_cap()
+        if cap is None:
+            return (*relax._sweeps_to_fixpoint(sweep, dist0, max_iter), None)
+        d, i, improving, counts, resid = conv.instrumented_fixpoint(
+            sweep, dist0, max_iter=max_iter, cap=cap, batch_axis=batch_axis)
+        return d, i, improving, (counts, resid)
+
+    # -- B=1 route gates (the reference's, in its plan order) ----------------
+
+    @staticmethod
+    def _low_degree_family(dgraph: TorchDeviceGraph) -> bool:
+        """The road/grid family the frontier and Gauss-Seidel routes
+        target: V >= 512 and max out-degree in 1..32 (a hub would pad
+        every gather tile to its degree)."""
+        return dgraph.num_nodes >= 512 and 0 < dgraph.max_degree <= 32
+
+    def _use_frontier(self, dgraph: TorchDeviceGraph) -> bool:
+        """The reference's gate on every device: ``frontier=True`` /
+        ``False`` force; ``"auto"`` takes the low-degree family, except
+        where E reaches the examined counter's addend bound."""
+        flag = self.config.frontier
+        if flag != "auto":
+            return bool(flag)
+        if dgraph.num_real_edges >= relax.FRONTIER_ADDEND_MAX:
+            return False
+        return self._low_degree_family(dgraph)
+
+    def _frontier_capacity(self, dgraph: TorchDeviceGraph) -> int:
+        """The frontier id buffer: ``frontier_capacity``, else V/8 floored
+        at 1024 and capped at V (the reference's rule: road and grid
+        frontiers rarely overflow it)."""
+        if self.config.frontier_capacity is not None:
+            return int(self.config.frontier_capacity)
+        v = dgraph.num_nodes
+        return int(min(v, max(1024, v // 8)))
+
+    # The reference's "auto" gates of gs, dia and bucket engage only on a
+    # TPU; here, as off-TPU there, "auto" declines and True forces. (So
+    # the reference's _qual_sssp_bucket, which keeps an auto bucket off
+    # the virtual-source pass, has nothing left to decide, and
+    # _contract_dia / _contract_gs guard an edges mesh axis the port
+    # does not have.)
+
+    def _use_gs(self, dgraph: TorchDeviceGraph) -> bool:
+        return self.config.gauss_seidel is True and dgraph.host_graph is not None
+
+    def _use_dia(self, dgraph: TorchDeviceGraph) -> bool:
+        """``dia=True`` on a labeling the DIA layout accepts; a labeling it
+        rejects falls through to the next route, as in the reference."""
+        return self.config.dia is True and self.dia_bundle(dgraph) is not None
+
+    def dia_bundle(self, dgraph: TorchDeviceGraph) -> dict | None:
+        return dgraph.dia_layout(self.config.dia_max_offsets)
+
+    def _use_bucket(self, dgraph: TorchDeviceGraph) -> bool:
+        return self.config.bucket is True
+
+    def _bucket_delta(self, dgraph: TorchDeviceGraph) -> float:
+        """The bucket width: ``SolverConfig.delta``, else ``auto_delta``
+        from the mean |weight| of the CURRENT weights (two reductions,
+        cached until the next reweight)."""
+        if self.config.delta is not None:
+            return float(self.config.delta)
+        cached = dgraph._by_dst_cache.get("bucket_delta")
+        if cached is None:
+            w = dgraph.weights
+            finite = torch.isfinite(w)
+            mean_w = float(
+                torch.where(finite, w.abs(), torch.zeros_like(w)).sum()
+                / finite.sum().clamp_min(1))
+            cached = auto_delta(mean_w, dgraph.num_nodes,
+                                dgraph.num_real_edges)
+            dgraph._by_dst_cache["bucket_delta"] = cached
+        return cached
+
     def bellman_ford(self, dgraph: TorchDeviceGraph,
                      source: int | None) -> KernelResult:
-        """B=1 Bellman-Ford on route ``sweep``; ``source=None`` is the
-        virtual-source pass (dist0 = 0 everywhere)."""
+        """B=1 Bellman-Ford; ``source=None`` is the virtual-source pass
+        (dist0 = 0 everywhere). The first route whose gate takes the
+        graph runs it, in the reference's plan order (see the module
+        docstring); ``sweep`` takes the rest."""
         v = dgraph.num_nodes
         if source is None:
             dist0 = torch.zeros(v, dtype=self._dtype, device=self.device)
@@ -349,19 +606,135 @@ class TorchBackend(Backend):
                                device=self.device)
             dist0[source] = 0.0
         max_iter = self.config.max_iterations or v
-        dist, iters, improving = relax.bellman_ford_sweeps(
+        chunk = relax.edge_chunk_for(1, dgraph.src.shape[0])
+        for gate, build in ((self._use_dia, self._sssp_build_dia),
+                            (self._use_bucket, self._sssp_build_bucket),
+                            (self._use_gs, self._sssp_build_gs),
+                            (self._use_frontier, self._sssp_build_frontier)):
+            if gate(dgraph):
+                return build(dgraph, source, dist0, max_iter, chunk)
+        return self._sssp_build_sweep(dgraph, source, dist0, max_iter, chunk)
+
+    def _sssp_build_dia(self, dgraph, source, dist0, max_iter, chunk):
+        lay = self.dia_bundle(dgraph)
+        dist, iters, improving, traj = self._fixpoint(
+            lambda d: dia_sweep(d, lay["w_diag"], offsets=lay["offsets"]),
+            dist0, max_iter, None)
+        res = KernelResult(
+            dist=dist,
+            negative_cycle=improving and max_iter >= dgraph.num_nodes,
+            converged=not improving,
+            iterations=iters,
+            # Each chained sweep examines every stored diagonal entry
+            # once (= E: the layout stores every real edge).
+            edges_relaxed=iters * lay["num_entries"],
+            route="dia",
+        )
+        if traj is not None:
+            self._attach_trajectory(res, *traj, dgraph)
+        return res
+
+    def _sssp_build_bucket(self, dgraph, source, dist0, max_iter, chunk):
+        v = dgraph.num_nodes
+        cap = self._traj_cap()
+        # A generous step budget: converging solves take ~hop-diameter
+        # steps; exhausting it hands the distances to the full sweep,
+        # which finishes and certifies negative cycles.
+        dist, steps, busy, examined, *traj = bellman_ford_bucketed(
             dist0, dgraph.src, dgraph.dst, dgraph.weights,
-            max_iter=max_iter,
-            edge_chunk=relax.edge_chunk_for(1, dgraph.src.shape[0]),
+            dgraph.indptr_dev(), self._bucket_delta(dgraph),
+            max_steps=2 * max_iter + 64,
+            capacity=auto_capacity(v, dgraph.max_degree),
+            max_degree=dgraph.max_degree,
+            num_real_edges=dgraph.num_real_edges, edge_chunk=chunk,
+            traj_cap=cap,
+        )
+        examined = relax.examined_exact(examined)
+        if not busy:
+            # Empty masks certify the global fixpoint: no reachable
+            # negative cycle.
+            res = KernelResult(dist=dist, negative_cycle=False,
+                               converged=True, iterations=steps,
+                               edges_relaxed=examined, route="bucket")
+        else:
+            dist, it2, improving = relax.bellman_ford_sweeps(
+                dist, dgraph.src, dgraph.dst, dgraph.weights,
+                max_iter=max_iter, edge_chunk=chunk)
+            res = KernelResult(
+                dist=dist,
+                negative_cycle=improving and max_iter >= v,
+                converged=not improving,
+                iterations=steps + it2,
+                edges_relaxed=examined + it2 * dgraph.num_real_edges,
+                route="bucket+sweep",
+            )
+        if traj:
+            # The trajectory covers the bucket steps only.
+            self._attach_trajectory(res, *traj, dgraph, iterations=steps)
+        return res
+
+    def _sssp_build_gs(self, dgraph, source, dist0, max_iter, chunk):
+        v = dgraph.num_nodes
+        lay = dgraph.gs_layout(self.config.gs_block_size)
+        dist0_gs = torch.full((lay["v_pad"],), float("inf"),
+                              dtype=self._dtype, device=self.device)
+        if source is None:
+            dist0_gs[:v] = 0.0  # every real vertex; pads stay +inf
+        else:
+            dist0_gs[int(lay["rank_host"][source])] = 0.0
+        inner_cap = self.config.gs_inner_cap
+        dist, rounds, improving, iters_blk, *traj = sssp_gs_blocks(
+            dist0_gs, lay["src_blk"], lay["dstl_blk"], lay["w_blk"],
+            vb=lay["vb"], halo=lay["halo"], max_outer=max_iter,
+            inner_cap=inner_cap, traj_cap=self._traj_cap(),
+        )
+        res = KernelResult(
+            dist=dist[lay["rank"].long()],
+            negative_cycle=improving and max_iter >= v,
+            converged=not improving,
+            iterations=rounds,
+            edges_relaxed=_gs_examined_exact(
+                iters_blk, lay["real_edges_host"], 1, rounds=rounds,
+                inner_cap=inner_cap),
+            route="gs",
+        )
+        if traj:
+            self._attach_trajectory(res, *traj, dgraph)
+        return res
+
+    def _sssp_build_frontier(self, dgraph, source, dist0, max_iter, chunk):
+        dist, iters, improving, examined = relax.bellman_ford_frontier(
+            dist0, dgraph.src, dgraph.dst, dgraph.weights,
+            dgraph.indptr_dev(), max_iter=max_iter,
+            capacity=self._frontier_capacity(dgraph),
+            max_degree=dgraph.max_degree,
+            num_real_edges=dgraph.num_real_edges, edge_chunk=chunk,
         )
         return KernelResult(
             dist=dist,
-            negative_cycle=improving and max_iter >= v,
+            negative_cycle=improving and max_iter >= dgraph.num_nodes,
+            converged=not improving,
+            iterations=iters,
+            edges_relaxed=relax.examined_exact(examined),
+            route="frontier",
+        )
+
+    def _sssp_build_sweep(self, dgraph, source, dist0, max_iter, chunk):
+        dist, iters, improving, traj = self._fixpoint(
+            lambda d: relax.relax_sweep(d, dgraph.src, dgraph.dst,
+                                        dgraph.weights, edge_chunk=chunk),
+            dist0, max_iter, None)
+        res = KernelResult(
+            dist=dist,
+            negative_cycle=improving and max_iter >= dgraph.num_nodes,
             converged=not improving,
             iterations=iters,
             edges_relaxed=iters * dgraph.num_real_edges,
             route="sweep",
         )
+        if traj is not None:
+            self._attach_trajectory(res, *traj, dgraph)
+        return res
 
     def reweight(self, dgraph: TorchDeviceGraph, potentials) -> TorchDeviceGraph:
         """w' = (w + h[src]) - h[dst] >= 0 on the device. The in-edge
@@ -406,6 +779,10 @@ class TorchBackend(Backend):
         v = dgraph.num_nodes
         max_iter = self.config.max_iterations or v
         hand = self.config.use_pallas is not False
+        if self._use_dia(dgraph):
+            return self._plan_build_dia(dgraph, sources, max_iter), None
+        if self._use_gs(dgraph):
+            return self._plan_build_gs(dgraph, sources, max_iter), None
         if self._use_dense(dgraph):
             a = relax.dense_adjacency(
                 dgraph.src, dgraph.dst, dgraph.weights, v, dtype=self._dtype
@@ -425,29 +802,31 @@ class TorchBackend(Backend):
                 edges_relaxed=iters * work_per_iter,
                 route=f"dense-{regime}" + ("-pallas" if hand else ""),
             ), None
+        chunk = relax.edge_chunk_for(b, dgraph.src.shape[0])
         if self.config.fanout_layout == "source_major":
-            dist, iters, improving = relax.bellman_ford_sweeps(
-                relax.multi_source_init(sources, v, self._dtype),
-                dgraph.src, dgraph.dst, dgraph.weights, max_iter=max_iter,
-                edge_chunk=relax.edge_chunk_for(b, dgraph.src.shape[0]),
-            )
-            return self._sweep_result(dgraph, dist, iters, improving, b,
-                                      "sweep-sm"), None
-        if not hand and v > VM_BLOCK:
+            src, dst, w = dgraph.src, dgraph.dst, dgraph.weights
+            dist, iters, improving, traj = self._fixpoint(
+                lambda d: relax.relax_sweep(d, src, dst, w, edge_chunk=chunk),
+                relax.multi_source_init(sources, v, self._dtype), max_iter, 0)
+            res = self._sweep_result(dgraph, dist, iters, improving, b,
+                                     "sweep-sm")
+            dist_vm = None
+        elif not hand and v > VM_BLOCK:
             lay = dgraph.vm_blocked_layout(VM_BLOCK,
                                            self._vm_lay_chunk(dgraph, b))
-            dist0 = self._dist0_vm(lay["v_pad"], sources)
-            dist_vm, iters, improving = relax.bellman_ford_sweeps_vm_blocked(
-                dist0, lay["src_ck"], lay["dstl_ck"], lay["w_ck"],
-                lay["base_ck"], vb=lay["vb"], max_iter=max_iter,
-            )
+            # Pad rows are +inf and never improve: the counts stay exact.
+            dist_vm, iters, improving, traj = self._fixpoint(
+                lambda d: relax.relax_sweep_vm_blocked(
+                    d, lay["src_ck"], lay["dstl_ck"], lay["w_ck"],
+                    lay["base_ck"], vb=lay["vb"]),
+                self._dist0_vm(lay["v_pad"], sources), max_iter, 1)
             dist_vm, route = dist_vm[:v], "vm-blocked"
         elif not hand:
-            dist_vm, iters, improving = relax.bellman_ford_sweeps_vm(
-                self._dist0_vm(v, sources), *dgraph.vm_edges(),
-                max_iter=max_iter,
-                edge_chunk=relax.edge_chunk_for(b, dgraph.src.shape[0]),
-            )
+            src, dst, w = dgraph.vm_edges()
+            dist_vm, iters, improving, traj = self._fixpoint(
+                lambda d: relax.relax_sweep_vm(d, src, dst, w,
+                                               edge_chunk=chunk),
+                self._dist0_vm(v, sources), max_iter, 1)
             route = "vm"
         else:
             (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
@@ -455,9 +834,53 @@ class TorchBackend(Backend):
                 self._dist0_vm(v, sources), indptr_in, src_in, w_in,
                 max_iter=max_iter, items=items,
             )
-            route = "pallas-vm"
-        return self._sweep_result(dgraph, dist_vm.t().contiguous(), iters,
-                                  improving, b, route), dist_vm
+            route, traj = "pallas-vm", None
+        if dist_vm is not None:
+            res = self._sweep_result(dgraph, dist_vm.t().contiguous(), iters,
+                                     improving, b, route)
+        if traj is not None:
+            self._attach_trajectory(res, *traj, dgraph, batch=b)
+        return res, dist_vm
+
+    def _plan_build_dia(self, dgraph, sources, max_iter) -> KernelResult:
+        """The DIA stencil fan-out over [B, V] distances: every sweep is K
+        contiguous roll + add + min passes."""
+        lay = self.dia_bundle(dgraph)
+        b = int(sources.shape[0])
+        dist, iters, improving, traj = self._fixpoint(
+            lambda d: dia_sweep(d, lay["w_diag"], offsets=lay["offsets"]),
+            relax.multi_source_init(sources, dgraph.num_nodes, self._dtype),
+            max_iter, 0)
+        res = KernelResult(dist=dist, converged=not improving,
+                           iterations=iters,
+                           edges_relaxed=iters * lay["num_entries"] * b,
+                           route="dia")
+        if traj is not None:
+            self._attach_trajectory(res, *traj, dgraph, batch=b)
+        return res
+
+    def _plan_build_gs(self, dgraph, sources, max_iter) -> KernelResult:
+        """The blocked Gauss-Seidel fan-out (vertex-major, relabeled ids),
+        rows mapped back to the original labels."""
+        lay = dgraph.gs_layout(self.config.gs_block_size)
+        b = int(sources.shape[0])
+        inner_cap = self.config.gs_inner_cap
+        dist, rounds, improving, iters_blk, *traj = fanout_gs_body(
+            sources, lay["src_blk"], lay["dstl_blk"], lay["w_blk"],
+            lay["rank"], v_pad=lay["v_pad"], vb=lay["vb"], halo=lay["halo"],
+            max_outer=max_iter, inner_cap=inner_cap,
+            traj_cap=self._traj_cap(),
+        )
+        res = KernelResult(
+            dist=dist, converged=not improving, iterations=rounds,
+            edges_relaxed=_gs_examined_exact(
+                iters_blk, lay["real_edges_host"], b, rounds=rounds,
+                inner_cap=inner_cap),
+            route="gs",
+        )
+        if traj:
+            self._attach_trajectory(res, *traj, dgraph, batch=b)
+        return res
 
     def _dist0_vm(self, rows: int, sources: torch.Tensor) -> torch.Tensor:
         """[rows, B] of +inf with 0 at (sources[c], c)."""

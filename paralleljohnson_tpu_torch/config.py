@@ -49,6 +49,25 @@ class SolverConfig:
       fanout_layout: ``"auto"`` / ``"vertex_major"`` (the routes above);
         ``"source_major"`` takes the source-major scatter sweep
         ``sweep-sm`` for every sparse graph.
+      frontier / frontier_capacity: the compacted-frontier B=1 route
+        (phase 1 and ``sssp``). ``"auto"`` takes it on the low-degree
+        family (V >= 512, max out-degree 1..32), as the JAX package does
+        on every platform; ``True`` forces it, ``False`` keeps ``sweep``.
+        ``frontier_capacity`` overrides its id buffer (V/8, at least
+        1024).
+      dia / dia_max_offsets, gauss_seidel / gs_block_size / gs_inner_cap,
+        bucket / delta: the DIA stencil (B=1 and fan-out), blocked
+        Gauss-Seidel (B=1 and fan-out) and bucketed delta-stepping (B=1)
+        routes. Their ``"auto"`` engages only on a TPU in the JAX
+        package, so here it stays off; ``True`` forces the route
+        (``dia=True`` on a labeling that is not diagonal falls through
+        to the next route, as in the JAX package).
+      convergence: ``True`` records the per-iteration trajectory
+        counters into ``SolverStats.convergence`` on the routes the JAX
+        package instruments (``sweep``, ``sweep-sm``, ``vm``,
+        ``vm-blocked``, ``dia``, ``gs``, ``bucket``); ``"auto"`` and
+        ``False`` record nothing (the port has no telemetry sink or
+        profile store to consume them).
       pred_extraction: how ``predecessors=True`` solves get their trees.
         ``"auto"`` / ``True``: the route's distances, then one tight-edge
         pass (``ops.pred``; the hand ``tight_pred`` kernel on the card);
@@ -68,11 +87,11 @@ class SolverConfig:
       fault_plan: a ``utils.faults.FaultPlan`` of injected failures.
 
     Kept for config parity; forcing them raises at solve time until the
-    route is ported: ``frontier``, ``gauss_seidel``, ``dia``, ``bucket``,
-    ``fw``, ``partitioned``, ``dirty_window``, ``edge_shard`` (``True``),
-    ``telemetry``, ``metrics`` and ``profile_store`` (set). The remaining
-    knobs (``delta``, ``gs_block_size``, ``fw_tile``, ...) only tune
-    routes or layers the port does not have yet.
+    route is ported: ``fw``, ``partitioned``, ``dirty_window``,
+    ``edge_shard`` (``True``), ``telemetry``, ``metrics`` and
+    ``profile_store`` (set). The remaining knobs (``fw_tile``,
+    ``dw_block``, ...) only tune routes or layers the port does not have
+    yet.
     """
 
     backend: str = "torch"
@@ -133,8 +152,7 @@ class SolverConfig:
         naming them."""
         bad = [
             f"{name}=True"
-            for name in ("fw", "dia", "gauss_seidel", "bucket", "frontier",
-                         "dirty_window", "partitioned", "edge_shard")
+            for name in ("fw", "dirty_window", "partitioned", "edge_shard")
             if getattr(self, name) is True
         ]
         if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:

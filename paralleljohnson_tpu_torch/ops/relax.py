@@ -15,6 +15,9 @@ values:
   - ``dense_adjacency`` / ``minplus`` / ``apsp_minplus_squaring`` /
     ``dense_fanout``: the dense min-plus family; ``mp=`` takes the
     hand CUDA product (``ops.minplus.minplus_kernel``).
+  - ``bellman_ford_frontier``: B=1 Bellman-Ford over a compacted
+    active-vertex frontier (route ``frontier``), with a full sweep for
+    the rounds whose frontier overflows its buffer.
 
 Every function takes and returns tensors on the caller's device; loops
 whose trip count depends on the data read one flag per iteration to the
@@ -33,6 +36,13 @@ from paralleljohnson_tpu_torch.utils.paths import NO_PRED
 
 INF = float("inf")
 _I32_MAX = torch.iinfo(torch.int32).max
+
+# Largest per-round addend of the examined counter of the frontier and
+# bucket kernels (the reference's split int32 counter): both E (full-sweep
+# rounds) and capacity x max_degree (frontier rounds) must stay below it.
+# The port counts in int64, but keeps the bound so both packages gate and
+# clamp the same graphs.
+FRONTIER_ADDEND_MAX = (1 << 31) - (1 << 20)
 
 # Bound on the elements of one [rows, chunk] relaxation intermediate
 # (256 MB at f32), the JAX package's ``_edge_chunk_for`` budget.
@@ -307,7 +317,8 @@ def bellman_ford_sweeps_vm_blocked(dist0_vm, src_ck, dstl_ck, w_ck, base_ck,
 
 def _sweeps_to_fixpoint(sweep, dist0, max_iter: int):
     """Apply ``sweep`` until nothing drops or ``max_iter`` sweeps ran:
-    (dist, iterations, still_improving), one host read per sweep."""
+    (dist, iterations, still_improving), one host read per sweep (and
+    one before), counted in ``_sweeps_to_fixpoint.host_reads``."""
     d = dist0
     improving = bool(torch.isfinite(dist0).any())
     i = 0
@@ -316,7 +327,11 @@ def _sweeps_to_fixpoint(sweep, dist0, max_iter: int):
         improving = bool((nd < d).any())
         d = nd
         i += 1
+    _sweeps_to_fixpoint.host_reads += i + 1
     return d, i, improving
+
+
+_sweeps_to_fixpoint.host_reads = 0
 
 
 def multi_source_init(sources, num_nodes: int, dtype=torch.float32):
@@ -445,3 +460,128 @@ def dense_fanout_regime(v: int, b: int, *, k_block: int = 128) -> tuple[str, int
     if 2 * b >= v:
         return "squaring", v * kp * v
     return "iterate", b * kp * v
+
+
+# -- compacted-frontier Bellman-Ford (B=1, route frontier) -------------------
+#
+# On a road-like grid only the out-edges of the vertices whose distance
+# changed last round can improve anything, and that frontier is ~sqrt(V)
+# vertices, not V. The frontier is compacted into a fixed ``capacity`` id
+# buffer, its out-edges are gathered through the CSR indptr padded to the
+# graph's max degree, and a round whose frontier overflows the buffer runs
+# one full chunked sweep instead. Round r subsumes Jacobi round r, so
+# "still active after max_iter >= V rounds" certifies a reachable negative
+# cycle, as for the sweeps.
+
+
+def compact(mask, values, capacity: int, fill: int):
+    """``values`` at the first ``capacity`` True entries of ``mask`` in
+    index order, ``fill`` after them: ``jnp.nonzero(mask, size=capacity,
+    fill_value=...)`` then a gather, without reading the count on the
+    host. ``mask`` and ``values`` are 1-D of one length."""
+    pos = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask & (pos < capacity), pos,
+                       torch.full_like(pos, capacity))
+    out = torch.full((capacity + 1,), fill, dtype=values.dtype,
+                     device=values.device)
+    # Entries past the buffer all land in the spare last slot.
+    out.scatter_(0, slot, values)
+    return out[:capacity]
+
+
+def out_edge_tile(indptr_ext, dst, w, ids, max_degree: int, num_nodes: int):
+    """The out-edges of the vertex ids ``ids`` [K] (id ``num_nodes`` is an
+    empty row) as a [K, max_degree] tile: (t, wt, valid) with destination
+    ``num_nodes`` and weight +inf at the invalid slots. ``indptr_ext`` is
+    the int64 CSR indptr with its last entry repeated."""
+    starts = indptr_ext[ids]
+    ends = indptr_ext[ids + 1]
+    eidx = starts[:, None] + torch.arange(max_degree, device=ids.device)
+    valid = eidx < ends[:, None]
+    eidx = eidx.clamp_max(max(dst.shape[0] - 1, 0))
+    t = torch.where(valid, dst[eidx].long(), num_nodes)
+    wt = torch.where(valid, w[eidx], torch.full_like(w[:1], INF))
+    return t, wt, valid
+
+
+def bellman_ford_frontier(dist0, src, dst, w, indptr, *, max_iter: int,
+                          capacity: int, max_degree: int,
+                          num_real_edges: int, edge_chunk: int = 1 << 20):
+    """Fixpoint Bellman-Ford over an active-vertex frontier (B=1), the
+    reference's ``relax.bellman_ford_frontier``.
+
+    ``src``/``dst``/``w`` are in CSR (src-sorted) order with ``indptr``
+    ([V+1], host or device) describing the real edges; the padded tail
+    edges are (0, 0, +inf) no-ops only the full sweep touches. The
+    distances live in a [V+1] buffer whose last slot takes the empty
+    rows' sentinel destination ``V`` (the reference's dropped scatter
+    index) and stays +inf. Winner ids may repeat (ties, several improving
+    edges into one vertex): they are kept, so the examined count matches
+    the reference's.
+
+    One host read per round (the frontier count, which picks the branch
+    and ends the loop), counted in ``bellman_ford_frontier.host_reads``.
+    Returns (dist [V], rounds, still_improving, examined) with
+    ``examined`` an int64 device count of candidate relaxations (full
+    sweeps add E); decode with :func:`examined_exact`."""
+    if num_real_edges >= FRONTIER_ADDEND_MAX:
+        raise ValueError(
+            "bellman_ford_frontier: E="
+            f"{num_real_edges} >= 2^31 - 2^20 breaks the examined "
+            "counter's full-sweep addend bound the reference enforces; "
+            "use the sweep routes"
+        )
+    v = dist0.shape[0]
+    dev = dist0.device
+    capacity = int(min(capacity, v))
+    if max_degree > 0:
+        capacity = max(1, min(capacity, (FRONTIER_ADDEND_MAX - 1) // max_degree))
+    indptr = torch.as_tensor(indptr).to(dev, torch.int64)
+    indptr_ext = torch.cat([indptr, indptr[-1:]])
+    vertex_ids = torch.arange(v, device=dev)
+    d = torch.cat([dist0, torch.full((1,), INF, dtype=dist0.dtype,
+                                     device=dev)])
+    examined = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def frontier_round(ids):
+        t, wt, valid = out_edge_tile(indptr_ext, dst, w, ids, max_degree, v)
+        t = t.reshape(-1)
+        cand = (d[ids][:, None] + wt).reshape(-1)
+        old = d[t]
+        d.scatter_reduce_(0, t, cand, "amin")
+        # Winner edges strictly improved their destination AND reached the
+        # post-scatter minimum; their destinations are the next frontier.
+        winner = (cand < old) & (cand == d[t])
+        return compact(winner, t, capacity, v), winner.sum(), valid.sum()
+
+    def full_round():
+        nd = relax_sweep(d[:v], src, dst, w, edge_chunk=edge_chunk)
+        improved = nd < d[:v]
+        d[:v] = nd
+        return (compact(improved, vertex_ids, capacity, v), improved.sum(),
+                num_real_edges)
+
+    active0 = torch.isfinite(dist0)
+    ids = compact(active0, vertex_ids, capacity, v)
+    count = int(active0.sum())
+    bellman_ford_frontier.host_reads += 1
+    i = 0
+    while count > 0 and i < max_iter:
+        ids, ncount, ex = (frontier_round(ids) if count <= capacity
+                           else full_round())
+        examined += ex
+        count = int(ncount)
+        bellman_ford_frontier.host_reads += 1
+        i += 1
+    return d[:v], i, count > 0, examined
+
+
+bellman_ford_frontier.host_reads = 0
+
+
+def examined_exact(examined) -> int:
+    """The examined counter of :func:`bellman_ford_frontier` /
+    ``ops.bucket.bellman_ford_bucketed`` as a Python int (one host
+    read)."""
+    return int(examined)
+

@@ -7,7 +7,42 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+import warnings
 from collections import defaultdict
+
+
+def warn_if_counter_wrapped(rounds: int, inner_cap: int, *,
+                            where: str) -> None:
+    """Achievable-bound wrap guard for the int32 per-block GS iteration
+    counters (``ops.gauss_seidel._gs_engine``): a block's total is
+    bounded by 2 x outer_rounds x inner_cap, so the host-side count is
+    exact while that bound stays below 2^31."""
+    if 2 * int(rounds) * int(inner_cap) >= 1 << 31:
+        warnings.warn(
+            f"{where}: GS iteration counter may have wrapped "
+            f"({int(rounds)} outer rounds x inner_cap {int(inner_cap)}): "
+            "edges_relaxed is a lower bound, not exact",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+
+def warn_if_traj_counter_wrapped(batch: int, num_nodes: int, *,
+                                 where: str) -> None:
+    """Addend wrap guard for the int32 convergence-trajectory counters
+    (``observe.convergence``): one iteration's ``relaxations_applied``
+    is bounded by batch x V labels, so a row is exact while that bound
+    stays below 2^31. Past it the trajectory still records, with a
+    warning that its counts are lower bounds."""
+    if int(batch) * int(num_nodes) >= 1 << 31:
+        warnings.warn(
+            f"{where}: trajectory counter addend batch x V = "
+            f"{int(batch)} x {int(num_nodes)} >= 2^31: frontier_size / "
+            "relaxations_applied may have wrapped — treat the "
+            "trajectory as a lower bound, not exact",
+            RuntimeWarning,
+            stacklevel=3,
+        )
 
 
 @dataclasses.dataclass
@@ -47,6 +82,15 @@ class SolverStats:
     final_pipeline_depth: the in-flight window the fan-out ENDED at
       (None until a fan-out runs): the configured depth, or 1 after an
       OOM collapsed the window (which happens BEFORE any batch halving).
+    convergence: per-phase trajectory summaries
+      (``observe.convergence.summarize_trajectory``; a multi-batch
+      fan-out merges its batches with ``merge_summaries``). None unless
+      ``SolverConfig(convergence=True)`` and a phase ran on a route that
+      records (``sweep``, ``sweep-sm``, ``vm``, ``vm-blocked``, ``dia``,
+      ``gs``, ``bucket``, as in the JAX package).
+    trajectories: the decoded per-iteration ``[n, 3]`` arrays behind
+      those summaries, by phase (one per kernel call); not in
+      ``as_dict``.
     """
 
     phase_seconds: dict = dataclasses.field(
@@ -69,12 +113,15 @@ class SolverStats:
     ckpt_wait_s: float = 0.0
     overlap_saved_s: float = 0.0
     final_pipeline_depth: int | None = None
+    convergence: dict | None = None
+    trajectories: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def accumulate(self, result, phase: str) -> None:
         """Fold one KernelResult into the totals."""
         self.edges_relaxed += int(result.edges_relaxed)
         self.edges_relaxed_by_phase[phase] += int(result.edges_relaxed)
         self.iterations_by_phase[phase] += int(result.iterations)
+        self._accumulate_trajectory(result, phase)
         route = getattr(result, "route", None)
         if route:
             prev = self.routes_by_phase.get(phase)
@@ -82,6 +129,23 @@ class SolverStats:
                 self.routes_by_phase[phase] = route
             elif route not in prev.split("+"):
                 self.routes_by_phase[phase] = prev + "+" + route
+
+    def _accumulate_trajectory(self, result, phase: str) -> None:
+        """Fold one KernelResult's trajectory: the curve joins
+        ``trajectories[phase]``, the summary merges into
+        ``convergence[phase]``."""
+        traj = getattr(result, "trajectory", None)
+        if traj is not None:
+            self.trajectories.setdefault(phase, []).append(traj)
+        summ = getattr(result, "convergence", None)
+        if summ:
+            from paralleljohnson_tpu_torch.observe.convergence import (
+                merge_summaries,
+            )
+
+            conv = self.convergence if self.convergence is not None else {}
+            conv[phase] = merge_summaries(conv.get(phase), summ)
+            self.convergence = conv
 
     @property
     def total_seconds(self) -> float:
@@ -115,6 +179,7 @@ class SolverStats:
             "ckpt_wait_s": self.ckpt_wait_s,
             "overlap_saved_s": self.overlap_saved_s,
             "final_pipeline_depth": self.final_pipeline_depth,
+            "convergence": self.convergence,
             "total_seconds": self.total_seconds,
             "edges_relaxed_per_sec": self.edges_relaxed_per_second(),
         }

@@ -1,6 +1,7 @@
 """PyTorch port on the card: each hand CUDA kernel against its plain
 PyTorch version, and ``solve()`` on the card (predecessor trees and the
-plain-torch XLA routes included) against ``solve()`` on the CPU. Every
+plain-torch XLA routes included) against ``solve()`` on the CPU, and the
+B=1 routes' ``sssp`` against ``sweep``'s. Every
 test needs a CUDA device and skips without one.
 
 This file imports nothing of JAX, so it runs where JAX is not installed:
@@ -493,6 +494,32 @@ def test_xla_routes_on_card_equal_cpu(cuda, spec, kw, route):
     assert got.stats.routes_by_phase["fanout"] == route
     assert got.stats.iterations_by_phase == want.stats.iterations_by_phase
     np.testing.assert_array_equal(got.matrix, want.matrix)
+
+
+B1_ROUTES = {"frontier": {"frontier": True}, "dia": {"dia": True},
+             "gs": {"gauss_seidel": True}, "bucket": {"bucket": True}}
+
+
+@pytest.mark.parametrize("spec", ["rmat:scale=16,ef=8,seed=2",
+                                  "grid:rows=128,cols=128,neg=0.2,seed=5"])
+@pytest.mark.parametrize("route", sorted(B1_ROUTES))
+def test_b1_route_on_card_equals_sweep(cuda, spec, route):
+    """Each forced B=1 route's ``sssp`` on the card: the row bitwise
+    equal to ``sweep``'s on the card, and the route's counters equal to
+    its own run on the CPU. R-MAT's labeling is not diagonal, so ``dia``
+    falls through to ``sweep`` there."""
+    g = pjt.load_graph(spec)
+    sweep = pjt.ParallelJohnsonSolver(pjt.SolverConfig(frontier=False),
+                                      device=cuda).sssp(g, 0)
+    cfg = pjt.SolverConfig(**B1_ROUTES[route])
+    got = pjt.ParallelJohnsonSolver(cfg, device=cuda).sssp(g, 0)
+    cpu = pjt.ParallelJohnsonSolver(cfg, device="cpu").sssp(g, 0)
+    want = "sweep" if route == "dia" and spec.startswith("rmat") else route
+    assert got.stats.routes_by_phase["bellman_ford"] == want
+    np.testing.assert_array_equal(johnson.to_numpy(got.dist),
+                                  johnson.to_numpy(sweep.dist))
+    assert got.stats.iterations_by_phase == cpu.stats.iterations_by_phase
+    assert got.stats.edges_relaxed == cpu.stats.edges_relaxed
 
 
 def test_staged_download_equals_blocking_copy(cuda):

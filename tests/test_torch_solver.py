@@ -168,8 +168,7 @@ def test_numpy_backend_and_validate():
 
 
 @pytest.mark.parametrize("kw", [
-    {"fw": True}, {"dia": True}, {"gauss_seidel": True}, {"bucket": True},
-    {"frontier": True}, {"dirty_window": True}, {"partitioned": True},
+    {"fw": True}, {"dirty_window": True}, {"partitioned": True},
     {"edge_shard": True}, {"mesh_shape": (2,)},
     {"profile_store": "ps"},
     {"telemetry": object()}, {"metrics": object()},
@@ -179,6 +178,24 @@ def test_unported_routes_raise_naming_the_field(kw):
     with pytest.raises(NotImplementedError, match=name):
         pjt.ParallelJohnsonSolver(pjt.SolverConfig(**kw),
                                   device="cpu").solve(_port(GRAPHS["dag-neg"]()))
+
+
+@pytest.mark.parametrize("kw,route", [
+    ({"frontier": True}, "frontier"), ({"dia": True}, "dia"),
+    ({"gauss_seidel": True}, "gs"), ({"bucket": True}, "bucket"),
+])
+def test_forced_b1_routes_run_them(kw, route):
+    """Forcing a B=1 route runs it: ``sssp`` on an integer-weight grid
+    with negative arcs takes the route's tag, and its row is bitwise the
+    reference's on the same forced route."""
+    g = load_graph("grid:rows=20,cols=30,neg=0.2,seed=4")
+    g = _integer_weights(g.with_weights(g.weights * 3))
+    ref = RefSolver(RefConfig(**{**PINNED, **kw})).sssp(g, 7)
+    port = pjt.ParallelJohnsonSolver(pjt.SolverConfig(**{**PINNED, **kw}),
+                                     device="cpu").sssp(_port(g), 7)
+    assert port.stats.routes_by_phase["bellman_ford"] == route
+    assert ref.stats.routes_by_phase["bellman_ford"] == route
+    np.testing.assert_array_equal(to_numpy(port.dist), np.asarray(ref.dist))
 
 
 def test_predecessors_raise():
@@ -223,6 +240,12 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         red = solver.solve_reduced(g, reduce_rows="reach_count")
         assert red.values[0].shape == (30,)
         assert solver.sssp(g, 0).dist.shape == (1, 30)
+        grid = pjt.load_graph("grid:rows=24,cols=24,neg=0.2,seed=1")
+        for kw in ({{}}, {{"dia": True}}, {{"gauss_seidel": True}},
+                   {{"bucket": True}}, {{"convergence": True}}):
+            res = pjt.ParallelJohnsonSolver(
+                pjt.SolverConfig(**kw), device="cpu").sssp(grid, 3)
+            assert res.dist.shape == (1, 576)
         bad = [m for m in sys.modules
                if m == "paralleljohnson_tpu" or m.startswith("paralleljohnson_tpu.")]
         assert not bad, bad
