@@ -31,7 +31,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      this low-degree graph; reweight, un-reweight): the potentials checked
      feasible on every edge, 2 rows against scipy Dijkstra on the graph
      reweighted with them;
-  5. ``solve()`` on ``er:n=1024,p=0.1,seed=0`` for all sources (route
+  5. ``solve()`` on ``er:n=1024,p=0.1,seed=0`` with ``fw=False`` (the
+     default takes ``fw-tile`` there: phase 16) for all sources (route
      ``dense-squaring-pallas``), the whole matrix against scipy; then for
      128 sources (route ``dense-iterate-pallas``, ``minplus_fixpoint``:
      at most ceil(iterations / 16) + 1 host reads), rows against scipy;
@@ -76,18 +77,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      1e-5, atol 1e-3)
      and on phase 7's negative cycle; ``multi_source`` on R-MAT-20 over
      phase 3's sources (bitwise, rows still on the card); ``solve_batch``
-     of 4 ``er:n=256,p=0.1`` graphs against their ``solve()``s bitwise;
+     of 4 ``er:n=256,p=0.1`` graphs (``batch-vmapped``) against their
+     ``solve()``s on ``pallas-vm`` bitwise;
  13. ``predecessors=True`` solves (``validate_pred_tree`` on their
      trees): R-MAT-20 over phase 3's sources and the grid over phase 4's
      (``pallas-vm+pred``, rows bitwise equal to theirs), ``sssp`` on the
      grid (``frontier+pred``), the zero-weight tight cycle (``pred-sweep``
      after a warning), a 2-batch checkpointed solve resumed, ER-1024
-     (``dense-squaring-pallas+pred``);
+     (``dense-squaring-pallas+pred``, ``fw=False``);
  14. the XLA routes in plain PyTorch beside the hand routes, rows
      bitwise equal: ``use_pallas=False`` (``vm-blocked``) on R-MAT-20
      at B = 128 and on the grid at B = 64, ``sweep-sm`` on R-MAT-16,
-     XLA ``dense-squaring`` on ER-1024; fan-out seconds per sweep of
-     each route and of its hand route;
+     XLA ``dense-squaring`` on ER-1024 (both with ``fw=False``); fan-out
+     seconds per sweep of each route and of its hand route;
  15. the B=1 routes on the grid, in plain PyTorch: ``sssp`` from phase
      4's first source on ``sweep`` (``frontier=False``), ``frontier``
      (the default config), ``dia``, ``gs`` and ``bucket`` (forced), rows
@@ -100,11 +102,27 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      ``frontier=False`` solve's (both warm, rows bitwise equal); the
      forced ``dia`` and ``gs`` fan-outs at B = 64 (rows bitwise equal to
      ``pallas-vm``'s) with seconds per round; a ``convergence=True``
-     ``use_pallas=False`` solve's trajectory summary (``vm-blocked``).
+     ``use_pallas=False`` solve's trajectory summary (``vm-blocked``);
+ 16. dense APSP: the ``fw_kleene`` kernel against ``tile_kleene`` at t =
+     128, 256, 512 (and a tile whose diagonal goes negative), bitwise,
+     with its times at t = 512; ``er:n=2048,p=0.1,seed=21`` with the
+     reference's integer weights, all sources, default config
+     (``fw-tile``), twice in turns with a forced ``dense-squaring-pallas``
+     and ``pallas-vm`` solve, rows bitwise equal, with the products' card
+     time per k-step at its shapes; phase 5's ER-1024 at default config
+     (``fw-tile``) against scipy and within rtol 1e-6 of phase 5's
+     squaring matrix, then ``fw-tile+pred``; the condensed route forced
+     (``partitioned=True``) on ``grid:rows=64,cols=64,neg=0.2,seed=3``,
+     all 4096 sources, against the default solve (rtol 1e-6, atol 1e-4;
+     bitwise with the weights rounded), its stage split, and a negative
+     cycle across parts that raises; ``solve_batch`` of
+     ``random_graph_batch(10000, 256, 8/256, seed=0)`` (``batch-vmapped``),
+     64 sampled graphs against scipy Johnson (rtol 1e-6) and bitwise
+     against their own ``solve()``, beside a 100-graph ``solve()`` loop.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-15 on its own; a path
+phases 3-5 together, then each path of phases 9-16 on its own; a path
 whose kernel was never launched fails (the plain-torch B=1 routes of
 phase 15 need none). The last two lines are the
 ``kernels`` summary (launches summed over the paths, and by path) and
@@ -133,7 +151,12 @@ RMAT_SPEC = "rmat:scale=20,ef=16,seed=0"
 GRID_SPEC = "grid:rows=512,cols=512,neg=0.2,seed=0"
 ER_SPEC = "er:n=1024,p=0.1,seed=0"
 BATCH_SPEC = "er:n=256,p=0.1"  # phase 12's solve_batch, seeds 0-3
-PRED_CKPT_SPEC = "grid:rows=64,cols=64,neg=0.2,seed=3"  # phase 13
+PRED_CKPT_SPEC = "grid:rows=64,cols=64,neg=0.2,seed=3"  # phases 13, 16
+# Phase 16: the reference's dense FW benchmark graph (its weights are
+# redrawn as integers from default_rng(22)) and the many-small-graphs
+# config (BASELINE.json: 10k random 256-node graphs).
+FW_SPEC = "er:n=2048,p=0.1,seed=21"
+BATCH_APSP_GRAPHS = 10000
 SWEEP_SM_SPEC = "rmat:scale=16,ef=8,seed=2"  # phase 14
 # Phase 9: phase 3's 512 R-MAT-20 sources and this many more, in batches
 # of MULTI_BATCH (a [256, 2^20] f32 block is 1 GiB). Phase 11: the grid,
@@ -163,6 +186,19 @@ def minplus_bound(i: int, k: int, j: int) -> tuple[float, str]:
     """The bound of an [i, k] x [k, j] min-plus product: both operands
     read and the result written once; an add and a min per candidate."""
     return bound(4 * (i * k + k * j + i * j), 2 * i * k * j)
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |got - want| over the finite entries; NaN when the +inf
+    entries differ."""
+    import torch
+
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        return float("nan")
+    fin = torch.isfinite(want)
+    if not bool(fin.any()):
+        return 0.0
+    return float((got[fin] - want[fin]).abs().max())
 
 
 def event_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -272,6 +308,7 @@ def counter(launches: dict):
     kernel named in ``needs`` was launched no time. Returns (fn(), s)."""
     from paralleljohnson_tpu_torch.ops import bucket as bucket_mod
     from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
+    from paralleljohnson_tpu_torch.ops import fw as fw_mod
     from paralleljohnson_tpu_torch.ops import gauss_seidel as gs_mod
     from paralleljohnson_tpu_torch.ops import minplus as mp_mod
     from paralleljohnson_tpu_torch.ops import pred as pred_mod
@@ -288,12 +325,14 @@ def counter(launches: dict):
         fs.fanout_sweep.launches = 0
         mp_mod.minplus_kernel.launches = 0
         pred_mod.tight_pred_pass.launches = 0
+        fw_mod.fw_kleene.launches = 0
         for loop in loops.values():
             loop.host_reads = 0
         out = sync_time(fn)
         launches[path] = {"fanout_sweep": fs.fanout_sweep.launches,
                           "minplus": mp_mod.minplus_kernel.launches,
                           "tight_pred": pred_mod.tight_pred_pass.launches,
+                          "fw_kleene": fw_mod.fw_kleene.launches,
                           **{k: f.host_reads for k, f in loops.items()}}
         for name in needs:
             if launches[path][name] == 0:
@@ -538,14 +577,18 @@ def drive_entry_points(dev, rmat, rmat_sources, rmat_rows, grid, grid_source,
     graphs = [pjt.load_graph(f"{BATCH_SPEC},seed={seed}") for seed in range(4)]
     batch, s_batch = counted("solve_batch_er256",
                              lambda: solver.solve_batch(graphs),
-                             needs=("minplus",))
+                             needs=("fanout_sweep",))
+    # The same Jacobi sweeps one graph at a time: pallas-vm (these dense
+    # graphs would take fw, which associates path sums differently).
+    sparse = solver_on(dev, fw=False, dense_threshold=0)
     routes = []
     for g, r in zip(graphs, batch):
-        single = solver.solve(g)
-        routes.append(r.stats.routes_by_phase["fanout"])
-        if not (routes[-1].startswith("dense-")
-                and routes[-1].endswith("-pallas")):
+        single = sparse.solve(g)
+        routes.append(r.stats.routes_by_phase["batch_apsp"])
+        if routes[-1] != "batch-vmapped":
             raise AssertionError(f"solve_batch took route {routes[-1]}")
+        if single.stats.routes_by_phase["fanout"] != "pallas-vm":
+            raise AssertionError("the per-graph solve left pallas-vm")
         if not np.array_equal(to_numpy(r.dist), to_numpy(single.dist)):
             raise AssertionError("solve_batch differs from solve()")
     emit({"phase": "entry_points", "sssp": {
@@ -648,7 +691,7 @@ def drive_pred_paths(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
             raise AssertionError(f"resumed {name} differ")
     check("pred_checkpoint_write", small, first, "pallas-vm+pred")
     report["pred_checkpoint_write"]["batches_resumed_after"] = 2
-    res, _ = counted("pred_er1024", lambda: solver_on(dev).solve(
+    res, _ = counted("pred_er1024", lambda: solver_on(dev, fw=False).solve(
         er, predecessors=True), needs=("minplus", "tight_pred"))
     check("pred_er1024", er, res, "dense-squaring-pallas+pred", None,
           er_matrix)
@@ -674,10 +717,13 @@ def drive_xla_routes(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     counted = counter(launches)
     routes = {}
 
-    def both(label, graph, sources, kw, want_route, want_rows=None):
-        hand, s_hand = counted(f"{label}_hand", lambda: solver_on(dev).solve(
-            graph, sources))
-        xla, s_xla = counted(label, lambda: solver_on(dev, **kw).solve(
+    def both(label, graph, sources, kw, want_route, want_rows=None,
+             pin=None):
+        """The hand route and the XLA route (``kw``), each with ``pin``."""
+        pin = pin or {}
+        hand, s_hand = counted(f"{label}_hand", lambda: solver_on(
+            dev, **pin).solve(graph, sources))
+        xla, s_xla = counted(label, lambda: solver_on(dev, **kw, **pin).solve(
             graph, sources))
         got = xla.stats.routes_by_phase["fanout"]
         if got != want_route:
@@ -706,7 +752,7 @@ def drive_xla_routes(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     both("xla_sweep_sm_rmat16", sm, np.arange(0, sm.num_nodes, 1024),
          {"fanout_layout": "source_major"}, "sweep-sm")
     both("xla_dense_er1024", er, np.arange(er.num_nodes),
-         {"use_pallas": False}, "dense-squaring", er_matrix)
+         {"use_pallas": False}, "dense-squaring", er_matrix, {"fw": False})
     emit({"phase": "xla_routes", "routes": routes})
     return launches
 
@@ -861,6 +907,228 @@ def drive_b1_routes(dev, grid, gsrc, grid_rows, grid_solve_stats,
     return launches
 
 
+def drive_dense_apsp(dev, er, er_matrix) -> tuple[dict, dict]:
+    """Phase 16: dense APSP on ``dev``, each path counted from 0. Returns
+    (launches by path, the ``fw_kleene`` kernel's row data)."""
+    import numpy as np
+    import scipy.sparse.csgraph as csgraph
+    import torch
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.graphs import random_graph_batch
+    from paralleljohnson_tpu_torch.ops import fw
+    from paralleljohnson_tpu_torch.ops.minplus import minplus_kernel
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+    from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
+    from test_torch_cuda import fw_tile_matrix
+
+    launches = {}
+    counted = counter(launches)
+    out = {}
+    t_phase = time.perf_counter()
+
+    # The Kleene kernel against tile_kleene, bitwise; the last tile's
+    # diagonal goes negative in its last two steps, where row and column
+    # k change during step k (read-before-write).
+    checks, errs = [], []
+    for t, neg in ((128, False), (256, False), (512, False), (512, True)):
+        m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=neg)).to(dev)
+        got, want = fw.fw_kleene(m), fw.tile_kleene(m)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        checks.append({"t": t, "negative_diagonal": neg,
+                       "equal": torch.equal(got, want), "max_abs_err": err})
+        if not checks[-1]["equal"]:
+            raise AssertionError(f"fw_kleene disagrees with plain: {checks[-1]}")
+        errs.append(err)
+    t = 512
+    m = torch.as_tensor(fw_tile_matrix(t, t)).to(dev)
+    scratch = torch.empty((2, t, t), device=dev)
+    dst = torch.empty((t, t), device=dev)
+    kleene = lambda: fw.fw_kleene(m, out=dst, scratch=scratch)
+    bms, by = bound(8 * t * t, 2 * t ** 3)
+    timing = {"t": t, "ms": event_ms(kleene, reps=20),
+              "card_ms": graph_ms(kleene, reps=5),
+              "plain_ms": event_ms(lambda: fw.tile_kleene(m), reps=2),
+              "bound_ms": bms, "bound_by": by}
+    timing["launches_per_closure"] = t
+    emit({"phase": "fw_kleene_vs_plain", "checks": checks, "timing": timing})
+    del m, scratch, dst
+
+    # 16a: dense FW at the reference's full width, in turns with the
+    # squaring and pallas-vm routes on the same graph.
+    g = pjt.load_graph(FW_SPEC)
+    g = g.with_weights(np.random.default_rng(22).integers(
+        1, 10, g.num_real_edges).astype(np.float32))
+    v = g.num_nodes
+    runs = {"fw": ({}, "fw-tile", ("minplus", "fw_kleene")),
+            "squaring": ({"fw": False, "dense_threshold": v,
+                          "dense_min_density": 0}, "dense-squaring-pallas",
+                         ("minplus",)),
+            "pallas_vm": ({"fw": False}, "pallas-vm", ("fanout_sweep",))}
+    walls = {name: [] for name in runs}
+    rows, counts = {}, {}
+    for rep in range(2):
+        for name, (kw, want_route, needs) in runs.items():
+            res, secs = counted(f"fw_er2048_{name}", lambda: solver_on(
+                dev, **kw).solve(g), needs=needs)
+            route = res.stats.routes_by_phase["fanout"]
+            if route != want_route:
+                raise AssertionError(f"er2048 {name} took route {route}")
+            walls[name].append(secs)
+            rows[name] = to_numpy(res.dist)
+            counts[name] = {"route": route,
+                            "iterations": res.stats.iterations_by_phase[
+                                "fanout"],
+                            "edges_relaxed": res.stats.edges_relaxed}
+        for name in ("squaring", "pallas_vm"):
+            if not np.array_equal(rows[name], rows["fw"]):
+                raise AssertionError(f"er2048: fw rows differ from {name}'s")
+    tile = fw.effective_tile(v, fw.DEFAULT_FW_TILE)
+    vp = fw.pad_tiles(v, tile)
+    shapes = {"row_panel": (tile, tile, vp), "col_panel": (vp, tile, tile),
+              "trailing": (vp, tile, vp)}
+    products = {}
+    rng = np.random.default_rng(5)
+    for name, (i, k, j) in shapes.items():
+        dm = torch.as_tensor(rng.random((i, k), dtype=np.float32)).to(dev)
+        am = torch.as_tensor(rng.random((k, j), dtype=np.float32)).to(dev)
+        pms, pby = minplus_bound(i, k, j)
+        products[name] = {"shape": [i, k, j],
+                          "card_ms": graph_ms(lambda: minplus_kernel(dm, am),
+                                              reps=10),
+                          "bound_ms": pms, "bound_by": pby}
+    a = fw.pad_dense(torch.full((v, v), float("inf"), device=dev), tile)
+    a.fill_diagonal_(0.0)
+    closure_ms = event_ms(lambda: fw.fw_closure(a, tile=tile), reps=3)
+    kstep_card_ms = sum(p["card_ms"] for p in products.values())
+    out["fw_er2048"] = {
+        "spec": FW_SPEC, "V": v, "E": g.num_real_edges, "sources": v,
+        "walls_s": walls, "routes": counts, "rows_bitwise_equal": True,
+        "tile": tile,
+        "ksteps": vp // tile, "fw_macs": fw.fw_mac_count(vp, tile),
+        "closure_ms": closure_ms,
+        "kleene_card_ms_per_closure": timing["card_ms"],
+        "products_card_ms_per_kstep": kstep_card_ms,
+        "products_bound_ms_per_kstep": sum(p["bound_ms"]
+                                           for p in products.values()),
+        "products": products,
+        "launches": {name: launches[f"fw_er2048_{name}"] for name in runs}}
+    emit({"phase": "dense_fw_er2048", **out["fw_er2048"]})
+    del rows, a
+
+    # 16b: the Queue 3 graph at default config, then with predecessors.
+    res, secs = counted("fw_er1024", lambda: solver_on(dev).solve(er),
+                        needs=("minplus", "fw_kleene"))
+    if res.stats.routes_by_phase["fanout"] != "fw-tile":
+        raise AssertionError(f"er1024 default took {res.stats.routes_by_phase}")
+    oracle = csgraph.dijkstra(er.to_scipy().astype(np.float64), directed=True)
+    np.testing.assert_allclose(res.matrix, oracle, rtol=1e-5)
+    got = to_numpy(res.dist)
+    np.testing.assert_allclose(got, er_matrix, rtol=1e-6)
+    differ = int((got != er_matrix).sum())
+    pres, psecs = counted("fw_er1024_pred", lambda: solver_on(dev).solve(
+        er, predecessors=True), needs=("fw_kleene", "tight_pred"))
+    if pres.stats.routes_by_phase["fanout"] != "fw-tile+pred":
+        raise AssertionError(f"er1024 pred took {pres.stats.routes_by_phase}")
+    if launches["fw_er1024_pred"]["tight_pred"] != 1:
+        raise AssertionError("er1024 pred: not one tight_pred launch")
+    if not np.array_equal(to_numpy(pres.dist), got):
+        raise AssertionError("er1024 pred rows differ from the plain fw solve")
+    validate_pred_tree(er, to_numpy(pres.dist), to_numpy(pres.predecessors),
+                       pres.sources)
+    out["fw_er1024"] = {"spec": ER_SPEC, "route": "fw-tile", "seconds": secs,
+                        "pred_route": "fw-tile+pred", "pred_seconds": psecs,
+                        "entries_differing_from_squaring": differ,
+                        "rtol_vs_squaring": 1e-6,
+                        "iterations": dict(res.stats.iterations_by_phase),
+                        "edges_relaxed": res.stats.edges_relaxed,
+                        "launches": launches["fw_er1024"],
+                        "pred_launches": launches["fw_er1024_pred"]}
+    emit({"phase": "dense_fw_er1024", **out["fw_er1024"]})
+    del res, pres, got
+
+    # 16c: the condensed route, forced, against the default solve.
+    grid = pjt.load_graph(PRED_CKPT_SPEC)
+    cond = {}
+    for label, gr in (("float", grid),
+                      ("int", grid.with_weights(np.round(grid.weights)))):
+        std, s_std = counted(f"condensed_{label}_standard",
+                             lambda: solver_on(dev).solve(gr))
+        res, s_cond = counted(f"condensed_{label}", lambda: solver_on(
+            dev, partitioned=True).solve(gr), needs=("minplus", "fw_kleene"))
+        if res.stats.routes_by_phase["fanout"] != "condensed+fw":
+            raise AssertionError(f"condensed took {res.stats.routes_by_phase}")
+        want, have = to_numpy(std.dist), to_numpy(res.dist)
+        if label == "int":
+            if not np.array_equal(have, want):
+                raise AssertionError("condensed rows differ on integer weights")
+        else:
+            np.testing.assert_allclose(have, want, rtol=1e-6, atol=1e-4)
+        fin = np.isfinite(want)
+        plan = res.stats.plan
+        cond[label] = {
+            "route": "condensed+fw", "seconds": s_cond,
+            "standard_seconds": s_std,
+            "standard_routes": dict(std.stats.routes_by_phase),
+            "parts": plan["num_parts"], "core_size": plan["core_size"],
+            "macs": res.stats.edges_relaxed,
+            "k_steps": res.stats.iterations_by_phase["fanout"],
+            "stage_seconds": plan["seconds"],
+            "max_abs_err_vs_standard": float(np.abs(have[fin] - want[fin]).max()),
+            "launches": launches[f"condensed_{label}"]}
+    n = grid.num_nodes
+    ring = pjt.CSRGraph.from_edges(np.arange(n), (np.arange(n) + 1) % n,
+                                   np.r_[np.ones(n - 1), -float(n)], n)
+    try:
+        solver_on(dev, partitioned=True).solve(ring)
+    except pjt.NegativeCycleError as e:
+        if "across" not in str(e):
+            raise AssertionError(f"ring cycle raised elsewhere: {e}")
+    else:
+        raise AssertionError("the condensed route missed a cycle across parts")
+    out["condensed"] = {"spec": PRED_CKPT_SPEC, "V": n, "sources": n, **cond,
+                        "negative_cycle_across_parts": "NegativeCycleError"}
+    emit({"phase": "condensed_grid64", **out["condensed"]})
+
+    # 16d: the many-small-graphs config through batch_apsp.
+    t0 = time.perf_counter()
+    graphs = random_graph_batch(BATCH_APSP_GRAPHS, 256, 8 / 256, seed=0)
+    gen_s = time.perf_counter() - t0
+    res, s_batch = counted("batch_apsp_10k", lambda: solver_on(
+        dev).solve_batch(graphs), needs=("fanout_sweep",))
+    st = res[0].stats
+    if st.routes_by_phase != {"batch_apsp": "batch-vmapped"}:
+        raise AssertionError(f"solve_batch took {st.routes_by_phase}")
+    sample = np.sort(np.random.default_rng(6).choice(len(graphs), 64,
+                                                     replace=False))
+    single = solver_on(dev)
+    for i in sample:
+        gi, got = graphs[i], to_numpy(res[i].dist)
+        oracle = csgraph.johnson(gi.to_scipy().astype(np.float64),
+                                 directed=True)
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(oracle))
+        np.testing.assert_allclose(got, oracle, rtol=1e-6)
+        if not np.array_equal(got, to_numpy(single.solve(gi).dist)):
+            raise AssertionError(f"batch graph {i} differs from its solve()")
+    _, s_loop = counted("per_graph_solve_100", lambda: [
+        single.solve(gi).dist for gi in graphs[:100]])
+    out["batch_apsp"] = {
+        "route": "batch-vmapped", "graphs": len(graphs), "V": 256,
+        "p": 8 / 256,
+        "edges": int(sum(gi.num_real_edges for gi in graphs)),
+        "generate_s": gen_s, "seconds": s_batch,
+        "phase_seconds": dict(st.phase_seconds),
+        "iterations": st.iterations_by_phase["batch_apsp"],
+        "edges_relaxed": st.edges_relaxed, "checked_graphs": len(sample),
+        "per_graph_loop_100_s": s_loop,
+        "launches": launches["batch_apsp_10k"],
+        "phase16_s": time.perf_counter() - t_phase}
+    emit({"phase": "batch_apsp_10k", **out["batch_apsp"]})
+    del res, graphs
+    return launches, {"errs": errs, "timing": timing}
+
+
 def main() -> int:
     import torch
 
@@ -894,14 +1162,6 @@ def main() -> int:
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-
-    def max_abs_err(got, want) -> float:
-        if not torch.equal(torch.isinf(got), torch.isinf(want)):
-            return float("nan")
-        fin = torch.isfinite(want)
-        if not bool(fin.any()):
-            return 0.0
-        return float((got[fin] - want[fin]).abs().max())
 
     # -- phase 1: the card and the build ------------------------------------
     smi = subprocess.run(
@@ -1106,11 +1366,11 @@ def main() -> int:
             self.fanout_graph = dgraph
             return super().multi_source(dgraph, sources)
 
-    def run_solve(label, graph, sources, backend=None):
+    def run_solve(label, graph, sources, backend=None, **kw):
         before = (fanout_sweep.launches, minplus_kernel.launches,
                   fanout_fixpoint.host_reads, minplus_fixpoint.host_reads)
-        solver = pjt.ParallelJohnsonSolver(pjt.SolverConfig(), backend=backend,
-                                           device="cuda")
+        solver = pjt.ParallelJohnsonSolver(pjt.SolverConfig(**kw),
+                                           backend=backend, device="cuda")
         res, secs = sync_time(lambda: solver.solve(graph, sources))
         per_solve[label] = {
             "fanout_sweep": fanout_sweep.launches - before[0],
@@ -1181,9 +1441,10 @@ def main() -> int:
     grid_res = res
     del res, rows
 
-    # 5: dense ER-1024, all sources, route dense-squaring-pallas.
+    # 5: dense ER-1024, all sources, route dense-squaring-pallas (fw=False:
+    # the default takes fw-tile here, phase 16).
     er = pjt.load_graph(ER_SPEC)
-    res, secs = run_solve("er1024", er, None)
+    res, secs = run_solve("er1024", er, None, fw=False)
     route = res.stats.routes_by_phase["fanout"]
     if route != "dense-squaring-pallas":
         raise AssertionError(f"er1024 fan-out took route {route}")
@@ -1200,7 +1461,7 @@ def main() -> int:
     # 128 sources: 2B < V, route dense-iterate-pallas (minplus_fixpoint).
     esrc = np.sort(np.random.default_rng(4).choice(er.num_nodes, 128,
                                                    replace=False))
-    res, secs = run_solve("er1024_b128", er, esrc)
+    res, secs = run_solve("er1024_b128", er, esrc, fw=False)
     route = res.stats.routes_by_phase["fanout"]
     if route != "dense-iterate-pallas":
         raise AssertionError(f"er1024 (128 sources) took route {route}")
@@ -1480,12 +1741,17 @@ def main() -> int:
     # -- phase 15: the B=1 routes ------------------------------------------
     by_path.update(drive_b1_routes(dev, grid, gsrc, grid_rows,
                                    grid_solve_stats, cyc))
+    # -- phase 16: dense APSP ------------------------------------------------
+    dense_paths, kleene = drive_dense_apsp(dev, er, er_matrix)
+    by_path.update(dense_paths)
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
-                for name in ("fanout_sweep", "minplus", "tight_pred")}
+                for name in ("fanout_sweep", "minplus", "tight_pred",
+                             "fw_kleene")}
 
     t_sw = timings["fanout_sweep_B512"]
     t_mp = timings["minplus_1024x1024x1024"]
     t_tp = timings["tight_pred_B512"]
+    t_kl = kleene["timing"]
     emit({"kernels": [
         {"name": "fanout_sweep", "route": "cuda",
          "source": "paralleljohnson_tpu_torch/csrc/fanout_sweep.cu",
@@ -1516,6 +1782,16 @@ def main() -> int:
          "ms": t_tp["ms"], "plain_ms": t_tp["plain_ms"],
          "bound_ms": t_tp["bound_ms"], "bound_by": t_tp["bound_by"],
          "library_ms": None},
+        {"name": "fw_kleene", "route": "cuda",
+         "source": "paralleljohnson_tpu_torch/csrc/fw_kleene.cu",
+         "replaces": "paralleljohnson_tpu/ops/fw.py:100",
+         "launches": launches["fw_kleene"],
+         "launches_by_path": {k: p.get("fw_kleene", 0)
+                              for k, p in by_path.items()},
+         "max_abs_err": max(kleene["errs"]),
+         "ms": t_kl["ms"], "card_ms": t_kl["card_ms"],
+         "plain_ms": t_kl["plain_ms"], "bound_ms": t_kl["bound_ms"],
+         "bound_by": t_kl["bound_by"], "library_ms": None},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -48,6 +48,9 @@ class KernelResult:
     convergence: the trajectory's summary
       (``observe.convergence.summarize_trajectory``); folds into
       ``SolverStats.convergence``.
+    plan: the solver-level route decision (``chosen``, ``reason``, the
+      resolved ``params`` and their ``params_source``), or None; folds
+      into ``SolverStats.plan``.
     """
 
     dist: Any
@@ -59,6 +62,7 @@ class KernelResult:
     route: str | None = None
     trajectory: Any | None = None
     convergence: dict | None = None
+    plan: dict | None = None
 
 
 class Backend(abc.ABC):

@@ -16,7 +16,12 @@ Johnson's algorithm with the JAX package's gates and route tags:
     and ``bucket`` are TPU-only in the reference, so they stay off here;
     ``True`` forces them;
   - ``multi_source`` takes, in the reference's plan order: ``dia`` and
-    ``gs`` when forced (as above); dense graphs
+    ``gs`` when forced (as above); blocked Floyd-Warshall ``fw`` /
+    ``fw-tile`` (``_use_fw``: the squaring regime 2B >= V of a dense
+    graph within ``fw_threshold`` where the exact MAC counts beat
+    squaring, on every device as in the reference, or ``fw=True``;
+    ``ops.fw``: the hand Kleene and min-plus kernels on the card); dense
+    graphs
     (``_use_dense``: V <= ``dense_threshold`` and E >=
     ``dense_min_density`` x V^2) to ``dense-{regime}-pallas`` through the
     hand min-plus kernel (the iterate regime through
@@ -33,6 +38,10 @@ Johnson's algorithm with the JAX package's gates and route tags:
     A tree that fails its check (a zero-weight tight cycle) falls back,
     with a warning, to the argmin sweep ``pred-sweep``.
 
+``batch_apsp`` (``solve_batch``) solves a batch of small graphs as one
+graph, their disjoint union: phase 1 at B = 1, the reweight, and one
+hand-sweep fan-out of ``v_max`` columns (route ``batch-vmapped``).
+
 On a CUDA device the hand kernels are the main path; on the CPU their
 plain PyTorch versions run (the wrappers choose by the tensors' device).
 
@@ -48,6 +57,8 @@ side stream, so the pipelined fan-out overlaps it with the next batch.
 from __future__ import annotations
 
 import dataclasses
+import sys
+import traceback
 import warnings
 from typing import NamedTuple
 
@@ -68,6 +79,7 @@ from paralleljohnson_tpu_torch.ops.bucket import (
     auto_delta,
     bellman_ford_bucketed,
 )
+from paralleljohnson_tpu_torch.ops import fw as fw_ops
 from paralleljohnson_tpu_torch.ops.dia import build_dia_layout, dia_sweep
 from paralleljohnson_tpu_torch.ops.fanout_sweep import (
     WorkItems,
@@ -107,6 +119,21 @@ VM_BLOCK = 1 << 16
 # Edge count from which the vm-blocked layout is built on the device
 # instead of in host numpy (the reference's constant).
 VMB_DEVICE_BUILD_MIN_EDGES = 1 << 22
+# [v_max, v_max] blocks per graph that batch_apsp budgets: the fixpoint's
+# two alternating buffers, the transposed result and one un-reweight
+# temporary.
+BATCH_APSP_BLOCKS = 4
+
+
+def _fw_apsp_kernel(sources, src, dst, w, *, num_nodes: int, tile: int,
+                    dtype):
+    """Blocked min-plus Floyd-Warshall APSP (``ops.fw``): the dense
+    adjacency padded to a tile multiple, closed in place, then the rows
+    of ``sources``. Returns (dist [B, V], negative_cycle host bool)."""
+    a = relax.dense_adjacency(src, dst, w, num_nodes, dtype=dtype)
+    closed, neg = fw_ops.fw_apsp_blocked(fw_ops.pad_dense(a, tile),
+                                         tile=tile)
+    return closed[sources, :num_nodes], neg
 
 
 def _gs_examined_exact(iters_blk, real_edges_host: np.ndarray, b: int, *,
@@ -757,6 +784,79 @@ class TorchBackend(Backend):
             return False
         return dgraph.num_real_edges >= self.config.dense_min_density * v * v
 
+    # -- blocked Floyd-Warshall (ops.fw) ------------------------------------
+
+    def _fw_tile(self, dgraph: TorchDeviceGraph) -> int:
+        """The FW tile before ``effective_tile`` shrinks it to small
+        graphs: an explicit ``config.fw_tile``, else ``DEFAULT_FW_TILE``.
+        The reference also consults a profile-tuned value and so caches
+        the result per device graph, to keep its gate and its build in
+        agreement; without a profile store both read the config."""
+        return int(self.config.fw_tile or fw_ops.DEFAULT_FW_TILE)
+
+    def _use_fw(self, dgraph: TorchDeviceGraph, batch: int) -> bool:
+        """The reference's gate, on every device as there: ``True``
+        forces, ``False`` (or an earlier auto failure) disables; ``"auto"``
+        engages when (a) most rows are wanted anyway (2B >= V, the
+        squaring regime), (b) the graph is dense (``dense_min_density``),
+        (c) V is within ``fw_threshold``, and (d) the exact MAC counts say
+        the blocked closure beats squaring."""
+        flag = self.config.fw
+        if flag is False or getattr(self, "_fw_disabled", False):
+            return False
+        v = dgraph.num_nodes
+        if v == 0:
+            return False
+        if flag is True:
+            return True
+        if v > self.config.fw_threshold:
+            return False
+        regime, per_iter = relax.dense_fanout_regime(v, batch)
+        if regime != "squaring":
+            return False
+        if dgraph.num_real_edges < self.config.dense_min_density * v * v:
+            return False
+        tile = fw_ops.effective_tile(v, self._fw_tile(dgraph))
+        fw_macs = fw_ops.fw_mac_count(fw_ops.pad_tiles(v, tile), tile)
+        return fw_macs < relax.squaring_steps(v) * per_iter
+
+    def _fail_fw(self) -> None:
+        """The fw build raised (call from the active ``except`` block):
+        a forced ``fw=True`` propagates; ``"auto"`` warns once, disables
+        fw for this backend instance and lets the walk fall through to
+        the dense and sparse routes (the reference's ``_fail_fw``)."""
+        if self.config.fw is True:
+            raise
+        if not getattr(self, "_fw_disabled", False):
+            self._fw_disabled = True
+            warnings.warn(
+                "blocked Floyd-Warshall route failed on this platform; "
+                "falling back to the dense/sparse routes for this backend "
+                "instance", RuntimeWarning, stacklevel=3)
+            traceback.print_exc(file=sys.stderr)
+
+    def _plan_build_fw(self, dgraph: TorchDeviceGraph,
+                       sources: torch.Tensor) -> KernelResult:
+        """Blocked min-plus Floyd-Warshall: route ``fw`` when the padded
+        graph is one tile, else ``fw-tile``; ``iterations`` is the number
+        of k-steps and ``edges_relaxed`` the exact tropical MACs. The
+        closure is recomputed for every source batch, as in the
+        reference."""
+        v = dgraph.num_nodes
+        tile = fw_ops.effective_tile(v, self._fw_tile(dgraph))
+        vp = fw_ops.pad_tiles(v, tile)
+        dist, neg = _fw_apsp_kernel(
+            sources, dgraph.src, dgraph.dst, dgraph.weights, num_nodes=v,
+            tile=tile, dtype=self._dtype)
+        return KernelResult(
+            dist=dist,
+            negative_cycle=neg,
+            converged=not neg,
+            iterations=vp // tile,
+            edges_relaxed=fw_ops.fw_mac_count(vp, tile),
+            route="fw" if vp == tile else "fw-tile",
+        )
+
     def multi_source(self, dgraph: TorchDeviceGraph,
                      sources: np.ndarray) -> KernelResult:
         return self._fanout(dgraph, sources)[0]
@@ -772,7 +872,7 @@ class TorchBackend(Backend):
         """The fan-out on the route the config and the graph select (see
         the module docstring). Returns (KernelResult with dist [B, V], the
         vertex-major [V, B] block the route converged, or None for the
-        dense and source-major routes)."""
+        fw, dense and source-major routes)."""
         sources = torch.as_tensor(np.asarray(sources), dtype=torch.int64)
         sources = sources.to(self.device)
         b = int(sources.shape[0])
@@ -783,6 +883,11 @@ class TorchBackend(Backend):
             return self._plan_build_dia(dgraph, sources, max_iter), None
         if self._use_gs(dgraph):
             return self._plan_build_gs(dgraph, sources, max_iter), None
+        if self._use_fw(dgraph, b):
+            try:
+                return self._plan_build_fw(dgraph, sources), None
+            except Exception:  # noqa: BLE001 — auto degrades, forced raises
+                self._fail_fw()
         if self._use_dense(dgraph):
             a = relax.dense_adjacency(
                 dgraph.src, dgraph.dst, dgraph.weights, v, dtype=self._dtype
@@ -1029,6 +1134,110 @@ class TorchBackend(Backend):
                                  "pred-sweep")
         res.pred = pred
         return res
+
+    # -- many small graphs ---------------------------------------------------
+
+    def _batch_slab(self, g: int, v: int) -> int:
+        """Graphs per disjoint union: ``BATCH_APSP_BLOCKS`` [v, v] blocks
+        per graph within the memory budget (half the card's free memory,
+        or ``CPU_BUDGET_BYTES`` on the CPU)."""
+        itemsize = torch.empty((), dtype=self._dtype).element_size()
+        if self.device.type == "cuda":
+            budget = torch.cuda.mem_get_info(self.device)[0] // 2
+        else:
+            budget = CPU_BUDGET_BYTES
+        per_graph = BATCH_APSP_BLOCKS * v * v * itemsize
+        return int(max(1, min(g, budget // max(per_graph, 1))))
+
+    def _batch_union(self, src: np.ndarray, dst: np.ndarray, w: np.ndarray,
+                     v: int):
+        """Johnson on the disjoint union of a slab of stacked graphs
+        (graph g's vertex u is g.v + u; the (0, 0, +inf) pad edges are
+        dropped). Returns (dist [G, v, v], phase-2 sweeps, negative
+        cycle, real edges of the union)."""
+        g = src.shape[0]
+        n = g * v
+        off = (np.arange(g, dtype=np.int64) * v)[:, None]
+        keep = ~np.isposinf(w)
+        dev, dtype = self.device, self._dtype
+        s_t = torch.as_tensor((src + off)[keep].astype(np.int32)).to(dev)
+        d_t = torch.as_tensor((dst + off)[keep].astype(np.int32)).to(dev)
+        w_t = torch.as_tensor(w[keep]).to(dev, dtype)
+        e = int(s_t.shape[0])
+        h = None
+        if bool((w_t < 0).any()):
+            # Phase 1 at B = 1 from 0 everywhere, as the reference's
+            # per_graph runs it: one chunk, so every sweep is the Jacobi
+            # sweep of each graph alone. No component has more than v
+            # vertices, so "still improving after v sweeps" is the
+            # reference's any(neg).
+            h_vm, _, neg = relax.bellman_ford_sweeps_vm(
+                torch.zeros((n, 1), dtype=dtype, device=dev), s_t, d_t, w_t,
+                max_iter=v, edge_chunk=max(e, 1))
+            if neg:
+                return None, 0, True, e
+            h = h_vm[:, 0]
+            w_t = relax.reweight_weights(w_t, s_t, d_t, h)
+        lay = build_in_edge_layout(s_t, d_t, n)
+        w_in = w_t[lay["order"]].contiguous()
+        del s_t, d_t, w_t
+        # Column b of graph g's rows is source b of graph g.
+        dist0 = torch.full((n, v), float("inf"), dtype=dtype, device=dev)
+        rows = torch.arange(n, device=dev)
+        dist0[rows, rows % v] = 0.0
+        del rows
+        dist_vm, iters, _ = fanout_fixpoint(
+            dist0, lay["indptr_in"], lay["src_in"], w_in, max_iter=v,
+            items=lay["work_items"])
+        del lay, w_in
+        dist = dist_vm.view(g, v, v).transpose(1, 2).contiguous()
+        del dist_vm
+        if h is not None:
+            # The reference's association: (d' - h[s]) + h[v].
+            hg = h.view(g, v)
+            dist = (dist - hg[:, :, None]) + hg[:, None, :]
+        return dist, iters, False, e
+
+    def batch_apsp(self, batch: dict) -> KernelResult:
+        """APSP of a stacked batch of graphs (``stack_graphs``): the
+        reference's vmapped Johnson (``_batch_johnson_kernel``) as one
+        solve of each slab's disjoint union. Phase 1 (only when a weight
+        is negative: with h = 0 the reweight and un-reweight change no
+        bit) is ``relax.bellman_ford_sweeps_vm`` at B = 1; phase 2 is one
+        ``fanout_fixpoint`` of ``v_max`` columns over the union's in-edge
+        CSC (the hand sweep on the card), from 0 at (g.v_max + b, b).
+        Returns dist [G, v_max, v_max] (on the device for one slab, host
+        numpy for several; slabs by :meth:`_batch_slab`).
+
+        Counters: route ``batch-vmapped`` (the reference's tag);
+        ``iterations`` the union's sweep count, max over slabs (the
+        reference's max over graphs: the Jacobi sweeps of disjoint graphs
+        are independent); ``negative_cycle`` any; ``edges_relaxed`` the
+        sum over slabs of iterations x E_union x v_max (the union has no
+        per-graph counts; the reference sums each graph's own sweeps x
+        E_max x v_max)."""
+        src = np.asarray(batch["src"], np.int64)
+        dst = np.asarray(batch["dst"], np.int64)
+        w = np.asarray(batch["weights"])
+        v = int(batch["v_max"])
+        g = src.shape[0]
+        slab = self._batch_slab(g, v)
+        parts, iters, relaxed = [], 0, 0
+        for g0 in range(0, g, slab):
+            sl = slice(g0, g0 + slab)
+            dist, it, neg, e = self._batch_union(src[sl], dst[sl], w[sl], v)
+            if neg:
+                return KernelResult(dist=None, negative_cycle=True,
+                                    converged=False, route="batch-vmapped")
+            iters = max(iters, it)
+            relaxed += it * e * v
+            parts.append(dist if slab >= g else dist.cpu().numpy())
+        return KernelResult(
+            dist=parts[0] if len(parts) == 1 else np.concatenate(parts),
+            iterations=iters,
+            edges_relaxed=relaxed,
+            route="batch-vmapped",
+        )
 
 
 register_backend("torch", TorchBackend)

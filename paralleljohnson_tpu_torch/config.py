@@ -68,6 +68,18 @@ class SolverConfig:
         ``vm-blocked``, ``dia``, ``gs``, ``bucket``); ``"auto"`` and
         ``False`` record nothing (the port has no telemetry sink or
         profile store to consume them).
+      fw / fw_threshold / fw_tile: blocked Floyd-Warshall (``ops.fw``,
+        routes ``fw`` / ``fw-tile``). ``"auto"`` takes it, on every
+        device as the JAX package does, for an all-sources-scale batch
+        (2B >= V) of a dense graph (``dense_min_density``) with V <=
+        ``fw_threshold`` where the exact MAC counts beat min-plus
+        squaring; ``True`` forces it, ``False`` disables it.
+        ``fw_tile`` is the tile edge (a multiple of 128; None = 512).
+      partitioned / partition_parts: the condensed partitioned route
+        (``solver.partitioned``, route ``condensed+fw``). ``True`` forces
+        it; ``"auto"`` engages only on a TPU in the JAX package, so here
+        it stays off, as ``False`` keeps it. ``partition_parts`` is the
+        part count (None = ~sqrt(V)/8 in [2, 32]).
       pred_extraction: how ``predecessors=True`` solves get their trees.
         ``"auto"`` / ``True``: the route's distances, then one tight-edge
         pass (``ops.pred``; the hand ``tight_pred`` kernel on the card);
@@ -87,11 +99,10 @@ class SolverConfig:
       fault_plan: a ``utils.faults.FaultPlan`` of injected failures.
 
     Kept for config parity; forcing them raises at solve time until the
-    route is ported: ``fw``, ``partitioned``, ``dirty_window``,
-    ``edge_shard`` (``True``), ``telemetry``, ``metrics`` and
-    ``profile_store`` (set). The remaining knobs (``fw_tile``,
-    ``dw_block``, ...) only tune routes or layers the port does not have
-    yet.
+    route is ported: ``dirty_window``, ``edge_shard`` (``True``),
+    ``telemetry``, ``metrics`` and ``profile_store`` (set). The remaining
+    knobs (``dw_block``, ...) only tune routes or layers the port does
+    not have yet.
     """
 
     backend: str = "torch"
@@ -152,7 +163,7 @@ class SolverConfig:
         naming them."""
         bad = [
             f"{name}=True"
-            for name in ("fw", "dirty_window", "partitioned", "edge_shard")
+            for name in ("dirty_window", "edge_shard")
             if getattr(self, name) is True
         ]
         if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:

@@ -46,6 +46,9 @@ SIGNATURES = {
         "pj_minplus": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _L, _P, _P, _P),
         "pj_minplus_occupancy": (_I, _P),
     },
+    "fw_kleene": {
+        "pj_fw_kleene": (_P, _L, _P, _L, _P, _P, _I, _P),
+    },
     "tight_pred": {
         "pj_tight_pred": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P,
                           _L, _P, _P, _L, _P),

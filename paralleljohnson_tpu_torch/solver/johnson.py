@@ -16,8 +16,13 @@ guard); the numeric kernels live in the configured backend. The fan-out
 batches run as a pipeline: batch k's device-to-host copy and checkpoint
 write overlap batch k+1's compute. ``predecessors=True`` carries a
 shortest-path tree block beside every distance block, through the
-batches, the downloads and the checkpoints. The condensed route,
-telemetry and the planner are later slices.
+batches, the downloads and the checkpoints.
+
+``solve()`` first asks :func:`_qual_condensed` whether the condensed
+partitioned route (``solver.partitioned``, ``condensed+fw``) takes the
+solve: only when ``partitioned=True`` forces it (its ``"auto"`` is
+TPU-only in the JAX package). Telemetry and the planner are later
+slices.
 """
 
 from __future__ import annotations
@@ -25,13 +30,17 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import dataclasses
+import sys
 import time
+import traceback
+import warnings
 from typing import Any
 
 import numpy as np
 import torch
 
 from paralleljohnson_tpu_torch.backends import Backend, get_backend
+from paralleljohnson_tpu_torch.backends.base import KernelResult
 from paralleljohnson_tpu_torch.config import DEFAULT_PIPELINE_DEPTH, SolverConfig
 from paralleljohnson_tpu_torch.graphs import CSRGraph, stack_graphs
 from paralleljohnson_tpu_torch.utils import resilience
@@ -172,6 +181,26 @@ def _unreweight(rows, h, row_sources):
     return rows - hh[idx.to(rows.device)][:, None] + hh[None, :]
 
 
+def _qual_condensed(solver, graph: CSRGraph,
+                    sources: np.ndarray) -> tuple[bool, str]:
+    """The reference's solver-level qualification of the condensed route
+    as (takes it, reason). ``True`` forces it and ``False`` pins the
+    standard route. ``"auto"`` engages in the reference only on a TPU
+    with its own backend (the dense core pays on the matrix unit there),
+    so here it declines on every device."""
+    if getattr(solver, "_partitioned_disabled", False):
+        return False, (
+            "condensed route disabled for this solver instance "
+            "(earlier auto-route failure)"
+        )
+    flag = solver.config.partitioned
+    if flag is False:
+        return False, "partitioned=False pins the standard route"
+    if flag is True:
+        return True, "partitioned=True forces the condensed route"
+    return False, "auto condensed is TPU-gated in the JAX package: off here"
+
+
 # Row blocks at least this large make the solver clear the backend's
 # rebuildable device caches before the host download / reduction
 # materializes them, so the layout caches and the download never hold
@@ -229,6 +258,14 @@ class ParallelJohnsonSolver:
             if sources is None
             else np.asarray(sources, np.int64)
         )
+        condensed, reason = self._use_partitioned(graph, sources)
+        if condensed:
+            res = self._try_condensed(graph, sources, stats, predecessors,
+                                      reason)
+            if res is not None:
+                return res
+        else:
+            stats.plan = {"chosen": "standard", "reason": reason}
         with phase_timer(stats, "upload"):
             dgraph = self.backend.upload(graph)
         h, dgraph = self._potentials(graph, dgraph, stats)
@@ -399,7 +436,9 @@ class ParallelJohnsonSolver:
 
     def solve_batch(self, graphs: list[CSRGraph]) -> list[SolveResult]:
         """Many-small-graphs mode: APSP for each graph in one vectorized
-        run when the backend supports it, else one ``solve`` per graph."""
+        run when the backend supports it (the torch backend's
+        ``batch_apsp``: one fan-out over the batch's disjoint union, route
+        ``batch-vmapped``), else one ``solve`` per graph."""
         self._check_supported()
         stats = SolverStats()
         try:
@@ -430,6 +469,76 @@ class ParallelJohnsonSolver:
         ]
 
     # -- internals ----------------------------------------------------------
+
+    def _use_partitioned(self, graph: CSRGraph,
+                         sources: np.ndarray) -> tuple[bool, str]:
+        """Whether the condensed route takes this solve, and why
+        (:func:`_qual_condensed`)."""
+        return _qual_condensed(self, graph, sources)
+
+    def _try_condensed(self, graph: CSRGraph, sources: np.ndarray,
+                       stats: SolverStats, predecessors: bool,
+                       reason: str) -> SolveResult | None:
+        """One condensed solve (``solver.partitioned``) on the backend's
+        device. Returns None to hand the solve back to the standard route:
+        an auto-route failure (warned once, then disabled for this solver
+        instance) or a tree check that rejected the one-pass extraction.
+        A forced ``partitioned=True`` propagates errors instead; a
+        negative cycle always raises."""
+        from paralleljohnson_tpu_torch.solver.partitioned import (
+            solve_condensed,
+        )
+
+        try:
+            with phase_timer(stats, "fanout"):
+                dist, pred, info = solve_condensed(
+                    graph, sources, config=self.config,
+                    predecessors=predecessors,
+                    device=getattr(self.backend, "device", "cpu"),
+                )
+        except NegativeCycleError:
+            raise
+        except Exception:
+            if self.config.partitioned is True:
+                raise
+            if not getattr(self, "_partitioned_disabled", False):
+                self._partitioned_disabled = True
+                warnings.warn(
+                    "condensed partitioned route failed; falling back to "
+                    "the standard solve path for this solver instance",
+                    RuntimeWarning, stacklevel=2)
+                traceback.print_exc(file=sys.stderr)
+            return None
+        if predecessors and pred is None:
+            warnings.warn(
+                "condensed route could not extract predecessor trees "
+                "(tree check rejected the one-pass rule); re-solving "
+                "through the standard route", RuntimeWarning, stacklevel=2)
+            return None
+        stats.accumulate(
+            KernelResult(
+                dist=dist,
+                converged=True,
+                iterations=info["k_steps"],
+                edges_relaxed=info["macs"],
+                route=info["route"],
+                plan={"chosen": "condensed+fw", "reason": reason,
+                      **{k: info[k] for k in ("params", "params_source",
+                                              "num_parts", "core_size",
+                                              "seconds")}},
+            ),
+            phase="fanout",
+        )
+        result = SolveResult(
+            dist=dist,
+            sources=sources,
+            potentials=np.zeros(graph.num_nodes, graph.dtype),
+            stats=stats,
+            predecessors=pred,
+        )
+        if self.config.validate:
+            self._validate(graph, result)
+        return result
 
     def _run_bf(self, dgraph: Any, stats: SolverStats, *,
                 source: int | None, pred: bool = False):

@@ -90,7 +90,9 @@ class SolverStats:
       ``gs``, ``bucket``, as in the JAX package).
     trajectories: the decoded per-iteration ``[n, 3]`` arrays behind
       those summaries, by phase (one per kernel call); not in
-      ``as_dict``.
+      ``as_dict``.    plan: the solver-level route decision of the solve (the condensed
+      route or the standard one: ``chosen``, ``reason``, and on the
+      condensed route its ``params`` and ``params_source``).
     """
 
     phase_seconds: dict = dataclasses.field(
@@ -115,6 +117,7 @@ class SolverStats:
     final_pipeline_depth: int | None = None
     convergence: dict | None = None
     trajectories: dict = dataclasses.field(default_factory=dict, repr=False)
+    plan: dict | None = None
 
     def accumulate(self, result, phase: str) -> None:
         """Fold one KernelResult into the totals."""
@@ -122,6 +125,9 @@ class SolverStats:
         self.edges_relaxed_by_phase[phase] += int(result.edges_relaxed)
         self.iterations_by_phase[phase] += int(result.iterations)
         self._accumulate_trajectory(result, phase)
+        plan = getattr(result, "plan", None)
+        if plan:
+            self.plan = plan  # the last decision wins
         route = getattr(result, "route", None)
         if route:
             prev = self.routes_by_phase.get(phase)
@@ -180,6 +186,7 @@ class SolverStats:
             "overlap_saved_s": self.overlap_saved_s,
             "final_pipeline_depth": self.final_pipeline_depth,
             "convergence": self.convergence,
+            "plan": self.plan,
             "total_seconds": self.total_seconds,
             "edges_relaxed_per_sec": self.edges_relaxed_per_second(),
         }

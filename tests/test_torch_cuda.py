@@ -612,3 +612,106 @@ def test_real_cuda_oom_is_classified(cuda):
     with pytest.raises(torch.OutOfMemoryError) as info:
         torch.empty(2 * total, dtype=torch.uint8, device=cuda)
     assert is_oom_error(info.value)
+
+
+# -- dense APSP: blocked Floyd-Warshall, condensed, batch_apsp -----------------
+
+
+def fw_tile_matrix(t, seed, *, negative_diagonal=False):
+    """f32 [t, t], +inf holes, 0 diagonal, w + p(i) - p(j) (negative
+    entries, no negative cycle); or a negative 2-cycle on the last two
+    vertices on top (a negative diagonal in the last two steps, no
+    overflow)."""
+    rng = np.random.default_rng(seed)
+    p = rng.random(t) * 4
+    m = (rng.random((t, t)) * 10 + p[:, None] - p[None, :]).astype(np.float32)
+    m[rng.random((t, t)) < 0.8] = np.inf
+    np.fill_diagonal(m, 0.0)
+    if negative_diagonal:
+        m[t - 2, t - 1], m[t - 1, t - 2] = np.float32(-1.5), np.float32(0.25)
+    return m
+
+
+@pytest.mark.parametrize("negative_diagonal", [False, True])
+@pytest.mark.parametrize("t", [128, 256])
+def test_fw_kleene_on_card_equals_plain(cuda, t, negative_diagonal):
+    """Bitwise against ``tile_kleene``, one launch count per closure;
+    also in place on a diagonal tile of a larger matrix (row stride)."""
+    from paralleljohnson_tpu_torch.ops import fw
+
+    m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=negative_diagonal))
+    want = fw.tile_kleene(m)
+    before = fw.fw_kleene.launches
+    got = fw.fw_kleene(m.to(cuda))
+    torch.cuda.synchronize()
+    assert fw.fw_kleene.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    assert bool((torch.diagonal(want) < 0).any()) == negative_diagonal
+    big = torch.full((t + 64, t + 64), 7.0, device=cuda)
+    tile = big[32:32 + t, 16:16 + t]
+    tile.copy_(m)
+    fw.fw_kleene(tile, out=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(tile.cpu(), want)
+    rest = big.clone()
+    rest[32:32 + t, 16:16 + t] = 7.0
+    assert bool((rest == 7.0).all())
+
+
+@pytest.mark.parametrize("n,tile", [(256, 128), (384, 128), (700, 512)])
+def test_fw_apsp_blocked_on_card_equals_cpu(cuda, n, tile):
+    from paralleljohnson_tpu_torch.ops import fw
+
+    a = fw.pad_dense(torch.as_tensor(fw_tile_matrix(n, n)), tile)
+    want, want_neg = fw.fw_closure(a, tile=tile)
+    got, neg = fw.fw_closure(a.to(cuda), tile=tile)
+    assert neg == want_neg is False
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fw_route_on_card_equals_cpu(cuda):
+    """The default config takes ``fw-tile`` on a dense ER (three 512
+    tiles) on both devices, bitwise, with the Kleene and min-plus kernels
+    launched; predecessors ride it."""
+    from paralleljohnson_tpu_torch.ops import fw
+
+    g = pjt.load_graph("er:n=1100,p=0.1,seed=3")
+    want = pjt.ParallelJohnsonSolver(device="cpu").solve(g)
+    before = (fw.fw_kleene.launches, minplus_kernel.launches)
+    got = pjt.ParallelJohnsonSolver(device=cuda).solve(g, predecessors=True)
+    assert got.stats.routes_by_phase["fanout"] == "fw-tile+pred"
+    assert want.stats.routes_by_phase["fanout"] == "fw-tile"
+    assert fw.fw_kleene.launches - before[0] == 3
+    assert minplus_kernel.launches > before[1]
+    np.testing.assert_array_equal(got.matrix, want.matrix)
+    validate_pred_tree(g, johnson.to_numpy(got.dist),
+                       johnson.to_numpy(got.predecessors), got.sources)
+
+
+def test_condensed_on_card_equals_cpu(cuda):
+    g = pjt.load_graph("grid:rows=24,cols=24,neg=0.2,seed=3")
+    cfg = pjt.SolverConfig(partitioned=True)
+    want = pjt.ParallelJohnsonSolver(cfg, device="cpu").solve(g)
+    got = pjt.ParallelJohnsonSolver(cfg, device=cuda).solve(g)
+    assert got.stats.routes_by_phase["fanout"] == "condensed+fw"
+    np.testing.assert_array_equal(got.matrix, want.matrix)
+
+
+@pytest.mark.parametrize("negative", [False, True])
+def test_batch_apsp_on_card_equals_cpu(cuda, negative):
+    """32 graphs through the hand sweep over their disjoint union against
+    the plain union on the CPU: bitwise, same sweep count."""
+    graphs = [pjt.load_graph(f"er:n={24 + i},p=0.15,seed={i}")
+              for i in range(32)]
+    if negative:
+        graphs[5] = pjt.load_graph("dag:n=40,p=0.2,neg=0.4,seed=5")
+    want = pjt.ParallelJohnsonSolver(device="cpu").solve_batch(graphs)
+    before = fs.fanout_sweep.launches
+    got = pjt.ParallelJohnsonSolver(device=cuda).solve_batch(graphs)
+    assert fs.fanout_sweep.launches > before
+    assert got[0].stats.routes_by_phase == {"batch_apsp": "batch-vmapped"}
+    assert (got[0].stats.iterations_by_phase
+            == want[0].stats.iterations_by_phase)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(johnson.to_numpy(a.dist),
+                                      johnson.to_numpy(b.dist))

@@ -168,7 +168,7 @@ def test_numpy_backend_and_validate():
 
 
 @pytest.mark.parametrize("kw", [
-    {"fw": True}, {"dirty_window": True}, {"partitioned": True},
+    {"dirty_window": True},
     {"edge_shard": True}, {"mesh_shape": (2,)},
     {"profile_store": "ps"},
     {"telemetry": object()}, {"metrics": object()},
@@ -178,6 +178,24 @@ def test_unported_routes_raise_naming_the_field(kw):
     with pytest.raises(NotImplementedError, match=name):
         pjt.ParallelJohnsonSolver(pjt.SolverConfig(**kw),
                                   device="cpu").solve(_port(GRAPHS["dag-neg"]()))
+
+
+@pytest.mark.parametrize("kw,name,route", [
+    ({"fw": True}, "dag-neg-int", "fw"),
+    ({"fw": True, "fw_tile": 128}, "rmat-int", "fw-tile"),
+    ({"partitioned": True}, "dag-neg-int", "condensed+fw"),
+])
+def test_forced_dense_apsp_routes_run_them(kw, name, route):
+    """Forcing ``fw`` or ``partitioned`` runs the route (they raised
+    before the dense APSP slice): the graph takes the route's tag in
+    both packages, and the matrix is bitwise the reference's on the same
+    forced route (integer weights) and the scipy oracle's."""
+    g = GRAPHS[name]()
+    ref, port = _solve_both(g, **kw)
+    assert port.stats.routes_by_phase["fanout"] == route
+    assert port.stats.routes_by_phase == ref.stats.routes_by_phase
+    np.testing.assert_array_equal(port.matrix, np.asarray(ref.matrix))
+    np.testing.assert_array_equal(port.matrix, _oracle(g))
 
 
 @pytest.mark.parametrize("kw,route", [
@@ -218,9 +236,10 @@ def test_cuda_request_without_card_raises():
 
 def test_port_imports_no_jax_and_no_reference(tmp_path):
     """In a fresh interpreter with ``jax`` blocked, every module of the
-    port imports, and ``solve`` (checkpointed, then resumed),
-    ``solve_reduced`` and ``sssp`` run; no module of the JAX package gets
-    loaded, lazy imports inside the solver included."""
+    port imports, and ``solve`` (checkpointed, then resumed; forced
+    ``fw``), ``solve_reduced``, ``solve_batch`` and ``sssp`` run; no
+    module of the JAX package gets loaded, lazy imports inside the
+    solver included."""
     code = textwrap.dedent(f"""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -240,6 +259,13 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
         red = solver.solve_reduced(g, reduce_rows="reach_count")
         assert red.values[0].shape == (30,)
         assert solver.sssp(g, 0).dist.shape == (1, 30)
+        fw = pjt.ParallelJohnsonSolver(pjt.SolverConfig(fw=True),
+                                       device="cpu").solve(g)
+        assert fw.stats.routes_by_phase["fanout"] == "fw"
+        assert (fw.matrix == res.matrix).all()
+        batch = solver.solve_batch([g, pjt.load_graph("er:n=20,p=0.2,seed=2")])
+        assert batch[0].stats.routes_by_phase == {{"batch_apsp": "batch-vmapped"}}
+        assert batch[0].dist.shape == (30, 30)
         grid = pjt.load_graph("grid:rows=24,cols=24,neg=0.2,seed=1")
         for kw in ({{}}, {{"dia": True}}, {{"gauss_seidel": True}},
                    {{"bucket": True}}, {{"convergence": True}}):
