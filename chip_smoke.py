@@ -7,7 +7,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
   1. the card (``nvidia-smi`` name and power limit), then the build of
      every hand kernel from ``paralleljohnson_tpu_torch/csrc`` (``ptxas``
-     registers and spills, by function; ``tight_pred``'s by template:
+     registers, stack frames and spills, by function, none allowed;
+     ``tight_pred``'s by template:
      pass width NV, float4 or scalar lanes, gathers per batch U) and each
      kernel's resident blocks per SM;
   2. each kernel against its plain PyTorch version on the card
@@ -104,9 +105,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      ``pallas-vm``'s) with seconds per round; a ``convergence=True``
      ``use_pallas=False`` solve's trajectory summary (``vm-blocked``);
  16. dense APSP: the ``fw_kleene`` kernel against ``tile_kleene`` at t =
-     128, 256, 512 (and a tile whose diagonal goes negative), bitwise,
-     with its times at t = 512; ``er:n=2048,p=0.1,seed=21`` with the
-     reference's integer weights, all sources, default config
+     128, 256, 384, 512 (one cluster launch per closure) and 1024 (the
+     step variant, t launches), each also on a tile whose diagonal goes
+     negative, bitwise; ``kleene_plan(512)`` and the clusters the card
+     holds; each variant's times (t = 512 and 1024) and, last in the
+     phase, the kernels the card ran for one closure of each
+     (``torch.profiler``: 1 and t);
+     ``er:n=2048,p=0.1,seed=21`` with the reference's integer weights,
+     all sources, default config
      (``fw-tile``), twice in turns with a forced ``dense-squaring-pallas``
      and ``pallas-vm`` solve, rows bitwise equal, with the products' card
      time per k-step at its shapes; phase 5's ER-1024 at default config
@@ -170,6 +176,9 @@ CKPT_BATCH = 128
 # 4096^3, off the main path, for information.
 MINPLUS_SHAPES = ((16, 1024, 1024), (128, 1024, 1024), (511, 1024, 1024),
                   (1024, 1024, 1024), (4096, 4096, 4096))
+# Phase 16: the tile the Kleene kernel's step variant is checked and
+# timed at (off every default path: config.fw_tile above 512).
+KLEENE_STEP_T = 1024
 
 
 def emit(obj) -> None:
@@ -220,6 +229,22 @@ def event_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_kernels(fn, name: str) -> int:
+    """Kernels whose name holds ``name`` that the card ran in one call of
+    ``fn``, from ``torch.profiler``'s CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.name)
+
+
 def graph_ms(fn, reps: int) -> float:
     """The card's milliseconds per call of ``fn``: ``reps`` calls captured
     in a CUDA graph and replayed between two CUDA events, so that no host
@@ -255,8 +280,8 @@ def sync_time(fn):
 
 
 def ptxas_functions(log: str) -> list[dict]:
-    """Registers and spill bytes of each kernel function in a build's
-    ``-Xptxas -v`` output."""
+    """Registers, stack frame and spill bytes of each kernel function in a
+    build's ``-Xptxas -v`` output."""
     rows, cur = [], None
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
@@ -266,9 +291,11 @@ def ptxas_functions(log: str) -> list[dict]:
             continue
         if cur is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            (cur["stack_frame"], cur["spill_stores"],
+             cur["spill_loads"]) = map(int, m.groups())
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             cur["registers"] = int(m.group(1))
@@ -927,33 +954,58 @@ def drive_dense_apsp(dev, er, er_matrix) -> tuple[dict, dict]:
     out = {}
     t_phase = time.perf_counter()
 
-    # The Kleene kernel against tile_kleene, bitwise; the last tile's
-    # diagonal goes negative in its last two steps, where row and column
-    # k change during step k (read-before-write).
+    # The Kleene kernel against tile_kleene, bitwise, on the variant
+    # kleene_plan names: one cluster launch up to t = 512, the step kernel
+    # at KLEENE_STEP_T. Each tile also with a diagonal that goes negative
+    # in its last two steps, where row and column k change during step k
+    # (read-before-write).
     checks, errs = [], []
-    for t, neg in ((128, False), (256, False), (512, False), (512, True)):
-        m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=neg)).to(dev)
-        got, want = fw.fw_kleene(m), fw.tile_kleene(m)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        checks.append({"t": t, "negative_diagonal": neg,
-                       "equal": torch.equal(got, want), "max_abs_err": err})
-        if not checks[-1]["equal"]:
-            raise AssertionError(f"fw_kleene disagrees with plain: {checks[-1]}")
-        errs.append(err)
-    t = 512
-    m = torch.as_tensor(fw_tile_matrix(t, t)).to(dev)
-    scratch = torch.empty((2, t, t), device=dev)
-    dst = torch.empty((t, t), device=dev)
-    kleene = lambda: fw.fw_kleene(m, out=dst, scratch=scratch)
-    bms, by = bound(8 * t * t, 2 * t ** 3)
-    timing = {"t": t, "ms": event_ms(kleene, reps=20),
-              "card_ms": graph_ms(kleene, reps=5),
-              "plain_ms": event_ms(lambda: fw.tile_kleene(m), reps=2),
-              "bound_ms": bms, "bound_by": by}
-    timing["launches_per_closure"] = t
-    emit({"phase": "fw_kleene_vs_plain", "checks": checks, "timing": timing})
-    del m, scratch, dst
+    for t in (128, 256, 384, 512, KLEENE_STEP_T):
+        for neg in (False, True):
+            m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=neg)
+                                ).to(dev)
+            got, want = fw.fw_kleene(m), fw.tile_kleene(m)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            checks.append({"t": t, "variant": fw.kleene_plan(t).variant,
+                           "negative_diagonal": neg,
+                           "equal": torch.equal(got, want),
+                           "max_abs_err": err})
+            if not checks[-1]["equal"]:
+                raise AssertionError(f"fw_kleene disagrees with plain: "
+                                     f"{checks[-1]}")
+            errs.append(err)
+    plan = fw.kleene_plan(fw.DEFAULT_FW_TILE)
+    occupancy = fw.cluster_occupancy(plan, torch.cuda.current_device())
+    emit({"phase": "fw_kleene_plan", "t": fw.DEFAULT_FW_TILE,
+          "plan": plan._asdict(), "clusters_on_card": occupancy})
+    if occupancy < 1:
+        raise AssertionError(f"the card holds no Kleene cluster: {plan}")
+    # Times of each variant at its t, with the scratch its plan asks for
+    # (none on the cluster variant: the path the solve takes).
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    variants = {}
+    for t in (fw.DEFAULT_FW_TILE, KLEENE_STEP_T):
+        plan = fw.kleene_plan(t)
+        m = torch.as_tensor(fw_tile_matrix(t, t)).to(dev)
+        dst = torch.empty((t, t), device=dev)
+        scratch = (torch.empty((2, t, t), device=dev)
+                   if plan.variant == "step" else None)
+        kleene = lambda: fw.fw_kleene(m, out=dst, scratch=scratch)
+        bms, by = bound(8 * t * t, 2 * t ** 3)
+        variants[plan.variant] = {
+            "t": t, "ms": event_ms(kleene, reps=20),
+            "card_ms": graph_ms(kleene, reps=5),
+            "plain_ms": event_ms(lambda: fw.tile_kleene(m), reps=2),
+            "bound_ms": bms, "bound_by": by, "plan": plan._asdict()}
+        if plan.variant == "cluster":
+            # The cluster's own floor: 2 t^3 FP32 instructions on its
+            # share of the card's SMs.
+            variants[plan.variant]["cluster_floor_ms"] = (
+                2 * t ** 3 / (PEAK_F32_INSTR_S * plan.cluster / sms) * 1e3)
+            variants[plan.variant]["sms"] = sms
+        del m, dst, scratch
+    timing = variants["cluster"]
 
     # 16a: dense FW at the reference's full width, in turns with the
     # squaring and pallas-vm routes on the same graph.
@@ -1126,7 +1178,24 @@ def drive_dense_apsp(dev, er, er_matrix) -> tuple[dict, dict]:
         "phase16_s": time.perf_counter() - t_phase}
     emit({"phase": "batch_apsp_10k", **out["batch_apsp"]})
     del res, graphs
-    return launches, {"errs": errs, "timing": timing}
+
+    # The kernels the card ran for one closure of each variant (last in
+    # the phase: the profiler runs after every timed part), which must be
+    # what kleene_plan says: one cluster launch, or the step kernel's t.
+    for row in variants.values():
+        t = row["t"]
+        m = torch.as_tensor(fw_tile_matrix(t, t)).to(dev)
+        row["launches_per_closure"] = device_kernels(
+            lambda: fw.fw_kleene(m), "kleene")
+        want = 1 if row["plan"]["variant"] == "cluster" else t
+        if row["launches_per_closure"] != want:
+            raise AssertionError(f"fw_kleene at t={t} ran "
+                                 f"{row['launches_per_closure']} kernels, "
+                                 f"its plan {want}")
+        del m
+    emit({"phase": "fw_kleene_vs_plain", "checks": checks,
+          "timing": variants})
+    return launches, {"errs": errs, "timing": timing, "variants": variants}
 
 
 def main() -> int:
@@ -1196,10 +1265,14 @@ def main() -> int:
     if low:
         raise AssertionError(f"min-plus tiles below the plan's resident "
                              f"blocks per SM: {low}")
+    # A stack frame is a register array that went to local memory (the
+    # Kleene kernel's hazard: an array indexed by the step) even where
+    # nothing spills.
     spills = [ln for lines in ptxas.values() for ln in lines
-              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+              if any(int(n) for n in re.findall(
+                  r"(\d+) bytes (?:stack frame|spill)", ln))]
     if spills:
-        raise AssertionError(f"ptxas reports spills: {spills}")
+        raise AssertionError(f"ptxas reports stack frames or spills: {spills}")
 
     def sweep_equal(d, layout, items, label):
         """The kernel against the plain sweep on ``d``: raises unless
@@ -1791,7 +1864,10 @@ def main() -> int:
          "max_abs_err": max(kleene["errs"]),
          "ms": t_kl["ms"], "card_ms": t_kl["card_ms"],
          "plain_ms": t_kl["plain_ms"], "bound_ms": t_kl["bound_ms"],
-         "bound_by": t_kl["bound_by"], "library_ms": None},
+         "bound_by": t_kl["bound_by"], "library_ms": None,
+         "variants": {name: {k: row[k] for k in (
+             "t", "ms", "card_ms", "plain_ms", "bound_ms")}
+             for name, row in kleene["variants"].items()}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -35,7 +35,8 @@ _P = ctypes.c_void_p
 _L = ctypes.c_longlong
 _I = ctypes.c_int
 # C functions and their argument types, per source file. Each source's
-# launch entry point is ``pj_<name>``, its last argument the stream.
+# launch entry point is ``pj_<name>`` (``fw_kleene`` has a second one),
+# its last argument the stream.
 SIGNATURES = {
     "fanout_sweep": {
         "pj_fanout_sweep": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P,
@@ -47,7 +48,9 @@ SIGNATURES = {
         "pj_minplus_occupancy": (_I, _P),
     },
     "fw_kleene": {
-        "pj_fw_kleene": (_P, _L, _P, _L, _P, _P, _I, _P),
+        "pj_fw_kleene": (_P, _L, _P, _L, _I, _I, _I, _I, _I, _P),
+        "pj_fw_kleene_occupancy": (_I, _I, _I, _I, _P),
+        "pj_fw_kleene_steps": (_P, _L, _P, _L, _P, _P, _I, _P),
     },
     "tight_pred": {
         "pj_tight_pred": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P,
@@ -144,11 +147,11 @@ def lib(name: str) -> ctypes.CDLL:
         return handle
 
 
-def launch(name: str, *args, device: torch.device) -> None:
-    """Call ``csrc/<name>.cu``'s entry point on ``device``'s current
-    stream; raise if the launch was refused (the C function returns
-    ``cudaGetLastError()``)."""
-    fn = getattr(lib(name), f"pj_{name}")
+def launch(name: str, *args, device: torch.device, entry: str = "") -> None:
+    """Call ``csrc/<name>.cu``'s entry point (``pj_<name>``, or ``entry``)
+    on ``device``'s current stream; raise if the launch was refused (the
+    C function returns ``cudaGetLastError()``)."""
+    fn = getattr(lib(name), entry or f"pj_{name}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)

@@ -6,8 +6,9 @@ diagonal block k (the R-Kleene schedule):
 
   1. Kleene closure of the diagonal tile  C <- D[k,k]*
      (in-tile Floyd-Warshall: ``tile`` rank-1 min-plus steps; the hand
-     kernel ``csrc/fw_kleene.cu`` on the card, :func:`tile_kleene` on
-     the CPU);
+     kernel ``csrc/fw_kleene.cu`` on the card, one launch per closure on
+     a thread-block cluster as :func:`kleene_plan` lays it out, and
+     :func:`tile_kleene` on the CPU);
   2. row and column panels through the closed diagonal
      D[k,:] <- min(D[k,:], C (x) D[k,:]),
      D[:,k] <- min(D[:,k], D[:,k] (x) C);
@@ -33,6 +34,10 @@ a host int), on the same padded scale as the squaring route's counters.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from paralleljohnson_tpu_torch.ops import _cuda, relax
@@ -54,6 +59,23 @@ FW_KBLOCK = 32
 # k-step up to Vp = 8192 at t = 512; every row block reads the same
 # panels and min is exact, so the blocking changes no bit).
 FW_TRAIL_BYTES = 1 << 28
+
+# The Kleene kernel (csrc/fw_kleene.cu). Its cluster variant closes
+# tiles up to KLEENE_CLUSTER_MAX_T on one cluster of KLEENE_CLUSTER CTAs
+# (the hardware's largest, non-portable size) laid out as
+# KLEENE_CTAS_DOWN x KLEENE_CTAS_ACROSS blocks of the tile (4 CTAs down:
+# a row goes to 4 CTAs as one 16-byte store per lane). Each CTA is
+# KLEENE_THREAD_ROWS threads down, each thread holding RR tile rows of
+# one column in registers, for the RR of KLEENE_ROWS it is built for.
+# Its step variant runs blocks of 32 x 8 threads over 32 tile rows.
+KLEENE_ROWS = (8, 16, 24, 32)
+KLEENE_CLUSTER = 16
+KLEENE_CTAS_DOWN = 4
+KLEENE_CTAS_ACROSS = 4
+KLEENE_THREAD_ROWS = 4
+KLEENE_CLUSTER_MAX_T = 512
+KLEENE_STEP_THREADS = 256
+KLEENE_STEP_ROWS = 32
 
 
 def pad_tiles(v: int, tile: int) -> int:
@@ -113,17 +135,70 @@ def _check_tile(x: torch.Tensor, what: str, t: int, dev) -> None:
                          f"at least {t}, got strides {x.stride()}")
 
 
+class KleenePlan(NamedTuple):
+    """How the kernel closes a [t, t] tile. ``variant`` "cluster": one
+    launch of one cluster of ``cluster`` CTAs, each holding a ``rows`` x
+    ``cols`` block of the tile (padded with +inf to whole CTAs) in
+    registers, ``threads`` threads (``cols`` across) and ``smem_bytes``
+    of dynamic shared memory (the hand-over buffers and their
+    mbarriers). "step": t launches of a grid of ``threads``-thread
+    blocks over ``rows`` x ``cols`` of the tile each, no shared memory,
+    through an f32[2, t, t] scratch (``cluster`` is 1)."""
+
+    variant: str
+    cluster: int
+    rows: int
+    cols: int
+    threads: int
+    smem_bytes: int
+
+
+def kleene_plan(t: int) -> KleenePlan:
+    """The Kleene kernel's plan for a [t, t] tile, a pure function of the
+    shape: the cluster variant up to ``KLEENE_CLUSTER_MAX_T`` (every
+    default FW tile), with the fewest rows per thread of ``KLEENE_ROWS``
+    that cover t; the step variant above (a choice by shape, not a
+    fallback)."""
+    t = int(t)
+    if t > KLEENE_CLUSTER_MAX_T:
+        return KleenePlan("step", 1, KLEENE_STEP_ROWS, 32, KLEENE_STEP_THREADS,
+                          0)
+    rr = next(r for r in KLEENE_ROWS
+              if KLEENE_CTAS_DOWN * KLEENE_THREAD_ROWS * r >= t)
+    padded = KLEENE_CTAS_DOWN * KLEENE_THREAD_ROWS * rr
+    rows, cols = padded // KLEENE_CTAS_DOWN, padded // KLEENE_CTAS_ACROSS
+    return KleenePlan("cluster", KLEENE_CLUSTER, rows, cols,
+                      KLEENE_THREAD_ROWS * cols, 16 + 4 * (2 * cols + 3 * rows))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_occupancy(plan: KleenePlan, device: int) -> int:
+    """Clusters of ``plan``'s shape card ``device`` (a CUDA index) can
+    hold at once (``cudaOccupancyMaxActiveClusters``). 0 means the launch
+    cannot run."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _cuda.lib("fw_kleene").pj_fw_kleene_occupancy(
+            plan.rows, plan.cols, plan.threads, plan.smem_bytes,
+            ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cluster occupancy query failed: cudaError {err}")
+    return n.value
+
+
 def fw_kleene(d: torch.Tensor, *, out=None, scratch=None) -> torch.Tensor:
     """Kleene closure of the [t, t] tile ``d`` through the hand CUDA
     kernel (``csrc/fw_kleene.cu``) for CUDA tensors; :func:`tile_kleene`
     for CPU tensors. ``d`` and ``out`` may be row-strided views of a
     larger matrix (a diagonal tile), and ``out`` may be ``d`` itself (in
-    place). ``scratch`` is the kernel's f32[2, t, t] step buffers
-    (allocated when None). Returns ``out`` (a new [t, t] tensor when
-    None).
+    place). :func:`kleene_plan` (t) picks the variant. ``scratch`` is
+    the step variant's f32[2, t, t] buffers (allocated when None); the
+    cluster variant needs none and ignores it. Returns ``out`` (a new
+    [t, t] tensor when None).
 
-    Each CUDA call counts one in ``fw_kleene.launches`` (one closure: t
-    kernel launches from the C entry point). CPU tensors count nothing."""
+    Each CUDA call counts one in ``fw_kleene.launches``: one closure, one
+    cluster launch or the step variant's t launches. A cluster the card
+    cannot hold raises; nothing falls back. CPU tensors count nothing."""
     if d.dim() != 2 or d.shape[0] != d.shape[1]:
         raise ValueError(f"fw_kleene takes a square tile, got {tuple(d.shape)}")
     t = d.shape[0]
@@ -138,16 +213,27 @@ def fw_kleene(d: torch.Tensor, *, out=None, scratch=None) -> torch.Tensor:
         out = torch.empty((t, t), dtype=torch.float32, device=dev)
     else:
         _check_tile(out, "out", t, dev)
-    if scratch is None:
-        scratch = torch.empty((2, t, t), dtype=torch.float32, device=dev)
+    plan = kleene_plan(t)
+    if plan.variant == "cluster":
+        index = torch.cuda.current_device() if dev.index is None else dev.index
+        if cluster_occupancy(plan, index) < 1:
+            raise RuntimeError(f"the card cannot hold the Kleene kernel's "
+                               f"cluster: {plan}")
+        _cuda.launch("fw_kleene", d.data_ptr(), d.stride(0), out.data_ptr(),
+                     out.stride(0), t, plan.rows, plan.cols, plan.threads,
+                     plan.smem_bytes, device=dev)
     else:
-        _cuda.check(scratch, "scratch", torch.float32, dev, 3)
-        if tuple(scratch.shape) != (2, t, t):
-            raise ValueError(f"scratch must be [2, {t}, {t}], got "
-                             f"{list(scratch.shape)}")
-    _cuda.launch("fw_kleene", d.data_ptr(), d.stride(0), out.data_ptr(),
-                 out.stride(0), scratch[0].data_ptr(), scratch[1].data_ptr(),
-                 t, device=dev)
+        if scratch is None:
+            scratch = torch.empty((2, t, t), dtype=torch.float32, device=dev)
+        else:
+            _cuda.check(scratch, "scratch", torch.float32, dev, 3)
+            if tuple(scratch.shape) != (2, t, t):
+                raise ValueError(f"scratch must be [2, {t}, {t}], got "
+                                 f"{list(scratch.shape)}")
+        _cuda.launch("fw_kleene", d.data_ptr(), d.stride(0), out.data_ptr(),
+                     out.stride(0), scratch[0].data_ptr(),
+                     scratch[1].data_ptr(), t, device=dev,
+                     entry="pj_fw_kleene_steps")
     fw_kleene.launches += 1
     return out
 
@@ -190,7 +276,8 @@ def fw_apsp_blocked(a: torch.Tensor, *, tile: int = FW_TILE,
     nb = vp // tile
     dev = a.device
     scratch = (torch.empty((2, tile, tile), dtype=a.dtype, device=dev)
-               if dev.type == "cuda" else None)
+               if dev.type == "cuda" and kleene_plan(tile).variant == "step"
+               else None)
     if nb == 1:
         fw_kleene(a, out=a, scratch=scratch)
         return a, _negative_diagonal(a)

@@ -633,12 +633,15 @@ def fw_tile_matrix(t, seed, *, negative_diagonal=False):
 
 
 @pytest.mark.parametrize("negative_diagonal", [False, True])
-@pytest.mark.parametrize("t", [128, 256])
+@pytest.mark.parametrize("t", [128, 200, 256, 384, 512, 1024])
 def test_fw_kleene_on_card_equals_plain(cuda, t, negative_diagonal):
-    """Bitwise against ``tile_kleene``, one launch count per closure;
-    also in place on a diagonal tile of a larger matrix (row stride)."""
+    """Bitwise against ``tile_kleene`` on the variant ``kleene_plan``
+    names (one cluster launch up to t = 512, 200 with a ragged last
+    warp; the step kernel at 1024), one launch count per closure; also
+    in place on a diagonal tile of a larger matrix (row stride)."""
     from paralleljohnson_tpu_torch.ops import fw
 
+    assert fw.kleene_plan(t).variant == ("cluster" if t <= 512 else "step")
     m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=negative_diagonal))
     want = fw.tile_kleene(m)
     before = fw.fw_kleene.launches
@@ -652,6 +655,7 @@ def test_fw_kleene_on_card_equals_plain(cuda, t, negative_diagonal):
     tile.copy_(m)
     fw.fw_kleene(tile, out=tile)
     torch.cuda.synchronize()
+    assert fw.fw_kleene.launches == before + 2
     assert torch.equal(tile.cpu(), want)
     rest = big.clone()
     rest[32:32 + t, 16:16 + t] = 7.0

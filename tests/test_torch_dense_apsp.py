@@ -101,18 +101,74 @@ def _tile(t, seed, *, negative_diagonal=False):
 
 
 @pytest.mark.parametrize("negative_diagonal", [False, True])
-def test_tile_kleene_bitwise(negative_diagonal):
+@pytest.mark.parametrize("t", [128, 384])
+def test_tile_kleene_bitwise(t, negative_diagonal):
     """The plain loop and the wrapper on CPU tensors equal the
     reference's ``tile_kleene`` bitwise on float entries, also when a
-    diagonal entry goes negative (read-before-write)."""
-    m = _tile(128, 3, negative_diagonal=negative_diagonal)
+    diagonal entry goes negative (read-before-write), at tile sizes the
+    card tests hold the kernel to."""
+    m = _tile(t, 3, negative_diagonal=negative_diagonal)
     want = np.asarray(ref_fw.tile_kleene(jnp.asarray(m)))
     got = port_fw.tile_kleene(torch.as_tensor(m)).numpy()
     np.testing.assert_array_equal(got, want)
-    out = torch.zeros((128, 128))
+    out = torch.zeros((t, t))
     assert port_fw.fw_kleene(torch.as_tensor(m), out=out) is out
     np.testing.assert_array_equal(out.numpy(), want)
     assert (np.diagonal(want) < 0).any() == negative_diagonal
+
+
+@pytest.mark.parametrize("t", range(128, 2049, 128))
+def test_kleene_plan_fits_the_card(t):
+    """Every tile size ``config.fw_tile`` allows: the rows and columns
+    divide evenly over the CTAs (one column per thread), the dynamic
+    shared memory fits a block's 227 KB, the cluster has at most 16 CTAs,
+    and every tile of a default path (t <= DEFAULT_FW_TILE) closes in one
+    cluster launch."""
+    plan = port_fw.kleene_plan(t)
+    assert plan.smem_bytes <= 232448
+    assert 1 <= plan.cluster <= 16
+    assert t % plan.rows == 0 and t % plan.cols == 0
+    assert plan.threads % 32 == 0 and plan.threads <= 1024
+    if plan.variant == "cluster":
+        assert plan.cluster == (port_fw.KLEENE_CTAS_DOWN
+                                * port_fw.KLEENE_CTAS_ACROSS)
+        assert port_fw.KLEENE_CTAS_DOWN * plan.rows == t
+        assert port_fw.KLEENE_CTAS_ACROSS * plan.cols == t
+        assert plan.threads == port_fw.KLEENE_THREAD_ROWS * plan.cols
+        assert plan.rows // port_fw.KLEENE_THREAD_ROWS in port_fw.KLEENE_ROWS
+    else:
+        assert plan.variant == "step"
+        assert t > port_fw.KLEENE_CLUSTER_MAX_T
+    if t <= port_fw.DEFAULT_FW_TILE:
+        assert plan.variant == "cluster"
+
+
+@pytest.mark.parametrize("t", [1, 100, 129, 200, 300, 500])
+def test_kleene_plan_pads_ragged_tiles(t):
+    """A t that is not a multiple of 128 is padded to whole CTAs of whole
+    warps with the fewest rows per thread that cover it, as the kernel
+    takes it (square padded tile, 16-byte column pieces, the hand-over
+    buffers and their two mbarriers in shared memory)."""
+    plan = port_fw.kleene_plan(t)
+    rr = plan.rows // port_fw.KLEENE_THREAD_ROWS
+    down = port_fw.KLEENE_CTAS_DOWN * port_fw.KLEENE_THREAD_ROWS
+    assert plan.variant == "cluster" and plan.cluster == 16
+    assert rr == min(r for r in port_fw.KLEENE_ROWS if down * r >= t)
+    assert (port_fw.KLEENE_CTAS_DOWN * plan.rows
+            == port_fw.KLEENE_CTAS_ACROSS * plan.cols >= t)
+    assert plan.cols % 32 == 0 and rr % 4 == 0
+    assert plan.threads == port_fw.KLEENE_THREAD_ROWS * plan.cols
+    assert plan.smem_bytes == 16 + 4 * (2 * plan.cols + 3 * plan.rows)
+
+
+def test_fw_kleene_cpu_ignores_scratch():
+    """On CPU tensors the closure takes ``tile_kleene`` whatever scratch
+    it is given."""
+    m = torch.as_tensor(_tile(128, 4))
+    want = port_fw.tile_kleene(m)
+    for scratch in (None, torch.empty(0)):
+        got = port_fw.fw_kleene(m, scratch=scratch)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n", [100, 256, 384])
