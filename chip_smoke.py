@@ -125,12 +125,25 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      ``random_graph_batch(10000, 256, 8/256, seed=0)`` (``batch-vmapped``),
      64 sampled graphs against scipy Johnson (rtol 1e-6) and bitwise
      against their own ``solve()``, beside a 100-graph ``solve()`` loop.
+ 17. the dirty window and the priced planner (``drive_dirty_window``) on
+     the reference's dirty-window grid at card scale
+     (``permute_labels(grid2d(512, 512, negative_fraction=0.0, seed=7),
+     seed=11)``), 256 sources, with a fresh profile store: the default
+     (``pallas-vm``), ``dirty_window=True`` (``vm-blocked+dw``) and
+     ``use_pallas=False`` (``vm-blocked``), exact tags, rows bitwise
+     equal, walls, examined edges and the dirty window's overflow
+     rounds; the evidence loop (instrumented ``use_pallas=False`` solves
+     write ``cuda`` trajectory records, ``_dw_decision`` engages on the
+     grid and declines on R-MAT-20) with each graph's default decision;
+     the store's prices of the three routes beside their walls and the
+     priced walk's decision (the translated veto keeps ``pallas-vm``
+     while the store prices it cheaper than the dirty window).
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-16 on its own; a path
-whose kernel was never launched fails (the plain-torch B=1 routes of
-phase 15 need none). The last two lines are the
+phases 3-5 together, then each path of phases 9-17 on its own; a path
+whose kernel was never launched fails (the plain-torch routes of phases
+15 and 17 need none). The last two lines are the
 ``kernels`` summary (launches summed over the paths, and by path) and
 ``{"ok": true, "device": {...}}``.
 """
@@ -179,6 +192,20 @@ MINPLUS_SHAPES = ((16, 1024, 1024), (128, 1024, 1024), (511, 1024, 1024),
 # Phase 16: the tile the Kleene kernel's step variant is checked and
 # timed at (off every default path: config.fw_tile above 512).
 KLEENE_STEP_T = 1024
+# Phase 17: the JAX package's dirty-window graph at card scale (its
+# bench_dirty_window: the grid with scrambled labels, no negative weight),
+# DW_SOURCES sources for the three routes. The instrumented solves of the
+# evidence loop run DW_RMAT_SOURCES sources on R-MAT-20 and each width of
+# DW_EVIDENCE_WIDTHS on the grid, each into its own store; the first must
+# engage. The recorded skippable fraction falls as the batch's frontiers
+# overlap, and faster on vm-blocked, whose chunk-level Gauss-Seidel widens
+# each sweep's frontier (this port on the CPU, scrambled 128x128 grid in 4
+# blocks: 0.85 at B = 1, 0.81 at B = 2, 0.61 at B = 4 against 0.93 on vm at
+# B = 4); the reference's bench runs 4 sources at 96 rows, on vm.
+DW_ROWS = 512
+DW_SOURCES = 256
+DW_EVIDENCE_WIDTHS = (1, 4)
+DW_RMAT_SOURCES = 64
 
 
 def emit(obj) -> None:
@@ -345,6 +372,7 @@ def counter(launches: dict):
     loops = {"fanout_host_reads": fs.fanout_fixpoint,
              "sweep_host_reads": relax._sweeps_to_fixpoint,
              "frontier_host_reads": relax.bellman_ford_frontier,
+             "dw_host_reads": relax.bellman_ford_sweeps_dw,
              "gs_host_reads": gs_mod._gs_engine,
              "bucket_host_reads": bucket_mod.bellman_ford_bucketed}
 
@@ -1198,6 +1226,181 @@ def drive_dense_apsp(dev, er, er_matrix) -> tuple[dict, dict]:
     return launches, {"errs": errs, "timing": timing, "variants": variants}
 
 
+def drive_dirty_window(dev, rmat) -> dict:
+    """Phase 17: the dirty-window route and the priced planner on the
+    reference's dirty-window grid at card scale, with the kernels'
+    counters from 0 per path (returns them by path).
+
+    1. ``DW_SOURCES`` sources solved three ways with a fresh profile
+       store: the default (``pallas-vm``, first, while the store is
+       empty), ``dirty_window=True`` (``vm-blocked+dw``) and
+       ``use_pallas=False, dirty_window=False`` (``vm-blocked``); exact
+       route tags, rows bitwise equal; walls, examined edges and the
+       dirty window's overflow (full-sweep) rounds.
+    2. The evidence loop in stores of its own, as the reference's bench
+       runs it: instrumented ``use_pallas=False`` solves of the grid (each
+       width of ``DW_EVIDENCE_WIDTHS``) and R-MAT-20
+       (``DW_RMAT_SOURCES``) write ``cuda`` trajectory records;
+       ``_dw_decision`` engages for the grid at the first width and
+       declines for R-MAT-20; each graph's default solve with its store in
+       place, with its decision.
+    3. The first store plus the grid's first evidence: ``CostModel`` prices
+       ``pallas-vm``, ``vm-blocked`` and ``vm-blocked+dw`` at the grid's
+       shape, beside their measured walls; the priced walk's decision and
+       whether the translated veto kept ``pallas-vm`` (a default solve,
+       rows bitwise equal to step 1's)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paralleljohnson_tpu_torch.graphs import grid2d, permute_labels
+    from paralleljohnson_tpu_torch.observe import (
+        CostModel, ProfileStore, shape_bucket,
+    )
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+
+    launches: dict = {}
+    counted = counter(launches)
+    t_phase = time.perf_counter()
+    grid = permute_labels(grid2d(DW_ROWS, DW_ROWS, negative_fraction=0.0,
+                                 seed=7), seed=11)
+    v, e = grid.num_nodes, grid.num_real_edges
+    rng = np.random.default_rng(0)
+    src = np.sort(rng.choice(v, size=DW_SOURCES, replace=False))
+    main = tempfile.mkdtemp(prefix="pj-profiles-")
+    evidence = tempfile.mkdtemp(prefix="pj-evidence-")
+    out: dict = {"spec": f"permute_labels(grid2d({DW_ROWS}, {DW_ROWS}, "
+                         "negative_fraction=0.0, seed=7), seed=11)",
+                 "V": v, "E": e, "sources": DW_SOURCES}
+    try:
+        # -- 1: three routes, rows bitwise ---------------------------------
+        runs, rows = {}, {}
+        for name, kw, needs in (
+                ("pallas-vm", {}, ("fanout_sweep",)),
+                ("vm-blocked+dw", {"dirty_window": True}, ()),
+                ("vm-blocked", {"use_pallas": False, "dirty_window": False},
+                 ())):
+            res, secs = counted(f"dw_{name}_grid512", lambda kw=kw: solver_on(
+                dev, profile_store=main, **kw).solve(grid, src), needs=needs)
+            route = res.stats.routes_by_phase.get("fanout")
+            if res.stats.routes_by_phase != {"fanout": name}:
+                raise AssertionError(f"{name} solve took "
+                                     f"{res.stats.routes_by_phase}")
+            rows[name] = to_numpy(res.dist)
+            conv = (res.stats.convergence or {}).get("fanout") or {}
+            runs[name] = {
+                "route": route, "seconds": secs,
+                "fanout_s": res.stats.phase_seconds["fanout"],
+                "iterations": res.stats.iterations_by_phase["fanout"],
+                "examined_edges": res.stats.edges_relaxed,
+                "full_sweep_rounds": conv.get("full_sweep_rounds"),
+                "jfr_skippable_edge_frac": conv.get(
+                    "jfr_skippable_edge_frac"),
+                "host_reads": {k: n for k, n in launches[
+                    f"dw_{name}_grid512"].items()
+                    if k.endswith("host_reads") and n},
+                "plan": res.stats.plans_by_phase["fanout"]["reason"]}
+            del res
+        for name in ("vm-blocked+dw", "vm-blocked"):
+            if not np.array_equal(rows[name], rows["pallas-vm"]):
+                raise AssertionError(f"{name} rows differ from pallas-vm's")
+        if runs["vm-blocked+dw"]["full_sweep_rounds"] is None:
+            raise AssertionError("the dirty window recorded no trajectory")
+        plain_examined = runs["vm-blocked"]["examined_edges"]
+        out["routes"] = runs
+        out["dw_examined_frac"] = (runs["vm-blocked+dw"]["examined_edges"]
+                                   / max(plain_examined, 1))
+        emit({"phase": "dirty_window_routes", **out})
+
+        # -- 2: the evidence loop -----------------------------------------
+        rsrc = np.sort(np.random.default_rng(1).choice(
+            rmat.num_nodes, DW_RMAT_SOURCES, replace=False))
+        cases = [(f"grid_B{b}", grid, src[:b], True if i == 0 else None)
+                 for i, b in enumerate(DW_EVIDENCE_WIDTHS)]
+        cases.append(("rmat20", rmat, rsrc, False))
+        stores = {name: tempfile.mkdtemp(prefix="pj-evidence-", dir=evidence)
+                  for name, *_ in cases}
+        loop = {}
+        for name, graph, srcs, engage in cases:
+            store = stores[name]
+            res, secs = counted(f"dw_evidence_{name}", lambda g=graph, s=srcs,
+                                d=store: solver_on(
+                                    dev, use_pallas=False, dirty_window=False,
+                                    profile_store=d).solve(g, s))
+            trajs = [r for r in ProfileStore(store).records()
+                     if r["kind"] == "trajectory"]
+            if not trajs or {r["platform"] for r in trajs} != {"cuda"}:
+                raise AssertionError(f"{name}: trajectory records " + str(
+                    [(r["route"], r["platform"]) for r in trajs]))
+            backend = solver_on(dev, profile_store=store).backend
+            batch = len(srcs) if graph is rmat else DW_SOURCES
+            decision = backend._dw_decision(backend.upload(graph), batch)
+            if engage is not None and decision["engage"] is not engage:
+                raise AssertionError(f"{name}: dw_decision {decision}")
+            loop[name] = {"route": res.stats.routes_by_phase["fanout"],
+                          "sources": len(srcs), "seconds": secs,
+                          "trajectory_records": len(trajs),
+                          "device": trajs[-1].get("device"),
+                          "summary": {k: trajs[-1]["summary"].get(k) for k in (
+                              "iterations", "jfr_skippable_edge_frac",
+                              "frontier_half_life")},
+                          "dw_decision": {k: decision[k] for k in (
+                              "engage", "reason")}}
+            del res
+        evidence_store = stores[cases[0][0]]
+        for name, graph, srcs in ((cases[0][0], grid, cases[0][2]),
+                                  ("rmat20", rmat, rsrc)):
+            res, secs = counted(f"dw_default_{name}", lambda g=graph, s=srcs,
+                                d=stores[name]: solver_on(
+                                    dev, profile_store=d).solve(g, s))
+            plan = res.stats.plans_by_phase["fanout"]
+            loop[name]["default_solve"] = {
+                "route": res.stats.routes_by_phase["fanout"],
+                "seconds": secs, "chosen": plan["chosen"],
+                "reason": plan["reason"], "candidates": plan["candidates"]}
+            del res
+        emit({"phase": "dirty_window_evidence", **loop})
+
+        # -- 3: the priced routes -----------------------------------------
+        store = ProfileStore(main)
+        for rec in ProfileStore(evidence_store).records():
+            store.append(rec)
+        model = CostModel.fit(store)
+        priced = {}
+        for name in ("pallas-vm", "vm-blocked", "vm-blocked+dw"):
+            pred = model.predict(name, num_edges=e, batch=DW_SOURCES,
+                                 platform="cuda")
+            if pred is None:
+                raise AssertionError(f"the cost model does not price {name}")
+            priced[name] = {"predicted_s": pred["predicted_s"],
+                            "basis": pred["basis"],
+                            "measured_fanout_s": runs[name]["fanout_s"]}
+        # The decision the priced solve meets (its own records land after).
+        backend = solver_on(dev, profile_store=main).backend
+        veto = backend._dw_decision(backend.upload(grid), DW_SOURCES)
+        res, secs = counted("dw_priced_grid512", lambda: solver_on(
+            dev, profile_store=main).solve(grid, src))
+        plan = res.stats.plans_by_phase["fanout"]
+        if not np.array_equal(to_numpy(res.dist), rows["pallas-vm"]):
+            raise AssertionError("the priced solve's rows differ")
+        emit({"phase": "dirty_window_priced",
+              "shape_bucket": list(shape_bucket(v, e, DW_SOURCES)),
+              "priced": priced, "route": res.stats.routes_by_phase["fanout"],
+              "seconds": secs, "chosen": plan["chosen"],
+              "reason": plan["reason"], "candidates": plan["candidates"],
+              "dw_decision": {k: veto[k] for k in ("engage", "reason")},
+              "veto_kept_pallas_vm": (
+                  res.stats.routes_by_phase["fanout"] == "pallas-vm"
+                  and not veto["engage"]),
+              "phase17_s": time.perf_counter() - t_phase})
+        del res
+    finally:
+        shutil.rmtree(main, ignore_errors=True)
+        shutil.rmtree(evidence, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1817,6 +2020,8 @@ def main() -> int:
     # -- phase 16: dense APSP ------------------------------------------------
     dense_paths, kleene = drive_dense_apsp(dev, er, er_matrix)
     by_path.update(dense_paths)
+    # -- phase 17: the dirty window and the priced planner ------------------
+    by_path.update(drive_dirty_window(dev, rmat))
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ("fanout_sweep", "minplus", "tight_pred",
                              "fw_kleene")}

@@ -48,9 +48,14 @@ class KernelResult:
     convergence: the trajectory's summary
       (``observe.convergence.summarize_trajectory``); folds into
       ``SolverStats.convergence``.
-    plan: the solver-level route decision (``chosen``, ``reason``, the
-      resolved ``params`` and their ``params_source``), or None; folds
-      into ``SolverStats.plan``.
+    plan: the route decision behind this result (``planner
+      .PlanDecision.as_dict``: ``chosen``, ``reason``, ``candidates``,
+      the resolved ``params``), or None; folds into ``SolverStats.plan``.
+    cost: the analytic cost record of this call (``observe.costs``:
+      ``flops`` / ``bytes_accessed`` with ``cost_source:
+      "analytic-model"``, or the ``cost_analysis_unavailable`` marker),
+      or None when no profile store is configured; folds into
+      ``SolverStats.analytic_cost``.
     """
 
     dist: Any
@@ -63,6 +68,7 @@ class KernelResult:
     trajectory: Any | None = None
     convergence: dict | None = None
     plan: dict | None = None
+    cost: dict | None = None
 
 
 class Backend(abc.ABC):

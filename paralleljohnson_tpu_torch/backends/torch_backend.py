@@ -1,37 +1,46 @@
 """``TorchBackend`` — the device execution engine of the PyTorch port.
 
 Owns the device-resident COO buffers and dispatches the kernels of
-Johnson's algorithm with the JAX package's gates and route tags:
+Johnson's algorithm with the JAX package's gates, plans and route tags.
+Every dispatch is a ``planner.select`` walk over a plan registry
+(:data:`SSSP_PLANS`, :data:`FANOUT_PLANS`; the JAX package's names,
+priorities and price routes): the plans' qualifications are the gates
+below, each with its reason, and with a profile store configured the
+walk is priced from its records (``observe.store.CostModel``). Unpriced,
+the walk is the declared priority order. The decision rides on
+``KernelResult.plan``.
 
-  - ``bellman_ford`` (B=1: phase 1's virtual-source pass and ``sssp``)
-    walks the reference's SSSP plans in their order: ``dia``
-    (``dia=True`` on a diagonal labeling, ``ops.dia``), ``bucket``
-    (``bucket=True``, ``ops.bucket``; ``bucket+sweep`` when its step
-    budget runs out), ``gs`` (``gauss_seidel=True``,
-    ``ops.gauss_seidel``), ``frontier`` (the low-degree family: V >= 512
-    and max out-degree in 1..32, or ``frontier=True``;
-    ``relax.bellman_ford_frontier``), else ``sweep``
-    (``relax.bellman_ford_sweeps``). All plain PyTorch: the reference's
-    are XLA code, not Pallas kernels. The auto gates of ``dia``, ``gs``
-    and ``bucket`` are TPU-only in the reference, so they stay off here;
-    ``True`` forces them;
-  - ``multi_source`` takes, in the reference's plan order: ``dia`` and
-    ``gs`` when forced (as above); blocked Floyd-Warshall ``fw`` /
-    ``fw-tile`` (``_use_fw``: the squaring regime 2B >= V of a dense
-    graph within ``fw_threshold`` where the exact MAC counts beat
-    squaring, on every device as in the reference, or ``fw=True``;
-    ``ops.fw``: the hand Kleene and min-plus kernels on the card); dense
-    graphs
-    (``_use_dense``: V <= ``dense_threshold`` and E >=
+  - ``bellman_ford`` (B=1: phase 1's virtual-source pass and ``sssp``):
+    ``dia`` (``dia=True`` on a diagonal labeling, ``ops.dia``),
+    ``bucket`` (``bucket=True``, ``ops.bucket``; ``bucket+sweep`` when
+    its step budget runs out), ``gs`` (``gauss_seidel=True``,
+    ``ops.gauss_seidel``; ``gs+dw`` when the dirty window engages),
+    ``frontier`` (the low-degree family: V >= 512 and max out-degree in
+    1..32, or ``frontier=True``; ``relax.bellman_ford_frontier``), else
+    ``sweep`` (``relax.bellman_ford_sweeps``). All plain PyTorch: the
+    reference's are XLA code, not Pallas kernels. The auto gates of
+    ``dia``, ``gs`` and ``bucket`` are TPU-only in the reference, and the
+    port's CUDA gates keep them off; ``True`` forces them;
+  - ``multi_source``: ``dia`` and ``gs`` when forced (as above); blocked
+    Floyd-Warshall ``fw`` / ``fw-tile`` (``_use_fw``: the squaring regime
+    2B >= V of a dense graph within ``fw_threshold`` where the exact MAC
+    counts beat squaring, on every device as in the reference, or
+    ``fw=True``; ``ops.fw``: the hand Kleene and min-plus kernels on the
+    card); the dirty window ``vm-blocked+dw``
+    (``relax.bellman_ford_sweeps_dw``: ``dirty_window=True``, or
+    ``"auto"`` on the profile store's trajectory evidence, unless the
+    store prices the route that would otherwise serve cheaper); dense
+    graphs (``_use_dense``: V <= ``dense_threshold`` and E >=
     ``dense_min_density`` x V^2) to ``dense-{regime}-pallas`` through the
-    hand min-plus kernel (the iterate regime through
-    ``minplus_fixpoint`` on the card), or to the plain product
-    ``dense-{regime}`` under ``use_pallas=False``; then
-    ``fanout_layout="source_major"`` to ``sweep-sm`` (the source-major
-    scatter sweep); then ``use_pallas=False`` to the reference's XLA
-    vertex-major routes in plain PyTorch, ``vm-blocked`` for V >
-    ``VM_BLOCK`` and ``vm`` below; and every other graph to
-    ``pallas-vm`` through the hand fan-out sweep;
+    hand min-plus kernel (the iterate regime through ``minplus_fixpoint``
+    on the card), or to the plain product ``dense-{regime}`` under
+    ``use_pallas=False``; the hand fan-out sweep ``pallas-vm`` (the port's
+    CUDA gate: ``use_pallas`` True or ``"auto"``, vertex-major layout);
+    under ``use_pallas=False`` the reference's XLA vertex-major routes in
+    plain PyTorch, ``vm-blocked`` for V > ``VM_BLOCK`` and ``vm`` below;
+    and ``fanout_layout="source_major"`` to ``sweep-sm``. The
+    reference's multi-device plans are declared and decline (one
+    device);
   - ``bellman_ford_pred`` / ``multi_source_pred`` run the same dispatch,
     then one tight-edge pass over the converged distances (the hand
     ``tight_pred`` kernel on the card, ``ops.pred``): route ``<route>+pred``.
@@ -45,10 +54,12 @@ hand-sweep fan-out of ``v_max`` columns (route ``batch-vmapped``).
 On a CUDA device the hand kernels are the main path; on the CPU their
 plain PyTorch versions run (the wrappers choose by the tensors' device).
 
-``SolverConfig(convergence=True)`` records the per-iteration trajectory
-counters (``observe.convergence``) on the routes the reference
-instruments: ``sweep``, ``sweep-sm``, ``vm``, ``vm-blocked``, ``dia``,
-``gs`` and ``bucket``.
+The per-iteration trajectory counters (``observe.convergence``) are
+recorded under ``convergence=True``, or ``"auto"`` with a profile store,
+on the routes the reference instruments: ``sweep``, ``sweep-sm``,
+``vm``, ``vm-blocked``, ``vm-blocked+dw``, ``dia``, ``gs`` and
+``bucket``. With a profile store each kernel call also carries its
+analytic cost (``observe.costs``) on ``KernelResult.cost``.
 
 ``stage_rows_async`` starts a finished batch's device-to-host copy on a
 side stream, so the pipelined fan-out overlaps it with the next batch.
@@ -65,14 +76,15 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from paralleljohnson_tpu_torch import observe, planner
 from paralleljohnson_tpu_torch.backends.base import (
     Backend,
     KernelResult,
     register_backend,
 )
-from paralleljohnson_tpu_torch.config import DEFAULT_PIPELINE_DEPTH
 from paralleljohnson_tpu_torch.graphs import CSRGraph
 from paralleljohnson_tpu_torch.observe import convergence as conv
+from paralleljohnson_tpu_torch.observe import costs
 from paralleljohnson_tpu_torch.ops import relax
 from paralleljohnson_tpu_torch.ops.bucket import (
     auto_capacity,
@@ -265,6 +277,30 @@ class TorchDeviceGraph:
             self._by_dst_cache[key] = w_diag
         return {**struct, "w_diag": w_diag}
 
+    def dw_layout(self, vb: int) -> dict:
+        """The dirty-window layout (``relax.build_dw_layout``): the
+        per-source-block out-edge tiles cached across reweight, their
+        weights gathered from the current weights."""
+        key = ("dw", vb)
+        struct = self._struct_cache.get(key)
+        if struct is None:
+            indices = (self.host_graph.indices if self.host_graph is not None
+                       else self.dst[:self.num_real_edges].cpu().numpy())
+            host = relax.build_dw_layout(self.indptr, indices,
+                                         self.num_nodes, vb=vb)
+            dev = self.device
+            struct = {
+                **{k: torch.as_tensor(host[k]).to(dev)
+                   for k in ("e_src", "e_dst", "edge_order", "blk_of_v")},
+                **{k: host[k] for k in ("vb", "nb", "em")},
+            }
+            self._struct_cache[key] = struct
+        w_tile = self._by_dst_cache.get(key)
+        if w_tile is None:
+            w_tile = self._gather_weights_with_holes(struct["edge_order"])
+            self._by_dst_cache[key] = w_tile
+        return {**struct, "w_tile": w_tile}
+
     def gs_layout(self, vb: int) -> dict | None:
         """The blocked Gauss-Seidel layout (``ops.gauss_seidel
         .build_gs_layout``: RCM relabeling and destination-block edge
@@ -401,6 +437,12 @@ class TorchBackend(Backend):
         super().__init__(config)
         self.device = resolve_device(device)
         self._copy_stream = None  # side stream of stage_rows_async
+        # Analytic cost records, only when a profile store is configured
+        # (``SolverConfig.profile_store`` / ``PJ_PROFILE_DIR``).
+        self.cost_capture = observe.CostCapture(
+            enabled=observe.resolve_profile_dir(self.config.profile_store)
+            is not None,
+            platform=observe.current_platform(self.device))
 
     @property
     def _dtype(self) -> torch.dtype:
@@ -439,9 +481,17 @@ class TorchBackend(Backend):
 
     def _pipeline_depth(self, dgraph: TorchDeviceGraph) -> int:
         """The fan-out's in-flight window: ``config.pipeline_depth``, else
-        ``DEFAULT_PIPELINE_DEPTH``. The solver resolves this same function
-        for its window, so the window and the memory budget agree."""
-        return max(1, int(self.config.pipeline_depth or DEFAULT_PIPELINE_DEPTH))
+        the profile-tuned depth for this (platform, shape bucket), else
+        ``DEFAULT_PIPELINE_DEPTH`` (``observe.tuning.resolve_param``). The
+        solver resolves this same function for its window, so the window
+        and the memory budget agree."""
+        value, _ = observe.resolve_param(
+            "pipeline_depth", self.config.pipeline_depth,
+            observe.DEFAULT_PIPELINE_DEPTH, config=self.config,
+            platform=self._platform, num_nodes=dgraph.num_nodes,
+            num_edges=dgraph.num_real_edges,
+            validate=lambda d: isinstance(d, int) and d >= 1)
+        return max(1, int(value))
 
     def suggested_source_batch(self, dgraph: TorchDeviceGraph,
                                with_pred: bool = False) -> int:
@@ -503,14 +553,51 @@ class TorchBackend(Backend):
                 done.record(side)
                 t.staged_copy = StagedCopy(host, done)
 
-    # -- convergence trajectory ---------------------------------------------
+    # -- observability: cost records and the trajectory ----------------------
+
+    @property
+    def _platform(self) -> str:
+        return observe.current_platform(self.device)
+
+    def _observe_analytic(self, route: str, cost: dict, dgraph, batch=1):
+        """The analytic cost record of one kernel call (``observe.costs``),
+        or None when no profile store is configured."""
+        return self.cost_capture.analytic(
+            route, cost, num_nodes=dgraph.num_nodes,
+            num_edges=dgraph.num_real_edges, batch=batch)
+
+    def _observe_unavailable(self, route: str, dgraph, batch=1):
+        """The explicit marker of a route with no analytic model."""
+        return self.cost_capture.unavailable(
+            route, f"no analytic cost model for route {route!r}",
+            num_nodes=dgraph.num_nodes, num_edges=dgraph.num_real_edges,
+            batch=batch)
+
+    def _observe_sweeps(self, res: KernelResult, dgraph, batch=1):
+        """``res.cost`` of a sweep route: ``res.iterations`` full sweeps
+        of a [V, B] block over the real edges."""
+        res.cost = self._observe_analytic(
+            res.route, costs.sweep_cost(
+                dgraph.num_nodes, dgraph.num_real_edges, batch,
+                res.iterations, self._itemsize), dgraph, batch)
+        return res
+
+    @property
+    def _itemsize(self) -> int:
+        return torch.empty((), dtype=self._dtype).element_size()
 
     def _traj_cap(self) -> int | None:
         """Trajectory buffer rows for this solve, or None when nothing is
-        recorded: ``convergence=True`` records. The reference's ``"auto"``
-        records when a telemetry sink or a profile store can consume the
-        trajectory; the port has neither, so ``"auto"`` records nothing."""
-        return conv.DEFAULT_TRAJ_CAP if self.config.convergence is True else None
+        recorded: ``convergence=True`` records, ``False`` never does, and
+        ``"auto"`` records when a profile store can consume the trajectory
+        (the reference also records for a telemetry sink, which the port
+        does not have yet)."""
+        flag = self.config.convergence
+        if flag is False:
+            return None
+        if flag is not True and not self.cost_capture.enabled:
+            return None
+        return conv.DEFAULT_TRAJ_CAP
 
     def _attach_trajectory(self, res: KernelResult, counts, resid,
                            dgraph: TorchDeviceGraph, batch: int = 1,
@@ -542,14 +629,100 @@ class TorchBackend(Backend):
 
     def _fixpoint(self, sweep, dist0, max_iter: int, batch_axis):
         """``relax._sweeps_to_fixpoint`` of ``sweep``, or its recording
-        twin under ``convergence=True``: (dist, iterations, improving,
-        trajectory buffers or None)."""
+        twin when the trajectory is on (:meth:`_traj_cap`): (dist,
+        iterations, improving, trajectory buffers or None)."""
         cap = self._traj_cap()
         if cap is None:
             return (*relax._sweeps_to_fixpoint(sweep, dist0, max_iter), None)
         d, i, improving, counts, resid = conv.instrumented_fixpoint(
             sweep, dist0, max_iter=max_iter, cap=cap, batch_axis=batch_axis)
         return d, i, improving, (counts, resid)
+
+    # -- the planner: priced walks over the plan registries -----------------
+
+    def _auto_route_failed(self, flag_attr: str, message: str, *,
+                           forced: bool) -> None:
+        """An auto-selected route raised (call from the active ``except``
+        block): a forced route propagates; otherwise warn once, set
+        ``flag_attr`` on this backend instance so the route is not
+        retried, and let the walk fall through to the next plan."""
+        if forced:
+            raise
+        if not getattr(self, flag_attr, False):
+            setattr(self, flag_attr, True)
+            warnings.warn(message, RuntimeWarning, stacklevel=3)
+            traceback.print_exc(file=sys.stderr)
+
+    def _planner_model(self):
+        """The fitted ``CostModel`` the walks are priced with, or None (the
+        declared priority order): on when ``config.planner`` is not False
+        and the profile store holds records; the fit is cached against the
+        store file's identity (``observe.tuning.cached_records``), so a
+        multi-batch fan-out reads the store at most once per solve."""
+        if self.config.planner is False:
+            return None
+        store_dir = observe.resolve_profile_dir(self.config.profile_store)
+        if store_dir is None:
+            return None
+        records = observe.cached_records(store_dir)
+        if not records:
+            return None
+        cached = getattr(self, "_planner_model_cache", None)
+        if cached is not None and cached[0] is records:
+            return cached[1]
+        model = observe.CostModel.fit(records)
+        self._planner_model_cache = (records, model)
+        return model
+
+    def _walk(self, plans, ctx, *, batch: int, what: str) -> KernelResult:
+        """``planner.select`` over ``plans``, then the ranking built in
+        order: an auto plan that raises runs its failure policy (warn
+        once, disable, fall through), a forced one propagates, and a build
+        that returns None (a layout that does not apply) hands over to the
+        next plan. The decision rides on ``KernelResult.plan``."""
+        decision = planner.select(
+            plans, ctx, model=self._planner_model(), platform=self._platform,
+            num_edges=ctx.dgraph.num_real_edges, batch=batch,
+            config=self.config)
+        self.last_plan_decision = decision
+        for cand in decision.ranking:
+            try:
+                res = cand.plan.build(ctx)
+            except Exception:
+                if cand.plan.failure is None:
+                    raise
+                # From this active except block, so a forced plan's bare
+                # ``raise`` propagates the original error.
+                cand.plan.failure(self, ctx)
+                continue
+            if res is None:
+                continue
+            decision.params.update(ctx.params)
+            res.plan = decision.as_dict(built=cand.plan.name)
+            return res
+        raise RuntimeError(f"planner: every qualified {what} plan failed "
+                           "(the registry ends in an unconditional plan)")
+
+    def plan_preview(self, dgraph: TorchDeviceGraph, batch: int) -> dict:
+        """The fan-out decision at ``batch`` columns without building
+        anything: the chosen plan, its reason and the candidates, each
+        with its qualification reason and price (or ``unpriced``)."""
+        b = max(1, int(batch))
+        ctx = _FanoutCtx(backend=self, dgraph=dgraph,
+                         sources=torch.zeros(b, dtype=torch.int64),
+                         batch=b, max_iter=self.config.max_iterations
+                         or dgraph.num_nodes, layout=self._resolve_layout())
+        decision = planner.select(
+            FANOUT_PLANS, ctx, model=self._planner_model(),
+            platform=self._platform, num_edges=dgraph.num_real_edges,
+            batch=b, config=self.config)
+        decision.params.setdefault("fw_tile", self._fw_tile(dgraph)[0])
+        return decision.as_dict()
+
+    def _resolve_layout(self) -> str:
+        """``fanout_layout`` with ``"auto"`` read as ``"vertex_major"``."""
+        layout = self.config.fanout_layout
+        return "vertex_major" if layout == "auto" else layout
 
     # -- B=1 route gates (the reference's, in its plan order) ----------------
 
@@ -581,14 +754,16 @@ class TorchBackend(Backend):
         return int(min(v, max(1024, v // 8)))
 
     # The reference's "auto" gates of gs, dia and bucket engage only on a
-    # TPU; here, as off-TPU there, "auto" declines and True forces. (So
-    # the reference's _qual_sssp_bucket, which keeps an auto bucket off
-    # the virtual-source pass, has nothing left to decide, and
-    # _contract_dia / _contract_gs guard an edges mesh axis the port
-    # does not have.)
+    # TPU. The port's CUDA gates keep them off (on an NVIDIA H100 80GB
+    # HBM3 at 700 W each lost to the default route, PERF.md §6), so
+    # "auto" declines and True forces. (So the reference's
+    # _qual_sssp_bucket, which keeps an auto bucket off the
+    # virtual-source pass, has nothing left to decide, and _contract_dia /
+    # _contract_gs guard an edges mesh axis the port does not have.)
 
     def _use_gs(self, dgraph: TorchDeviceGraph) -> bool:
-        return self.config.gauss_seidel is True and dgraph.host_graph is not None
+        return (self.config.gauss_seidel is True
+                and dgraph.host_graph is not None)
 
     def _use_dia(self, dgraph: TorchDeviceGraph) -> bool:
         """``dia=True`` on a labeling the DIA layout accepts; a labeling it
@@ -602,29 +777,135 @@ class TorchBackend(Backend):
         return self.config.bucket is True
 
     def _bucket_delta(self, dgraph: TorchDeviceGraph) -> float:
-        """The bucket width: ``SolverConfig.delta``, else ``auto_delta``
-        from the mean |weight| of the CURRENT weights (two reductions,
-        cached until the next reweight)."""
+        """The bucket width: ``SolverConfig.delta``, else the profile-tuned
+        width for this (platform, shape bucket), else ``auto_delta`` from
+        the mean |weight| of the CURRENT weights (two reductions); cached
+        until the next reweight."""
         if self.config.delta is not None:
             return float(self.config.delta)
         cached = dgraph._by_dst_cache.get("bucket_delta")
         if cached is None:
-            w = dgraph.weights
-            finite = torch.isfinite(w)
-            mean_w = float(
-                torch.where(finite, w.abs(), torch.zeros_like(w)).sum()
-                / finite.sum().clamp_min(1))
-            cached = auto_delta(mean_w, dgraph.num_nodes,
-                                dgraph.num_real_edges)
+            tuned, source = observe.resolve_param(
+                "delta", None, None, config=self.config,
+                platform=self._platform, num_nodes=dgraph.num_nodes,
+                num_edges=dgraph.num_real_edges,
+                validate=lambda d: isinstance(d, (int, float)) and d > 0)
+            if source == "profile-tuned":
+                cached = float(tuned)
+            else:
+                w = dgraph.weights
+                finite = torch.isfinite(w)
+                mean_w = float(
+                    torch.where(finite, w.abs(), torch.zeros_like(w)).sum()
+                    / finite.sum().clamp_min(1))
+                cached = auto_delta(mean_w, dgraph.num_nodes,
+                                    dgraph.num_real_edges)
             dgraph._by_dst_cache["bucket_delta"] = cached
         return cached
+
+    # -- the dirty window ----------------------------------------------------
+
+    def _use_dw(self, dgraph: TorchDeviceGraph, batch: int) -> bool:
+        """The dirty-window route (``vm-blocked+dw``, and ``gs+dw`` inside
+        a Gauss-Seidel solve): True forces, False disables; ``"auto"``
+        engages only on the profile store's evidence
+        (:meth:`_dw_decision`), never blindly."""
+        flag = self.config.dirty_window
+        if flag is False or getattr(self, "_dw_disabled", False):
+            return False
+        if dgraph.num_nodes == 0:
+            return False
+        if flag is True:
+            return True
+        if dgraph.num_real_edges >= relax.FRONTIER_ADDEND_MAX:
+            return False  # the examined counter's full-sweep addend
+        return bool(self._dw_decision(dgraph, batch).get("engage"))
+
+    def _dw_decision(self, dgraph: TorchDeviceGraph, batch: int) -> dict:
+        """The evidence decision for this graph, cached per device graph
+        and power-of-two batch: ``observe.convergence.dw_decision`` over
+        the store's ``kind: "trajectory"`` records of this shape bucket,
+        then a priced veto when the store's ``CostModel`` prices both
+        ``vm-blocked+dw`` and the route that would otherwise serve.
+
+        The reference compares with ``("vm-blocked", "vm", "sweep-sm")``.
+        Here the route that would otherwise serve is the hand sweep
+        ``pallas-vm`` whenever ``use_pallas`` allows it, so the list
+        starts with it: a store that shows a collapsing frontier does not
+        move the card off its hand kernel onto a plain-torch sweep unless
+        the dirty window is priced cheaper than that kernel."""
+        key = ("dw_decision", max(1, int(batch) - 1).bit_length())
+        cached = dgraph._by_dst_cache.get(key)
+        if cached is not None:
+            return cached
+        store_dir = observe.resolve_profile_dir(self.config.profile_store)
+        if store_dir is None:
+            decision = {
+                "engage": False,
+                "reason": "no profile store configured (auto engages "
+                          "only from recorded trajectory evidence)",
+            }
+        else:
+            try:
+                records = observe.ProfileStore(store_dir).records()
+                decision = conv.dw_decision(
+                    records, num_nodes=dgraph.num_nodes,
+                    num_edges=dgraph.num_real_edges,
+                    platform=self._platform)
+                if decision.get("engage"):
+                    decision = self._dw_priced_veto(decision, records,
+                                                    dgraph, batch)
+            except (OSError, ValueError) as e:
+                decision = {
+                    "engage": False,
+                    "reason": f"profile store unreadable: "
+                              f"{type(e).__name__}: {e}",
+                }
+        dgraph._by_dst_cache[key] = decision
+        return decision
+
+    def _dw_priced_veto(self, decision: dict, records, dgraph, batch) -> dict:
+        """Keep ``decision`` unless the cost model prices both the dirty
+        window and the plain route and the dirty window is dearer (an
+        unpriced route reads as unpriced, never as free or infinite)."""
+        model = observe.CostModel.fit(records)
+        price = lambda route: model.predict(  # noqa: E731
+            route, num_edges=dgraph.num_real_edges, batch=batch,
+            platform=self._platform)
+        dw = price("vm-blocked+dw")
+        plain_routes = ("vm-blocked", "vm", "sweep-sm")
+        if self.config.use_pallas is not False:
+            plain_routes = ("pallas-vm",) + plain_routes
+        plain = next((p for p in map(price, plain_routes) if p is not None),
+                     None)
+        if dw is not None and plain is not None and (
+                dw["predicted_s"] > plain["predicted_s"]):
+            return {
+                "engage": False,
+                "reason": (f"cost model prices dw at {dw['predicted_s']:.4g}s"
+                           f" vs {plain['route']} "
+                           f"{plain['predicted_s']:.4g}s"),
+                "summary": decision.get("summary"),
+            }
+        return decision
+
+    def _dw_capacity(self, nb: int, em: int, batch: int) -> int:
+        """The dirty buffer: ``frontier_capacity``, else nb/4 floored at
+        1024 (the reference's measured choice), clamped by
+        ``relax.dw_capacity_clamp``."""
+        if self.config.frontier_capacity is not None:
+            cap = int(self.config.frontier_capacity)
+        else:
+            cap = max(1024, nb // 4)
+        return relax.dw_capacity_clamp(cap, nb, em, batch)
+
+    # -- B=1 Bellman-Ford ----------------------------------------------------
 
     def bellman_ford(self, dgraph: TorchDeviceGraph,
                      source: int | None) -> KernelResult:
         """B=1 Bellman-Ford; ``source=None`` is the virtual-source pass
-        (dist0 = 0 everywhere). The first route whose gate takes the
-        graph runs it, in the reference's plan order (see the module
-        docstring); ``sweep`` takes the rest."""
+        (dist0 = 0 everywhere). A ``planner.select`` walk over
+        :data:`SSSP_PLANS` (see the module docstring)."""
         v = dgraph.num_nodes
         if source is None:
             dist0 = torch.zeros(v, dtype=self._dtype, device=self.device)
@@ -632,21 +913,18 @@ class TorchBackend(Backend):
             dist0 = torch.full((v,), float("inf"), dtype=self._dtype,
                                device=self.device)
             dist0[source] = 0.0
-        max_iter = self.config.max_iterations or v
-        chunk = relax.edge_chunk_for(1, dgraph.src.shape[0])
-        for gate, build in ((self._use_dia, self._sssp_build_dia),
-                            (self._use_bucket, self._sssp_build_bucket),
-                            (self._use_gs, self._sssp_build_gs),
-                            (self._use_frontier, self._sssp_build_frontier)):
-            if gate(dgraph):
-                return build(dgraph, source, dist0, max_iter, chunk)
-        return self._sssp_build_sweep(dgraph, source, dist0, max_iter, chunk)
+        ctx = _SsspCtx(backend=self, dgraph=dgraph, source=source,
+                       dist0=dist0,
+                       max_iter=self.config.max_iterations or v,
+                       chunk=relax.edge_chunk_for(1, dgraph.src.shape[0]))
+        return self._walk(SSSP_PLANS, ctx, batch=1, what="B=1")
 
-    def _sssp_build_dia(self, dgraph, source, dist0, max_iter, chunk):
+    def _sssp_build_dia(self, ctx) -> KernelResult:
+        dgraph, max_iter = ctx.dgraph, ctx.max_iter
         lay = self.dia_bundle(dgraph)
         dist, iters, improving, traj = self._fixpoint(
             lambda d: dia_sweep(d, lay["w_diag"], offsets=lay["offsets"]),
-            dist0, max_iter, None)
+            ctx.dist0, max_iter, None)
         res = KernelResult(
             dist=dist,
             negative_cycle=improving and max_iter >= dgraph.num_nodes,
@@ -657,24 +935,25 @@ class TorchBackend(Backend):
             edges_relaxed=iters * lay["num_entries"],
             route="dia",
         )
+        self._observe_sweeps(res, dgraph)
         if traj is not None:
             self._attach_trajectory(res, *traj, dgraph)
         return res
 
-    def _sssp_build_bucket(self, dgraph, source, dist0, max_iter, chunk):
+    def _sssp_build_bucket(self, ctx) -> KernelResult:
+        dgraph, max_iter = ctx.dgraph, ctx.max_iter
         v = dgraph.num_nodes
-        cap = self._traj_cap()
         # A generous step budget: converging solves take ~hop-diameter
         # steps; exhausting it hands the distances to the full sweep,
         # which finishes and certifies negative cycles.
         dist, steps, busy, examined, *traj = bellman_ford_bucketed(
-            dist0, dgraph.src, dgraph.dst, dgraph.weights,
+            ctx.dist0, dgraph.src, dgraph.dst, dgraph.weights,
             dgraph.indptr_dev(), self._bucket_delta(dgraph),
             max_steps=2 * max_iter + 64,
             capacity=auto_capacity(v, dgraph.max_degree),
             max_degree=dgraph.max_degree,
-            num_real_edges=dgraph.num_real_edges, edge_chunk=chunk,
-            traj_cap=cap,
+            num_real_edges=dgraph.num_real_edges, edge_chunk=ctx.chunk,
+            traj_cap=self._traj_cap(),
         )
         examined = relax.examined_exact(examined)
         if not busy:
@@ -686,7 +965,7 @@ class TorchBackend(Backend):
         else:
             dist, it2, improving = relax.bellman_ford_sweeps(
                 dist, dgraph.src, dgraph.dst, dgraph.weights,
-                max_iter=max_iter, edge_chunk=chunk)
+                max_iter=max_iter, edge_chunk=ctx.chunk)
             res = KernelResult(
                 dist=dist,
                 negative_cycle=improving and max_iter >= v,
@@ -695,12 +974,14 @@ class TorchBackend(Backend):
                 edges_relaxed=examined + it2 * dgraph.num_real_edges,
                 route="bucket+sweep",
             )
+        res.cost = self._observe_unavailable(res.route, dgraph)
         if traj:
             # The trajectory covers the bucket steps only.
             self._attach_trajectory(res, *traj, dgraph, iterations=steps)
         return res
 
-    def _sssp_build_gs(self, dgraph, source, dist0, max_iter, chunk):
+    def _sssp_build_gs(self, ctx) -> KernelResult:
+        dgraph, max_iter, source = ctx.dgraph, ctx.max_iter, ctx.source
         v = dgraph.num_nodes
         lay = dgraph.gs_layout(self.config.gs_block_size)
         dist0_gs = torch.full((lay["v_pad"],), float("inf"),
@@ -710,10 +991,13 @@ class TorchBackend(Backend):
         else:
             dist0_gs[int(lay["rank_host"][source])] = 0.0
         inner_cap = self.config.gs_inner_cap
+        # The dirty window: the exact block in-adjacency gates the inner
+        # visits instead of the halo window (value-exact either way).
+        in_adj = lay["in_adj"] if self._use_dw(dgraph, 1) else None
         dist, rounds, improving, iters_blk, *traj = sssp_gs_blocks(
             dist0_gs, lay["src_blk"], lay["dstl_blk"], lay["w_blk"],
             vb=lay["vb"], halo=lay["halo"], max_outer=max_iter,
-            inner_cap=inner_cap, traj_cap=self._traj_cap(),
+            inner_cap=inner_cap, traj_cap=self._traj_cap(), in_adj=in_adj,
         )
         res = KernelResult(
             dist=dist[lay["rank"].long()],
@@ -723,19 +1007,21 @@ class TorchBackend(Backend):
             edges_relaxed=_gs_examined_exact(
                 iters_blk, lay["real_edges_host"], 1, rounds=rounds,
                 inner_cap=inner_cap),
-            route="gs",
+            route="gs+dw" if in_adj is not None else "gs",
         )
+        res.cost = self._observe_unavailable(res.route, dgraph)
         if traj:
             self._attach_trajectory(res, *traj, dgraph)
         return res
 
-    def _sssp_build_frontier(self, dgraph, source, dist0, max_iter, chunk):
+    def _sssp_build_frontier(self, ctx) -> KernelResult:
+        dgraph, max_iter = ctx.dgraph, ctx.max_iter
         dist, iters, improving, examined = relax.bellman_ford_frontier(
-            dist0, dgraph.src, dgraph.dst, dgraph.weights,
+            ctx.dist0, dgraph.src, dgraph.dst, dgraph.weights,
             dgraph.indptr_dev(), max_iter=max_iter,
             capacity=self._frontier_capacity(dgraph),
             max_degree=dgraph.max_degree,
-            num_real_edges=dgraph.num_real_edges, edge_chunk=chunk,
+            num_real_edges=dgraph.num_real_edges, edge_chunk=ctx.chunk,
         )
         return KernelResult(
             dist=dist,
@@ -744,13 +1030,15 @@ class TorchBackend(Backend):
             iterations=iters,
             edges_relaxed=relax.examined_exact(examined),
             route="frontier",
+            cost=self._observe_unavailable("frontier", dgraph),
         )
 
-    def _sssp_build_sweep(self, dgraph, source, dist0, max_iter, chunk):
+    def _sssp_build_sweep(self, ctx) -> KernelResult:
+        dgraph, max_iter = ctx.dgraph, ctx.max_iter
         dist, iters, improving, traj = self._fixpoint(
             lambda d: relax.relax_sweep(d, dgraph.src, dgraph.dst,
-                                        dgraph.weights, edge_chunk=chunk),
-            dist0, max_iter, None)
+                                        dgraph.weights, edge_chunk=ctx.chunk),
+            ctx.dist0, max_iter, None)
         res = KernelResult(
             dist=dist,
             negative_cycle=improving and max_iter >= dgraph.num_nodes,
@@ -759,6 +1047,7 @@ class TorchBackend(Backend):
             edges_relaxed=iters * dgraph.num_real_edges,
             route="sweep",
         )
+        self._observe_sweeps(res, dgraph)
         if traj is not None:
             self._attach_trajectory(res, *traj, dgraph)
         return res
@@ -786,13 +1075,23 @@ class TorchBackend(Backend):
 
     # -- blocked Floyd-Warshall (ops.fw) ------------------------------------
 
-    def _fw_tile(self, dgraph: TorchDeviceGraph) -> int:
+    def _fw_tile(self, dgraph: TorchDeviceGraph) -> tuple[int, str]:
         """The FW tile before ``effective_tile`` shrinks it to small
-        graphs: an explicit ``config.fw_tile``, else ``DEFAULT_FW_TILE``.
-        The reference also consults a profile-tuned value and so caches
-        the result per device graph, to keep its gate and its build in
-        agreement; without a profile store both read the config."""
-        return int(self.config.fw_tile or fw_ops.DEFAULT_FW_TILE)
+        graphs, as ``(value, source)``: an explicit ``config.fw_tile``,
+        else the profile-tuned tile for this (platform, shape bucket),
+        else ``DEFAULT_FW_TILE`` (``observe.tuning.resolve_param``).
+        Cached per device graph so the gate and the build agree."""
+        cached = dgraph._by_dst_cache.get("fw_tile_resolved")
+        if cached is None:
+            value, source = observe.resolve_param(
+                "fw_tile", self.config.fw_tile, fw_ops.DEFAULT_FW_TILE,
+                config=self.config, platform=self._platform,
+                num_nodes=dgraph.num_nodes, num_edges=dgraph.num_real_edges,
+                validate=lambda t: isinstance(t, int) and t >= 128
+                and t % 128 == 0)
+            cached = (int(value), source)
+            dgraph._by_dst_cache["fw_tile_resolved"] = cached
+        return cached
 
     def _use_fw(self, dgraph: TorchDeviceGraph, batch: int) -> bool:
         """The reference's gate, on every device as there: ``True``
@@ -816,50 +1115,29 @@ class TorchBackend(Backend):
             return False
         if dgraph.num_real_edges < self.config.dense_min_density * v * v:
             return False
-        tile = fw_ops.effective_tile(v, self._fw_tile(dgraph))
+        tile = fw_ops.effective_tile(v, self._fw_tile(dgraph)[0])
         fw_macs = fw_ops.fw_mac_count(fw_ops.pad_tiles(v, tile), tile)
         return fw_macs < relax.squaring_steps(v) * per_iter
 
-    def _fail_fw(self) -> None:
-        """The fw build raised (call from the active ``except`` block):
-        a forced ``fw=True`` propagates; ``"auto"`` warns once, disables
-        fw for this backend instance and lets the walk fall through to
-        the dense and sparse routes (the reference's ``_fail_fw``)."""
-        if self.config.fw is True:
-            raise
-        if not getattr(self, "_fw_disabled", False):
-            self._fw_disabled = True
-            warnings.warn(
-                "blocked Floyd-Warshall route failed on this platform; "
-                "falling back to the dense/sparse routes for this backend "
-                "instance", RuntimeWarning, stacklevel=3)
-            traceback.print_exc(file=sys.stderr)
-
-    def _plan_build_fw(self, dgraph: TorchDeviceGraph,
-                       sources: torch.Tensor) -> KernelResult:
-        """Blocked min-plus Floyd-Warshall: route ``fw`` when the padded
-        graph is one tile, else ``fw-tile``; ``iterations`` is the number
-        of k-steps and ``edges_relaxed`` the exact tropical MACs. The
-        closure is recomputed for every source batch, as in the
-        reference."""
-        v = dgraph.num_nodes
-        tile = fw_ops.effective_tile(v, self._fw_tile(dgraph))
-        vp = fw_ops.pad_tiles(v, tile)
-        dist, neg = _fw_apsp_kernel(
-            sources, dgraph.src, dgraph.dst, dgraph.weights, num_nodes=v,
-            tile=tile, dtype=self._dtype)
-        return KernelResult(
-            dist=dist,
-            negative_cycle=neg,
-            converged=not neg,
-            iterations=vp // tile,
-            edges_relaxed=fw_ops.fw_mac_count(vp, tile),
-            route="fw" if vp == tile else "fw-tile",
-        )
+    # -- the fan-out ---------------------------------------------------------
 
     def multi_source(self, dgraph: TorchDeviceGraph,
                      sources: np.ndarray) -> KernelResult:
         return self._fanout(dgraph, sources)[0]
+
+    def _fanout(self, dgraph: TorchDeviceGraph, sources: np.ndarray):
+        """The fan-out: a ``planner.select`` walk over
+        :data:`FANOUT_PLANS` (see the module docstring). Returns
+        (KernelResult with dist [B, V], the vertex-major [V, B] block the
+        route converged, or None for the routes that keep [B, V])."""
+        sources = torch.as_tensor(np.asarray(sources), dtype=torch.int64)
+        sources = sources.to(self.device)
+        b = int(sources.shape[0])
+        ctx = _FanoutCtx(backend=self, dgraph=dgraph, sources=sources,
+                         batch=b, max_iter=self.config.max_iterations
+                         or dgraph.num_nodes, layout=self._resolve_layout())
+        res = self._walk(FANOUT_PLANS, ctx, batch=b, what="fan-out")
+        return res, ctx.dist_vm
 
     def _vm_lay_chunk(self, dgraph: TorchDeviceGraph, b: int) -> int:
         """The vm-blocked layout's chunk: the reference's rule, from the
@@ -868,122 +1146,217 @@ class TorchBackend(Backend):
         return relax.edge_chunk_for(1 << max(0, b - 1).bit_length(),
                                     dgraph.src.shape[0])
 
-    def _fanout(self, dgraph: TorchDeviceGraph, sources: np.ndarray):
-        """The fan-out on the route the config and the graph select (see
-        the module docstring). Returns (KernelResult with dist [B, V], the
-        vertex-major [V, B] block the route converged, or None for the
-        fw, dense and source-major routes)."""
-        sources = torch.as_tensor(np.asarray(sources), dtype=torch.int64)
-        sources = sources.to(self.device)
-        b = int(sources.shape[0])
-        v = dgraph.num_nodes
-        max_iter = self.config.max_iterations or v
-        hand = self.config.use_pallas is not False
-        if self._use_dia(dgraph):
-            return self._plan_build_dia(dgraph, sources, max_iter), None
-        if self._use_gs(dgraph):
-            return self._plan_build_gs(dgraph, sources, max_iter), None
-        if self._use_fw(dgraph, b):
-            try:
-                return self._plan_build_fw(dgraph, sources), None
-            except Exception:  # noqa: BLE001 — auto degrades, forced raises
-                self._fail_fw()
-        if self._use_dense(dgraph):
-            a = relax.dense_adjacency(
-                dgraph.src, dgraph.dst, dgraph.weights, v, dtype=self._dtype
-            )
-            fixpoint = (minplus_fixpoint
-                        if hand and self.device.type == "cuda" else None)
-            dist, iters, improving = relax.dense_fanout(
-                a, sources, max_iter=max_iter,
-                mp=minplus_kernel if hand else relax.minplus,
-                fixpoint=fixpoint,
-            )
-            regime, work_per_iter = relax.dense_fanout_regime(v, b)
-            return KernelResult(
-                dist=dist,
-                converged=not improving,
-                iterations=iters,
-                edges_relaxed=iters * work_per_iter,
-                route=f"dense-{regime}" + ("-pallas" if hand else ""),
-            ), None
-        chunk = relax.edge_chunk_for(b, dgraph.src.shape[0])
-        if self.config.fanout_layout == "source_major":
-            src, dst, w = dgraph.src, dgraph.dst, dgraph.weights
-            dist, iters, improving, traj = self._fixpoint(
-                lambda d: relax.relax_sweep(d, src, dst, w, edge_chunk=chunk),
-                relax.multi_source_init(sources, v, self._dtype), max_iter, 0)
-            res = self._sweep_result(dgraph, dist, iters, improving, b,
-                                     "sweep-sm")
-            dist_vm = None
-        elif not hand and v > VM_BLOCK:
-            lay = dgraph.vm_blocked_layout(VM_BLOCK,
-                                           self._vm_lay_chunk(dgraph, b))
-            # Pad rows are +inf and never improve: the counts stay exact.
-            dist_vm, iters, improving, traj = self._fixpoint(
-                lambda d: relax.relax_sweep_vm_blocked(
-                    d, lay["src_ck"], lay["dstl_ck"], lay["w_ck"],
-                    lay["base_ck"], vb=lay["vb"]),
-                self._dist0_vm(lay["v_pad"], sources), max_iter, 1)
-            dist_vm, route = dist_vm[:v], "vm-blocked"
-        elif not hand:
-            src, dst, w = dgraph.vm_edges()
-            dist_vm, iters, improving, traj = self._fixpoint(
-                lambda d: relax.relax_sweep_vm(d, src, dst, w,
-                                               edge_chunk=chunk),
-                self._dist0_vm(v, sources), max_iter, 1)
-            route = "vm"
-        else:
-            (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
-            dist_vm, iters, improving = fanout_fixpoint(
-                self._dist0_vm(v, sources), indptr_in, src_in, w_in,
-                max_iter=max_iter, items=items,
-            )
-            route, traj = "pallas-vm", None
-        if dist_vm is not None:
-            res = self._sweep_result(dgraph, dist_vm.t().contiguous(), iters,
-                                     improving, b, route)
-        if traj is not None:
-            self._attach_trajectory(res, *traj, dgraph, batch=b)
-        return res, dist_vm
-
-    def _plan_build_dia(self, dgraph, sources, max_iter) -> KernelResult:
+    def _plan_build_dia(self, ctx) -> KernelResult:
         """The DIA stencil fan-out over [B, V] distances: every sweep is K
         contiguous roll + add + min passes."""
+        dgraph, b = ctx.dgraph, ctx.batch
         lay = self.dia_bundle(dgraph)
-        b = int(sources.shape[0])
         dist, iters, improving, traj = self._fixpoint(
             lambda d: dia_sweep(d, lay["w_diag"], offsets=lay["offsets"]),
-            relax.multi_source_init(sources, dgraph.num_nodes, self._dtype),
-            max_iter, 0)
+            relax.multi_source_init(ctx.sources, dgraph.num_nodes,
+                                    self._dtype),
+            ctx.max_iter, 0)
         res = KernelResult(dist=dist, converged=not improving,
                            iterations=iters,
                            edges_relaxed=iters * lay["num_entries"] * b,
                            route="dia")
+        self._observe_sweeps(res, dgraph, b)
         if traj is not None:
             self._attach_trajectory(res, *traj, dgraph, batch=b)
         return res
 
-    def _plan_build_gs(self, dgraph, sources, max_iter) -> KernelResult:
+    def _plan_build_gs(self, ctx) -> KernelResult:
         """The blocked Gauss-Seidel fan-out (vertex-major, relabeled ids),
-        rows mapped back to the original labels."""
+        rows mapped back to the original labels; ``gs+dw`` when the dirty
+        window engages (the block in-adjacency gates the visits)."""
+        dgraph, b = ctx.dgraph, ctx.batch
         lay = dgraph.gs_layout(self.config.gs_block_size)
-        b = int(sources.shape[0])
         inner_cap = self.config.gs_inner_cap
+        in_adj = lay["in_adj"] if self._use_dw(dgraph, b) else None
         dist, rounds, improving, iters_blk, *traj = fanout_gs_body(
-            sources, lay["src_blk"], lay["dstl_blk"], lay["w_blk"],
+            ctx.sources, lay["src_blk"], lay["dstl_blk"], lay["w_blk"],
             lay["rank"], v_pad=lay["v_pad"], vb=lay["vb"], halo=lay["halo"],
-            max_outer=max_iter, inner_cap=inner_cap,
-            traj_cap=self._traj_cap(),
+            max_outer=ctx.max_iter, inner_cap=inner_cap,
+            traj_cap=self._traj_cap(), in_adj=in_adj,
         )
+        route = "gs+dw" if in_adj is not None else "gs"
         res = KernelResult(
             dist=dist, converged=not improving, iterations=rounds,
             edges_relaxed=_gs_examined_exact(
                 iters_blk, lay["real_edges_host"], b, rounds=rounds,
                 inner_cap=inner_cap),
-            route="gs",
+            route=route,
+            cost=self._observe_unavailable(route, dgraph, b),
         )
         if traj:
+            self._attach_trajectory(res, *traj, dgraph, batch=b)
+        return res
+
+    def _plan_build_fw(self, ctx) -> KernelResult:
+        """Blocked min-plus Floyd-Warshall: route ``fw`` when the padded
+        graph is one tile, else ``fw-tile``; ``iterations`` is the number
+        of k-steps and ``edges_relaxed`` the exact tropical MACs. The
+        closure is recomputed for every source batch, as in the
+        reference."""
+        dgraph = ctx.dgraph
+        v = dgraph.num_nodes
+        tile, tile_source = self._fw_tile(dgraph)
+        tile = fw_ops.effective_tile(v, tile)
+        ctx.params["fw_tile"] = tile
+        ctx.params["fw_tile_source"] = tile_source
+        vp = fw_ops.pad_tiles(v, tile)
+        dist, neg = _fw_apsp_kernel(
+            ctx.sources, dgraph.src, dgraph.dst, dgraph.weights, num_nodes=v,
+            tile=tile, dtype=self._dtype)
+        route = "fw" if vp == tile else "fw-tile"
+        return KernelResult(
+            dist=dist,
+            negative_cycle=neg,
+            converged=not neg,
+            iterations=vp // tile,
+            edges_relaxed=fw_ops.fw_mac_count(vp, tile),
+            route=route,
+            cost=self._observe_analytic(
+                route, fw_ops.fw_analytic_cost(vp, tile, self._itemsize),
+                dgraph, ctx.batch),
+        )
+
+    def _plan_build_dw(self, ctx) -> KernelResult:
+        """The dirty-window fan-out (route ``vm-blocked+dw``,
+        ``relax.bellman_ford_sweeps_dw``): examined work follows the
+        collapsing frontier instead of rounds x E."""
+        dgraph, b = ctx.dgraph, ctx.batch
+        v = dgraph.num_nodes
+        lay = dgraph.dw_layout(max(1, int(self.config.dw_block
+                                          or relax.DW_BLOCK)))
+        capacity = self._dw_capacity(lay["nb"], lay["em"], b)
+        src_bd, dst_bd, w_bd = dgraph.vm_edges()
+        cap = self._traj_cap()
+        dist_vm, rounds, improving, examined, fulls, *traj = (
+            relax.bellman_ford_sweeps_dw(
+                self._dist0_vm(v, ctx.sources), lay["e_src"], lay["e_dst"],
+                lay["w_tile"], lay["blk_of_v"], src_bd, dst_bd, w_bd,
+                vb=lay["vb"], capacity=capacity, max_iter=ctx.max_iter,
+                num_real_edges=dgraph.num_real_edges,
+                edge_chunk=relax.edge_chunk_for(b, dgraph.src.shape[0]),
+                traj_cap=cap))
+        # Exact counters (Python ints): the device count is in edge slots.
+        examined_slots = relax.examined_exact(examined)
+        ctx.dist_vm = dist_vm
+        res = KernelResult(
+            dist=dist_vm.t().contiguous(),
+            converged=not improving,
+            iterations=rounds,
+            edges_relaxed=examined_slots * b,
+            route="vm-blocked+dw",
+            cost=self._observe_analytic(
+                "vm-blocked+dw",
+                relax.dw_analytic_cost(examined_slots, b, self._itemsize),
+                dgraph, b),
+        )
+        if traj:
+            counts, resid, dirty_ct = traj
+            self._attach_trajectory(res, counts, resid, dgraph, batch=b)
+            if res.convergence is not None:
+                # The dirty-block curve, downsampled like the frontier's.
+                curve = dirty_ct[:min(rounds, dirty_ct.shape[0])]
+                res.convergence.update(
+                    dirty_blocks_total=int(curve.sum()),
+                    dirty_block_curve=conv.frontier_curve(
+                        np.stack([curve, curve, curve], axis=1)),
+                    num_blocks=int(lay["nb"]),
+                    full_sweep_rounds=int(fulls),
+                    examined_edge_slots=int(examined_slots),
+                    skipped_edge_slots=int(
+                        rounds * dgraph.num_real_edges - examined_slots))
+        return res
+
+    def _plan_build_dense(self, ctx) -> KernelResult:
+        """The dense min-plus fan-out: the hand product
+        (``dense-{regime}-pallas``; on the card the iterate regime through
+        ``minplus_fixpoint``) unless ``use_pallas=False`` asks for the
+        plain product (``dense-{regime}``)."""
+        dgraph, sources, b = ctx.dgraph, ctx.sources, ctx.batch
+        v = dgraph.num_nodes
+        hand = self.config.use_pallas is not False
+        a = relax.dense_adjacency(dgraph.src, dgraph.dst, dgraph.weights, v,
+                                  dtype=self._dtype)
+        fixpoint = (minplus_fixpoint
+                    if hand and self.device.type == "cuda" else None)
+        dist, iters, improving = relax.dense_fanout(
+            a, sources, max_iter=ctx.max_iter,
+            mp=minplus_kernel if hand else relax.minplus, fixpoint=fixpoint)
+        regime, work_per_iter = relax.dense_fanout_regime(v, b)
+        route = f"dense-{regime}" + ("-pallas" if hand else "")
+        rows = v if regime == "squaring" else b
+        return KernelResult(
+            dist=dist,
+            converged=not improving,
+            iterations=iters,
+            edges_relaxed=iters * work_per_iter,
+            route=route,
+            cost=self._observe_analytic(
+                route, costs.minplus_cost(rows, v, v, iters, self._itemsize),
+                dgraph, b),
+        )
+
+    def _plan_build_pallas_vm(self, ctx) -> KernelResult:
+        """The hand fan-out sweep (``ops.fanout_sweep``: the CUDA kernel on
+        the card, its plain version on the CPU) to its fixpoint."""
+        dgraph, b = ctx.dgraph, ctx.batch
+        (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
+        dist_vm, iters, improving = fanout_fixpoint(
+            self._dist0_vm(dgraph.num_nodes, ctx.sources), indptr_in, src_in,
+            w_in, max_iter=ctx.max_iter, items=items)
+        ctx.dist_vm = dist_vm
+        res = self._sweep_result(dgraph, dist_vm.t().contiguous(), iters,
+                                 improving, b, "pallas-vm")
+        return self._observe_sweeps(res, dgraph, b)
+
+    def _plan_build_vm_blocked(self, ctx) -> KernelResult:
+        dgraph, b = ctx.dgraph, ctx.batch
+        v = dgraph.num_nodes
+        lay = dgraph.vm_blocked_layout(VM_BLOCK, self._vm_lay_chunk(dgraph, b))
+        # Pad rows are +inf and never improve: the counts stay exact.
+        dist_vm, iters, improving, traj = self._fixpoint(
+            lambda d: relax.relax_sweep_vm_blocked(
+                d, lay["src_ck"], lay["dstl_ck"], lay["w_ck"],
+                lay["base_ck"], vb=lay["vb"]),
+            self._dist0_vm(lay["v_pad"], ctx.sources), ctx.max_iter, 1)
+        return self._vm_result(ctx, dist_vm[:v], iters, improving, traj,
+                               "vm-blocked")
+
+    def _plan_build_vm(self, ctx) -> KernelResult:
+        dgraph, b = ctx.dgraph, ctx.batch
+        src, dst, w = dgraph.vm_edges()
+        chunk = relax.edge_chunk_for(b, dgraph.src.shape[0])
+        dist_vm, iters, improving, traj = self._fixpoint(
+            lambda d: relax.relax_sweep_vm(d, src, dst, w, edge_chunk=chunk),
+            self._dist0_vm(dgraph.num_nodes, ctx.sources), ctx.max_iter, 1)
+        return self._vm_result(ctx, dist_vm, iters, improving, traj, "vm")
+
+    def _vm_result(self, ctx, dist_vm, iters, improving, traj, route):
+        ctx.dist_vm = dist_vm
+        res = self._sweep_result(ctx.dgraph, dist_vm.t().contiguous(), iters,
+                                 improving, ctx.batch, route)
+        self._observe_sweeps(res, ctx.dgraph, ctx.batch)
+        if traj is not None:
+            self._attach_trajectory(res, *traj, ctx.dgraph, batch=ctx.batch)
+        return res
+
+    def _plan_build_sweep_sm(self, ctx) -> KernelResult:
+        """The source-major scatter sweep over [B, V] distances."""
+        dgraph, b = ctx.dgraph, ctx.batch
+        src, dst, w = dgraph.src, dgraph.dst, dgraph.weights
+        chunk = relax.edge_chunk_for(b, dgraph.src.shape[0])
+        dist, iters, improving, traj = self._fixpoint(
+            lambda d: relax.relax_sweep(d, src, dst, w, edge_chunk=chunk),
+            relax.multi_source_init(ctx.sources, dgraph.num_nodes,
+                                    self._dtype), ctx.max_iter, 0)
+        res = self._sweep_result(dgraph, dist, iters, improving, b,
+                                 "sweep-sm")
+        self._observe_sweeps(res, dgraph, b)
+        if traj is not None:
             self._attach_trajectory(res, *traj, dgraph, batch=b)
         return res
 
@@ -1044,6 +1417,21 @@ class TorchBackend(Backend):
                                 flags=flags)
         return pred, bool(ok)
 
+    def _add_pred_cost(self, res: KernelResult, dgraph, batch: int) -> None:
+        """Tag ``res`` with its ``+pred`` route and add the tight-edge
+        pass to its analytic cost (a route without a model keeps the
+        marker)."""
+        res.route = f"{res.route}+pred"
+        if res.cost is None:
+            return
+        if "cost_analysis_unavailable" in res.cost:
+            res.cost = self._observe_unavailable(res.route, dgraph, batch)
+        else:
+            res.cost = self._observe_analytic(res.route, costs.add_costs(
+                res.cost, costs.tight_pred_cost(
+                    dgraph.num_nodes, dgraph.num_real_edges, batch,
+                    self._itemsize)), dgraph, batch)
+
     def bellman_ford_pred(self, dgraph: TorchDeviceGraph,
                           source: int | None) -> KernelResult:
         """``bellman_ford`` with its shortest-path tree: route
@@ -1061,7 +1449,7 @@ class TorchBackend(Backend):
                                      res.dist.unsqueeze(0), [source])
             if ok:
                 res.pred = pred[0]
-                res.route = f"{res.route}+pred"
+                self._add_pred_cost(res, dgraph, 1)
                 res.edges_relaxed += dgraph.num_real_edges
                 return res
             self._pred_fallback(
@@ -1108,7 +1496,7 @@ class TorchBackend(Backend):
             del dist_vm
             if ok:
                 res.pred = pred
-                res.route = f"{res.route}+pred"
+                self._add_pred_cost(res, dgraph, len(sources))
                 res.edges_relaxed += len(sources) * dgraph.num_real_edges
                 return res
             self._pred_fallback(
@@ -1238,6 +1626,325 @@ class TorchBackend(Backend):
             edges_relaxed=relaxed,
             route="batch-vmapped",
         )
+
+
+# -- the plan registries -----------------------------------------------------
+#
+# Each route declares a ``planner.Plan``: its qualification (the gates
+# above, now data instead of branch order, each with its reason), its
+# cost hook (the CostModel route tags), its build and its failure policy
+# (warn once and disable on an auto route, propagate on a forced one).
+# The names, priorities, price routes, forced flags, force overrides and
+# tunables are the JAX package's, so ``candidates`` lists the same plans
+# in both packages; with nothing priced the walk is the declared order.
+
+
+@dataclasses.dataclass
+class _FanoutCtx:
+    """One fan-out dispatch's context (what the plan hooks see);
+    ``dist_vm`` is set by the builds that converge a vertex-major block."""
+
+    backend: "TorchBackend"
+    dgraph: TorchDeviceGraph
+    sources: torch.Tensor
+    batch: int
+    max_iter: int
+    layout: str
+    params: dict = dataclasses.field(default_factory=dict)
+    dist_vm: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class _SsspCtx:
+    """One B=1 (SSSP / virtual-source) dispatch's context."""
+
+    backend: "TorchBackend"
+    dgraph: TorchDeviceGraph
+    source: int | None
+    dist0: torch.Tensor
+    max_iter: int
+    chunk: int
+    params: dict = dataclasses.field(default_factory=dict)
+
+
+# The port drives one device: the reference's multi-device plans are
+# declared so both packages list the same candidates, and decline here.
+_SINGLE_DEVICE = "single device: the port has no device mesh yet"
+
+
+def _qual_dia(ctx):
+    if ctx.backend._use_dia(ctx.dgraph):
+        return True, "diagonal labeling qualifies (gather-free stencil)"
+    return False, ("dia gate declined (the port's CUDA gate keeps 'auto' "
+                   "off; True forces on a diagonal labeling)")
+
+
+def _qual_gs(ctx):
+    if ctx.backend._use_gs(ctx.dgraph):
+        return True, "gauss_seidel=True forces the blocked GS fan-out"
+    return False, ("gs gate declined (the port's CUDA gate keeps 'auto' "
+                   "off; True forces)")
+
+
+def _qual_fw(ctx):
+    if ctx.backend._use_fw(ctx.dgraph, ctx.batch):
+        return True, ("squaring regime + density gate + exact-MAC win over "
+                      "squaring")
+    return False, ("fw gate declined (regime / density / V threshold / MAC "
+                   "count)")
+
+
+def _qual_dw(ctx):
+    be = ctx.backend
+    if be._use_dense(ctx.dgraph):
+        return False, "dense regime (dw targets the sparse batched sweep)"
+    if be._use_dw(ctx.dgraph, ctx.batch):
+        if be.config.dirty_window is True:
+            return True, "dirty_window=True forces (no evidence required)"
+        return True, be._dw_decision(ctx.dgraph, ctx.batch).get(
+            "reason", "trajectory evidence clears the dw thresholds")
+    if be.config.dirty_window is False or getattr(be, "_dw_disabled", False):
+        return False, "dirty_window disabled"
+    if ctx.dgraph.num_nodes == 0:
+        return False, "empty graph"
+    if ctx.dgraph.num_real_edges >= relax.FRONTIER_ADDEND_MAX:
+        return False, "split examined counter's full-sweep addend would wrap"
+    return False, be._dw_decision(ctx.dgraph, ctx.batch).get(
+        "reason", "no trajectory evidence")
+
+
+def _qual_dense(ctx):
+    if ctx.backend._use_dense(ctx.dgraph):
+        return True, "graph clears the dense density + size gates"
+    return False, "not dense enough (or above dense_threshold)"
+
+
+def _qual_pallas_vm(ctx):
+    if ctx.backend._use_dense(ctx.dgraph):
+        return False, "the hand sweep serves the sparse fan-out only"
+    if ctx.layout != "vertex_major":
+        return False, "the hand sweep needs the vertex-major layout"
+    if ctx.backend.config.use_pallas is False:
+        return False, "use_pallas=False takes the XLA routes in plain torch"
+    return True, ("the port's CUDA gate: use_pallas='auto' takes the hand "
+                  "sweep (csrc/fanout_sweep.cu on the card, its plain "
+                  "version on the CPU)")
+
+
+def _qual_vm_blocked(ctx):
+    if ctx.backend._use_dense(ctx.dgraph):
+        return False, "blocked vm serves the sparse fan-out only"
+    if ctx.layout != "vertex_major":
+        return False, "source-major layout configured"
+    if ctx.dgraph.num_nodes <= VM_BLOCK:
+        return False, (f"V <= {VM_BLOCK} (plain full-V segments are already "
+                       "this small)")
+    if getattr(ctx.backend, "_vmb_disabled", False):
+        return False, "disabled after a prior failure on this backend instance"
+    return True, f"V > {VM_BLOCK}: [vb, B] segment writes beat [V, B]"
+
+
+def _qual_vm(ctx):
+    if ctx.backend._use_dense(ctx.dgraph):
+        return False, "plain vm serves the sparse fan-out only"
+    if ctx.layout != "vertex_major":
+        return False, "source-major layout configured"
+    return True, "vertex-major sorted segment reduction"
+
+
+def _qual_sweep_sm(ctx):
+    if ctx.backend._use_dense(ctx.dgraph):
+        return False, "source-major sweep serves the sparse fan-out only"
+    if ctx.layout != "vertex_major":
+        return True, "source-major layout configured"
+    if ctx.backend.config.fanout_layout == "auto":
+        return True, ("layout 'auto': behind vm by priority; promotable when "
+                      "priced cheaper")
+    return False, "vertex-major layout forced by config"
+
+
+def _fail_dia(be, ctx) -> None:
+    be._auto_route_failed(
+        "_dia_disabled", "dia stencil route failed on this platform; "
+        "falling back to the gather routes for this backend instance",
+        forced=be.config.dia is True)
+
+
+def _fail_gs(be, ctx) -> None:
+    be._auto_route_failed(
+        "_gs_disabled", "gauss_seidel kernel failed on this platform; "
+        "falling back to the sweep routes for this backend instance",
+        forced=be.config.gauss_seidel is True)
+
+
+def _fail_fw(be, ctx) -> None:
+    be._auto_route_failed(
+        "_fw_disabled", "blocked Floyd-Warshall route failed on this "
+        "platform; falling back to the dense/sparse routes for this backend "
+        "instance", forced=be.config.fw is True)
+
+
+def _fail_dw(be, ctx) -> None:
+    be._auto_route_failed(
+        "_dw_disabled", "dirty-window fan-out failed on this platform; "
+        "falling back to the sweep routes for this backend instance",
+        forced=be.config.dirty_window is True)
+
+
+def _fail_vm_blocked(be, ctx) -> None:
+    be._auto_route_failed(
+        "_vmb_disabled", "dst-blocked vm fan-out failed on this platform; "
+        "falling back to the plain vm sweep for this backend instance",
+        forced=False)
+
+
+FANOUT_PLANS = [
+    planner.Plan(
+        name="dia", entry="fanout", priority=10, qualify=_qual_dia,
+        build=lambda ctx: ctx.backend._plan_build_dia(ctx),
+        price_routes=("dia",), forced=lambda cfg: cfg.dia is True,
+        failure=_fail_dia, force_overrides={"dia": True},
+    ),
+    planner.Plan(
+        name="gs", entry="fanout", priority=20, qualify=_qual_gs,
+        build=lambda ctx: ctx.backend._plan_build_gs(ctx),
+        price_routes=("gs", "gs+dw"),
+        forced=lambda cfg: cfg.gauss_seidel is True,
+        failure=_fail_gs, force_overrides={"gauss_seidel": True},
+    ),
+    planner.Plan(
+        name="fw", entry="fanout", priority=30, qualify=_qual_fw,
+        build=lambda ctx: ctx.backend._plan_build_fw(ctx),
+        price_routes=("fw", "fw-tile"), forced=lambda cfg: cfg.fw is True,
+        failure=_fail_fw, force_overrides={"fw": True, "mesh_shape": (1,)},
+        tunables=("fw_tile",),
+    ),
+    planner.Plan(
+        name="vm-blocked+dw", entry="fanout", priority=40, qualify=_qual_dw,
+        build=lambda ctx: ctx.backend._plan_build_dw(ctx),
+        price_routes=("vm-blocked+dw",),
+        forced=lambda cfg: cfg.dirty_window is True,
+        failure=_fail_dw, force_overrides={"dirty_window": True},
+    ),
+    planner.Plan(
+        name="sharded-2d", entry="fanout", priority=50,
+        qualify=lambda ctx: (False, _SINGLE_DEVICE),
+    ),
+    planner.Plan(
+        name="sharded-1d", entry="fanout", priority=60,
+        qualify=lambda ctx: (False, _SINGLE_DEVICE),
+    ),
+    planner.Plan(
+        name="dense", entry="fanout", priority=70, qualify=_qual_dense,
+        build=lambda ctx: ctx.backend._plan_build_dense(ctx),
+        price_routes=("dense-squaring", "dense-iterate"),
+        force_overrides={"fw": False, "mesh_shape": (1,)},
+    ),
+    planner.Plan(
+        name="pallas-vm", entry="fanout", priority=80,
+        qualify=_qual_pallas_vm,
+        build=lambda ctx: ctx.backend._plan_build_pallas_vm(ctx),
+        price_routes=("pallas-vm",),
+        force_overrides={"use_pallas": True, "fanout_layout": "vertex_major"},
+    ),
+    planner.Plan(
+        name="vm-blocked", entry="fanout", priority=90,
+        qualify=_qual_vm_blocked,
+        build=lambda ctx: ctx.backend._plan_build_vm_blocked(ctx),
+        price_routes=("vm-blocked",), failure=_fail_vm_blocked,
+        force_overrides={"fanout_layout": "vertex_major",
+                         "dirty_window": False},
+    ),
+    planner.Plan(
+        name="vm", entry="fanout", priority=100, qualify=_qual_vm,
+        build=lambda ctx: ctx.backend._plan_build_vm(ctx),
+        price_routes=("vm",),
+        force_overrides={"fanout_layout": "vertex_major",
+                         "dirty_window": False},
+    ),
+    planner.Plan(
+        name="sweep-sm", entry="fanout", priority=110,
+        qualify=_qual_sweep_sm,
+        build=lambda ctx: ctx.backend._plan_build_sweep_sm(ctx),
+        price_routes=("sweep-sm",),
+        force_overrides={"fanout_layout": "source_major",
+                         "dirty_window": False},
+    ),
+]
+
+
+def _qual_sssp_bucket(ctx) -> tuple[bool, str]:
+    if not ctx.backend._use_bucket(ctx.dgraph):
+        return False, ("bucket gate declined (the port's CUDA gate keeps "
+                       "'auto' off; True forces)")
+    if ctx.source is None and ctx.backend.config.bucket is not True:
+        # An auto bucket skips the virtual-source pass: every vertex
+        # starts active, so bucketing degrades to full sweeps.
+        return False, "virtual-source pass (every vertex starts active)"
+    return True, "bucket=True forces delta-stepping"
+
+
+def _fail_sssp_bucket(be, ctx) -> None:
+    be._auto_route_failed(
+        "_bucket_disabled", "bucketed delta-stepping route failed on this "
+        "platform; falling back to the gather routes for this backend "
+        "instance", forced=be.config.bucket is True)
+
+
+SSSP_PLANS = [
+    planner.Plan(
+        name="edge-sharded", entry="sssp", priority=10,
+        qualify=lambda ctx: (False, _SINGLE_DEVICE),
+        forced=lambda cfg: cfg.edge_shard is True,
+        force_overrides={"edge_shard": True},
+    ),
+    planner.Plan(
+        name="dia", entry="sssp", priority=20,
+        qualify=lambda ctx: (
+            (True, "diagonal labeling qualifies")
+            if ctx.backend._use_dia(ctx.dgraph)
+            else (False, "dia gate declined (the port's CUDA gate keeps "
+                         "'auto' off)")),
+        build=lambda ctx: ctx.backend._sssp_build_dia(ctx),
+        failure=_fail_dia, price_routes=("dia",),
+        forced=lambda cfg: cfg.dia is True, force_overrides={"dia": True},
+    ),
+    planner.Plan(
+        name="bucket", entry="sssp", priority=30, qualify=_qual_sssp_bucket,
+        build=lambda ctx: ctx.backend._sssp_build_bucket(ctx),
+        failure=_fail_sssp_bucket, price_routes=("bucket", "bucket+sweep"),
+        forced=lambda cfg: cfg.bucket is True,
+        force_overrides={"bucket": True}, tunables=("delta",),
+    ),
+    planner.Plan(
+        name="gs", entry="sssp", priority=40,
+        qualify=lambda ctx: (
+            (True, "gauss_seidel=True forces blocked GS")
+            if ctx.backend._use_gs(ctx.dgraph)
+            else (False, "gs gate declined (the port's CUDA gate keeps "
+                         "'auto' off)")),
+        build=lambda ctx: ctx.backend._sssp_build_gs(ctx),
+        failure=_fail_gs, price_routes=("gs", "gs+dw"),
+        forced=lambda cfg: cfg.gauss_seidel is True,
+        force_overrides={"gauss_seidel": True},
+    ),
+    planner.Plan(
+        name="frontier", entry="sssp", priority=50,
+        qualify=lambda ctx: (
+            (True, "low-degree family (compacted frontier)")
+            if ctx.backend._use_frontier(ctx.dgraph)
+            else (False, "frontier gate declined")),
+        build=lambda ctx: ctx.backend._sssp_build_frontier(ctx),
+        price_routes=("frontier",), forced=lambda cfg: cfg.frontier is True,
+        force_overrides={"frontier": True},
+    ),
+    planner.Plan(
+        name="sweep", entry="sssp", priority=60,
+        qualify=lambda ctx: (True, "unconditional full-sweep fallback"),
+        build=lambda ctx: ctx.backend._sssp_build_sweep(ctx),
+        price_routes=("sweep",),
+    ),
+]
 
 
 register_backend("torch", TorchBackend)

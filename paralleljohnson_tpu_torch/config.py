@@ -15,10 +15,14 @@ import math
 
 import numpy as np
 
+# Fan-out batches in flight when ``pipeline_depth`` is None and no
+# profile-tuned depth applies: double buffering, the JAX package's
+# hand-tuned default (defined with the tuning layer).
+from paralleljohnson_tpu_torch.observe.tuning import (  # noqa: F401
+    DEFAULT_PIPELINE_DEPTH,
+)
+
 BACKENDS = ("torch", "numpy")
-# Fan-out batches in flight when ``pipeline_depth`` is None: double
-# buffering, the JAX package's hand-tuned default.
-DEFAULT_PIPELINE_DEPTH = 2
 
 
 @dataclasses.dataclass
@@ -65,9 +69,26 @@ class SolverConfig:
       convergence: ``True`` records the per-iteration trajectory
         counters into ``SolverStats.convergence`` on the routes the JAX
         package instruments (``sweep``, ``sweep-sm``, ``vm``,
-        ``vm-blocked``, ``dia``, ``gs``, ``bucket``); ``"auto"`` and
-        ``False`` record nothing (the port has no telemetry sink or
-        profile store to consume them).
+        ``vm-blocked``, ``vm-blocked+dw``, ``dia``, ``gs``, ``bucket``);
+        ``"auto"`` records when a profile store is configured (the port
+        has no telemetry sink yet); ``False`` records nothing.
+      dirty_window / dw_block: the dirty-window fan-out
+        (``relax.bellman_ford_sweeps_dw``, route ``vm-blocked+dw``; inside
+        a Gauss-Seidel solve, ``gs+dw``). ``True`` forces it; ``"auto"``
+        engages only on a profile store's trajectory records of this
+        shape bucket that show a collapsing frontier
+        (``observe.convergence.dw_decision``), unless the store's cost
+        model prices the route that would otherwise serve (``pallas-vm``
+        first) cheaper; ``False`` disables it. ``dw_block`` is the
+        vertices per activity bit (None = 1).
+      planner / profile_store: ``profile_store`` (or the
+        ``PJ_PROFILE_DIR`` environment variable) names a directory whose
+        ``profiles.jsonl`` (the JAX package's format) receives a plan,
+        solve and trajectory record per completed solve; every dispatch
+        walk (``planner.select``) is then priced from it, and the tuned
+        parameters (``fw_tile``, ``partition_parts``, ``pipeline_depth``,
+        the source batch, ``delta``) are read from it where the config
+        leaves them None. ``planner=False`` keeps the walks unpriced.
       fw / fw_threshold / fw_tile: blocked Floyd-Warshall (``ops.fw``,
         routes ``fw`` / ``fw-tile``). ``"auto"`` takes it, on every
         device as the JAX package does, for an all-sources-scale batch
@@ -99,10 +120,11 @@ class SolverConfig:
       fault_plan: a ``utils.faults.FaultPlan`` of injected failures.
 
     Kept for config parity; forcing them raises at solve time until the
-    route is ported: ``dirty_window``, ``edge_shard`` (``True``),
-    ``telemetry``, ``metrics`` and ``profile_store`` (set). The remaining
-    knobs (``dw_block``, ...) only tune routes or layers the port does
-    not have yet.
+    layer is ported: ``edge_shard`` (``True``), ``mesh_shape`` over more
+    than one device, ``telemetry`` and ``metrics`` (set), and
+    ``precision="f64"`` on cuda. The remaining knobs (``hopset``,
+    ``approx_*``, ``error_budget``, ``compilation_cache_dir``) only tune
+    routes or layers the port does not have yet.
     """
 
     backend: str = "torch"
@@ -161,14 +183,10 @@ class SolverConfig:
         ``"field=value"`` strings (empty = the config is fully honoured
         on ``device_type``). The solver raises ``NotImplementedError``
         naming them."""
-        bad = [
-            f"{name}=True"
-            for name in ("dirty_window", "edge_shard")
-            if getattr(self, name) is True
-        ]
+        bad = ["edge_shard=True"] if self.edge_shard is True else []
         if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
             bad.append(f"mesh_shape={self.mesh_shape}")
-        for name in ("profile_store", "telemetry", "metrics"):
+        for name in ("telemetry", "metrics"):
             if getattr(self, name) is not None:
                 bad.append(f"{name} set")
         if self.precision == "f64" and device_type == "cuda":

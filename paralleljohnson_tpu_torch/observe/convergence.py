@@ -24,7 +24,9 @@ device's).
 
 The loops that do not record run exactly as before: the backend calls
 :func:`instrumented_fixpoint` (or passes ``traj_cap``) only under
-``SolverConfig(convergence=True)``.
+``SolverConfig(convergence=True)``, or ``"auto"`` with a profile store
+configured (the store's ``kind: "trajectory"`` records are what
+:func:`dw_decision` reads).
 
 The host half (summaries, records, the dirty-window decision) is the
 reference's, stdlib + numpy.
@@ -33,6 +35,8 @@ reference's, stdlib + numpy.
 from __future__ import annotations
 
 from typing import Callable
+
+from paralleljohnson_tpu_torch.observe.costs import shape_bucket
 
 # Rows of the device trajectory buffer. Iterations beyond the cap
 # accumulate into the last row — totals stay exact, per-iteration
@@ -438,18 +442,3 @@ def trajectory_record(
             [int(r[0]), int(r[1]), float(r[2])] for r in traj
         ],
     }
-
-
-def _pow2_up(n: int) -> int:
-    n = int(n)
-    if n <= 0:
-        return 0
-    return 1 << max(0, (n - 1).bit_length())
-
-
-def shape_bucket(num_nodes: int, num_edges: int,
-                 batch: int) -> tuple[int, int, int]:
-    """Shape key of profile records (the JAX package's
-    ``observe.costs.shape_bucket``): each dimension rounded UP to a power
-    of two."""
-    return (_pow2_up(num_nodes), _pow2_up(num_edges), _pow2_up(batch))

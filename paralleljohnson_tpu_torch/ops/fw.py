@@ -40,15 +40,15 @@ from typing import NamedTuple
 
 import torch
 
+from paralleljohnson_tpu_torch.observe.tuning import DEFAULT_FW_TILE
 from paralleljohnson_tpu_torch.ops import _cuda, relax
 from paralleljohnson_tpu_torch.ops.minplus import minplus_kernel
 
-# Default tile edge (the reference's FW_TILE and its tuning layer's
-# DEFAULT_FW_TILE): the smallest 128-multiple whose trailing-update
-# arithmetic intensity (t/8 flop/byte) clears the roofline ridge of the
-# reference's device.
+# Default tile edge (the reference's FW_TILE; the tuning layer's
+# DEFAULT_FW_TILE is the same 512): the smallest 128-multiple whose
+# trailing-update arithmetic intensity (t/8 flop/byte) clears the
+# roofline ridge of the reference's device.
 FW_TILE = 512
-DEFAULT_FW_TILE = 512
 
 # k-blocking of the plain panel and trailing products on the CPU
 # (relax.minplus's broadcast intermediate). It changes no bit.

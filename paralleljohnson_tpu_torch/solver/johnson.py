@@ -18,11 +18,16 @@ write overlap batch k+1's compute. ``predecessors=True`` carries a
 shortest-path tree block beside every distance block, through the
 batches, the downloads and the checkpoints.
 
-``solve()`` first asks :func:`_qual_condensed` whether the condensed
-partitioned route (``solver.partitioned``, ``condensed+fw``) takes the
-solve: only when ``partitioned=True`` forces it (its ``"auto"`` is
-TPU-only in the JAX package). Telemetry and the planner are later
-slices.
+``solve()`` first walks :data:`SOLVER_PLANS` (``planner.select``):
+the condensed partitioned route (``solver.partitioned``,
+``condensed+fw``) takes the solve only when ``partitioned=True`` forces
+it or a priced profile store promotes it (its ``"auto"`` qualification
+is TPU-only in the JAX package, and the port's CUDA gate keeps it off);
+otherwise the ``standard`` path runs, whose phases walk the backend's
+own plan registries. Every completed solve ends in
+``observe.finalize_solve``: the roofline on ``stats.roofline`` and, with
+a profile store configured, its plan, solve and trajectory records.
+Telemetry is a later slice.
 """
 
 from __future__ import annotations
@@ -33,15 +38,17 @@ import dataclasses
 import sys
 import time
 import traceback
+import types
 import warnings
 from typing import Any
 
 import numpy as np
 import torch
 
+from paralleljohnson_tpu_torch import observe, planner
 from paralleljohnson_tpu_torch.backends import Backend, get_backend
 from paralleljohnson_tpu_torch.backends.base import KernelResult
-from paralleljohnson_tpu_torch.config import DEFAULT_PIPELINE_DEPTH, SolverConfig
+from paralleljohnson_tpu_torch.config import SolverConfig
 from paralleljohnson_tpu_torch.graphs import CSRGraph, stack_graphs
 from paralleljohnson_tpu_torch.utils import resilience
 from paralleljohnson_tpu_torch.utils.metrics import SolverStats, phase_timer
@@ -181,24 +188,54 @@ def _unreweight(rows, h, row_sources):
     return rows - hh[idx.to(rows.device)][:, None] + hh[None, :]
 
 
-def _qual_condensed(solver, graph: CSRGraph,
-                    sources: np.ndarray) -> tuple[bool, str]:
-    """The reference's solver-level qualification of the condensed route
-    as (takes it, reason). ``True`` forces it and ``False`` pins the
-    standard route. ``"auto"`` engages in the reference only on a TPU
-    with its own backend (the dense core pays on the matrix unit there),
-    so here it declines on every device."""
-    if getattr(solver, "_partitioned_disabled", False):
+def _qual_condensed(ctx) -> tuple[bool, str]:
+    """The reference's solver-level qualification of the condensed route.
+    ``True`` forces it and ``False`` pins the standard route. ``"auto"``
+    engages in the reference only on a TPU with its own backend (the
+    dense core pays on the matrix unit there); the port's CUDA gate keeps
+    it off on every device (forced on a 64x64 grid on an NVIDIA H100 80GB
+    HBM3 at 700 W it took 11-17x the standard solve, PERF.md §6)."""
+    if getattr(ctx.solver, "_partitioned_disabled", False):
         return False, (
             "condensed route disabled for this solver instance "
             "(earlier auto-route failure)"
         )
-    flag = solver.config.partitioned
+    flag = ctx.config.partitioned
     if flag is False:
         return False, "partitioned=False pins the standard route"
     if flag is True:
         return True, "partitioned=True forces the condensed route"
-    return False, "auto condensed is TPU-gated in the JAX package: off here"
+    return False, ("the port's CUDA gate: auto condensed is TPU-gated in "
+                   "the JAX package, off here")
+
+
+# The solver-level plans: the condensed route against the standard
+# Johnson path, walked with ``planner.select`` like every kernel family
+# (the JAX package's names, priorities, price routes and tunables).
+SOLVER_PLANS = [
+    planner.Plan(
+        name="condensed+fw", entry="solver", priority=10,
+        qualify=_qual_condensed,
+        price_routes=("condensed+fw",),
+        forced=lambda cfg: getattr(cfg, "partitioned", False) is True,
+        force_overrides={"partitioned": True},
+        tunables=("fw_tile", "partition_parts"),
+    ),
+    planner.Plan(
+        name="standard", entry="solver", priority=20,
+        qualify=lambda ctx: (True, "unconditional standard Johnson path"),
+        # The standard path's fan-out route is decided one layer down
+        # (the backend's FANOUT_PLANS); the first calibrated tag in the
+        # reference's order stands in for it here.
+        price_routes=(
+            "vm-blocked+dw", "vm-blocked", "gs", "dia", "vm",
+            "sweep-sm", "fw",
+        ),
+        forced=lambda cfg: getattr(cfg, "partitioned", True) is False,
+        force_overrides={"partitioned": False},
+        tunables=("source_batch", "pipeline_depth"),
+    ),
+]
 
 
 # Row blocks at least this large make the solver clear the backend's
@@ -258,14 +295,14 @@ class ParallelJohnsonSolver:
             if sources is None
             else np.asarray(sources, np.int64)
         )
-        condensed, reason = self._use_partitioned(graph, sources)
-        if condensed:
+        decision = self._solver_decision(graph, sources)
+        if decision.chosen.plan.name == "condensed+fw":
             res = self._try_condensed(graph, sources, stats, predecessors,
-                                      reason)
+                                      decision)
             if res is not None:
                 return res
         else:
-            stats.plan = {"chosen": "standard", "reason": reason}
+            stats.plan = decision.as_dict()
         with phase_timer(stats, "upload"):
             dgraph = self.backend.upload(graph)
         h, dgraph = self._potentials(graph, dgraph, stats)
@@ -279,6 +316,7 @@ class ParallelJohnsonSolver:
                              stats=stats, predecessors=pred)
         if self.config.validate:
             self._validate(graph, result)
+        self._finish_observability(stats, graph, len(sources), label="solve")
         return result
 
     def solve_range(
@@ -376,6 +414,8 @@ class ParallelJohnsonSolver:
                 dgraph, sources, stats, finalize=finalize
             ):
                 values.append(value)
+        self._finish_observability(stats, graph, n_src,
+                                   label="solve_reduced")
         return ReducedResult(
             values=values, sources=sources, potentials=h, stats=stats
         )
@@ -398,6 +438,7 @@ class ParallelJohnsonSolver:
             raise ConvergenceError(
                 "Bellman-Ford hit max_iterations while still improving"
             )
+        self._finish_observability(stats, graph, 1, label="sssp")
         return SolveResult(
             dist=bf.dist[None, :],
             sources=np.array([source]),
@@ -426,6 +467,8 @@ class ParallelJohnsonSolver:
         with phase_timer(stats, "fanout"):
             dist, pred = self._fanout(dgraph, sources, stats,
                                       with_pred=predecessors, graph=graph)
+        self._finish_observability(stats, graph, len(sources),
+                                   label="multi_source")
         return SolveResult(
             dist=dist,
             sources=sources,
@@ -470,15 +513,68 @@ class ParallelJohnsonSolver:
 
     # -- internals ----------------------------------------------------------
 
+    def _solver_model(self):
+        """The fitted ``CostModel`` of the solver-level walk, or None (the
+        declared priority order): cached per records-list identity, as the
+        backend's ``_planner_model``."""
+        if self.config.planner is False:
+            return None
+        store_dir = observe.resolve_profile_dir(self.config.profile_store)
+        if not store_dir:
+            return None
+        records = observe.cached_records(store_dir)
+        if not records:
+            return None
+        cached = getattr(self, "_solver_model_cache", None)
+        if cached is not None and cached[0] is records:
+            return cached[1]
+        model = observe.CostModel.fit(records)
+        self._solver_model_cache = (records, model)
+        return model
+
+    def _platform(self) -> str:
+        return observe.current_platform(getattr(self.backend, "device", None))
+
+    def _solver_decision(self, graph: CSRGraph, sources: np.ndarray):
+        """The solver-level decision: :data:`SOLVER_PLANS` walked through
+        ``planner.select``."""
+        ctx = types.SimpleNamespace(solver=self, graph=graph, sources=sources,
+                                    config=self.config, params={})
+        return planner.select(
+            SOLVER_PLANS, ctx, model=self._solver_model(),
+            platform=self._platform(), num_edges=graph.num_real_edges,
+            batch=len(sources), config=self.config)
+
     def _use_partitioned(self, graph: CSRGraph,
                          sources: np.ndarray) -> tuple[bool, str]:
-        """Whether the condensed route takes this solve, and why
-        (:func:`_qual_condensed`)."""
-        return _qual_condensed(self, graph, sources)
+        """Whether the condensed route takes this solve, and why: a view
+        over the :data:`SOLVER_PLANS` walk."""
+        decision = self._solver_decision(graph, sources)
+        cand = next(c for c in decision.candidates
+                    if c.plan.name == "condensed+fw")
+        return decision.chosen.plan.name == "condensed+fw", cand.reason
+
+    def _finish_observability(self, stats: SolverStats, graph: CSRGraph,
+                              batch: int, *, label: str) -> None:
+        """``observe.finalize_solve`` for a completed solve: the roofline
+        on ``stats.roofline`` and, with a profile store, the prediction
+        and the records. Observability never fails a solve that already
+        computed its distances: an error here is reported as a warning."""
+        try:
+            observe.finalize_solve(
+                stats, config=self.config,
+                device=getattr(self.backend, "device", None), label=label,
+                num_nodes=graph.num_nodes, num_edges=graph.num_real_edges,
+                batch=batch,
+                degree_bias=observe.degree_bias_from_degrees(
+                    np.diff(graph.indptr)))
+        except Exception as e:  # noqa: BLE001 — observability is never fatal
+            warnings.warn(f"profile records dropped: {type(e).__name__}: {e}",
+                          RuntimeWarning, stacklevel=2)
 
     def _try_condensed(self, graph: CSRGraph, sources: np.ndarray,
                        stats: SolverStats, predecessors: bool,
-                       reason: str) -> SolveResult | None:
+                       decision) -> SolveResult | None:
         """One condensed solve (``solver.partitioned``) on the backend's
         device. Returns None to hand the solve back to the standard route:
         an auto-route failure (warned once, then disabled for this solver
@@ -515,6 +611,21 @@ class ParallelJohnsonSolver:
                 "(tree check rejected the one-pass rule); re-solving "
                 "through the standard route", RuntimeWarning, stacklevel=2)
             return None
+        # The dominant dense closures priced as the fw route is (ops.fw's
+        # tile model): operations from the exact MAC total, bytes from the
+        # model's bytes per MAC at the core's tile.
+        from paralleljohnson_tpu_torch.ops import fw as fw_ops
+
+        tile = fw_ops.effective_tile(max(info["core_size"], 1),
+                                     info["params"]["fw_tile"])
+        capture = getattr(self.backend, "cost_capture", None)
+        cost = None if capture is None else capture.analytic(
+            info["route"],
+            {"flops": 2.0 * info["macs"],
+             "bytes_accessed": 4.0 * np.dtype(graph.dtype).itemsize
+             * info["macs"] / tile},
+            num_nodes=graph.num_nodes, num_edges=graph.num_real_edges,
+            batch=len(sources))
         stats.accumulate(
             KernelResult(
                 dist=dist,
@@ -522,13 +633,19 @@ class ParallelJohnsonSolver:
                 iterations=info["k_steps"],
                 edges_relaxed=info["macs"],
                 route=info["route"],
-                plan={"chosen": "condensed+fw", "reason": reason,
-                      **{k: info[k] for k in ("params", "params_source",
-                                              "num_parts", "core_size",
-                                              "seconds")}},
+                cost=cost,
             ),
             phase="fanout",
         )
+        cand = decision.chosen
+        stats.plan = {
+            **decision.as_dict(),
+            # The qualification's own words first ("... forces ..."), then
+            # the walk's.
+            "reason": f"{cand.reason}; {decision.reason}",
+            **{k: info[k] for k in ("params", "params_source", "num_parts",
+                                    "core_size", "seconds")},
+        }
         result = SolveResult(
             dist=dist,
             sources=sources,
@@ -538,6 +655,7 @@ class ParallelJohnsonSolver:
         )
         if self.config.validate:
             self._validate(graph, result)
+        self._finish_observability(stats, graph, len(sources), label="solve")
         return result
 
     def _run_bf(self, dgraph: Any, stats: SolverStats, *,
@@ -608,11 +726,19 @@ class ParallelJohnsonSolver:
         """The fan-out pipeline depth: the backend's own resolution where
         it has one (the torch backend budgets its memory carry slots from
         the same number, so the window and the budget agree), else
-        ``config.pipeline_depth``, else ``DEFAULT_PIPELINE_DEPTH``."""
+        ``config.pipeline_depth``, else the profile-tuned depth for this
+        (platform, shape bucket), else ``DEFAULT_PIPELINE_DEPTH``."""
         resolver = getattr(self.backend, "_pipeline_depth", None)
         if resolver is not None and dgraph is not None:
             return int(resolver(dgraph))
-        return max(1, int(self.config.pipeline_depth or DEFAULT_PIPELINE_DEPTH))
+        value, _ = observe.resolve_param(
+            "pipeline_depth", self.config.pipeline_depth,
+            observe.DEFAULT_PIPELINE_DEPTH, config=self.config,
+            platform=self._platform(),
+            num_nodes=int(getattr(dgraph, "num_nodes", 0) or 0),
+            num_edges=int(getattr(dgraph, "num_real_edges", 0) or 0),
+            validate=lambda d: isinstance(d, int) and d >= 1)
+        return max(1, int(value))
 
     def _initial_batch_size(self, sources: np.ndarray, dgraph: Any = None, *,
                             with_pred: bool = False) -> int:
@@ -624,6 +750,17 @@ class ParallelJohnsonSolver:
         if bs is None and dgraph is not None:
             bs = self.backend.suggested_source_batch(dgraph,
                                                      with_pred=with_pred)
+            # A profile-tuned batch refines the budget's, which stays a
+            # hard cap (a tuned value must not bring back the OOMs the
+            # budget prevents).
+            tuned, source = observe.resolve_param(
+                "source_batch", None, None, config=self.config,
+                platform=self._platform(),
+                num_nodes=int(getattr(dgraph, "num_nodes", 0) or 0),
+                num_edges=int(getattr(dgraph, "num_real_edges", 0) or 0),
+                validate=lambda b: isinstance(b, int) and b >= 1)
+            if source == "profile-tuned" and bs:
+                bs = min(int(tuned), int(bs))
         return int(bs or len(sources) or 1)
 
     def _resilient_batches(

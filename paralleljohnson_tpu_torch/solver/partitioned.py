@@ -44,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from paralleljohnson_tpu_torch import observe
 from paralleljohnson_tpu_torch.graphs import CSRGraph
 from paralleljohnson_tpu_torch.ops import fw
 from paralleljohnson_tpu_torch.ops.minplus import minplus_kernel
@@ -160,7 +161,8 @@ def solve_condensed(
     the tree check rejected the one-pass extraction, and the caller falls
     back to the standard route), the resolved ``params`` with their
     ``params_source`` (an explicit config value or argument, else the
-    default: ``DEFAULT_FW_TILE`` and :func:`auto_num_parts`), and
+    profile-tuned value, else the default: ``DEFAULT_FW_TILE`` and
+    :func:`auto_num_parts`), and
     ``seconds`` by stage. Raises ``NegativeCycleError`` on any reachable
     negative cycle."""
     from paralleljohnson_tpu_torch.solver.johnson import NegativeCycleError
@@ -172,12 +174,23 @@ def solve_condensed(
         if sources is None
         else np.asarray(sources, np.int64)
     )
-    cfg_tile = getattr(config, "fw_tile", None)
-    tile_cfg = int(cfg_tile) if cfg_tile is not None else fw.DEFAULT_FW_TILE
-    tile_source = "config" if cfg_tile is not None else "default"
-    explicit = num_parts or getattr(config, "partition_parts", None)
-    k = int(explicit) if explicit is not None else auto_num_parts(v)
-    parts_source = "config" if explicit is not None else "default"
+    # Two tuned free parameters: an explicit value wins, else the
+    # profile-tuned value for this (platform, shape bucket), else the
+    # defaults (observe.tuning.resolve_param).
+    platform = observe.current_platform(device)
+    tile_cfg, tile_source = observe.resolve_param(
+        "fw_tile", getattr(config, "fw_tile", None), fw.DEFAULT_FW_TILE,
+        config=config, platform=platform, num_nodes=v,
+        num_edges=graph.num_real_edges,
+        validate=lambda t: isinstance(t, int) and t >= 128 and t % 128 == 0)
+    tile_cfg = int(tile_cfg)
+    k, parts_source = observe.resolve_param(
+        "partition_parts",
+        num_parts or getattr(config, "partition_parts", None),
+        auto_num_parts(v), config=config, platform=platform, num_nodes=v,
+        num_edges=graph.num_real_edges,
+        validate=lambda n: isinstance(n, int) and n >= 1)
+    k = int(k)
     seconds = {}
     t0 = time.perf_counter()
 

@@ -90,9 +90,28 @@ class SolverStats:
       ``gs``, ``bucket``, as in the JAX package).
     trajectories: the decoded per-iteration ``[n, 3]`` arrays behind
       those summaries, by phase (one per kernel call); not in
-      ``as_dict``.    plan: the solver-level route decision of the solve (the condensed
-      route or the standard one: ``chosen``, ``reason``, and on the
-      condensed route its ``params`` and ``params_source``).
+      ``as_dict``.
+    analytic_cost: the analytic bytes and operations of the solve's
+      kernel calls (``observe.costs``), summed over every call, with
+      ``captures`` (how many were priced), ``cost_sources`` and
+      ``unavailable`` (the distinct markers of routes with no model).
+      None unless a profile store is configured.
+    roofline: the solve's roofline attribution
+      (``observe.roofline.attribute_stats``): the bound ("hbm", "mxu",
+      "host-io" or "unknown"), the bandwidth and compute floors and the
+      reasoning. Set for every completed solve.
+    predicted_s: the profile store's prediction for this solve's route
+      and shape, made before this run's record landed (None without a
+      store or a calibration).
+    plan: the solver-level decision of ``solve()`` (``planner
+      .PlanDecision.as_dict`` of the ``SOLVER_PLANS`` walk: ``chosen``
+      "standard" or "condensed+fw", ``reason``, the ``candidates`` with
+      their qualification reasons and prices); on the condensed route
+      also its ``params`` and ``params_source``. None for the entry
+      points without that walk.
+    plans_by_phase: each phase's last kernel-route decision (the
+      backend's ``FANOUT_PLANS`` / ``SSSP_PLANS`` walks: chosen plan,
+      reason, candidates, resolved ``params``), by phase.
     """
 
     phase_seconds: dict = dataclasses.field(
@@ -115,19 +134,24 @@ class SolverStats:
     ckpt_wait_s: float = 0.0
     overlap_saved_s: float = 0.0
     final_pipeline_depth: int | None = None
+    analytic_cost: dict | None = None
+    roofline: dict | None = None
+    predicted_s: float | None = None
     convergence: dict | None = None
     trajectories: dict = dataclasses.field(default_factory=dict, repr=False)
     plan: dict | None = None
+    plans_by_phase: dict = dataclasses.field(default_factory=dict)
 
     def accumulate(self, result, phase: str) -> None:
         """Fold one KernelResult into the totals."""
         self.edges_relaxed += int(result.edges_relaxed)
         self.edges_relaxed_by_phase[phase] += int(result.edges_relaxed)
         self.iterations_by_phase[phase] += int(result.iterations)
+        self._accumulate_cost(getattr(result, "cost", None))
         self._accumulate_trajectory(result, phase)
         plan = getattr(result, "plan", None)
         if plan:
-            self.plan = plan  # the last decision wins
+            self.plans_by_phase[phase] = plan  # the last decision wins
         route = getattr(result, "route", None)
         if route:
             prev = self.routes_by_phase.get(phase)
@@ -152,6 +176,31 @@ class SolverStats:
             conv = self.convergence if self.convergence is not None else {}
             conv[phase] = merge_summaries(conv.get(phase), summ)
             self.convergence = conv
+
+    def _accumulate_cost(self, cost: dict | None) -> None:
+        """Fold one KernelResult's cost record: every priced call adds
+        its bytes and operations (a 4-batch fan-out moves its bytes 4
+        times); the markers of unpriced routes are kept apart, so "cheap"
+        and "unmeasured" are never confused."""
+        if not cost:
+            return
+        acc = self.analytic_cost
+        if acc is None:
+            acc = self.analytic_cost = {
+                "flops": 0.0, "bytes_accessed": 0.0,
+                "transcendentals": 0.0, "captures": 0, "unavailable": [],
+            }
+        reason = cost.get("cost_analysis_unavailable")
+        if reason is not None:
+            if reason not in acc["unavailable"]:
+                acc["unavailable"].append(reason)
+            return
+        for k in ("flops", "bytes_accessed", "transcendentals"):
+            acc[k] += float(cost.get(k, 0.0))
+        acc["captures"] += 1
+        source = cost.get("cost_source")
+        if source and source not in acc.setdefault("cost_sources", []):
+            acc["cost_sources"].append(source)
 
     @property
     def total_seconds(self) -> float:
@@ -185,8 +234,12 @@ class SolverStats:
             "ckpt_wait_s": self.ckpt_wait_s,
             "overlap_saved_s": self.overlap_saved_s,
             "final_pipeline_depth": self.final_pipeline_depth,
+            "analytic_cost": self.analytic_cost,
+            "roofline": self.roofline,
+            "predicted_s": self.predicted_s,
             "convergence": self.convergence,
             "plan": self.plan,
+            "plans_by_phase": dict(self.plans_by_phase),
             "total_seconds": self.total_seconds,
             "edges_relaxed_per_sec": self.edges_relaxed_per_second(),
         }

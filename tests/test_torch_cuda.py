@@ -719,3 +719,46 @@ def test_batch_apsp_on_card_equals_cpu(cuda, negative):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(johnson.to_numpy(a.dist),
                                       johnson.to_numpy(b.dist))
+
+
+def _scrambled_grid(rows):
+    from paralleljohnson_tpu_torch.graphs import grid2d, permute_labels
+
+    return permute_labels(grid2d(rows, rows, negative_fraction=0.0, seed=7),
+                          seed=11)
+
+
+def test_forced_dirty_window_on_card_equals_pallas_vm(cuda):
+    """The dirty-window fan-out (plain torch on the card) against the hand
+    sweep on the 48-row scrambled grid: rows bitwise, exact route tags."""
+    g = _scrambled_grid(48)
+    sources = np.sort(np.random.default_rng(0).choice(g.num_nodes, 16,
+                                                      replace=False))
+    dw = pjt.ParallelJohnsonSolver(pjt.SolverConfig(dirty_window=True),
+                                   device=cuda).solve(g, sources)
+    before = fs.fanout_sweep.launches
+    hand = pjt.ParallelJohnsonSolver(device=cuda).solve(g, sources)
+    assert fs.fanout_sweep.launches > before
+    assert dw.stats.routes_by_phase == {"fanout": "vm-blocked+dw"}
+    assert hand.stats.routes_by_phase == {"fanout": "pallas-vm"}
+    np.testing.assert_array_equal(johnson.to_numpy(dw.dist),
+                                  johnson.to_numpy(hand.dist))
+
+
+def test_solve_with_profile_store_on_card_writes_cuda_records(cuda, tmp_path):
+    """A solve with a profile store on the card: plan, solve and (the
+    instrumented ``vm`` route) trajectory records, each with platform
+    ``cuda`` and the card's name; the sweep priced by the analytic model."""
+    from paralleljohnson_tpu_torch.observe import ProfileStore
+
+    g = _scrambled_grid(48)
+    cfg = pjt.SolverConfig(profile_store=str(tmp_path), use_pallas=False)
+    res = pjt.ParallelJohnsonSolver(cfg, device=cuda).solve(g, np.arange(8))
+    assert res.stats.routes_by_phase == {"fanout": "vm"}
+    records = ProfileStore(tmp_path).records()
+    assert [r["kind"] for r in records] == ["plan", "solve", "trajectory"]
+    for rec in records:
+        assert rec["platform"] == "cuda"
+        assert rec["device"]["name"] == torch.cuda.get_device_name(0)
+    assert records[1]["cost"]["cost_sources"] == ["analytic-model"]
+    assert res.stats.roofline["platform"] == "cuda"

@@ -168,9 +168,9 @@ def test_numpy_backend_and_validate():
 
 
 @pytest.mark.parametrize("kw", [
-    {"dirty_window": True},
+    {"mesh_shape": (2, 2)},
     {"edge_shard": True}, {"mesh_shape": (2,)},
-    {"profile_store": "ps"},
+    {"telemetry": object(), "metrics": object()},
     {"telemetry": object()}, {"metrics": object()},
 ])
 def test_unported_routes_raise_naming_the_field(kw):
@@ -272,6 +272,16 @@ def test_port_imports_no_jax_and_no_reference(tmp_path):
             res = pjt.ParallelJohnsonSolver(
                 pjt.SolverConfig(**kw), device="cpu").sssp(grid, 3)
             assert res.dist.shape == (1, 576)
+        store = {str(tmp_path / "profiles")!r}
+        for kw in ({{"use_pallas": False, "profile_store": store}},
+                   {{"dirty_window": True, "profile_store": store}}):
+            res = pjt.ParallelJohnsonSolver(
+                pjt.SolverConfig(**kw), device="cpu").solve(grid, range(8))
+            assert (res.matrix == pjt.ParallelJohnsonSolver(
+                device="cpu").solve(grid, range(8)).matrix).all()
+        assert res.stats.routes_by_phase["fanout"] == "vm-blocked+dw"
+        kinds = {{r["kind"] for r in pjt.observe.ProfileStore(store).records()}}
+        assert kinds == {{"plan", "solve", "trajectory"}}, kinds
         bad = [m for m in sys.modules
                if m == "paralleljohnson_tpu" or m.startswith("paralleljohnson_tpu.")]
         assert not bad, bad
