@@ -138,10 +138,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      the store's prices of the three routes beside their walls and the
      priced walk's decision (the translated veto keeps ``pallas-vm``
      while the store prices it cheaper than the dirty window).
+ 18. the bench harness (``drive_bench``): ``benchmarks.run`` over the
+     port's twelve configs at the full preset on the card, with the
+     flight recorder and a fresh profile store under
+     ``chiprun_out/chip_smoke_bench/`` (the full rows in its
+     ``rows.jsonl``), one line per config (wall, edges/s, route,
+     platform, the card); no row may carry ``failed`` (FW bitwise
+     against squaring, pipelined rows against serial, the tuner's
+     checks), ``planner_dispatch``'s pick must be bitwise its forced run
+     with every forced plan agreeing and none declined, the dirty
+     window's evidence must engage on the grid and decline on R-MAT,
+     every config's Chrome trace must validate and
+     the heartbeat must show CUDA bytes in use; then the ``cpp``
+     backend (C++/OpenMP) on ``er1k_apsp`` and ``ego_fb_nsource`` at the
+     full preset, the CPU baseline, with its wall over the card's.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-17 on its own; a path
+phases 3-5 together, then each path of phases 9-18 on its own; a path
 whose kernel was never launched fails (the plain-torch routes of phases
 15 and 17 need none). The last two lines are the
 ``kernels`` summary (launches summed over the paths, and by path) and
@@ -206,6 +220,12 @@ DW_ROWS = 512
 DW_SOURCES = 256
 DW_EVIDENCE_WIDTHS = (1, 4)
 DW_RMAT_SOURCES = 64
+# Phase 18: the bench harness's configs at the full preset, their flight
+# recorder and profile store under BENCH_DIR (gitignored, emptied first),
+# and the configs the C++/OpenMP backend runs as the CPU baseline.
+BENCH_DIR = "chiprun_out/chip_smoke_bench"
+BENCH_PRESET = "full"
+BENCH_CPP_CONFIGS = ("er1k_apsp", "ego_fb_nsource")
 
 
 def emit(obj) -> None:
@@ -1401,6 +1421,141 @@ def drive_dirty_window(dev, rmat) -> dict:
     return launches
 
 
+def check_bench_decisions(config: str, d: dict) -> None:
+    """The deterministic verdicts of a bench row that the harness records
+    without marking the row ``failed``: ``planner_dispatch``'s auto pick
+    bitwise its forced run, every forced plan in agreement and none
+    declined (``pallas-vm`` measured on the grid and R-MAT); the
+    ``dirty_window`` evidence engaging on the grid and declining on
+    R-MAT."""
+    if config == "planner_dispatch":
+        graphs = d["graphs"]
+        declined = {g: v["skipped"] for g, v in graphs.items() if v["skipped"]}
+        if not (d["all_bitwise"] and d["all_routes_agree"]) or declined:
+            raise AssertionError(
+                f"planner_dispatch: all_bitwise {d['all_bitwise']}, "
+                f"all_routes_agree {d['all_routes_agree']}, "
+                f"declined plans {declined}")
+        for g in ("scrambled_grid", "rmat"):
+            if "pallas-vm" not in graphs[g]["measured"]:
+                raise AssertionError(f"planner_dispatch {g}: pallas-vm "
+                                     "was not measured")
+    elif config == "dirty_window":
+        engage = {g: v["engage"] for g, v in d["dispatch"].items()}
+        if engage != {"grid": True, "rmat": False}:
+            raise AssertionError(f"dirty_window evidence decisions {engage},"
+                                 " expected the grid to engage and R-MAT "
+                                 "to decline")
+
+
+def drive_bench(dev) -> dict:
+    """Phase 18: ``benchmarks.run`` over every config of the port's
+    ``CONFIGS`` at the full preset on ``dev``, with the flight recorder
+    (``<BENCH_DIR>/trace``) and a fresh profile store
+    (``<BENCH_DIR>/profiles``), counted as one path (``bench``) that must
+    launch all four kernels. Fails on a row with ``failed`` (the
+    harness's own checks: FW bitwise against squaring, pipelined rows
+    against serial, the tuner's), on the planner's and the dirty
+    window's decisions (``check_bench_decisions``), a row not on
+    ``cuda``, a config whose Chrome trace does not validate, or a
+    heartbeat that never showed CUDA bytes in use (sampled while the
+    configs run). Then the ``cpp`` backend on ``BENCH_CPP_CONFIGS`` at
+    the same preset, the CPU/OpenMP baseline, beside the card's walls."""
+    import shutil
+    import threading
+    from pathlib import Path
+
+    from paralleljohnson_tpu_torch import benchmarks
+    from paralleljohnson_tpu_torch.observe import current_platform
+    from paralleljohnson_tpu_torch.utils.telemetry import (
+        read_heartbeat, validate_chrome_trace,
+    )
+
+    launches: dict = {}
+    counted = counter(launches)
+    root = Path(BENCH_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    trace_dir, profile_dir = root / "trace", root / "profiles"
+    heartbeat = trace_dir / "heartbeat.json"
+    names = list(benchmarks.CONFIGS)
+    peak_in_use = [0]
+    stop = threading.Event()
+
+    def sample_heartbeat():
+        while not stop.wait(0.5):
+            try:
+                hb = read_heartbeat(heartbeat) or {}
+            except (OSError, ValueError):
+                continue
+            for stats in (hb.get("device_memory") or {}).values():
+                peak_in_use[0] = max(peak_in_use[0],
+                                     int(stats.get("bytes_in_use", 0)))
+
+    sampler = threading.Thread(target=sample_heartbeat, daemon=True)
+    sampler.start()
+    try:
+        records, secs = counted("bench", lambda: benchmarks.run(
+            names, backend="torch", preset=BENCH_PRESET, device=dev,
+            telemetry_dir=str(trace_dir), profile_dir=str(profile_dir)),
+            needs=("fanout_sweep", "minplus", "tight_pred", "fw_kleene"))
+    finally:
+        stop.set()
+        sampler.join(timeout=5)
+    rows = []
+    for rec in records:
+        d = rec.detail
+        row = {"config": rec.config, "wall_s": rec.wall_s,
+               "edges_relaxed_per_sec": rec.edges_relaxed_per_sec,
+               "route": d.get("route"), "platform": d.get("platform"),
+               "device": d.get("device")}
+        if "failed" in d:
+            raise AssertionError(f"bench {rec.config} failed: {d['failed']}"
+                                 f" (flight file {d.get('flight_recorder')})")
+        if d.get("platform") != current_platform(dev) or (
+                d["platform"] == "cuda" and not d.get("device")):
+            raise AssertionError(f"bench {rec.config} row not on {dev}: {row}")
+        check_bench_decisions(rec.config, d)
+        trace_file = trace_dir / f"trace-{rec.config}.json"
+        validate_chrome_trace(json.loads(trace_file.read_text()))
+        # The flight file opens with its meta record; batch_small drives
+        # the backend directly, so its file holds no solver span.
+        flight = (trace_dir / f"flight-{rec.config}.jsonl").read_text()
+        first = flight.splitlines()[0] if flight else "{}"
+        if json.loads(first).get("type") != "meta":
+            raise AssertionError(f"bench {rec.config}: no flight record")
+        if "all_within_band" in d:  # timing-dependent: printed, not held
+            row["all_within_band"] = d["all_within_band"]
+        rows.append(row)
+        emit({"phase": "bench", **row})
+    # The full rows (nested detail included) for the records.
+    with open(root / "rows.jsonl", "w") as f:
+        for rec in records:
+            f.write(rec.as_json_line() + "\n")
+    if peak_in_use[0] <= 0:
+        raise AssertionError("the heartbeat never showed CUDA bytes in use")
+    t_cpp = time.perf_counter()
+    cpp = benchmarks.run(list(BENCH_CPP_CONFIGS), backend="cpp",
+                         preset=BENCH_PRESET, device=dev)
+    cpp_s = time.perf_counter() - t_cpp
+    by_config = {r["config"]: r for r in rows}
+    baseline = {}
+    for rec in cpp:
+        if "failed" in rec.detail:
+            raise AssertionError(f"cpp {rec.config}: {rec.detail['failed']}")
+        card = by_config[rec.config]
+        baseline[rec.config] = {
+            "cpp_wall_s": rec.wall_s, "cuda_wall_s": card["wall_s"],
+            "cpp_over_cuda": rec.wall_s / card["wall_s"],
+            "cpp_edges_relaxed_per_sec": rec.edges_relaxed_per_sec,
+            "platform": rec.detail.get("platform")}
+    emit({"phase": "bench_summary", "configs": len(rows), "bench_s": secs,
+          "heartbeat_peak_bytes_in_use": peak_in_use[0],
+          "cpp_baseline": baseline, "cpp_s": cpp_s,
+          "profile_records": sum(1 for _ in open(
+              profile_dir / "profiles.jsonl"))})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2022,6 +2177,9 @@ def main() -> int:
     by_path.update(dense_paths)
     # -- phase 17: the dirty window and the priced planner ------------------
     by_path.update(drive_dirty_window(dev, rmat))
+    # -- phase 18: the bench harness, telemetry, the cpp baseline ----------
+    torch.cuda.empty_cache()
+    by_path.update(drive_bench(dev))
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ("fanout_sweep", "minplus", "tight_pred",
                              "fw_kleene")}

@@ -55,8 +55,8 @@ On a CUDA device the hand kernels are the main path; on the CPU their
 plain PyTorch versions run (the wrappers choose by the tensors' device).
 
 The per-iteration trajectory counters (``observe.convergence``) are
-recorded under ``convergence=True``, or ``"auto"`` with a profile store,
-on the routes the reference instruments: ``sweep``, ``sweep-sm``,
+recorded under ``convergence=True``, or ``"auto"`` with a telemetry sink
+or a profile store, on the routes the reference instruments: ``sweep``, ``sweep-sm``,
 ``vm``, ``vm-blocked``, ``vm-blocked+dw``, ``dia``, ``gs`` and
 ``bucket``. With a profile store each kernel call also carries its
 analytic cost (``observe.costs``) on ``KernelResult.cost``.
@@ -589,13 +589,13 @@ class TorchBackend(Backend):
     def _traj_cap(self) -> int | None:
         """Trajectory buffer rows for this solve, or None when nothing is
         recorded: ``convergence=True`` records, ``False`` never does, and
-        ``"auto"`` records when a profile store can consume the trajectory
-        (the reference also records for a telemetry sink, which the port
-        does not have yet)."""
+        ``"auto"`` records when something consumes the trajectory: a
+        telemetry sink or a profile store."""
         flag = self.config.convergence
         if flag is False:
             return None
-        if flag is not True and not self.cost_capture.enabled:
+        if flag is not True and not (self.config.telemetry is not None
+                                     or self.cost_capture.enabled):
             return None
         return conv.DEFAULT_TRAJ_CAP
 

@@ -22,7 +22,7 @@ from paralleljohnson_tpu_torch.observe.tuning import (  # noqa: F401
     DEFAULT_PIPELINE_DEPTH,
 )
 
-BACKENDS = ("torch", "numpy")
+BACKENDS = ("torch", "numpy", "cpp")
 
 
 @dataclasses.dataclass
@@ -31,8 +31,8 @@ class SolverConfig:
 
     Honoured by the port:
       backend: ``"torch"`` (device tensors, hand CUDA kernels on the card,
-        their plain PyTorch versions on the CPU) or ``"numpy"`` (the scipy
-        oracle backend).
+        their plain PyTorch versions on the CPU), ``"numpy"`` (the scipy
+        oracle backend) or ``"cpp"`` (the C++/OpenMP baseline).
       precision: ``"f32"``; ``"f64"`` runs only on the CPU (the hand
         kernels are f32).
       source_batch_size: sources per fan-out call; ``None`` sizes the
@@ -70,8 +70,8 @@ class SolverConfig:
         counters into ``SolverStats.convergence`` on the routes the JAX
         package instruments (``sweep``, ``sweep-sm``, ``vm``,
         ``vm-blocked``, ``vm-blocked+dw``, ``dia``, ``gs``, ``bucket``);
-        ``"auto"`` records when a profile store is configured (the port
-        has no telemetry sink yet); ``False`` records nothing.
+        ``"auto"`` records when a telemetry sink or a profile store is
+        configured; ``False`` records nothing.
       dirty_window / dw_block: the dirty-window fan-out
         (``relax.bellman_ford_sweeps_dw``, route ``vm-blocked+dw``; inside
         a Gauss-Seidel solve, ``gs+dw``). ``True`` forces it; ``"auto"``
@@ -118,11 +118,17 @@ class SolverConfig:
         policy of every solve stage (:meth:`retry_policy`).
       min_source_batch: the floor of the OOM batch halving.
       fault_plan: a ``utils.faults.FaultPlan`` of injected failures.
+      telemetry: a ``utils.telemetry.Telemetry`` flight recorder and
+        heartbeat (None = off): spans per entry point, phase, stage
+        attempt, finalize and checkpoint write; route, trajectory,
+        retry and window events.
+      metrics: an ``observe.live.MetricsRegistry`` (None = off): the
+        batch loop's per-batch wall histogram and batch / retry / OOM
+        counters.
 
     Kept for config parity; forcing them raises at solve time until the
     layer is ported: ``edge_shard`` (``True``), ``mesh_shape`` over more
-    than one device, ``telemetry`` and ``metrics`` (set), and
-    ``precision="f64"`` on cuda. The remaining knobs (``hopset``,
+    than one device, and ``precision="f64"`` on cuda. The remaining knobs (``hopset``,
     ``approx_*``, ``error_budget``, ``compilation_cache_dir``) only tune
     routes or layers the port does not have yet.
     """
@@ -186,9 +192,6 @@ class SolverConfig:
         bad = ["edge_shard=True"] if self.edge_shard is True else []
         if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
             bad.append(f"mesh_shape={self.mesh_shape}")
-        for name in ("telemetry", "metrics"):
-            if getattr(self, name) is not None:
-                bad.append(f"{name} set")
         if self.precision == "f64" and device_type == "cuda":
             bad.append("precision='f64' on cuda (the kernels are f32)")
         return bad

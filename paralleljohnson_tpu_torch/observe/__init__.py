@@ -111,6 +111,7 @@ def finalize_solve(
     *,
     config,
     device=None,
+    telemetry=None,
     label: str = "solve",
     num_nodes: int = 0,
     num_edges: int = 0,
@@ -118,13 +119,16 @@ def finalize_solve(
     degree_bias: float | None = None,
 ) -> dict | None:
     """Post-solve hook (the solver calls it for every completed solve):
-    roofline-attribute ``stats`` and, when a profile store is configured,
+    roofline-attribute ``stats``, publish the bound to the heartbeat of
+    ``telemetry`` (when given) and, when a profile store is configured,
     predict this solve from the store's calibration and append its
     ``plan``, ``solve`` and ``trajectory`` records. Returns the roofline
     dict (also left on ``stats.roofline``)."""
     platform = current_platform(device)
     roof = attribute_stats(stats, platform=platform)
     stats.roofline = roof
+    if telemetry is not None and roof:
+        telemetry.progress(roofline_bound=roof.get("bound"))
     store_dir = resolve_profile_dir(getattr(config, "profile_store", None))
     if not store_dir:
         return roof

@@ -27,7 +27,9 @@ otherwise the ``standard`` path runs, whose phases walk the backend's
 own plan registries. Every completed solve ends in
 ``observe.finalize_solve``: the roofline on ``stats.roofline`` and, with
 a profile store configured, its plan, solve and trajectory records.
-Telemetry is a later slice.
+With ``SolverConfig.telemetry`` set, every public entry point, phase,
+stage attempt, finalize and checkpoint write is a flight-recorder span
+(``utils.telemetry``), with the JAX package's span and event names.
 """
 
 from __future__ import annotations
@@ -50,9 +52,12 @@ from paralleljohnson_tpu_torch.backends import Backend, get_backend
 from paralleljohnson_tpu_torch.backends.base import KernelResult
 from paralleljohnson_tpu_torch.config import SolverConfig
 from paralleljohnson_tpu_torch.graphs import CSRGraph, stack_graphs
+from paralleljohnson_tpu_torch.observe.live import resolve_metrics
+from paralleljohnson_tpu_torch.observe.trace import trace_attrs as _trace_attrs
 from paralleljohnson_tpu_torch.utils import resilience
 from paralleljohnson_tpu_torch.utils.metrics import SolverStats, phase_timer
 from paralleljohnson_tpu_torch.utils.reductions import finite_checksum, xp as _xp
+from paralleljohnson_tpu_torch.utils.telemetry import resolve as _resolve_telemetry
 
 
 def _transient_error(e: BaseException) -> bool:
@@ -264,6 +269,12 @@ class ParallelJohnsonSolver:
         self.backend = backend or get_backend(
             self.config.backend, self.config, device=device
         )
+        # The flight-recorder façade every stage is wired through; the
+        # falsy NULL_TELEMETRY by default, whose calls are no-ops.
+        self._tel = _resolve_telemetry(self.config.telemetry)
+        # Live-metrics registry (``observe.live``): the batch loop streams
+        # per-batch wall and retry / OOM counts into it.
+        self._metrics = resolve_metrics(self.config.metrics)
 
     def _check_supported(self) -> None:
         device = getattr(self.backend, "device", torch.device("cpu"))
@@ -295,29 +306,35 @@ class ParallelJohnsonSolver:
             if sources is None
             else np.asarray(sources, np.int64)
         )
-        decision = self._solver_decision(graph, sources)
-        if decision.chosen.plan.name == "condensed+fw":
-            res = self._try_condensed(graph, sources, stats, predecessors,
-                                      decision)
-            if res is not None:
-                return res
-        else:
-            stats.plan = decision.as_dict()
-        with phase_timer(stats, "upload"):
-            dgraph = self.backend.upload(graph)
-        h, dgraph = self._potentials(graph, dgraph, stats)
-        # Phase 3 rides inside each batch's finalize, so checkpointed rows
-        # are FINAL distances keyed by the ORIGINAL graph's digest.
-        with phase_timer(stats, "fanout"):
-            dist, pred = self._fanout(dgraph, sources, stats,
-                                      with_pred=predecessors, graph=graph,
-                                      h=h)
-        result = SolveResult(dist=dist, sources=sources, potentials=h,
-                             stats=stats, predecessors=pred)
-        if self.config.validate:
-            self._validate(graph, result)
-        self._finish_observability(stats, graph, len(sources), label="solve")
-        return result
+        tel = self._tel
+        tel.progress(op="solve", sources_total=len(sources))
+        with tel.span("solve", op="solve", n_sources=len(sources),
+                      predecessors=predecessors, **_trace_attrs()):
+            decision = self._solver_decision(graph, sources)
+            if decision.chosen.plan.name == "condensed+fw":
+                res = self._try_condensed(graph, sources, stats,
+                                          predecessors, decision)
+                if res is not None:
+                    return res
+            else:
+                stats.plan = decision.as_dict()
+            with phase_timer(stats, "upload", tel):
+                dgraph = self.backend.upload(graph)
+            h, dgraph = self._potentials(graph, dgraph, stats)
+            # Phase 3 rides inside each batch's finalize, so checkpointed
+            # rows are FINAL distances keyed by the ORIGINAL graph's
+            # digest.
+            with phase_timer(stats, "fanout", tel):
+                dist, pred = self._fanout(dgraph, sources, stats,
+                                          with_pred=predecessors,
+                                          graph=graph, h=h)
+            result = SolveResult(dist=dist, sources=sources, potentials=h,
+                                 stats=stats, predecessors=pred)
+            if self.config.validate:
+                self._validate(graph, result)
+            self._finish_observability(stats, graph, len(sources),
+                                       label="solve")
+            return result
 
     def solve_range(
         self,
@@ -387,7 +404,16 @@ class ParallelJohnsonSolver:
             if sources is None
             else np.asarray(sources, np.int64)
         )
-        with phase_timer(stats, "upload"):
+        tel = self._tel
+        tel.progress(op="solve_reduced", sources_total=len(sources))
+        with tel.span("solve", op="solve_reduced", n_sources=len(sources),
+                      **_trace_attrs()):
+            return self._solve_reduced_body(graph, sources, stats,
+                                            reduce_rows)
+
+    def _solve_reduced_body(self, graph, sources, stats, reduce_rows):
+        tel = self._tel
+        with phase_timer(stats, "upload", tel):
             dgraph = self.backend.upload(graph)
         h, dgraph = self._potentials(graph, dgraph, stats)
         n_src = len(sources)
@@ -409,7 +435,7 @@ class ParallelJohnsonSolver:
             return reduce_rows(rows, batch)
 
         values = []
-        with phase_timer(stats, "fanout"):
+        with phase_timer(stats, "fanout", tel):
             for _, _, value, _ in self._resilient_batches(
                 dgraph, sources, stats, finalize=finalize
             ):
@@ -427,9 +453,17 @@ class ParallelJohnsonSolver:
         reweighting."""
         self._check_supported()
         stats = SolverStats()
-        with phase_timer(stats, "upload"):
+        tel = self._tel
+        tel.progress(op="sssp", source=int(source))
+        with tel.span("solve", op="sssp", source=int(source),
+                      **_trace_attrs()):
+            return self._sssp_body(graph, source, predecessors, stats)
+
+    def _sssp_body(self, graph, source, predecessors, stats):
+        tel = self._tel
+        with phase_timer(stats, "upload", tel):
             dgraph = self.backend.upload(graph)
-        with phase_timer(stats, "bellman_ford"):
+        with phase_timer(stats, "bellman_ford", tel):
             bf = self._run_bf(dgraph, stats, source=int(source),
                               pred=predecessors)
         if bf.negative_cycle:
@@ -462,11 +496,16 @@ class ParallelJohnsonSolver:
         self._check_supported()
         stats = SolverStats()
         sources = np.asarray(sources, np.int64)
-        with phase_timer(stats, "upload"):
-            dgraph = self.backend.upload(graph)
-        with phase_timer(stats, "fanout"):
-            dist, pred = self._fanout(dgraph, sources, stats,
-                                      with_pred=predecessors, graph=graph)
+        tel = self._tel
+        tel.progress(op="multi_source", sources_total=len(sources))
+        with tel.span("solve", op="multi_source", n_sources=len(sources),
+                      **_trace_attrs()):
+            with phase_timer(stats, "upload", tel):
+                dgraph = self.backend.upload(graph)
+            with phase_timer(stats, "fanout", tel):
+                dist, pred = self._fanout(dgraph, sources, stats,
+                                          with_pred=predecessors,
+                                          graph=graph)
         self._finish_observability(stats, graph, len(sources),
                                    label="multi_source")
         return SolveResult(
@@ -485,7 +524,7 @@ class ParallelJohnsonSolver:
         self._check_supported()
         stats = SolverStats()
         try:
-            with phase_timer(stats, "batch_apsp"):
+            with phase_timer(stats, "batch_apsp", self._tel):
                 batch = stack_graphs(graphs)
                 res = resilience.run_stage(
                     lambda: self.backend.batch_apsp(batch),
@@ -494,6 +533,7 @@ class ParallelJohnsonSolver:
                     stats=stats,
                     faults=self.config.fault_plan,
                     retryable=_transient_error,
+                    telemetry=self._tel,
                 )
         except NotImplementedError:
             return [self.solve(g) for g in graphs]
@@ -554,6 +594,38 @@ class ParallelJohnsonSolver:
                     if c.plan.name == "condensed+fw")
         return decision.chosen.plan.name == "condensed+fw", cand.reason
 
+    def _emit_trajectory(self, res, *, stage: str, batch=None) -> None:
+        """One ``trajectory`` flight event and heartbeat push per
+        instrumented kernel stage: the summary numbers, a downsampled
+        frontier-collapse curve, and the live ``iter`` /
+        ``frontier_size`` heartbeat fields. No-op when the route carried
+        no trajectory or telemetry is off; never fatal."""
+        summ = getattr(res, "convergence", None)
+        if not summ or not self._tel:
+            return
+        try:
+            attrs = dict(
+                stage=stage,
+                route=res.route,
+                iterations=summ.get("iterations"),
+                frontier_half_life=summ.get("frontier_half_life"),
+                frontier_peak=summ.get("frontier_peak"),
+                frontier_last=summ.get("frontier_last"),
+                tail_fraction=round(float(summ.get("tail_fraction", 0.0)), 4),
+                jfr_skippable_edge_frac=round(
+                    float(summ.get("jfr_skippable_edge_frac", 0.0)), 4),
+            )
+            if batch is not None:
+                attrs["batch"] = batch
+            traj = getattr(res, "trajectory", None)
+            if traj is not None:
+                attrs["frontier_curve"] = observe.frontier_curve(traj)
+            self._tel.event("trajectory", **attrs)
+            self._tel.note(iter=summ.get("iterations"),
+                           frontier_size=summ.get("frontier_last"))
+        except Exception:  # noqa: BLE001 — observability is never fatal
+            pass
+
     def _finish_observability(self, stats: SolverStats, graph: CSRGraph,
                               batch: int, *, label: str) -> None:
         """``observe.finalize_solve`` for a completed solve: the roofline
@@ -563,7 +635,8 @@ class ParallelJohnsonSolver:
         try:
             observe.finalize_solve(
                 stats, config=self.config,
-                device=getattr(self.backend, "device", None), label=label,
+                device=getattr(self.backend, "device", None),
+                telemetry=self._tel if self._tel else None, label=label,
                 num_nodes=graph.num_nodes, num_edges=graph.num_real_edges,
                 batch=batch,
                 degree_bias=observe.degree_bias_from_degrees(
@@ -586,7 +659,7 @@ class ParallelJohnsonSolver:
         )
 
         try:
-            with phase_timer(stats, "fanout"):
+            with phase_timer(stats, "fanout", self._tel):
                 dist, pred, info = solve_condensed(
                     graph, sources, config=self.config,
                     predecessors=predecessors,
@@ -637,6 +710,7 @@ class ParallelJohnsonSolver:
             ),
             phase="fanout",
         )
+        self._tel.event("route", stage="fanout", route=info["route"])
         cand = decision.chosen
         stats.plan = {
             **decision.as_dict(),
@@ -689,8 +763,13 @@ class ParallelJohnsonSolver:
             stats=stats,
             faults=faults,
             retryable=retryable,
+            telemetry=self._tel,
         )
         stats.accumulate(bf, phase="bellman_ford")
+        # Route marker: the stage spans above opened before dispatch
+        # resolved a route, so the tag lands as an event.
+        self._tel.event("route", stage="bellman_ford", route=bf.route)
+        self._emit_trajectory(bf, stage="bellman_ford")
         if faults is not None:
             bf.dist = faults.poison_rows("bellman_ford", bf.dist)
         if bf.converged and not bf.negative_cycle:
@@ -706,7 +785,7 @@ class ParallelJohnsonSolver:
         valid, skip."""
         if not graph.has_negative_weights:
             return np.zeros(graph.num_nodes, graph.dtype), dgraph
-        with phase_timer(stats, "bellman_ford"):
+        with phase_timer(stats, "bellman_ford", self._tel):
             bf = self._run_bf(dgraph, stats, source=None)
         if bf.negative_cycle:
             raise NegativeCycleError(
@@ -718,7 +797,7 @@ class ParallelJohnsonSolver:
                 "raise SolverConfig.max_iterations (or leave it None)"
             )
         h = bf.dist
-        with phase_timer(stats, "reweight"):
+        with phase_timer(stats, "reweight", self._tel):
             dgraph = self.backend.reweight(dgraph, h)
         return h, dgraph
 
@@ -805,6 +884,7 @@ class ParallelJohnsonSolver:
         """
         policy = self.config.retry_policy()
         faults = self.config.fault_plan
+        tel = self._tel
         degrader = resilience.OOMDegrader(
             self.backend,
             dgraph,
@@ -817,31 +897,81 @@ class ParallelJohnsonSolver:
         n = len(sources)
         pos = 0
         batch_idx = 0
+        done = 0
+        t_solve0 = time.perf_counter()
+        tel.progress(
+            sources_total=n, sources_done=0, batches_done=0,
+            current_batch_size=degrader.batch_size, pipeline_depth=depth,
+        )
         # In-flight finalize window: (batch_idx, batch, payload, future).
         pending: collections.deque = collections.deque()
         worker = None
+        metrics = self._metrics
+        last_done_t = t_solve0
+        counted = {"retries": 0, "oom": 0}
 
-        def run_finalize(bi, b, payload, resumed):
+        def mark_done() -> None:
+            """Heartbeat progress after one batch fully finalizes, the
+            live metrics' per-batch wall and retry / OOM count deltas, and
+            the completion estimate (``eta_s``)."""
+            nonlocal done, last_done_t
+            done += 1
+            now_t = time.perf_counter()
+            metrics.histogram("pjtpu_solver_batch_wall_ms").record(
+                (now_t - last_done_t) * 1e3
+            )
+            last_done_t = now_t
+            metrics.counter("pjtpu_solver_batches").add(1)
+            if stats.retries > counted["retries"]:
+                metrics.counter("pjtpu_solver_retries").add(
+                    stats.retries - counted["retries"]
+                )
+                counted["retries"] = stats.retries
+            if stats.oom_degradations > counted["oom"]:
+                metrics.counter("pjtpu_solver_oom_degradations").add(
+                    stats.oom_degradations - counted["oom"]
+                )
+                counted["oom"] = stats.oom_degradations
+            tel.progress(
+                batches_done=done, sources_done=pos,
+                current_batch_size=degrader.batch_size,
+                retries=stats.retries,
+                oom_degradations=stats.oom_degradations,
+                pipeline_depth=depth,
+            )
+            if tel:
+                remaining = -(-(n - pos) // max(degrader.batch_size, 1))
+                eta = observe.estimate_eta(
+                    time.perf_counter() - t_solve0, done, remaining
+                )
+                if eta is not None:
+                    tel.note(eta_s=round(eta, 3))
+
+        def run_finalize(bi, b, payload, resumed, parent=None):
             """One finalize, timed, through the resilience layer (stage
             "download"). Returns (result, duration) so the drain can price
-            the overlap."""
+            the overlap. ``parent``: the span to nest under when running
+            on the pipeline worker (captured at submit)."""
             if finalize is None:
                 return payload, 0.0
-            if resumed:
-                return finalize(bi, b, payload, True), 0.0
-            t0 = time.perf_counter()
-            out = resilience.run_stage(
-                lambda: finalize(bi, b, payload, False),
-                stage="download",
-                policy=policy,
-                stats=stats,
-                faults=faults,
-                batch=bi,
-                retryable=_transient_error,
-            )
-            dur = time.perf_counter() - t0
-            stats.download_s += dur
-            return out, dur
+            with tel.span("finalize", batch=bi, parent=parent,
+                          resumed=resumed, **_trace_attrs()):
+                if resumed:
+                    return finalize(bi, b, payload, True), 0.0
+                t0 = time.perf_counter()
+                out = resilience.run_stage(
+                    lambda: finalize(bi, b, payload, False),
+                    stage="download",
+                    policy=policy,
+                    stats=stats,
+                    faults=faults,
+                    batch=bi,
+                    retryable=_transient_error,
+                    telemetry=tel,
+                )
+                dur = time.perf_counter() - t0
+                stats.download_s += dur
+                return out, dur
 
         def collapse_window() -> None:
             """OOM step 0: go serial — give back the in-flight [B, V]
@@ -849,6 +979,8 @@ class ParallelJohnsonSolver:
             nonlocal depth
             depth = 1
             stats.final_pipeline_depth = 1
+            tel.event("window_collapse")
+            tel.progress(pipeline_depth=1)
             try:
                 self.backend.clear_caches(dgraph)
             except Exception:  # noqa: BLE001 — hygiene must not mask
@@ -896,11 +1028,15 @@ class ParallelJohnsonSolver:
                     cached = try_resume(batch_idx, batch)
                     if cached is not None:
                         while pending:  # keep yields in batch order
-                            yield drain_one()
+                            drained = drain_one()
+                            mark_done()
+                            yield drained
                         stats.batches_resumed += 1
+                        tel.event("batch_resumed", batch=batch_idx)
                         out, _ = run_finalize(batch_idx, batch, cached, True)
                         pos += len(batch)
                         batch_idx += 1
+                        mark_done()
                         yield batch_idx - 1, batch, out, True
                         continue
 
@@ -918,19 +1054,35 @@ class ParallelJohnsonSolver:
                         faults=faults,
                         batch=batch_idx,
                         retryable=_transient_error,
+                        telemetry=tel,
                     )
                 except Exception as e:
                     if resilience.is_oom_error(e):
                         if depth > 1:
                             while pending:  # commit the good in-flight work
-                                yield drain_one()
+                                drained = drain_one()
+                                mark_done()
+                                yield drained
                             collapse_window()
                             continue  # retry THIS batch serially, same size
+                        old_size = degrader.batch_size
                         degrader.degrade(e)  # re-raises at the floor
                         stats.oom_degradations += 1
+                        tel.event(
+                            "oom_degrade", batch=batch_idx,
+                            old_batch=old_size, new_batch=degrader.batch_size,
+                        )
+                        tel.progress(
+                            oom_degradations=stats.oom_degradations,
+                            current_batch_size=degrader.batch_size,
+                        )
                         continue  # re-split THIS range smaller; pos unchanged
                     raise
                 stats.accumulate(res, phase="fanout")
+                # Route marker for this batch's stage spans (see _run_bf).
+                tel.event("route", stage="fanout", batch=batch_idx,
+                          route=res.route)
+                self._emit_trajectory(res, stage="fanout", batch=batch_idx)
                 if not res.converged:
                     raise ConvergenceError(
                         "fan-out hit max_iterations while still improving"
@@ -953,20 +1105,26 @@ class ParallelJohnsonSolver:
                             max_workers=1, thread_name_prefix="pj-pipeline"
                         )
                     fut = worker.submit(
-                        run_finalize, batch_idx, batch, res, False
+                        run_finalize, batch_idx, batch, res, False,
+                        tel.current_span_id(),
                     )
                     pending.append((batch_idx, batch, res, fut))
                     pos += len(batch)
                     batch_idx += 1
                     while len(pending) >= depth:
-                        yield drain_one()
+                        drained = drain_one()
+                        mark_done()
+                        yield drained
                 else:
                     out, _ = run_finalize(batch_idx, batch, res, False)
                     pos += len(batch)
                     batch_idx += 1
+                    mark_done()
                     yield batch_idx - 1, batch, out, False
             while pending:
-                yield drain_one()
+                drained = drain_one()
+                mark_done()
+                yield drained
             stats.final_batch = degrader.batch_size
         finally:
             if worker is not None:
@@ -1035,7 +1193,8 @@ class ParallelJohnsonSolver:
             # Serialization + checksumming on a bounded background writer;
             # flush() below is the commit barrier.
             writer = AsyncCheckpointWriter(
-                ckpt, max_pending=depth, fault_hook=fault_hook
+                ckpt, max_pending=depth, fault_hook=fault_hook,
+                telemetry=self._tel,
             )
 
         n_src = len(sources)
@@ -1055,8 +1214,9 @@ class ParallelJohnsonSolver:
                 if writer is not None:
                     writer.submit(batch_idx, batch, row, pred=pred)
                 elif ckpt is not None:
-                    checked_save(ckpt, batch_idx, batch, row, pred=pred,
-                                 fault_hook=fault_hook)
+                    with self._tel.span("ckpt_write", batch=batch_idx):
+                        checked_save(ckpt, batch_idx, batch, row, pred=pred,
+                                     fault_hook=fault_hook)
             elif unreweight:
                 row = _unreweight(row, h, batch)
             return row, pred

@@ -349,6 +349,11 @@ class AsyncCheckpointWriter:
     point, fired on the WRITER thread so an injected death happens
     mid-commit exactly like a real one. ``busy_s`` accumulates worker
     busy time for the solver's overlap accounting.
+
+    ``telemetry`` (``utils.telemetry.Telemetry`` or None): each commit
+    becomes a ``"ckpt_write"`` flight-recorder span on the writer thread
+    (its own Chrome-trace track), parented to the span that submitted it
+    — a worker killed mid-commit leaves that span open in the JSONL.
     """
 
     def __init__(
@@ -357,9 +362,13 @@ class AsyncCheckpointWriter:
         *,
         max_pending: int = 2,
         fault_hook=None,
+        telemetry=None,
     ) -> None:
+        from paralleljohnson_tpu_torch.utils.telemetry import NULL_TELEMETRY
+
         self.ckpt = ckpt
         self.fault_hook = fault_hook
+        self._tel = telemetry if telemetry is not None else NULL_TELEMETRY
         self.busy_s = 0.0
         self.saved = 0
         self._exc: BaseException | None = None
@@ -376,13 +385,16 @@ class AsyncCheckpointWriter:
             try:
                 if item is None:
                     return
-                batch_idx, sources, rows, pred = item
+                batch_idx, sources, rows, pred, parent = item
                 t0 = time.perf_counter()
                 try:
-                    checked_save(
-                        self.ckpt, batch_idx, sources, rows, pred=pred,
-                        fault_hook=self.fault_hook,
-                    )
+                    with self._tel.span(
+                        "ckpt_write", batch=batch_idx, parent=parent
+                    ):
+                        checked_save(
+                            self.ckpt, batch_idx, sources, rows, pred=pred,
+                            fault_hook=self.fault_hook,
+                        )
                     self.saved += 1
                 except BaseException as e:  # noqa: BLE001 — relayed
                     if self._exc is None:
@@ -409,15 +421,18 @@ class AsyncCheckpointWriter:
         pred: np.ndarray | None = None,
     ) -> None:
         """Enqueue one commit (blocks on backpressure; raises the stored
-        writer failure instead of queueing onto a dead writer)."""
+        writer failure instead of queueing onto a dead writer). The
+        submitter's current span is captured here so the writer-thread
+        ``ckpt_write`` span nests under the finalize that produced it."""
         if self._closed:
             raise RuntimeError("AsyncCheckpointWriter is closed")
+        parent = self._tel.current_span_id()
         while True:
             if self._exc is not None:
                 self._raise_pending()
             try:
                 self._q.put(
-                    (batch_idx, sources, rows, pred), timeout=0.05
+                    (batch_idx, sources, rows, pred, parent), timeout=0.05
                 )
                 return
             except queue.Full:

@@ -246,17 +246,25 @@ class SolverStats:
 
 
 @contextlib.contextmanager
-def phase_timer(stats: SolverStats, phase: str):
+def phase_timer(stats: SolverStats, phase: str, telemetry=None):
     """Times a phase and labels it for ``torch.profiler`` traces
-    (``record_function``), so device kernels group under their phase.
+    (``record_function``), so device kernels group under their phase;
+    with a telemetry object threaded in (``utils.telemetry``), also a
+    ``phase:<name>`` flight-recorder span and a heartbeat stage update.
 
     The accumulation is in a ``finally``: a phase whose body raises still
     lands its elapsed time in ``phase_seconds``."""
     import torch
 
+    tel_span = contextlib.nullcontext()
+    if telemetry:  # NULL_TELEMETRY is falsy: the disabled path skips this
+        telemetry.progress(stage=phase)
+        # "phase:" prefix: the fanout PHASE must not collide with the
+        # per-batch "fanout" stage spans nested inside it.
+        tel_span = telemetry.span(f"phase:{phase}", kind="phase")
     t0 = time.perf_counter()
     try:
-        with torch.profiler.record_function(phase):
+        with torch.profiler.record_function(phase), tel_span:
             yield
     finally:
         stats.phase_seconds[phase] += time.perf_counter() - t0

@@ -47,6 +47,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from paralleljohnson_tpu_torch.utils.telemetry import NULL_TELEMETRY
+
 
 class StageAbandonedError(RuntimeError):
     """A stage exceeded its per-attempt wall-clock deadline on every
@@ -228,6 +230,7 @@ def run_stage(
     batch: int | None = None,
     retryable: Callable[[BaseException], bool] | None = None,
     sleep: Callable[[float], None] = time.sleep,
+    telemetry: Any = None,
 ) -> Any:
     """Run one solve stage under the retry policy.
 
@@ -241,11 +244,17 @@ def run_stage(
       retried — the caller's predicate keeps that contract. OOM is NOT
       retried here unless the predicate opts in: the fan-out's degrader
       owns OOM recovery (shrink the batch) at the call site.
+    - ``telemetry``: a ``utils.telemetry.Telemetry`` (or None). Every
+      attempt becomes a flight-recorder span named after the stage
+      (attrs: batch, attempt; a failed attempt closes with its error),
+      retries and watchdog abandons become events, and the heartbeat's
+      stage/batch/attempt fields track the attempt that is live.
 
     Every plain retry increments ``stats.retries``; every watchdog
     abandon appends ``"<stage>@a<attempt>"`` (plus ``#b<batch>``) to
     ``stats.abandoned_stages``.
     """
+    tel = telemetry if telemetry is not None else NULL_TELEMETRY
     attempt = 0
     while True:
         attempt += 1
@@ -253,15 +262,18 @@ def run_stage(
         if wait > 0:
             sleep(wait)
         injected = faults.fire(stage, batch=batch) if faults is not None else None
+        tel.progress(stage=stage, batch=batch, attempt=attempt)
         try:
             call = fn
             if injected is not None:
                 call = injected.wrap(fn)
-            if policy.deadline_s is not None:
-                return _run_with_watchdog(call, policy.deadline_s, stage)
-            return call()
+            with tel.span(stage, batch=batch, attempt=attempt):
+                if policy.deadline_s is not None:
+                    return _run_with_watchdog(call, policy.deadline_s, stage)
+                return call()
         except StageAbandonedError as e:
             tag = stage + (f"#b{batch}" if batch is not None else "")
+            tel.event("abandon", stage=stage, batch=batch, attempt=attempt)
             if stats is not None:
                 stats.abandoned_stages.append(f"{tag}@a{attempt}")
             if attempt >= policy.max_attempts:
@@ -271,10 +283,14 @@ def run_stage(
                 ) from e
             if stats is not None:
                 stats.retries += 1
+            tel.event("retry", stage=stage, batch=batch, attempt=attempt,
+                      error="StageAbandonedError")
         except Exception as e:  # noqa: BLE001 — classified below
             if retryable is not None and retryable(e) and attempt < policy.max_attempts:
                 if stats is not None:
                     stats.retries += 1
+                tel.event("retry", stage=stage, batch=batch, attempt=attempt,
+                          error=type(e).__name__)
                 continue
             raise
 

@@ -762,3 +762,75 @@ def test_solve_with_profile_store_on_card_writes_cuda_records(cuda, tmp_path):
         assert rec["device"]["name"] == torch.cuda.get_device_name(0)
     assert records[1]["cost"]["cost_sources"] == ["analytic-model"]
     assert res.stats.roofline["platform"] == "cuda"
+
+
+def test_cpp_backend_rows_equal_torch_backend_on_card(cuda):
+    """The C++/OpenMP baseline and the card's backend solve R-MAT-12 to
+    the same rows, bitwise on integer weights (every path sum exact in
+    f32)."""
+    g = pjt.load_graph("rmat:scale=12,ef=16,seed=4")
+    rng = np.random.default_rng(4)
+    g = g.with_weights(rng.integers(1, 10, g.num_real_edges).astype(np.float32))
+    sources = np.sort(rng.choice(g.num_nodes, 64, replace=False))
+    card = pjt.ParallelJohnsonSolver(device=cuda).solve(g, sources)
+    cpp = pjt.ParallelJohnsonSolver(pjt.SolverConfig(backend="cpp")).solve(
+        g, sources)
+    assert card.stats.routes_by_phase == {"fanout": "pallas-vm"}
+    np.testing.assert_array_equal(johnson.to_numpy(card.dist), cpp.dist)
+
+
+@pytest.mark.parametrize("config", [
+    "er1k_apsp", "dimacs_ny_bf", "dimacs_ny_scrambled",
+    "dimacs_ny_scrambled_pred", "ego_fb_nsource", "rmat_apsp",
+    "rmat_apsp_pipelined", "batch_small", "dense_apsp_fw", "dirty_window",
+    "planner_dispatch", "planner_tuning",
+])
+def test_bench_config_smoke_on_card(cuda, config, tmp_path):
+    """Every config of the port's bench harness at the smoke preset on the
+    card: no ``failed`` (the harness's own bitwise and planner checks), a
+    ``cuda`` row with the card's name, and a flight file whose Chrome
+    trace validates."""
+    import json
+
+    from paralleljohnson_tpu_torch import benchmarks
+    from paralleljohnson_tpu_torch.utils.telemetry import validate_chrome_trace
+
+    (rec,) = benchmarks.run([config], preset="smoke", device=cuda,
+                            telemetry_dir=str(tmp_path))
+    assert "failed" not in rec.detail, rec.detail
+    assert rec.detail["platform"] == "cuda"
+    assert rec.detail["device"]["name"] == torch.cuda.get_device_name(0)
+    validate_chrome_trace(json.loads(
+        (tmp_path / f"trace-{config}.json").read_text()))
+
+
+def test_heartbeat_device_memory_only_once_cuda_is_initialised(cuda, tmp_path):
+    """In a fresh process the heartbeat carries no ``device_memory`` (and
+    does not initialise CUDA itself); once the process holds a tensor on
+    the card it reports bytes in use, peak and limit."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    script = (
+        "import json, torch\n"
+        "from paralleljohnson_tpu_torch.utils.telemetry import "
+        "HeartbeatReporter\n"
+        f"hb = HeartbeatReporter({str(tmp_path / 'hb.json')!r})\n"
+        "before = hb.payload()['device_memory']\n"
+        "inited = torch.cuda.is_initialized()\n"
+        "x = torch.ones(1 << 20, device='cuda')\n"
+        "after = hb.payload()['device_memory']\n"
+        "print(json.dumps([before, inited, after]))\n"
+    )
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", script], cwd=root,
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    before, inited, after = json.loads(out.stdout.strip().splitlines()[-1])
+    assert before is None and inited is False
+    stats = after["0"]
+    assert stats["bytes_in_use"] >= 4 << 20
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
+    assert stats["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory

@@ -250,8 +250,9 @@ def test_solves_pick_up_the_tuned_fw_tile(tmp_path):
 
 
 def test_dirty_window_and_profile_store_no_longer_raise(tmp_path):
-    """``dirty_window=True`` and ``profile_store`` are honoured now;
-    ``telemetry`` still raises naming the field."""
+    """``dirty_window=True`` and ``profile_store`` are honoured now, and
+    so is ``telemetry``: the same solve with a flight recorder returns
+    the same rows, bitwise."""
     g = _port(_grid())
     res = pjt.ParallelJohnsonSolver(
         pjt.SolverConfig(dirty_window=True, profile_store=str(tmp_path)),
@@ -260,9 +261,12 @@ def test_dirty_window_and_profile_store_no_longer_raise(tmp_path):
     assert ProfileStore(tmp_path).records()
     assert pjt.SolverConfig(dirty_window=True,
                             profile_store="x").unsupported("cuda") == []
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        pjt.ParallelJohnsonSolver(pjt.SolverConfig(telemetry=object()),
-                                  device="cpu").solve(g, np.arange(8))
+    from paralleljohnson_tpu_torch.utils.telemetry import Telemetry
+
+    traced = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(dirty_window=True, telemetry=Telemetry()),
+        device="cpu").solve(g, np.arange(8))
+    np.testing.assert_array_equal(to_numpy(traced.dist), to_numpy(res.dist))
 
 
 def test_profile_dir_from_the_environment(tmp_path, monkeypatch):

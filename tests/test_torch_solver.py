@@ -170,14 +170,44 @@ def test_numpy_backend_and_validate():
 @pytest.mark.parametrize("kw", [
     {"mesh_shape": (2, 2)},
     {"edge_shard": True}, {"mesh_shape": (2,)},
-    {"telemetry": object(), "metrics": object()},
-    {"telemetry": object()}, {"metrics": object()},
 ])
 def test_unported_routes_raise_naming_the_field(kw):
     name = next(iter(kw))
     with pytest.raises(NotImplementedError, match=name):
         pjt.ParallelJohnsonSolver(pjt.SolverConfig(**kw),
                                   device="cpu").solve(_port(GRAPHS["dag-neg"]()))
+
+
+@pytest.mark.parametrize("fields", [
+    ("telemetry",), ("metrics",), ("telemetry", "metrics"),
+])
+def test_telemetry_and_metrics_leave_rows_bitwise(fields, tmp_path):
+    """``telemetry`` and ``metrics`` are honoured (they raised before the
+    measurement slice): a multi-batch solve with a flight recorder, a
+    heartbeat and a metrics registry returns the rows of the same solve
+    without them, bitwise, and the sinks recorded it."""
+    from paralleljohnson_tpu_torch.observe.live import MetricsRegistry
+    from paralleljohnson_tpu_torch.utils.telemetry import Telemetry
+
+    g = _port(GRAPHS["dag-neg"]())
+    sinks = {"telemetry": Telemetry.create(
+                 trace_dir=tmp_path, heartbeat_file=tmp_path / "hb.json",
+                 label="t"),
+             "metrics": MetricsRegistry()}
+    kw = {f: sinks[f] for f in fields}
+    with_sinks = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(source_batch_size=16, **kw), device="cpu").solve(g)
+    plain = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(source_batch_size=16), device="cpu").solve(g)
+    np.testing.assert_array_equal(with_sinks.matrix, plain.matrix)
+    sinks["telemetry"].close()
+    if "telemetry" in fields:
+        names = {r.get("name") for r in sinks["telemetry"].tracer.records()}
+        assert {"solve", "fanout", "finalize", "route"} <= names
+    if "metrics" in fields:
+        batches = -(-g.num_nodes // 16)
+        assert sinks["metrics"].counter(
+            "pjtpu_solver_batches").total == batches
 
 
 @pytest.mark.parametrize("kw,name,route", [

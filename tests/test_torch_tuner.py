@@ -1,0 +1,240 @@
+"""PyTorch port: the budgeted probe tuner (``tuner.py``) against the JAX
+package's.
+
+The same bucket, seed and records give the same candidate lists; the
+declared work list is the reference's without the approximate tier's and
+the repair walk's plans (not ported yet); a store either package's
+``tune_bucket`` writes resolves to the same tuned value in the other. The
+reference's invariants hold in the port (a hard wall, zero budget as a
+no-op, the noise band, censored values never promoted), with injected
+``solve_fn`` probes whose walls are sleeps, and one real probe on the
+CPU."""
+
+import time
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from paralleljohnson_tpu import planner as ref_planner
+from paralleljohnson_tpu import tuner as ref_tuner
+from paralleljohnson_tpu.config import SolverConfig as RefConfig
+from paralleljohnson_tpu.graphs import load_graph
+from paralleljohnson_tpu.observe import tuning as ref_tuning
+from paralleljohnson_tpu.observe.store import ProfileStore as RefStore
+
+from paralleljohnson_tpu_torch import interop, planner, tuner
+from paralleljohnson_tpu_torch.config import SolverConfig
+from paralleljohnson_tpu_torch.observe import tuning
+from paralleljohnson_tpu_torch.observe.store import ProfileStore
+
+SPEC = "er:n=64,p=0.1,seed=1"
+PORTED = [k for k in tuner.KNOB_SPECS if k != "approx_beta"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several pytest workers on the
+    CPU, and an oversubscribed torch thread pool slows small solves by
+    orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def graph():
+    return load_graph(SPEC)
+
+
+@pytest.fixture(scope="module")
+def port_graph(graph):
+    return interop.graph_from_arrays(graph.indptr, graph.indices,
+                                     graph.weights)
+
+
+def _sleeper(walls: dict):
+    def fn(graph, sources, cfg):
+        time.sleep(walls[cfg.fw_tile])
+
+    return fn
+
+
+def test_knob_specs_and_work_list_equal_reference():
+    fields = ("name", "config_field", "plan", "overrides")
+    assert {k: tuple(getattr(s, f) for f in fields)
+            for k, s in tuner.KNOB_SPECS.items()} == {
+        k: tuple(getattr(s, f) for f in fields)
+        for k, s in ref_tuner.KNOB_SPECS.items()}
+    unported = {"hopset+bf", "repair", "resolve"}
+    assert tuner.declared_tunables() == [
+        (p, k) for p, k in ref_tuner.declared_tunables() if p not in unported]
+    assert tuner.tunable_knobs() == [
+        k for k in ref_tuner.tunable_knobs() if k != "approx_beta"]
+
+
+@pytest.mark.parametrize("knob", PORTED)
+@pytest.mark.parametrize("cfg", [{}, {"fw_tile": 384, "partition_parts": 6,
+                                      "delta": 2.0, "source_batch_size": 48,
+                                      "pipeline_depth": 3}])
+@pytest.mark.parametrize("shape", [(64, 400), (5000, 40000)])
+def test_propose_candidates_equal_reference(knob, cfg, shape):
+    v, e = shape
+    kw = dict(num_nodes=v, num_edges=e, platform="cpu")
+    plain = tuner.propose_candidates(knob, config=SolverConfig(**cfg), **kw)
+    assert plain == ref_tuner.propose_candidates(
+        knob, config=RefConfig(**cfg), **kw)
+    spec = tuner.KNOB_SPECS[knob]
+    assert all(spec.validate(c) for c in plain)
+    recs = [ref_planner.tune_record(knob=knob, value=plain[-1],
+                                    platform="cpu", num_nodes=v,
+                                    num_edges=e, wall_s=0.1),
+            {"kind": "plan", "platform": "cpu", "nodes": v, "edges": e,
+             "params": {knob: plain[0]}}]
+    got = tuner.propose_candidates(knob, config=SolverConfig(**cfg),
+                                   records=recs, **kw)
+    assert got == ref_tuner.propose_candidates(
+        knob, config=RefConfig(**cfg), records=recs, **kw)
+    assert sorted(map(str, got)) == sorted(map(str, plain))
+
+
+def test_approx_beta_names_the_missing_module(port_graph, tmp_path):
+    with pytest.raises(NotImplementedError, match="solver/approx"):
+        tuner.propose_candidates("approx_beta", num_nodes=64, num_edges=400,
+                                 platform="cpu")
+    with pytest.raises(NotImplementedError, match="solver/approx"):
+        tuner.run_probe(port_graph, knob="approx_beta", value=4,
+                        store=ProfileStore(tmp_path), budget_s=1.0,
+                        device="cpu")
+    with pytest.raises(NotImplementedError, match="solver/approx"):
+        tuner.tune_bucket(port_graph, store_dir=tmp_path / "s",
+                          knobs=["approx_beta"], device="cpu")
+    assert not (tmp_path / "s").exists()
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_tuned_store_resolves_alike_in_both_packages(writer, graph,
+                                                     port_graph, tmp_path):
+    """One package's ``tune_bucket`` writes the store (a challenger past
+    the band); both packages' resolvers and provenance tables read it the
+    same way."""
+    kw = dict(knobs=["fw_tile"], candidates={"fw_tile": [512, 640]},
+              probe_budget_s=30.0, bucket_budget_s=60.0,
+              solve_fn=_sleeper({512: 0.30, 640: 0.02}))
+    store = tmp_path / "store"
+    if writer == "port":
+        summary = tuner.tune_bucket(port_graph, store_dir=store,
+                                    config=SolverConfig(fw_tile=512),
+                                    device="cpu", **kw)
+    else:
+        summary = ref_tuner.tune_bucket(graph, store_dir=store,
+                                        config=RefConfig(fw_tile=512), **kw)
+    assert summary["knobs"]["fw_tile"]["winner"] == 640
+    q = dict(store_dir=str(store), platform="cpu",
+             num_nodes=graph.num_nodes, num_edges=graph.num_real_edges,
+             fallback=512)
+    assert tuning.tuned_value("fw_tile", **q) == 640
+    assert ref_tuning.tuned_value("fw_tile", **q) == 640
+    assert ProfileStore(store).records() == RefStore(store).records()
+    prov = dict(store_dir=store, platform="cpu", num_nodes=graph.num_nodes,
+                num_edges=graph.num_real_edges)
+    ours = tuner.provenance_table(config=SolverConfig(fw_tile=512), **prov)
+    theirs = [r for r in ref_tuner.provenance_table(
+        config=RefConfig(fw_tile=512), **prov) if r["knob"] != "approx_beta"]
+    assert ours == theirs
+    assert ours[0]["knob"] == "fw_tile"
+    assert ours[0]["source"] == "tuner-promoted"
+
+
+def test_probe_budget_is_a_hard_wall(port_graph, tmp_path):
+    store = ProfileStore(tmp_path / "store")
+    t0 = time.perf_counter()
+    res = tuner.run_probe(port_graph, knob="fw_tile", value=256, store=store,
+                          budget_s=0.3, solve_fn=_sleeper({256: 30.0}),
+                          device="cpu")
+    assert time.perf_counter() - t0 < 5.0
+    assert res.censored and res.wall_s is None and "budget" in res.reason
+    (rec,) = store.records()
+    assert rec["censored"] is True and rec["platform"] == "cpu"
+    assert tuning.tuned_value(
+        "fw_tile", store_dir=str(tmp_path / "store"), platform="cpu",
+        num_nodes=port_graph.num_nodes, num_edges=port_graph.num_real_edges,
+        fallback=128) is None
+
+
+def test_probe_error_is_censored_and_bad_candidate_rejected(port_graph,
+                                                            tmp_path):
+    def boom(graph, sources, cfg):
+        raise RuntimeError("probe exploded")
+
+    store = ProfileStore(tmp_path / "store")
+    res = tuner.run_probe(port_graph, knob="fw_tile", value=256, store=store,
+                          budget_s=5.0, solve_fn=boom, device="cpu")
+    assert res.censored and "probe exploded" in res.reason
+    assert [r["censored"] for r in store.records()] == [True]
+    with pytest.raises(ValueError, match="invalid candidate"):
+        tuner.run_probe(port_graph, knob="fw_tile", value=100, store=store,
+                        budget_s=1.0, device="cpu")
+
+
+def test_real_probe_lands_its_solve_records(port_graph, tmp_path):
+    """The default probe solves the graph on the device it is given with
+    the knob pinned and its route forced; its plan and solve records and
+    one tune record land in the store."""
+    store = ProfileStore(tmp_path / "store")
+    res = tuner.run_probe(port_graph, knob="fw_tile", value=128, store=store,
+                          budget_s=120.0, device="cpu")
+    assert not res.censored and res.records_landed >= 2
+    kinds = [r["kind"] for r in store.records()]
+    assert kinds[-1] == "tune" and "plan" in kinds and "solve" in kinds
+    plan = next(r for r in store.records() if r["kind"] == "plan")
+    assert plan["params"]["fw_tile"] == 128 and plan["platform"] == "cpu"
+
+
+def test_zero_budget_never_opens_the_store(port_graph, tmp_path):
+    summary = tuner.tune_bucket(
+        port_graph, store_dir=tmp_path / "store", knobs=["fw_tile"],
+        candidates={"fw_tile": [128, 256]}, bucket_budget_s=0.0,
+        solve_fn=_sleeper({128: 0.01, 256: 0.01}), device="cpu")
+    assert summary["probes"] == 0
+    assert summary["skipped"] == "zero tuning budget"
+    assert not (tmp_path / "store").exists()
+
+
+@pytest.mark.parametrize("walls,winner", [
+    ({512: 0.30, 640: 0.27}, None),   # faster, but inside the 25% band
+    ({512: 0.30, 640: 0.02}, 640),    # past the band: promoted
+])
+def test_noise_band_gates_promotion(port_graph, tmp_path, walls, winner):
+    summary = tuner.tune_bucket(
+        port_graph, store_dir=tmp_path / "store",
+        config=SolverConfig(fw_tile=512), knobs=["fw_tile"],
+        candidates={"fw_tile": [512, 640]}, probe_budget_s=30.0,
+        bucket_budget_s=60.0, solve_fn=_sleeper(walls), device="cpu")
+    knob = summary["knobs"]["fw_tile"]
+    assert knob["seed"] == 512
+    assert knob["winner"] == winner
+    assert knob["promoted"] is (winner is not None)
+    assert planner.PLANNER_NOISE_BAND == tuning.TUNE_NOISE_BAND
+
+
+def test_censored_challenger_never_promotes(port_graph, tmp_path):
+    summary = tuner.tune_bucket(
+        port_graph, store_dir=tmp_path / "store",
+        config=SolverConfig(fw_tile=512), knobs=["fw_tile"],
+        candidates={"fw_tile": [512, 640]}, probe_budget_s=0.3,
+        bucket_budget_s=60.0, max_rungs=0,
+        solve_fn=_sleeper({512: 0.02, 640: 30.0}), device="cpu")
+    knob = summary["knobs"]["fw_tile"]
+    assert summary["censored"] >= 1
+    assert knob["winner"] is None and knob["promoted"] is False
+    measured = {r["value"] for r in ProfileStore(tmp_path / "store").records()
+                if r.get("kind") == "tune" and not r.get("censored")}
+    assert 640 not in measured
+
+
+def test_unknown_knob_raises(port_graph, tmp_path):
+    with pytest.raises(ValueError, match="unknown knob"):
+        tuner.tune_bucket(port_graph, store_dir=tmp_path / "s",
+                          knobs=["warp_drive"], device="cpu")
