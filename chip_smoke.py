@@ -139,7 +139,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      priced walk's decision (the translated veto keeps ``pallas-vm``
      while the store prices it cheaper than the dirty window).
  18. the bench harness (``drive_bench``): ``benchmarks.run`` over the
-     port's twelve configs at the full preset on the card, with the
+     port's fourteen configs at the full preset on the card, with the
      flight recorder and a fresh profile store under
      ``chiprun_out/chip_smoke_bench/`` (the full rows in its
      ``rows.jsonl``), one line per config (wall, edges/s, route,
@@ -148,18 +148,40 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      checks), ``planner_dispatch``'s pick must be bitwise its forced run
      with every forced plan agreeing and none declined, the dirty
      window's evidence must engage on the grid and decline on R-MAT,
-     every config's Chrome trace must validate and
+     ``distributed_fleet`` must run its workers as subprocesses on the
+     card with no requeue (its rows bitwise between 1 and 4 workers,
+     ``incremental_update``'s repair bitwise a fresh solve: the
+     harness's own checks), every config's Chrome trace must validate and
      the heartbeat must show CUDA bytes in use; then the ``cpp``
      backend (C++/OpenMP) on ``er1k_apsp`` and ``ego_fb_nsource`` at the
      full preset, the CPU baseline, with its wall over the card's.
+ 19. the distributed fleet (``drive_fleet``) over the grid's first 256
+     sources in 8 leases of 32 (the batch pinned): 4 in-process workers
+     (they must launch ``fanout_sweep``), rows bitwise equal to one
+     ``solve()`` of the same sources; then 3 worker subprocesses on the
+     card, ``w0`` SIGKILLed after its first claim: its lease requeued
+     (at least one requeue), every lease committed, rc -9 and 0, 0, rows
+     bitwise equal again; each worker's summary (kernel build seconds:
+     ~0, phase 1 built them);
+ 20. incremental repair (``drive_repair``) on ``grid2d(80, 80,
+     seed=17)`` with integer weights: a checkpointed solve, the
+     incremental state attached, a 12-edge update inside the most
+     populated part repaired (``fanout_sweep`` on the part closures;
+     ``minplus`` / ``fw_kleene`` as they fall on the boundary core),
+     rows bitwise equal to a fresh ``solve()``, fewer dirty parts than
+     parts; then a negative cycle through the repaired graph's chained
+     state raises ``NegativeCycleError``.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-18 on its own; a path
+phases 3-5 together, then each path of phases 9-20 on its own (a
+worker subprocess's launches are not seen: phase 19 counts the
+in-process fleet); a path
 whose kernel was never launched fails (the plain-torch routes of phases
 15 and 17 need none). The last two lines are the
 ``kernels`` summary (launches summed over the paths, and by path) and
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``, after a line with the whole run's
+seconds (``smoke_s``).
 """
 
 from __future__ import annotations
@@ -226,6 +248,27 @@ DW_RMAT_SOURCES = 64
 BENCH_DIR = "chiprun_out/chip_smoke_bench"
 BENCH_PRESET = "full"
 BENCH_CPP_CONFIGS = ("er1k_apsp", "ego_fb_nsource")
+# Phase 19: the fleet on the card, over GRID_SPEC's first FLEET_SOURCES
+# sources in leases of FLEET_LEASE (the batch pinned to the lease: several
+# worker processes share the card); FLEET_WORKERS in-process workers, then
+# FLEET_PROC_WORKERS subprocess workers, "w0" killed after its first claim,
+# its lease requeued once FLEET_DEADLINE_S lapsed and its heartbeat is
+# FLEET_STALE_S old.
+FLEET_SOURCES = 256
+FLEET_LEASE = 32
+FLEET_WORKERS = 4
+FLEET_PROC_WORKERS = 3
+FLEET_DEADLINE_S = 4.0
+FLEET_STALE_S = 3.0
+# Phase 20: incremental repair on the JAX package's incremental_update
+# lattice at card scale (its full preset is 64 x 64): REPAIR_SIDE^2
+# vertices, integer weights, a REPAIR_K-edge update inside the most
+# populated part (the bench's draw), then a negative cycle. 96 x 96 took
+# 91 s on the H100, 31 s of it the checkpointed solve's zlib writes and
+# 52 s the repair (31 s rewriting every batch, 16 s of host expansion):
+# the rows are quadratic in the side, so the phase runs 80 x 80.
+REPAIR_SIDE = 80
+REPAIR_K = 12
 
 
 def emit(obj) -> None:
@@ -403,12 +446,15 @@ def counter(launches: dict):
         fw_mod.fw_kleene.launches = 0
         for loop in loops.values():
             loop.host_reads = 0
-        out = sync_time(fn)
-        launches[path] = {"fanout_sweep": fs.fanout_sweep.launches,
-                          "minplus": mp_mod.minplus_kernel.launches,
-                          "tight_pred": pred_mod.tight_pred_pass.launches,
-                          "fw_kleene": fw_mod.fw_kleene.launches,
-                          **{k: f.host_reads for k, f in loops.items()}}
+        try:
+            out = sync_time(fn)
+        finally:  # a path that raises on purpose is counted too
+            launches[path] = {
+                "fanout_sweep": fs.fanout_sweep.launches,
+                "minplus": mp_mod.minplus_kernel.launches,
+                "tight_pred": pred_mod.tight_pred_pass.launches,
+                "fw_kleene": fw_mod.fw_kleene.launches,
+                **{k: f.host_reads for k, f in loops.items()}}
         for name in needs:
             if launches[path][name] == 0:
                 raise AssertionError(f"{path} launched no {name} kernel")
@@ -1427,7 +1473,8 @@ def check_bench_decisions(config: str, d: dict) -> None:
     bitwise its forced run, every forced plan in agreement and none
     declined (``pallas-vm`` measured on the grid and R-MAT); the
     ``dirty_window`` evidence engaging on the grid and declining on
-    R-MAT."""
+    R-MAT; ``distributed_fleet``'s workers as subprocesses on the card
+    with no requeue (a clean run)."""
     if config == "planner_dispatch":
         graphs = d["graphs"]
         declined = {g: v["skipped"] for g, v in graphs.items() if v["skipped"]}
@@ -1446,6 +1493,242 @@ def check_bench_decisions(config: str, d: dict) -> None:
             raise AssertionError(f"dirty_window evidence decisions {engage},"
                                  " expected the grid to engage and R-MAT "
                                  "to decline")
+    elif config == "distributed_fleet":
+        if d["worker_mode"] != "subprocess" or d["requeues"]:
+            raise AssertionError(f"distributed_fleet: {d['worker_mode']} "
+                                 f"workers, {d['requeues']} requeues")
+
+
+def drive_fleet(dev) -> dict:
+    """Phase 19: the distributed fleet on the card over ``GRID_SPEC``'s
+    first ``FLEET_SOURCES`` sources (``FLEET_SOURCES / FLEET_LEASE``
+    leases, ``source_batch_size`` pinned to the lease). (a)
+    ``FLEET_WORKERS`` in-process workers, counted as one path
+    (``fleet_in_process``) that must launch ``fanout_sweep``: every lease
+    committed, no requeue, merged rows (``fleet_rows``) bitwise equal to
+    one ``solve()`` of the same sources on the card (``multi_source``
+    refuses the grid's negative weights). (b) ``FLEET_PROC_WORKERS``
+    worker subprocesses on the card, ``w0`` SIGKILLed after its first
+    claim: every lease committed, at least one requeue, ``w0``'s rc -9 and
+    the others' 0, rows bitwise equal to (a)'s. A subprocess's launches
+    are not counted here; each worker's summary (leases, kernel build
+    seconds, wall) is printed. Returns the counts by path."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch import distributed
+    from paralleljohnson_tpu_torch.distributed.launch import (
+        run_in_process_fleet,
+    )
+
+    launches: dict = {}
+    counted = counter(launches)
+    t_phase = time.perf_counter()
+    grid = pjt.load_graph(GRID_SPEC)
+    sources = np.arange(FLEET_SOURCES)
+    config = {"source_batch_size": FLEET_LEASE}
+    root = Path(tempfile.mkdtemp(prefix="pj-fleet-"))
+
+    def plan(name, workers, **kw):
+        return distributed.plan_fleet(
+            root / name, GRID_SPEC, n_workers=workers,
+            num_sources=FLEET_SOURCES, lease_sources=FLEET_LEASE,
+            config=config, **kw)
+
+    def summaries(coord, report):
+        out = {}
+        for wid in report.worker_rcs:
+            path = coord.worker_summary_path(wid)
+            if not path.exists():  # a killed worker writes none
+                out[wid] = None
+                continue
+            s = json.loads(path.read_text())
+            out[wid] = {k: s.get(k) for k in (
+                "leases_committed", "sources_solved", "claims",
+                "kernel_build_s", "wall_s", "device", "rc")}
+        return out
+
+    def check_rows(coord, label):
+        rows = distributed.fleet_rows(coord.dir)
+        if sorted(rows) != list(range(FLEET_SOURCES)):
+            raise AssertionError(f"{label}: fleet rows cover "
+                                 f"{len(rows)} sources")
+        bad = [int(s) for s in sources if not np.array_equal(rows[s],
+                                                             want[s])]
+        if bad:
+            raise AssertionError(f"{label}: rows of sources {bad[:8]} differ "
+                                 "from the card's solve()")
+
+    try:
+        ref, ref_s = sync_time(lambda: pjt.ParallelJohnsonSolver(
+            pjt.SolverConfig(**config), device=dev).solve(grid, sources))
+        want = ref.matrix
+        del ref
+        # (a) in-process workers, counted.
+        coord = plan("in_process", FLEET_WORKERS)
+        report, secs = counted("fleet_in_process", lambda: run_in_process_fleet(
+            coord, FLEET_WORKERS, device=dev), needs=("fanout_sweep",))
+        if not report.ok or report.requeues or set(
+                report.worker_rcs.values()) != {0}:
+            raise AssertionError(f"in-process fleet: {report.as_dict()}")
+        check_rows(coord, "in-process fleet")
+        in_process = {"wall_s": secs, "leases": report.leases_total,
+                      "requeues": report.requeues,
+                      "committed_by": report.status["committed_by"],
+                      "workers": summaries(coord, report),
+                      "launches": launches["fleet_in_process"]}
+        # (b) worker subprocesses on the card, one killed holding a lease.
+        coord_b = plan("subprocess", FLEET_PROC_WORKERS,
+                       lease_deadline_s=FLEET_DEADLINE_S,
+                       heartbeat_stale_s=FLEET_STALE_S,
+                       heartbeat_interval_s=0.5)
+        report_b, secs_b = sync_time(lambda: distributed.launch_local_fleet(
+            coord_b, FLEET_PROC_WORKERS, poll_s=0.25, timeout_s=300,
+            self_kill={"w0": 1}, device=dev))
+        want_rcs = {f"w{i}": -9 if i == 0 else 0
+                    for i in range(FLEET_PROC_WORKERS)}
+        if not (report_b.ok and report_b.requeues >= 1
+                and report_b.worker_rcs == want_rcs):
+            logs = {wid: (coord_b.dir / "logs" / f"{wid}.log").read_text(
+                errors="replace")[-2000:] for wid in report_b.worker_rcs}
+            raise AssertionError(f"subprocess fleet: {report_b.as_dict()}, "
+                                 f"worker logs {logs}")
+        check_rows(coord_b, "subprocess fleet")
+        emit({"phase": "fleet", "spec": GRID_SPEC, "V": grid.num_nodes,
+              "sources": FLEET_SOURCES, "lease_sources": FLEET_LEASE,
+              "leases": report.leases_total, "solve_s": ref_s,
+              "in_process": in_process,
+              "subprocess": {
+                  "wall_s": secs_b, "workers": FLEET_PROC_WORKERS,
+                  "requeues": report_b.requeues,
+                  "extensions": report_b.extensions,
+                  "worker_rcs": report_b.worker_rcs,
+                  "committed_by": report_b.status["committed_by"],
+                  "summaries": summaries(coord_b, report_b)},
+              "rows_bitwise_solve": True,
+              "phase19_s": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def drive_repair(dev) -> dict:
+    """Phase 20: incremental repair on the card. The JAX package's
+    ``incremental_update`` lattice at ``REPAIR_SIDE`` x ``REPAIR_SIDE``
+    (integer weights) is solved into a checkpoint and its
+    ``IncrementalState`` attached (path ``incremental_attach``); a
+    ``REPAIR_K``-edge update inside the most populated part (the bench's
+    draw) is repaired by ``repair_checkpoint`` (path ``repair``): both
+    must launch ``fanout_sweep`` (the part closures); ``minplus`` and
+    ``fw_kleene`` are counted as they fall (the boundary core's dense
+    closure). The repaired rows must equal a fresh ``solve()`` of the
+    updated graph bitwise, with fewer dirty parts than parts. Then an
+    update of the repaired graph that closes a negative cycle must raise
+    ``NegativeCycleError`` (path ``repair_negative_cycle``) and mark the
+    status ``failed``. Returns the counts by path."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.incremental import (
+        IncrementalState, read_repair_status, repair_checkpoint,
+    )
+    from paralleljohnson_tpu_torch.utils.checkpoint import (
+        BatchCheckpointer, graph_digest,
+    )
+
+    launches: dict = {}
+    counted = counter(launches)
+    t_phase = time.perf_counter()
+    g = grid2d(REPAIR_SIDE, REPAIR_SIDE, seed=17)
+    g = g.with_weights(np.maximum(1.0, np.rint(g.weights)).astype(np.float32))
+    n = g.num_nodes
+    batch = max(16, n // 16)
+    root = tempfile.mkdtemp(prefix="pj-repair-")
+    try:
+        cfg = pjt.SolverConfig(checkpoint_dir=root, source_batch_size=batch)
+        _, solve_s = sync_time(lambda: pjt.ParallelJohnsonSolver(
+            cfg, device=dev).solve(g))
+
+        def attach():
+            st = IncrementalState.build(g, config=cfg, device=dev)
+            st.save(BatchCheckpointer(root, graph_key=graph_digest(g)).dir)
+            return st
+
+        state, attach_s = counted("incremental_attach", attach,
+                                  needs=("fanout_sweep",))
+        target = int(np.bincount(state.labels).argmax())
+        e = g.num_real_edges
+        within = np.flatnonzero((state.labels[g.src[:e]] == target)
+                                & (state.labels[g.indices[:e]] == target))
+        idx = np.random.default_rng(5).choice(
+            within, size=min(REPAIR_K, within.size), replace=False)
+        updates = [(int(g.src[i]), int(g.indices[i]),
+                    1.0 if j % 2 == 0 else float(g.weights[i]) + 3.0)
+                   for j, i in enumerate(idx)]
+        new_g, _ = g.apply_edge_updates(updates)
+        fresh, fresh_s = sync_time(lambda: pjt.ParallelJohnsonSolver(
+            pjt.SolverConfig(source_batch_size=batch), device=dev).solve(new_g))
+        want = fresh.matrix
+        del fresh
+        result, repair_s = counted("repair", lambda: repair_checkpoint(
+            root, g, updates, config=cfg, state=state, device=dev),
+            needs=("fanout_sweep",))
+        if not result.dirty_parts_closed < result.parts_total:
+            raise AssertionError(f"repair closed {result.dirty_parts_closed} "
+                                 f"of {result.parts_total} parts")
+        ck = BatchCheckpointer(root, graph_key=graph_digest(new_g))
+        man = ck.manifest()
+        if len(man) != n:
+            raise AssertionError(f"repaired checkpoint covers {len(man)} of "
+                                 f"{n} sources")
+        for fn in sorted({f for _b, f in man.values()}):
+            srcs = ck.batch_sources(fn)
+            loaded = ck.load(int(man[int(srcs[0])][0]), srcs)
+            if loaded is None or not np.array_equal(loaded[0], want[srcs]):
+                raise AssertionError(f"repaired batch {fn} differs from the "
+                                     "fresh solve")
+        # A negative cycle through the repaired graph's chained state.
+        creating = [(0, 1, 1.0), (1, 0, -5.0)]
+        try:
+            counted("repair_negative_cycle", lambda: repair_checkpoint(
+                root, new_g, creating, config=cfg, device=dev))
+        except pjt.NegativeCycleError as exc:
+            cycle = str(exc)
+        else:
+            raise AssertionError("a negative cycle repaired without raising")
+        status = read_repair_status(ck.dir)
+        if status is None or status["status"] != "failed":
+            raise AssertionError(f"negative-cycle repair status {status}")
+        out = result.as_dict()
+        emit({"phase": "repair", "spec": f"grid2d({REPAIR_SIDE}, "
+              f"{REPAIR_SIDE}, seed=17), integer weights", "V": n,
+              "E": g.num_real_edges, "k_updates": len(updates),
+              "solve_s": solve_s, "attach_s": attach_s,
+              "fresh_solve_s": fresh_s, "repair_s": repair_s,
+              "repair_speedup": fresh_s / repair_s,
+              **{k: out[k] for k in (
+                  "parts_total", "dirty_parts_closed", "core_recomputed",
+                  "boundary_changed", "affected_rows", "rows_recomputed",
+                  "rows_patched", "rows_copied", "batches_rewritten",
+                  "expand_macs", "closures_s", "expand_s", "io_s",
+                  "wall_s")},
+              "boundary": int(state.boundary.size),
+              "rows_bitwise_fresh_solve": True,
+              "negative_cycle": cycle[:200],
+              "launches": {k: launches[k] for k in (
+                  "incremental_attach", "repair", "repair_negative_cycle")},
+              "phase20_s": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 def drive_bench(dev) -> dict:
@@ -1525,6 +1808,13 @@ def drive_bench(dev) -> dict:
             raise AssertionError(f"bench {rec.config}: no flight record")
         if "all_within_band" in d:  # timing-dependent: printed, not held
             row["all_within_band"] = d["all_within_band"]
+        for key in ("fleet_speedup", "single_worker_wall_s",
+                    "worker_kernel_build_s", "requeues", "repair_speedup",
+                    "full_resolve_wall_s", "attach_s", "repair_walls",
+                    "dirty_parts", "parts_total", "rows_recomputed",
+                    "rows_patched", "rows_copied"):
+            if key in d:
+                row[key] = d[key]
         rows.append(row)
         emit({"phase": "bench", **row})
     # The full rows (nested detail included) for the records.
@@ -1557,6 +1847,7 @@ def drive_bench(dev) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2180,6 +2471,10 @@ def main() -> int:
     # -- phase 18: the bench harness, telemetry, the cpp baseline ----------
     torch.cuda.empty_cache()
     by_path.update(drive_bench(dev))
+    # -- phases 19-20: the fleet and incremental repair --------------------
+    torch.cuda.empty_cache()
+    by_path.update(drive_fleet(dev))
+    by_path.update(drive_repair(dev))
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ("fanout_sweep", "minplus", "tight_pred",
                              "fw_kleene")}
@@ -2188,6 +2483,7 @@ def main() -> int:
     t_mp = timings["minplus_1024x1024x1024"]
     t_tp = timings["tight_pred_B512"]
     t_kl = kleene["timing"]
+    emit({"phase": "done", "smoke_s": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": "fanout_sweep", "route": "cuda",
          "source": "paralleljohnson_tpu_torch/csrc/fanout_sweep.cu",

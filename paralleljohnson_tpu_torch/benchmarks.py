@@ -23,8 +23,8 @@ present.
 Presets scale every config: ``smoke`` (CI, seconds), ``mini``
 (single-card sanity), ``full`` (the attested benchmark sizes). Rows
 report the platform of the backend that solved (``cuda`` or ``cpu``) and,
-on ``cuda``, the card's name and power limit. The JAX package's serving,
-fleet, incremental and approximate configs come with their modules.
+on ``cuda``, the card's name and power limit. The JAX package's serving
+and approximate configs come with their modules.
 """
 
 from __future__ import annotations
@@ -118,6 +118,10 @@ _SIZES = {
                           full_probe_s=90.0,
                           bucket_s=120.0, mini_bucket_s=180.0,
                           full_bucket_s=360.0),
+    "distributed_fleet": dict(n=96,    mini_n=1024,      full_n=4096,
+                          workers=2,   mini_workers=3,   full_workers=4),
+    "incremental_update": dict(n=96,   mini_n=1024,      full_n=4096,
+                          k=2,         mini_k=6,         full_k=12),
 }
 
 
@@ -997,6 +1001,237 @@ def bench_dirty_window(backend: str, preset: str) -> BenchRecord:
     )
 
 
+def bench_distributed_fleet(backend: str, preset: str) -> BenchRecord:
+    """Config 8: the distributed solve fleet — N local worker processes
+    vs 1 on the SAME graph, every worker on the bench device (several
+    processes share one card). Both runs go through the full coordinator
+    machinery (lease claims over the flock'd log, per-worker checkpoint
+    shards, heartbeats, shard-manifest union), so the speedup number
+    prices exactly what a pod deployment pays: coordination + per-
+    worker process overhead vs parallel source ranges. Rows are checked
+    BITWISE between the two fleets through ``fleet_rows`` (the merged
+    manifests) — the graph is sparse (below the dense-density gate) and
+    the source batch is pinned, so every worker resolves the same
+    batch-invariant route and a drifted row is a bug, not rounding.
+    The smoke preset runs the workers in-process (same machinery minus
+    subprocess spawn — what tier-1 exercises); mini/full spawn real
+    subprocesses. Detail records the requeue/extension counters: a
+    clean run must show 0 requeues; the host-loss drill is not here.
+    Subprocess workers' kernel launches are not counted in this process;
+    each worker's ``kernel_build_s`` (its build or load of the kernels
+    before its first claim) is in ``worker_kernel_build_s``."""
+    import tempfile
+
+    from paralleljohnson_tpu_torch.distributed import (
+        fleet_rows,
+        launch_local_fleet,
+        plan_fleet,
+    )
+    from paralleljohnson_tpu_torch.distributed.launch import run_in_process_fleet
+
+    n = _sz("distributed_fleet", "n", preset)
+    n_workers = _sz("distributed_fleet", "workers", preset)
+    # Average degree ~4: below the dense-density gate at every preset
+    # size, so every lease resolves the batch-invariant sparse fan-out.
+    graph_spec = f"er:n={n},p={round(4.0 / n, 6)},seed=13"
+    # Pinned: a batch sized from the free memory each worker sees would
+    # overcommit a card that several workers share.
+    config = {"source_batch_size": max(16, n // 16)}
+    in_process = preset == "smoke"
+    device = _BENCH_DEVICE.get()
+
+    def run_fleet(workers: int, d: str):
+        coord = plan_fleet(
+            d, graph_spec, n_workers=workers, backend=backend,
+            config=config,
+        )
+        t0 = time.perf_counter()
+        if in_process:
+            report = run_in_process_fleet(coord, workers, device=device)
+        else:
+            report = launch_local_fleet(
+                coord, workers, telemetry=_BENCH_TELEMETRY.get(),
+                device=device,
+            )
+        wall = time.perf_counter() - t0
+        if not report.ok:
+            raise RuntimeError(
+                f"fleet incomplete: {report.leases_committed}/"
+                f"{report.leases_total} leases committed "
+                f"(worker rcs {report.worker_rcs})"
+            )
+        return coord, report, wall
+
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as dn:
+        coord1, rep1, wall1 = run_fleet(1, d1 + "/coord")
+        coordn, repn, wall = run_fleet(n_workers, dn + "/coord")
+        rows1 = fleet_rows(coord1.dir)
+        rowsn = fleet_rows(coordn.dir)
+        detail = {
+            "nodes": n, "graph_spec": graph_spec,
+            "workers": n_workers,
+            "worker_mode": "in-process" if in_process else "subprocess",
+            "leases": repn.leases_total,
+            "requeues": repn.requeues,
+            "extensions": repn.extensions,
+            "single_worker_wall_s": round(wall1, 6),
+            "fleet_speedup": round(wall1 / max(wall, 1e-9), 3),
+            "committed_by": repn.status["committed_by"],
+            "worker_kernel_build_s": {
+                wid: json.loads(coordn.worker_summary_path(wid).read_text(
+                    encoding="utf-8")).get("kernel_build_s")
+                for wid in repn.worker_rcs
+            },
+        }
+        if sorted(rows1) != sorted(rowsn):
+            detail["failed"] = "fleet manifests cover different sources"
+        elif not all(
+            np.array_equal(rows1[s], rowsn[s]) for s in rows1
+        ):
+            detail["failed"] = (
+                f"{n_workers}-worker rows != 1-worker rows (bitwise)"
+            )
+    return BenchRecord(
+        "distributed_fleet", backend, preset, wall,
+        repn.edges_relaxed,
+        repn.edges_relaxed / max(wall, 1e-9), _n_chips(),
+        detail,
+    )
+
+
+def bench_incremental_update(backend: str, preset: str) -> BenchRecord:
+    """Config 9: full re-solve vs dirty-part repair on the SAME k-edge
+    update, closures and the fresh solve on the bench device. A graph
+    is solved into a checkpoint and its incremental state attached;
+    then a k-edge update batch confined to ONE partition is applied two
+    ways — a fresh full solve of the updated graph, and
+    ``repair_checkpoint`` (re-close the one dirty part + the boundary
+    core, re-expand affected rows). Rows are checked BITWISE (integer
+    weights, so every route agrees exactly); detail records the
+    speedup, the exact dirty-part counter (must stay below the part
+    total — the dependency tracking is the product being measured), and
+    the repair's row-action split. The one-time state build is timed
+    separately (``attach_s``): it amortizes over every future update."""
+    import tempfile
+
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.incremental import repair_checkpoint
+    from paralleljohnson_tpu_torch.incremental.state import IncrementalState
+    from paralleljohnson_tpu_torch.utils.checkpoint import (
+        BatchCheckpointer,
+        graph_digest,
+    )
+
+    side = max(4, int(np.sqrt(_sz("incremental_update", "n", preset))))
+    k_updates = _sz("incremental_update", "k", preset)
+    # A lattice, not ER: the dynamic-graph workload this subsystem
+    # opens is road networks (traffic updates, link failures), whose
+    # small separators are what make partitioned repair cheap — an ER
+    # graph's boundary core is most of the graph and would honestly
+    # show repair ~ resolve. Integer weights: the bitwise
+    # repair-vs-resolve check needs every route to agree exactly.
+    g = grid2d(side, side, seed=17)
+    n = g.num_nodes
+    g = g.with_weights(np.maximum(1.0, np.rint(g.weights)).astype(np.float32))
+    batch = max(16, n // 16)
+
+    with tempfile.TemporaryDirectory() as d:
+        solver = _solver(backend, checkpoint_dir=d, source_batch_size=batch)
+        solver.solve(g)
+        t0 = time.perf_counter()
+        state = IncrementalState.build(g, config=solver.config,
+                                       device=_BENCH_DEVICE.get())
+        state.save(
+            BatchCheckpointer(d, graph_key=graph_digest(g)).dir
+        )
+        attach_s = time.perf_counter() - t0
+
+        # k updates confined to the most-populated part: the honest
+        # "traffic update" shape — local change, small dirty set.
+        target = int(np.bincount(state.labels).argmax())
+        e = g.num_real_edges
+        within = np.flatnonzero(
+            (state.labels[g.src[:e]] == target)
+            & (state.labels[g.indices[:e]] == target)
+        )
+        rng = np.random.default_rng(5)
+        idx = rng.choice(within, size=min(k_updates, within.size),
+                         replace=False)
+        updates = [
+            (int(g.src[i]), int(g.indices[i]),
+             1.0 if j % 2 == 0 else float(g.weights[i]) + 3.0)
+            for j, i in enumerate(idx)
+        ]
+        new_graph, _report = g.apply_edge_updates(updates)
+
+        fresh_solver = _solver(backend, source_batch_size=batch)
+        t0 = time.perf_counter()
+        fresh = fresh_solver.solve(new_graph)
+        full_wall = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        result = repair_checkpoint(
+            d, g, updates, config=solver.config, state=state,
+            device=_BENCH_DEVICE.get(),
+        )
+        wall = time.perf_counter() - t0
+
+        ck = BatchCheckpointer(d, graph_key=graph_digest(new_graph))
+        manifest = ck.manifest()
+        fresh_rows = np.asarray(fresh.matrix)
+        detail = {
+            "nodes": n, "edges": int(g.num_real_edges),
+            "k_updates": len(updates),
+            "dirty_parts": result.dirty_parts_closed,
+            "parts_total": result.parts_total,
+            "core_recomputed": result.core_recomputed,
+            "affected_rows": result.affected_rows,
+            "rows_recomputed": result.rows_recomputed,
+            "rows_patched": result.rows_patched,
+            "rows_copied": result.rows_copied,
+            "attach_s": round(attach_s, 6),
+            "full_resolve_wall_s": round(full_wall, 6),
+            "repair_speedup": round(full_wall / max(wall, 1e-9), 3),
+            "repair_walls": {
+                "closures_s": round(result.closures_s, 6),
+                "expand_s": round(result.expand_s, 6),
+                "io_s": round(result.io_s, 6),
+            },
+        }
+        if result.dirty_parts_closed >= result.parts_total:
+            detail["failed"] = (
+                "dirty-part counter reached the part total — the "
+                "update was supposed to stay local"
+            )
+        elif len(manifest) != n:
+            detail["failed"] = (
+                f"repaired checkpoint covers {len(manifest)} of {n} "
+                "sources"
+            )
+        else:
+            seen = {}
+            for fn in sorted({f for _b, f in manifest.values()}):
+                srcs = ck.batch_sources(fn)
+                loaded = ck.load(int(manifest[int(srcs[0])][0]), srcs)
+                if loaded is None:
+                    detail["failed"] = f"unreadable repaired batch {fn}"
+                    break
+                for i, s in enumerate(srcs):
+                    seen[int(s)] = loaded[0][i]
+            if "failed" not in detail and not all(
+                np.array_equal(seen[s], fresh_rows[s]) for s in seen
+            ):
+                detail["failed"] = (
+                    "repaired rows != fresh full solve (bitwise)"
+                )
+    return BenchRecord(
+        "incremental_update", backend, preset, wall,
+        result.expand_macs,
+        result.expand_macs / max(wall, 1e-9), _n_chips(), detail,
+    )
+
+
 CONFIGS: dict[str, Callable[[str, str], BenchRecord]] = {
     "er1k_apsp": bench_er1k_apsp,
     "dimacs_ny_bf": bench_dimacs_ny_bf,
@@ -1010,6 +1245,8 @@ CONFIGS: dict[str, Callable[[str, str], BenchRecord]] = {
     "dirty_window": bench_dirty_window,
     "planner_dispatch": bench_planner_dispatch,
     "planner_tuning": bench_planner_tuning,
+    "distributed_fleet": bench_distributed_fleet,
+    "incremental_update": bench_incremental_update,
 }
 
 

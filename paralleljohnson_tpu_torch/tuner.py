@@ -29,11 +29,18 @@ Three invariants, as in the JAX package:
   function of the shape bucket, the config seed, and the (sorted) set of
   values already measured in that bucket.
 
+Idle-capacity farm: :func:`plan_tuning_fleet` writes a fleet
+coordinator plan whose leases are (knob x candidate-chunk) jobs, chunk
+sizes priced from the CostModel; :func:`run_tuning_worker` and the
+one-shot :func:`try_tuning_lease` (the hook fleet workers call when
+idle) claim leases, probe into per-worker shard stores, and commit under
+the coordinator's digest guard; :func:`harvest_tuning` merges committed
+shards into the real store. The plan and the shards keep the JAX
+package's format.
+
 Every function that solves or reads the platform takes ``device`` (the
 card by default, ``"cpu"`` for the plain versions) and passes it on.
-The idle-fleet farm of the JAX package (``plan_tuning_fleet`` and its
-workers) waits for the distributed coordinator, and ``approx_beta``
-waits for ``solver/approx``: asking for either raises
+``approx_beta`` waits for ``solver/approx``: asking for it raises
 ``NotImplementedError``.
 """
 
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import math
 import shutil
 import tempfile
@@ -55,11 +63,12 @@ from paralleljohnson_tpu_torch import planner as _planner
 from paralleljohnson_tpu_torch.config import SolverConfig
 from paralleljohnson_tpu_torch.observe import current_platform
 from paralleljohnson_tpu_torch.observe.costs import shape_bucket
-from paralleljohnson_tpu_torch.observe.store import ProfileStore
+from paralleljohnson_tpu_torch.observe.store import CostModel, ProfileStore
 from paralleljohnson_tpu_torch.observe.tuning import (
     DEFAULT_FW_TILE,
     DEFAULT_PIPELINE_DEPTH,
     TUNABLE_PARAMS,
+    cached_records,
     param_provenance,
     tuned_value,
 )
@@ -72,8 +81,19 @@ __all__ = [
     "propose_candidates",
     "run_probe",
     "tune_bucket",
+    "plan_tuning_fleet",
+    "run_tuning_worker",
+    "try_tuning_lease",
+    "harvest_tuning",
     "provenance_table",
 ]
+
+TUNE_SPEC_PREFIX = "tune:"
+HARVESTED_FILE = "harvested.json"
+
+# Floor under the per-probe cap when pricing lease sizes: even a probe the
+# model predicts as instant pays Python and launch overhead.
+MIN_PRICED_PROBE_S = 0.05
 
 # Knobs whose consuming route is not ported yet, and the module it needs.
 _UNPORTED_KNOBS = {"approx_beta": "solver/approx (the hopset+bf route)"}
@@ -251,12 +271,13 @@ def declared_tunables() -> list[tuple[str, str]]:
     from paralleljohnson_tpu_torch.backends.torch_backend import (
         FANOUT_PLANS, SSSP_PLANS,
     )
+    from paralleljohnson_tpu_torch.incremental.repair import _repair_plans
     from paralleljohnson_tpu_torch.solver.johnson import SOLVER_PLANS
 
-    # The approximate tier's and the repair walk's registries join when
-    # their modules are ported.
+    # The approximate tier's registry joins when solver/approx is ported.
     out: list[tuple[str, str]] = []
-    for registry in (SOLVER_PLANS, FANOUT_PLANS, SSSP_PLANS):
+    for registry in (SOLVER_PLANS, FANOUT_PLANS, SSSP_PLANS,
+                     _repair_plans()):
         for plan in registry:
             for knob in plan.tunables:
                 if (plan.name, knob) not in out:
@@ -555,6 +576,342 @@ def tune_bucket(
             )
     summary["wall_s"] = time.perf_counter() - t_start
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Idle-capacity farm over the fleet coordinator
+
+
+def _chunk(values: Sequence, size: int) -> list[list]:
+    size = max(1, int(size))
+    return [list(values[i:i + size]) for i in range(0, len(values), size)]
+
+
+def _priced_chunk_size(
+    store_dir: str | Path | None,
+    spec: KnobSpec,
+    *,
+    num_edges: int,
+    batch: int,
+    probe_budget_s: float,
+    target_lease_s: float,
+    platform: str,
+) -> int:
+    """Candidates per lease, priced from the CostModel: a lease should
+    cost ~``target_lease_s`` of probe time.  With no model (cold store)
+    each probe is priced at its worst case — the full budget cap."""
+    per_probe = float(probe_budget_s)
+    if store_dir:
+        try:
+            model = CostModel.fit(cached_records(store_dir))
+            routes = (spec.plan,) if spec.plan else ()
+            preds = [
+                model.predict(route, num_edges=num_edges, batch=batch,
+                              platform=platform)
+                for route in routes
+            ]
+            preds = [p["predicted_s"] for p in preds
+                     if p and p.get("predicted_s")]
+            if preds:
+                per_probe = min(per_probe,
+                                max(MIN_PRICED_PROBE_S, 2.0 * min(preds)))
+        except Exception:
+            pass
+    return max(1, int(float(target_lease_s) // max(per_probe, 1e-9)))
+
+
+def plan_tuning_fleet(
+    directory: str | Path,
+    *,
+    graph_spec: str,
+    graph,
+    knobs: Sequence[str] | None = None,
+    candidates: dict[str, Sequence] | None = None,
+    config: SolverConfig | None = None,
+    store_dir: str | Path | None = None,
+    probe_budget_s: float = 30.0,
+    target_lease_s: float | None = None,
+    lease_deadline_s: float = 60.0,
+    device="cuda",
+):
+    """Write a coordinator plan whose leases are tuning jobs: one lease =
+    one (knob x candidate-chunk) probe assignment on one shape bucket.
+    Chunk sizes come from :func:`_priced_chunk_size` — the cost model
+    prices how many probes fit in ``target_lease_s`` (default: 4 probe
+    caps).  Workers attach with :func:`run_tuning_worker` (or steal
+    single leases with :func:`try_tuning_lease` when idle) and the
+    caller merges results with :func:`harvest_tuning`. Candidates and
+    lease sizes are priced for ``device``'s platform."""
+    from paralleljohnson_tpu_torch.distributed.coordinator import Coordinator
+    from paralleljohnson_tpu_torch.utils.checkpoint import graph_digest
+
+    config = config or SolverConfig()
+    v = int(graph.num_nodes)
+    e = int(graph.num_real_edges)
+    platform = current_platform(device)
+    if target_lease_s is None:
+        target_lease_s = 4.0 * float(probe_budget_s)
+    records = list(cached_records(store_dir)) if store_dir else []
+    jobs: list[dict] = []
+    for knob in (list(knobs) if knobs is not None else tunable_knobs()):
+        _require_ported(knob)
+        spec = KNOB_SPECS[knob]
+        if candidates and knob in candidates:
+            values = [c for c in candidates[knob]
+                      if spec.validate is None or spec.validate(c)]
+        else:
+            values = propose_candidates(
+                knob, num_nodes=v, num_edges=e, config=config,
+                records=records, platform=platform,
+            )
+        if not values:
+            continue
+        batch = max(1, min(v, int(spec.probe_batch(v))))
+        size = _priced_chunk_size(
+            store_dir, spec, num_edges=e, batch=batch,
+            probe_budget_s=probe_budget_s, target_lease_s=target_lease_s,
+            platform=platform,
+        )
+        for chunk in _chunk(values, size):
+            jobs.append({"knob": knob, "values": chunk,
+                         "probe_budget_s": float(probe_budget_s)})
+    if not jobs:
+        raise ValueError("no tuning jobs: no declared knobs or candidates")
+    coord = Coordinator.create(
+        directory,
+        graph_spec=TUNE_SPEC_PREFIX + graph_spec,
+        graph_digest=graph_digest(graph),
+        num_sources=len(jobs),
+        lease_sources=1,
+        lease_deadline_s=lease_deadline_s,
+        config={"tuning": {
+            "jobs": jobs,
+            "graph_spec": graph_spec,
+            "num_nodes": v,
+            "num_edges": e,
+        }},
+    )
+    return coord
+
+
+def _tuning_spec(coord) -> dict:
+    spec = coord.spec
+    gspec = spec.get("graph_spec", "")
+    if not str(gspec).startswith(TUNE_SPEC_PREFIX):
+        from paralleljohnson_tpu_torch.distributed.coordinator import (
+            CoordinatorError,
+        )
+        raise CoordinatorError(
+            f"{coord.dir}: not a tuning fleet (graph_spec={gspec!r}; "
+            f"expected {TUNE_SPEC_PREFIX!r} prefix)"
+        )
+    tuning = (spec.get("config") or {}).get("tuning")
+    if not tuning or "jobs" not in tuning:
+        from paralleljohnson_tpu_torch.distributed.coordinator import (
+            CoordinatorError,
+        )
+        raise CoordinatorError(
+            f"{coord.dir}: tuning fleet spec has no jobs manifest"
+        )
+    return spec
+
+
+# Loaded probe graphs, keyed by (spec, digest): the idle hooks poll every
+# few hundred ms and must not re-parse the graph per tick.
+_TUNING_GRAPH_CACHE: dict[tuple[str, str], Any] = {}
+
+
+def _load_tuning_graph(spec: dict, graph=None):
+    from paralleljohnson_tpu_torch.distributed.coordinator import CoordinatorError
+    from paralleljohnson_tpu_torch.utils.checkpoint import graph_digest
+
+    if graph is None:
+        key = (str(spec["config"]["tuning"]["graph_spec"]),
+               str(spec["graph_digest"]))
+        graph = _TUNING_GRAPH_CACHE.get(key)
+        if graph is None:
+            from paralleljohnson_tpu_torch.graphs import load_graph
+
+            graph = load_graph(spec["config"]["tuning"]["graph_spec"])
+            _TUNING_GRAPH_CACHE[key] = graph
+    digest = graph_digest(graph)
+    if digest != spec["graph_digest"]:
+        raise CoordinatorError(
+            f"graph digest mismatch: fleet planned for "
+            f"{spec['graph_digest']} but probe graph hashes to {digest} — "
+            "refusing to land measurements from a different graph"
+        )
+    return graph
+
+
+def _run_tuning_lease(
+    coord, lease, spec: dict, graph, worker: str,
+    *,
+    config: SolverConfig | None = None,
+    solve_fn: Callable | None = None,
+    device="cuda",
+) -> dict:
+    """Execute one claimed tuning lease: probe its job's candidates into
+    a per-lease shard store, then commit.  The shard is only harvested
+    after the commit lands (manifest idiom: results from a lease that
+    was requeued to another worker are ignored)."""
+    jobs = spec["config"]["tuning"]["jobs"]
+    shard_root = coord.shard_dir(worker)
+    shard_root.mkdir(parents=True, exist_ok=True)
+    shard = ProfileStore(shard_root / f"tune-lease{lease.lease_id}")
+    probes = []
+    for job_idx in range(lease.start, lease.stop):
+        job = jobs[job_idx]
+        for value in job["values"]:
+            res = run_probe(
+                graph, knob=job["knob"], value=value, store=shard,
+                budget_s=float(job["probe_budget_s"]), config=config,
+                label=f"tuner:{worker}", solve_fn=solve_fn, device=device,
+            )
+            probes.append(res.as_dict())
+    coord.commit(lease.lease_id, worker)
+    return {"lease": lease.lease_id, "probes": probes,
+            "shard": str(shard.path)}
+
+
+def try_tuning_lease(
+    fleet_dir: str | Path,
+    worker: str,
+    *,
+    graph=None,
+    config: SolverConfig | None = None,
+    solve_fn: Callable | None = None,
+    device="cuda",
+) -> dict | None:
+    """The idle hook: claim and run at most ONE tuning lease, then
+    return (``None`` when nothing is pending or the directory is not a
+    tuning fleet).  Fleet workers call this between solve leases; serve
+    replicas call it from their idle loop — idle capacity becomes
+    calibration throughput without a dedicated tuner process. Probes
+    solve on ``device``."""
+    from paralleljohnson_tpu_torch.distributed.coordinator import (
+        Coordinator, CoordinatorError, StaleLeaseError,
+    )
+
+    try:
+        coord = Coordinator(fleet_dir)
+        spec = _tuning_spec(coord)
+        graph = _load_tuning_graph(spec, graph)
+    except (CoordinatorError, FileNotFoundError, KeyError, ValueError):
+        return None
+    lease = coord.claim(worker)
+    if lease is None:
+        return None
+    try:
+        return _run_tuning_lease(
+            coord, lease, spec, graph, worker,
+            config=config, solve_fn=solve_fn, device=device,
+        )
+    except StaleLeaseError:
+        return None
+    except BaseException:
+        try:
+            coord.release(lease.lease_id, worker, reason="probe error")
+        except Exception:
+            pass
+        raise
+
+
+def run_tuning_worker(
+    fleet_dir: str | Path,
+    worker: str,
+    *,
+    graph=None,
+    config: SolverConfig | None = None,
+    solve_fn: Callable | None = None,
+    max_leases: int | None = None,
+    poll_s: float = 0.25,
+    idle_timeout_s: float = 30.0,
+    device="cuda",
+) -> dict:
+    """Drain tuning leases until the fleet is done (or ``max_leases``):
+    the dedicated-worker counterpart of :func:`try_tuning_lease`.
+    Crash-safe the same way solve workers are: leases lapse at the
+    coordinator deadline and requeue; ``recover_worker`` requeues our
+    own stragglers at startup."""
+    from paralleljohnson_tpu_torch.distributed.coordinator import (
+        Coordinator, StaleLeaseError,
+    )
+
+    coord = Coordinator(fleet_dir)
+    spec = _tuning_spec(coord)
+    graph = _load_tuning_graph(spec, graph)
+    coord.recover_worker(worker)
+    done: list[dict] = []
+    stale = 0
+    idle_since: float | None = None
+    while True:
+        if max_leases is not None and len(done) >= max_leases:
+            break
+        lease = coord.claim(worker)
+        if lease is None:
+            if coord.done():
+                break
+            now = time.monotonic()
+            if idle_since is None:
+                idle_since = now
+            elif now - idle_since > idle_timeout_s:
+                break
+            time.sleep(poll_s)
+            continue
+        idle_since = None
+        try:
+            done.append(_run_tuning_lease(
+                coord, lease, spec, graph, worker,
+                config=config, solve_fn=solve_fn, device=device,
+            ))
+        except StaleLeaseError:
+            stale += 1
+        except BaseException:
+            try:
+                coord.release(lease.lease_id, worker, reason="probe error")
+            except Exception:
+                pass
+            raise
+    return {"worker": worker, "leases": done, "stale_commits": stale,
+            "fleet_done": coord.done()}
+
+
+def harvest_tuning(
+    fleet_dir: str | Path,
+    store_dir: str | Path,
+) -> dict:
+    """Merge every *committed* lease's shard store into the real profile
+    store, exactly once (a ``harvested.json`` ledger in the fleet dir
+    records merged lease ids).  Uncommitted / requeued leases are
+    skipped: the commit is the only thing that makes a shard real."""
+    from paralleljohnson_tpu_torch.distributed.coordinator import Coordinator
+
+    coord = Coordinator(fleet_dir)
+    _tuning_spec(coord)
+    ledger_path = Path(fleet_dir) / HARVESTED_FILE
+    harvested: set[int] = set()
+    if ledger_path.exists():
+        harvested = set(json.loads(ledger_path.read_text(encoding="utf-8")))
+    store = ProfileStore(store_dir)
+    merged = 0
+    records = 0
+    for lease in coord.leases():
+        if lease.state != "committed" or lease.lease_id in harvested:
+            continue
+        shard_dir = (coord.shard_dir(lease.committed_by)
+                     / f"tune-lease{lease.lease_id}")
+        for rec in ProfileStore(shard_dir).records():
+            store.append(rec)
+            records += 1
+        harvested.add(lease.lease_id)
+        merged += 1
+    tmp = ledger_path.with_suffix(".tmp")
+    tmp.write_text(json.dumps(sorted(harvested)), encoding="utf-8")
+    tmp.replace(ledger_path)
+    return {"leases_harvested": merged, "records": records,
+            "total_harvested": len(harvested),
+            "fleet_done": coord.done()}
 
 
 def provenance_table(

@@ -55,7 +55,7 @@ def port_rows(tmp_path_factory):
 
 def test_configs_are_the_reference_configs_with_ported_modules():
     unported = {"serve_queries", "serve_overload", "serve_fleet",
-                "distributed_fleet", "incremental_update", "approx_apsp"}
+                "approx_apsp"}
     assert set(CONFIGS) == set(ref_bench.CONFIGS) - unported
     for name in CONFIGS:
         assert benchmarks._SIZES[name] == ref_bench._SIZES[name]
@@ -102,6 +102,34 @@ def test_in_bench_checks_ran(port_rows):
     dw = rows["dirty_window"].detail["dispatch"]
     assert dw["grid"]["engage"] is True and dw["rmat"]["engage"] is False
     assert rows["dense_apsp_fw"].detail["route"] == "fanout:fw"
+
+
+def test_fleet_and_repair_rows_as_reference(port_rows, ref_rows):
+    """``distributed_fleet`` (in-process workers at smoke) and
+    ``incremental_update`` keep the reference's in-bench checks and detail
+    keys: 1-worker and N-worker fleet rows bitwise, the repair bitwise a
+    fresh solve with fewer dirty parts than parts; their counters equal
+    the reference's."""
+    _, rows = port_rows
+    fl, ref_fl = rows["distributed_fleet"].detail, \
+        ref_rows["distributed_fleet"].detail
+    own = {"telemetry", "platform", "device", "worker_kernel_build_s"}
+    assert set(fl) - own == set(ref_fl) - {"telemetry", "platform"}
+    assert fl["worker_mode"] == "in-process" and fl["requeues"] == 0
+    for key in ("nodes", "graph_spec", "workers", "leases", "committed_by"):
+        assert fl[key] == ref_fl[key], key
+    assert set(fl["worker_kernel_build_s"].values()) == {None}  # the CPU
+    inc, ref_inc = rows["incremental_update"].detail, \
+        ref_rows["incremental_update"].detail
+    assert set(inc) - own == set(ref_inc) - {"telemetry", "platform"}
+    assert inc["dirty_parts"] < inc["parts_total"]
+    assert inc["repair_speedup"] > 0 and inc["full_resolve_wall_s"] > 0
+    for key in ("nodes", "edges", "k_updates", "dirty_parts", "parts_total",
+                "core_recomputed", "affected_rows", "rows_recomputed",
+                "rows_patched", "rows_copied"):
+        assert inc[key] == ref_inc[key], key
+    assert rows["incremental_update"].edges_relaxed == \
+        ref_rows["incremental_update"].edges_relaxed
 
 
 def test_telemetry_and_history_artifacts(port_rows):

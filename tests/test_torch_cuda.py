@@ -1,7 +1,8 @@
 """PyTorch port on the card: each hand CUDA kernel against its plain
 PyTorch version, and ``solve()`` on the card (predecessor trees and the
-plain-torch XLA routes included) against ``solve()`` on the CPU, and the
-B=1 routes' ``sssp`` against ``sweep``'s. Every
+plain-torch XLA routes included) against ``solve()`` on the CPU, the
+B=1 routes' ``sssp`` against ``sweep``'s, and an in-process fleet and a
+checkpoint repair against the card's ``solve()``. Every
 test needs a CUDA device and skips without one.
 
 This file imports nothing of JAX, so it runs where JAX is not installed:
@@ -783,7 +784,8 @@ def test_cpp_backend_rows_equal_torch_backend_on_card(cuda):
     "er1k_apsp", "dimacs_ny_bf", "dimacs_ny_scrambled",
     "dimacs_ny_scrambled_pred", "ego_fb_nsource", "rmat_apsp",
     "rmat_apsp_pipelined", "batch_small", "dense_apsp_fw", "dirty_window",
-    "planner_dispatch", "planner_tuning",
+    "planner_dispatch", "planner_tuning", "distributed_fleet",
+    "incremental_update",
 ])
 def test_bench_config_smoke_on_card(cuda, config, tmp_path):
     """Every config of the port's bench harness at the smoke preset on the
@@ -834,3 +836,74 @@ def test_heartbeat_device_memory_only_once_cuda_is_initialised(cuda, tmp_path):
     assert stats["bytes_in_use"] >= 4 << 20
     assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"]
     assert stats["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+
+
+def test_in_process_fleet_on_card_equals_solve(cuda, tmp_path):
+    """Two in-process fleet workers on the card: every lease committed
+    through the sparse fan-out kernel, merged rows bitwise equal to one
+    ``solve()`` on the card."""
+    from paralleljohnson_tpu_torch import distributed
+    from paralleljohnson_tpu_torch.distributed.launch import (
+        run_in_process_fleet,
+    )
+
+    spec = "er:n=1024,p=0.004,seed=13"
+    coord = distributed.plan_fleet(tmp_path / "coord", spec, n_workers=2,
+                                   config={"source_batch_size": 64})
+    before = fs.fanout_sweep.launches
+    report = run_in_process_fleet(coord, 2, device=cuda)
+    assert report.ok and set(report.worker_rcs.values()) == {0}
+    assert fs.fanout_sweep.launches > before
+    g = pjt.load_graph(spec)
+    mat = pjt.ParallelJohnsonSolver(pjt.SolverConfig(source_batch_size=64),
+                                    device=cuda).solve(g).matrix
+    rows = distributed.fleet_rows(coord.dir)
+    assert sorted(rows) == list(range(g.num_nodes))
+    for s, row in rows.items():
+        np.testing.assert_array_equal(row, mat[s], err_msg=f"row {s}")
+
+
+def test_repair_on_card_equals_fresh_solve(cuda, tmp_path):
+    """A checkpoint of an integer-weight lattice repaired on the card
+    after a 4-edge update inside one part: closures through the card's
+    kernels, repaired rows bitwise equal to a fresh ``solve()`` of the
+    updated graph on the card, fewer dirty parts than parts."""
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.incremental import (
+        IncrementalState, repair_checkpoint,
+    )
+    from paralleljohnson_tpu_torch.utils.checkpoint import (
+        BatchCheckpointer, graph_digest,
+    )
+
+    g = grid2d(24, 24, seed=17)
+    g = g.with_weights(np.maximum(1.0, np.rint(g.weights)).astype(np.float32))
+    cfg = pjt.SolverConfig(checkpoint_dir=str(tmp_path), source_batch_size=64)
+    pjt.ParallelJohnsonSolver(cfg, device=cuda).solve(g)
+    state = IncrementalState.build(g, config=cfg, device=cuda)
+    state.save(BatchCheckpointer(tmp_path, graph_key=graph_digest(g)).dir)
+    target = int(np.bincount(state.labels).argmax())
+    e = g.num_real_edges
+    within = np.flatnonzero((state.labels[g.src[:e]] == target)
+                            & (state.labels[g.indices[:e]] == target))
+    idx = np.random.default_rng(5).choice(within, 4, replace=False)
+    updates = [(int(g.src[i]), int(g.indices[i]),
+                1.0 if j % 2 == 0 else float(g.weights[i]) + 3.0)
+               for j, i in enumerate(idx)]
+    before = fs.fanout_sweep.launches
+    result = repair_checkpoint(tmp_path, g, updates, config=cfg,
+                               state=state, device=cuda)
+    assert fs.fanout_sweep.launches > before
+    assert result.dirty_parts_closed < result.parts_total
+    new_g, _ = g.apply_edge_updates(updates)
+    fresh = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(source_batch_size=64), device=cuda).solve(new_g)
+    mat = fresh.matrix
+    ck = BatchCheckpointer(tmp_path, graph_key=graph_digest(new_g))
+    man = ck.manifest()
+    assert len(man) == g.num_nodes
+    for fn in sorted({f for _b, f in man.values()}):
+        srcs = ck.batch_sources(fn)
+        rows, _ = ck.load(int(man[int(srcs[0])][0]), srcs)
+        for i, s in enumerate(srcs):
+            np.testing.assert_array_equal(rows[i], mat[int(s)])

@@ -2,16 +2,21 @@
 package's.
 
 The same bucket, seed and records give the same candidate lists; the
-declared work list is the reference's without the approximate tier's and
-the repair walk's plans (not ported yet); a store either package's
-``tune_bucket`` writes resolves to the same tuned value in the other. The
-reference's invariants hold in the port (a hard wall, zero budget as a
-no-op, the noise band, censored values never promoted), with injected
-``solve_fn`` probes whose walls are sleeps, and one real probe on the
-CPU."""
+declared work list is the reference's without the approximate tier's
+plans (not ported yet); a store either package's ``tune_bucket`` writes
+resolves to the same tuned value in the other. The reference's
+invariants hold in the port (a hard wall, zero budget as a no-op, the
+noise band, censored values never promoted), with injected ``solve_fn``
+probes whose walls are sleeps, and one real probe on the CPU. The
+idle-capacity farm (plan, lease, run, harvest) plans the reference's
+jobs and keeps its crash contract, and the repair-vs-resolve walk
+decides as the reference's."""
 
+import json
 import time
+import types
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -67,7 +72,7 @@ def test_knob_specs_and_work_list_equal_reference():
             for k, s in tuner.KNOB_SPECS.items()} == {
         k: tuple(getattr(s, f) for f in fields)
         for k, s in ref_tuner.KNOB_SPECS.items()}
-    unported = {"hopset+bf", "repair", "resolve"}
+    unported = {"hopset+bf"}
     assert tuner.declared_tunables() == [
         (p, k) for p, k in ref_tuner.declared_tunables() if p not in unported]
     assert tuner.tunable_knobs() == [
@@ -238,3 +243,189 @@ def test_unknown_knob_raises(port_graph, tmp_path):
     with pytest.raises(ValueError, match="unknown knob"):
         tuner.tune_bucket(port_graph, store_dir=tmp_path / "s",
                           knobs=["warp_drive"], device="cpu")
+
+
+# -- the idle-capacity farm ---------------------------------------------------
+
+
+def _fleet(tmp_path, graph, *, package="port", **kw):
+    kw.setdefault("knobs", ["fw_tile"])
+    kw.setdefault("candidates", {"fw_tile": [256, 384]})
+    kw.setdefault("probe_budget_s", 5.0)
+    if package == "port":
+        return tuner.plan_tuning_fleet(tmp_path / "fleet", graph_spec=SPEC,
+                                       graph=graph, device="cpu", **kw)
+    return ref_tuner.plan_tuning_fleet(tmp_path / "fleet", graph_spec=SPEC,
+                                       graph=graph, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"knobs": ["fw_tile", "source_batch", "pipeline_depth"],
+     "candidates": None, "probe_budget_s": 2.0},
+    {"knobs": ["partition_parts", "delta"], "candidates": None,
+     "probe_budget_s": 1.0, "target_lease_s": 2.0},
+])
+def test_tuning_fleet_plan_equals_reference(kw, graph, port_graph, tmp_path):
+    ours = _fleet(tmp_path / "port", port_graph, **kw)
+    theirs = _fleet(tmp_path / "ref", graph, package="ref", **kw)
+    assert ours.spec["config"] == theirs.spec["config"]
+    for key in ("graph_spec", "graph_digest", "num_sources", "leases",
+                "lease_deadline_s"):
+        assert ours.spec[key] == theirs.spec[key], key
+    assert ours.spec["backend"] == "torch"
+    with pytest.raises(NotImplementedError, match="solver/approx"):
+        _fleet(tmp_path / "approx", port_graph, knobs=["approx_beta"])
+
+
+def test_tuning_lease_crash_requeues_and_second_worker_commits(
+        port_graph, tmp_path):
+    """The crash contract for tuning leases: a claimed lease whose worker
+    dies requeues; the survivor's commit wins; the dead worker's late
+    commit is stale; harvest merges only the committed shard."""
+    from paralleljohnson_tpu_torch.distributed.coordinator import (
+        Coordinator, StaleLeaseError,
+    )
+
+    coord = _fleet(tmp_path, port_graph, lease_deadline_s=5.0)
+    assert len(coord.leases()) == 1
+    stale_coord = Coordinator(tmp_path / "fleet")
+    lease = stale_coord.claim("wA", now=100.0)
+    shard_a = ProfileStore(
+        stale_coord.shard_dir("wA") / f"tune-lease{lease.lease_id}")
+    tuner.run_probe(port_graph, knob="fw_tile", value=256, store=shard_a,
+                    budget_s=5.0, label="tuner:wA",
+                    solve_fn=_sleeper({256: 0.01}), device="cpu")
+    assert [e["ev"] for e in stale_coord.reap(now=200.0)] == ["requeued"]
+    result = tuner.try_tuning_lease(
+        tmp_path / "fleet", "wB", graph=port_graph,
+        solve_fn=_sleeper({256: 0.01, 384: 0.01}), device="cpu")
+    assert result is not None and result["lease"] == lease.lease_id
+    assert len(result["probes"]) == 2
+    committed = Coordinator(tmp_path / "fleet").leases()[0]
+    assert (committed.state, committed.committed_by) == ("committed", "wB")
+    with pytest.raises(StaleLeaseError):
+        stale_coord.commit(lease.lease_id, "wA", now=300.0)
+    out = tuner.harvest_tuning(tmp_path / "fleet", tmp_path / "store")
+    assert out["leases_harvested"] == 1 and out["records"] > 0
+    labels = {r.get("label") for r in ProfileStore(tmp_path / "store")
+              .records()}
+    assert labels == {"tuner:wB"}
+
+
+@pytest.mark.parametrize("harvester", ["port", "ref"])
+def test_harvest_is_idempotent_and_reads_across_packages(
+        harvester, port_graph, tmp_path):
+    """A port fleet drained by ``run_tuning_worker`` is harvested once by
+    either package's ``harvest_tuning``; a second harvest merges
+    nothing."""
+    _fleet(tmp_path, port_graph)
+    done = tuner.run_tuning_worker(
+        tmp_path / "fleet", "w0", graph=port_graph,
+        solve_fn=_sleeper({256: 0.01, 384: 0.01}), device="cpu")
+    assert done["fleet_done"] and len(done["leases"]) == 1
+    harvest = (tuner if harvester == "port" else ref_tuner).harvest_tuning
+    first = harvest(tmp_path / "fleet", tmp_path / "store")
+    assert first["leases_harvested"] == 1 and first["fleet_done"]
+    n = len(ProfileStore(tmp_path / "store").records())
+    second = harvest(tmp_path / "fleet", tmp_path / "store")
+    assert second["leases_harvested"] == 0
+    assert second["total_harvested"] == first["total_harvested"]
+    assert len(ProfileStore(tmp_path / "store").records()) == n
+    assert json.loads((tmp_path / "fleet" / tuner.HARVESTED_FILE)
+                      .read_text()) == [0]
+
+
+def test_try_tuning_lease_ignores_other_dirs_and_graphs(port_graph, tmp_path):
+    from paralleljohnson_tpu_torch.distributed.coordinator import Coordinator
+    from paralleljohnson_tpu_torch.graphs import load_graph as port_load
+
+    assert tuner.try_tuning_lease(tmp_path / "nope", "w0", graph=port_graph,
+                                  device="cpu") is None
+    Coordinator.create(tmp_path / "solve", graph_spec=SPEC,
+                       graph_digest="d" * 16, num_sources=8, lease_sources=4)
+    assert tuner.try_tuning_lease(tmp_path / "solve", "w0", graph=port_graph,
+                                  device="cpu") is None
+    _fleet(tmp_path, port_graph)
+    other = port_load("er:n=48,p=0.1,seed=2")
+    assert tuner.try_tuning_lease(tmp_path / "fleet", "w0", graph=other,
+                                  device="cpu") is None
+    assert Coordinator(tmp_path / "fleet").leases()[0].state == "pending"
+
+
+def test_probe_failure_commits_and_lease_error_releases(port_graph, tmp_path,
+                                                        monkeypatch):
+    from paralleljohnson_tpu_torch.distributed.coordinator import Coordinator
+
+    def boom(graph, sources, cfg):
+        raise RuntimeError("bad candidate")
+
+    _fleet(tmp_path / "a", port_graph)
+    result = tuner.try_tuning_lease(tmp_path / "a" / "fleet", "w0",
+                                    graph=port_graph, solve_fn=boom,
+                                    device="cpu")
+    assert result is not None and all(p["censored"]
+                                      for p in result["probes"])
+    assert Coordinator(tmp_path / "a" / "fleet").leases()[0].state \
+        == "committed"
+
+    def broken_probe(*a, **kw):
+        raise OSError("shard store unwritable")
+
+    _fleet(tmp_path / "b", port_graph)
+    monkeypatch.setattr(tuner, "run_probe", broken_probe)
+    with pytest.raises(OSError, match="unwritable"):
+        tuner.try_tuning_lease(tmp_path / "b" / "fleet", "w0",
+                               graph=port_graph, device="cpu")
+    assert Coordinator(tmp_path / "b" / "fleet").leases()[0].state \
+        == "pending"
+
+
+def test_fleet_worker_drains_tuning_leases_when_idle(port_graph, tmp_path):
+    """A solve worker with nothing left to claim runs the tuning fleet's
+    leases (``--tune-dir``) before it exits."""
+    from paralleljohnson_tpu_torch import distributed
+
+    _fleet(tmp_path, port_graph, candidates={"fw_tile": [128]})
+    coord = distributed.plan_fleet(tmp_path / "solve", SPEC, n_workers=1,
+                                   num_sources=8, lease_sources=8,
+                                   config={"source_batch_size": 8})
+    coord.claim("other")  # the one lease is held elsewhere
+    with pytest.raises(TimeoutError, match="no claimable lease"):
+        distributed.run_worker(coord.dir, "w1", device="cpu",
+                               tune_dir=tmp_path / "fleet",
+                               idle_timeout_s=0.2, poll_s=0.05)
+    summary = json.loads(coord.worker_summary_path("w1").read_text())
+    assert summary["tuning_leases"] == 1 and summary["claims"] == 0
+    assert summary["rc"] == 1
+
+
+# -- the repair-vs-resolve walk -----------------------------------------------
+
+
+@pytest.mark.parametrize("strategy", ["auto", "repair", "resolve"])
+def test_repair_select_parity_unpriced(strategy, graph, port_graph,
+                                       tmp_path):
+    from paralleljohnson_tpu.incremental.repair import (
+        decide_repair_strategy as ref_decide,
+    )
+    from paralleljohnson_tpu_torch.incremental.repair import (
+        decide_repair_strategy,
+    )
+
+    report = types.SimpleNamespace(old_digest="0" * 16, new_digest="1" * 16,
+                                   changed_edges=np.zeros((0, 3)))
+    ours = decide_repair_strategy(
+        tmp_path / "ckpt", port_graph, report,
+        config=SolverConfig(profile_store=None), strategy=strategy,
+        device="cpu")
+    theirs = ref_decide(tmp_path / "ckpt", graph, report,
+                        config=RefConfig(profile_store=None),
+                        strategy=strategy)
+    assert ours.as_dict() == theirs.as_dict()
+    assert ours.chosen.plan.name == ("resolve" if strategy == "resolve"
+                                     else "repair")
+    assert ours.params["affected_rows_estimate"] == graph.num_nodes
+    with pytest.raises(ValueError, match="auto/repair/resolve"):
+        decide_repair_strategy(tmp_path / "ckpt", port_graph, report,
+                               strategy="yolo", device="cpu")
