@@ -139,7 +139,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      priced walk's decision (the translated veto keeps ``pallas-vm``
      while the store prices it cheaper than the dirty window).
  18. the bench harness (``drive_bench``): ``benchmarks.run`` over the
-     port's fourteen configs at the full preset on the card, with the
+     port's configs at the full preset on the card (all but the three
+     phases 21-22 drive themselves: fourteen), with the
      flight recorder and a fresh profile store under
      ``chiprun_out/chip_smoke_bench/`` (the full rows in its
      ``rows.jsonl``), one line per config (wall, edges/s, route,
@@ -171,10 +172,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      rows bitwise equal to a fresh ``solve()``, fewer dirty parts than
      parts; then a negative cycle through the repaired graph's chained
      state raises ``NegativeCycleError``.
+ 21. the serving tier (``drive_serve``) at the bench's ``serve_queries``
+     full size: ER-4096 at average degree 8, a quarter of the sources
+     solved into a checkpointed ``TileStore``, a ``LandmarkIndex`` of 8
+     pivots, 20,000 queries (85% store hits, the misses answered by
+     landmark bounds) from 32 clients through one ``MicroBatcher``, with
+     the host walk forced and then the device path forced: the two
+     response sets bitwise equal, every exact answer bitwise the card's
+     ``solve()`` row, every landmark interval holding the exact distance,
+     the ``auto`` planner choosing ``device_lookup`` on ``cuda`` with the
+     landmark sub-path on the device (f64 probe true); each path's wall,
+     tile rebuilds and streaming p50 / p99; then ``serve_overload`` at
+     full through real sockets: no hung client, every answer exact
+     bitwise or flagged inside its certificate (its wall-clock verdicts,
+     ``OVERLOAD_TIMING``, printed);
+ 22. the approximate tier (``drive_approx``) at the bench's
+     ``approx_apsp`` full size: ``grid2d(512, 32, seed=23)``, 256
+     sources, ``solve_with_budget`` with ``hopset=True`` forced at
+     epsilon 0.1 and 0.5 beside the exact ``solve()``: each hopset's
+     forward and reverse beta-hop rows and the query rows bitwise (with
+     iterations and convergence) the same chunked sweep on
+     ``fanout_sweep_plain``, every interval holding the exact row; walls
+     and speedup; then a hopset of 4 pivots and 8 hops on R-MAT-20 (16
+     edge chunks, one launch each per sweep), bitwise its plain chunked
+     sweep.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-20 on its own (a
+phases 3-5 together, then each path of phases 9-22 on its own (a
 worker subprocess's launches are not seen: phase 19 counts the
 in-process fleet); a path
 whose kernel was never launched fails (the plain-torch routes of phases
@@ -269,6 +294,34 @@ FLEET_STALE_S = 3.0
 # the rows are quadratic in the side, so the phase runs 80 x 80.
 REPAIR_SIDE = 80
 REPAIR_K = 12
+# Phase 21: the bench's serve_queries at full (ER-SERVE_N at average
+# degree 8, SERVE_QUERIES queries from SERVE_CLIENTS clients,
+# SERVE_LANDMARKS landmarks), then its serve_overload config at full.
+SERVE_N = 4096
+SERVE_QUERIES = 20000
+SERVE_CLIENTS = 32
+SERVE_LANDMARKS = 8
+# Phase 22: the bench's approx_apsp at full (the corridor lattice
+# grid2d(16 * APPROX_SHORT, APPROX_SHORT, seed=23), APPROX_SOURCES
+# sources, each epsilon of APPROX_EPS), then a small hopset on R-MAT-20
+# (RMAT_HOP_K pivots, RMAT_HOP_BETA hops): 16.7M edges sweep in 16 chunks
+# of the reference's 2^20, the chunk-level Gauss-Seidel order held.
+APPROX_SHORT = 32
+APPROX_SOURCES = 256
+APPROX_EPS = (0.1, 0.5)
+RMAT_HOP_K = 4
+RMAT_HOP_BETA = 8
+# serve_overload's verdicts that rest on the wall clock (whether the burn
+# alert engaged at twice the calibrated capacity and cleared in the
+# cooldown, the shed fraction, accepted p99 against its target): printed,
+# not held, like phase 18's all_within_band. The JAX package's own config
+# fails the cooldown verdict at full on a CPU too (numpy and jax
+# backends). Every answer's grade is held: exact ones bitwise, shed ones
+# flagged inside a finite certificate, no unexpected error, no hung client.
+OVERLOAD_TIMING = ("shed nothing", "rejected nothing", "late cooldown",
+                   "shed fraction", "missed the")
+# Phase 18 leaves the configs phases 21-22 drive themselves.
+BENCH_OWN_PHASE = ("serve_queries", "serve_overload", "approx_apsp")
 
 
 def emit(obj) -> None:
@@ -1760,7 +1813,7 @@ def drive_bench(dev) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     trace_dir, profile_dir = root / "trace", root / "profiles"
     heartbeat = trace_dir / "heartbeat.json"
-    names = list(benchmarks.CONFIGS)
+    names = [n for n in benchmarks.CONFIGS if n not in BENCH_OWN_PHASE]
     peak_in_use = [0]
     stop = threading.Event()
 
@@ -1844,6 +1897,338 @@ def drive_bench(dev) -> dict:
           "profile_records": sum(1 for _ in open(
               profile_dir / "profiles.jsonl"))})
     return launches
+
+
+def drive_serve(dev) -> tuple[dict, list]:
+    """Phase 21: the serving tier on the card at the bench's
+    ``serve_queries`` full size: ``erdos_renyi(SERVE_N, 8 / SERVE_N,
+    seed=13)``, a quarter of the sources solved into a checkpointed
+    ``TileStore`` (one scheduled batch), a ``LandmarkIndex`` of
+    ``SERVE_LANDMARKS`` pivots, then the bench's ``SERVE_QUERIES``-query
+    85/15 hit / miss mix (misses answered by landmark bounds) from
+    ``SERVE_CLIENTS`` client threads through one ``MicroBatcher``, once
+    with the host walk forced and once with the device path forced; then
+    one batch through an ``auto`` engine, and the ``serve_overload``
+    config at full through real sockets. Counted as one path
+    (``serve``) that must launch ``fanout_sweep``. Outside the count it
+    fails unless the two response sets are bitwise equal, every exact
+    answer is bitwise the card's ``solve()`` row, every landmark interval
+    contains the exact distance, the auto planner on ``cuda`` chose
+    ``device_lookup`` with the landmark sub-path on the device (f64
+    probe true), and the overload row graded every answer it served
+    (its ``OVERLOAD_TIMING`` verdicts printed, not held). Returns the
+    counts by path and the largest difference of the device answers
+    from the host walk's."""
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    import numpy as np
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch import benchmarks
+    from paralleljohnson_tpu_torch.graphs import erdos_renyi
+    from paralleljohnson_tpu_torch.serve import (
+        LandmarkIndex, MicroBatcher, QueryEngine, TileStore,
+    )
+
+    launches: dict = {}
+    counted = counter(launches)
+    t_phase = time.perf_counter()
+    n = SERVE_N
+    g = erdos_renyi(n, 8.0 / n, seed=13)
+    rng = np.random.default_rng(17)
+    warm = np.sort(rng.choice(n, size=max(8, n // 4), replace=False))
+    cold = np.array(sorted(set(range(n)) - set(map(int, warm))), np.int64)
+    hit = rng.random(SERVE_QUERIES) < 0.85
+    srcs = np.where(hit, rng.choice(warm, size=SERVE_QUERIES),
+                    rng.choice(cold, size=SERVE_QUERIES))
+    dsts = rng.integers(0, n, size=SERVE_QUERIES)
+    requests = [{"id": i, "source": int(srcs[i]), "dst": int(dsts[i])}
+                for i in range(SERVE_QUERIES)]
+    root = Path(tempfile.mkdtemp(prefix="pj-serve-"))
+    out: dict = {}
+
+    def lookup(store, landmarks, mode):
+        engine = QueryEngine(g, store, landmarks=landmarks,
+                             miss_policy="landmark", device_lookup=mode,
+                             stats_interval_s=0, device=dev)
+        mb = MicroBatcher(engine, max_width=max(16, SERVE_CLIENTS))
+        answers: list = [None] * len(requests)
+        gate = threading.Barrier(SERVE_CLIENTS + 1)
+        errors: list = []
+
+        def client(k):
+            try:
+                gate.wait(timeout=60)
+                for req in requests[k::SERVE_CLIENTS]:
+                    answers[req["id"]] = mb.submit(req)
+            except BaseException as e:  # noqa: BLE001 — surface, don't hang
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        gate.wait(timeout=60)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"serve clients failed or hung: {errors[:3]}")
+        stats = engine.stats
+        pcts = stats.percentiles()
+        path = engine._device_path
+        row = {"wall_s": wall, "queries_per_s": len(requests) / wall,
+               "device_lookups": stats.device_lookups,
+               "host_lookups": stats.host_lookups,
+               "tile_rebuilds": None if path is None else path.tile_rebuilds,
+               **{k: pcts[k] for k in ("p50_ms", "p50_err_ms", "p99_ms",
+                                       "p99_err_ms")},
+               "batch_width": stats.batch_hist.percentiles(
+                   (50, 99), key="p{p}")}
+        engine.close()
+        return answers, row
+
+    def serve_path():
+        store = TileStore(root / "store", g, hot_rows=max(8, n // 8),
+                          warm_rows=n)
+        landmarks = LandmarkIndex.build(g, SERVE_LANDMARKS, seed=0,
+                                        device=dev)
+        warm_engine = QueryEngine(g, store, landmarks=landmarks,
+                                  miss_policy="landmark",
+                                  stats_interval_s=0, device=dev)
+        t0 = time.perf_counter()
+        warm_engine.warm(warm)
+        out["warm_s"] = time.perf_counter() - t0
+        warm_engine.close()
+        out["host"] = lookup(store, landmarks, "off")
+        out["device"] = lookup(store, landmarks, "on")
+        auto = QueryEngine(g, store, landmarks=landmarks,
+                           miss_policy="landmark", stats_interval_s=0,
+                           device=dev)
+        auto.query_batch(requests[:max(16, SERVE_CLIENTS)])
+        out["auto"] = auto.last_lookup_decision
+        out["auto_f64"] = auto._device_path.landmark_device_ok()
+        auto.close()
+        (out["overload"],) = benchmarks.run(
+            ["serve_overload"], preset="full", device=dev)
+
+    try:
+        _, secs = counted("serve", serve_path, needs=("fanout_sweep",))
+        host, host_row = out["host"]
+        device, device_row = out["device"]
+        if json.dumps(host, sort_keys=True) != json.dumps(device,
+                                                          sort_keys=True):
+            diff = [i for i, (a, b) in enumerate(zip(host, device)) if a != b]
+            raise AssertionError(f"host-forced and device-forced answers "
+                                 f"differ at {len(diff)} queries, first "
+                                 f"{host[diff[0]]} != {device[diff[0]]}")
+        if device_row["device_lookups"] != len(requests) - sum(
+                1 for a in device if a.get("tier") in ("warm", "cold")):
+            raise AssertionError(f"device path served {device_row}")
+        # All sources on the hand sweep (``fw=False``: the default's FW
+        # would sum sub-paths in another order than the store's rows).
+        exact = pjt.ParallelJohnsonSolver(pjt.SolverConfig(fw=False),
+                                          device=dev).solve(g).matrix
+        n_exact = n_approx = 0
+        for a in device:
+            want = float(exact[a["source"], a["dst"]])
+            if a["exact"]:
+                n_exact += 1
+                if a["distance"] != want:
+                    raise AssertionError(f"exact answer {a} != solve() "
+                                         f"row entry {want}")
+            else:
+                n_approx += 1
+                d, err = a["distance"], a["max_error"]
+                inside = (np.isinf(d) and np.isinf(want)) or (
+                    d - err <= want <= d)
+                if a.get("tier") != "landmark" or not inside:
+                    raise AssertionError(f"landmark interval of {a} does "
+                                         f"not hold the exact {want}")
+        auto = out["auto"]
+        if (auto["chosen"] != "device_lookup" or not out["auto_f64"]
+                or "f64 on the device" not in auto["reason"]):
+            raise AssertionError(f"auto lookup decision on cuda: {auto}")
+        over = out["overload"]
+        wrong = [f for f in over.detail.get("failed", [])
+                 if not any(t in f for t in OVERLOAD_TIMING)]
+        if wrong:
+            raise AssertionError(f"serve_overload failed: {wrong}")
+        emit({"phase": "serve", "V": n, "E": g.num_real_edges,
+              "queries": len(requests), "clients": SERVE_CLIENTS,
+              "landmarks": SERVE_LANDMARKS, "warm_sources": len(warm),
+              "warm_s": out["warm_s"], "host": host_row,
+              "device": device_row,
+              "device_over_host_speedup":
+                  host_row["wall_s"] / device_row["wall_s"],
+              "exact_answers": n_exact, "approx_answers": n_approx,
+              "answers_bitwise": True, "auto_decision": auto["chosen"],
+              "auto_reason": auto["reason"],
+              "overload": {k: over.detail.get(k) for k in (
+                  "capacity_per_s", "accepted", "rejected", "shed_answers",
+                  "shed_frac", "exact_bitwise_checked", "p50_ms", "p99_ms",
+                  "slo")},
+              "overload_timing_verdicts": [
+                  f for f in over.detail.get("failed", [])
+                  if any(t in f for t in OVERLOAD_TIMING)],
+              "overload_wall_s": over.wall_s, "path_s": secs,
+              "launches": launches["serve"],
+              "phase21_s": time.perf_counter() - t_phase})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, [0.0]
+
+
+def hop_against_plain(graph, sources, beta, dev, label, seed_rows=None):
+    """``bounded_hop_rows`` on the card against the same chunked sweep
+    with ``fanout_sweep_plain`` on the card: rows bitwise, the same
+    iterations and convergence. Returns (rows, iterations, converged,
+    chunks, largest absolute error)."""
+    import torch
+
+    from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
+    from paralleljohnson_tpu_torch.ops import hopset as hs
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+
+    rows, iters, conv, _ = hs.bounded_hop_rows(
+        graph, sources, beta=beta, seed_rows=seed_rows, device=dev)
+    chunks = hs.hop_chunks(graph, device=dev)
+    d0 = hs.hop_init(sources, graph.num_nodes, dtype=torch.float32,
+                     device=dev, seed_rows=seed_rows)
+    plain, p_iters, p_imp = fs.fanout_fixpoint_plain(d0, chunks,
+                                                     max_iter=beta)
+    want = to_numpy(plain.T)
+    err = max_abs_err(torch.from_numpy(rows), torch.from_numpy(want))
+    if rows.tobytes() != want.tobytes() or (iters, conv) != (p_iters,
+                                                             not p_imp):
+        raise AssertionError(
+            f"{label}: chunked hop sweep disagrees with plain: max_abs_err "
+            f"{err}, iterations {iters} / {p_iters}, converged {conv} / "
+            f"{not p_imp}")
+    return rows, iters, conv, len(chunks), err
+
+
+def drive_approx(dev, rmat) -> tuple[dict, list]:
+    """Phase 22: the certified approximate tier on the card at the bench's
+    ``approx_apsp`` full size: ``grid2d(512, 32, seed=23)``,
+    ``APPROX_SOURCES`` sources, an exact ``solve()`` beside
+    ``solve_with_budget`` with ``hopset=True`` forced at each epsilon of
+    ``APPROX_EPS`` (so a failed launch raises rather than the exact plan
+    serving), then a small hopset (k = ``RMAT_HOP_K``, beta =
+    ``RMAT_HOP_BETA``) on R-MAT-20, whose 16.7M edges sweep in 16 chunks.
+    Counted as one path (``approx``) that must launch ``fanout_sweep``.
+    Outside the count, each hopset's forward and reverse beta-hop rows
+    and the grid's query rows are held bitwise (with their iterations
+    and convergence) against the same chunked sweep on
+    ``fanout_sweep_plain``, and every certified interval must hold the
+    exact row: the measured error under its certificate, reachability
+    true. Returns the counts by path and the comparisons' largest
+    absolute errors."""
+    import numpy as np
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.ops import hopset as hs
+    from paralleljohnson_tpu_torch.serve import pick_pivots
+    from paralleljohnson_tpu_torch.solver import approx
+
+    launches: dict = {}
+    counted = counter(launches)
+    t_phase = time.perf_counter()
+    g = grid2d(16 * APPROX_SHORT, APPROX_SHORT, seed=23)
+    n = g.num_nodes
+    sources = np.sort(np.random.default_rng(11).choice(
+        n, size=APPROX_SOURCES, replace=False))
+    out: dict = {}
+
+    def approx_path():
+        solver = pjt.ParallelJohnsonSolver(device=dev)
+        res, out["exact_s"] = sync_time(lambda: solver.solve(g, sources))
+        out["exact"] = np.asarray(res.matrix, np.float64)
+        out["exact_route"] = res.stats.routes_by_phase
+        for eps in APPROX_EPS:
+            cfg = pjt.SolverConfig(hopset=True, approx_epsilon=eps)
+            (r, dec), secs = sync_time(lambda: approx.solve_with_budget(
+                g, sources, config=cfg, error_budget=eps, device=dev))
+            out[eps] = (r, dec, secs)
+        out["rmat_hop"] = hs.build_hopset(rmat, epsilon=0.5, k=RMAT_HOP_K,
+                                          beta=RMAT_HOP_BETA, device=dev)
+
+    _, secs = counted("approx", approx_path, needs=("fanout_sweep",))
+    exact = out["exact"]
+    errs, rows = [], {}
+    for eps in APPROX_EPS:
+        res, dec, wall = out[eps]
+        if dec.chosen.plan.name != "hopset+bf" or res.plan.get("degraded"):
+            raise AssertionError(f"eps {eps}: plan {res.plan}")
+        hop = res.hopset
+        checks = {}
+        for label, graph in (("fwd", g), ("rev", g.reverse())):
+            got, iters, conv, n_chunks, err = hop_against_plain(
+                graph, hop.pivots, hop.beta, dev, f"grid {label} eps {eps}")
+            if got.astype(np.float64).tobytes() != getattr(
+                    hop, label).tobytes():
+                raise AssertionError(f"eps {eps}: the hopset's {label} rows "
+                                     "are not the card's sweep")
+            errs.append(err)
+            checks[label] = {"iterations": iters, "converged": conv,
+                             "chunks": n_chunks}
+        seed = hop.relay_rows(sources)
+        got, iters, conv, _, err = hop_against_plain(
+            g, sources, hop.beta, dev, f"grid query eps {eps}",
+            seed_rows=seed)
+        errs.append(err)
+        checks["query"] = {"iterations": iters, "converged": conv}
+        est, cert = res.dist, res.max_error
+        certified = np.isfinite(cert)
+        measured = np.where(np.isfinite(exact) & np.isfinite(est),
+                            np.abs(est - exact), 0.0)
+        violations = int(np.sum(certified & (measured > cert)))
+        wrong_inf = int(np.sum(certified & (np.isfinite(exact)
+                                            != np.isfinite(est))))
+        if violations or wrong_inf or not certified.all():
+            raise AssertionError(
+                f"eps {eps}: {violations} entries past their certificate, "
+                f"{wrong_inf} reachability mismatches, "
+                f"{int((~certified).sum())} uncertified")
+        st = res.stats
+        rows[f"eps_{eps:g}"] = {
+            "beta": hop.beta, "k": hop.k, "hopset_edges": st["hopset_edges"],
+            "construction_s": st["construction_s"], "query_s": st["query_s"],
+            "wall_s": wall, "speedup": out["exact_s"] / wall,
+            "hopset_converged": st["hopset_converged"],
+            "query_converged": st["query_converged"],
+            "measured_max_error": float(measured.max()),
+            "certified_max_bound": float(cert.max()), "sweeps": checks}
+    hop = out["rmat_hop"]
+    rmat_checks = {}
+    for label, graph in (("fwd", rmat), ("rev", rmat.reverse())):
+        got, iters, conv, n_chunks, err = hop_against_plain(
+            graph, hop.pivots, RMAT_HOP_BETA, dev, f"R-MAT-20 {label}")
+        if got.astype(np.float64).tobytes() != getattr(hop, label).tobytes():
+            raise AssertionError(f"R-MAT-20 hopset {label} rows are not the "
+                                 "card's sweep")
+        if n_chunks < 2:
+            raise AssertionError(f"R-MAT-20 swept in {n_chunks} chunk")
+        errs.append(err)
+        rmat_checks[label] = {"iterations": iters, "converged": conv,
+                              "chunks": n_chunks}
+    if not np.array_equal(hop.pivots, pick_pivots(rmat, RMAT_HOP_K, seed=0)):
+        raise AssertionError("R-MAT-20 hopset pivots are not the seeded draw")
+    emit({"phase": "approx", "V": n, "E": g.num_real_edges,
+          "sources": APPROX_SOURCES, "exact_s": out["exact_s"],
+          "exact_route": out["exact_route"], **rows,
+          "rmat_hopset": {"k": RMAT_HOP_K, "beta": RMAT_HOP_BETA,
+                          "construction_s": hop.construction_s,
+                          **rmat_checks},
+          "rows_bitwise_plain": True, "certified": True, "path_s": secs,
+          "launches": launches["approx"],
+          "phase22_s": time.perf_counter() - t_phase})
+    return launches, errs
 
 
 def main() -> int:
@@ -2475,6 +2860,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(drive_fleet(dev))
     by_path.update(drive_repair(dev))
+    # -- phases 21-22: the serving tier and the approximate tier ---------
+    torch.cuda.empty_cache()
+    serve_paths, serve_errs = drive_serve(dev)
+    by_path.update(serve_paths)
+    approx_paths, hop_errs = drive_approx(dev, rmat)
+    by_path.update(approx_paths)
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ("fanout_sweep", "minplus", "tight_pred",
                              "fw_kleene")}
@@ -2491,7 +2882,7 @@ def main() -> int:
          "launches": launches["fanout_sweep"],
          "launches_by_path": {k: p["fanout_sweep"] for k, p in by_path.items()},
          "max_abs_err": max(grid_err, *hub_errs,
-                            *sweep_errs),
+                            *sweep_errs, *serve_errs, *hop_errs),
          "ms": t_sw["ms"], "plain_ms": t_sw["plain_ms"],
          "bound_ms": t_sw["bound_ms"], "bound_by": t_sw["bound_by"],
          "library_ms": None},

@@ -75,6 +75,9 @@ class Backend(abc.ABC):
     """Execution engine behind the solver. Subclass + register to plug in."""
 
     name: str = "abstract"
+    # Where the backend computes: host backends run on the CPU; the torch
+    # backend sets its own device.
+    device = "cpu"
 
     def __init__(self, config: SolverConfig | None = None, device=None) -> None:
         self.config = config or SolverConfig()

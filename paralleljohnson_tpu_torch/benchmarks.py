@@ -23,8 +23,8 @@ present.
 Presets scale every config: ``smoke`` (CI, seconds), ``mini``
 (single-card sanity), ``full`` (the attested benchmark sizes). Rows
 report the platform of the backend that solved (``cuda`` or ``cpu``) and,
-on ``cuda``, the card's name and power limit. The JAX package's serving
-and approximate configs come with their modules.
+on ``cuda``, the card's name and power limit. ``serve_fleet`` waits for
+the port's CLI (its replicas are CLI processes).
 """
 
 from __future__ import annotations
@@ -120,8 +120,28 @@ _SIZES = {
                           full_bucket_s=360.0),
     "distributed_fleet": dict(n=96,    mini_n=1024,      full_n=4096,
                           workers=2,   mini_workers=3,   full_workers=4),
+    "serve_queries": dict(n=256,       mini_n=1024,      full_n=4096,
+                          queries=200, mini_queries=2000, full_queries=20000,
+                          clients=16,  mini_clients=16,  full_clients=32),
+    "serve_overload": dict(rows=12,    mini_rows=20,     full_rows=40,
+                          clients=4,   mini_clients=6,   full_clients=8,
+                          overload_s=2.5, mini_overload_s=4.0,
+                          full_overload_s=6.0,
+                          cooldown_s=3.5, mini_cooldown_s=5.0,
+                          full_cooldown_s=6.0),
+    "distributed_fleet": dict(n=96,    mini_n=1024,      full_n=4096,
+                          workers=2,   mini_workers=3,   full_workers=4),
     "incremental_update": dict(n=96,   mini_n=1024,      full_n=4096,
                           k=2,         mini_k=6,         full_k=12),
+    "approx_apsp":   dict(n=256,       mini_n=4096,      full_n=16384,
+                          sources=32,  mini_sources=128, full_sources=256),
+}
+
+# The JAX package's configs the port does not run yet, and what they need.
+_UNPORTED = {
+    "serve_fleet": "the CLI (each replica is a `python -m "
+                   "paralleljohnson_tpu.cli serve` process; "
+                   "paralleljohnson_tpu_torch has no cli.py yet)",
 }
 
 
@@ -1232,6 +1252,608 @@ def bench_incremental_update(backend: str, preset: str) -> BenchRecord:
     )
 
 
+def bench_serve_queries(backend: str, preset: str) -> BenchRecord:
+    """Config 6: the query-serving layer measured as a TRAFFIC-BEARING SERVICE — K >= 4
+    client threads offering a sustained request rate, not one thread
+    replaying as fast as it can. A checkpoint-backed store is warmed
+    with a quarter of the sources (one scheduled exact batch), a
+    landmark index covers the rest, then a seeded 85/15 hit/approx mix
+    is split across K paced client threads against ONE shared engine
+    (the thread-safety contract under test is the deployment shape).
+    The offered rate is calibrated from a short closed-loop probe
+    (~70% of measured serial capacity — sustained load, not overload),
+    each client sleeps to its own send schedule, and the detail column
+    reports the STREAMING histogram p50/p99 with their one-bucket error
+    bounds plus the SLO burn verdict.
+
+    The row also carries a ``lookup`` contrast block:
+    the SAME request mix replayed closed-loop by K >= 16 concurrent
+    clients through a shared :class:`MicroBatcher`, once with the host
+    tier walk forced and once with the device megabatch path forced.
+    The two response sets must be BITWISE identical (the planner's
+    bit-for-bit promise, asserted here, not assumed), and the block
+    records both walls, the speedup, and the auto planner's why-line
+    for this platform."""
+    import json as _json
+    import tempfile
+    import threading
+
+    from paralleljohnson_tpu_torch.graphs import erdos_renyi
+    from paralleljohnson_tpu_torch.observe.live import SLO
+    from paralleljohnson_tpu_torch.serve import (
+        LandmarkIndex,
+        MicroBatcher,
+        QueryEngine,
+        TileStore,
+    )
+
+    dev = _BENCH_DEVICE.get()
+    n = _sz("serve_queries", "n", preset)
+    n_queries = _sz("serve_queries", "queries", preset)
+    n_clients = _sz("serve_queries", "clients", preset)
+    g = erdos_renyi(n, 8.0 / n, seed=13)
+    cfg_kwargs = dict(telemetry=_BENCH_TELEMETRY.get(),
+                      profile_store=_BENCH_PROFILE.get())
+    from paralleljohnson_tpu_torch.config import SolverConfig
+
+    cfg = SolverConfig(backend=backend, **cfg_kwargs)
+    slo = SLO(name="serve", latency_ms=250.0, availability=0.999,
+              rules=((60.0, 15.0, 14.4), (300.0, 60.0, 6.0)))
+    rng = np.random.default_rng(17)
+    warm_sources = np.sort(rng.choice(n, size=max(8, n // 4), replace=False))
+    with tempfile.TemporaryDirectory() as d:
+        store = TileStore(d, g, hot_rows=max(8, n // 8), warm_rows=n)
+        landmarks = LandmarkIndex.build(g, k=8, config=cfg, seed=0,
+                                        device=dev)
+        # Every engine is closed before the store's directory goes: an
+        # open engine's stats thread holds it alive past the config.
+        warm_engine = QueryEngine(g, store, landmarks=landmarks, config=cfg,
+                                  miss_policy="landmark", device=dev)
+        warm_engine.warm(warm_sources)
+        warm_engine.close()
+        # Separate calibration engine over the same store, then a fresh
+        # engine for the timed loop: neither the warm batch's nor the
+        # closed-loop probe's latencies may pollute the measurement.
+        probe_engine = QueryEngine(g, store, landmarks=landmarks,
+                                   config=cfg, miss_policy="landmark",
+                                   device=dev)
+        engine = QueryEngine(g, store, landmarks=landmarks, config=cfg,
+                             miss_policy="landmark", slo=slo, device=dev)
+        warm_set = set(int(s) for s in warm_sources)
+        cold_pool = np.array(sorted(set(range(n)) - warm_set), np.int64)
+        hit = rng.random(n_queries) < 0.85
+        srcs = np.where(
+            hit,
+            rng.choice(warm_sources, size=n_queries),
+            rng.choice(cold_pool, size=n_queries),
+        )
+        dsts = rng.integers(0, n, size=n_queries)
+        requests = [
+            {"id": i, "source": int(srcs[i]), "dst": int(dsts[i])}
+            for i in range(n_queries)
+        ]
+        probe = requests[: min(64, n_queries)]
+        batch_size = 16  # per-client aggregation batch
+        t0 = time.perf_counter()
+        for i in range(0, len(probe), batch_size):  # closed-loop probe
+            probe_engine.query_batch(probe[i : i + batch_size])
+        serial_qps = len(probe) / max(time.perf_counter() - t0, 1e-9)
+        probe_engine.close()
+        offered_qps = max(50.0, 0.7 * serial_qps)
+
+        # Split the mix round-robin across K clients; each paces its
+        # batches to the shared offered rate (open-loop per client: a
+        # slow server makes latency grow, it does not slow the offers).
+        per_client = offered_qps / n_clients
+        slices = [requests[k::n_clients] for k in range(n_clients)]
+        barrier = threading.Barrier(n_clients + 1)
+        errors: list[BaseException] = []
+
+        def client(k: int) -> None:
+            try:
+                mine = slices[k]
+                barrier.wait()
+                start = time.perf_counter()
+                sent = 0
+                for i in range(0, len(mine), batch_size):
+                    due = start + sent / per_client
+                    delay = due - time.perf_counter()
+                    if delay > 0:
+                        time.sleep(delay)
+                    batch = mine[i : i + batch_size]
+                    engine.query_batch(batch)
+                    sent += len(batch)
+            except BaseException as e:  # noqa: BLE001 — surface, don't hang
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(k,),
+                                    name=f"bench-client-{k}")
+                   for k in range(n_clients)]
+        for t in threads:
+            t.start()
+        barrier.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        pcts = engine.stats.percentiles()
+        verdict = engine.metrics.slo(slo).evaluate()
+        latency = verdict.get("latency") or {}
+        detail = {
+            "nodes": g.num_nodes, "edges": g.num_real_edges,
+            "queries": n_queries, "landmarks": landmarks.k,
+            "warm_sources": len(warm_sources),
+            "clients": n_clients,
+            "offered_per_s": round(offered_qps, 2),
+            "queries_per_s": round(n_queries / max(wall, 1e-9), 2),
+            # Streaming-histogram estimates with their one-bucket error
+            # bounds (never an unflagged approximation).
+            "p50_ms": round(pcts["p50_ms"], 4),
+            "p50_err_ms": round(pcts["p50_err_ms"], 4),
+            "p99_ms": round(pcts["p99_ms"], 4),
+            "p99_err_ms": round(pcts["p99_err_ms"], 4),
+            "slo": {
+                "p99_target_ms": slo.latency_ms,
+                "availability": slo.availability,
+                "verdict": "burn" if verdict["burning"] else "ok",
+                "burn_rate": verdict["burn_rate"],
+                "p99_met": latency.get("met"),
+            },
+            "hit_rate": round(engine.store.hit_rate(), 4),
+            "approx_frac": round(
+                engine.stats.approx_answers
+                / max(1, engine.stats.queries_total), 4,
+            ),
+        }
+        # -- host vs device lookup contrast -------------------------------
+        # Same store, same mix, closed loop: K clients hammer a shared
+        # MicroBatcher so the engine sees device-width batches, once
+        # per forced path. Wall times compare the LOOKUP paths alone.
+        def _lookup_phase(mode: str) -> tuple[float, list, "QueryEngine"]:
+            eng = QueryEngine(g, store, landmarks=landmarks, config=cfg,
+                              miss_policy="landmark", device_lookup=mode,
+                              device=dev)
+            mb = MicroBatcher(eng, max_width=max(16, n_clients))
+            out: list = [None] * len(requests)
+            gate = threading.Barrier(n_clients + 1)
+            errs: list[BaseException] = []
+
+            def worker(k: int) -> None:
+                try:
+                    gate.wait()
+                    for req in requests[k::n_clients]:
+                        out[req["id"]] = mb.submit(req)
+                except BaseException as e:  # noqa: BLE001
+                    errs.append(e)
+
+            ts = [threading.Thread(target=worker, args=(k,),
+                                   name=f"lookup-{mode}-{k}")
+                  for k in range(n_clients)]
+            for t in ts:
+                t.start()
+            gate.wait()
+            t1 = time.perf_counter()
+            for t in ts:
+                t.join()
+            dt = time.perf_counter() - t1
+            if errs:
+                raise errs[0]
+            return dt, out, eng
+
+        wall_host, host_out, host_eng = _lookup_phase("off")
+        wall_dev, dev_out, dev_eng = _lookup_phase("on")
+        bitwise = (_json.dumps(host_out, sort_keys=True)
+                   == _json.dumps(dev_out, sort_keys=True))
+        # What would AUTO pick here? One batch through an auto engine
+        # records the planner's decision + why-line for this platform.
+        auto_eng = QueryEngine(g, store, landmarks=landmarks, config=cfg,
+                               miss_policy="landmark", device=dev)
+        auto_eng.query_batch(requests[: max(16, n_clients)])
+        detail["lookup"] = {
+            "clients": n_clients,
+            "wall_host_s": round(wall_host, 4),
+            "wall_device_s": round(wall_dev, 4),
+            "speedup": round(wall_host / max(wall_dev, 1e-9), 3),
+            "bitwise_identical": bitwise,
+            "device_lookups": dev_eng.stats.device_lookups,
+            "host_lookups": host_eng.stats.host_lookups,
+            "auto_decision": auto_eng.last_lookup_decision,
+        }
+        for e in (host_eng, dev_eng, auto_eng):
+            e.close()
+        if not bitwise:
+            # A parity break is a wrong-answer bug, not a slow bench.
+            detail["failed"] = "host/device lookup answers diverged"
+
+        # Leave the live snapshot beside the flight recorder when the
+        # pass runs with telemetry (the slo report reads it offline).
+        tel = _BENCH_TELEMETRY.get()
+        if tel is not None and getattr(tel, "trace_dir", None):
+            engine.metrics.write_snapshot(
+                Path(tel.trace_dir) / "serve_live.json"
+            )
+        engine.close()
+    # The serving row's headline is queries/sec, not edges/sec — the
+    # edges columns stay zero rather than conflating warm-solve compute
+    # with the request loop being measured.
+    return BenchRecord(
+        "serve_queries", backend, preset, wall, 0, 0.0, _n_chips(), detail,
+    )
+
+def bench_serve_overload(backend: str, preset: str) -> BenchRecord:
+    """Config 13: the traffic FRONT END measured at
+    ~2x its own calibrated capacity, through real TCP sockets — the
+    designed-overload contract under test, not throughput:
+
+    - accepted traffic stays in SLO (the latency target is calibrated
+      from a closed-loop mixed probe; admission bounds the queue, so
+      accepted p99 cannot grow without bound);
+    - overload produces explicit ``overloaded`` rejections (never an
+      unbounded queue), which burn the availability budget and trip the
+      multi-window burn alert;
+    - the burn alert engages CERTIFIED shedding: a nonzero-but-bounded
+      fraction of answers comes back ``{shed: true, exact: false,
+      max_error: <finite>}`` and every one is verified against the
+      direct solve's matrix (|answer - exact| <= max_error);
+    - every non-shed answer is verified BITWISE against the same matrix;
+    - when offered load drops back below capacity (the cooldown phase),
+      shedding disengages — zero shed answers in the late cooldown.
+
+    Violations land in ``detail["failed"]`` (the row is the assertion).
+    The graph is a strongly connected 2-D lattice so every landmark
+    bound is finite — a shed answer with an infinite bound would be
+    honest but useless, and this bench demands useful degradation."""
+    import socket as _socket
+    import tempfile
+    import threading
+
+    from paralleljohnson_tpu_torch.config import SolverConfig
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.observe.live import SLO
+    from paralleljohnson_tpu_torch.serve import (
+        LandmarkIndex,
+        QueryEngine,
+        ServeFrontend,
+        TileStore,
+    )
+    from paralleljohnson_tpu_torch.solver import ParallelJohnsonSolver
+
+    rows = _sz("serve_overload", "rows", preset)
+    n_clients = _sz("serve_overload", "clients", preset)
+    overload_s = float(_sz("serve_overload", "overload_s", preset))
+    cooldown_s = float(_sz("serve_overload", "cooldown_s", preset))
+    g = grid2d(rows, rows, seed=41)
+    n = g.num_nodes
+    cfg = SolverConfig(backend=backend, telemetry=_BENCH_TELEMETRY.get(),
+                       profile_store=_BENCH_PROFILE.get())
+    dev = _BENCH_DEVICE.get()
+    # The oracle every answer is graded against (f32 rows, losslessly
+    # widened — the same values the engine serves).
+    exact = _host(ParallelJohnsonSolver(
+        SolverConfig(backend=backend), device=dev).solve(g).matrix)
+
+    rng = np.random.default_rng(43)
+    warm = np.sort(rng.choice(n, size=max(8, n // 4), replace=False))
+    rest = np.array(sorted(set(range(n)) - set(map(int, warm))), np.int64)
+    probe_cold = rest[: max(1, len(rest) // 3)]
+    phase_cold = rest[max(1, len(rest) // 3):]
+
+    with tempfile.TemporaryDirectory() as d:
+        store = TileStore(d, g, hot_rows=max(8, n // 8), warm_rows=n)
+        landmarks = LandmarkIndex.build(g, k=8, config=cfg, seed=0,
+                                        device=dev)
+        warm_engine = QueryEngine(g, store, landmarks=landmarks, config=cfg,
+                                  device=dev)
+        warm_engine.warm(warm)
+        warm_engine.close()
+
+        # Capacity + latency calibration: a mixed (80% warm hit / 20%
+        # cold miss -> scheduled solve) closed loop through a throwaway
+        # engine over the same store. The SLO latency target is 10x the
+        # probe's p99 — generous enough that bounded-queue accepted
+        # traffic holds it, tight enough that an unbounded queue would
+        # not.
+        probe_engine = QueryEngine(g, store, landmarks=landmarks,
+                                   config=cfg, stats_interval_s=0,
+                                   device=dev)
+        probe_n = 64
+        t0 = time.perf_counter()
+        for i in range(probe_n):
+            src = (int(probe_cold[i % len(probe_cold)]) if i % 5 == 4
+                   else int(rng.choice(warm)))
+            probe_engine.query_batch(
+                [{"source": src, "dst": int(rng.integers(n))}])
+        capacity_qps = probe_n / max(time.perf_counter() - t0, 1e-9)
+        probe_p99 = probe_engine.stats.percentiles()["p99_ms"]
+        probe_engine.close()
+        latency_target_ms = max(50.0, 10.0 * probe_p99)
+
+        slo = SLO(name="serve", latency_ms=latency_target_ms,
+                  latency_pct=99.0, availability=0.9,
+                  rules=((20.0, 1.5, 2.0),))
+        engine = QueryEngine(g, store, landmarks=landmarks, config=cfg,
+                             miss_policy="solve", slo=slo,
+                             stats_interval_s=0, device=dev)
+        frontend = ServeFrontend(
+            engine, max_connections=2 * n_clients, max_inflight=2,
+            shed_policy="landmark", retry_after_ms=25,
+        ).start()
+        host, port = frontend.address
+
+        results: dict[str, list] = {"overload": [], "cooldown": []}
+        res_lock = threading.Lock()
+        client_errors: list[BaseException] = []
+
+        def client(k: int, phase: str, rate: float, duration_s: float,
+                   barrier) -> None:
+            # Closed-loop paced: wait until the next send is due, send,
+            # read the one response line (every request gets exactly
+            # one — a missing line is a hung connection and fails the
+            # bench via the socket timeout).
+            try:
+                sock = _socket.create_connection((host, port), timeout=30)
+                sock.settimeout(30)
+                f = sock.makefile("rw", encoding="utf-8", newline="\n")
+                json.loads(f.readline())  # protocol header
+                crng = np.random.default_rng(1000 * (1 + k) + len(phase))
+                local = []
+                sent = 0
+                barrier.wait()
+                start = time.perf_counter()
+                while True:
+                    elapsed = time.perf_counter() - start
+                    if elapsed >= duration_s:
+                        break
+                    delay = sent / rate - elapsed
+                    if delay > 0:
+                        time.sleep(delay)
+                    src = (int(crng.choice(warm)) if crng.random() < 0.7
+                           else int(phase_cold[crng.integers(
+                               len(phase_cold))]))
+                    dst = int(crng.integers(n))
+                    f.write(json.dumps(
+                        {"id": sent, "source": src, "dst": dst}) + "\n")
+                    f.flush()
+                    resp = json.loads(f.readline())
+                    local.append((src, dst, resp,
+                                  time.perf_counter() - start))
+                    sent += 1
+                f.close()
+                sock.close()
+                with res_lock:
+                    results[phase].extend(local)
+            except BaseException as e:  # noqa: BLE001 — surface, don't hang
+                client_errors.append(e)
+
+        def run_phase(phase: str, total_rate: float,
+                      duration_s: float) -> None:
+            barrier = threading.Barrier(n_clients)
+            threads = [
+                threading.Thread(
+                    target=client,
+                    args=(k, phase, total_rate / n_clients, duration_s,
+                          barrier),
+                    name=f"overload-client-{phase}-{k}")
+                for k in range(n_clients)
+            ]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+        t0 = time.perf_counter()
+        run_phase("overload", 2.0 * capacity_qps, overload_s)
+        shed_after_overload = engine.stats.shed_answers
+        rejected_after_overload = engine.stats.rejected
+        run_phase("cooldown", 0.3 * capacity_qps, cooldown_s)
+        wall = time.perf_counter() - t0
+        if client_errors:
+            frontend.drain()
+            raise client_errors[0]
+
+        # -- grade every response against the oracle ----------------------
+        failures: list[str] = []
+        all_resps = results["overload"] + results["cooldown"]
+        shed_n = rejected_n = exact_n = 0
+        for src, dst, r, _ in all_resps:
+            if "error" in r:
+                if r["error"] in ("overloaded", "deadline", "draining"):
+                    rejected_n += 1
+                else:
+                    failures.append(f"unexpected error answer: {r}")
+                continue
+            want = float(exact[src, dst])
+            if r.get("shed"):
+                shed_n += 1
+                if r.get("exact") is not False or "max_error" not in r:
+                    failures.append(f"shed answer not flagged: {r}")
+                    continue
+                err = float(r["max_error"])
+                if not np.isfinite(err):
+                    failures.append(
+                        f"shed answer with non-finite max_error: {r}")
+                elif abs(float(r["distance"]) - want) > err + 1e-9:
+                    failures.append(
+                        f"shed answer outside certified bound: "
+                        f"|{r['distance']} - {want}| > {err}")
+            elif r.get("exact") is True:
+                exact_n += 1
+                if float(r["distance"]) != want:
+                    failures.append(
+                        f"non-shed answer not bitwise: s={src} t={dst} "
+                        f"{r['distance']} != {want}")
+            else:
+                failures.append(f"unflagged approximate answer: {r}")
+
+        accepted = shed_n + exact_n
+        shed_frac = shed_n / max(1, accepted)
+        if shed_after_overload == 0:
+            failures.append(
+                "overload phase shed nothing — the burn alert never "
+                "engaged at 2x capacity")
+        if rejected_after_overload == 0:
+            failures.append(
+                "overload phase rejected nothing — admission control "
+                "never bit at 2x capacity")
+        if shed_frac >= 0.5:
+            failures.append(
+                f"shed fraction {shed_frac:.3f} unbounded — most "
+                "answers degraded (shedding should be a tail, not the "
+                "service)")
+        # Disengagement: zero shed answers in the late cooldown (the
+        # short burn window has drained by then).
+        shed_late = sum(
+            1 for _, _, r, t in results["cooldown"]
+            if r.get("shed") and t >= cooldown_s / 2
+        )
+        if shed_late:
+            failures.append(
+                f"{shed_late} shed answers in the late cooldown — "
+                "shedding failed to disengage below capacity")
+        verdict = engine.slo_tracker().evaluate()
+        latency = verdict.get("latency") or {}
+        if latency.get("met") is False:
+            failures.append(
+                f"accepted-traffic p{latency.get('pct')} "
+                f"{latency.get('observed_ms')} ms missed the "
+                f"{latency.get('target_ms')} ms target")
+
+        pcts = engine.stats.percentiles()
+        stats = engine.stats
+        detail = {
+            "nodes": n, "edges": g.num_real_edges,
+            "clients": n_clients,
+            "capacity_per_s": round(capacity_qps, 2),
+            "offered_x": 2.0,
+            "overload_s": overload_s, "cooldown_s": cooldown_s,
+            "accepted": accepted,
+            "rejected": rejected_n,
+            "deadline_drops": stats.deadline_drops,
+            "shed_answers": shed_n,
+            "shed_frac": round(shed_frac, 4),
+            "shed_late_cooldown": shed_late,
+            "exact_bitwise_checked": exact_n,
+            "p50_ms": round(pcts["p50_ms"], 4),
+            "p50_err_ms": round(pcts["p50_err_ms"], 4),
+            "p99_ms": round(pcts["p99_ms"], 4),
+            "p99_err_ms": round(pcts["p99_err_ms"], 4),
+            "slo": {
+                "p99_target_ms": round(latency_target_ms, 3),
+                "availability": slo.availability,
+                "verdict": "burn" if verdict["burning"] else "ok",
+                "burn_rate": verdict["burn_rate"],
+                "p99_met": latency.get("met"),
+            },
+        }
+        if failures:
+            detail["failed"] = failures[:10]
+        tel = _BENCH_TELEMETRY.get()
+        if tel is not None and getattr(tel, "trace_dir", None):
+            engine.metrics.write_snapshot(
+                Path(tel.trace_dir) / "serve_overload_live.json"
+            )
+        frontend.drain()  # flushes snapshots + closes the engine
+    return BenchRecord(
+        "serve_overload", backend, preset, wall, 0, 0.0, _n_chips(),
+        detail,
+    )
+
+def bench_approx_apsp(backend: str, preset: str) -> BenchRecord:
+    """Config 16: exact vs certified ``hopset+bf``
+    on the SAME graph and source set, at ε ∈ {0.1, 0.5}. A corridor
+    lattice (aspect 16), not ER: large diameter is the regime the
+    hopset tier exists for — the exact routes sweep to the diameter
+    (~4x a square grid's at equal V/E) while the approximate route
+    pays β hops past the relay seed. Per ε the detail records construction wall,
+    query wall, hopset edge count, the measured max observed error vs
+    the exact matrix, and the certified bound it must sit under — a
+    single entry whose measured error exceeds its certificate lands in
+    ``detail.failed`` and flunks ``bench_regress`` as a contract
+    failure (the certificate is the product; a violation is a bug, not
+    a slow day). ``speedup`` = exact wall / (construction + query):
+    the honest end-to-end ratio, construction un-amortized."""
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.solver.approx import approx_apsp
+
+    short = max(2, int(np.sqrt(_sz("approx_apsp", "n", preset) / 16)))
+    g = grid2d(16 * short, short, seed=23)
+    n = g.num_nodes
+    n_sources = min(_sz("approx_apsp", "sources", preset), n)
+    rng = np.random.default_rng(11)
+    sources = np.sort(rng.choice(n, size=n_sources, replace=False))
+
+    solver = _solver(backend)
+    solver.solve(g, sources)  # warm (compile) — same discipline as er1k
+    t0 = time.perf_counter()
+    exact_res = solver.solve(g, sources)
+    exact_wall = time.perf_counter() - t0
+    exact_rows = np.asarray(exact_res.matrix, np.float64)  # host rows
+
+    detail = {
+        "nodes": n, "edges": int(g.num_real_edges),
+        "n_sources": int(n_sources),
+        "exact_wall_s": round(exact_wall, 6),
+        "exact": _routes(exact_res),
+    }
+    wall = exact_wall
+    examined = int(exact_res.stats.edges_relaxed)
+    for eps in (0.1, 0.5):
+        dev = _BENCH_DEVICE.get()
+        approx_apsp(g, sources, config=solver.config, epsilon=eps,
+                    device=dev)  # warm
+        t0 = time.perf_counter()
+        res = approx_apsp(
+            g, sources, config=solver.config, epsilon=eps, device=dev
+        )
+        approx_wall = time.perf_counter() - t0
+        est = np.asarray(res.dist, np.float64)
+        err = np.asarray(res.max_error, np.float64)
+        # The certification contract, checked entrywise against the
+        # exact matrix: wherever the certificate is finite the measured
+        # error must sit under it, and a finite exact distance must
+        # never be answered with an uncertified +inf.
+        certified = np.isfinite(err)
+        measured = np.where(
+            np.isfinite(exact_rows) & np.isfinite(est),
+            np.abs(est - exact_rows), 0.0,
+        )
+        violations = int(np.sum(certified & (measured > err)))
+        wrong_inf = int(np.sum(
+            certified & (np.isfinite(exact_rows) != np.isfinite(est))
+        ))
+        key = f"eps_{eps:g}"
+        detail[key] = {
+            "construction_s": round(res.stats["construction_s"], 6),
+            "query_s": round(res.stats["query_s"], 6),
+            "beta": res.stats["beta"],
+            "hopset_edges": res.stats["hopset_edges"],
+            "hopset_converged": res.stats["hopset_converged"],
+            "query_converged": res.stats["query_converged"],
+            "measured_max_error": round(float(measured.max()), 6),
+            "certified_max_bound": (
+                round(float(err[certified].max()), 6)
+                if certified.any() else None
+            ),
+            "certified_frac": round(float(certified.mean()), 6),
+            "speedup": round(exact_wall / max(approx_wall, 1e-9), 3),
+        }
+        if violations or wrong_inf:
+            detail["failed"] = (
+                f"eps={eps:g}: {violations} entries exceed their "
+                f"certified bound, {wrong_inf} reachability "
+                "mismatches under a finite certificate"
+            )
+        if eps == 0.5:
+            wall = approx_wall
+            examined = int(res.stats["edges_examined"])
+    return BenchRecord(
+        "approx_apsp", backend, preset, wall, examined,
+        examined / max(wall, 1e-9), _n_chips(), detail,
+    )
+
+
 CONFIGS: dict[str, Callable[[str, str], BenchRecord]] = {
     "er1k_apsp": bench_er1k_apsp,
     "dimacs_ny_bf": bench_dimacs_ny_bf,
@@ -1245,8 +1867,11 @@ CONFIGS: dict[str, Callable[[str, str], BenchRecord]] = {
     "dirty_window": bench_dirty_window,
     "planner_dispatch": bench_planner_dispatch,
     "planner_tuning": bench_planner_tuning,
+    "serve_queries": bench_serve_queries,
+    "serve_overload": bench_serve_overload,
     "distributed_fleet": bench_distributed_fleet,
     "incremental_update": bench_incremental_update,
+    "approx_apsp": bench_approx_apsp,
 }
 
 
@@ -1281,8 +1906,11 @@ def run(
     names = names or list(CONFIGS)
     unknown = [n for n in names if n not in CONFIGS]
     if unknown:
+        needs = "".join(f"; {n} needs {_UNPORTED[n]}" for n in unknown
+                        if n in _UNPORTED)
         raise ValueError(
             f"unknown config(s) {unknown}; available: {sorted(CONFIGS)}"
+            + needs
         )
     records = []
     profile_token = (

@@ -128,9 +128,8 @@ class SolverConfig:
 
     Kept for config parity; forcing them raises at solve time until the
     layer is ported: ``edge_shard`` (``True``), ``mesh_shape`` over more
-    than one device, and ``precision="f64"`` on cuda. The remaining knobs (``hopset``,
-    ``approx_*``, ``error_budget``, ``compilation_cache_dir``) only tune
-    routes or layers the port does not have yet.
+    than one device, and ``precision="f64"`` on cuda.
+    ``compilation_cache_dir`` is accepted and does nothing yet.
     """
 
     backend: str = "torch"

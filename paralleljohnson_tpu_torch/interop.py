@@ -1,10 +1,12 @@
-"""Carry graphs and configs across from the JAX package.
+"""Carry graphs, configs, landmark indexes and hopsets across from the
+JAX package.
 
-Both functions take plain data (numpy arrays, a dict), so this module
-imports nothing of the JAX package: the caller hands over
+Every function takes plain data (numpy arrays, a dict, scalars), so this
+module imports nothing of the JAX package: the caller hands over
 ``graph.indptr, graph.indices, graph.weights`` of a JAX-package
-``CSRGraph`` and ``dataclasses.asdict`` of its ``SolverConfig``, and both
-packages then solve the same graph under the same config.
+``CSRGraph``, ``dataclasses.asdict`` of its ``SolverConfig``, or the
+numpy fields of its ``LandmarkIndex`` / ``Hopset``, and both packages
+then solve, serve or bound the same graph the same way.
 """
 
 from __future__ import annotations
@@ -53,3 +55,32 @@ def config_from_dict(d: dict) -> SolverConfig:
                 "be carried across; unset it"
             )
     return SolverConfig(**kw)
+
+
+def landmarks_from_arrays(sources, fwd, rev, *, nonnegative: bool,
+                          digest: str | None = None):
+    """The port's ``LandmarkIndex`` over a reference index's fields
+    (``sources``, ``fwd``, ``rev``, ``nonnegative``, ``digest``)."""
+    from paralleljohnson_tpu_torch.serve.landmarks import LandmarkIndex
+
+    return LandmarkIndex(np.array(sources, copy=True),
+                         np.array(fwd, copy=True), np.array(rev, copy=True),
+                         nonnegative=bool(nonnegative), digest=digest)
+
+
+def hopset_from_arrays(**fields):
+    """The port's ``Hopset`` from a reference hopset's dataclass fields
+    (``dataclasses.asdict`` of it, or the same names by hand): ``epsilon``,
+    ``beta``, ``pivots``, ``fwd``, ``rev``, ``converged``,
+    ``nonnegative`` and the optional provenance (``digest``, ``picker``,
+    ``seed``, ``edges_examined``, ``construction_s``). An unknown field
+    raises ``ValueError``."""
+    from paralleljohnson_tpu_torch.ops.hopset import Hopset
+
+    names = {f.name for f in dataclasses.fields(Hopset)}
+    unknown = sorted(set(fields) - names)
+    if unknown:
+        raise ValueError(f"unknown Hopset fields: {unknown}")
+    kw = {k: (np.array(v, copy=True) if isinstance(v, np.ndarray) else v)
+          for k, v in fields.items()}
+    return Hopset(**kw)

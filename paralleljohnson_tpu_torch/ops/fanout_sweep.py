@@ -232,6 +232,22 @@ def fanout_fixpoint(dist0, indptr_in, src_in, w_in, *, max_iter: int,
     """Iterate :func:`fanout_sweep` to its fixpoint, at most ``max_iter``
     sweeps. The same contract as the reference's ``pallas_fanout``:
     (dist [V, B], iterations, still_improving), the last two host values.
+    One chunk of :func:`fanout_fixpoint_chunks`: each sweep is Jacobi."""
+    return fanout_fixpoint_chunks(
+        dist0, [(indptr_in, src_in, w_in, items)], max_iter=max_iter)
+
+
+def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int):
+    """:func:`fanout_fixpoint` over an edge list cut into chunks, each a
+    ``(indptr_in, src_in, w_in, items)`` in-edge layout (``items`` may
+    be None; built on the card when needed). One sweep launches
+    :func:`fanout_sweep` once per chunk, in order, each chunk reading
+    what the one before it wrote: the chunk-level Gauss-Seidel sweep of
+    the reference's ``relax.bellman_ford_sweeps_vm`` (``ops/hopset.py``
+    lays out one chunk per reference edge chunk). A sweep's chunks share
+    one improvement flag, and an entry that dropped in any chunk ends
+    the sweep lower than it began, so the flag is the reference's
+    ``any(new < old)``.
 
     Two buffers alternate as old and new (``dist0`` is consumed as one of
     them). Sweeps go out in groups of ``SWEEPS_PER_SYNC``: sweep j of a
@@ -246,11 +262,12 @@ def fanout_fixpoint(dist0, indptr_in, src_in, w_in, *, max_iter: int,
     if not improving or max_iter <= 0:
         return dist0, 0, improving
     dev = dist0.device
+    n = len(chunks)
     if dev.type == "cuda":
-        if items is None:
-            items = build_work_items(indptr_in)
-        scratch = torch.empty((items.n_split, dist0.shape[1]),
-                              dtype=dist0.dtype, device=dev)
+        chunks = [(ip, s, w, build_work_items(ip) if it is None else it)
+                  for ip, s, w, it in chunks]
+        scratch = torch.empty((max(c[3].n_split for c in chunks),
+                               dist0.shape[1]), dtype=dist0.dtype, device=dev)
     else:
         scratch = None
     bufs = (dist0, torch.empty_like(dist0))
@@ -267,17 +284,37 @@ def fanout_fixpoint(dist0, indptr_in, src_in, w_in, *, max_iter: int,
         prev = one
         for j in range(k):
             flag = flags[FLAG_STRIDE * j:FLAG_STRIDE * j + 1]
-            fanout_sweep(bufs[(i + j) % 2], indptr_in, src_in, w_in,
-                         items=items, out=bufs[(i + j + 1) % 2],
-                         improved=flag, prev=prev, scratch=scratch)
+            for c, (ip, src, w, items) in enumerate(chunks):
+                launch = (i + j) * n + c
+                fanout_sweep(bufs[launch % 2], ip, src, w, items=items,
+                             out=bufs[(launch + 1) % 2], improved=flag,
+                             prev=prev, scratch=(
+                                 None if scratch is None
+                                 else scratch[:items.n_split]))
             prev = flag
         got = flags[:FLAG_STRIDE * k:FLAG_STRIDE].tolist()
         fanout_fixpoint.host_reads += 1
         if 0 in got:
             j = got.index(0)
-            return bufs[(i + j + 1) % 2], i + j + 1, False
+            return bufs[((i + j + 1) * n) % 2], i + j + 1, False
         i += k
-    return bufs[i % 2], i, True
+    return bufs[(i * n) % 2], i, True
+
+
+def fanout_fixpoint_plain(dist0, chunks, *, max_iter: int):
+    """The plain version of :func:`fanout_fixpoint_chunks`: one
+    :func:`fanout_sweep_plain` per chunk and one host read per sweep, on
+    any device (what the card's chunked fixpoint is held to)."""
+    d = dist0
+    improving = bool(torch.isfinite(d).any())
+    i = 0
+    while improving and i < max_iter:
+        start = d
+        for ip, src, w, _ in chunks:
+            d, _ = fanout_sweep_plain(d, ip, src, w)
+        improving = bool((d < start).any())
+        i += 1
+    return d, i, improving
 
 
 fanout_fixpoint.host_reads = 0

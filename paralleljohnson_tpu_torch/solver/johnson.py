@@ -663,7 +663,7 @@ class ParallelJohnsonSolver:
                 dist, pred, info = solve_condensed(
                     graph, sources, config=self.config,
                     predecessors=predecessors,
-                    device=getattr(self.backend, "device", "cpu"),
+                    device=self.backend.device,
                 )
         except NegativeCycleError:
             raise

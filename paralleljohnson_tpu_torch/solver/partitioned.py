@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from paralleljohnson_tpu_torch import observe
+from paralleljohnson_tpu_torch.backends.torch_backend import resolve_device
 from paralleljohnson_tpu_torch.graphs import CSRGraph
 from paralleljohnson_tpu_torch.ops import fw
 from paralleljohnson_tpu_torch.ops.minplus import minplus_kernel
@@ -151,9 +152,11 @@ def solve_condensed(
     predecessors: bool = False,
     num_parts: int | None = None,
     seed: int = 0,
-    device="cpu",
+    device="cuda",
 ):
-    """Exact partitioned APSP (see the module docstring) on ``device``.
+    """Exact partitioned APSP (see the module docstring) on ``device``
+    (the card unless the caller asks for the CPU; a card that is not
+    there raises ``RuntimeError``).
 
     Returns ``(dist [B, V] host float, pred [B, V] int32 or None, info)``;
     ``info`` carries the route tag, exact MAC totals, k-step count, part
@@ -167,7 +170,7 @@ def solve_condensed(
     negative cycle."""
     from paralleljohnson_tpu_torch.solver.johnson import NegativeCycleError
 
-    device = torch.device(device)
+    device = resolve_device(device)
     v = graph.num_nodes
     sources = (
         np.arange(v, dtype=np.int64)

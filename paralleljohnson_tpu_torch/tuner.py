@@ -40,8 +40,6 @@ package's format.
 
 Every function that solves or reads the platform takes ``device`` (the
 card by default, ``"cpu"`` for the plain versions) and passes it on.
-``approx_beta`` waits for ``solver/approx``: asking for it raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -94,18 +92,6 @@ HARVESTED_FILE = "harvested.json"
 # Floor under the per-probe cap when pricing lease sizes: even a probe the
 # model predicts as instant pays Python and launch overhead.
 MIN_PRICED_PROBE_S = 0.05
-
-# Knobs whose consuming route is not ported yet, and the module it needs.
-_UNPORTED_KNOBS = {"approx_beta": "solver/approx (the hopset+bf route)"}
-
-
-def _require_ported(knob: str) -> None:
-    if knob in _UNPORTED_KNOBS:
-        raise NotImplementedError(
-            f"tuning {knob!r} needs {_UNPORTED_KNOBS[knob]}, which is not "
-            "ported to paralleljohnson_tpu_torch yet"
-        )
-
 
 # ---------------------------------------------------------------------------
 # Knob registry
@@ -186,7 +172,9 @@ def _seed_pipeline_depth(config: SolverConfig, v: int, e: int) -> int:
 def _seed_approx_beta(config: SolverConfig, v: int, e: int) -> int:
     if config.approx_beta:
         return int(config.approx_beta)
-    _require_ported("approx_beta")
+    from paralleljohnson_tpu_torch.ops.hopset import auto_beta
+
+    return auto_beta(v, float(config.approx_epsilon))
 
 
 def _probe_solve(graph, sources, config: SolverConfig, device="cuda") -> None:
@@ -196,7 +184,12 @@ def _probe_solve(graph, sources, config: SolverConfig, device="cuda") -> None:
 
 
 def _probe_approx(graph, sources, config: SolverConfig, device="cuda") -> None:
-    _require_ported("approx_beta")
+    from paralleljohnson_tpu_torch.solver.approx import solve_with_budget
+
+    solve_with_budget(
+        graph, sources, config=config,
+        error_budget=float(config.approx_epsilon), device=device,
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,11 +265,11 @@ def declared_tunables() -> list[tuple[str, str]]:
         FANOUT_PLANS, SSSP_PLANS,
     )
     from paralleljohnson_tpu_torch.incremental.repair import _repair_plans
+    from paralleljohnson_tpu_torch.solver.approx import APPROX_PLANS
     from paralleljohnson_tpu_torch.solver.johnson import SOLVER_PLANS
 
-    # The approximate tier's registry joins when solver/approx is ported.
     out: list[tuple[str, str]] = []
-    for registry in (SOLVER_PLANS, FANOUT_PLANS, SSSP_PLANS,
+    for registry in (SOLVER_PLANS, FANOUT_PLANS, SSSP_PLANS, APPROX_PLANS,
                      _repair_plans()):
         for plan in registry:
             for knob in plan.tunables:
@@ -313,7 +306,6 @@ def propose_candidates(
     fallback), then never-measured values, then already-measured ones —
     each group sorted.  Pure in (bucket, seed, measured-set): two callers
     see the same list. ``platform`` defaults to ``device``'s."""
-    _require_ported(knob)
     spec = KNOB_SPECS[knob]
     config = config or SolverConfig()
     seed = spec.seed(config, num_nodes, num_edges)
@@ -388,7 +380,6 @@ def run_probe(
     ``censored: true`` tune record: its measurements are discarded, so a
     censored value can never be promoted. The probe solves on ``device``
     unless ``solve_fn`` replaces it."""
-    _require_ported(knob)
     spec = KNOB_SPECS[knob]
     if spec.validate is not None and not spec.validate(value):
         raise ValueError(f"invalid candidate for {knob}: {value!r}")
@@ -512,7 +503,6 @@ def tune_bucket(
         if knob not in KNOB_SPECS:
             raise ValueError(f"unknown knob {knob!r}; known: "
                              f"{sorted(KNOB_SPECS)}")
-        _require_ported(knob)
         spec = KNOB_SPECS[knob]
         if remaining() <= 0:
             summary["skipped"] = f"bucket budget exhausted before {knob}"
@@ -654,7 +644,6 @@ def plan_tuning_fleet(
     records = list(cached_records(store_dir)) if store_dir else []
     jobs: list[dict] = []
     for knob in (list(knobs) if knobs is not None else tunable_knobs()):
-        _require_ported(knob)
         spec = KNOB_SPECS[knob]
         if candidates and knob in candidates:
             values = [c for c in candidates[knob]

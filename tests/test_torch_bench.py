@@ -22,7 +22,10 @@ from paralleljohnson_tpu_torch import benchmarks
 from paralleljohnson_tpu_torch.observe.regress import BenchHistory, normalize_record
 from paralleljohnson_tpu_torch.utils.telemetry import validate_chrome_trace
 
-CONFIGS = sorted(benchmarks.CONFIGS)
+# serve_overload's verdict rests on wall-clock phases (2x its calibrated
+# capacity, then a cooldown) that a loaded CPU cannot hold; it has a test
+# of its own below, which grades every answer it served.
+CONFIGS = sorted(set(benchmarks.CONFIGS) - {"serve_overload"})
 COMPARED = ("nodes", "edges", "sources", "finite_frac", "reached_frac",
             "rows_checksum", "scale", "graphs", "nodes_each")
 
@@ -54,10 +57,10 @@ def port_rows(tmp_path_factory):
 
 
 def test_configs_are_the_reference_configs_with_ported_modules():
-    unported = {"serve_queries", "serve_overload", "serve_fleet",
-                "approx_apsp"}
-    assert set(CONFIGS) == set(ref_bench.CONFIGS) - unported
-    for name in CONFIGS:
+    unported = {"serve_fleet"}  # its replicas are CLI processes
+    assert set(benchmarks.CONFIGS) == set(ref_bench.CONFIGS) - unported
+    assert len(benchmarks.CONFIGS) == 17
+    for name in benchmarks.CONFIGS:
         assert benchmarks._SIZES[name] == ref_bench._SIZES[name]
     assert benchmarks._PRESETS == ref_bench._PRESETS
 
@@ -174,11 +177,50 @@ def test_host_backends_rows(backend, ref_rows):
     assert "skipped" in rows["planner_tuning"].detail
 
 
-@pytest.mark.parametrize("name", ["serve_queries", "approx_apsp",
-                                  "er1k_aspp"])
+def test_serve_rows_as_reference(port_rows, ref_rows):
+    """``serve_queries``' host-forced and device-forced lookups answer
+    bitwise alike in both packages, over the same graph and mix;
+    ``approx_apsp`` certifies every entry it measured."""
+    _, rows = port_rows
+    sq, ref_sq = rows["serve_queries"].detail, \
+        ref_rows["serve_queries"].detail
+    for key in ("queries", "landmarks", "warm_sources", "clients"):
+        assert sq[key] == ref_sq[key], key
+    assert sq["lookup"]["bitwise_identical"]
+    assert ref_sq["lookup"]["bitwise_identical"]
+    assert sq["lookup"]["device_lookups"] > 0
+    ap, ref_ap = rows["approx_apsp"].detail, ref_rows["approx_apsp"].detail
+    for eps in ("eps_0.1", "eps_0.5"):
+        for key in ("beta", "hopset_edges", "hopset_converged",
+                    "query_converged", "measured_max_error",
+                    "certified_max_bound", "certified_frac"):
+            assert ap[eps][key] == ref_ap[eps][key], (eps, key)
+
+
+def test_serve_overload_grades_every_answer():
+    """Through real sockets at twice its calibrated capacity, every
+    answer the frontend served is graded against the direct solve: exact
+    answers bitwise, shed answers flagged and inside a finite certificate,
+    no unexpected errors or hung clients. Whether the burn alert engaged
+    and cleared within the phases depends on the wall clock, which a
+    loaded CPU does not hold, so those verdicts are not asserted here."""
+    (rec,) = benchmarks.run(["serve_overload"], preset="smoke", device="cpu")
+    d = rec.detail
+    timing = ("shed nothing", "rejected nothing", "late cooldown",
+              "shed fraction", "missed the")
+    wrong = [f for f in d.get("failed", [])
+             if not any(t in f for t in timing)]
+    assert not wrong, wrong
+    assert d["exact_bitwise_checked"] > 0
+    assert d["accepted"] + d["rejected"] > 0
+    assert d["platform"] == "cpu"
+
+
+@pytest.mark.parametrize("name", ["serve_fleet", "er1k_aspp"])
 def test_unknown_or_unported_config_rejected(name):
-    with pytest.raises(ValueError, match="unknown config"):
+    with pytest.raises(ValueError, match="unknown config") as err:
         benchmarks.run([name], device="cpu")
+    assert ("CLI" in str(err.value)) == (name == "serve_fleet")
 
 
 def test_unknown_preset_rejected():

@@ -1,9 +1,11 @@
 """PyTorch port on the card: each hand CUDA kernel against its plain
 PyTorch version, and ``solve()`` on the card (predecessor trees and the
 plain-torch XLA routes included) against ``solve()`` on the CPU, the
-B=1 routes' ``sssp`` against ``sweep``'s, and an in-process fleet and a
-checkpoint repair against the card's ``solve()``. Every
-test needs a CUDA device and skips without one.
+B=1 routes' ``sssp`` against ``sweep``'s, an in-process fleet and a
+checkpoint repair against the card's ``solve()``, and the serving tier's
+device lookups and the hopset's chunked sweeps against their host and
+plain versions. Every test needs a CUDA device and skips without one,
+except the one that checks the engine refuses to start without it.
 
 This file imports nothing of JAX, so it runs where JAX is not installed:
 
@@ -785,7 +787,7 @@ def test_cpp_backend_rows_equal_torch_backend_on_card(cuda):
     "dimacs_ny_scrambled_pred", "ego_fb_nsource", "rmat_apsp",
     "rmat_apsp_pipelined", "batch_small", "dense_apsp_fw", "dirty_window",
     "planner_dispatch", "planner_tuning", "distributed_fleet",
-    "incremental_update",
+    "incremental_update", "serve_queries", "approx_apsp",
 ])
 def test_bench_config_smoke_on_card(cuda, config, tmp_path):
     """Every config of the port's bench harness at the smoke preset on the
@@ -907,3 +909,141 @@ def test_repair_on_card_equals_fresh_solve(cuda, tmp_path):
         rows, _ = ck.load(int(man[int(srcs[0])][0]), srcs)
         for i, s in enumerate(srcs):
             np.testing.assert_array_equal(rows[i], mat[int(s)])
+
+
+# -- the serving tier and the approximate tier -------------------------------
+
+
+def _lookup_world(rng, v=300, k=4):
+    """A landmark index with +inf rows and negative finite entries (a
+    graph with a sink component and negative DAG weights), and a host
+    tile of f32 rows with +inf entries."""
+    from paralleljohnson_tpu_torch.graphs import random_dag
+    from paralleljohnson_tpu_torch.serve import LandmarkIndex
+
+    g = random_dag(v, 0.02, negative_fraction=0.3, seed=int(rng.integers(99)))
+    lm = LandmarkIndex.build(g, k, device="cpu", seed=1)
+    assert np.isinf(lm.fwd).any() and (lm.fwd[np.isfinite(lm.fwd)] < 0).any()
+    tile = rng.random((16, v)).astype(np.float32) * 50 - 10
+    tile[rng.random((16, v)) < 0.3] = np.inf
+    return g, lm, tile
+
+
+def test_device_query_functions_on_card_equal_host(cuda):
+    """``DeviceQueryPath``'s four functions on the card, byte for byte
+    against the numpy host path: tile gathers (pairs and rows) and the raw
+    f64 landmark bounds (pairs and full rows)."""
+    from paralleljohnson_tpu_torch.serve import TileStore, device_query
+
+    rng = np.random.default_rng(3)
+    g, lm, tile = _lookup_world(rng)
+    v = g.num_nodes
+    store = TileStore(None, g, hot_rows=16)
+    store.put(np.arange(16), torch.as_tensor(tile).to(cuda))
+    path = device_query.DeviceQueryPath(store, lm, device=cuda)
+    slots = path.refresh()
+    assert path.f64_supported() and path.landmark_device_ok()
+    s = rng.integers(0, 16, 500)
+    t = rng.integers(0, v, 500)
+    pairs = path.exact_pairs([slots[int(x)] for x in s], t)
+    assert pairs.tobytes() == tile[s, t].tobytes()
+    rows = path.exact_rows([slots[int(x)] for x in s[:9]])
+    assert rows.tobytes() == tile[s[:9]].tobytes()
+    lo, up = path.landmark_pairs(s * 7 % v, t)
+    for i, (a, b) in enumerate(zip(s * 7 % v, t)):
+        lo_h, up_h = lm.raw_bounds_row(int(a), np.asarray([int(b)]))
+        assert lo[i].tobytes() == lo_h[0].tobytes()
+        assert up[i].tobytes() == up_h[0].tobytes()
+    src = rng.integers(0, v, 11)
+    lo_r, up_r = path.landmark_rows(src)
+    for i, a in enumerate(src):
+        lo_h, up_h = lm.raw_bounds_row(int(a), None)
+        assert lo_r[i].tobytes() == lo_h.tobytes()
+        assert up_r[i].tobytes() == up_h.tobytes()
+
+
+def test_query_engine_on_card_answers_as_on_cpu(cuda, tmp_path):
+    """One engine on the card and one on the CPU over the same integer
+    graph and mix: exact and landmark answers equal, host-forced and
+    device-forced alike; the device path ran on the card."""
+    import json
+
+    from paralleljohnson_tpu_torch.graphs import erdos_renyi
+    from paralleljohnson_tpu_torch.serve import (
+        LandmarkIndex, QueryEngine, TileStore,
+    )
+
+    g = erdos_renyi(400, 0.02, seed=5)
+    g = g.with_weights(np.maximum(1.0, np.rint(g.weights)).astype(np.float32))
+    rng = np.random.default_rng(8)
+    reqs = []
+    for i in range(64):
+        s = int(rng.integers(0, 400))
+        reqs.append({"id": i, "source": s,
+                     "dst": [int(d) for d in rng.integers(0, 400, 4)],
+                     "mode": "exact" if s < 200 else "approx"})
+    outs = []
+    for dev in ("cpu", cuda):
+        lm = LandmarkIndex.build(g, 6, device=dev, seed=2)
+        for mode in ("off", "on"):
+            engine = QueryEngine(g, TileStore(tmp_path / f"{dev}{mode}", g,
+                                              hot_rows=256),
+                                 landmarks=lm, device=dev,
+                                 device_lookup=mode, stats_interval_s=0)
+            engine.warm(range(200))
+            outs.append(json.dumps(engine.query_batch(reqs), sort_keys=True))
+            if mode == "on" and dev != "cpu":
+                assert engine.stats.device_lookups == 64
+                assert "f64 on the device" in \
+                    engine.last_lookup_decision["reason"]
+            engine.close()
+    assert len(set(outs)) == 1
+
+
+@pytest.mark.parametrize("edge_chunk", [1 << 20, 4096])
+def test_bounded_hop_rows_on_card_equal_plain(cuda, edge_chunk):
+    """A multi-chunk ``bounded_hop_rows`` on the card (one hand-sweep
+    launch per chunk, chained) against the same chunked sweep with
+    ``fanout_sweep_plain`` on the card, and against the CPU."""
+    from paralleljohnson_tpu_torch.ops import hopset as hs
+
+    g = pjt.load_graph("rmat:scale=12,ef=8,seed=4")
+    sources = np.array([0, 7, 100, 2000])
+    before = fs.fanout_sweep.launches
+    rows, iters, conv, ex = hs.bounded_hop_rows(
+        g, sources, beta=6, edge_chunk=edge_chunk, device=cuda)
+    chunks = hs.hop_chunks(g, edge_chunk=edge_chunk, device=cuda)
+    assert fs.fanout_sweep.launches - before >= iters * len(chunks)
+    d0 = hs.hop_init(sources, g.num_nodes, dtype=torch.float32, device=cuda)
+    plain, p_iters, p_imp = fs.fanout_fixpoint_plain(d0, chunks, max_iter=6)
+    assert rows.tobytes() == johnson.to_numpy(plain.T).tobytes()
+    assert (iters, conv) == (p_iters, not p_imp)
+    cpu = hs.bounded_hop_rows(g, sources, beta=6, edge_chunk=edge_chunk,
+                              device="cpu")
+    assert rows.tobytes() == cpu[0].tobytes()
+    assert (iters, conv, ex) == cpu[1:]
+
+
+def test_approx_apsp_on_card_equals_cpu(cuda):
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.solver import approx
+
+    g = grid2d(256, 8, seed=23)
+    src = np.arange(0, 2048, 97)
+    card = approx.approx_apsp(g, src, epsilon=0.5, device=cuda)
+    cpu = approx.approx_apsp(g, src, epsilon=0.5, device="cpu")
+    assert card.dist.tobytes() == cpu.dist.tobytes()
+    assert card.max_error.tobytes() == cpu.max_error.tobytes()
+
+
+def test_query_engine_default_raises_without_card(monkeypatch, tmp_path):
+    """``QueryEngine(device="cuda")``, the default, raises
+    ``RuntimeError`` where there is no card: it never serves from the
+    host in its place. (Runs with or without a card.)"""
+    from paralleljohnson_tpu_torch.graphs import erdos_renyi
+    from paralleljohnson_tpu_torch.serve import QueryEngine, TileStore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = erdos_renyi(16, 0.2, seed=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        QueryEngine(g, TileStore(tmp_path, g))

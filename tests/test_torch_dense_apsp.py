@@ -336,7 +336,8 @@ def test_fw_auto_failure_degrades_forced_raises(monkeypatch):
 def _condensed_both(g, sources=None, **kw):
     ref = ref_part.solve_condensed(g, sources, config=RefConfig(**ONE), **kw)
     port = port_part.solve_condensed(_port(g), sources,
-                                     config=pjt.SolverConfig(), **kw)
+                                     config=pjt.SolverConfig(), device="cpu",
+                                     **kw)
     return ref, port
 
 
@@ -406,7 +407,18 @@ def test_condensed_negative_cycle_raises_in_both(make):
                                  seed=seed)
     with pytest.raises(pjt.NegativeCycleError):
         port_part.solve_condensed(_port(g), num_parts=parts,
-                                  config=pjt.SolverConfig(), seed=seed)
+                                  config=pjt.SolverConfig(), seed=seed,
+                                  device="cpu")
+
+
+def test_condensed_defaults_to_the_card(monkeypatch):
+    """Like ``ParallelJohnsonSolver``, ``solve_condensed`` runs on the card
+    unless asked for the CPU, and raises rather than fall back without
+    one."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_part.solve_condensed(_port(_intw(grid2d(6, 6, seed=1))),
+                                  config=pjt.SolverConfig())
 
 
 def test_condensed_predecessors_match_reference():

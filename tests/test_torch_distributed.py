@@ -413,6 +413,37 @@ def test_status_and_rows_read_across_packages(reader, fleets):
         assert np.array_equal(rows[s], row)
 
 
+@pytest.mark.parametrize("reader", ["port", "ref"])
+def test_in_process_fleet_bitwise_and_serves(reader, fleets):
+    """The reference's serving half of its fleet test: a ``TileStore``
+    attached to either package's fleet directory reads through the merged
+    shard manifest and serves every row bitwise one solve's, at hit rate
+    1.0."""
+    if reader == "port":
+        from paralleljohnson_tpu_torch.distributed.manifest import (
+            ShardedCheckpointer,
+        )
+        from paralleljohnson_tpu_torch.serve import TileStore
+    else:
+        from paralleljohnson_tpu.distributed.manifest import (
+            ShardedCheckpointer,
+        )
+        from paralleljohnson_tpu.serve import TileStore
+
+    coords, _ = fleets
+    g = load_graph(FLEET_SPEC)
+    mat = ParallelJohnsonSolver(SolverConfig(**BATCH),
+                                device="cpu").solve(g).matrix
+    for writer in ("port", "ref"):
+        store = TileStore(coords[writer].dir, g, hot_rows=8, warm_rows=32)
+        assert isinstance(store.ckpt, ShardedCheckpointer)
+        for s in range(g.num_nodes):
+            row, tier = store.get(s)
+            assert tier in ("cold", "warm", "hot"), (writer, s)
+            assert np.array_equal(np.asarray(row), mat[s]), (writer, s)
+        assert store.hit_rate() == 1.0
+
+
 def test_fleet_resume_in_process(tmp_path):
     coord = distributed.plan_fleet(tmp_path / "coord", SPEC, n_workers=2,
                                    config=BATCH)

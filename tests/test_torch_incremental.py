@@ -506,3 +506,87 @@ def test_repair_fleet_matches_reference(base, tmp_path):
     assert status["graph_spec"] == f"repair:{port.new_digest}"
     ref_status = Coordinator(tmp_path / "rc").status()
     assert status["committed_by"] == ref_status["committed_by"]
+
+
+# -- the serve side: stale answers from the pre-update store ------------------
+
+
+def _stale_serving(package, d, g, probe):
+    """An engine over the OLD graph's store in ``d``: the answers to
+    ``probe`` (source -> 3), the stale set, the stale counter and its
+    prom line."""
+    if package == "port":
+        from paralleljohnson_tpu_torch.serve import QueryEngine, TileStore
+
+        store = TileStore(d, g)
+        engine = QueryEngine(g, store, config=SolverConfig(), device="cpu",
+                             stats_interval_s=0)
+    else:
+        from paralleljohnson_tpu.serve import QueryEngine, TileStore
+
+        store = TileStore(d, g)
+        engine = QueryEngine(g, store, config=RefConfig(),
+                             stats_interval_s=0)
+    answers = [engine.query(s, 3) for s in probe]
+    text = engine.write_metrics(d / f"{package}.prom").read_text()
+    summary = engine.serve_summary()["engine"]["stale_answers"]
+    engine.close()
+    return answers, store.stale_info(), engine.stats.stale_answers, \
+        summary, text
+
+
+def test_repair_decrease_bitwise_and_stale_serving(base, tmp_path):
+    """The reference's serve-side check of a distance-changing decrease:
+    after the repair (rows bitwise a fresh solve, fewer dirty parts than
+    parts), each package's engine over the OLD graph's store flags
+    exactly the affected sources ``stale`` (counted, exported), and the
+    two packages answer alike; the NEW digest's store serves fresh,
+    unflagged rows."""
+    from paralleljohnson_tpu_torch.serve import QueryEngine, TileStore
+
+    g, ref_g, _, st = base
+    dirs = _copies(base, tmp_path)
+    updates = upd_decrease(g, st)
+    out, _ = _repair_both((g, ref_g), dirs, updates)
+    assert 0 < out.dirty_parts_closed < out.parts_total
+    assert out.affected_rows > 0
+    probe = [0, 1, g.num_nodes // 2, g.num_nodes - 1]
+    port = _stale_serving("port", dirs["port"], g, probe)
+    ref = _stale_serving("ref", dirs["ref"], ref_g, probe)
+    answers, stale_set, n_counted, n_summary, text = port
+    assert stale_set is not None and stale_set == ref[1]
+    for s, resp in zip(probe, answers):
+        expected = stale_set == "all" or s in stale_set
+        assert resp.get("stale", False) == expected, (s, resp)
+    n_stale = sum(1 for s in probe if stale_set == "all" or s in stale_set)
+    assert n_counted == n_summary == ref[2] == n_stale > 0
+    assert f"pjtpu_stale_answers_total {float(n_stale)}" in text
+    assert answers == ref[0]
+    new_g, _ = g.apply_edge_updates(updates)
+    engine = QueryEngine(new_g, TileStore(dirs["port"], new_g),
+                         config=SolverConfig(), device="cpu",
+                         stats_interval_s=0)
+    r = engine.query(probe[0], 3)
+    engine.close()
+    assert "stale" not in r and r["exact"] is True
+    assert r["distance"] == float(solve_rows(new_g)[probe[0], 3])
+
+
+def test_tilestore_manual_stale_marks():
+    from paralleljohnson_tpu.serve import TileStore as RefTileStore
+
+    from paralleljohnson_tpu_torch.serve import TileStore
+
+    ref_g = intify(ref_grid2d(3, 3, seed=0))
+    for store in (TileStore(None, _port(ref_g)), RefTileStore(None, ref_g)):
+        assert store.stale_info() is None
+        assert not store.is_stale(0)
+        store.mark_stale([1, 2])
+        assert store.is_stale(1) and store.is_stale(2)
+        assert not store.is_stale(0)
+        store.mark_stale("all")
+        assert store.is_stale(0)
+        store.clear_stale()
+        assert store.stale_info() is None
+        with pytest.raises(ValueError):
+            store.mark_stale("some")

@@ -2,8 +2,8 @@
 package's.
 
 The same bucket, seed and records give the same candidate lists; the
-declared work list is the reference's without the approximate tier's
-plans (not ported yet); a store either package's ``tune_bucket`` writes
+declared work list is the reference's, the approximate tier's
+``approx_beta`` included; a store either package's ``tune_bucket`` writes
 resolves to the same tuned value in the other. The reference's
 invariants hold in the port (a hard wall, zero budget as a no-op, the
 noise band, censored values never promoted), with injected ``solve_fn``
@@ -34,7 +34,7 @@ from paralleljohnson_tpu_torch.observe import tuning
 from paralleljohnson_tpu_torch.observe.store import ProfileStore
 
 SPEC = "er:n=64,p=0.1,seed=1"
-PORTED = [k for k in tuner.KNOB_SPECS if k != "approx_beta"]
+PORTED = list(tuner.KNOB_SPECS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,11 +72,9 @@ def test_knob_specs_and_work_list_equal_reference():
             for k, s in tuner.KNOB_SPECS.items()} == {
         k: tuple(getattr(s, f) for f in fields)
         for k, s in ref_tuner.KNOB_SPECS.items()}
-    unported = {"hopset+bf"}
-    assert tuner.declared_tunables() == [
-        (p, k) for p, k in ref_tuner.declared_tunables() if p not in unported]
-    assert tuner.tunable_knobs() == [
-        k for k in ref_tuner.tunable_knobs() if k != "approx_beta"]
+    assert tuner.declared_tunables() == ref_tuner.declared_tunables()
+    assert ("hopset+bf", "approx_beta") in tuner.declared_tunables()
+    assert tuner.tunable_knobs() == ref_tuner.tunable_knobs()
 
 
 @pytest.mark.parametrize("knob", PORTED)
@@ -105,17 +103,17 @@ def test_propose_candidates_equal_reference(knob, cfg, shape):
 
 
 def test_approx_beta_names_the_missing_module(port_graph, tmp_path):
-    with pytest.raises(NotImplementedError, match="solver/approx"):
-        tuner.propose_candidates("approx_beta", num_nodes=64, num_edges=400,
-                                 platform="cpu")
-    with pytest.raises(NotImplementedError, match="solver/approx"):
-        tuner.run_probe(port_graph, knob="approx_beta", value=4,
-                        store=ProfileStore(tmp_path), budget_s=1.0,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="solver/approx"):
-        tuner.tune_bucket(port_graph, store_dir=tmp_path / "s",
-                          knobs=["approx_beta"], device="cpu")
-    assert not (tmp_path / "s").exists()
+    """``solver/approx`` is ported: ``approx_beta`` proposes the
+    reference's candidates (seeded by ``auto_beta``) and a real probe
+    runs the forced ``hopset+bf`` plan on the CPU, uncensored."""
+    kw = dict(num_nodes=64, num_edges=400, platform="cpu")
+    assert tuner.propose_candidates("approx_beta", **kw) == \
+        ref_tuner.propose_candidates("approx_beta", **kw)
+    res = tuner.run_probe(port_graph, knob="approx_beta", value=4,
+                          store=ProfileStore(tmp_path), budget_s=60.0,
+                          device="cpu")
+    assert not res.censored and res.wall_s is not None
+    assert ProfileStore(tmp_path).records()[-1]["kind"] == "tune"
 
 
 @pytest.mark.parametrize("writer", ["port", "reference"])
@@ -145,8 +143,7 @@ def test_tuned_store_resolves_alike_in_both_packages(writer, graph,
     prov = dict(store_dir=store, platform="cpu", num_nodes=graph.num_nodes,
                 num_edges=graph.num_real_edges)
     ours = tuner.provenance_table(config=SolverConfig(fw_tile=512), **prov)
-    theirs = [r for r in ref_tuner.provenance_table(
-        config=RefConfig(fw_tile=512), **prov) if r["knob"] != "approx_beta"]
+    theirs = ref_tuner.provenance_table(config=RefConfig(fw_tile=512), **prov)
     assert ours == theirs
     assert ours[0]["knob"] == "fw_tile"
     assert ours[0]["source"] == "tuner-promoted"
@@ -274,8 +271,13 @@ def test_tuning_fleet_plan_equals_reference(kw, graph, port_graph, tmp_path):
                 "lease_deadline_s"):
         assert ours.spec[key] == theirs.spec[key], key
     assert ours.spec["backend"] == "torch"
-    with pytest.raises(NotImplementedError, match="solver/approx"):
-        _fleet(tmp_path / "approx", port_graph, knobs=["approx_beta"])
+    # approx_beta (solver/approx) plans the reference's leases too.
+    ours = _fleet(tmp_path / "port_approx", port_graph, knobs=["approx_beta"],
+                  candidates=None)
+    theirs = _fleet(tmp_path / "ref_approx", graph, package="ref",
+                    knobs=["approx_beta"], candidates=None)
+    assert ours.spec["config"] == theirs.spec["config"]
+    assert ours.spec["leases"] == theirs.spec["leases"]
 
 
 def test_tuning_lease_crash_requeues_and_second_worker_commits(
