@@ -1591,7 +1591,12 @@ def bench_serve_overload(backend: str, preset: str) -> BenchRecord:
             # Closed-loop paced: wait until the next send is due, send,
             # read the one response line (every request gets exactly
             # one — a missing line is a hung connection and fails the
-            # bench via the socket timeout).
+            # bench via the socket timeout). Client k's schedule is
+            # offset by k / n_clients of its period, so the phase's
+            # sends are spread evenly: schedules that all start at the
+            # barrier arrive in bursts of n_clients against
+            # max_inflight = 2 slots, which rejects most of a burst at
+            # any average rate.
             try:
                 sock = _socket.create_connection((host, port), timeout=30)
                 sock.settimeout(30)
@@ -1606,7 +1611,7 @@ def bench_serve_overload(backend: str, preset: str) -> BenchRecord:
                     elapsed = time.perf_counter() - start
                     if elapsed >= duration_s:
                         break
-                    delay = sent / rate - elapsed
+                    delay = (sent + k / n_clients) / rate - elapsed
                     if delay > 0:
                         time.sleep(delay)
                     src = (int(crng.choice(warm)) if crng.random() < 0.7
@@ -1712,6 +1717,13 @@ def bench_serve_overload(backend: str, preset: str) -> BenchRecord:
             failures.append(
                 f"{shed_late} shed answers in the late cooldown — "
                 "shedding failed to disengage below capacity")
+        # The cooldown second by second: [answers, rejected, shed] each.
+        timeline = [[0, 0, 0] for _ in range(int(np.ceil(cooldown_s)))]
+        for _, _, r, t in results["cooldown"]:
+            slot = timeline[min(int(t), len(timeline) - 1)]
+            slot[0] += 1
+            slot[1] += "error" in r
+            slot[2] += bool(r.get("shed"))
         verdict = engine.slo_tracker().evaluate()
         latency = verdict.get("latency") or {}
         if latency.get("met") is False:
@@ -1734,6 +1746,7 @@ def bench_serve_overload(backend: str, preset: str) -> BenchRecord:
             "shed_answers": shed_n,
             "shed_frac": round(shed_frac, 4),
             "shed_late_cooldown": shed_late,
+            "cooldown_timeline": timeline,
             "exact_bitwise_checked": exact_n,
             "p50_ms": round(pcts["p50_ms"], 4),
             "p50_err_ms": round(pcts["p50_err_ms"], 4),

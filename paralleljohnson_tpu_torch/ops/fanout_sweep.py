@@ -301,20 +301,4 @@ def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int):
     return bufs[(i * n) % 2], i, True
 
 
-def fanout_fixpoint_plain(dist0, chunks, *, max_iter: int):
-    """The plain version of :func:`fanout_fixpoint_chunks`: one
-    :func:`fanout_sweep_plain` per chunk and one host read per sweep, on
-    any device (what the card's chunked fixpoint is held to)."""
-    d = dist0
-    improving = bool(torch.isfinite(d).any())
-    i = 0
-    while improving and i < max_iter:
-        start = d
-        for ip, src, w, _ in chunks:
-            d, _ = fanout_sweep_plain(d, ip, src, w)
-        improving = bool((d < start).any())
-        i += 1
-    return d, i, improving
-
-
 fanout_fixpoint.host_reads = 0

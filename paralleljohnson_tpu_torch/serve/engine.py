@@ -43,7 +43,9 @@ forcing either path via the engine's
 ``device_lookup`` tristate reproduces the other bit for bit; tiny
 batches and CPU platforms keep the host path by qualification, and the
 per-batch decision (with its why-line) is kept on
-``engine.last_lookup_decision``.
+``engine.last_lookup_decision``. A fault of the device path raises on a
+CUDA engine, ``auto`` included; only a CPU engine's ``auto`` records it
+in the why-line and takes the host walk.
 
 Concurrency: the engine is thread-safe — one re-entrant
 lock serializes the batch pipeline (tier walk, scheduled solve, counter
@@ -697,8 +699,10 @@ class QueryEngine:
                     avail = False
                     reason = "empty device tile (nothing hot, or all stale)"
             except Exception as e:  # noqa: BLE001 — auto degrades to the host walk
-                if self.device_lookup == "on":
-                    raise  # a forced device path fails loud
+                if self.device_lookup == "on" or self.device.type == "cuda":
+                    # A forced device path, and any fault on the card,
+                    # fails loud: the host walk never covers for it.
+                    raise
                 slots = {}
                 avail = False
                 reason = f"device path failed: {type(e).__name__}: {e}"

@@ -201,16 +201,14 @@ def test_serve_overload_grades_every_answer():
     """Through real sockets at twice its calibrated capacity, every
     answer the frontend served is graded against the direct solve: exact
     answers bitwise, shed answers flagged and inside a finite certificate,
-    no unexpected errors or hung clients. Whether the burn alert engaged
-    and cleared within the phases depends on the wall clock, which a
-    loaded CPU does not hold, so those verdicts are not asserted here."""
+    no unexpected errors or hung clients; the overload phase shed and
+    rejected, the shed fraction stayed under half, the SLO's p99 was met
+    and shedding disengaged in the cooldown: no ``failed`` verdict, as
+    the reference's ``test_serve_overload_contract`` holds."""
     (rec,) = benchmarks.run(["serve_overload"], preset="smoke", device="cpu")
     d = rec.detail
-    timing = ("shed nothing", "rejected nothing", "late cooldown",
-              "shed fraction", "missed the")
-    wrong = [f for f in d.get("failed", [])
-             if not any(t in f for t in timing)]
-    assert not wrong, wrong
+    assert "failed" not in d, d["failed"]
+    assert d["shed_late_cooldown"] == 0
     assert d["exact_bitwise_checked"] > 0
     assert d["accepted"] + d["rejected"] > 0
     assert d["platform"] == "cpu"

@@ -1000,11 +1000,34 @@ def test_query_engine_on_card_answers_as_on_cpu(cuda, tmp_path):
     assert len(set(outs)) == 1
 
 
+def test_query_engine_auto_raises_a_card_fault(cuda, tmp_path, monkeypatch):
+    """On the card, ``device_lookup="auto"`` (the default) re-raises a
+    fault of the device path: the host walk never answers in its
+    place."""
+    from paralleljohnson_tpu_torch.graphs import erdos_renyi
+    from paralleljohnson_tpu_torch.serve import (
+        QueryEngine, TileStore, device_query,
+    )
+
+    def boom(self):
+        raise RuntimeError("injected device fault")
+
+    g = erdos_renyi(64, 0.1, seed=3)
+    engine = QueryEngine(g, TileStore(tmp_path, g, hot_rows=64),
+                         device=cuda, stats_interval_s=0)
+    engine.warm(range(16))
+    monkeypatch.setattr(device_query.DeviceQueryPath, "refresh", boom)
+    with pytest.raises(RuntimeError, match="injected device fault"):
+        engine.query_batch([{"source": 1, "dst": 2}])
+    engine.close()
+
+
 @pytest.mark.parametrize("edge_chunk", [1 << 20, 4096])
 def test_bounded_hop_rows_on_card_equal_plain(cuda, edge_chunk):
     """A multi-chunk ``bounded_hop_rows`` on the card (one hand-sweep
-    launch per chunk, chained) against the same chunked sweep with
-    ``fanout_sweep_plain`` on the card, and against the CPU."""
+    launch per chunk, chained) against the plain chunk-level Gauss-Seidel
+    sweep in torch ops on the card (``relax.bellman_ford_sweeps_vm`` over
+    the edges in stable destination order), and against the CPU."""
     from paralleljohnson_tpu_torch.ops import hopset as hs
 
     g = pjt.load_graph("rmat:scale=12,ef=8,seed=4")
@@ -1012,10 +1035,16 @@ def test_bounded_hop_rows_on_card_equal_plain(cuda, edge_chunk):
     before = fs.fanout_sweep.launches
     rows, iters, conv, ex = hs.bounded_hop_rows(
         g, sources, beta=6, edge_chunk=edge_chunk, device=cuda)
-    chunks = hs.hop_chunks(g, edge_chunk=edge_chunk, device=cuda)
-    assert fs.fanout_sweep.launches - before >= iters * len(chunks)
-    d0 = hs.hop_init(sources, g.num_nodes, dtype=torch.float32, device=cuda)
-    plain, p_iters, p_imp = fs.fanout_fixpoint_plain(d0, chunks, max_iter=6)
+    e = g.num_real_edges
+    assert fs.fanout_sweep.launches - before >= iters * -(-e // edge_chunk)
+    order = np.argsort(g.indices[:e], kind="stable")
+    src, dst, w = (torch.as_tensor(np.asarray(a[:e])[order]).to(cuda)
+                   for a in (g.src, g.indices, g.weights))
+    d0 = torch.full((g.num_nodes, len(sources)), np.inf, device=cuda)
+    d0[torch.as_tensor(sources, device=cuda),
+       torch.arange(len(sources), device=cuda)] = 0.0
+    plain, p_iters, p_imp = relax.bellman_ford_sweeps_vm(
+        d0, src, dst, w, max_iter=6, edge_chunk=edge_chunk)
     assert rows.tobytes() == johnson.to_numpy(plain.T).tobytes()
     assert (iters, conv) == (p_iters, not p_imp)
     cpu = hs.bounded_hop_rows(g, sources, beta=6, edge_chunk=edge_chunk,

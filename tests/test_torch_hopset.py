@@ -28,6 +28,7 @@ from paralleljohnson_tpu_torch import interop, planner
 from paralleljohnson_tpu_torch.observe.store import CostModel, ProfileStore
 from paralleljohnson_tpu_torch.ops import fanout_sweep
 from paralleljohnson_tpu_torch.ops import hopset as hs
+from paralleljohnson_tpu_torch.ops import relax
 from paralleljohnson_tpu_torch.solver import approx
 from paralleljohnson_tpu_torch.solver.johnson import to_numpy
 
@@ -127,19 +128,26 @@ def test_seeded_rows_bitwise_and_exact_at_fixpoint():
 
 
 def test_chunked_fixpoint_equals_its_plain_version():
-    """The fixpoint the card runs (``fanout_fixpoint_chunks``: grouped
-    sweeps, shared flags) and its plain version (one host read a sweep)
-    agree on rows, iterations and the flag, on the CPU."""
+    """The fixpoint the card runs (``fanout_fixpoint_chunks`` over
+    ``hop_chunks``' layouts: grouped sweeps, shared flags) and the plain
+    chunk-level Gauss-Seidel sweep in torch ops
+    (``relax.bellman_ford_sweeps_vm`` over the edges in stable
+    destination order, built here from the graph's arrays) agree on
+    rows, iterations and the flag, on the CPU."""
     g = _port(grid2d(30, 6, seed=4))
     chunks = hs.hop_chunks(g, edge_chunk=50, device="cpu")
     assert len(chunks) > 1
+    e = g.num_real_edges
+    order = np.argsort(g.indices[:e], kind="stable")
+    src, dst, w = (torch.as_tensor(np.asarray(a[:e])[order])
+                   for a in (g.src, g.indices, g.weights))
     for beta in (3, 17, 500):
-        d0 = hs.hop_init(np.array([0, 9, 100]), g.num_nodes,
-                         dtype=torch.float32, device="cpu")
+        d0 = torch.full((g.num_nodes, 3), np.inf, dtype=torch.float32)
+        d0[[0, 9, 100], [0, 1, 2]] = 0.0
         a = fanout_sweep.fanout_fixpoint_chunks(d0.clone(), chunks,
                                                 max_iter=beta)
-        b = fanout_sweep.fanout_fixpoint_plain(d0.clone(), chunks,
-                                               max_iter=beta)
+        b = relax.bellman_ford_sweeps_vm(d0.clone(), src, dst, w,
+                                         max_iter=beta, edge_chunk=50)
         assert torch.equal(a[0], b[0]) and a[1:] == b[1:]
 
 

@@ -658,6 +658,26 @@ def test_tiny_batch_stays_on_host_under_auto(tmp_path):
     assert planner.MIN_DEVICE_LOOKUP_BATCH > 1
 
 
+def test_auto_device_fault_degrades_only_on_cpu(tmp_path, monkeypatch):
+    """A fault of the device path under ``device_lookup="auto"``: a CPU
+    engine answers from the host walk and says why; the same fault on a
+    CUDA engine raises (the device the engine holds is what decides)."""
+    def boom(self):
+        raise RuntimeError("injected device fault")
+
+    monkeypatch.setattr(device_query.DeviceQueryPath, "refresh", boom)
+    engine = _lookup_engine(PKGS[1], tmp_path, "auto")
+    engine.warm(range(8))
+    (r,) = engine.query_batch([{"source": 1, "dst": 2}])
+    assert r["exact"] is True
+    assert engine.last_lookup_decision["chosen"] == "host_lookup"
+    assert "injected device fault" in json.dumps(engine.last_lookup_decision)
+    engine.device = torch.device("cuda")
+    with pytest.raises(RuntimeError, match="injected device fault"):
+        engine.query_batch([{"source": 1, "dst": 2}])
+    engine.close()
+
+
 def test_query_engine_without_card_raises(tmp_path, monkeypatch):
     """The engine runs on the card unless asked for the CPU, and raises
     rather than serve from the host when there is none."""
