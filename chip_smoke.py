@@ -200,12 +200,29 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      and speedup; then a hopset of 4 pivots and 8 hops on R-MAT-20 (16
      edge chunks, one launch each per sweep), bitwise its plain chunked
      sweep.
+ 23. the command line (``drive_cli``): ``python -m
+     paralleljohnson_tpu_torch`` subprocesses on the card with no
+     ``--device`` (the default), each one's exit code checked and wall
+     printed: ``info --json`` (the card's ``nvidia-smi`` line, phase 1's
+     four libraries built); ``solve`` on R-MAT-20 over phase 3's 512
+     sources (``pallas-vm``, rows bitwise phase 3's), on the grid over
+     phase 4's 256 sources with ``--predecessors`` (``pallas-vm+pred``,
+     rows bitwise phase 13's, trees validated) and on ER-1024 at the
+     default config (``fw-tile``, bitwise phase 16's matrix), each with
+     ``--output`` and ``--log-stats``, whose ``kernel_launches`` show the
+     process launched its kernels; ``sssp`` on the grid (exit 0) and
+     phase 7's cycle as a ``.gr`` file (exit 2, "negative"); ``bench
+     serve_fleet --preset full`` (three replica processes on the card,
+     no ``failed``); a replica on the card registered in a fleet
+     directory answering one query bitwise ``solve()``, ``top --once
+     --json --fleet-dir`` over it, and its SIGTERM drain (exit 0).
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
 phases 3-5 together, then each path of phases 9-22 on its own (a
 worker subprocess's launches are not seen: phase 19 counts the
-in-process fleet); a path
+in-process fleet), and phase 23's solves each in a process of its own,
+whose counters start at 0 and are read from its ``--log-stats`` line; a path
 whose kernel was never launched fails (the plain-torch routes of phases
 15 and 17 need none). The last two lines are the
 ``kernels`` summary (launches summed over the paths, and by path) and
@@ -319,8 +336,9 @@ RMAT_HOP_BETA = 8
 # the late cooldown (PERF.md, Open questions). Every other verdict fails
 # the phase.
 OVERLOAD_PRINTED = ("late cooldown",)
-# Phase 18 leaves the configs phases 21-22 drive themselves.
-BENCH_OWN_PHASE = ("serve_queries", "serve_overload", "approx_apsp")
+# Phase 18 leaves the configs phases 21-23 drive themselves.
+BENCH_OWN_PHASE = ("serve_queries", "serve_overload", "approx_apsp",
+                   "serve_fleet")
 
 
 def emit(obj) -> None:
@@ -781,9 +799,10 @@ def drive_entry_points(dev, rmat, rmat_sources, rmat_rows, grid, grid_source,
 
 
 def drive_pred_paths(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
-                     grid_rows, er, er_matrix) -> dict:
+                     grid_rows, er, er_matrix) -> tuple[dict, object]:
     """Phase 13: ``predecessors=True`` solves on ``dev``, each path counted
-    from 0 (returns the counts by path): R-MAT-20 over phase 3's sources
+    from 0 (returns the counts by path, and the grid solve's rows for
+    phase 23): R-MAT-20 over phase 3's sources
     and the grid over phase 4's (rows bitwise equal to theirs), ``sssp``
     on the grid, the zero-weight tight cycle (``pred-sweep`` with a
     warning), a checkpointed 2-batch solve resumed, and ER-1024 (dense).
@@ -835,6 +854,7 @@ def drive_pred_paths(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     res, _ = counted("pred_grid512", lambda: solver_on(dev).solve(
         grid, gsrc, predecessors=True), needs=pred_kernels)
     check("pred_grid512", grid, res, "pallas-vm+pred", [0, 255], grid_rows)
+    grid_pred_rows = to_numpy(res.dist)
     del res
     res, _ = counted("pred_sssp_grid512", lambda: solver_on(dev).sssp(
         grid, gsrc[0], predecessors=True), needs=("tight_pred",))
@@ -871,7 +891,7 @@ def drive_pred_paths(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     del res
     emit({"phase": "pred_solves", "paths": report,
           "zero_cycle_warning": True})
-    return launches
+    return launches, grid_pred_rows
 
 
 def drive_xla_routes(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
@@ -1080,9 +1100,10 @@ def drive_b1_routes(dev, grid, gsrc, grid_rows, grid_solve_stats,
     return launches
 
 
-def drive_dense_apsp(dev, er, er_matrix) -> tuple[dict, dict]:
+def drive_dense_apsp(dev, er, er_matrix) -> tuple[dict, dict, object]:
     """Phase 16: dense APSP on ``dev``, each path counted from 0. Returns
-    (launches by path, the ``fw_kleene`` kernel's row data)."""
+    (launches by path, the ``fw_kleene`` kernel's row data, the default
+    ER-1024 matrix for phase 23)."""
     import numpy as np
     import scipy.sparse.csgraph as csgraph
     import torch
@@ -1244,6 +1265,7 @@ def drive_dense_apsp(dev, er, er_matrix) -> tuple[dict, dict]:
                         "launches": launches["fw_er1024"],
                         "pred_launches": launches["fw_er1024_pred"]}
     emit({"phase": "dense_fw_er1024", **out["fw_er1024"]})
+    er_fw_matrix = got
     del res, pres, got
 
     # 16c: the condensed route, forced, against the default solve.
@@ -1341,7 +1363,8 @@ def drive_dense_apsp(dev, er, er_matrix) -> tuple[dict, dict]:
         del m
     emit({"phase": "fw_kleene_vs_plain", "checks": checks,
           "timing": variants})
-    return launches, {"errs": errs, "timing": timing, "variants": variants}
+    return launches, {"errs": errs, "timing": timing,
+                      "variants": variants}, er_fw_matrix
 
 
 def drive_dirty_window(dev, rmat) -> dict:
@@ -2288,6 +2311,177 @@ def drive_approx(dev, rmat) -> tuple[dict, list]:
     return launches, errs
 
 
+def drive_cli(smi, rmat_sources, rmat_rows, gsrc, grid_pred_rows,
+              er_fw_matrix) -> dict:
+    """Phase 23: the command line as users run it, ``python -m
+    paralleljohnson_tpu_torch ...`` subprocesses on the card with no
+    ``--device`` flag (the default is what runs), each one's exit code
+    checked and wall printed. Its solves must give phase 3's R-MAT-20
+    rows, phase 13's grid rows (with trees that pass
+    ``validate_pred_tree``) and phase 16's default ER-1024 matrix bitwise,
+    each process launching its kernels (read from its ``--log-stats``
+    line, counted in that process from 0). Returns the launches by path."""
+    import signal
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    cmd = [sys.executable, "-m", "paralleljohnson_tpu_torch"]
+    walls, launches = {}, {}
+    t_phase = time.perf_counter()
+
+    def run(label, *args, rc=0):
+        t0 = time.perf_counter()
+        p = subprocess.run([*cmd, *args], capture_output=True, text=True,
+                           cwd=root, env=env, timeout=900)
+        walls[label] = time.perf_counter() - t0
+        print(json.dumps({"cli": label, "rc": p.returncode,
+                          "wall_s": walls[label]}), flush=True)
+        if p.returncode != rc:
+            raise AssertionError(f"cli {label}: rc {p.returncode}, expected "
+                                 f"{rc}: {p.stderr[-3000:]}")
+        return p
+
+    def solved(label, p, route, needs):
+        """The solve's JSON payload; its process's kernel launches from
+        the --log-stats line on stderr."""
+        payload = json.loads(p.stdout.strip().splitlines()[-1])
+        stats = json.loads(p.stderr.strip().splitlines()[-1])
+        launches[label] = stats["kernel_launches"]
+        got = payload["routes_by_phase"]["fanout"]
+        if got != route:
+            raise AssertionError(f"cli {label} took route {got}")
+        for name in needs:
+            if launches[label][name] == 0:
+                raise AssertionError(f"cli {label} launched no {name} kernel")
+        return payload
+
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 1: info names the card and sees phase 1's libraries.
+        info = json.loads(run("info", "info", "--json").stdout)
+        card = info["devices"][0]
+        if f"{card.get('name')}, {card.get('power_limit')}" != smi:
+            raise AssertionError(f"cli info devices {info['devices']} do "
+                                 f"not name {smi!r}")
+        unbuilt = [n for n, lib in info["kernels"]["libraries"].items()
+                   if not lib["built"]]
+        if unbuilt or info["default_backend_platform"] != "cuda":
+            raise AssertionError(f"cli info: unbuilt {unbuilt}, platform "
+                                 f"{info['default_backend_platform']}")
+        report["info"] = {"devices": info["devices"],
+                          "build_dir": info["kernels"]["build_dir"]}
+        # 2: R-MAT-20, phase 3's 512 sources, the main path at full width.
+        out = tmp / "rmat.npz"
+        p = run("solve_rmat20", "solve", RMAT_SPEC, "--sources",
+                ",".join(map(str, rmat_sources)), "--output", str(out),
+                "--json", "--log-stats")
+        report["solve_rmat20"] = solved("cli_rmat20", p, "pallas-vm",
+                                        ("fanout_sweep",))["phase_seconds"]
+        with np.load(out) as z:
+            if not (np.array_equal(z["sources"], rmat_sources)
+                    and np.array_equal(z["dist"], rmat_rows)):
+                raise AssertionError("cli R-MAT-20 rows differ from phase 3's")
+        out.unlink()
+        # 3: the grid with trees, phase 4's 256 sources.
+        out = tmp / "grid.npz"
+        p = run("solve_grid512_pred", "solve", GRID_SPEC, "--sources",
+                ",".join(map(str, gsrc)), "--predecessors", "--output",
+                str(out), "--json", "--log-stats")
+        report["solve_grid512_pred"] = solved(
+            "cli_grid512_pred", p, "pallas-vm+pred",
+            ("fanout_sweep", "tight_pred"))["phase_seconds"]
+        grid = pjt.load_graph(GRID_SPEC)
+        with np.load(out) as z:
+            dist, pred = z["dist"], z["predecessors"]
+        if not np.array_equal(dist, grid_pred_rows):
+            raise AssertionError("cli grid rows differ from phase 13's")
+        check = [0, len(gsrc) - 1]
+        validate_pred_tree(grid, dist[check], pred[check], gsrc[check])
+        del dist, pred
+        # 4: dense ER-1024 at the default config (fw-tile).
+        out = tmp / "er.npz"
+        p = run("solve_er1024", "solve", ER_SPEC, "--output", str(out),
+                "--json", "--log-stats")
+        report["solve_er1024"] = solved("cli_er1024", p, "fw-tile",
+                                        ("minplus", "fw_kleene"))[
+                                            "phase_seconds"]
+        with np.load(out) as z:
+            if not np.array_equal(z["dist"], er_fw_matrix):
+                raise AssertionError("cli ER-1024 matrix differs from "
+                                     "phase 16's")
+        # 5: sssp on the grid, then phase 7's negative cycle as a .gr file.
+        p = run("sssp_grid512", "sssp", GRID_SPEC, "--source", str(gsrc[0]),
+                "--json")
+        if json.loads(p.stdout)["shape"] != [1, grid.num_nodes]:
+            raise AssertionError("cli sssp shape")
+        cyc = tmp / "cycle.gr"
+        cyc.write_text("p sp 4 4\na 1 2 1\na 2 3 2\na 3 4 -4\na 4 2 1\n")
+        p = run("solve_negative_cycle", "solve", str(cyc), rc=2)
+        if "negative" not in p.stderr:
+            raise AssertionError(f"cli negative cycle: {p.stderr[-500:]}")
+        # 6: the serve_fleet config, its replicas CLI processes on the card.
+        p = run("bench_serve_fleet", "bench", "serve_fleet", "--preset",
+                "full")
+        row = json.loads(p.stdout.strip().splitlines()[-1])
+        if "failed" in row["detail"] or row["detail"]["platform"] != "cuda":
+            raise AssertionError(f"cli serve_fleet row: {row['detail']}")
+        report["bench_serve_fleet"] = {
+            k: row["detail"].get(k) for k in (
+                "reroute_lapse_s", "answered", "exact_bitwise_checked",
+                "p50_ms", "p99_ms", "verdict", "retry_traces", "device")}
+        # 7: a replica on the card registered in a fleet dir, one answer
+        # through its socket, top's one document, then SIGTERM: exit 0.
+        fleet = tmp / "fleet"
+        t0 = time.perf_counter()
+        rep = subprocess.Popen(
+            [*cmd, "serve", "grid:rows=64,cols=64", "--listen", "127.0.0.1:0",
+             "--shed-policy", "reject", "--fleet-dir", str(fleet),
+             "--replica-id", "rep-0", "--replica-heartbeat", "0.2"],
+            cwd=root, env=env, stdout=subprocess.PIPE, text=True)
+        try:
+            ann = json.loads(rep.stdout.readline())
+            with socket.create_connection((ann["host"], ann["port"]),
+                                          timeout=120) as s:
+                f = s.makefile("rw", encoding="utf-8", newline="\n")
+                json.loads(f.readline())
+                f.write(json.dumps({"id": 0, "source": 5, "dst": 4000}) + "\n")
+                f.flush()
+                answer = json.loads(f.readline())
+            want = pjt.ParallelJohnsonSolver().solve(
+                pjt.load_graph("grid:rows=64,cols=64"), [5]).matrix[0, 4000]
+            if float(answer["distance"]) != float(want):
+                raise AssertionError(f"cli replica answered {answer}, "
+                                     f"solve() {want}")
+            doc = json.loads(run("top", "top", "--once", "--json",
+                                 "--fleet-dir", str(fleet)).stdout)
+            if list(doc["serve_fleet"]["replicas"]) != ["rep-0"]:
+                raise AssertionError(f"cli top: {doc['serve_fleet']}")
+            rep.send_signal(signal.SIGTERM)
+            rep_rc = rep.wait(timeout=120)
+        finally:
+            if rep.poll() is None:
+                rep.kill()
+                rep.wait()
+        walls["serve_replica"] = time.perf_counter() - t0
+        if rep_rc != 0:
+            raise AssertionError(f"cli replica drained with rc {rep_rc}")
+        report["top"] = {"verdict": doc["serve_fleet"]["merged"]["verdict"]}
+    emit({"phase": "cli", "walls_s": walls, "launches": launches,
+          "report": report, "phase23_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2898,15 +3092,17 @@ def main() -> int:
     by_path.update(drive_entry_points(dev, rmat, rmat_sources, rmat_rows,
                                       grid, gsrc[0], grid_row, cyc))
     # -- phases 13-14: predecessor trees and the XLA routes -----------------
-    by_path.update(drive_pred_paths(dev, rmat, rmat_sources, rmat_rows, grid,
-                                    gsrc, grid_rows, er, er_matrix))
+    pred_paths, grid_pred_rows = drive_pred_paths(
+        dev, rmat, rmat_sources, rmat_rows, grid, gsrc, grid_rows, er,
+        er_matrix)
+    by_path.update(pred_paths)
     by_path.update(drive_xla_routes(dev, rmat, rmat_sources, rmat_rows, grid,
                                     gsrc, grid_rows, er, er_matrix))
     # -- phase 15: the B=1 routes ------------------------------------------
     by_path.update(drive_b1_routes(dev, grid, gsrc, grid_rows,
                                    grid_solve_stats, cyc))
     # -- phase 16: dense APSP ------------------------------------------------
-    dense_paths, kleene = drive_dense_apsp(dev, er, er_matrix)
+    dense_paths, kleene, er_fw_matrix = drive_dense_apsp(dev, er, er_matrix)
     by_path.update(dense_paths)
     # -- phase 17: the dirty window and the priced planner ------------------
     by_path.update(drive_dirty_window(dev, rmat))
@@ -2923,6 +3119,10 @@ def main() -> int:
     by_path.update(serve_paths)
     approx_paths, hop_errs = drive_approx(dev, rmat)
     by_path.update(approx_paths)
+    # -- phase 23: the command line ------------------------------------------
+    torch.cuda.empty_cache()
+    by_path.update(drive_cli(smi, rmat_sources, rmat_rows, gsrc,
+                             grid_pred_rows, er_fw_matrix))
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ("fanout_sweep", "minplus", "tight_pred",
                              "fw_kleene")}

@@ -113,6 +113,7 @@ from paralleljohnson_tpu_torch.utils.metrics import (
     warn_if_counter_wrapped,
     warn_if_traj_counter_wrapped,
 )
+from paralleljohnson_tpu_torch.utils.platform import enable_compilation_cache
 
 # Distance blocks of [B, V] the source batch is budgeted for: the
 # reference's six. The sweep's two alternating [V, B] buffers, the
@@ -436,6 +437,9 @@ class TorchBackend(Backend):
     def __init__(self, config=None, device="cuda") -> None:
         super().__init__(config)
         self.device = resolve_device(device)
+        # The hand kernels' build directory (compilation_cache_dir /
+        # $PJ_COMPILE_CACHE), fixed before the first library loads.
+        enable_compilation_cache(self.config.compilation_cache_dir)
         self._copy_stream = None  # side stream of stage_rows_async
         # Analytic cost records, only when a profile store is configured
         # (``SolverConfig.profile_store`` / ``PJ_PROFILE_DIR``).

@@ -23,8 +23,8 @@ present.
 Presets scale every config: ``smoke`` (CI, seconds), ``mini``
 (single-card sanity), ``full`` (the attested benchmark sizes). Rows
 report the platform of the backend that solved (``cuda`` or ``cpu``) and,
-on ``cuda``, the card's name and power limit. ``serve_fleet`` waits for
-the port's CLI (its replicas are CLI processes).
+on ``cuda``, the card's name and power limit. ``serve_fleet``'s replicas
+are ``python -m paralleljohnson_tpu_torch serve`` processes.
 """
 
 from __future__ import annotations
@@ -129,6 +129,10 @@ _SIZES = {
                           full_overload_s=6.0,
                           cooldown_s=3.5, mini_cooldown_s=5.0,
                           full_cooldown_s=6.0),
+    "serve_fleet":   dict(rows=10,     mini_rows=14,     full_rows=24,
+                          clients=3,   mini_clients=4,   full_clients=6,
+                          duration_s=2.5, mini_duration_s=4.0,
+                          full_duration_s=8.0),
     "distributed_fleet": dict(n=96,    mini_n=1024,      full_n=4096,
                           workers=2,   mini_workers=3,   full_workers=4),
     "incremental_update": dict(n=96,   mini_n=1024,      full_n=4096,
@@ -136,14 +140,6 @@ _SIZES = {
     "approx_apsp":   dict(n=256,       mini_n=4096,      full_n=16384,
                           sources=32,  mini_sources=128, full_sources=256),
 }
-
-# The JAX package's configs the port does not run yet, and what they need.
-_UNPORTED = {
-    "serve_fleet": "the CLI (each replica is a `python -m "
-                   "paralleljohnson_tpu.cli serve` process; "
-                   "paralleljohnson_tpu_torch has no cli.py yet)",
-}
-
 
 def _sz(config: str, key: str, preset: str):
     table = _SIZES[config]
@@ -1021,6 +1017,480 @@ def bench_dirty_window(backend: str, preset: str) -> BenchRecord:
     )
 
 
+def bench_serve_fleet(backend: str, preset: str) -> BenchRecord:
+    """Config 17: the REPLICATED serve fleet under a
+    kill-one-replica chaos drill, through real TCP sockets and real
+    subprocesses — the failover contract under test, not throughput:
+
+    - three ``serve`` replica processes register into a shared
+      fleet directory via heartbeated membership records and all serve
+      the same pre-solved checkpoint;
+    - a consistent-hash :class:`FleetRouter` forwards every client line
+      to the owning replica; mid-traffic one replica is SIGKILLed and
+      the router must re-publish the routing table minus the corpse and
+      re-route the dead replica's sources within one heartbeat lapse
+      (``reroute_lapse_s`` is the graded axis — a slower failover flags
+      the regression gate);
+    - zero hung clients (every request gets exactly one response line or
+      an explicit admission error), zero unflagged approximations, and
+      every non-shed answer is verified BITWISE against the direct
+      solve's matrix — a misrouted query is only colder, never wrong;
+    - the per-replica latency histograms merge into one service-level
+      SLO verdict (:func:`observe.top.gather_ops` fleet view) which must
+      be in-SLO for the row to pass;
+    - request tracing end to end: router + every replica run
+      with flight recorders, the kill-survivor probe's answer must
+      assemble (``observe.trace.assemble``) into ONE single-rooted
+      timeline spanning router and replica, at least one trace must show
+      the retry hop (a ``forward`` span with ``attempt >= 2``) across
+      the kill, and a post-drill query for the one deliberately
+      unsolved source must carry the scheduled ``serve_solve`` in its
+      assembled trace.
+
+    The replicas are ``python -m paralleljohnson_tpu_torch serve``
+    processes on the bench device: on the card all three share it (one
+    CUDA context each), and the post-drill probe's scheduled solve runs
+    ``fanout_sweep`` inside the replica that owns the unsolved source.
+
+    Violations land in ``detail["failed"]`` (the row is the assertion)."""
+    import os as _os
+    import signal as _signal
+    import socket as _socket
+    import subprocess as _subprocess
+    import sys as _sys
+    import tempfile
+    import threading
+
+    from paralleljohnson_tpu_torch.config import SolverConfig
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.observe.top import gather_ops
+    from paralleljohnson_tpu_torch.serve import (
+        FleetRouter,
+        QueryEngine,
+        TileStore,
+        read_routing,
+    )
+
+    rows = _sz("serve_fleet", "rows", preset)
+    n_clients = _sz("serve_fleet", "clients", preset)
+    duration_s = float(_sz("serve_fleet", "duration_s", preset))
+    n_replicas = 3
+    heartbeat_s = 0.25
+    stale_after_s = 1.5
+    lapse_budget_s = stale_after_s + 2.0
+    # The registry loader for "grid:rows=R,cols=R" is
+    # grid2d(R, R, negative_fraction=0.0, seed=0) — the oracle MUST be
+    # digest-identical to what the replica subprocesses load.
+    graph_name = f"grid:rows={rows},cols={rows}"
+    g = grid2d(rows, rows, negative_fraction=0.0, seed=0)
+    n = g.num_nodes
+    cfg = SolverConfig(backend=backend, telemetry=_BENCH_TELEMETRY.get(),
+                       profile_store=_BENCH_PROFILE.get())
+    from paralleljohnson_tpu_torch.solver import ParallelJohnsonSolver
+
+    dev = _BENCH_DEVICE.get()
+    exact = _host(ParallelJohnsonSolver(
+        SolverConfig(backend=backend), device=dev).solve(g).matrix)
+
+    failures: list[str] = []
+    procs: list[_subprocess.Popen] = []
+    with tempfile.TemporaryDirectory() as td:
+        fleet_dir = Path(td) / "fleet"
+        store_dir = Path(td) / "store"
+        trace_root = Path(td) / "trace"
+        # Pre-solve the checkpoint once; every replica serves it
+        # cold/warm so non-shed answers are bitwise-reproducible. Source
+        # n-1 is deliberately left UNSOLVED (clients never query it):
+        # the post-drill solve probe queries it so its assembled trace
+        # must contain the scheduled serve_solve hop.
+        seed_store = TileStore(str(store_dir), g, hot_rows=max(8, n // 8),
+                               warm_rows=n)
+        seed_engine = QueryEngine(g, seed_store, config=cfg,
+                                  stats_interval_s=0, device=dev)
+        seed_engine.warm(np.arange(n - 1))
+        seed_engine.close()
+
+        env = dict(_os.environ)
+        repo_root = str(Path(__file__).resolve().parents[1])
+        env["PYTHONPATH"] = _os.pathsep.join(
+            p for p in (repo_root, env.get("PYTHONPATH")) if p)
+
+        def spawn_replica(i: int) -> tuple[_subprocess.Popen, dict]:
+            p = _subprocess.Popen(
+                [_sys.executable, "-m", "paralleljohnson_tpu_torch",
+                 "serve", graph_name,
+                 "--listen", "127.0.0.1:0",
+                 "--store-dir", str(store_dir),
+                 "--backend", backend,
+                 "--device", str(dev),
+                 "--fleet-dir", str(fleet_dir),
+                 "--replica-id", f"replica-{i}",
+                 "--replica-heartbeat", str(heartbeat_s),
+                 "--slo-p99-ms", "2000",
+                 "--stats-interval", "0.5",
+                 "--trace-dir", str(trace_root / f"replica-{i}")],
+                env=env, stdout=_subprocess.PIPE,
+                stderr=_subprocess.DEVNULL, text=True)
+            line = p.stdout.readline()
+            try:
+                ann = json.loads(line)
+            except (json.JSONDecodeError, ValueError):
+                p.kill()
+                raise RuntimeError(
+                    f"replica {i} printed no announce line: {line!r}")
+            return p, ann
+
+        router = None
+        router_tel = None
+        t0 = time.perf_counter()
+        try:
+            anns = []
+            for i in range(n_replicas):
+                p, ann = spawn_replica(i)
+                procs.append(p)
+                anns.append(ann)
+            from paralleljohnson_tpu_torch.utils.telemetry import Telemetry
+
+            router_tel = Telemetry.create(
+                trace_dir=trace_root / "router", label="router")
+            router = FleetRouter(
+                str(fleet_dir), stale_after_s=stale_after_s,
+                refresh_interval_s=heartbeat_s / 2,
+                retry_after_ms=25,
+                telemetry=router_tel,
+            ).start()
+            host, port = router.address()
+            table = router.table
+            epoch_before = table.epoch if table is not None else 0
+            if table is None or len(
+                    {table.owner(str(s)) for s in range(n)}) < 2:
+                failures.append(
+                    "routing table did not spread ownership across "
+                    "replicas")
+
+            # The victim owns the probe source — after the SIGKILL the
+            # probe measures how long its traffic stays dark.
+            probe_src = 0
+            victim_rid = table.owner(str(probe_src)) if table else None
+            victim_i = int(victim_rid.rsplit("-", 1)[1]) if victim_rid \
+                else 0
+
+            results: list[tuple[int, int, dict]] = []
+            res_lock = threading.Lock()
+            client_errors: list[BaseException] = []
+            kill_at_s = duration_s * 0.4
+            lapse_box: dict = {}
+
+            def client(k: int) -> None:
+                # Closed-loop paced through the ROUTER: one response
+                # line per request, in order — a missing line hangs the
+                # socket timeout and fails the bench.
+                try:
+                    sock = _socket.create_connection((host, port),
+                                                     timeout=30)
+                    sock.settimeout(30)
+                    f = sock.makefile("rw", encoding="utf-8",
+                                      newline="\n")
+                    json.loads(f.readline())  # router header
+                    crng = np.random.default_rng(2000 + k)
+                    local = []
+                    sent = 0
+                    rate = 40.0  # per client, well below capacity
+                    start = time.perf_counter()
+                    while True:
+                        elapsed = time.perf_counter() - start
+                        if elapsed >= duration_s:
+                            break
+                        delay = sent / rate - elapsed
+                        if delay > 0:
+                            time.sleep(delay)
+                        # n-1 is the reserved never-solved source — the
+                        # solve probe's, not client traffic's.
+                        src = int(crng.integers(n - 1))
+                        dst = int(crng.integers(n))
+                        f.write(json.dumps(
+                            {"id": sent, "source": src, "dst": dst,
+                             "client_id": f"bench-{k}"}) + "\n")
+                        f.flush()
+                        local.append((src, dst, json.loads(f.readline())))
+                        sent += 1
+                    f.close()
+                    sock.close()
+                    with res_lock:
+                        results.extend(local)
+                except BaseException as e:  # noqa: BLE001 — surface it
+                    client_errors.append(e)
+
+            def killer() -> None:
+                # SIGKILL the probe source's owner mid-traffic, then
+                # probe that source through the router until it answers
+                # exactly again: kill -> first good answer is the
+                # re-route lapse.
+                time.sleep(kill_at_s)
+                procs[victim_i].send_signal(_signal.SIGKILL)
+                procs[victim_i].wait()
+                t_kill = time.perf_counter()
+                deadline = t_kill + max(10.0, 3 * lapse_budget_s)
+                while time.perf_counter() < deadline:
+                    try:
+                        sock = _socket.create_connection((host, port),
+                                                         timeout=5)
+                        sock.settimeout(5)
+                        f = sock.makefile("rw", encoding="utf-8",
+                                          newline="\n")
+                        json.loads(f.readline())
+                        f.write(json.dumps(
+                            {"id": 0, "source": probe_src,
+                             "dst": 1}) + "\n")
+                        f.flush()
+                        resp = json.loads(f.readline())
+                        sock.close()
+                        if resp.get("error") is None:
+                            lapse_box["lapse_s"] = (
+                                time.perf_counter() - t_kill)
+                            lapse_box["resp"] = resp
+                            return
+                    except (OSError, json.JSONDecodeError):
+                        pass
+                    time.sleep(0.05)
+
+            threads = [threading.Thread(target=client, args=(k,),
+                                        name=f"fleet-client-{k}")
+                       for k in range(n_clients)]
+            kt = threading.Thread(target=killer, name="fleet-killer")
+            for t in threads:
+                t.start()
+            kt.start()
+            for t in threads:
+                t.join()
+            kt.join()
+            wall = time.perf_counter() - t0
+            if client_errors:
+                raise client_errors[0]
+
+            # -- grade --------------------------------------------------
+            reroute_lapse_s = lapse_box.get("lapse_s")
+            if reroute_lapse_s is None:
+                failures.append(
+                    "dead replica's sources never answered again — "
+                    "the fleet lost them for good")
+            elif reroute_lapse_s > lapse_budget_s:
+                failures.append(
+                    f"re-route took {reroute_lapse_s:.2f}s — over the "
+                    f"{lapse_budget_s:.2f}s heartbeat-lapse budget")
+            probe_resp = lapse_box.get("resp")
+            if probe_resp is not None and not probe_resp.get("shed"):
+                want = float(exact[probe_src, 1])
+                if float(probe_resp["distance"]) != want:
+                    failures.append(
+                        f"re-routed probe answer not bitwise: "
+                        f"{probe_resp['distance']} != {want}")
+
+            table_after = read_routing(str(fleet_dir))
+            epoch_after = (table_after.epoch if table_after is not None
+                           else 0)
+            if epoch_after <= epoch_before:
+                failures.append(
+                    f"routing epoch did not advance after the kill "
+                    f"({epoch_before} -> {epoch_after})")
+            if table_after is not None and victim_rid in {
+                    table_after.owner(str(s)) for s in range(n)}:
+                failures.append(
+                    "dead replica still owns sources in the "
+                    "re-published routing table")
+
+            answered = rejected = shed_n = 0
+            for src, dst, r in results:
+                if "error" in r:
+                    if r["error"] in ("overloaded", "deadline",
+                                      "draining", "unavailable"):
+                        rejected += 1
+                    else:
+                        failures.append(f"unexpected error answer: {r}")
+                    continue
+                if r.get("shed"):
+                    shed_n += 1
+                    if r.get("exact") is not False or "max_error" not in r:
+                        failures.append(f"shed answer not flagged: {r}")
+                    continue
+                if r.get("exact") is not True:
+                    failures.append(f"unflagged approximate answer: {r}")
+                    continue
+                answered += 1
+                want = float(exact[src, dst])
+                if float(r["distance"]) != want:
+                    failures.append(
+                        f"non-shed answer not bitwise: s={src} t={dst} "
+                        f"{r['distance']} != {want}")
+            if answered == 0:
+                failures.append("no exact answers at all — dead fleet")
+
+            # -- the scheduled-solve probe ------------------------------
+            # Source n-1 was never pre-solved and no client queried it:
+            # this one query forces the owning replica to schedule a
+            # solve, whose serve_solve span must land in the assembled
+            # trace below.
+            solve_probe_trace = None
+            try:
+                sock = _socket.create_connection((host, port), timeout=15)
+                sock.settimeout(15)
+                f = sock.makefile("rw", encoding="utf-8", newline="\n")
+                json.loads(f.readline())
+                f.write(json.dumps({"id": "solve-probe",
+                                    "source": n - 1, "dst": 0}) + "\n")
+                f.flush()
+                resp = json.loads(f.readline())
+                f.close()
+                sock.close()
+                solve_probe_trace = resp.get("trace_id")
+                if resp.get("error") is not None:
+                    failures.append(f"solve probe errored: {resp}")
+                elif not resp.get("shed"):
+                    want = float(exact[n - 1, 0])
+                    if float(resp["distance"]) != want:
+                        failures.append(
+                            f"solve-probe answer not bitwise: "
+                            f"{resp['distance']} != {want}")
+            except (OSError, ValueError) as e:
+                failures.append(
+                    f"solve probe failed: {type(e).__name__}: {e}")
+
+            # -- merged fleet verdict (the top/slo_report view) ---------
+            time.sleep(2 * heartbeat_s)  # let final heartbeats land
+            doc = gather_ops(serve_fleet=fleet_dir,
+                             stale_after_s=stale_after_s)
+            sf = doc.get("serve_fleet") or {}
+            merged = sf.get("merged") or {}
+            if merged.get("histogram_merge_error"):
+                failures.append(
+                    f"fleet histogram merge degraded: "
+                    f"{merged['histogram_merge_error']}")
+            if merged.get("verdict") not in ("ok",):
+                failures.append(
+                    f"merged fleet SLO verdict "
+                    f"{merged.get('verdict')!r} — expected in-SLO 'ok'")
+            if len(sf.get("replicas") or {}) < n_replicas - 1:
+                failures.append(
+                    "fleet view lost surviving replicas: "
+                    f"{sorted(sf.get('replicas') or {})}")
+        finally:
+            if router is not None:
+                router.drain()
+            if router_tel is not None:
+                router_tel.close()
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(_signal.SIGTERM)
+            for p in procs:
+                try:
+                    p.wait(timeout=20)
+                except _subprocess.TimeoutExpired:
+                    p.kill()
+
+        # -- assembled request traces ------------------------------------
+        # Every process on the request path flushed its own flight
+        # JSONL (the SIGKILLed victim's may end in a torn line — the
+        # loader tolerates exactly that); the join must reconstruct
+        # end-to-end causality: the kill-survivor probe as ONE
+        # single-rooted timeline spanning router + replica, a visible
+        # retry hop, and the solve probe's scheduled serve_solve.
+        from paralleljohnson_tpu_torch.observe.trace import assemble
+
+        try:
+            asm = assemble([trace_root])
+        except (OSError, ValueError) as e:
+            failures.append(f"trace assembly failed: {e}")
+            asm = {"processes": [], "traces": {}}
+        traces = asm["traces"]
+        probe_tid = (lapse_box.get("resp") or {}).get("trace_id")
+        ptr = traces.get(probe_tid) if probe_tid else None
+        if ptr is None:
+            failures.append(
+                "kill-survivor probe answer carried no assemblable "
+                f"trace (trace_id={probe_tid!r})")
+        else:
+            if not ptr["single_rooted"]:
+                failures.append(
+                    f"probe trace {probe_tid} not single-rooted: "
+                    f"roots={ptr['roots']} "
+                    f"unresolved={ptr['unresolved']}")
+            if ("router" not in ptr["processes"]
+                    or len(ptr["processes"]) < 2):
+                failures.append(
+                    "probe trace does not span router + replica: "
+                    f"{ptr['processes']}")
+        retry_tids = [
+            tid for tid, t in traces.items()
+            if any(s["name"] == "forward"
+                   and (s["attrs"].get("attempt") or 1) >= 2
+                   for s in t["spans"])
+        ]
+        if not retry_tids:
+            failures.append(
+                "no assembled trace shows the retry hop (a forward "
+                "span with attempt >= 2) across the kill")
+        elif not any(traces[tid]["single_rooted"] for tid in retry_tids):
+            failures.append(
+                "no retried request reconstructed into a single "
+                "parented trace")
+        stp = traces.get(solve_probe_trace) if solve_probe_trace else None
+        if stp is None:
+            failures.append(
+                "solve probe carried no assemblable trace "
+                f"(trace_id={solve_probe_trace!r})")
+        elif not any(s["name"] == "serve_solve" for s in stp["spans"]):
+            failures.append(
+                "solve-probe trace missing the scheduled serve_solve "
+                f"span: {[s['name'] for s in stp['spans']]}")
+
+        # The drill's tempdir dies with this function; PJ_FLEET_TRACE_OUT
+        # preserves the raw flight dirs for the offline assembler.
+        keep = _os.environ.get("PJ_FLEET_TRACE_OUT")
+        if keep:
+            import shutil as _shutil
+
+            _shutil.rmtree(keep, ignore_errors=True)
+            try:
+                _shutil.copytree(trace_root, keep)
+            except OSError:
+                pass
+
+        detail = {
+            "nodes": n, "edges": g.num_real_edges,
+            "replicas": n_replicas,
+            "clients": n_clients,
+            "duration_s": duration_s,
+            "heartbeat_s": heartbeat_s,
+            "stale_after_s": stale_after_s,
+            "reroute_lapse_s": (round(reroute_lapse_s, 4)
+                                if reroute_lapse_s is not None else None),
+            "reroute_budget_s": lapse_budget_s,
+            "epoch_before": epoch_before,
+            "epoch_after": epoch_after,
+            "answered": answered,
+            "rejected": rejected,
+            "shed_answers": shed_n,
+            "exact_bitwise_checked": answered,
+            "p50_ms": merged.get("p50_ms"),
+            "p99_ms": merged.get("p99_ms"),
+            "p99_err_ms": merged.get("p99_err_ms"),
+            "slo": merged.get("slo"),
+            "verdict": merged.get("verdict"),
+            "router": dict(router.stats),
+            "traces_assembled": len(traces),
+            "traces_single_rooted": sum(
+                1 for t in traces.values() if t["single_rooted"]),
+            "retry_traces": len(retry_tids),
+            "probe_trace": probe_tid,
+            "solve_probe_trace": solve_probe_trace,
+        }
+        if failures:
+            detail["failed"] = failures[:10]
+    return BenchRecord(
+        "serve_fleet", backend, preset, wall, 0, 0.0, _n_chips(), detail,
+    )
+
+
 def bench_distributed_fleet(backend: str, preset: str) -> BenchRecord:
     """Config 8: the distributed solve fleet — N local worker processes
     vs 1 on the SAME graph, every worker on the bench device (several
@@ -1882,6 +2352,7 @@ CONFIGS: dict[str, Callable[[str, str], BenchRecord]] = {
     "planner_tuning": bench_planner_tuning,
     "serve_queries": bench_serve_queries,
     "serve_overload": bench_serve_overload,
+    "serve_fleet": bench_serve_fleet,
     "distributed_fleet": bench_distributed_fleet,
     "incremental_update": bench_incremental_update,
     "approx_apsp": bench_approx_apsp,
@@ -1919,11 +2390,8 @@ def run(
     names = names or list(CONFIGS)
     unknown = [n for n in names if n not in CONFIGS]
     if unknown:
-        needs = "".join(f"; {n} needs {_UNPORTED[n]}" for n in unknown
-                        if n in _UNPORTED)
         raise ValueError(
             f"unknown config(s) {unknown}; available: {sorted(CONFIGS)}"
-            + needs
         )
     records = []
     profile_token = (

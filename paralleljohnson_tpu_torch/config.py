@@ -126,10 +126,15 @@ class SolverConfig:
         batch loop's per-batch wall histogram and batch / retry / OOM
         counters.
 
+      compilation_cache_dir: the directory ``nvcc`` builds the hand
+        kernels into (``utils.platform.enable_compilation_cache``; None =
+        ``$PJ_COMPILE_CACHE``, else ``paralleljohnson_tpu_torch/_build/``),
+        fixed for the process once a kernel library has loaded.
+
     Kept for config parity; forcing them raises at solve time until the
     layer is ported: ``edge_shard`` (``True``), ``mesh_shape`` over more
-    than one device, and ``precision="f64"`` on cuda.
-    ``compilation_cache_dir`` is accepted and does nothing yet.
+    than one device (both wait for ``parallel/*``), and
+    ``precision="f64"`` on cuda.
     """
 
     backend: str = "torch"
@@ -188,9 +193,10 @@ class SolverConfig:
         ``"field=value"`` strings (empty = the config is fully honoured
         on ``device_type``). The solver raises ``NotImplementedError``
         naming them."""
-        bad = ["edge_shard=True"] if self.edge_shard is True else []
+        multi = " (more than one device waits for parallel/*)"
+        bad = ["edge_shard=True" + multi] if self.edge_shard is True else []
         if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
-            bad.append(f"mesh_shape={self.mesh_shape}")
+            bad.append(f"mesh_shape={self.mesh_shape}" + multi)
         if self.precision == "f64" and device_type == "cuda":
             bad.append("precision='f64' on cuda (the kernels are f32)")
         return bad

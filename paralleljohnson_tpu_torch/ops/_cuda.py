@@ -1,8 +1,9 @@
 """Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
 Each source has a plain C interface and is compiled by ``nvcc`` into its
-own shared library under ``paralleljohnson_tpu_torch/_build/`` at first
-use, then loaded with ``ctypes``. The library name carries a hash of the
+own shared library under ``paralleljohnson_tpu_torch/_build/`` (or the
+directory :func:`set_build_dir` names) at first use, then loaded with
+``ctypes``. The library name carries a hash of the
 source and the flags, so an edited source never loads a stale build.
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU has neither ``nvcc`` nor a card.
@@ -20,12 +21,16 @@ import hashlib
 import os
 import subprocess
 import threading
+import warnings
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# Where the libraries are built and loaded from: ``set_build_dir``
+# (``SolverConfig.compilation_cache_dir`` / ``$PJ_COMPILE_CACHE``).
+BUILD_DIR = DEFAULT_BUILD_DIR
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -61,6 +66,29 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+def set_build_dir(path) -> Path:
+    """Build and load the libraries under ``path`` (created if needed;
+    ``OSError`` where it cannot be). Once a library has loaded, the
+    directory stays: another ``path`` warns and changes nothing. Returns
+    the directory in use."""
+    global BUILD_DIR
+    path = Path(path).expanduser().resolve()
+    with _lock:
+        if path == BUILD_DIR:
+            return BUILD_DIR
+        if _libs:
+            warnings.warn(
+                f"kernel libraries already loaded from {BUILD_DIR}; "
+                f"not switching the build directory to {path}",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            return BUILD_DIR
+        path.mkdir(parents=True, exist_ok=True)
+        BUILD_DIR = path
+        return BUILD_DIR
 
 
 def nvcc() -> str:

@@ -88,8 +88,9 @@ def auto_num_pivots(num_nodes: int) -> int:
     return int(min(256, max(1, round(max(1, int(num_nodes)) ** 0.5))))
 
 
-def hop_chunks(graph, *, edge_chunk: int = 1 << 20, device="cpu"):
-    """The in-edge layouts of ``graph``'s β-hop sweep on ``device``: the
+def hop_chunks(graph, *, edge_chunk: int = 1 << 20, device="cuda"):
+    """The in-edge layouts of ``graph``'s β-hop sweep on ``device`` (the
+    card unless the caller asks for the CPU): the
     real edges sorted by destination (stable, so the order is
     deterministic), cut into the reference's chunks of ``min(edge_chunk,
     E)`` consecutive edges, one ``(indptr_in, src_in, w_in, items)``
@@ -98,7 +99,7 @@ def hop_chunks(graph, *, edge_chunk: int = 1 << 20, device="cpu"):
     chunk's ``indptr_in``. :func:`fanout_fixpoint_chunks` over these is
     the reference's chunk-level Gauss-Seidel sweep: one launch per
     chunk, chained through the carry."""
-    device = torch.device(device)
+    device = resolve_device(device)
     v = graph.num_nodes
     e = graph.num_real_edges
     dst = torch.as_tensor(np.asarray(graph.indices[:e], np.int64)).to(device)

@@ -5,19 +5,20 @@
         [--backend torch|cpp|numpy] [--device cuda|cpu]
         [--trace-dir DIR] [--profile-dir DIR]
 
-Runs ``paralleljohnson_tpu_torch.benchmarks.run`` for the named configs
-(all of ``CONFIGS`` when none is named) and prints each
+The same as ``python -m paralleljohnson_tpu_torch bench [CONFIG ...]
+--profile-store DIR ...``, to which it forwards: it runs
+``paralleljohnson_tpu_torch.benchmarks.run`` for the named configs (all
+of ``CONFIGS`` when none is named) and prints each
 ``BenchRecord.as_json_line()``. ``--trace-dir`` turns on the flight
 recorder per config, ``--profile-dir`` the profile store and the
-bench-regression history. ``PJ_BENCH_RMAT_SCALE=22`` runs ``rmat_apsp`` at R-MAT-22
-(row name ``rmat_apsp_s22``). On ``cuda`` the card's name and power
-limit go to stderr first. Exits 1 when a row carries ``failed``.
+bench-regression history. ``PJ_BENCH_RMAT_SCALE=22`` runs ``rmat_apsp``
+at R-MAT-22 (row name ``rmat_apsp_s22``). On ``cuda`` the card's name and
+power limit go to stderr first. Exits 1 when a row carries ``failed``.
 """
 
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 from pathlib import Path
 
@@ -26,7 +27,7 @@ sys.path.insert(0, str(ROOT))
 
 
 def main(argv=None) -> int:
-    from paralleljohnson_tpu_torch import benchmarks
+    from paralleljohnson_tpu_torch import benchmarks, cli
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("configs", nargs="*", metavar="CONFIG",
@@ -39,21 +40,13 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-dir", default=None)
     args = ap.parse_args(argv)
 
-    if args.device.startswith("cuda"):
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, timeout=60,
-        ).stdout.strip()
-        print(f"nvidia-smi: {smi or 'unavailable'}", file=sys.stderr)
-    records = benchmarks.run(
-        args.configs or None, backend=args.backend, preset=args.preset,
-        telemetry_dir=args.trace_dir, profile_dir=args.profile_dir,
-        device=args.device,
-    )
-    for rec in records:
-        print(rec.as_json_line(), flush=True)
-    return 1 if any("failed" in r.detail for r in records) else 0
+    forward = ["bench", *args.configs, "--preset", args.preset,
+               "--backend", args.backend, "--device", args.device]
+    if args.trace_dir is not None:
+        forward += ["--trace-dir", args.trace_dir]
+    if args.profile_dir is not None:
+        forward += ["--profile-store", args.profile_dir]
+    return cli.main(forward)
 
 
 if __name__ == "__main__":

@@ -24,8 +24,10 @@ from paralleljohnson_tpu_torch.utils.telemetry import validate_chrome_trace
 
 # serve_overload's verdict rests on wall-clock phases (2x its calibrated
 # capacity, then a cooldown) that a loaded CPU cannot hold; it has a test
-# of its own below, which grades every answer it served.
-CONFIGS = sorted(set(benchmarks.CONFIGS) - {"serve_overload"})
+# of its own below, which grades every answer it served. serve_fleet
+# starts three replica processes per package, and the reference runs its
+# row in the slow set; its row has a slow test of its own below.
+CONFIGS = sorted(set(benchmarks.CONFIGS) - {"serve_overload", "serve_fleet"})
 COMPARED = ("nodes", "edges", "sources", "finite_frac", "reached_frac",
             "rows_checksum", "scale", "graphs", "nodes_each")
 
@@ -57,9 +59,8 @@ def port_rows(tmp_path_factory):
 
 
 def test_configs_are_the_reference_configs_with_ported_modules():
-    unported = {"serve_fleet"}  # its replicas are CLI processes
-    assert set(benchmarks.CONFIGS) == set(ref_bench.CONFIGS) - unported
-    assert len(benchmarks.CONFIGS) == 17
+    assert set(benchmarks.CONFIGS) == set(ref_bench.CONFIGS)
+    assert len(benchmarks.CONFIGS) == 18
     for name in benchmarks.CONFIGS:
         assert benchmarks._SIZES[name] == ref_bench._SIZES[name]
     assert benchmarks._PRESETS == ref_bench._PRESETS
@@ -214,11 +215,43 @@ def test_serve_overload_grades_every_answer():
     assert d["platform"] == "cpu"
 
 
-@pytest.mark.parametrize("name", ["serve_fleet", "er1k_aspp"])
+@pytest.mark.parametrize("name", ["er1k_aspp"])
 def test_unknown_or_unported_config_rejected(name):
-    with pytest.raises(ValueError, match="unknown config") as err:
+    with pytest.raises(ValueError, match="unknown config"):
         benchmarks.run([name], device="cpu")
-    assert ("CLI" in str(err.value)) == (name == "serve_fleet")
+
+
+def test_serve_fleet_is_a_config(monkeypatch):
+    """``run(["serve_fleet"])`` dispatches to the config (stubbed here: the
+    real row starts replica processes, below) instead of rejecting it."""
+    def stub(backend, preset):
+        return benchmarks.BenchRecord("serve_fleet", backend, preset, 1.0, 0,
+                                      0.0, 1, {})
+
+    monkeypatch.setitem(benchmarks.CONFIGS, "serve_fleet", stub)
+    (rec,) = benchmarks.run(["serve_fleet"], preset="smoke", device="cpu")
+    assert rec.config == "serve_fleet" and "failed" not in rec.detail
+    assert rec.detail["platform"] == "cpu"
+
+
+@pytest.mark.slow  # as the reference's row: replica subprocesses + a kill
+def test_serve_fleet_smoke_row_as_reference():
+    """The kill drill through ``python -m paralleljohnson_tpu_torch serve``
+    replicas: every check of the reference's row holds (no hung client,
+    non-shed answers bitwise the direct solve, the re-published table
+    within the lapse budget, the merged SLO verdict, a router-to-replica
+    trace with a retry hop, the unsolved source's serve_solve), with the
+    reference row's detail keys."""
+    (ref,) = ref_bench.run(["serve_fleet"], backend="jax", preset="smoke")
+    (rec,) = benchmarks.run(["serve_fleet"], preset="smoke", device="cpu")
+    d, ref_d = rec.detail, ref.detail
+    assert "failed" not in d, d.get("failed")
+    assert "failed" not in ref_d, ref_d.get("failed")
+    assert set(d) == set(ref_d)
+    for key in ("nodes", "edges", "replicas", "clients", "reroute_budget_s"):
+        assert d[key] == ref_d[key], key
+    assert d["verdict"] == "ok" and d["retry_traces"] >= 1
+    assert d["exact_bitwise_checked"] > 0 and d["platform"] == "cpu"
 
 
 def test_unknown_preset_rejected():

@@ -4,7 +4,9 @@ plain-torch XLA routes included) against ``solve()`` on the CPU, the
 B=1 routes' ``sssp`` against ``sweep``'s, an in-process fleet and a
 checkpoint repair against the card's ``solve()``, and the serving tier's
 device lookups and the hopset's chunked sweeps against their host and
-plain versions. Every test needs a CUDA device and skips without one,
+plain versions, and the command line (``python -m
+paralleljohnson_tpu_torch``) on the card against the in-process solve.
+Every test needs a CUDA device and skips without one,
 except the one that checks the engine refuses to start without it.
 
 This file imports nothing of JAX, so it runs where JAX is not installed:
@@ -1076,3 +1078,90 @@ def test_query_engine_default_raises_without_card(monkeypatch, tmp_path):
     g = erdos_renyi(16, 0.2, seed=1)
     with pytest.raises(RuntimeError, match="cuda"):
         QueryEngine(g, TileStore(tmp_path, g))
+
+
+# -- the command line on the card ----------------------------------------------
+
+
+def _cli(*args, **kw):
+    """``python -m paralleljohnson_tpu_torch *args`` from the repository
+    root, no ``--device`` flag: the card is the default."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(root), env.get("PYTHONPATH")) if p)
+    return subprocess.Popen([sys.executable, "-m", "paralleljohnson_tpu_torch",
+                             *args], cwd=root, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            **kw)
+
+
+def test_cli_solve_on_card_equals_solve(cuda, tmp_path):
+    """A ``solve --output`` process on the card gives the in-process
+    ``solve()``'s matrix bitwise, and its ``--log-stats`` line shows the
+    process launched a hand kernel."""
+    import json
+
+    spec = "er:n=256,p=0.1,seed=0"
+    p = _cli("solve", spec, "--output", str(tmp_path / "d.npz"), "--json",
+             "--log-stats")
+    out, err = p.communicate(timeout=600)
+    assert p.returncode == 0, err
+    stats = json.loads(err.strip().splitlines()[-1])
+    assert sum(stats["kernel_launches"].values()) > 0
+    res = pjt.ParallelJohnsonSolver().solve(pjt.load_graph(spec))
+    assert json.loads(out)["routes_by_phase"] == res.stats.routes_by_phase
+    with np.load(tmp_path / "d.npz") as z:
+        assert z["dist"].tobytes() == johnson.to_numpy(res.dist).tobytes()
+
+
+def test_cli_info_lists_the_card(cuda):
+    import json
+
+    p = _cli("info", "--json")
+    out, err = p.communicate(timeout=300)
+    assert p.returncode == 0, err
+    info = json.loads(out)
+    assert info["cuda_available"] is True
+    assert info["default_backend_platform"] == "cuda"
+    assert info["devices"][0]["device"] == "cuda:0"
+    assert info["devices"][0]["name"] == torch.cuda.get_device_name(0)
+    assert info["devices"][0]["power_limit"].endswith("W")
+
+
+def test_cli_serve_listen_answers_and_drains(cuda, tmp_path):
+    """``serve --listen`` on the card answers one query with ``solve()``'s
+    distance and drains on SIGTERM with exit 0 (the engine closed on the
+    way out, else its stats thread would hold the process)."""
+    import json
+    import signal
+    import socket
+
+    spec = "grid:rows=32,cols=32"
+    p = _cli("serve", spec, "--listen", "127.0.0.1:0", "--store-dir",
+             str(tmp_path / "store"), "--shed-policy", "reject",
+             "--stats-interval", "0.2")
+    try:
+        ann = json.loads(p.stdout.readline())
+        with socket.create_connection((ann["host"], ann["port"]),
+                                      timeout=120) as s:
+            f = s.makefile("rw", encoding="utf-8", newline="\n")
+            json.loads(f.readline())
+            f.write(json.dumps({"id": 0, "source": 7, "dst": 900}) + "\n")
+            f.flush()
+            answer = json.loads(f.readline())
+        p.send_signal(signal.SIGTERM)
+        rc = p.wait(timeout=120)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    want = pjt.ParallelJohnsonSolver().solve(pjt.load_graph(spec), [7])
+    assert float(answer["distance"]) == float(want.matrix[0, 900])
+    assert rc == 0
+    assert list((tmp_path / "store").glob("graph_*/serve_stats.json"))
