@@ -204,8 +204,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      paralleljohnson_tpu_torch`` subprocesses on the card with no
      ``--device`` (the default), each one's exit code checked and wall
      printed: ``info --json`` (the card's ``nvidia-smi`` line, phase 1's
-     four libraries built); ``solve`` on R-MAT-20 over phase 3's 512
-     sources (``pallas-vm``, rows bitwise phase 3's), on the grid over
+     four libraries built); ``solve`` on R-MAT-20 over phase 3's first
+     128 sources (``pallas-vm``, rows bitwise phase 3's), on the grid over
      phase 4's 256 sources with ``--predecessors`` (``pallas-vm+pred``,
      rows bitwise phase 13's, trees validated) and on ER-1024 at the
      default config (``fw-tile``, bitwise phase 16's matrix), each with
@@ -216,15 +216,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      no ``failed``); a replica on the card registered in a fleet
      directory answering one query bitwise ``solve()``, ``top --once
      --json --fleet-dir`` over it, and its SIGTERM drain (exit 0).
+ 24. the mesh (``drive_mesh``, ``parallel.mesh``) on 4 ranks that share
+     the card (``PJ_MESH_DEVICES=cuda:0*4``; gloo between them, staged
+     through page-locked host buffers): ``solve()`` on R-MAT-20 over
+     phase 3's 512 sources with ``mesh_shape=(4,)`` (``sharded-1d``: the
+     hand sweep on each rank), rows bitwise phase 3's; the grid over
+     phase 4's sources with ``edge_shard=True`` and trees (phase 1
+     ``edge-sharded``, one MIN all-reduce a sweep; ``sharded-1d+pred``,
+     ``tight_pred`` on each rank), rows bitwise phase 13's, trees
+     validated; ``mesh_shape=(2, 2)`` on R-MAT-20 over 64 sources
+     (``sharded-2d``), bitwise; ``sharded_fanout(replicate=True)`` called
+     directly, each rank's copy equal; ``gs-sharded`` and ``dia-sharded``
+     on a 64x64 lattice, bitwise ``pallas-vm``; and two processes under
+     ``python -m torch.distributed.run`` (``chip_smoke.py --mesh-child``:
+     ``multihost.initialize()``, ``global_mesh()``, ``sharded_fanout``),
+     rows bitwise the single-card solve. Each route, the group backend,
+     the rank devices and the phase's seconds are printed; a route that
+     ends in ``+1dev-fallback`` fails.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-22 on its own (a
+phases 3-5 together, then each path of phases 9-22 and 24 on its own (a
 worker subprocess's launches are not seen: phase 19 counts the
-in-process fleet), and phase 23's solves each in a process of its own,
-whose counters start at 0 and are read from its ``--log-stats`` line; a path
-whose kernel was never launched fails (the plain-torch routes of phases
-15 and 17 need none). The last two lines are the
+in-process fleet; phase 24's paths are summed under ``mesh``, its two
+processes print their own), and phase 23's solves each in a process of
+its own, whose counters start at 0 and are read from its
+``--log-stats`` line; a path whose kernel was never launched fails (the
+plain-torch routes of phases 15, 17 and 24's ``gs-sharded`` /
+``dia-sharded`` need none). The last two lines are the
 ``kernels`` summary (launches summed over the paths, and by path) and
 ``{"ok": true, "device": {...}}``, after a line with the whole run's
 seconds (``smoke_s``).
@@ -336,6 +355,22 @@ RMAT_HOP_BETA = 8
 # the late cooldown (PERF.md, Open questions). Every other verdict fails
 # the phase.
 OVERLOAD_PRINTED = ("late cooldown",)
+# Phase 23: the R-MAT-20 command's sources (phase 3's first ones): its
+# --output rows go through zlib at ~20 MB/s, 4 MiB a source.
+CLI_RMAT_SOURCES = 128
+# Phase 24: the mesh's ranks, all on the card (gloo between them); the
+# 2-D mesh and its sources; the sources of the direct replicated call;
+# the grid side of the gs-sharded / dia-sharded fan-outs and their
+# sources; the graph and sources of the two-process run.
+MESH_RANKS = 4
+MESH_2D = (2, 2)
+MESH_2D_SOURCES = 64
+MESH_REPLICATE_SOURCES = 64
+MESH_GRID_SIDE = 64
+MESH_GRID_SOURCES = 64
+MESH_CHILD_SPEC = "rmat:scale=16,ef=16,seed=0"
+MESH_CHILD_SOURCES = 64
+MESH_TIMEOUT_S = 300
 # Phase 18 leaves the configs phases 21-23 drive themselves.
 BENCH_OWN_PHASE = ("serve_queries", "serve_overload", "approx_apsp",
                    "serve_fleet")
@@ -2381,16 +2416,20 @@ def drive_cli(smi, rmat_sources, rmat_rows, gsrc, grid_pred_rows,
                                  f"{info['default_backend_platform']}")
         report["info"] = {"devices": info["devices"],
                           "build_dir": info["kernels"]["build_dir"]}
-        # 2: R-MAT-20, phase 3's 512 sources, the main path at full width.
+        # 2: R-MAT-20 over phase 3's first CLI_RMAT_SOURCES sources, the
+        # main path at full width (the --output writer is zlib: 4 MiB a
+        # source).
         out = tmp / "rmat.npz"
+        cli_sources = rmat_sources[:CLI_RMAT_SOURCES]
         p = run("solve_rmat20", "solve", RMAT_SPEC, "--sources",
-                ",".join(map(str, rmat_sources)), "--output", str(out),
+                ",".join(map(str, cli_sources)), "--output", str(out),
                 "--json", "--log-stats")
         report["solve_rmat20"] = solved("cli_rmat20", p, "pallas-vm",
                                         ("fanout_sweep",))["phase_seconds"]
         with np.load(out) as z:
-            if not (np.array_equal(z["sources"], rmat_sources)
-                    and np.array_equal(z["dist"], rmat_rows)):
+            if not (np.array_equal(z["sources"], cli_sources)
+                    and np.array_equal(z["dist"],
+                                       rmat_rows[:CLI_RMAT_SOURCES])):
                 raise AssertionError("cli R-MAT-20 rows differ from phase 3's")
         out.unlink()
         # 3: the grid with trees, phase 4's 256 sources.
@@ -2480,6 +2519,258 @@ def drive_cli(smi, rmat_sources, rmat_rows, gsrc, grid_pred_rows,
     emit({"phase": "cli", "walls_s": walls, "launches": launches,
           "report": report, "phase23_s": time.perf_counter() - t_phase})
     return launches
+
+
+def mesh_child(out_dir: str) -> int:
+    """One process of phase 24's two-process run (``python -m
+    torch.distributed.run --nproc_per_node 2 chip_smoke.py --mesh-child
+    DIR``): ``multihost.initialize()`` from the launcher's environment,
+    ``global_mesh()``, then ``sharded_fanout(replicate=True)`` over
+    ``MESH_CHILD_SPEC``'s first ``MESH_CHILD_SOURCES`` sources on the hand
+    sweep. Rank 0 saves the rows to DIR/rows.npy; each prints one
+    ``MESHCHILD`` JSON line (its device, group backend, sweeps and the
+    ``fanout_sweep`` launches of this process)."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
+    from paralleljohnson_tpu_torch.ops.fanout_sweep import fanout_sweep
+    from paralleljohnson_tpu_torch.parallel import multihost, sharded_fanout
+
+    t0 = time.perf_counter()
+    if not multihost.initialize(timeout_s=MESH_TIMEOUT_S):
+        raise AssertionError("mesh child: no launcher environment")
+    mesh = multihost.global_mesh()
+    dev = mesh.devices[mesh.world]
+    g = pjt.load_graph(MESH_CHILD_SPEC)
+    dg = TorchBackend(pjt.SolverConfig(), device=dev).upload(g)
+    (indptr_in, src_in, w_in), items = dg.fanout_layout()
+    srcs = np.arange(MESH_CHILD_SOURCES)
+    garr = multihost.global_sources(mesh, srcs)
+    fanout_sweep.launches = 0
+    t1 = time.perf_counter()  # the mesh run syncs its rank's stream
+    dist, iters, improving, row_sweeps = sharded_fanout(
+        mesh, garr, dg.src, dg.dst, dg.weights, num_nodes=g.num_nodes,
+        max_iter=g.num_nodes, layout="vertex_major", replicate=True,
+        with_row_sweeps=True, n_real_rows=len(srcs),
+        in_edges=(indptr_in, src_in, w_in, items))
+    secs = time.perf_counter() - t1
+    if improving or dist.device != dev:
+        raise AssertionError(f"mesh child: improving {improving}, rows on "
+                             f"{dist.device}")
+    if mesh.world == 0:
+        np.save(os.path.join(out_dir, "rows.npy"),
+                dist[:len(srcs)].cpu().numpy())
+    print("MESHCHILD " + json.dumps({
+        "rank": mesh.world, "world": mesh.size, "device": str(dev),
+        "backend": tdist.get_backend(), "mesh": mesh.describe(),
+        "sweeps": iters, "row_sweeps": row_sweeps, "fanout_s": secs,
+        "launches": fanout_sweep.launches,
+        "process_s": time.perf_counter() - t0}), flush=True)
+    tdist.destroy_process_group()
+    return 0
+
+
+def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
+               grid_pred_rows) -> dict:
+    """Phase 24: the mesh (``parallel.mesh``) on ``MESH_RANKS`` ranks that
+    share the card (``PJ_MESH_DEVICES``; gloo between them, staged through
+    page-locked host buffers), each path counted from 0: (a) ``solve()``
+    on R-MAT-20 over phase 3's sources, ``mesh_shape=(MESH_RANKS,)``:
+    ``sharded-1d``, rows bitwise phase 3's; (b) the grid over phase 4's
+    sources with ``edge_shard=True`` and trees: phase 1 ``edge-sharded``,
+    the fan-out ``sharded-1d+pred``, rows bitwise phase 13's, trees
+    validated; (c) ``mesh_shape=MESH_2D`` on R-MAT-20 over
+    ``MESH_2D_SOURCES``: ``sharded-2d``, bitwise; (d) ``sharded_fanout(
+    replicate=True)`` called directly: every rank's copy equal to the
+    rows, bitwise phase 3's; (e) ``gs-sharded`` and ``dia-sharded`` on a
+    ``MESH_GRID_SIDE`` lattice, bitwise the single-card ``pallas-vm``
+    solve; (f) two processes under ``torch.distributed.run``
+    (:func:`mesh_child`), rows bitwise the single-card solve. Fails on a
+    route with ``+1dev-fallback``. Returns the launches by path, summed
+    over the in-process paths under ``mesh`` (the child processes' are
+    printed)."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
+    from paralleljohnson_tpu_torch.parallel import make_mesh, sharded_fanout
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+    from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
+
+    launches = {}
+    counted = counter(launches)
+    report = {}
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in (mesh_mod.MESH_DEVICES_ENV,
+                                            mesh_mod.MESH_TIMEOUT_ENV)}
+    os.environ[mesh_mod.MESH_DEVICES_ENV] = f"{dev.type}:0*{MESH_RANKS}"
+    os.environ[mesh_mod.MESH_TIMEOUT_ENV] = str(MESH_TIMEOUT_S)
+
+    def routes_of(res, want, label):
+        got = dict(res.stats.routes_by_phase)
+        if any(r.endswith("+1dev-fallback") for r in got.values()):
+            raise AssertionError(f"mesh {label} fell back: {got}")
+        for phase, route in want.items():
+            if got.get(phase) != route:
+                raise AssertionError(f"mesh {label} took {got}, not {want}")
+        return got
+
+    def summary(res, secs, got, label, solver):
+        """The path's routes, seconds, mesh, and the host seconds its
+        meshes' slowest rank spent in collectives (staging included)."""
+        be = solver.backend
+        meshes = {"fanout": getattr(be, "_mesh_cache", None),
+                  "edges": getattr(be, "_edge_mesh_cache", None)}
+        report[label] = {
+            "routes": got, "seconds": secs,
+            "phase_seconds": dict(res.stats.phase_seconds),
+            "iterations": dict(res.stats.iterations_by_phase),
+            "final_batch": res.stats.final_batch,
+            "mesh": be._mesh().describe(),
+            "collective_s": {k: m.collective_s for k, m in meshes.items()
+                             if m is not None}}
+
+    try:
+        mesh = make_mesh(device=dev)
+        report["mesh"] = {"describe": mesh.describe(),
+                          "backends": mesh.backends(),
+                          "rank_devices": [str(d) for d in mesh.devices]}
+        # (a) R-MAT-20 over phase 3's sources on the 1-D mesh.
+        solver = solver_on(dev, mesh_shape=(MESH_RANKS,))
+        res, secs = counted("mesh_rmat20",
+                            lambda: solver.solve(rmat, rmat_sources),
+                            needs=("fanout_sweep",))
+        got = routes_of(res, {"fanout": "sharded-1d"}, "rmat20")
+        if not np.array_equal(to_numpy(res.dist), rmat_rows):
+            raise AssertionError("mesh R-MAT-20 rows differ from phase 3's")
+        summary(res, secs, got, "rmat20_sharded_1d", solver)
+        del res
+        # (b) the grid with edge_shard=True and trees.
+        solver = solver_on(dev, mesh_shape=(MESH_RANKS,), edge_shard=True)
+        res, secs = counted(
+            "mesh_grid512_pred",
+            lambda: solver.solve(grid, gsrc, predecessors=True),
+            needs=("fanout_sweep", "tight_pred"))
+        got = routes_of(res, {"bellman_ford": "edge-sharded",
+                              "fanout": "sharded-1d+pred"}, "grid512")
+        rows, pred = to_numpy(res.dist), to_numpy(res.predecessors)
+        if not np.array_equal(rows, grid_pred_rows):
+            raise AssertionError("mesh grid rows differ from phase 13's")
+        check = [0, len(gsrc) - 1]
+        validate_pred_tree(grid, rows[check], pred[check], gsrc[check])
+        summary(res, secs, got, "grid512_edge_sharded_pred", solver)
+        del res, rows, pred
+        # (c) the 2-D mesh on R-MAT-20.
+        src2d = rmat_sources[:MESH_2D_SOURCES]
+        solver = solver_on(dev, mesh_shape=MESH_2D)
+        res, secs = counted("mesh_rmat20_2d",
+                            lambda: solver.solve(rmat, src2d),
+                            needs=("fanout_sweep",))
+        got = routes_of(res, {"fanout": "sharded-2d"}, "rmat20 2-D")
+        if not np.array_equal(to_numpy(res.dist),
+                              rmat_rows[:MESH_2D_SOURCES]):
+            raise AssertionError("mesh 2-D R-MAT-20 rows differ from "
+                                 "phase 3's")
+        summary(res, secs, got, "rmat20_sharded_2d", solver)
+        del res
+        # (d) sharded_fanout(replicate=True) called directly.
+        dg = TorchBackend(pjt.SolverConfig(), device=dev).upload(rmat)
+        (indptr_in, src_in, w_in), items = dg.fanout_layout()
+        srcs = rmat_sources[:MESH_REPLICATE_SOURCES]
+        (dist, iters, improving), secs = counted(
+            "mesh_replicate", lambda: sharded_fanout(
+                mesh, srcs, dg.src, dg.dst, dg.weights,
+                num_nodes=rmat.num_nodes, max_iter=rmat.num_nodes,
+                layout="vertex_major", replicate=True,
+                in_edges=(indptr_in, src_in, w_in, items)),
+            needs=("fanout_sweep",))
+        copies = [c for c in dist.replicas
+                  if c.device.type == dev.type and torch.equal(c, dist)]
+        if improving or len(copies) != MESH_RANKS:
+            raise AssertionError(f"mesh replicate: improving {improving}, "
+                                 f"{len(copies)} equal copies of "
+                                 f"{MESH_RANKS}")
+        if not np.array_equal(dist.cpu().numpy(),
+                              rmat_rows[:MESH_REPLICATE_SOURCES]):
+            raise AssertionError("mesh replicated rows differ from phase 3's")
+        report["replicate"] = {"seconds": secs, "sweeps": iters,
+                               "copies": len(copies),
+                               "copy_bytes": dist.numel() * 4,
+                               "collective_s": mesh.collective_s}
+        del dist, copies, dg, indptr_in, src_in, w_in, items
+        # (e) gs-sharded and dia-sharded on a lattice.
+        lat = pjt.load_graph(f"grid:rows={MESH_GRID_SIDE},"
+                             f"cols={MESH_GRID_SIDE},seed=3")
+        lat_src = np.arange(MESH_GRID_SOURCES)
+        want = to_numpy(solver_on(dev).solve(lat, lat_src).dist)
+        for label, route, kw in (
+                ("mesh_gs", "gs-sharded", dict(gauss_seidel=True,
+                                               frontier=False)),
+                ("mesh_dia", "dia-sharded", dict(dia=True))):
+            solver = solver_on(dev, mesh_shape=(MESH_RANKS,), **kw)
+            res, secs = counted(label, lambda: solver.solve(lat, lat_src))
+            got = routes_of(res, {"fanout": route}, route)
+            if not np.array_equal(to_numpy(res.dist), want):
+                raise AssertionError(f"mesh {route} rows differ from "
+                                     "pallas-vm's")
+            summary(res, secs, got, route, solver)
+            del res
+        # (f) two processes under torch.distributed.run.
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        child_graph = pjt.load_graph(MESH_CHILD_SPEC)
+        want = to_numpy(solver_on(dev).solve(
+            child_graph, np.arange(MESH_CHILD_SOURCES)).dist)
+        env = {k: v for k, v in os.environ.items()
+               if k not in (mesh_mod.MESH_DEVICES_ENV,)}
+        root = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (root, env.get("PYTHONPATH")) if p)
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--nnodes", "1", "--nproc_per_node", "2",
+                 "--master_addr", "127.0.0.1", "--master_port", str(port),
+                 os.path.abspath(__file__), "--mesh-child", tmp],
+                capture_output=True, text=True, cwd=root, env=env,
+                timeout=MESH_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            if p.returncode != 0:
+                raise AssertionError(f"mesh two-process run: rc "
+                                     f"{p.returncode}: {p.stderr[-3000:]}")
+            children = [json.loads(ln.split(" ", 1)[1])
+                        for ln in p.stdout.splitlines()
+                        if ln.startswith("MESHCHILD ")]
+            rows = np.load(os.path.join(tmp, "rows.npy"))
+        if len(children) != 2 or any(c["launches"] == 0 for c in children):
+            raise AssertionError(f"mesh two-process run: {children}")
+        if len({c["row_sweeps"] for c in children}) != 1:
+            raise AssertionError(f"mesh children disagree: {children}")
+        if not np.array_equal(rows, want):
+            raise AssertionError("mesh two-process rows differ from the "
+                                 "single-card solve's")
+        report["two_process"] = {"wall_s": wall, "children": children}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    total = {k: sum(p.get(k, 0) for p in launches.values())
+             for k in next(iter(launches.values()))}
+    emit({"phase": "mesh", "report": report, "launches": launches,
+          "phase24_s": time.perf_counter() - t_phase})
+    return {"mesh": total}
 
 
 def main() -> int:
@@ -3123,6 +3414,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(drive_cli(smi, rmat_sources, rmat_rows, gsrc,
                              grid_pred_rows, er_fw_matrix))
+    # -- phase 24: the mesh --------------------------------------------------
+    torch.cuda.empty_cache()
+    by_path.update(drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid,
+                              gsrc, grid_pred_rows))
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in ("fanout_sweep", "minplus", "tight_pred",
                              "fw_kleene")}
@@ -3182,4 +3477,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(sys.argv[2]))
     sys.exit(main())

@@ -38,9 +38,13 @@ the walk is the declared priority order. The decision rides on
     CUDA gate: ``use_pallas`` True or ``"auto"``, vertex-major layout);
     under ``use_pallas=False`` the reference's XLA vertex-major routes in
     plain PyTorch, ``vm-blocked`` for V > ``VM_BLOCK`` and ``vm`` below;
-    and ``fanout_layout="source_major"`` to ``sweep-sm``. The
-    reference's multi-device plans are declared and decline (one
-    device);
+    and ``fanout_layout="source_major"`` to ``sweep-sm``. On a mesh of
+    more than one rank (``mesh_shape``, ``parallel.mesh``) the
+    single-device plans decline: ``sharded-1d`` (rows sharded over the
+    ranks, the hand sweep on each), ``sharded-2d`` (a 2-D ``mesh_shape``:
+    edges sharded too), and the forced ``dia`` / ``gs`` as
+    ``dia-sharded`` / ``gs-sharded``; B=1 takes ``edge-sharded``
+    (``edge_shard=True``, or ``"auto"`` off the low-degree family);
   - ``bellman_ford_pred`` / ``multi_source_pred`` run the same dispatch,
     then one tight-edge pass over the converged distances (the hand
     ``tight_pred`` kernel on the card, ``ops.pred``): route ``<route>+pred``.
@@ -109,6 +113,8 @@ from paralleljohnson_tpu_torch.ops.gauss_seidel import (
     fanout_gs_body,
     sssp_gs_blocks,
 )
+from paralleljohnson_tpu_torch.parallel import mesh as mesh_ops
+from paralleljohnson_tpu_torch.utils import resilience
 from paralleljohnson_tpu_torch.utils.metrics import (
     warn_if_counter_wrapped,
     warn_if_traj_counter_wrapped,
@@ -506,15 +512,23 @@ class TorchBackend(Backend):
         predecessors) plus the pipeline's carry slots and, on the card,
         the sweep's scratch rows (sparse route; tight_pred's partial keys
         with predecessors) or the min-plus split-K partials (dense
-        route)."""
+        route).
+
+        On a mesh the budget is a device's, divided among the ranks that
+        share it (each holds its [B / n_sources, V] blocks; on a 2-D mesh
+        every "edges" rank of a source group holds its group's rows), and
+        the batch is that per-rank width times the "sources" ranks, kept a
+        multiple of them."""
         v = max(dgraph.num_nodes, 1)
         itemsize = torch.empty((), dtype=self._dtype).element_size()
         blocks = PRED_BATCH_BLOCKS if with_pred else BATCH_BLOCKS
         carry_slots = self._pipeline_depth(dgraph) - 1
         blocks += carry_slots * (2 if with_pred else 1)
         rows = blocks * v
+        mesh = self._mesh()
         if self.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(self.device)
+            free = min(torch.cuda.mem_get_info(d)[0]
+                       for d in set(mesh.devices) | {self.device})
             budget = free // 2
             if self._use_dense(dgraph):
                 rows += MAX_SPLITS * v  # the min-plus split-K partials
@@ -524,8 +538,13 @@ class TorchBackend(Backend):
                 rows += dgraph.work_items().n_split * (2 if with_pred else 1)
         else:
             budget = CPU_BUDGET_BYTES
-        b = budget // (rows * itemsize)
-        return int(max(1, min(b, 1 << 16)))
+        sharing = max(mesh.devices.count(d) for d in set(mesh.devices))
+        n = self._sources_axis_size()
+        b = budget // sharing // (rows * itemsize) * n
+        b = int(max(1, min(b, 1 << 16)))
+        if b > n:
+            b -= b % n  # keep shards even on the mesh
+        return b
 
     def stage_rows_async(self, *tensors) -> None:
         """Start the device-to-host copy of each CUDA tensor of
@@ -570,10 +589,11 @@ class TorchBackend(Backend):
             route, cost, num_nodes=dgraph.num_nodes,
             num_edges=dgraph.num_real_edges, batch=batch)
 
-    def _observe_unavailable(self, route: str, dgraph, batch=1):
+    def _observe_unavailable(self, route: str, dgraph, batch=1, *,
+                             reason: str | None = None):
         """The explicit marker of a route with no analytic model."""
         return self.cost_capture.unavailable(
-            route, f"no analytic cost model for route {route!r}",
+            route, reason or f"no analytic cost model for route {route!r}",
             num_nodes=dgraph.num_nodes, num_edges=dgraph.num_real_edges,
             batch=batch)
 
@@ -715,7 +735,8 @@ class TorchBackend(Backend):
         ctx = _FanoutCtx(backend=self, dgraph=dgraph,
                          sources=torch.zeros(b, dtype=torch.int64),
                          batch=b, max_iter=self.config.max_iterations
-                         or dgraph.num_nodes, layout=self._resolve_layout())
+                         or dgraph.num_nodes, mesh=self._mesh(),
+                         layout=self._resolve_layout())
         decision = planner.select(
             FANOUT_PLANS, ctx, model=self._planner_model(),
             platform=self._platform, num_edges=dgraph.num_real_edges,
@@ -727,6 +748,108 @@ class TorchBackend(Backend):
         """``fanout_layout`` with ``"auto"`` read as ``"vertex_major"``."""
         layout = self.config.fanout_layout
         return "vertex_major" if layout == "auto" else layout
+
+    # -- the mesh (parallel.mesh) --------------------------------------------
+
+    def _mesh(self):
+        """The fan-out mesh over this backend's device type:
+        ``mesh_shape=(n,)`` or None a 1-D "sources" mesh (None: every rank
+        device, ``parallel.mesh.visible_devices``), ``(n_s, n_e)`` the 2-D
+        ("sources", "edges") mesh. After a sharded failure on CPU ranks
+        (:meth:`_sharded_fallback`) it is one rank."""
+        cached = getattr(self, "_mesh_cache", None)
+        if cached is None:
+            if getattr(self, "_sharded_disabled", False):
+                cached = mesh_ops.make_mesh((1,), device=self.device)
+            else:
+                shape = self.config.mesh_shape
+                if shape is not None and len(shape) == 2:
+                    cached = mesh_ops.make_mesh_2d(shape, device=self.device)
+                else:
+                    cached = mesh_ops.make_mesh(shape, device=self.device)
+            self._mesh_cache = cached
+        return cached
+
+    def _edge_mesh(self):
+        """The "edges" mesh over the fan-out mesh's ranks, for
+        edge-sharded B=1 Bellman-Ford."""
+        cached = getattr(self, "_edge_mesh_cache", None)
+        if cached is None:
+            cached = mesh_ops.make_edge_mesh(self.config.mesh_shape,
+                                             device=self.device)
+            self._edge_mesh_cache = cached
+        return cached
+
+    def _sources_axis_size(self) -> int:
+        """Ranks along the "sources" axis (the axis [B, V] row blocks
+        shard over; on a 2-D mesh rows replicate over "edges")."""
+        mesh = self._mesh()
+        return int(mesh.shape.get("sources", mesh.size))
+
+    def _use_edge_shard(self, dgraph: TorchDeviceGraph) -> bool:
+        """Edge sharding is the only way a multi-rank mesh helps a B=1
+        solve: ``edge_shard=True`` forces it on such a mesh; ``"auto"``
+        defers to the frontier, GS, DIA and bucket routes where they
+        apply, as in the reference."""
+        flag = self.config.edge_shard
+        if flag is False or self._mesh().size <= 1:
+            return False
+        if getattr(self, "_edge_shard_disabled", False):
+            return False
+        if flag is True:
+            return True
+        return not (self._use_frontier(dgraph) or self._use_gs(dgraph)
+                    or self._use_dia(dgraph) or self._use_bucket(dgraph))
+
+    @property
+    def _telemetry(self):
+        """The solve's telemetry (or None), handed to the sharded entry
+        points so each lands as a span on the flight record."""
+        return self.config.telemetry
+
+    def _shard_fault_hook(self):
+        """The fault-injection hook of the sharded entry points
+        (``config.fault_plan`` stage ``"sharded_fanout"``): fires inside
+        the sharded path, so an injected failure surfaces where a real
+        collective failure would. None without a plan."""
+        plan = self.config.fault_plan
+        if plan is None:
+            return None
+
+        def hook():
+            active = plan.fire("sharded_fanout")
+            if active is not None:
+                active.wrap(lambda: None)()
+
+        return hook
+
+    def _sharded_fallback(self, exc: BaseException, dgraph, sources, *,
+                          pred_sweep: bool = False) -> KernelResult:
+        """A sharded fan-out raised. An OOM re-raises for the solver's
+        batch degrader (which keeps the mesh); so does any failure on a
+        CUDA mesh (a card's failure is not a lost host to route around).
+        On CPU ranks, as the reference does: warn once, pin this backend
+        instance to one rank, and solve the same batch on the single-device
+        routes, tagged ``+1dev-fallback``."""
+        if resilience.is_oom_error(exc) or self.device.type == "cuda":
+            raise exc
+        self._auto_route_failed(
+            "_sharded_disabled",
+            "sharded fan-out failed (collective failure); falling back to "
+            "single-device solves for this backend instance",
+            forced=False)
+        self._mesh_cache = None  # _mesh() rebuilds as a one-rank mesh
+        if pred_sweep:
+            res = self._multi_source_pred_sweep(dgraph, sources)
+        else:
+            res = self.multi_source(dgraph, sources)
+        res.route = f"{res.route or 'sweep'}+1dev-fallback"
+        return res
+
+    def _sharded_cost(self, route: str, dgraph, batch: int):
+        return self._observe_unavailable(
+            route, dgraph, batch,
+            reason="sharded collective executables are not cost-instrumented")
 
     # -- B=1 route gates (the reference's, in its plan order) ----------------
 
@@ -762,8 +885,7 @@ class TorchBackend(Backend):
     # HBM3 at 700 W each lost to the default route, PERF.md §6), so
     # "auto" declines and True forces. (So the reference's
     # _qual_sssp_bucket, which keeps an auto bucket off the
-    # virtual-source pass, has nothing left to decide, and _contract_dia /
-    # _contract_gs guard an edges mesh axis the port does not have.)
+    # virtual-source pass, has nothing left to decide.)
 
     def _use_gs(self, dgraph: TorchDeviceGraph) -> bool:
         return (self.config.gauss_seidel is True
@@ -922,6 +1044,29 @@ class TorchBackend(Backend):
                        max_iter=self.config.max_iterations or v,
                        chunk=relax.edge_chunk_for(1, dgraph.src.shape[0]))
         return self._walk(SSSP_PLANS, ctx, batch=1, what="B=1")
+
+    def _sssp_build_edge_sharded(self, ctx) -> KernelResult:
+        """B=1 Bellman-Ford with the edge list sharded over the ranks
+        (``parallel.mesh.edge_sharded_bellman_ford``): one MIN all-reduce
+        of the [V] distances per sweep."""
+        dgraph, max_iter = ctx.dgraph, ctx.max_iter
+        emesh = self._edge_mesh()
+        dist, iters, improving = mesh_ops.edge_sharded_bellman_ford(
+            emesh, ctx.dist0, dgraph.src, dgraph.dst, dgraph.weights,
+            max_iter=max_iter,
+            edge_chunk=relax.edge_chunk_for(
+                1, -(-dgraph.src.shape[0] // emesh.size)),
+            fault_hook=self._shard_fault_hook(), telemetry=self._telemetry)
+        return KernelResult(
+            dist=dist,
+            negative_cycle=improving and max_iter >= dgraph.num_nodes,
+            converged=not improving,
+            iterations=iters,
+            # Each round relaxes the full edge list (across the ranks).
+            edges_relaxed=iters * dgraph.num_real_edges,
+            route="edge-sharded",
+            cost=self._sharded_cost("edge-sharded", dgraph, 1),
+        )
 
     def _sssp_build_dia(self, ctx) -> KernelResult:
         dgraph, max_iter = ctx.dgraph, ctx.max_iter
@@ -1139,7 +1284,8 @@ class TorchBackend(Backend):
         b = int(sources.shape[0])
         ctx = _FanoutCtx(backend=self, dgraph=dgraph, sources=sources,
                          batch=b, max_iter=self.config.max_iterations
-                         or dgraph.num_nodes, layout=self._resolve_layout())
+                         or dgraph.num_nodes, mesh=self._mesh(),
+                         layout=self._resolve_layout())
         res = self._walk(FANOUT_PLANS, ctx, batch=b, what="fan-out")
         return res, ctx.dist_vm
 
@@ -1155,6 +1301,19 @@ class TorchBackend(Backend):
         contiguous roll + add + min passes."""
         dgraph, b = ctx.dgraph, ctx.batch
         lay = self.dia_bundle(dgraph)
+        if ctx.mesh.size > 1:
+            # Rows sharded over the ranks, the [K, V] diagonals replicated,
+            # no per-round collective.
+            dist, iters, improving, examined = mesh_ops.sharded_dia_fanout(
+                ctx.mesh, ctx.sources, lay["w_diag"],
+                num_nodes=dgraph.num_nodes, offsets=lay["offsets"],
+                max_iter=ctx.max_iter, num_entries=lay["num_entries"],
+                fault_hook=self._shard_fault_hook(),
+                telemetry=self._telemetry)
+            return KernelResult(
+                dist=dist, converged=not improving, iterations=iters,
+                edges_relaxed=examined, route="dia-sharded",
+                cost=self._sharded_cost("dia-sharded", dgraph, b))
         dist, iters, improving, traj = self._fixpoint(
             lambda d: dia_sweep(d, lay["w_diag"], offsets=lay["offsets"]),
             relax.multi_source_init(ctx.sources, dgraph.num_nodes,
@@ -1176,6 +1335,20 @@ class TorchBackend(Backend):
         dgraph, b = ctx.dgraph, ctx.batch
         lay = dgraph.gs_layout(self.config.gs_block_size)
         inner_cap = self.config.gs_inner_cap
+        if ctx.mesh.size > 1:
+            # The block schedule per rank on its batch slice, the layout
+            # replicated, no per-round collective.
+            dist, rounds, improving, examined = mesh_ops.sharded_gs_fanout(
+                ctx.mesh, ctx.sources, lay["src_blk"], lay["dstl_blk"],
+                lay["w_blk"], lay["rank"], v_pad=lay["v_pad"], vb=lay["vb"],
+                halo=lay["halo"], max_outer=ctx.max_iter, inner_cap=inner_cap,
+                real_edges_host=lay["real_edges_host"],
+                fault_hook=self._shard_fault_hook(),
+                telemetry=self._telemetry)
+            return KernelResult(
+                dist=dist, converged=not improving, iterations=rounds,
+                edges_relaxed=examined, route="gs-sharded",
+                cost=self._sharded_cost("gs-sharded", dgraph, b))
         in_adj = lay["in_adj"] if self._use_dw(dgraph, b) else None
         dist, rounds, improving, iters_blk, *traj = fanout_gs_body(
             ctx.sources, lay["src_blk"], lay["dstl_blk"], lay["w_blk"],
@@ -1274,6 +1447,65 @@ class TorchBackend(Backend):
                     skipped_edge_slots=int(
                         rounds * dgraph.num_real_edges - examined_slots))
         return res
+
+    def _plan_build_sharded_2d(self, ctx) -> KernelResult:
+        """The 2-D ("sources", "edges") mesh: rows and edge slices
+        sharded, one MIN all-reduce per sweep over each "edges" group
+        (vertex-major: one hand ``fanout_sweep`` launch per sweep on each
+        rank's slice). A failure degrades through
+        :meth:`_sharded_fallback`."""
+        dgraph, mesh, b = ctx.dgraph, ctx.mesh, ctx.batch
+        ns, ne = int(mesh.shape["sources"]), int(mesh.shape["edges"])
+        chunk = relax.edge_chunk_for(-(-b // ns),
+                                     -(-dgraph.src.shape[0] // ne))
+        edges = (dgraph.vm_edges() if ctx.layout == "vertex_major"
+                 else (dgraph.src, dgraph.dst, dgraph.weights))
+        try:
+            dist, iters, improving, row_sweeps = mesh_ops.sharded_fanout_2d(
+                mesh, ctx.sources, *edges, num_nodes=dgraph.num_nodes,
+                max_iter=ctx.max_iter, edge_chunk=chunk, layout=ctx.layout,
+                with_row_sweeps=True, fault_hook=self._shard_fault_hook(),
+                telemetry=self._telemetry)
+        except Exception as e:
+            return self._sharded_fallback(e, dgraph, ctx.sources)
+        return self._sharded_result(dgraph, dist, iters, improving,
+                                    row_sweeps, "sharded-2d", b)
+
+    def _plan_build_sharded_1d(self, ctx) -> KernelResult:
+        """The 1-D sources mesh: rows sharded, the CSR replicated; each
+        rank runs the hand fan-out sweep to its fixpoint on its
+        [V, B / n] block (vertex-major) or the source-major sweep."""
+        dgraph, mesh, b = ctx.dgraph, ctx.mesh, ctx.batch
+        # Ceil: the batch is padded to a rank multiple.
+        chunk = relax.edge_chunk_for(-(-b // mesh.size), dgraph.src.shape[0])
+        in_edges = None
+        if ctx.layout == "vertex_major":
+            csc, items = dgraph.fanout_layout()
+            in_edges = (*csc, items)
+        try:
+            dist, iters, improving, row_sweeps = mesh_ops.sharded_fanout(
+                mesh, ctx.sources, dgraph.src, dgraph.dst, dgraph.weights,
+                num_nodes=dgraph.num_nodes, max_iter=ctx.max_iter,
+                edge_chunk=chunk, layout=ctx.layout, with_row_sweeps=True,
+                in_edges=in_edges, fault_hook=self._shard_fault_hook(),
+                telemetry=self._telemetry)
+        except Exception as e:
+            return self._sharded_fallback(e, dgraph, ctx.sources)
+        return self._sharded_result(dgraph, dist, iters, improving,
+                                    row_sweeps, "sharded-1d", b)
+
+    def _sharded_result(self, dgraph, dist, iters, improving, row_sweeps,
+                        route, b) -> KernelResult:
+        """A sharded sweep's result: the work is the exact per-rank row
+        sweeps x E (``parallel.mesh._row_sweeps_exact``)."""
+        return KernelResult(
+            dist=dist,
+            converged=not improving,
+            iterations=iters,
+            edges_relaxed=int(row_sweeps) * dgraph.num_real_edges,
+            route=route,
+            cost=self._sharded_cost(route, dgraph, b),
+        )
 
     def _plan_build_dense(self, ctx) -> KernelResult:
         """The dense min-plus fan-out: the hand product
@@ -1494,9 +1726,19 @@ class TorchBackend(Backend):
             res, dist_vm = self._fanout(dgraph, sources)
             if not res.converged:
                 return res  # the solver raises ConvergenceError; no tree
-            if dist_vm is None:
-                dist_vm = res.dist.t().contiguous()
-            pred, ok = self._extract(dgraph, dist_vm, res.dist, sources)
+            mesh = self._mesh()
+            if mesh.size > 1:
+                # Each rank's rows against the replicated in-edge CSC, no
+                # collective but the AND of the tree checks.
+                csc, items = dgraph.fanout_layout()
+                pred, ok = mesh_ops.sharded_tight_pred(
+                    mesh, res.dist, sources, dgraph.src, dgraph.dst,
+                    dgraph.weights, num_nodes=dgraph.num_nodes,
+                    in_edges=(*csc, items), telemetry=self._telemetry)
+            else:
+                if dist_vm is None:
+                    dist_vm = res.dist.t().contiguous()
+                pred, ok = self._extract(dgraph, dist_vm, res.dist, sources)
             del dist_vm
             if ok:
                 res.pred = pred
@@ -1511,15 +1753,37 @@ class TorchBackend(Backend):
 
     def _multi_source_pred_sweep(self, dgraph: TorchDeviceGraph,
                                  sources: np.ndarray) -> KernelResult:
-        """The argmin-carrying fan-out (route ``pred-sweep``)."""
+        """The argmin-carrying fan-out (route ``pred-sweep``); on a mesh
+        of more than one rank, sharded over a 1-D "sources" mesh of the
+        same ranks (the argmin sweep has no edges-sharded merge)."""
         sources = torch.as_tensor(np.asarray(sources), dtype=torch.int64)
         sources = sources.to(self.device)
         b = int(sources.shape[0])
         v = dgraph.num_nodes
+        max_iter = self.config.max_iterations or v
+        mesh = self._mesh().as_sources_mesh()
+        if mesh.size > 1:
+            try:
+                dist, iters, improving, pred, row_sweeps = (
+                    mesh_ops.sharded_fanout(
+                        mesh, sources, dgraph.src, dgraph.dst, dgraph.weights,
+                        num_nodes=v, max_iter=max_iter,
+                        edge_chunk=relax.edge_chunk_for(
+                            -(-b // mesh.size), dgraph.src.shape[0]),
+                        with_pred=True, with_row_sweeps=True,
+                        fault_hook=self._shard_fault_hook(),
+                        telemetry=self._telemetry))
+            except Exception as e:
+                return self._sharded_fallback(e, dgraph, sources,
+                                              pred_sweep=True)
+            res = self._sharded_result(dgraph, dist, iters, improving,
+                                       row_sweeps, "pred-sweep", b)
+            res.cost = self._sharded_cost("pred-sweep-sharded", dgraph, b)
+            res.pred = pred
+            return res
         dist, pred, iters, improving = relax.bellman_ford_sweeps_pred(
             relax.multi_source_init(sources, v, self._dtype),
-            dgraph.src, dgraph.dst, dgraph.weights,
-            max_iter=self.config.max_iterations or v,
+            dgraph.src, dgraph.dst, dgraph.weights, max_iter=max_iter,
             edge_chunk=relax.edge_chunk_for(b, dgraph.src.shape[0]),
         )
         res = self._sweep_result(dgraph, dist, iters, improving, b,
@@ -1653,6 +1917,7 @@ class _FanoutCtx:
     sources: torch.Tensor
     batch: int
     max_iter: int
+    mesh: object
     layout: str
     params: dict = dataclasses.field(default_factory=dict)
     dist_vm: torch.Tensor | None = None
@@ -1671,12 +1936,44 @@ class _SsspCtx:
     params: dict = dataclasses.field(default_factory=dict)
 
 
-# The port drives one device: the reference's multi-device plans are
-# declared so both packages list the same candidates, and decline here.
-_SINGLE_DEVICE = "single device: the port has no device mesh yet"
+def _no_edges_axis(ctx) -> bool:
+    return "edges" not in ctx.mesh.axis_names
+
+
+def _single_device(ctx) -> bool:
+    return _no_edges_axis(ctx) and ctx.mesh.size == 1
+
+
+def _contract_gs(ctx) -> None:
+    if not _no_edges_axis(ctx) and ctx.backend.config.gauss_seidel is True:
+        # The GS layout is not edge-sharded: its sequential block schedule
+        # needs the whole edge list per rank.
+        raise NotImplementedError(
+            "gauss_seidel=True fan-out shards sources only; use a 1-D "
+            "mesh_shape=(n,) (or leave gauss_seidel='auto' to use the 2-D "
+            "sharded sweep path on this mesh)")
+
+
+def _contract_dia(ctx) -> None:
+    if not _no_edges_axis(ctx) and ctx.backend.config.dia is True:
+        # The stencil needs every diagonal per rank.
+        raise NotImplementedError(
+            "dia=True fan-out shards sources only; use a 1-D "
+            "mesh_shape=(n,) (or leave dia='auto' to use the 2-D sharded "
+            "sweep path on this mesh)")
+
+
+def _contract_fw(ctx) -> None:
+    if ctx.backend.config.fw is True and not _single_device(ctx):
+        # The FW closure holds the whole [Vp, Vp] matrix on one device.
+        raise NotImplementedError(
+            "fw=True is a single-chip dense route; use mesh_shape=(1,)")
 
 
 def _qual_dia(ctx):
+    if not _no_edges_axis(ctx):
+        return False, ("mesh has an edges axis (stencil needs every diagonal "
+                       "per device)")
     if ctx.backend._use_dia(ctx.dgraph):
         return True, "diagonal labeling qualifies (gather-free stencil)"
     return False, ("dia gate declined (the port's CUDA gate keeps 'auto' "
@@ -1684,6 +1981,9 @@ def _qual_dia(ctx):
 
 
 def _qual_gs(ctx):
+    if not _no_edges_axis(ctx):
+        return False, ("mesh has an edges axis (GS needs the whole edge list "
+                       "per device)")
     if ctx.backend._use_gs(ctx.dgraph):
         return True, "gauss_seidel=True forces the blocked GS fan-out"
     return False, ("gs gate declined (the port's CUDA gate keeps 'auto' "
@@ -1691,6 +1991,8 @@ def _qual_gs(ctx):
 
 
 def _qual_fw(ctx):
+    if not _single_device(ctx):
+        return False, "fw is a single-chip dense route"
     if ctx.backend._use_fw(ctx.dgraph, ctx.batch):
         return True, ("squaring regime + density gate + exact-MAC win over "
                       "squaring")
@@ -1700,6 +2002,8 @@ def _qual_fw(ctx):
 
 def _qual_dw(ctx):
     be = ctx.backend
+    if not _single_device(ctx):
+        return False, "dirty-window is a single-device route"
     if be._use_dense(ctx.dgraph):
         return False, "dense regime (dw targets the sparse batched sweep)"
     if be._use_dw(ctx.dgraph, ctx.batch):
@@ -1717,13 +2021,29 @@ def _qual_dw(ctx):
         "reason", "no trajectory evidence")
 
 
+def _qual_sharded_2d(ctx):
+    if "edges" in ctx.mesh.axis_names:
+        return True, ctx.mesh.describe()
+    return False, "no edges mesh axis"
+
+
+def _qual_sharded_1d(ctx):
+    if _no_edges_axis(ctx) and ctx.mesh.size > 1:
+        return True, ctx.mesh.describe()
+    return False, "single device (or edges axis owns the mesh)"
+
+
 def _qual_dense(ctx):
+    if not _single_device(ctx):
+        return False, "dense min-plus is single-chip"
     if ctx.backend._use_dense(ctx.dgraph):
         return True, "graph clears the dense density + size gates"
     return False, "not dense enough (or above dense_threshold)"
 
 
 def _qual_pallas_vm(ctx):
+    if not _single_device(ctx):
+        return False, "the hand sweep serves the single-device fan-out only"
     if ctx.backend._use_dense(ctx.dgraph):
         return False, "the hand sweep serves the sparse fan-out only"
     if ctx.layout != "vertex_major":
@@ -1736,6 +2056,8 @@ def _qual_pallas_vm(ctx):
 
 
 def _qual_vm_blocked(ctx):
+    if not _single_device(ctx):
+        return False, "blocked vm serves the single-device fan-out only"
     if ctx.backend._use_dense(ctx.dgraph):
         return False, "blocked vm serves the sparse fan-out only"
     if ctx.layout != "vertex_major":
@@ -1749,6 +2071,8 @@ def _qual_vm_blocked(ctx):
 
 
 def _qual_vm(ctx):
+    if not _single_device(ctx):
+        return False, "plain vm serves the single-device fan-out only"
     if ctx.backend._use_dense(ctx.dgraph):
         return False, "plain vm serves the sparse fan-out only"
     if ctx.layout != "vertex_major":
@@ -1757,6 +2081,9 @@ def _qual_vm(ctx):
 
 
 def _qual_sweep_sm(ctx):
+    if not _single_device(ctx):
+        return False, ("source-major sweep serves the single-device fan-out "
+                       "only")
     if ctx.backend._use_dense(ctx.dgraph):
         return False, "source-major sweep serves the sparse fan-out only"
     if ctx.layout != "vertex_major":
@@ -1805,12 +2132,14 @@ def _fail_vm_blocked(be, ctx) -> None:
 FANOUT_PLANS = [
     planner.Plan(
         name="dia", entry="fanout", priority=10, qualify=_qual_dia,
+        contract=_contract_dia,
         build=lambda ctx: ctx.backend._plan_build_dia(ctx),
         price_routes=("dia",), forced=lambda cfg: cfg.dia is True,
         failure=_fail_dia, force_overrides={"dia": True},
     ),
     planner.Plan(
         name="gs", entry="fanout", priority=20, qualify=_qual_gs,
+        contract=_contract_gs,
         build=lambda ctx: ctx.backend._plan_build_gs(ctx),
         price_routes=("gs", "gs+dw"),
         forced=lambda cfg: cfg.gauss_seidel is True,
@@ -1818,6 +2147,7 @@ FANOUT_PLANS = [
     ),
     planner.Plan(
         name="fw", entry="fanout", priority=30, qualify=_qual_fw,
+        contract=_contract_fw,
         build=lambda ctx: ctx.backend._plan_build_fw(ctx),
         price_routes=("fw", "fw-tile"), forced=lambda cfg: cfg.fw is True,
         failure=_fail_fw, force_overrides={"fw": True, "mesh_shape": (1,)},
@@ -1832,11 +2162,13 @@ FANOUT_PLANS = [
     ),
     planner.Plan(
         name="sharded-2d", entry="fanout", priority=50,
-        qualify=lambda ctx: (False, _SINGLE_DEVICE),
+        qualify=_qual_sharded_2d,
+        build=lambda ctx: ctx.backend._plan_build_sharded_2d(ctx),
     ),
     planner.Plan(
         name="sharded-1d", entry="fanout", priority=60,
-        qualify=lambda ctx: (False, _SINGLE_DEVICE),
+        qualify=_qual_sharded_1d,
+        build=lambda ctx: ctx.backend._plan_build_sharded_1d(ctx),
     ),
     planner.Plan(
         name="dense", entry="fanout", priority=70, qualify=_qual_dense,
@@ -1888,6 +2220,20 @@ def _qual_sssp_bucket(ctx) -> tuple[bool, str]:
     return True, "bucket=True forces delta-stepping"
 
 
+def _fail_sssp_edge_sharded(be, ctx) -> None:
+    # An OOM re-raises (the solver's retry path owns it), as does any
+    # failure on a CUDA mesh; on CPU ranks an auto edge shard is disabled
+    # for this backend instance and the next plan serves the solve.
+    exc = sys.exc_info()[1]
+    if exc is not None and (resilience.is_oom_error(exc)
+                            or be.device.type == "cuda"):
+        raise
+    be._auto_route_failed(
+        "_edge_shard_disabled", "edge-sharded Bellman-Ford failed "
+        "(collective failure); falling back to single-device sweeps for "
+        "this backend instance", forced=be.config.edge_shard is True)
+
+
 def _fail_sssp_bucket(be, ctx) -> None:
     be._auto_route_failed(
         "_bucket_disabled", "bucketed delta-stepping route failed on this "
@@ -1898,7 +2244,13 @@ def _fail_sssp_bucket(be, ctx) -> None:
 SSSP_PLANS = [
     planner.Plan(
         name="edge-sharded", entry="sssp", priority=10,
-        qualify=lambda ctx: (False, _SINGLE_DEVICE),
+        qualify=lambda ctx: (
+            (True, f"edge list sharded over the "
+                   f"{ctx.backend._edge_mesh().describe()}")
+            if ctx.backend._use_edge_shard(ctx.dgraph)
+            else (False, "single device or frontier-family graph")),
+        build=lambda ctx: ctx.backend._sssp_build_edge_sharded(ctx),
+        failure=_fail_sssp_edge_sharded,
         forced=lambda cfg: cfg.edge_shard is True,
         force_overrides={"edge_shard": True},
     ),

@@ -16,9 +16,10 @@ Exit codes: 0 ok; 1 error (an ``error:`` line on stderr); 2 negative
 cycle; 3 corruption, an abandoned stage, or an incomplete fleet.
 
 Where the port differs from the JAX package: ``--backend`` is ``torch``
-(default), ``numpy`` or ``cpp``; ``--mesh-shape`` over more than one
-device and ``--edge-shard true`` exit 1 (they wait for ``parallel/*``),
-as does ``--precision f64`` on cuda; ``--profile`` writes a
+(default), ``numpy`` or ``cpp``; ``--mesh-shape`` spreads a solve over
+the ranks ``parallel.mesh.visible_devices`` lists (every card; one rank
+on the CPU unless ``PJ_MESH_DEVICES`` lists more); ``--precision f64``
+on cuda exits 1; ``--profile`` writes a
 ``torch.profiler`` trace; ``--compilation-cache-dir`` is the directory
 the hand kernels are built into; ``bench`` exits 1 when a row carries
 ``failed``; ``--log-stats`` lines carry ``kernel_launches``, each hand
@@ -68,8 +69,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
               "(the CUDA kernels on the card), false = the JAX package's "
               "XLA routes in plain PyTorch")
     p.add_argument("--mesh-shape", default=None, metavar="N[,M...]",
-                   help="devices along the sources mesh axis; one device "
-                        "only (more waits for parallel/*)")
+                   help="ranks along the sources mesh axis (e.g. 4); N,M "
+                        "is a 2-D sources x edges mesh (rank devices: every "
+                        "card, or $PJ_MESH_DEVICES)")
     p.add_argument("--fanout-layout", default="auto",
                    choices=["auto", "source_major", "vertex_major"],
                    help="sparse fan-out data layout (auto = vertex_major)")
@@ -77,8 +79,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
               "frontier-compacted Bellman-Ford for high-diameter graphs: "
               "auto (low-degree graphs) / force / off")
     _tristate(p, "--edge-shard",
-              "shard the edge list across the mesh (true waits for "
-              "parallel/*)")
+              "shard the edge list across the mesh for single-source "
+              "Bellman-Ford (auto: a mesh of more than one rank, off the "
+              "frontier family)")
     _tristate(p, "--gauss-seidel",
               "blocked Gauss-Seidel route (auto: off on cuda; true forces)")
     _tristate(p, "--dia",
@@ -1723,8 +1726,7 @@ def _graph_diagnosis(args, store_dir, model, device) -> dict:
             "gauss_seidel": bool(be._use_gs(dg)),
             "dirty_window": bool(be._use_dw(dg, batch)),
             "frontier": bool(be._use_frontier(dg)),
-            # One device: the edge-sharded route waits for parallel/*.
-            "edge_shard": False,
+            "edge_shard": bool(be._use_edge_shard(dg)),
             "pred": "extract" if be._use_pred_extraction() else "sweep",
         },
         "dia_qualifies": dia_lay is not None,

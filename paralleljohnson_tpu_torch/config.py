@@ -11,7 +11,6 @@ field (:meth:`SolverConfig.unsupported`), and is never silently ignored.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import numpy as np
 
@@ -37,8 +36,15 @@ class SolverConfig:
         kernels are f32).
       source_batch_size: sources per fan-out call; ``None`` sizes the
         batch from the device's free memory (``suggested_source_batch``).
-      mesh_shape: ``None`` or a one-device shape; more devices are not
-        ported yet.
+      mesh_shape: ``None`` (every rank device: every card on cuda, one
+        rank on cpu, unless ``PJ_MESH_DEVICES`` lists them;
+        ``parallel.mesh.visible_devices``), ``(n,)`` a 1-D "sources"
+        mesh of the first n (route ``sharded-1d`` from n = 2) or
+        ``(n_s, n_e)`` a 2-D ("sources", "edges") mesh (``sharded-2d``).
+      edge_shard: on a mesh of more than one rank, B=1 Bellman-Ford
+        (phase 1, ``sssp``) with the edge list sharded over the ranks
+        (``edge-sharded``): ``True`` forces it, ``"auto"`` takes it off
+        the frontier / GS / DIA / bucket routes' graphs.
       max_iterations: cap on relaxation sweeps; ``None`` = |V|.
       dense_threshold / dense_min_density: the dense min-plus gate —
         V <= threshold and E >= density x V^2.
@@ -131,9 +137,7 @@ class SolverConfig:
         ``$PJ_COMPILE_CACHE``, else ``paralleljohnson_tpu_torch/_build/``),
         fixed for the process once a kernel library has loaded.
 
-    Kept for config parity; forcing them raises at solve time until the
-    layer is ported: ``edge_shard`` (``True``), ``mesh_shape`` over more
-    than one device (both wait for ``parallel/*``), and
+    Kept for config parity; forcing it raises at solve time:
     ``precision="f64"`` on cuda.
     """
 
@@ -193,10 +197,7 @@ class SolverConfig:
         ``"field=value"`` strings (empty = the config is fully honoured
         on ``device_type``). The solver raises ``NotImplementedError``
         naming them."""
-        multi = " (more than one device waits for parallel/*)"
-        bad = ["edge_shard=True" + multi] if self.edge_shard is True else []
-        if self.mesh_shape is not None and math.prod(self.mesh_shape) > 1:
-            bad.append(f"mesh_shape={self.mesh_shape}" + multi)
+        bad = []
         if self.precision == "f64" and device_type == "cuda":
             bad.append("precision='f64' on cuda (the kernels are f32)")
         return bad

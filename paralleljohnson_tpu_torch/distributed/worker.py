@@ -27,7 +27,10 @@ Several workers may share one card: each is its own process with its
 own CUDA context, so the plan pins ``source_batch_size`` (a batch sized
 from the free memory each process sees would overcommit the card). A
 worker that cannot reach its device exits non-zero; it never falls back
-to the CPU. ``--multihost`` waits for ``parallel/multihost``.
+to the CPU. ``--multihost`` calls ``parallel.multihost.initialize()``
+first (one worker process per host; torch's launcher environment
+``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``; without it
+nothing is initialized and the worker carries on).
 """
 
 from __future__ import annotations
@@ -305,9 +308,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="where the solver runs: cuda (the default; exits "
                          "non-zero without a card) or cpu")
     ap.add_argument("--multihost", action="store_true",
-                    help="one worker process per host over "
-                         "torch.distributed (waits for parallel/multihost; "
-                         "raises NotImplementedError)")
+                    help="call parallel.multihost.initialize() before "
+                         "building the solver (one worker process per host; "
+                         "env-driven MASTER_ADDR / MASTER_PORT / WORLD_SIZE "
+                         "/ RANK)")
     ap.add_argument("--self-kill-after-claims", type=int, default=None,
                     help="TEST HOOK: SIGKILL self after the Nth claim, "
                          "lease held (deterministic host-loss injection)")
@@ -319,10 +323,9 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     if args.multihost:
-        raise NotImplementedError(
-            "--multihost needs parallel/multihost, which is not ported to "
-            "paralleljohnson_tpu_torch yet"
-        )
+        from paralleljohnson_tpu_torch.parallel import multihost
+
+        multihost.initialize(device=args.device)
     try:
         summary = run_worker(
             args.coordinator_dir,

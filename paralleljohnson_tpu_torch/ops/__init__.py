@@ -3,6 +3,19 @@
 (``fanout_sweep``, ``minplus``, ``pred``'s ``tight_pred``, ``fw``'s
 ``fw_kleene``; built by ``_cuda``)."""
 
+import threading
+
+_counter_lock = threading.Lock()
+
+
+def bump(fn, counter: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``fn.<counter>`` (a kernel's launches, a
+    host loop's reads) under one lock: the mesh's rank threads launch
+    concurrently, and ``+=`` on an attribute is a read and a write that
+    two threads can interleave."""
+    with _counter_lock:
+        setattr(fn, counter, getattr(fn, counter) + n)
+
 
 def kernel_launches() -> dict[str, int]:
     """Each hand kernel's launch count in this process (the counters its

@@ -42,7 +42,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paralleljohnson_tpu_torch.ops import relax
+from paralleljohnson_tpu_torch.ops import bump, relax
 from paralleljohnson_tpu_torch.ops.relax import FRONTIER_ADDEND_MAX, INF
 
 # Bucket id of inactive / unreached vertices (int32 max — larger than any
@@ -207,7 +207,7 @@ def bellman_ford_bucketed(dist0, src, dst, w, indptr, delta, *,
         branch = torch.where(count > max(capacity, v // 4), 2,
                              torch.where(do_light, 0, 1))
         busy, branch = torch.stack([act.any() | pend.any(), branch]).tolist()
-        bellman_ford_bucketed.host_reads += 1
+        bump(bellman_ford_bucketed, "host_reads")
         if not busy or i >= max_steps:
             break
         before = d[:v].clone() if traj_cap is not None else None

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from paralleljohnson_tpu_torch.ops import _cuda
+from paralleljohnson_tpu_torch.ops import _cuda, bump
 from paralleljohnson_tpu_torch.ops.relax import edge_chunk_for
 
 # L: the most in-edges one work item (one warp) takes. Chosen on the card
@@ -207,7 +207,7 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
         items.split_rows.shape[0], prev.data_ptr(), improved.data_ptr(), b,
         device=dev,
     )
-    fanout_sweep.launches += 1
+    bump(fanout_sweep, "launches")
     return out, improved
 
 
@@ -258,7 +258,7 @@ def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int):
     group is cut so the cap is exact. Host reads (the first finiteness
     check and one per group) count in ``fanout_fixpoint.host_reads``."""
     improving = bool(torch.isfinite(dist0).any())
-    fanout_fixpoint.host_reads += 1
+    bump(fanout_fixpoint, "host_reads")
     if not improving or max_iter <= 0:
         return dist0, 0, improving
     dev = dist0.device
@@ -293,7 +293,7 @@ def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int):
                                  else scratch[:items.n_split]))
             prev = flag
         got = flags[:FLAG_STRIDE * k:FLAG_STRIDE].tolist()
-        fanout_fixpoint.host_reads += 1
+        bump(fanout_fixpoint, "host_reads")
         if 0 in got:
             j = got.index(0)
             return bufs[((i + j + 1) * n) % 2], i + j + 1, False

@@ -41,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from paralleljohnson_tpu_torch.observe.tuning import DEFAULT_FW_TILE
-from paralleljohnson_tpu_torch.ops import _cuda, relax
+from paralleljohnson_tpu_torch.ops import _cuda, bump, relax
 from paralleljohnson_tpu_torch.ops.minplus import minplus_kernel
 
 # Default tile edge (the reference's FW_TILE; the tuning layer's
@@ -234,7 +234,7 @@ def fw_kleene(d: torch.Tensor, *, out=None, scratch=None) -> torch.Tensor:
                      out.stride(0), scratch[0].data_ptr(),
                      scratch[1].data_ptr(), t, device=dev,
                      entry="pj_fw_kleene_steps")
-    fw_kleene.launches += 1
+    bump(fw_kleene, "launches")
     return out
 
 

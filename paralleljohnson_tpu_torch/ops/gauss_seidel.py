@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from paralleljohnson_tpu_torch.ops import bump
 from paralleljohnson_tpu_torch.ops.relax import (
     INF,
     bucket_edges_by_dst_block,
@@ -93,7 +94,7 @@ def _gs_engine(dist0, src_blk, dstl_blk, w_blk, *, vb: int, halo: int,
             upd = torch.full(seg_shape, INF, dtype=d.dtype, device=d.device)
             upd = upd.scatter_reduce_(0, t, cand, "amin")[:vb]
             changed = bool((upd < blk).any())
-            _gs_engine.host_reads += 1
+            bump(_gs_engine, "host_reads")
             torch.minimum(blk, upd, out=blk)
             i += 1
             ever = ever or changed
@@ -124,7 +125,7 @@ def _gs_engine(dist0, src_blk, dstl_blk, w_blk, *, vb: int, halo: int,
 
         counts, resid = traj_init(traj_cap, d.device)
     changed = bool(torch.isfinite(dist0).any())
-    _gs_engine.host_reads += 1
+    bump(_gs_engine, "host_reads")
     c_prev = np.ones(flags_len, bool)
     rounds = 0
     while changed and rounds < max_outer:

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from paralleljohnson_tpu_torch.ops import _cuda
+from paralleljohnson_tpu_torch.ops import _cuda, bump
 from paralleljohnson_tpu_torch.ops.fanout_sweep import FLAG_STRIDE
 from paralleljohnson_tpu_torch.ops.relax import minplus as _minplus
 
@@ -150,7 +150,7 @@ def minplus_kernel(d: torch.Tensor, a: torch.Tensor, *, out=None,
         plan.splits, plan.k_split, None if prev is None else prev.data_ptr(),
         None if improved is None else improved.data_ptr(), device=dev,
     )
-    minplus_kernel.launches += 1
+    bump(minplus_kernel, "launches")
     return out
 
 
@@ -206,7 +206,7 @@ def minplus_fixpoint(d0, a, *, max_iter: int):
                            prev=flag[j - 1] if j else one, improved=flag[j],
                            scratch=scratch)
         got = flags[:FLAG_STRIDE * n:FLAG_STRIDE].tolist()
-        minplus_fixpoint.host_reads += 1
+        bump(minplus_fixpoint, "host_reads")
         if 0 in got:
             j = got.index(0)
             return bufs[(i + j + 1) % 2], i + j + 1, False

@@ -36,7 +36,7 @@ import math
 
 import torch
 
-from paralleljohnson_tpu_torch.ops import _cuda
+from paralleljohnson_tpu_torch.ops import _cuda, bump
 from paralleljohnson_tpu_torch.ops.fanout_sweep import build_work_items
 from paralleljohnson_tpu_torch.ops.relax import edge_chunk_for
 from paralleljohnson_tpu_torch.utils.paths import NO_PRED
@@ -185,7 +185,7 @@ def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None,
         items.split_rows.data_ptr(), items.split_ptr.data_ptr(),
         items.split_rows.shape[0], src_ptr, flags_ptr, b, device=dev,
     )
-    tight_pred_pass.launches += 1
+    bump(tight_pred_pass, "launches")
     return out if flags is None else (out, flags)
 
 
@@ -212,7 +212,7 @@ def pred_reaches_root(pred):
     every pointer is at a root (one host read per step): a tree of depth
     D takes ceil(log2 D) steps. Each call counts one in
     ``pred_reaches_root.walks``."""
-    pred_reaches_root.walks += 1
+    bump(pred_reaches_root, "walks")
     squeeze = pred.dim() == 1
     q = pred.unsqueeze(0) if squeeze else pred
     steps = max(1, math.ceil(math.log2(max(q.shape[1], 2))))

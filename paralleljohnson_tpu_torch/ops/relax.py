@@ -32,6 +32,7 @@ import math
 import numpy as np
 import torch
 
+from paralleljohnson_tpu_torch.ops import bump
 from paralleljohnson_tpu_torch.utils.paths import NO_PRED
 
 INF = float("inf")
@@ -327,7 +328,7 @@ def _sweeps_to_fixpoint(sweep, dist0, max_iter: int):
         improving = bool((nd < d).any())
         d = nd
         i += 1
-    _sweeps_to_fixpoint.host_reads += i + 1
+    bump(_sweeps_to_fixpoint, "host_reads", i + 1)
     return d, i, improving
 
 
@@ -564,14 +565,14 @@ def bellman_ford_frontier(dist0, src, dst, w, indptr, *, max_iter: int,
     active0 = torch.isfinite(dist0)
     ids = compact(active0, vertex_ids, capacity, v)
     count = int(active0.sum())
-    bellman_ford_frontier.host_reads += 1
+    bump(bellman_ford_frontier, "host_reads")
     i = 0
     while count > 0 and i < max_iter:
         ids, ncount, ex = (frontier_round(ids) if count <= capacity
                            else full_round())
         examined += ex
         count = int(ncount)
-        bellman_ford_frontier.host_reads += 1
+        bump(bellman_ford_frontier, "host_reads")
         i += 1
     return d[:v], i, count > 0, examined
 
@@ -761,7 +762,7 @@ def bellman_ford_sweeps_dw(dist0_vm, e_src, e_dst, w_tile, blk_of_v,
         dirty_ct = np.zeros(int(traj_cap), np.int64)
     changed = mark(blk_ext[:v], torch.isfinite(dist0_vm).any(1))
     count = int(changed.sum())
-    bellman_ford_sweeps_dw.host_reads += 1
+    bump(bellman_ford_sweeps_dw, "host_reads")
     i = fulls = 0
     while count > 0 and i < max_iter:
         prev = d[:v].clone() if traj_cap is not None else None
@@ -776,7 +777,7 @@ def bellman_ford_sweeps_dw(dist0_vm, e_src, e_dst, w_tile, blk_of_v,
             traj_record(counts, resid, i, prev, d[:v], batch_axis=1)
             dirty_ct[min(i, dirty_ct.shape[0] - 1)] += count
         count = int(changed.sum())
-        bellman_ford_sweeps_dw.host_reads += 1
+        bump(bellman_ford_sweeps_dw, "host_reads")
         i += 1
     out = (d[:v], i, count > 0, examined, fulls)
     if traj_cap is not None:

@@ -12,7 +12,8 @@ platform, devices and the auto route tag may differ), and ``--output``
 rows within rtol 1e-6 (the graphs' weights are not integers).
 
 Port-only cases: a solve without ``--device cpu`` on a host without a
-card exits 1 naming ``--device cpu``; ``--mesh-shape 8`` exits 1;
+card exits 1 naming ``--device cpu``; ``--mesh-shape 8`` runs on eight
+CPU ranks (``PJ_MESH_DEVICES``);
 ``info`` runs as a subprocess with ``jax`` and ``paralleljohnson_tpu``
 blocked from import; ``compilation_cache_dir`` moves the kernels' build
 directory until a library has loaded. Serving, ``top`` and the router
@@ -289,20 +290,33 @@ def test_cli_batch_predecessors_rejected(capsys):
     assert "--predecessors" in ref_err and "--predecessors" in err
 
 
-def test_cli_mesh_shape(capsys):
+def test_cli_mesh_shape(capsys, monkeypatch, tmp_path):
     """The reference spreads a solve over its harness's eight devices; the
-    port has one, and a larger mesh exits 1 naming parallel/*."""
+    port over eight CPU ranks (``PJ_MESH_DEVICES``), with the same rows.
+    A mesh larger than the ranks exits 1 in both, and ``--edge-shard
+    true`` runs phase 1 edge-sharded on the eight ranks."""
+    monkeypatch.setenv("PJ_MESH_DEVICES", "cpu*8")
+    monkeypatch.setenv("PJ_MESH_TIMEOUT_S", "60")
+    out_ref, out = tmp_path / "ref.npz", tmp_path / "port.npz"
     argv = ["solve", "er:n=48,p=0.1,seed=4", "--mesh-shape", "8",
             "--dense-threshold", "0", "--json"]
-    (rc_ref, ref, _), (rc, _, err) = both(capsys, argv)
-    assert rc_ref == 0 and last_json(ref)["shape"] == [48, 48]
-    assert rc == 1 and "mesh_shape=(8,)" in err and "parallel/*" in err
+    rc_ref = ref_cli.main(argv + ["--output", str(out_ref)])
+    ref = capsys.readouterr().out
+    rc = cli.main(port_argv(argv + ["--output", str(out)]))
+    got = capsys.readouterr().out
+    assert rc_ref == rc == 0
+    assert last_json(ref)["shape"] == last_json(got)["shape"] == [48, 48]
+    assert last_json(got)["routes_by_phase"]["fanout"] == "sharded-1d"
+    with np.load(out_ref) as a, np.load(out) as b:
+        close_rows(b["dist"], a["dist"])
     argv = ["solve", "er:n=24,p=0.1,seed=4", "--mesh-shape", "999"]
     (rc_ref, _, _), (rc, _, err) = both(capsys, argv)
     assert rc_ref == rc == 1 and "error:" in err
-    argv = ["solve", "er:n=24,p=0.1,seed=4", "--edge-shard", "true"]
-    assert cli.main(port_argv(argv)) == 1
-    assert "edge_shard" in capsys.readouterr().err
+    argv = ["solve", "dag:n=40,p=0.1,neg=0.4,seed=2", "--edge-shard", "true",
+            "--json"]
+    assert cli.main(port_argv(argv)) == 0
+    routes = last_json(capsys.readouterr().out)["routes_by_phase"]
+    assert routes == {"bellman_ford": "edge-sharded", "fanout": "sharded-1d"}
 
 
 def test_cli_frontier_and_layout_flags(capsys):

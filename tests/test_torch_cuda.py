@@ -1165,3 +1165,147 @@ def test_cli_serve_listen_answers_and_drains(cuda, tmp_path):
     assert float(answer["distance"]) == float(want.matrix[0, 900])
     assert rc == 0
     assert list((tmp_path / "store").glob("graph_*/serve_stats.json"))
+
+
+# -- the mesh (parallel.mesh) on the card ------------------------------------
+
+
+@pytest.fixture
+def two_ranks(cuda, monkeypatch):
+    """Two mesh ranks sharing the card (gloo, staged through page-locked
+    host buffers), every collective bounded by 60 s."""
+    monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0*2")
+    monkeypatch.setenv("PJ_MESH_TIMEOUT_S", "60")
+    return cuda
+
+
+def _counts():
+    from paralleljohnson_tpu_torch.ops import kernel_launches
+
+    return kernel_launches()
+
+
+@pytest.mark.parametrize("mesh_shape,route", [((2,), "sharded-1d"),
+                                              ((1, 2), "sharded-2d")])
+@pytest.mark.parametrize("layout", ["auto", "source_major"])
+def test_mesh_fanout_on_card_equals_cpu(two_ranks, mesh_shape, route,
+                                        layout):
+    """``sharded-1d`` (each rank's hand sweep to its fixpoint) and
+    ``sharded-2d`` (one hand sweep launch per rank per sweep on its edge
+    slice, a MIN all-reduce after it) on two ranks sharing the card: the
+    rows bitwise the single-device CPU solve's."""
+    g = pjt.load_graph("rmat:scale=12,ef=8,seed=4")
+    sources = np.arange(0, g.num_nodes, 61)[:40]
+    want = pjt.ParallelJohnsonSolver(pjt.SolverConfig(fanout_layout=layout),
+                                     device="cpu").solve(g, sources)
+    before = _counts()["fanout_sweep"]
+    got = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(mesh_shape=mesh_shape, fanout_layout=layout),
+        device=two_ranks).solve(g, sources)
+    assert got.stats.routes_by_phase["fanout"] == route
+    if layout == "auto":  # the hand sweep on every rank
+        assert _counts()["fanout_sweep"] > before
+    np.testing.assert_array_equal(johnson.to_numpy(got.dist),
+                                  johnson.to_numpy(want.dist))
+
+
+def test_mesh_edge_sharded_and_pred_on_card(two_ranks):
+    """Phase 1 ``edge-sharded`` and the fan-out ``sharded-1d+pred`` (the
+    ``tight_pred`` kernel on each rank) on the negative grid: rows bitwise
+    the CPU solve's, trees valid."""
+    g = pjt.load_graph("grid:rows=48,cols=40,neg=0.2,seed=6")
+    sources = np.arange(0, g.num_nodes, 37)[:32]
+    want = pjt.ParallelJohnsonSolver(device="cpu").solve(
+        g, sources, predecessors=True)
+    before = _counts()
+    got = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(mesh_shape=(2,), edge_shard=True),
+        device=two_ranks).solve(g, sources, predecessors=True)
+    after = _counts()
+    assert got.stats.routes_by_phase == {"bellman_ford": "edge-sharded",
+                                         "fanout": "sharded-1d+pred"}
+    assert after["fanout_sweep"] > before["fanout_sweep"]
+    assert after["tight_pred"] == before["tight_pred"] + 2  # one per rank
+    dist = johnson.to_numpy(got.dist)
+    np.testing.assert_array_equal(dist, johnson.to_numpy(want.dist))
+    validate_pred_tree(g, dist, johnson.to_numpy(got.predecessors), sources)
+
+
+def test_mesh_replicate_and_failure_on_card(two_ranks):
+    """``sharded_fanout(replicate=True)``: each rank holds the whole
+    matrix on the card; a rank that raises releases the other, the error
+    reaches the caller, and the next run on the same mesh works."""
+    from paralleljohnson_tpu_torch.parallel import make_mesh, sharded_fanout
+
+    g = pjt.load_graph("rmat:scale=12,ef=8,seed=4")
+    be = pjt.get_backend("torch", pjt.SolverConfig(), device=two_ranks)
+    dg = be.upload(g)
+    (indptr_in, src_in, w_in), items = dg.fanout_layout()
+    mesh = make_mesh(device=two_ranks)
+    assert "gloo: ranks share a card" in mesh.describe()
+
+    def run():
+        return sharded_fanout(
+            mesh, np.arange(7), dg.src, dg.dst, dg.weights,
+            num_nodes=g.num_nodes, max_iter=g.num_nodes,
+            layout="vertex_major", replicate=True,
+            in_edges=(indptr_in, src_in, w_in, items))
+
+    dist, _, improving = run()
+    assert not improving and dist.is_cuda and dist.shape == (7, g.num_nodes)
+    assert len(dist.replicas) == 2
+    for copy in dist.replicas:
+        assert copy.is_cuda and torch.equal(copy, dist)
+    want = pjt.ParallelJohnsonSolver(device="cpu").solve(g, np.arange(7))
+    np.testing.assert_array_equal(dist.cpu().numpy(),
+                                  johnson.to_numpy(want.dist))
+
+    def body(comm):
+        x = torch.ones(4, device=comm.device)
+        comm.all_reduce_min_(x)
+        if comm.rank == 1:
+            raise KeyError("rank 1")
+        comm.all_reduce_min_(x)
+        return x
+
+    with pytest.raises(KeyError, match="rank 1"):
+        mesh.run(body)
+    again, _, _ = run()
+    assert torch.equal(again, dist)
+
+
+def test_mesh_nccl_on_distinct_cards(cuda, monkeypatch):
+    """With a card per rank the groups are NCCL: ``sharded-1d``, the
+    edge-sharded phase 1 and the all-gather, rows bitwise one card's."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"NCCL needs two cards per mesh; {n} visible")
+    monkeypatch.delenv("PJ_MESH_DEVICES", raising=False)
+    monkeypatch.setenv("PJ_MESH_TIMEOUT_S", "120")
+    from paralleljohnson_tpu_torch.parallel import make_mesh, sharded_fanout
+
+    ranks = min(n, 4)
+    mesh = make_mesh((ranks,), device=cuda)
+    assert mesh.backends() == ["nccl"]
+    g = pjt.load_graph("grid:rows=48,cols=40,neg=0.2,seed=6")
+    sources = np.arange(0, g.num_nodes, 37)[:32]
+    want = pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=(1,)),
+                                     device=cuda).solve(g, sources)
+    got = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(mesh_shape=(ranks,), edge_shard=True),
+        device=cuda).solve(g, sources)
+    assert got.stats.routes_by_phase == {"bellman_ford": "edge-sharded",
+                                         "fanout": "sharded-1d"}
+    np.testing.assert_array_equal(johnson.to_numpy(got.dist),
+                                  johnson.to_numpy(want.dist))
+    g2 = pjt.load_graph("rmat:scale=12,ef=8,seed=4")
+    dev_graph = pjt.get_backend("torch", pjt.SolverConfig(),
+                                device=cuda).upload(g2)
+    dist, _, _ = sharded_fanout(
+        mesh, np.arange(9), dev_graph.src, dev_graph.dst, dev_graph.weights,
+        num_nodes=g2.num_nodes, max_iter=g2.num_nodes, replicate=True)
+    assert [c.device.index for c in dist.replicas] == list(range(ranks))
+    one = pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=(1,)),
+                                    device=cuda).solve(g2, np.arange(9))
+    np.testing.assert_array_equal(dist.cpu().numpy(),
+                                  johnson.to_numpy(one.dist))

@@ -321,7 +321,8 @@ def test_worker_rejects_wrong_graph_digest(tmp_path):
     assert summary["rc"] == 1 and "digest mismatch" in summary["error"]
 
 
-def test_worker_without_card_raises_and_claims_nothing(tmp_path):
+def test_worker_without_card_raises_and_claims_nothing(tmp_path,
+                                                      monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("checks the worker on a host without a CUDA device")
     coord = distributed.plan_fleet(tmp_path / "coord", SPEC, n_workers=1,
@@ -331,8 +332,15 @@ def test_worker_without_card_raises_and_claims_nothing(tmp_path):
     summary = json.loads(coord.worker_summary_path("w0").read_text())
     assert summary["rc"] == 1 and summary["device"] == "cuda"
     assert {l.state for l in coord.leases()} == {"pending"}
-    with pytest.raises(NotImplementedError, match="parallel/multihost"):
+    # --multihost without torch's launcher environment initializes
+    # nothing, and the worker carries on to its device check.
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         worker.main([str(coord.dir), "--worker-id", "w1", "--multihost"])
+    assert not torch.distributed.is_initialized()
+    summary = json.loads(coord.worker_summary_path("w1").read_text())
+    assert summary["rc"] == 1 and summary["device"] == "cuda"
 
 
 def test_worker_command_names_the_device_and_keeps_the_environment(

@@ -171,11 +171,23 @@ def test_numpy_backend_and_validate():
     {"mesh_shape": (2, 2)},
     {"edge_shard": True}, {"mesh_shape": (2,)},
 ])
-def test_unported_routes_raise_naming_the_field(kw):
+def test_unported_routes_raise_naming_the_field(kw, monkeypatch):
+    """The mesh fields are ported (``parallel.mesh``): on the CPU's one
+    rank a larger ``mesh_shape`` raises the reference's ``ValueError``
+    naming it (too few devices), and ``edge_shard=True`` takes the
+    single-device B=1 route, as the reference does on one device."""
+    monkeypatch.delenv("PJ_MESH_DEVICES", raising=False)
     name = next(iter(kw))
-    with pytest.raises(NotImplementedError, match=name):
-        pjt.ParallelJohnsonSolver(pjt.SolverConfig(**kw),
-                                  device="cpu").solve(_port(GRAPHS["dag-neg"]()))
+    solver = pjt.ParallelJohnsonSolver(pjt.SolverConfig(**kw), device="cpu")
+    g = _port(GRAPHS["dag-neg"]())
+    if name == "mesh_shape":
+        with pytest.raises(ValueError, match=f"{name} .* needs"):
+            solver.solve(g)
+    else:
+        res = solver.solve(g)
+        assert res.stats.routes_by_phase["bellman_ford"] != "edge-sharded"
+        np.testing.assert_allclose(res.matrix, _oracle(g), rtol=1e-5,
+                                   atol=1e-4)
 
 
 @pytest.mark.parametrize("fields", [
