@@ -2521,6 +2521,13 @@ def drive_cli(smi, rmat_sources, rmat_rows, gsrc, grid_pred_rows,
     return launches
 
 
+def mesh_children(stdout: str) -> list[dict]:
+    """The ``MESHCHILD`` records in the launcher's output (each a flat
+    JSON object; found anywhere in a line)."""
+    return [json.loads(m) for m in re.findall(r"MESHCHILD (\{[^{}]*\})",
+                                              stdout)]
+
+
 def mesh_child(out_dir: str) -> int:
     """One process of phase 24's two-process run (``python -m
     torch.distributed.run --nproc_per_node 2 chip_smoke.py --mesh-child
@@ -2563,12 +2570,14 @@ def mesh_child(out_dir: str) -> int:
     if mesh.world == 0:
         np.save(os.path.join(out_dir, "rows.npy"),
                 dist[:len(srcs)].cpu().numpy())
-    print("MESHCHILD " + json.dumps({
+    # One write per line: the processes share the launcher's pipe.
+    sys.stdout.write("MESHCHILD " + json.dumps({
         "rank": mesh.world, "world": mesh.size, "device": str(dev),
         "backend": tdist.get_backend(), "mesh": mesh.describe(),
         "sweeps": iters, "row_sweeps": row_sweeps, "fanout_s": secs,
         "launches": fanout_sweep.launches,
-        "process_s": time.perf_counter() - t0}), flush=True)
+        "process_s": time.perf_counter() - t0}) + "\n")
+    sys.stdout.flush()
     tdist.destroy_process_group()
     return 0
 
@@ -2748,9 +2757,7 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
             if p.returncode != 0:
                 raise AssertionError(f"mesh two-process run: rc "
                                      f"{p.returncode}: {p.stderr[-3000:]}")
-            children = [json.loads(ln.split(" ", 1)[1])
-                        for ln in p.stdout.splitlines()
-                        if ln.startswith("MESHCHILD ")]
+            children = mesh_children(p.stdout)
             rows = np.load(os.path.join(tmp, "rows.npy"))
         if len(children) != 2 or any(c["launches"] == 0 for c in children):
             raise AssertionError(f"mesh two-process run: {children}")

@@ -71,6 +71,10 @@ DEFAULT_TIMEOUT_S = 600.0
 JOIN_GRACE_S = 30.0
 
 _mesh_ids = itertools.count()
+# NCCL groups are built one at a time: the constructor does not wait for
+# its peers (the communicator is made at the first collective) and is
+# not written for concurrent calls from threads of one process.
+_nccl_build_lock = threading.Lock()
 
 
 class MeshAborted(RuntimeError):
@@ -255,7 +259,8 @@ class Mesh:
             if backend == "nccl":
                 opts = tdist.ProcessGroupNCCL.Options()
                 opts._timeout = timeout
-                pg = tdist.ProcessGroupNCCL(store, me, len(members), opts)
+                with _nccl_build_lock:
+                    pg = tdist.ProcessGroupNCCL(store, me, len(members), opts)
             else:
                 # The ranks are threads of this process: loopback, whatever
                 # the host's name resolves to.
@@ -272,6 +277,16 @@ class Mesh:
         with self._lock:
             self._generation += 1
             self._pgs = {}
+
+    def close(self) -> None:
+        """Shut this mesh's process groups down now (NCCL communicators
+        are released here, not by a destructor whenever the mesh is
+        collected); a later run builds fresh groups."""
+        with self._lock:
+            pgs, self._pgs = self._pgs, {}
+            self._generation += 1
+        for pg, _, _ in pgs.values():
+            pg.shutdown()
 
     def stream(self, rank: int):
         with self._lock:

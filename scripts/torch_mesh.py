@@ -22,7 +22,6 @@ single-card solve (``mesh_shape=(1,)``), bitwise.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import socket
 import subprocess
@@ -65,9 +64,7 @@ def processes(n: int, dev) -> int:
         if p.returncode != 0:
             print(p.stderr[-4000:], file=sys.stderr)
             return 1
-        children = [json.loads(ln.split(" ", 1)[1])
-                    for ln in p.stdout.splitlines()
-                    if ln.startswith("MESHCHILD ")]
+        children = chip_smoke.mesh_children(p.stdout)
         rows = np.load(os.path.join(tmp, "rows.npy"))
     g = pjt.load_graph(chip_smoke.MESH_CHILD_SPEC)
     want = to_numpy(chip_smoke.solver_on(dev, mesh_shape=(1,)).solve(

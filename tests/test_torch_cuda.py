@@ -1291,9 +1291,11 @@ def test_mesh_nccl_on_distinct_cards(cuda, monkeypatch):
     sources = np.arange(0, g.num_nodes, 37)[:32]
     want = pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=(1,)),
                                      device=cuda).solve(g, sources)
-    got = pjt.ParallelJohnsonSolver(
-        pjt.SolverConfig(mesh_shape=(ranks,), edge_shard=True),
-        device=cuda).solve(g, sources)
+    solver = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(mesh_shape=(ranks,), edge_shard=True), device=cuda)
+    got = solver.solve(g, sources)
+    solver.backend._mesh().close()
+    solver.backend._edge_mesh().close()
     assert got.stats.routes_by_phase == {"bellman_ford": "edge-sharded",
                                          "fanout": "sharded-1d"}
     np.testing.assert_array_equal(johnson.to_numpy(got.dist),
@@ -1304,6 +1306,7 @@ def test_mesh_nccl_on_distinct_cards(cuda, monkeypatch):
     dist, _, _ = sharded_fanout(
         mesh, np.arange(9), dev_graph.src, dev_graph.dst, dev_graph.weights,
         num_nodes=g2.num_nodes, max_iter=g2.num_nodes, replicate=True)
+    mesh.close()
     assert [c.device.index for c in dist.replicas] == list(range(ranks))
     one = pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=(1,)),
                                     device=cuda).solve(g2, np.arange(9))
