@@ -370,7 +370,6 @@ MESH_GRID_SIDE = 64
 MESH_GRID_SOURCES = 64
 MESH_CHILD_SPEC = "rmat:scale=16,ef=16,seed=0"
 MESH_CHILD_SOURCES = 64
-MESH_TIMEOUT_S = 300
 # Phase 18 leaves the configs phases 21-23 drive themselves.
 BENCH_OWN_PHASE = ("serve_queries", "serve_overload", "approx_apsp",
                    "serve_fleet")
@@ -570,10 +569,12 @@ def counter(launches: dict):
 
 def solver_on(dev, backend_cls=None, **kw):
     """A solver on ``dev`` over ``backend_cls`` (the torch backend by
-    default) with ``SolverConfig(**kw)``."""
+    default) with ``SolverConfig(**kw)``, on one rank unless ``kw`` gives
+    a ``mesh_shape``."""
     import paralleljohnson_tpu_torch as pjt
     from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
 
+    kw.setdefault("mesh_shape", (1,))  # one rank, whatever the host has
     backend = (backend_cls or TorchBackend)(pjt.SolverConfig(**kw),
                                             device=dev)
     return pjt.ParallelJohnsonSolver(backend.config, backend=backend)
@@ -2545,9 +2546,10 @@ def mesh_child(out_dir: str) -> int:
     from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
     from paralleljohnson_tpu_torch.ops.fanout_sweep import fanout_sweep
     from paralleljohnson_tpu_torch.parallel import multihost, sharded_fanout
+    from paralleljohnson_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S
 
     t0 = time.perf_counter()
-    if not multihost.initialize(timeout_s=MESH_TIMEOUT_S):
+    if not multihost.initialize(timeout_s=DEFAULT_TIMEOUT_S):
         raise AssertionError("mesh child: no launcher environment")
     mesh = multihost.global_mesh()
     dev = mesh.devices[mesh.world]
@@ -2582,6 +2584,59 @@ def mesh_child(out_dir: str) -> int:
     return 0
 
 
+def mesh_processes(n: int, dev) -> dict:
+    """Phase 24's multi-process path: ``n`` processes of
+    :func:`mesh_child` under ``python -m torch.distributed.run`` (NCCL
+    where each has a card of its own, else gloo), their rows held bitwise
+    to one card's solve of the same sources. Raises if the run fails, a
+    process launched no sweep, the processes disagree on the row-sweep
+    count, or the rows differ; returns the wall seconds and each
+    process's record."""
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+
+    with solver_on(dev) as solver:
+        want = to_numpy(solver.solve(pjt.load_graph(MESH_CHILD_SPEC),
+                                     np.arange(MESH_CHILD_SOURCES)).dist)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k != mesh_mod.MESH_DEVICES_ENV}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (root, env.get("PYTHONPATH")) if p)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nnodes", "1", "--nproc_per_node", str(n),
+             "--master_addr", "127.0.0.1", "--master_port", str(port),
+             os.path.abspath(__file__), "--mesh-child", tmp],
+            capture_output=True, text=True, cwd=root, env=env,
+            timeout=mesh_mod.DEFAULT_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"mesh {n}-process run: rc "
+                                 f"{p.returncode}: {p.stderr[-3000:]}")
+        children = mesh_children(p.stdout)
+        rows = np.load(os.path.join(tmp, "rows.npy"))
+    if len(children) != n or any(c["launches"] == 0 for c in children):
+        raise AssertionError(f"mesh {n}-process run: {children}")
+    if len({c["row_sweeps"] for c in children}) != 1:
+        raise AssertionError(f"mesh processes disagree: {children}")
+    if not np.array_equal(rows, want):
+        raise AssertionError(f"mesh {n}-process rows differ from the "
+                             "single-card solve's")
+    return {"processes": n, "wall_s": wall, "children": children}
+
+
 def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
                grid_pred_rows) -> dict:
     """Phase 24: the mesh (``parallel.mesh``) on ``MESH_RANKS`` ranks that
@@ -2597,13 +2652,11 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     rows, bitwise phase 3's; (e) ``gs-sharded`` and ``dia-sharded`` on a
     ``MESH_GRID_SIDE`` lattice, bitwise the single-card ``pallas-vm``
     solve; (f) two processes under ``torch.distributed.run``
-    (:func:`mesh_child`), rows bitwise the single-card solve. Fails on a
+    (:func:`mesh_processes`), rows bitwise the single-card solve. Each
+    solver's meshes are closed after its path. Fails on a
     route with ``+1dev-fallback``. Returns the launches by path, summed
     over the in-process paths under ``mesh`` (the child processes' are
     printed)."""
-    import socket
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -2618,10 +2671,8 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     counted = counter(launches)
     report = {}
     t_phase = time.perf_counter()
-    saved = {k: os.environ.get(k) for k in (mesh_mod.MESH_DEVICES_ENV,
-                                            mesh_mod.MESH_TIMEOUT_ENV)}
+    saved = os.environ.get(mesh_mod.MESH_DEVICES_ENV)
     os.environ[mesh_mod.MESH_DEVICES_ENV] = f"{dev.type}:0*{MESH_RANKS}"
-    os.environ[mesh_mod.MESH_TIMEOUT_ENV] = str(MESH_TIMEOUT_S)
 
     def routes_of(res, want, label):
         got = dict(res.stats.routes_by_phase)
@@ -2634,7 +2685,8 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
 
     def summary(res, secs, got, label, solver):
         """The path's routes, seconds, mesh, and the host seconds its
-        meshes' slowest rank spent in collectives (staging included)."""
+        meshes' slowest rank spent in collectives (staging included).
+        Closes the solver's meshes."""
         be = solver.backend
         meshes = {"fanout": getattr(be, "_mesh_cache", None),
                   "edges": getattr(be, "_edge_mesh_cache", None)}
@@ -2646,6 +2698,7 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
             "mesh": be._mesh().describe(),
             "collective_s": {k: m.collective_s for k, m in meshes.items()
                              if m is not None}}
+        solver.close()
 
     try:
         mesh = make_mesh(device=dev)
@@ -2673,8 +2726,14 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
         rows, pred = to_numpy(res.dist), to_numpy(res.predecessors)
         if not np.array_equal(rows, grid_pred_rows):
             raise AssertionError("mesh grid rows differ from phase 13's")
-        check = [0, len(gsrc) - 1]
+        # The trees of every rank's first and last row in every batch.
+        batch = min(res.stats.final_batch, len(gsrc))
+        per = -(-batch // MESH_RANKS)
+        check = sorted({min(b0 + r * per + k, b0 + batch - 1, len(gsrc) - 1)
+                        for b0 in range(0, len(gsrc), batch)
+                        for r in range(MESH_RANKS) for k in (0, per - 1)})
         validate_pred_tree(grid, rows[check], pred[check], gsrc[check])
+        report["grid512_trees_checked"] = len(check)
         summary(res, secs, got, "grid512_edge_sharded_pred", solver)
         del res, rows, pred
         # (c) the 2-D mesh on R-MAT-20.
@@ -2714,12 +2773,14 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
                                "copies": len(copies),
                                "copy_bytes": dist.numel() * 4,
                                "collective_s": mesh.collective_s}
+        mesh.close()
         del dist, copies, dg, indptr_in, src_in, w_in, items
         # (e) gs-sharded and dia-sharded on a lattice.
         lat = pjt.load_graph(f"grid:rows={MESH_GRID_SIDE},"
                              f"cols={MESH_GRID_SIDE},seed=3")
         lat_src = np.arange(MESH_GRID_SOURCES)
-        want = to_numpy(solver_on(dev).solve(lat, lat_src).dist)
+        with solver_on(dev) as solver:
+            want = to_numpy(solver.solve(lat, lat_src).dist)
         for label, route, kw in (
                 ("mesh_gs", "gs-sharded", dict(gauss_seidel=True,
                                                frontier=False)),
@@ -2733,46 +2794,12 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
             summary(res, secs, got, route, solver)
             del res
         # (f) two processes under torch.distributed.run.
-        with socket.socket() as sk:
-            sk.bind(("127.0.0.1", 0))
-            port = sk.getsockname()[1]
-        child_graph = pjt.load_graph(MESH_CHILD_SPEC)
-        want = to_numpy(solver_on(dev).solve(
-            child_graph, np.arange(MESH_CHILD_SOURCES)).dist)
-        env = {k: v for k, v in os.environ.items()
-               if k not in (mesh_mod.MESH_DEVICES_ENV,)}
-        root = os.path.dirname(os.path.abspath(__file__))
-        env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (root, env.get("PYTHONPATH")) if p)
-        with tempfile.TemporaryDirectory() as tmp:
-            t0 = time.perf_counter()
-            p = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run",
-                 "--nnodes", "1", "--nproc_per_node", "2",
-                 "--master_addr", "127.0.0.1", "--master_port", str(port),
-                 os.path.abspath(__file__), "--mesh-child", tmp],
-                capture_output=True, text=True, cwd=root, env=env,
-                timeout=MESH_TIMEOUT_S)
-            wall = time.perf_counter() - t0
-            if p.returncode != 0:
-                raise AssertionError(f"mesh two-process run: rc "
-                                     f"{p.returncode}: {p.stderr[-3000:]}")
-            children = mesh_children(p.stdout)
-            rows = np.load(os.path.join(tmp, "rows.npy"))
-        if len(children) != 2 or any(c["launches"] == 0 for c in children):
-            raise AssertionError(f"mesh two-process run: {children}")
-        if len({c["row_sweeps"] for c in children}) != 1:
-            raise AssertionError(f"mesh children disagree: {children}")
-        if not np.array_equal(rows, want):
-            raise AssertionError("mesh two-process rows differ from the "
-                                 "single-card solve's")
-        report["two_process"] = {"wall_s": wall, "children": children}
+        report["two_process"] = mesh_processes(2, dev)
     finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        if saved is None:
+            os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
+        else:
+            os.environ[mesh_mod.MESH_DEVICES_ENV] = saved
     total = {k: sum(p.get(k, 0) for p in launches.values())
              for k in next(iter(launches.values()))}
     emit({"phase": "mesh", "report": report, "launches": launches,

@@ -127,6 +127,11 @@ class Backend(abc.ABC):
         large host download has the memory they held. No-op for host
         backends."""
 
+    def close(self) -> None:
+        """Release what outlives a solve (the torch backend's mesh
+        process groups). The backend stays usable. No-op for host
+        backends."""
+
     def stage_rows_async(self, *arrays: Any) -> None:
         """Start device-to-host copies of ``arrays`` WITHOUT blocking (a
         scheduling hint, never correctness): the pipelined fan-out calls

@@ -753,8 +753,9 @@ class TorchBackend(Backend):
 
     def _mesh(self):
         """The fan-out mesh over this backend's device type:
-        ``mesh_shape=(n,)`` or None a 1-D "sources" mesh (None: every rank
-        device, ``parallel.mesh.visible_devices``), ``(n_s, n_e)`` the 2-D
+        ``mesh_shape=(n,)`` or None a 1-D "sources" mesh (None: one rank
+        unless ``PJ_MESH_DEVICES`` lists more,
+        ``parallel.mesh.default_devices``), ``(n_s, n_e)`` the 2-D
         ("sources", "edges") mesh. After a sharded failure on CPU ranks
         (:meth:`_sharded_fallback`) it is one rank."""
         cached = getattr(self, "_mesh_cache", None)
@@ -769,6 +770,14 @@ class TorchBackend(Backend):
                     cached = mesh_ops.make_mesh(shape, device=self.device)
             self._mesh_cache = cached
         return cached
+
+    def close(self) -> None:
+        """Shut the cached meshes' process groups down (a later sharded
+        solve builds fresh ones)."""
+        for attr in ("_mesh_cache", "_edge_mesh_cache"):
+            mesh = getattr(self, attr, None)
+            if mesh is not None:
+                mesh.close()
 
     def _edge_mesh(self):
         """The "edges" mesh over the fan-out mesh's ranks, for
@@ -838,6 +847,7 @@ class TorchBackend(Backend):
             "sharded fan-out failed (collective failure); falling back to "
             "single-device solves for this backend instance",
             forced=False)
+        self.close()
         self._mesh_cache = None  # _mesh() rebuilds as a one-rank mesh
         if pred_sweep:
             res = self._multi_source_pred_sweep(dgraph, sources)

@@ -17,8 +17,9 @@ cycle; 3 corruption, an abandoned stage, or an incomplete fleet.
 
 Where the port differs from the JAX package: ``--backend`` is ``torch``
 (default), ``numpy`` or ``cpp``; ``--mesh-shape`` spreads a solve over
-the ranks ``parallel.mesh.visible_devices`` lists (every card; one rank
-on the CPU unless ``PJ_MESH_DEVICES`` lists more); ``--precision f64``
+the first ranks ``parallel.mesh.visible_devices`` lists (every card;
+one rank on the CPU unless ``PJ_MESH_DEVICES`` lists more), and without
+it a solve takes one rank, not every device; ``--precision f64``
 on cuda exits 1; ``--profile`` writes a
 ``torch.profiler`` trace; ``--compilation-cache-dir`` is the directory
 the hand kernels are built into; ``bench`` exits 1 when a row carries
@@ -909,9 +910,10 @@ def _cmd_solve(args, cfg, device) -> int:
             print(f"error: --reduce does not support "
                   f"{', '.join(unsupported)}", file=sys.stderr)
             return 1
-        with device_trace(args.profile, cfg.telemetry):
-            red = ParallelJohnsonSolver(cfg, device=device).solve_reduced(
-                g, sources=sources, reduce_rows=args.reduce)
+        with (device_trace(args.profile, cfg.telemetry),
+              ParallelJohnsonSolver(cfg, device=device) as solver):
+            red = solver.solve_reduced(g, sources=sources,
+                                       reduce_rows=args.reduce)
         _write_metrics(red.stats, args)
         if args.log_stats:
             _log_stats(red.stats, "solve--reduce")
@@ -937,9 +939,10 @@ def _cmd_solve(args, cfg, device) -> int:
         else:
             _report(res, args)
         return 0
-    with device_trace(args.profile, cfg.telemetry):
-        res = ParallelJohnsonSolver(cfg, device=device).solve(
-            g, sources=sources, predecessors=args.predecessors)
+    with (device_trace(args.profile, cfg.telemetry),
+          ParallelJohnsonSolver(cfg, device=device) as solver):
+        res = solver.solve(g, sources=sources,
+                           predecessors=args.predecessors)
     _report(res, args)
     return 0
 
@@ -949,9 +952,9 @@ def _cmd_sssp(args, cfg, device) -> int:
     from paralleljohnson_tpu_torch.utils.profiling import device_trace
 
     g = load_graph(args.graph)
-    with device_trace(args.profile, cfg.telemetry):
-        res = ParallelJohnsonSolver(cfg, device=device).sssp(
-            g, args.source, predecessors=args.predecessors)
+    with (device_trace(args.profile, cfg.telemetry),
+          ParallelJohnsonSolver(cfg, device=device) as solver):
+        res = solver.sssp(g, args.source, predecessors=args.predecessors)
     _report(res, args)
     return 0
 
@@ -966,8 +969,9 @@ def _cmd_batch(args, cfg, device) -> int:
               file=sys.stderr)
         return 1
     graphs = random_graph_batch(args.count, args.nodes, args.p, seed=args.seed)
-    with device_trace(args.profile, cfg.telemetry):
-        results = ParallelJohnsonSolver(cfg, device=device).solve_batch(graphs)
+    with (device_trace(args.profile, cfg.telemetry),
+          ParallelJohnsonSolver(cfg, device=device) as solver):
+        results = solver.solve_batch(graphs)
     stats = results[0].stats
     _write_metrics(stats, args)
     if args.log_stats:

@@ -36,10 +36,10 @@ class SolverConfig:
         kernels are f32).
       source_batch_size: sources per fan-out call; ``None`` sizes the
         batch from the device's free memory (``suggested_source_batch``).
-      mesh_shape: ``None`` (every rank device: every card on cuda, one
-        rank on cpu, unless ``PJ_MESH_DEVICES`` lists them;
-        ``parallel.mesh.visible_devices``), ``(n,)`` a 1-D "sources"
-        mesh of the first n (route ``sharded-1d`` from n = 2) or
+      mesh_shape: ``None`` (one rank, unless ``PJ_MESH_DEVICES`` lists
+        more: ``parallel.mesh.default_devices``; the JAX package takes
+        every device), ``(n,)`` a 1-D "sources" mesh of the first n
+        cards or listed ranks (route ``sharded-1d`` from n = 2) or
         ``(n_s, n_e)`` a 2-D ("sources", "edges") mesh (``sharded-2d``).
       edge_shard: on a mesh of more than one rank, B=1 Bellman-Ford
         (phase 1, ``sssp``) with the edge list sharded over the ranks

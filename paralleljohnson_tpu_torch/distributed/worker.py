@@ -141,6 +141,7 @@ def run_worker(
         "wall_s": 0.0,
         "rc": 0,
     }
+    solver = None
     try:
         graph = load_graph(spec["graph_spec"])
         digest = graph_digest(graph)
@@ -282,6 +283,8 @@ def run_worker(
         summary["error"] = f"{type(e).__name__}: {e}"
         raise
     finally:
+        if solver is not None:
+            solver.close()
         summary["wall_s"] = round(time.perf_counter() - t0, 6)
         metrics.stop_snapshotter()
         try:

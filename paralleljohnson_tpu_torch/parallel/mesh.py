@@ -24,25 +24,31 @@ buffers. After ``multihost.initialize()`` a mesh from
 ``multihost.global_mesh()`` has one rank per process and runs its
 collectives on the default process group.
 
-Rank devices: on ``cuda`` every card, on ``cpu`` one rank (the host is
-one device), unless ``PJ_MESH_DEVICES`` lists them, e.g.
+Rank devices: ``PJ_MESH_DEVICES`` lists them, e.g.
 ``cuda:0,cuda:0,cuda:0,cuda:0``, ``cuda:0*4`` or ``cpu*8`` (ranks may
 share a device; the counterpart of the JAX package's
-``--xla_force_host_platform_device_count``). ``PJ_MESH_TIMEOUT_S`` bounds
-every collective (600 s by default). A rank that raises releases the
-others: they leave at their next collective, the collectives they wait
-in are completed with dummy contributions, and the first error surfaces
-in the caller.
+``--xla_force_host_platform_device_count``); else a mesh of an explicit
+shape takes the first cards on ``cuda``, and ``mesh_shape=None`` is one
+rank on either device type (the JAX package takes every device; here a
+host's cards join a mesh only when asked). ``DEFAULT_TIMEOUT_S`` bounds
+every collective. A rank that raises releases the others: they leave at
+their next collective, the collectives they wait in are completed with
+dummy contributions, and the first error surfaces in the caller.
+:meth:`Mesh.close` shuts a mesh's process groups down; whatever meshes
+are still open when the interpreter exits are closed then, so no
+communicator is left to a destructor.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import itertools
 import math
 import os
 import threading
 import time
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -64,8 +70,8 @@ from paralleljohnson_tpu_torch.utils.metrics import warn_if_counter_wrapped
 from paralleljohnson_tpu_torch.utils.telemetry import traced
 
 MESH_DEVICES_ENV = "PJ_MESH_DEVICES"
-MESH_TIMEOUT_ENV = "PJ_MESH_TIMEOUT_S"
-DEFAULT_TIMEOUT_S = 600.0
+# Seconds any collective may wait for its peers (tests lower it).
+DEFAULT_TIMEOUT_S = 300.0
 # Seconds a rank thread may outlive the collective timeout before the
 # caller gives up on it.
 JOIN_GRACE_S = 30.0
@@ -75,6 +81,8 @@ _mesh_ids = itertools.count()
 # its peers (the communicator is made at the first collective) and is
 # not written for concurrent calls from threads of one process.
 _nccl_build_lock = threading.Lock()
+# Meshes that may hold process groups, closed at exit.
+_open_meshes: "weakref.WeakSet[Mesh]" = weakref.WeakSet()
 
 
 class MeshAborted(RuntimeError):
@@ -93,18 +101,30 @@ def _parse_devices(spec: str) -> list[torch.device]:
     return out
 
 
-def visible_devices(device_type: str | None = None) -> list[torch.device]:
-    """The rank devices a mesh on ``device_type`` may use (``None``: cuda
-    when a card is visible, else cpu): ``PJ_MESH_DEVICES`` when it lists
-    devices of that type, else every card on cuda and one rank on cpu."""
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+def _listed_devices(device_type: str) -> list[torch.device]:
+    """``PJ_MESH_DEVICES`` when it lists devices of ``device_type``, else
+    nothing."""
     spec = os.environ.get(MESH_DEVICES_ENV, "")
     listed = _parse_devices(spec) if spec.strip() else []
     types = {d.type for d in listed}
     if len(types) > 1:
         raise ValueError(f"{MESH_DEVICES_ENV}={spec!r} mixes device types")
-    if listed and types == {device_type}:
+    return listed if types == {device_type} else []
+
+
+def _resolve_type(device_type: str | None) -> str:
+    if device_type is None:
+        return "cuda" if torch.cuda.is_available() else "cpu"
+    return device_type
+
+
+def visible_devices(device_type: str | None = None) -> list[torch.device]:
+    """The rank devices a mesh on ``device_type`` may use (``None``: cuda
+    when a card is visible, else cpu): ``PJ_MESH_DEVICES`` when it lists
+    devices of that type, else every card on cuda and one rank on cpu."""
+    device_type = _resolve_type(device_type)
+    listed = _listed_devices(device_type)
+    if listed:
         return listed
     if device_type == "cuda":
         return [torch.device("cuda", i)
@@ -112,8 +132,13 @@ def visible_devices(device_type: str | None = None) -> list[torch.device]:
     return [torch.device(device_type)]
 
 
-def _timeout_s() -> float:
-    return float(os.environ.get(MESH_TIMEOUT_ENV, DEFAULT_TIMEOUT_S))
+def default_devices(device_type: str | None = None) -> list[torch.device]:
+    """The ranks of ``mesh_shape=None``: the devices ``PJ_MESH_DEVICES``
+    lists, else one rank (the first of :func:`visible_devices`). A host's
+    cards are not all taken by default, as the JAX package takes every
+    device: the multi-card mesh runs only where a caller asks for it."""
+    device_type = _resolve_type(device_type)
+    return _listed_devices(device_type) or visible_devices(device_type)[:1]
 
 
 def _device_type(device) -> str | None:
@@ -246,7 +271,7 @@ class Mesh:
         """This rank's process groups, built in a fixed order (every
         member builds its groups at the start of a run, so no build waits
         on a rank that is inside a collective)."""
-        timeout = datetime.timedelta(seconds=_timeout_s())
+        timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
         gen = self._generation
         for key in self.group_keys():
             if (gen, key, rank) in self._pgs:
@@ -270,10 +295,12 @@ class Mesh:
                     hostname="127.0.0.1")]
                 pg = tdist.ProcessGroupGloo(store, me, len(members), opts)
             self._pgs[(gen, key, rank)] = (pg, backend, members)
+        _open_meshes.add(self)
 
     def _reset_groups(self) -> None:
-        """Drop the groups after a failed run: the next run builds fresh
-        ones under a new prefix."""
+        """Drop the groups of a run whose ranks did not all leave (a
+        thread may still be inside one, so they are not shut down): the
+        next run builds fresh ones under a new prefix."""
         with self._lock:
             self._generation += 1
             self._pgs = {}
@@ -281,12 +308,16 @@ class Mesh:
     def close(self) -> None:
         """Shut this mesh's process groups down now (NCCL communicators
         are released here, not by a destructor whenever the mesh is
-        collected); a later run builds fresh groups."""
+        collected), and those of its 1-D view; a later run builds fresh
+        groups."""
         with self._lock:
             pgs, self._pgs = self._pgs, {}
             self._generation += 1
+        _open_meshes.discard(self)
         for pg, _, _ in pgs.values():
             pg.shutdown()
+        if self._sources_mesh is not None:
+            self._sources_mesh.close()
 
     def stream(self, rank: int):
         with self._lock:
@@ -355,7 +386,7 @@ class Mesh:
                        for r in ranks]
             for t in threads:
                 t.start()
-            limit = _timeout_s() + JOIN_GRACE_S
+            limit = DEFAULT_TIMEOUT_S + JOIN_GRACE_S
             deadline = time.monotonic() + limit
             for t in threads:
                 t.join(max(0.0, deadline - time.monotonic()))
@@ -365,7 +396,7 @@ class Mesh:
                 raise TimeoutError(f"{label}: ranks {stuck} still running "
                                    f"after {limit:.0f} s")
         if errors:
-            self._reset_groups()
+            self.close()  # every rank has left its collectives
             root = [e for e in errors.values()
                     if not isinstance(e, MeshAborted)]
             raise (root or list(errors.values()))[0]
@@ -374,6 +405,12 @@ class Mesh:
         for d, s in caller.items():
             _record_stream(out, s)
         return out
+
+
+@atexit.register
+def _close_open_meshes() -> None:
+    for mesh in list(_open_meshes):
+        mesh.close()
 
 
 def _record_stream(obj, stream) -> None:
@@ -562,10 +599,12 @@ def make_mesh(mesh_shape: tuple[int, ...] | None = None,
               axis_name: str = "sources", *, device=None) -> Mesh:
     """1-D mesh over ``axis_name`` (``"sources"`` for the fan-out,
     ``"edges"`` for edge-sharded Bellman-Ford). ``mesh_shape=None`` takes
-    every rank device of ``device``'s type (:func:`visible_devices`);
-    ``(n,)`` the first n."""
-    devices = visible_devices(_device_type(device))
-    if mesh_shape is not None:
+    :func:`default_devices` of ``device``'s type; ``(n,)`` the first n of
+    :func:`visible_devices`."""
+    if mesh_shape is None:
+        devices = default_devices(_device_type(device))
+    else:
+        devices = visible_devices(_device_type(device))
         n = int(np.prod(mesh_shape))
         if n > len(devices):
             raise ValueError(

@@ -276,6 +276,17 @@ class ParallelJohnsonSolver:
         # per-batch wall and retry / OOM counts into it.
         self._metrics = resolve_metrics(self.config.metrics)
 
+    def close(self) -> None:
+        """Release the backend's mesh process groups (``Backend.close``);
+        the solver stays usable. Also on leaving a ``with`` block."""
+        self.backend.close()
+
+    def __enter__(self) -> "ParallelJohnsonSolver":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     def _check_supported(self) -> None:
         device = getattr(self.backend, "device", torch.device("cpu"))
         bad = self.config.unsupported(torch.device(device).type)

@@ -12,21 +12,17 @@ over phase 4's 256 sources with trees), then runs ``chip_smoke.drive_mesh``.
 Prints the card's name and power limit, each step's JSON line and the
 launch counts by path; exits 1 if the phase failed.
 
-``--processes N`` runs only phase 24's multi-process path, with N
-processes: ``python -m torch.distributed.run --nproc_per_node N
-chip_smoke.py --mesh-child DIR`` (a process per card where there are N
-cards, so NCCL; gloo where they share), and holds the rows to a
-single-card solve (``mesh_shape=(1,)``), bitwise.
+``--processes N`` runs only phase 24's multi-process path
+(``chip_smoke.mesh_processes``) with N processes in place of two: a
+process per card where there are N cards, so NCCL; gloo where they
+share. Its rows are held bitwise to a single-card solve.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
-import socket
 import subprocess
 import sys
-import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -35,44 +31,6 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-
-
-def processes(n: int, dev) -> int:
-    """Phase 24's multi-process path with ``n`` processes, against one
-    card's rows; prints each process's line and the verdict."""
-    import numpy as np
-
-    import paralleljohnson_tpu_torch as pjt
-    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
-
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = sk.getsockname()[1]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        p = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-             "--nproc_per_node", str(n), "--master_addr", "127.0.0.1",
-             "--master_port", str(port), str(ROOT / "chip_smoke.py"),
-             "--mesh-child", tmp],
-            capture_output=True, text=True, cwd=str(ROOT), env=env,
-            timeout=chip_smoke.MESH_TIMEOUT_S)
-        wall = time.perf_counter() - t0
-        if p.returncode != 0:
-            print(p.stderr[-4000:], file=sys.stderr)
-            return 1
-        children = chip_smoke.mesh_children(p.stdout)
-        rows = np.load(os.path.join(tmp, "rows.npy"))
-    g = pjt.load_graph(chip_smoke.MESH_CHILD_SPEC)
-    want = to_numpy(chip_smoke.solver_on(dev, mesh_shape=(1,)).solve(
-        g, np.arange(chip_smoke.MESH_CHILD_SOURCES)).dist)
-    equal = bool(np.array_equal(rows, want))
-    chip_smoke.emit({"processes": n, "wall_s": wall, "children": children,
-                     "rows_bitwise_one_card": equal})
-    return 0 if equal and len(children) == n else 1
 
 
 def main() -> int:
@@ -102,7 +60,12 @@ def main() -> int:
     _cuda.build_all()
     chip_smoke.emit({"build_s": time.perf_counter() - t0})
     if args.processes:
-        return processes(args.processes, dev)
+        try:
+            chip_smoke.emit(chip_smoke.mesh_processes(args.processes, dev))
+        except Exception:  # noqa: BLE001 — report and exit non-zero
+            traceback.print_exc()
+            return 1
+        return 0
     t0 = time.perf_counter()
     rmat = pjt.load_graph(chip_smoke.RMAT_SPEC)
     rmat_sources = np.sort(np.random.default_rng(1).choice(

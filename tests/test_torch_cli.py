@@ -296,7 +296,8 @@ def test_cli_mesh_shape(capsys, monkeypatch, tmp_path):
     A mesh larger than the ranks exits 1 in both, and ``--edge-shard
     true`` runs phase 1 edge-sharded on the eight ranks."""
     monkeypatch.setenv("PJ_MESH_DEVICES", "cpu*8")
-    monkeypatch.setenv("PJ_MESH_TIMEOUT_S", "60")
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 60.0)
     out_ref, out = tmp_path / "ref.npz", tmp_path / "port.npz"
     argv = ["solve", "er:n=48,p=0.1,seed=4", "--mesh-shape", "8",
             "--dense-threshold", "0", "--json"]

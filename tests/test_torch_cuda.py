@@ -1175,7 +1175,8 @@ def two_ranks(cuda, monkeypatch):
     """Two mesh ranks sharing the card (gloo, staged through page-locked
     host buffers), every collective bounded by 60 s."""
     monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0*2")
-    monkeypatch.setenv("PJ_MESH_TIMEOUT_S", "60")
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 60.0)
     return cuda
 
 
@@ -1281,7 +1282,8 @@ def test_mesh_nccl_on_distinct_cards(cuda, monkeypatch):
     if n < 2:
         pytest.skip(f"NCCL needs two cards per mesh; {n} visible")
     monkeypatch.delenv("PJ_MESH_DEVICES", raising=False)
-    monkeypatch.setenv("PJ_MESH_TIMEOUT_S", "120")
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 120.0)
     from paralleljohnson_tpu_torch.parallel import make_mesh, sharded_fanout
 
     ranks = min(n, 4)
@@ -1293,9 +1295,8 @@ def test_mesh_nccl_on_distinct_cards(cuda, monkeypatch):
                                      device=cuda).solve(g, sources)
     solver = pjt.ParallelJohnsonSolver(
         pjt.SolverConfig(mesh_shape=(ranks,), edge_shard=True), device=cuda)
-    got = solver.solve(g, sources)
-    solver.backend._mesh().close()
-    solver.backend._edge_mesh().close()
+    with solver:
+        got = solver.solve(g, sources)
     assert got.stats.routes_by_phase == {"bellman_ford": "edge-sharded",
                                          "fanout": "sharded-1d"}
     np.testing.assert_array_equal(johnson.to_numpy(got.dist),

@@ -6,7 +6,7 @@ the reference on its harness's eight simulated devices, the port on eight
 CPU ranks (``PJ_MESH_DEVICES=cpu*8``), one MIN all-reduce per sweep over
 each "edges" group. Rows are bitwise equal on integer weights, the flags
 and sweep counts equal, predecessor trees pass ``validate_pred_tree``.
-Every collective is bounded by ``PJ_MESH_TIMEOUT_S`` = 30 s."""
+Every collective is bounded by ``parallel.mesh.DEFAULT_TIMEOUT_S`` = 30 s."""
 
 import jax
 import jax.numpy as jnp
@@ -48,7 +48,8 @@ pytestmark = pytest.mark.skipif(
 @pytest.fixture(autouse=True)
 def _eight_cpu_ranks(monkeypatch):
     monkeypatch.setenv("PJ_MESH_DEVICES", "cpu*8")
-    monkeypatch.setenv("PJ_MESH_TIMEOUT_S", "30")
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 30.0)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

@@ -14,8 +14,8 @@ cases and the multichip dry run, against the JAX package, on the CPU.
 - the checks of ``__graft_entry__._dryrun_multichip_impl`` on 8 CPU ranks.
 
 Mesh tests run on eight CPU ranks (``PJ_MESH_DEVICES=cpu*8``) with every
-collective bounded by ``PJ_MESH_TIMEOUT_S`` = 30 s; the child processes
-by 120 s."""
+collective bounded by ``parallel.mesh.DEFAULT_TIMEOUT_S`` = 30 s; the
+child processes by 120 s."""
 
 import hashlib
 import os
@@ -71,7 +71,8 @@ needs_eight = pytest.mark.skipif(
 @pytest.fixture(autouse=True)
 def _eight_cpu_ranks(monkeypatch):
     monkeypatch.setenv("PJ_MESH_DEVICES", "cpu*8")
-    monkeypatch.setenv("PJ_MESH_TIMEOUT_S", "30")
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 30.0)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

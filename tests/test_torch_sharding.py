@@ -8,7 +8,7 @@ runs through both packages on the same graph and sources: rows bitwise
 equal on integer weights (else within rtol 1e-5, the reference test's
 tolerance against the oracle), the same flags, and the same exact
 row-sweep accounting. Every collective is bounded by
-``PJ_MESH_TIMEOUT_S`` = 30 s, every rank thread by 30 s more."""
+``parallel.mesh.DEFAULT_TIMEOUT_S`` = 30 s, every rank thread by 30 s more."""
 
 import jax
 import jax.numpy as jnp
@@ -28,9 +28,11 @@ import paralleljohnson_tpu_torch as pjt
 from paralleljohnson_tpu_torch import interop
 from paralleljohnson_tpu_torch.parallel import (
     make_mesh,
+    make_mesh_2d,
     multihost,
     sharded_fanout,
 )
+from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
 from paralleljohnson_tpu_torch.parallel.mesh import visible_devices
 
 from conftest import oracle_apsp
@@ -43,7 +45,8 @@ pytestmark = pytest.mark.skipif(
 @pytest.fixture(autouse=True)
 def _eight_cpu_ranks(monkeypatch):
     monkeypatch.setenv("PJ_MESH_DEVICES", "cpu*8")
-    monkeypatch.setenv("PJ_MESH_TIMEOUT_S", "30")
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 30.0)
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -94,6 +97,43 @@ def test_make_mesh_shapes(monkeypatch):
     monkeypatch.delenv("PJ_MESH_DEVICES")
     with pytest.raises(ValueError, match="needs 4 devices; only 1"):
         make_mesh((4,))
+
+
+def test_default_mesh_is_one_card(monkeypatch):
+    """On a host with several cards ``mesh_shape=None`` is one rank (the
+    cards join a mesh only when a shape or the rank list asks, where the
+    reference takes every device); an explicit shape takes the first
+    cards. No card is touched: a mesh names its devices until it runs."""
+    monkeypatch.delenv("PJ_MESH_DEVICES")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cards = tuple(torch.device("cuda", i) for i in range(4))
+    assert make_mesh(device="cuda").devices == cards[:1]
+    assert make_mesh((4,), device="cuda").devices == cards
+    assert make_mesh_2d((2, 2), device="cuda").devices == cards
+    with pytest.raises(ValueError, match="needs 5 devices; only 4"):
+        make_mesh((5,), device="cuda")
+    monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0*3")
+    assert make_mesh(device="cuda").devices == (cards[0],) * 3
+
+
+def test_solver_close_shuts_the_mesh_groups():
+    """A sharded solve keeps its process groups for the next solve;
+    ``close()``, and leaving a ``with`` block, shut them down (and take
+    the mesh off the list closed at exit); a later solve builds fresh
+    groups and gives the same rows."""
+    g = _port(_int(erdos_renyi(48, 0.1, seed=46)))
+    cfg = pjt.SolverConfig(mesh_shape=(8,), dense_threshold=0)
+    with pjt.ParallelJohnsonSolver(cfg, device="cpu") as solver:
+        first = solver.solve(g, np.arange(16))
+        mesh = solver.backend._mesh()
+        assert mesh._pgs and mesh in mesh_mod._open_meshes
+    assert first.stats.routes_by_phase["fanout"] == "sharded-1d"
+    assert not mesh._pgs and mesh not in mesh_mod._open_meshes
+    again = solver.solve(g, np.arange(16))
+    assert mesh._pgs
+    solver.close()
+    assert not mesh._pgs
+    _rows_equal(again.matrix, first.matrix, True)
 
 
 @pytest.mark.parametrize("integer", [False, True])
