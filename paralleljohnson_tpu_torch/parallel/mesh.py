@@ -134,9 +134,9 @@ def visible_devices(device_type: str | None = None) -> list[torch.device]:
 
 def default_devices(device_type: str | None = None) -> list[torch.device]:
     """The ranks of ``mesh_shape=None``: the devices ``PJ_MESH_DEVICES``
-    lists, else one rank (the first of :func:`visible_devices`). A host's
-    cards are not all taken by default, as the JAX package takes every
-    device: the multi-card mesh runs only where a caller asks for it."""
+    lists, else one rank (the first of :func:`visible_devices`). Unlike
+    the JAX package, which takes every device, a host's cards join a mesh
+    only where a caller asks for them."""
     device_type = _resolve_type(device_type)
     return _listed_devices(device_type) or visible_devices(device_type)[:1]
 
@@ -220,6 +220,10 @@ class Mesh:
         return keys
 
     def backends(self) -> list[str]:
+        """The process-group backends the mesh's collectives use (none
+        on one rank)."""
+        if self.size == 1:
+            return []
         if self.multiprocess:
             return [tdist.get_backend()] if tdist.is_initialized() else []
         return sorted({_group_backend([self.devices[m] for m in
@@ -249,7 +253,7 @@ class Mesh:
                            "page-locked host buffers")
             else:
                 why.append("gloo: CPU ranks")
-        return f"{head} on {on} ({'; '.join(why)})"
+        return f"{head} on {on}" + (f" ({'; '.join(why)})" if why else "")
 
     def as_sources_mesh(self) -> "Mesh":
         """A 1-D ``"sources"`` mesh over the same ranks (what the

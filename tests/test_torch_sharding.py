@@ -107,7 +107,9 @@ def test_default_mesh_is_one_card(monkeypatch):
     monkeypatch.delenv("PJ_MESH_DEVICES")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     cards = tuple(torch.device("cuda", i) for i in range(4))
-    assert make_mesh(device="cuda").devices == cards[:1]
+    one = make_mesh(device="cuda")
+    assert one.devices == cards[:1] and one.backends() == []
+    assert one.describe() == "1-rank sources mesh on cuda:0 x1"
     assert make_mesh((4,), device="cuda").devices == cards
     assert make_mesh_2d((2, 2), device="cuda").devices == cards
     with pytest.raises(ValueError, match="needs 5 devices; only 4"):
