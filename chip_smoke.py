@@ -140,7 +140,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      while the store prices it cheaper than the dirty window).
  18. the bench harness (``drive_bench``): ``benchmarks.run`` over the
      port's configs at the full preset on the card (all but the three
-     phases 21-22 drive themselves: fourteen), with the
+     phases 21-22 drive themselves: fourteen; ``rmat_apsp`` and
+     ``rmat_apsp_pipelined`` at the mini preset, R-MAT-12, since phases 3
+     and 9 drive R-MAT-20), with the
      flight recorder and a fresh profile store under
      ``chiprun_out/chip_smoke_bench/`` (the full rows in its
      ``rows.jsonl``), one line per config (wall, edges/s, route,
@@ -233,10 +235,30 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      rows bitwise the single-card solve. Each route, the group backend,
      the rank devices and the phase's seconds are printed; a route that
      ends in ``+1dev-fallback`` fails.
+ 25. ``precision="f64"`` on the card (``drive_f64``), on phases 2-5's
+     graphs: each kernel's f64 version against its plain f64 version
+     (``torch.equal``, the same flags): the sweep on R-MAT-20 at B = 128
+     and 512 and on the hub graph at B = 1, 5, 128, 200, 512, the
+     min-plus product at phase 2's shapes, ``tight_pred`` on R-MAT-20's
+     converged f64 fan-out (flags [0, 0]), the Kleene closure at t =
+     128-512 (one cluster launch) and 1024 (the step variant), with and
+     without a negative diagonal; every f64 instantiation's ptxas
+     registers (phase 1: no spill, no stack frame) and resident blocks;
+     the f64 kernels' times beside their plain versions and bounds (8
+     bytes a value, FP64 instructions at 17e12/s); then, each path
+     counted from 0, ``solve()`` at f64 on R-MAT-20 over phase 3's 512
+     sources (``pallas-vm``) and the grid over phase 4's 256
+     (``frontier``, ``pallas-vm``), 2 rows each against scipy in f64
+     (rtol 1e-12; 1e-9 through the grid's potentials), ER-1024 on
+     ``fw-tile`` and ``dense-squaring-pallas`` against scipy, the grid
+     with trees over 64 sources (``pallas-vm+pred``, validated), and
+     ``cli.main(["solve", ER_SPEC, "--precision", "f64", ...])`` in
+     process, bitwise the ``fw-tile`` solve. Its launches are the
+     ``_f64`` rows of the ``kernels`` line, not the f32 rows'.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-22 and 24 on its own (a
+phases 3-5 together, then each path of phases 9-22, 24 and 25 on its own (a
 worker subprocess's launches are not seen: phase 19 counts the
 in-process fleet; phase 24's paths are summed under ``mesh``, its two
 processes print their own), and phase 23's solves each in a process of
@@ -266,6 +288,10 @@ import time
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_F32_INSTR_S = PEAK_F32_OPS_S / 2
+# FP64 outside the tensor cores (phase 25's f64 kernels): 34 TFLOP/s with
+# an FMA counted as two, so an add or a min issues at 17e12/s.
+PEAK_F64_OPS_S = 34e12
+PEAK_F64_INSTR_S = PEAK_F64_OPS_S / 2
 
 RMAT_SPEC = "rmat:scale=20,ef=16,seed=0"
 GRID_SPEC = "grid:rows=512,cols=512,neg=0.2,seed=0"
@@ -312,6 +338,10 @@ DW_RMAT_SOURCES = 64
 # and the configs the C++/OpenMP backend runs as the CPU baseline.
 BENCH_DIR = "chiprun_out/chip_smoke_bench"
 BENCH_PRESET = "full"
+# Run at the mini preset (R-MAT-12): their full size is R-MAT-20, which
+# phases 3 and 9 already drive through the same routes, and its two
+# generations and checkpointed solves cost ~60-80 s of the time limit.
+BENCH_MINI_CONFIGS = ("rmat_apsp", "rmat_apsp_pipelined")
 BENCH_CPP_CONFIGS = ("er1k_apsp", "ego_fb_nsource")
 # Phase 19: the fleet on the card, over GRID_SPEC's first FLEET_SOURCES
 # sources in leases of FLEET_LEASE (the batch pinned to the lease: several
@@ -379,16 +409,21 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(bytes_moved: float, instructions: float) -> tuple[float, str]:
+def bound(bytes_moved: float, instructions: float, *,
+          instr_s: float = PEAK_F32_INSTR_S) -> tuple[float, str]:
+    """(ms, what bounds it): the larger of the bytes over the HBM rate
+    and the instructions over ``instr_s`` (FP32 unless given)."""
     t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
-    t_ops = instructions / PEAK_F32_INSTR_S * 1e3
+    t_ops = instructions / instr_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def minplus_bound(i: int, k: int, j: int) -> tuple[float, str]:
+def minplus_bound(i: int, k: int, j: int, *, itemsize: int = 4,
+                  instr_s: float = PEAK_F32_INSTR_S) -> tuple[float, str]:
     """The bound of an [i, k] x [k, j] min-plus product: both operands
     read and the result written once; an add and a min per candidate."""
-    return bound(4 * (i * k + k * j + i * j), 2 * i * k * j)
+    return bound(itemsize * (i * k + k * j + i * j), 2 * i * k * j,
+                 instr_s=instr_s)
 
 
 def max_abs_err(got, want) -> float:
@@ -498,17 +533,20 @@ def ptxas_functions(log: str) -> list[dict]:
 
 def tight_pred_templates(log: str) -> dict:
     """``tight_pred``'s items kernels by template (``NV{nv}_{vec|scalar}
-    _U{u}``) and its combine kernels (``combine_{vec|scalar}``): registers
-    and spill bytes, from the build log."""
+    _U{u}``) and its combine kernels (``combine_{vec|scalar}``), the f64
+    ones prefixed ``f64_``: registers and spill bytes, from the build
+    log."""
     out = {}
     for f in ptxas_functions(log):
-        m = re.search(r"pred_itemsILi(\d+)ELb([01])ELi(\d+)E", f["function"])
-        c = re.search(r"combine_split_rowsILb([01])E", f["function"])
+        m = re.search(r"pred_itemsI([fd])Li(\d+)ELb([01])ELi(\d+)E",
+                      f["function"])
+        c = re.search(r"combine_split_rowsI([fd])Lb([01])E", f["function"])
         if m:
-            name = (f"NV{m.group(1)}_{'vec' if m.group(2) == '1' else 'scalar'}"
-                    f"_U{m.group(3)}")
+            name = (f"{'f64_' if m.group(1) == 'd' else ''}NV{m.group(2)}_"
+                    f"{'vec' if m.group(3) == '1' else 'scalar'}_U{m.group(4)}")
         elif c:
-            name = f"combine_{'vec' if c.group(1) == '1' else 'scalar'}"
+            name = (f"{'f64_' if c.group(1) == 'd' else ''}combine_"
+                    f"{'vec' if c.group(2) == '1' else 'scalar'}")
         else:
             continue
         out[name] = {k: f.get(k) for k in ("registers", "spill_stores",
@@ -1844,7 +1882,8 @@ def drive_repair(dev) -> dict:
 
 def drive_bench(dev) -> dict:
     """Phase 18: ``benchmarks.run`` over every config of the port's
-    ``CONFIGS`` at the full preset on ``dev``, with the flight recorder
+    ``CONFIGS`` at the full preset on ``dev`` (``BENCH_MINI_CONFIGS`` at
+    mini), with the flight recorder
     (``<BENCH_DIR>/trace``) and a fresh profile store
     (``<BENCH_DIR>/profiles``), counted as one path (``bench``) that must
     launch all four kernels. Fails on a row with ``failed`` (the
@@ -1887,10 +1926,19 @@ def drive_bench(dev) -> dict:
 
     sampler = threading.Thread(target=sample_heartbeat, daemon=True)
     sampler.start()
+    def run_all():
+        kw = dict(backend="torch", device=dev, telemetry_dir=str(trace_dir),
+                  profile_dir=str(profile_dir))
+        return (benchmarks.run([n for n in names
+                                if n not in BENCH_MINI_CONFIGS],
+                               preset=BENCH_PRESET, **kw)
+                + benchmarks.run([n for n in names
+                                  if n in BENCH_MINI_CONFIGS],
+                                 preset="mini", **kw))
+
     try:
-        records, secs = counted("bench", lambda: benchmarks.run(
-            names, backend="torch", preset=BENCH_PRESET, device=dev,
-            telemetry_dir=str(trace_dir), profile_dir=str(profile_dir)),
+        records, secs = counted(
+            "bench", run_all,
             needs=("fanout_sweep", "minplus", "tight_pred", "fw_kleene"))
     finally:
         stop.set()
@@ -2807,6 +2855,367 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     return {"mesh": total}
 
 
+def f64_templates(logs: dict) -> dict:
+    """Registers and spill bytes of every f64 instantiation of the four
+    kernel sources (template argument ``double``: ``...Id...`` in the
+    mangled name), by source and kernel, from the build logs."""
+    out = {}
+    for name, log in logs.items():
+        for f in ptxas_functions(log):
+            m = re.search(r"([A-Za-z_]+?)Id([LE].*?)EE", f["function"])
+            if m:
+                out.setdefault(name, {})[m.group(1) + m.group(2)] = {
+                    k: f.get(k) for k in ("registers", "stack_frame",
+                                          "spill_stores", "spill_loads")}
+    return out
+
+
+def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
+              build_logs) -> tuple[dict, dict]:
+    """Phase 25: ``precision="f64"`` on the card, on phases 2-5's graphs
+    (no new generation). Each f64 kernel against its plain f64 version
+    (``torch.equal``, the same flags) at phase 2's shapes; the f64
+    kernels' times and bounds; then, each path counted from 0: R-MAT-20
+    over phase 3's 512 sources (``pallas-vm``) and the grid over phase
+    4's 256 (``frontier``, ``pallas-vm``), 2 rows each against scipy in
+    f64; ER-1024 on ``fw-tile`` and ``dense-squaring-pallas`` against
+    scipy; the grid with trees over 64 sources (``pallas-vm+pred``,
+    validated); ``cli.main([... "--precision", "f64"])`` in process.
+    Returns (launches by path, the f64 kernels' rows for the
+    ``kernels`` line)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import scipy.sparse.csgraph as csgraph
+    import torch
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch import cli
+    from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
+    from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
+    from paralleljohnson_tpu_torch.ops import fw
+    from paralleljohnson_tpu_torch.ops import minplus as mp_mod
+    from paralleljohnson_tpu_torch.ops import pred as pred_mod
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+    from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
+    from test_torch_cuda import fw_tile_matrix
+
+    f64 = torch.float64
+    t_phase = time.perf_counter()
+    launches: dict = {}
+    counted = counter(launches)
+    templates = f64_templates(build_logs)
+    bad = {k: t for fns in templates.values() for k, t in fns.items()
+           if t.get("stack_frame") or t.get("spill_stores")
+           or t.get("spill_loads")}
+    if bad or set(templates) != {"fanout_sweep", "minplus", "fw_kleene",
+                                 "tight_pred"}:
+        raise AssertionError(f"f64 instantiations: spills {bad}, built "
+                             f"{sorted(templates)}")
+    occ = {"sweep": {f"B{b}": fs.occupancy(b, dtype=f64)
+                     for b in (64, 128, 256, 512)},
+           "minplus": {f"rows{r}": mp_mod.occupancy(r, f64)
+                       for r in mp_mod.RESIDENT_F64},
+           "tight_pred": {f"B{b}": pred_mod.occupancy(b, dtype=f64)
+                          for b in (64, 128, 512)}}
+    low = [r for r, n in zip(mp_mod.RESIDENT_F64, occ["minplus"].values())
+           if n < mp_mod.RESIDENT_F64[r]]
+    if low or any(o["blocks_per_sm"] < 2 for o in occ["sweep"].values()):
+        raise AssertionError(f"f64 occupancy below the plans': {occ}")
+    emit({"phase": "f64_build", "occupancy": occ})
+
+    # 25a: each f64 kernel against its plain f64 version.
+    def upload64(g):
+        dg = TorchBackend(pjt.SolverConfig(precision="f64"),
+                          device=dev).upload(g)
+        return dg.by_dst(), dg.work_items(), dg
+
+    def sweep_equal(d, lay, itm, label):
+        want, imp = fs.fanout_sweep_plain(d, *lay)
+        got, flag = fs.fanout_sweep(d, *lay, items=itm)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or bool(flag.item()) != bool(imp):
+            raise AssertionError(f"f64 fanout_sweep disagrees on {label}")
+        return max_abs_err(got, want), want
+
+    checks = {"fanout_sweep": [], "minplus": [], "tight_pred": [],
+              "fw_kleene": []}
+    errs = {k: [] for k in checks}
+    lay, itm, dg = upload64(rmat)
+    if lay[2].dtype != f64:
+        raise AssertionError(f"f64 layout weights are {lay[2].dtype}")
+    v, e = rmat.num_nodes, rmat.num_real_edges
+    coo = (dg.src[:e], dg.dst[:e], dg.weights[:e])
+    rng = np.random.default_rng(25)
+    states = {}
+    for b in (128, 512):
+        src = torch.as_tensor(rng.choice(v, b, replace=False)).to(dev)
+        d = torch.full((v, b), float("inf"), dtype=f64, device=dev)
+        d[src, torch.arange(b, device=dev)] = 0.0
+        for _ in range(3):
+            d, _ = fs.fanout_sweep_plain(d, *lay)
+        err, _ = sweep_equal(d, lay, itm, f"R-MAT-20 B={b}")
+        errs["fanout_sweep"].append(err)
+        checks["fanout_sweep"].append({"graph": "rmat20", "B": b,
+                                       "equal": True})
+        conv, sweeps, _ = fs.fanout_fixpoint(d, *lay, max_iter=v, items=itm)
+        got, flags = pred_mod.tight_pred_pass(conv, *lay, items=itm,
+                                              sources=src)
+        dt = conv.t().contiguous()
+        plain = pred_mod.tight_pred_pass_plain(dt, *coo)
+        want, want_flags = pred_mod.tree_flags_plain(plain, dt, src)
+        bare = pred_mod.tight_pred_pass(conv, *lay, items=itm)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.t(), want) and torch.equal(bare.t(), plain)
+                and flags.tolist() == want_flags.tolist() == [0, 0]):
+            raise AssertionError(f"f64 tight_pred disagrees on R-MAT-20 "
+                                 f"B={b}: flags {flags.tolist()}, plain "
+                                 f"{want_flags.tolist()}")
+        errs["tight_pred"].append(
+            float((got.t().long() - want.long()).abs().max()))
+        checks["tight_pred"].append({"graph": "rmat20", "B": b,
+                                     "equal": True, "flags": flags.tolist(),
+                                     "sweeps_to_fixpoint": sweeps})
+        states[b] = (d, conv, src)
+        del dt, plain, want, bare, got
+    hub_lay, hub_itm, _ = upload64(hub)
+    for b in (1, 5, 128, 200, 512):
+        src = torch.as_tensor(rng.integers(0, hub.num_nodes, b)).to(dev)
+        d = torch.full((hub.num_nodes, b), float("inf"), dtype=f64,
+                       device=dev)
+        d[src, torch.arange(b, device=dev)] = 0.0
+        for _ in range(3):
+            d, _ = fs.fanout_sweep_plain(d, *hub_lay)
+        err, _ = sweep_equal(d, hub_lay, hub_itm, f"the hub graph B={b}")
+        errs["fanout_sweep"].append(err)
+        checks["fanout_sweep"].append({"graph": "hub", "B": b,
+                                       "equal": True})
+    mp_cases = [(i, 1024, 1024, "") for i in (1, 16, 100, 128, 511, 1024)]
+    mp_cases += [(1000, 777, 513, ""), (300, 400, 200, "inf_rows"),
+                 (1024, 1024, 1024, "negative"), (300, 300, 300, "d_is_a")]
+    for (i, k, j, case) in mp_cases:
+        g_rng = np.random.default_rng(i + k + j + len(case))
+        dm = torch.as_tensor(g_rng.random((i, k)) * 10)
+        am = torch.as_tensor(g_rng.random((k, j)) * 10)
+        dm[torch.as_tensor(g_rng.random((i, k)) < 0.3)] = float("inf")
+        am[torch.as_tensor(g_rng.random((k, j)) < 0.3)] = float("inf")
+        if case == "inf_rows":
+            dm[::3] = float("inf")
+        if case == "negative":
+            dm[torch.as_tensor(g_rng.random((i, k)) < 0.3) & dm.isfinite()] *= -1
+        dm, am = dm.to(dev), am.to(dev)
+        if case == "d_is_a":
+            dm.fill_diagonal_(0.0)
+            am = dm
+        got, want = mp_mod.minplus_kernel(dm, am), mp_mod.minplus_plain(dm, am)
+        torch.cuda.synchronize()
+        p = mp_mod.minplus_plan(i, k, j, 8)
+        if got.dtype != f64 or not torch.equal(got, want):
+            raise AssertionError(f"f64 minplus disagrees at {(i, k, j, case)}")
+        errs["minplus"].append(max_abs_err(got, want))
+        checks["minplus"].append({"shape": [i, k, j], "case": case,
+                                  "tile_rows": p.rows, "splits": p.splits,
+                                  "equal": True})
+    for t in (128, 256, 384, 512, KLEENE_STEP_T):
+        for neg in (False, True):
+            m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=neg)
+                                ).double()
+            m[torch.isfinite(m)] += 1e-9  # values f32 cannot hold
+            m = m.to(dev)
+            got, want = fw.fw_kleene(m), fw.tile_kleene(m)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"f64 fw_kleene disagrees at t={t}")
+            errs["fw_kleene"].append(max_abs_err(got, want))
+            checks["fw_kleene"].append({
+                "t": t, "variant": fw.kleene_plan(t, 8).variant,
+                "negative_diagonal": neg, "equal": True})
+    plan512 = fw.kleene_plan(fw.DEFAULT_FW_TILE, 8)
+    clusters = fw.cluster_occupancy(plan512, torch.cuda.current_device())
+    if clusters < 1:
+        raise AssertionError(f"the card holds no f64 Kleene cluster: {plan512}")
+    emit({"phase": "f64_kernel_vs_plain", "checks": checks,
+          "max_abs_err": {k: max(x) for k, x in errs.items()},
+          "kleene_plan_512": plan512._asdict(), "clusters_on_card": clusters})
+
+    # 25b: the f64 kernels' times at the main path's shapes, beside their
+    # plain versions and bounds (bytes at 8 bytes a value; operations on
+    # the FP64 pipes, PEAK_F64_INSTR_S).
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    timings = {}
+    for b, (d, conv, src) in states.items():
+        out = torch.empty_like(d)
+        flags = torch.zeros(64 * fs.FLAG_STRIDE, dtype=torch.int32,
+                            device=dev)
+        words = iter(range(0, flags.numel(), fs.FLAG_STRIDE))
+        scratch = torch.empty((itm.n_split, b), dtype=f64, device=dev)
+
+        def sweep():
+            j = next(words)
+            fs.fanout_sweep(d, *lay, items=itm, out=out,
+                            improved=flags[j:j + 1], prev=one,
+                            scratch=scratch)
+
+        bms, by = bound(8 * 2 * v * b + 4 * (v + 1) + 12 * e, 2 * e * b,
+                        instr_s=PEAK_F64_INSTR_S)
+        timings[f"fanout_sweep_B{b}"] = {
+            "ms": event_ms(sweep, reps=10),
+            "plain_ms": event_ms(lambda: fs.fanout_sweep_plain(d, *lay),
+                                 reps=1),
+            "bound_ms": bms, "bound_by": by,
+            "gather_depth": fs.occupancy(b, dtype=f64)["gather_depth"]}
+        dt = conv.t().contiguous()
+        bms, by = bound(8 * v * b + 4 * v * b + 4 * (v + 1) + 12 * e
+                        + 24 * itm.n_split * b, 4 * e * b,
+                        instr_s=PEAK_F64_INSTR_S)
+        timings[f"tight_pred_B{b}"] = {
+            "ms": event_ms(lambda: pred_mod.tight_pred_pass(
+                conv, *lay, items=itm, sources=src), reps=5),
+            "plain_ms": event_ms(lambda: pred_mod.tree_flags_plain(
+                pred_mod.tight_pred_pass_plain(dt, *coo), dt, src),
+                reps=1, warmup=0),
+            "bound_ms": bms, "bound_by": by,
+            "occupancy": pred_mod.occupancy(b, dtype=f64)}
+        del out, scratch, dt
+    for (i, k, j) in MINPLUS_SHAPES[:4]:
+        g_rng = np.random.default_rng(7)
+        dm = torch.as_tensor(g_rng.random((i, k))).to(dev)
+        am = torch.as_tensor(g_rng.random((k, j))).to(dev)
+        bms, by = minplus_bound(i, k, j, itemsize=8,
+                                instr_s=PEAK_F64_INSTR_S)
+        p = mp_mod.minplus_plan(i, k, j, 8)
+        card = graph_ms(lambda: mp_mod.minplus_kernel(dm, am), reps=20)
+        timings[f"minplus_{i}x{k}x{j}"] = {
+            "ms": event_ms(lambda: mp_mod.minplus_kernel(dm, am), reps=20),
+            "card_ms": card,
+            "plain_ms": event_ms(lambda: mp_mod.minplus_plain(dm, am),
+                                 reps=2),
+            "bound_ms": bms, "bound_by": by, "card_share_of_bound": bms / card,
+            "tile_rows": p.rows, "splits": p.splits}
+        del dm, am
+    for t in (fw.DEFAULT_FW_TILE, KLEENE_STEP_T):
+        plan = fw.kleene_plan(t, 8)
+        m = torch.as_tensor(fw_tile_matrix(t, t)).double().to(dev)
+        dst = torch.empty_like(m)
+        scratch = (torch.empty((2, t, t), dtype=f64, device=dev)
+                   if plan.variant == "step" else None)
+        kleene = lambda: fw.fw_kleene(m, out=dst, scratch=scratch)
+        bms, by = bound(16 * t * t, 2 * t ** 3, instr_s=PEAK_F64_INSTR_S)
+        timings[f"fw_kleene_{plan.variant}_t{t}"] = {
+            "ms": event_ms(kleene, reps=10), "card_ms": graph_ms(kleene,
+                                                                 reps=3),
+            "plain_ms": event_ms(lambda: fw.tile_kleene(m), reps=1),
+            "bound_ms": bms, "bound_by": by}
+        del m, dst, scratch
+    emit({"phase": "f64_timing", "device": smi, "timings": timings})
+    del states, lay, itm, dg, coo, hub_lay, hub_itm
+    torch.cuda.empty_cache()
+
+    # 25c: the solves at f64, each path counted from 0.
+    paths = {}
+
+    def solve64(path, g, sources, needs, route, predecessors=False, **kw):
+        res, secs = counted(path, lambda: solver_on(
+            dev, precision="f64", **kw).solve(g, sources,
+                                              predecessors=predecessors),
+            needs=needs)
+        got = res.stats.routes_by_phase["fanout"]
+        if got != route or "float64" not in str(res.dist.dtype):
+            raise AssertionError(f"{path}: route {got}, {res.dist.dtype}")
+        paths[path] = {"seconds": secs, "route": got,
+                       "iterations": dict(res.stats.iterations_by_phase),
+                       "phase_seconds": dict(res.stats.phase_seconds),
+                       "launches": launches[path]}
+        return res
+
+    res = solve64("f64_rmat20", rmat, rmat_sources, ("fanout_sweep",),
+                  "pallas-vm")
+    rows = to_numpy(res.dist)
+    check = [0, len(rmat_sources) - 1]
+    oracle = csgraph.dijkstra(rmat.to_scipy().astype(np.float64),
+                              directed=True, indices=rmat_sources[check])
+    np.testing.assert_array_equal(np.isinf(rows[check]), np.isinf(oracle))
+    np.testing.assert_allclose(rows[check], oracle, rtol=1e-12)
+    paths["f64_rmat20"]["rows_bitwise_scipy"] = bool(
+        np.array_equal(rows[check], oracle))
+    del res, rows
+
+    res = solve64("f64_grid512", grid, gsrc, ("fanout_sweep",), "pallas-vm")
+    if res.stats.routes_by_phase.get("bellman_ford") != "frontier":
+        raise AssertionError(f"f64 grid phase 1: {res.stats.routes_by_phase}")
+    h = to_numpy(res.potentials)
+    w = grid.weights.astype(np.float64)
+    slack = w + h[grid.src] - h[grid.indices]
+    if not slack.min() >= -1e-9 * max(1.0, np.abs(h).max()):
+        raise AssertionError(f"f64 potentials infeasible: {slack.min()}")
+    rows = to_numpy(res.dist)
+    check = [0, len(gsrc) - 1]
+    d_rew = csgraph.dijkstra(grid.with_weights(np.maximum(slack, 0.0))
+                             .to_scipy(), directed=True, indices=gsrc[check])
+    oracle = d_rew - h[gsrc[check]][:, None] + h[None, :]
+    np.testing.assert_array_equal(np.isinf(rows[check]), np.isinf(oracle))
+    np.testing.assert_allclose(rows[check], oracle, rtol=1e-9, atol=1e-9)
+    paths["f64_grid512"]["min_slack"] = float(slack.min())
+    del res, rows
+
+    er_oracle = csgraph.dijkstra(er.to_scipy().astype(np.float64),
+                                 directed=True)
+    res = solve64("f64_er1024_fw", er, None, ("fw_kleene", "minplus"),
+                  "fw-tile")
+    np.testing.assert_allclose(res.matrix, er_oracle, rtol=1e-12)
+    er_fw = res.matrix
+    res = solve64("f64_er1024_squaring", er, None, ("minplus",),
+                  "dense-squaring-pallas", fw=False)
+    np.testing.assert_allclose(res.matrix, er_oracle, rtol=1e-12)
+    paths["f64_er1024_squaring"]["bitwise_fw"] = bool(
+        np.array_equal(res.matrix, er_fw))
+
+    psrc = gsrc[:64]
+    res = solve64("f64_grid512_pred", grid, psrc,
+                  ("fanout_sweep", "tight_pred"), "pallas-vm+pred",
+                  predecessors=True)
+    validate_pred_tree(grid, to_numpy(res.dist)[:4],
+                       to_numpy(res.predecessors)[:4], psrc[:4])
+    del res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "er64.npz")
+        buf = io.StringIO()
+
+        def run_cli():
+            with contextlib.redirect_stdout(buf):
+                return cli.main(["solve", ER_SPEC, "--precision", "f64",
+                                 "--output", out_path, "--json"])
+
+        rc, secs = counted("f64_cli_er1024", run_cli,
+                           needs=("fw_kleene", "minplus"))
+        payload = json.loads(buf.getvalue().strip().splitlines()[-1])
+        with np.load(out_path) as z:
+            cli_rows = z["dist"]
+        if rc != 0 or payload["routes_by_phase"]["fanout"] != "fw-tile" \
+                or cli_rows.dtype != np.float64 \
+                or not np.array_equal(cli_rows, er_fw):
+            raise AssertionError(f"cli --precision f64: rc {rc}, "
+                                 f"{payload.get('routes_by_phase')}, "
+                                 f"{cli_rows.dtype}")
+        paths["f64_cli_er1024"] = {"seconds": secs, "rc": rc,
+                                   "route": "fw-tile", "bitwise_solve": True,
+                                   "launches": launches["f64_cli_er1024"]}
+    emit({"phase": "f64_solves", "paths": paths,
+          "seconds": time.perf_counter() - t_phase})
+    rows = {}
+    for name, key in (("fanout_sweep", "fanout_sweep_B512"),
+                      ("minplus", "minplus_{}x{}x{}".format(
+                          *MINPLUS_SHAPES[3])),
+                      ("tight_pred", "tight_pred_B512"),
+                      ("fw_kleene", f"fw_kleene_cluster_t{fw.DEFAULT_FW_TILE}")):
+        rows[name] = dict(timings[key], max_abs_err=max(errs[name]),
+                          timed=key)
+    return launches, rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2862,6 +3271,7 @@ def main() -> int:
     pred_templates = tight_pred_templates(logs["tight_pred"])
     pred_occupancy = {f"B{b}": pred_mod.occupancy(b) for b in (128, 256, 512)}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "f64_templates": f64_templates(logs),
           "tight_pred_templates": pred_templates,
           "tight_pred_occupancy": pred_occupancy,
           "sweep_occupancy": occupancy,
@@ -2878,9 +3288,10 @@ def main() -> int:
     # A stack frame is a register array that went to local memory (the
     # Kleene kernel's hazard: an array indexed by the step) even where
     # nothing spills.
-    spills = [ln for lines in ptxas.values() for ln in lines
-              if any(int(n) for n in re.findall(
-                  r"(\d+) bytes (?:stack frame|spill)", ln))]
+    spills = [f"{name}: {f}" for name, log in logs.items()
+              for f in ptxas_functions(log)
+              if f.get("stack_frame") or f.get("spill_stores")
+              or f.get("spill_loads")]
     if spills:
         raise AssertionError(f"ptxas reports stack frames or spills: {spills}")
 
@@ -3452,9 +3863,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path.update(drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid,
                               gsrc, grid_pred_rows))
+    # -- phase 25: precision="f64" on the card ------------------------------
+    torch.cuda.empty_cache()
+    f64_paths, f64_rows = drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc,
+                                    er, hub, logs)
+    names = ("fanout_sweep", "minplus", "tight_pred", "fw_kleene")
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
-                for name in ("fanout_sweep", "minplus", "tight_pred",
-                             "fw_kleene")}
+                for name in names}
+    launches_f64 = {name: sum(p.get(name, 0) for p in f64_paths.values())
+                    for name in names}
+    for name, n in launches_f64.items():
+        if n == 0:
+            raise AssertionError(f"the f64 paths never launched {name}")
 
     t_sw = timings["fanout_sweep_B512"]
     t_mp = timings["minplus_1024x1024x1024"]
@@ -3504,6 +3924,23 @@ def main() -> int:
          "variants": {name: {k: row[k] for k in (
              "t", "ms", "card_ms", "plain_ms", "bound_ms")}
              for name, row in kleene["variants"].items()}},
+    ] + [
+        {"name": f"{name}_f64", "route": "cuda",
+         "source": f"paralleljohnson_tpu_torch/csrc/{name}.cu",
+         "replaces": replaces, "launches": launches_f64[name],
+         "launches_by_path": {k: p.get(name, 0)
+                              for k, p in f64_paths.items()},
+         "max_abs_err": f64_rows[name]["max_abs_err"],
+         "ms": f64_rows[name]["ms"], "card_ms": f64_rows[name].get("card_ms"),
+         "plain_ms": f64_rows[name]["plain_ms"],
+         "bound_ms": f64_rows[name]["bound_ms"],
+         "bound_by": f64_rows[name]["bound_by"], "library_ms": None,
+         "timed": f64_rows[name]["timed"]}
+        for name, replaces in (
+            ("fanout_sweep", "paralleljohnson_tpu/ops/pallas_sweep.py:255"),
+            ("minplus", "paralleljohnson_tpu/ops/pallas_kernels.py:117"),
+            ("tight_pred", "paralleljohnson_tpu/ops/pred.py:69"),
+            ("fw_kleene", "paralleljohnson_tpu/ops/fw.py:100"))
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": count}})

@@ -533,8 +533,10 @@ class TorchBackend(Backend):
             if self._use_dense(dgraph):
                 rows += MAX_SPLITS * v  # the min-plus split-K partials
             else:
-                # The sweep's f32 partial minima; with predecessors,
-                # tight_pred's int64 partial keys after them (two rows).
+                # The sweep's partial minima (one row of the dtype);
+                # with predecessors, tight_pred's partials after them:
+                # int64 keys at f32, f64 du and int32 u at f64 (at most
+                # two rows of the dtype).
                 rows += dgraph.work_items().n_split * (2 if with_pred else 1)
         else:
             budget = CPU_BUDGET_BYTES

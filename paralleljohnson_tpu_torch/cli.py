@@ -20,7 +20,7 @@ Where the port differs from the JAX package: ``--backend`` is ``torch``
 the first ranks ``parallel.mesh.visible_devices`` lists (every card;
 one rank on the CPU unless ``PJ_MESH_DEVICES`` lists more), and without
 it a solve takes one rank, not every device; ``--precision f64``
-on cuda exits 1; ``--profile`` writes a
+runs the hand kernels' f64 versions on the card; ``--profile`` writes a
 ``torch.profiler`` trace; ``--compilation-cache-dir`` is the directory
 the hand kernels are built into; ``bench`` exits 1 when a row carries
 ``failed``; ``--log-stats`` lines carry ``kernel_launches``, each hand
@@ -59,8 +59,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "cpp (the C++/OpenMP baseline)")
     _add_device(p)
     p.add_argument("--precision", default="f32", choices=["f32", "f64"],
-                   help="f64 runs only with --device cpu (the kernels are "
-                        "f32)")
+                   help="value type of the distances: f32 (default) or f64 "
+                        "(the hand kernels' f64 versions on the card)")
     p.add_argument("--batch-size", type=int, default=None,
                    help="sources per device batch")
     p.add_argument("--max-iterations", type=int, default=None)

@@ -32,8 +32,8 @@ class SolverConfig:
       backend: ``"torch"`` (device tensors, hand CUDA kernels on the card,
         their plain PyTorch versions on the CPU), ``"numpy"`` (the scipy
         oracle backend) or ``"cpp"`` (the C++/OpenMP baseline).
-      precision: ``"f32"``; ``"f64"`` runs only on the CPU (the hand
-        kernels are f32).
+      precision: ``"f32"`` or ``"f64"``: the distances' dtype on every
+        route (each hand kernel has an f64 version on the card).
       source_batch_size: sources per fan-out call; ``None`` sizes the
         batch from the device's free memory (``suggested_source_batch``).
       mesh_shape: ``None`` (one rank, unless ``PJ_MESH_DEVICES`` lists
@@ -136,9 +136,6 @@ class SolverConfig:
         kernels into (``utils.platform.enable_compilation_cache``; None =
         ``$PJ_COMPILE_CACHE``, else ``paralleljohnson_tpu_torch/_build/``),
         fixed for the process once a kernel library has loaded.
-
-    Kept for config parity; forcing it raises at solve time:
-    ``precision="f64"`` on cuda.
     """
 
     backend: str = "torch"
@@ -196,11 +193,11 @@ class SolverConfig:
         """Fields whose values force a route or layer this port lacks, as
         ``"field=value"`` strings (empty = the config is fully honoured
         on ``device_type``). The solver raises ``NotImplementedError``
-        naming them."""
-        bad = []
-        if self.precision == "f64" and device_type == "cuda":
-            bad.append("precision='f64' on cuda (the kernels are f32)")
-        return bad
+        naming them. Every field is honoured on ``cpu`` and ``cuda``
+        since ``precision="f64"`` runs on the card; the check stays for
+        the next field a port of the reference adds before its route."""
+        del device_type
+        return []
 
     def retry_policy(self):
         """The :class:`~paralleljohnson_tpu_torch.utils.resilience.RetryPolicy`

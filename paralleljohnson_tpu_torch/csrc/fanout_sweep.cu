@@ -9,12 +9,20 @@
 // Hopper block has 227 KB of shared memory, so the bucket grid is not
 // carried over: warps gather in-neighbours' rows straight from device
 // memory (through L1/L2). Every candidate reads `old` and the minimum of
-// exactly rounded f32 sums does not depend on order, so the kernel agrees
+// exactly rounded sums does not depend on order, so the kernel agrees
 // bitwise with the plain PyTorch version however the edges are split.
 //
+// Two value types, one design: f32 (`pj_fanout_sweep`) and f64
+// (`pj_fanout_sweep_f64`, precision="f64"). A lane moves 16 bytes per
+// load either way: a float4, or a double2 at f64, so a pass of NV
+// vectors per lane covers 32 * 4 NV f32 columns or 32 * 2 NV f64 columns
+// in the same registers. The f64 plan takes NV by B on that narrower
+// pass (plan below); its partial minima are f64 too.
+//
 // Bound on the H100: bytes. At least the [V, B] read and the [V, B] write
-// plus the CSC (4(V+1) + 8E bytes); at most E*B*4 bytes of gathered rows
-// when no gathered row hits in cache. What the design does about it:
+// plus the CSC (4(V+1) + (4 + s)E bytes, s the value size); at most
+// E*B*s bytes of gathered rows when no gathered row hits in cache. What
+// the design does about it:
 //
 // - Edge-balanced work items of at most L in-edges, one warp each, so a
 //   skewed in-degree (R-MAT hubs of 10^4 edges) no longer leaves one warp
@@ -27,8 +35,9 @@
 //   writes the partial minimum of its edges to `partial[k, :]`. A second,
 //   small kernel folds old[v, :] and the row's partials into out[v, :]
 //   and sets the flag there, against old, after every partial is in.
-// - One warp covers all B columns of its item: 128 * NV columns per pass
-//   (NV float4 per lane), and a column loop inside the warp for B > 512.
+// - One warp covers all B columns of its item: 32 * K * NV columns per
+//   pass (NV 16-byte vectors of K values per lane: K = 4 at f32, 2 at
+//   f64), and a column loop inside the warp for wider B.
 //   Each (src, w) pair is fetched once per edge and pass.
 // - Many gathers in flight. A warp reads 32 (src, w) pairs with one
 //   coalesced load and hands them out with __shfl_sync, so no lane waits
@@ -62,115 +71,141 @@ constexpr int kWarps = 8;  // warps per block
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 
-// Columns of one pass: 128 * NV starting at col0. VEC (B % 4 == 0, 16-byte
-// aligned rows): group q of a lane is the float4 at col0 + 4 (lane + 32 q).
-// Scalar: element i of group q is column col0 + lane + 32 (4 q + i).
-template <bool VEC>
-__device__ __forceinline__ int64_t col_of(int64_t col0, int lane, int q,
-                                          int i) {
-  return VEC ? col0 + 4 * (lane + 32 * q) + i : col0 + lane + 32 * (4 * q + i);
-}
-
-__device__ __forceinline__ float4 inf4() {
-  return make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
-}
+// A lane's 16-byte vector of K values: float4 at f32, double2 at f64.
+template <typename T> struct Lane;
+template <> struct Lane<float> {
+  using V = float4;
+  static constexpr int K = 4;
+  static __device__ __forceinline__ float inf() { return CUDART_INF_F; }
+};
+template <> struct Lane<double> {
+  using V = double2;
+  static constexpr int K = 2;
+  static __device__ __forceinline__ double inf() { return CUDART_INF; }
+};
 
 __device__ __forceinline__ float& at(float4& f, int i) {
   return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
 }
 
+__device__ __forceinline__ double& at(double2& f, int i) {
+  return i == 0 ? f.x : f.y;
+}
+
+__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double vmin(double a, double b) { return fmin(a, b); }
+
+template <typename T>
+__device__ __forceinline__ typename Lane<T>::V inf_vec() {
+  typename Lane<T>::V v;
+#pragma unroll
+  for (int i = 0; i < Lane<T>::K; ++i) at(v, i) = Lane<T>::inf();
+  return v;
+}
+
+// Columns of one pass: 32 * K * NV starting at col0. VEC (B % K == 0,
+// 16-byte aligned rows): group q of a lane is the vector at
+// col0 + K (lane + 32 q). Scalar: element i of group q is column
+// col0 + lane + 32 (K q + i).
+template <int K, bool VEC>
+__device__ __forceinline__ int64_t col_of(int64_t col0, int lane, int q,
+                                          int i) {
+  return VEC ? col0 + K * (lane + 32 * q) + i : col0 + lane + 32 * (K * q + i);
+}
+
 // Lane's columns of `row` (+inf outside [0, B)).
-template <int NV, bool VEC>
-__device__ __forceinline__ void load_row(const float* __restrict__ row,
+template <typename T, int NV, bool VEC>
+__device__ __forceinline__ void load_row(const T* __restrict__ row,
                                          int64_t col0, int lane, int64_t B,
-                                         float4 (&f)[NV]) {
+                                         typename Lane<T>::V (&f)[NV]) {
+  using L = Lane<T>;
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
     if (VEC) {
-      const int64_t c = col_of<true>(col0, lane, q, 0);
-      f[q] = c < B ? __ldg(reinterpret_cast<const float4*>(row + c)) : inf4();
+      const int64_t c = col_of<L::K, true>(col0, lane, q, 0);
+      f[q] = c < B ? __ldg(reinterpret_cast<const typename L::V*>(row + c))
+                   : inf_vec<T>();
     } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int64_t c = col_of<false>(col0, lane, q, i);
-        at(f[q], i) = c < B ? __ldg(row + c) : CUDART_INF_F;
+      for (int i = 0; i < L::K; ++i) {
+        const int64_t c = col_of<L::K, false>(col0, lane, q, i);
+        at(f[q], i) = c < B ? __ldg(row + c) : L::inf();
       }
     }
   }
 }
 
-template <int NV, bool VEC>
-__device__ __forceinline__ void store_row(float* __restrict__ row,
-                                          int64_t col0, int lane, int64_t B,
-                                          const float4 (&f)[NV]) {
+template <typename T, int NV, bool VEC>
+__device__ __forceinline__ void store_row(T* __restrict__ row, int64_t col0,
+                                          int lane, int64_t B,
+                                          typename Lane<T>::V (&f)[NV]) {
+  using L = Lane<T>;
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
     if (VEC) {
-      const int64_t c = col_of<true>(col0, lane, q, 0);
-      if (c < B) *reinterpret_cast<float4*>(row + c) = f[q];
+      const int64_t c = col_of<L::K, true>(col0, lane, q, 0);
+      if (c < B) *reinterpret_cast<typename L::V*>(row + c) = f[q];
     } else {
-      float4 v = f[q];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int64_t c = col_of<false>(col0, lane, q, i);
-        if (c < B) row[c] = at(v, i);
+      for (int i = 0; i < L::K; ++i) {
+        const int64_t c = col_of<L::K, false>(col0, lane, q, i);
+        if (c < B) row[c] = at(f[q], i);
       }
     }
   }
 }
 
 // Whether any in-range column of acc is strictly below init.
-template <int NV, bool VEC>
+template <typename T, int NV, bool VEC>
 __device__ __forceinline__ bool any_drop(int64_t col0, int lane, int64_t B,
-                                         const float4 (&acc)[NV],
-                                         const float4 (&init)[NV]) {
+                                         typename Lane<T>::V (&acc)[NV],
+                                         typename Lane<T>::V (&init)[NV]) {
+  constexpr int K = Lane<T>::K;
   bool dropped = false;
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
-    float4 a = acc[q], b = init[q];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (col_of<VEC>(col0, lane, q, i) < B) dropped |= at(a, i) < at(b, i);
+    for (int i = 0; i < K; ++i) {
+      if (col_of<K, VEC>(col0, lane, q, i) < B)
+        dropped |= at(acc[q], i) < at(init[q], i);
     }
   }
   return dropped;
 }
 
-__device__ __forceinline__ void fold4(float4& acc, const float4& x, float w) {
-  acc.x = fminf(acc.x, x.x + w);
-  acc.y = fminf(acc.y, x.y + w);
-  acc.z = fminf(acc.z, x.z + w);
-  acc.w = fminf(acc.w, x.w + w);
+template <typename T>
+__device__ __forceinline__ void fold(typename Lane<T>::V& acc,
+                                     typename Lane<T>::V& x, T w) {
+#pragma unroll
+  for (int i = 0; i < Lane<T>::K; ++i) at(acc, i) = vmin(at(acc, i), at(x, i) + w);
 }
 
 // End of a pass: a whole row folds old[v] in last (the min does not
 // depend on order) and notes whether any column dropped below it; old is
 // read only here, so it holds no registers during the edge loop. Then
 // the pass's columns are stored (to out[v], or to partial[slot]).
-template <int NV, bool VEC>
-__device__ __forceinline__ bool finish_pass(const float* __restrict__ own,
-                                            float* __restrict__ dst,
-                                            bool whole, int64_t col0,
-                                            int lane, int64_t B,
-                                            float4 (&acc)[NV]) {
+template <typename T, int NV, bool VEC>
+__device__ __forceinline__ bool finish_pass(const T* __restrict__ own,
+                                            T* __restrict__ dst, bool whole,
+                                            int64_t col0, int lane, int64_t B,
+                                            typename Lane<T>::V (&acc)[NV]) {
   bool dropped = false;
   if (whole) {
-    float4 init[NV];
-    load_row<NV, VEC>(own, col0, lane, B, init);
-    dropped = any_drop<NV, VEC>(col0, lane, B, acc, init);
+    typename Lane<T>::V init[NV];
+    load_row<T, NV, VEC>(own, col0, lane, B, init);
+    dropped = any_drop<T, NV, VEC>(col0, lane, B, acc, init);
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
-      acc[q].x = fminf(init[q].x, acc[q].x);
-      acc[q].y = fminf(init[q].y, acc[q].y);
-      acc[q].z = fminf(init[q].z, acc[q].z);
-      acc[q].w = fminf(init[q].w, acc[q].w);
+#pragma unroll
+      for (int i = 0; i < Lane<T>::K; ++i)
+        at(acc[q], i) = vmin(at(init[q], i), at(acc[q], i));
     }
   }
-  store_row<NV, VEC>(dst, col0, lane, B, acc);
+  store_row<T, NV, VEC>(dst, col0, lane, B, acc);
   return dropped;
 }
 
-__device__ __forceinline__ void prefetch_l2(const float* p) {
+__device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
@@ -193,10 +228,12 @@ struct Item {
   bool whole;
 };
 
+template <typename T>
 __device__ __forceinline__ bool fetch_item(
     const int* __restrict__ indptr, const int* __restrict__ pieces,
-    int64_t n_pieces, int64_t V, int L, const float* __restrict__ old,
-    int64_t B, int lane, int64_t k, Item& it) {
+    int64_t n_pieces, int64_t V, int L, const T* __restrict__ old, int64_t B,
+    int lane, int64_t k, Item& it) {
+  constexpr int K = Lane<T>::K;
   if (k < n_pieces) {
     it.row = __ldg(pieces + 3 * k);
     it.e0 = __ldg(pieces + 3 * k + 1);
@@ -206,7 +243,7 @@ __device__ __forceinline__ bool fetch_item(
   }
   const int64_t v = k - n_pieces;
   if (v >= V) return false;
-  for (int64_t c = 4 * lane; c < B; c += 128) prefetch_l2(old + v * B + c);
+  for (int64_t c = K * lane; c < B; c += 32 * K) prefetch_l2(old + v * B + c);
   it.row = v;
   it.e0 = __ldg(indptr + v);
   it.e1 = __ldg(indptr + v + 1);
@@ -214,68 +251,75 @@ __device__ __forceinline__ bool fetch_item(
   return it.e1 - it.e0 <= L;
 }
 
-// One warp per item: per lane, U row gathers (NV float4 each) issued back
-// to back, then folded. The scalar path's column arithmetic needs more
-// registers: at NV >= 2 it holds 2 blocks per SM instead of spilling.
-template <int NV, bool VEC, int U>
+// One warp per item: per lane, U row gathers (NV vectors each) issued
+// back to back, then folded. The scalar path's column arithmetic needs
+// more registers: at NV >= 2 it holds 2 blocks per SM instead of
+// spilling. The registers per NV are the same at both value types (a
+// vector is 16 bytes either way); f64 weights take two per gather.
+template <typename T, int NV, bool VEC, int U>
 __global__ void __launch_bounds__(kThreads, NV >= 4 || (!VEC && NV >= 2) ? 2 : 3)
-sweep_items(const float* __restrict__ old, float* __restrict__ out,
-            const int* __restrict__ src, const float* __restrict__ w,
+sweep_items(const T* __restrict__ old, T* __restrict__ out,
+            const int* __restrict__ src, const T* __restrict__ w,
             const int* __restrict__ indptr, const int* __restrict__ pieces,
-            int64_t n_pieces, int64_t V, int L, float* __restrict__ partial,
+            int64_t n_pieces, int64_t V, int L, T* __restrict__ partial,
             const int* __restrict__ prev, int* __restrict__ improved,
             int64_t B) {
+  using Vec = typename Lane<T>::V;
+  constexpr int K = Lane<T>::K;
   if (*prev == 0) return;
   const int lane = threadIdx.x & 31;
   const int64_t k = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   Item it;
-  if (!fetch_item(indptr, pieces, n_pieces, V, L, old, B, lane, k, it))
+  if (!fetch_item<T>(indptr, pieces, n_pieces, V, L, old, B, lane, k, it))
     return;
   const bool whole = it.whole;
-  float* dst = whole ? out + it.row * B : partial + k * B;
+  T* dst = whole ? out + it.row * B : partial + k * B;
   bool dropped = false;
-  for (int64_t col0 = 0; col0 < B; col0 += 128 * NV) {
-    float4 acc[NV];
+  for (int64_t col0 = 0; col0 < B; col0 += 32 * K * NV) {
+    Vec acc[NV];
 #pragma unroll
-    for (int q = 0; q < NV; ++q) acc[q] = inf4();
+    for (int q = 0; q < NV; ++q) acc[q] = inf_vec<T>();
     for (int eb = it.e0; eb < it.e1; eb += 32) {
       const int n = min(32, it.e1 - eb);
       const int my_u = lane < n ? __ldg(src + eb + lane) : 0;
-      const float my_w = lane < n ? __ldg(w + eb + lane) : 0.0f;
+      const T my_w = lane < n ? __ldg(w + eb + lane) : T(0);
       for (int j = 0; j < n; j += U) {
-        float4 g[U][NV];
-        float wj[U];
+        Vec g[U][NV];
+        T wj[U];
 #pragma unroll
         for (int t = 0; t < U; ++t) {
           const int u = __shfl_sync(kFull, my_u, (j + t) & 31);
           wj[t] = __shfl_sync(kFull, my_w, (j + t) & 31);
-          if (j + t < n) load_row<NV, VEC>(old + (int64_t)u * B, col0, lane, B, g[t]);
+          if (j + t < n)
+            load_row<T, NV, VEC>(old + (int64_t)u * B, col0, lane, B, g[t]);
         }
 #pragma unroll
         for (int t = 0; t < U; ++t) {
           if (j + t < n) {
 #pragma unroll
-            for (int q = 0; q < NV; ++q) fold4(acc[q], g[t][q], wj[t]);
+            for (int q = 0; q < NV; ++q) fold<T>(acc[q], g[t][q], wj[t]);
           }
         }
       }
     }
-    dropped |= finish_pass<NV, VEC>(old + it.row * B, dst, whole, col0, lane,
-                                    B, acc);
+    dropped |= finish_pass<T, NV, VEC>(old + it.row * B, dst, whole, col0,
+                                       lane, B, acc);
   }
   if (whole) raise_flag(dropped, lane, improved);
 }
 
 // Split rows: out[v] = min(old[v], partials of v's pieces); one warp per
 // row, every column.
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-combine_split_rows(const float* __restrict__ old, float* __restrict__ out,
-                   const float* __restrict__ partial,
+combine_split_rows(const T* __restrict__ old, T* __restrict__ out,
+                   const T* __restrict__ partial,
                    const int* __restrict__ split_rows,
                    const int* __restrict__ split_ptr, int64_t n_rows,
                    const int* __restrict__ prev, int* __restrict__ improved,
                    int64_t B) {
+  using Vec = typename Lane<T>::V;
+  constexpr int K = Lane<T>::K;
   if (*prev == 0) return;
   const int64_t r = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= n_rows) return;
@@ -285,29 +329,26 @@ combine_split_rows(const float* __restrict__ old, float* __restrict__ out,
   const int p1 = __ldg(split_ptr + r + 1);
   bool dropped = false;
   if (VEC) {
-    for (int64_t c = 4 * lane; c < B; c += 128) {
-      const float4 init = __ldg(reinterpret_cast<const float4*>(old + row * B + c));
-      float4 acc = init;
+    for (int64_t c = K * lane; c < B; c += 32 * K) {
+      Vec init = __ldg(reinterpret_cast<const Vec*>(old + row * B + c));
+      Vec acc = init;
 #pragma unroll 4
       for (int p = p0; p < p1; ++p) {
-        const float4 x =
-            __ldg(reinterpret_cast<const float4*>(partial + (int64_t)p * B + c));
-        acc.x = fminf(acc.x, x.x);
-        acc.y = fminf(acc.y, x.y);
-        acc.z = fminf(acc.z, x.z);
-        acc.w = fminf(acc.w, x.w);
+        Vec x = __ldg(reinterpret_cast<const Vec*>(partial + (int64_t)p * B + c));
+#pragma unroll
+        for (int i = 0; i < K; ++i) at(acc, i) = vmin(at(acc, i), at(x, i));
       }
-      *reinterpret_cast<float4*>(out + row * B + c) = acc;
-      dropped |= acc.x < init.x || acc.y < init.y || acc.z < init.z ||
-                 acc.w < init.w;
+      *reinterpret_cast<Vec*>(out + row * B + c) = acc;
+#pragma unroll
+      for (int i = 0; i < K; ++i) dropped |= at(acc, i) < at(init, i);
     }
   } else {
     for (int64_t c = lane; c < B; c += 32) {
-      const float init = __ldg(old + row * B + c);
-      float acc = init;
+      const T init = __ldg(old + row * B + c);
+      T acc = init;
 #pragma unroll 4
       for (int p = p0; p < p1; ++p)
-        acc = fminf(acc, __ldg(partial + (int64_t)p * B + c));
+        acc = vmin(acc, __ldg(partial + (int64_t)p * B + c));
       out[row * B + c] = acc;
       dropped |= acc < init;
     }
@@ -315,69 +356,83 @@ combine_split_rows(const float* __restrict__ old, float* __restrict__ out,
   raise_flag(dropped, lane, improved);
 }
 
-using ItemsFn = void (*)(const float*, float*, const int*, const float*,
-                         const int*, const int*, int64_t, int64_t, int, float*,
-                         const int*, int*, int64_t);
+template <typename T>
+using ItemsFn = void (*)(const T*, T*, const int*, const T*, const int*,
+                         const int*, int64_t, int64_t, int, T*, const int*,
+                         int*, int64_t);
 
+template <typename T>
 struct Plan {
-  ItemsFn fn;
+  ItemsFn<T> fn;
   int depth;  // gathers per batch U
 };
 
-// 16 float4 per lane in flight at most: U = 8 gathers at NV = 1, then 4,
-// so the schedule stays within the launch bounds (3 blocks per SM below
-// NV = 4, 2 at NV = 4 and on the scalar path from NV = 2).
-template <int NV>
-Plan plan_nv(bool vec) {
-  constexpr int U = NV >= 2 ? 4 : 8;
-  if (vec) return {sweep_items<NV, true, U>, U};
-  return {sweep_items<NV, false, U>, U};
+// Gathers per batch U. At f32, 16 vectors per lane in flight at most:
+// U = 8 gathers at NV = 1, then 4, so the schedule stays within the
+// launch bounds (3 blocks per SM below NV = 4, 2 at NV = 4 and on the
+// scalar path from NV = 2). At f64 each gather's weight takes two
+// registers more, and U = 8 at NV = 1 and 4 at NV = 4 spilled on the
+// H100 (ptxas): U = 6 and 3 there keep the same bounds without spills.
+// The f32 scalar path at NV = 4 (B % 4 != 0 above 256 columns) spilled
+// 38 bytes at U = 4 in this templated source: U = 3 there.
+template <typename T, int NV, bool VEC> struct Depth {
+  static constexpr int U = NV >= 2 ? 4 : 8;
+};
+template <bool VEC> struct Depth<double, 1, VEC> {
+  static constexpr int U = 6;
+};
+template <bool VEC> struct Depth<double, 4, VEC> {
+  static constexpr int U = 3;
+};
+template <> struct Depth<float, 4, false> { static constexpr int U = 3; };
+
+template <typename T, int NV>
+Plan<T> plan_nv(bool vec) {
+  constexpr int UV = Depth<T, NV, true>::U, US = Depth<T, NV, false>::U;
+  if (vec) return {sweep_items<T, NV, true, UV>, UV};
+  return {sweep_items<T, NV, false, US>, US};
 }
 
-// NV by B: one pass of 128, 256 or 512 columns; wider B loops over
-// 512-column passes inside the warp.
-Plan plan(int64_t B, bool vec) {
-  if (B <= 128) return plan_nv<1>(vec);
-  if (B <= 256) return plan_nv<2>(vec);
-  return plan_nv<4>(vec);
+// NV by B: one pass of 32 K, 64 K or 128 K columns (128, 256, 512 at
+// f32; 64, 128, 256 at f64); wider B loops over the widest pass inside
+// the warp.
+template <typename T>
+Plan<T> plan(int64_t B, bool vec) {
+  constexpr int K = Lane<T>::K;
+  if (B <= 32 * K) return plan_nv<T, 1>(vec);
+  if (B <= 64 * K) return plan_nv<T, 2>(vec);
+  return plan_nv<T, 4>(vec);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-}  // namespace
-
-// One sweep over V rows: the items kernel (n_pieces pieces of split rows,
-// then every row of at most L in-edges whole), then the split-row
-// combine. B % 4 != 0 or unaligned rows take the scalar lane path.
-extern "C" int pj_fanout_sweep(const float* old, float* out,
-                               const int* indptr, const int* src,
-                               const float* w, const int* pieces,
-                               long long n_pieces, long long V, int L,
-                               float* partial, const int* split_rows,
-                               const int* split_ptr, long long n_split_rows,
-                               const int* prev, int* improved, long long B,
-                               void* stream) {
+template <typename T>
+int sweep(const T* old, T* out, const int* indptr, const int* src, const T* w,
+          const int* pieces, long long n_pieces, long long V, int L,
+          T* partial, const int* split_rows, const int* split_ptr,
+          long long n_split_rows, const int* prev, int* improved, long long B,
+          void* stream) {
   if (B > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool vec = B % 4 == 0 && aligned16(old) && aligned16(out) &&
+    const bool vec = B % Lane<T>::K == 0 && aligned16(old) && aligned16(out) &&
                      aligned16(partial);
     const long long n_items = n_pieces + V;
     if (n_items > 0) {
       const unsigned grid = (unsigned)((n_items + kWarps - 1) / kWarps);
-      plan(B, vec).fn<<<grid, kThreads, 0, s>>>(old, out, src, w, indptr,
-                                                 pieces, n_pieces, V, L,
-                                                 partial, prev, improved, B);
+      plan<T>(B, vec).fn<<<grid, kThreads, 0, s>>>(
+          old, out, src, w, indptr, pieces, n_pieces, V, L, partial, prev,
+          improved, B);
     }
     if (n_split_rows > 0) {
       const unsigned grid = (unsigned)((n_split_rows + kWarps - 1) / kWarps);
       if (vec) {
-        combine_split_rows<true><<<grid, kThreads, 0, s>>>(
+        combine_split_rows<T, true><<<grid, kThreads, 0, s>>>(
             old, out, partial, split_rows, split_ptr, n_split_rows, prev,
             improved, B);
       } else {
-        combine_split_rows<false><<<grid, kThreads, 0, s>>>(
+        combine_split_rows<T, false><<<grid, kThreads, 0, s>>>(
             old, out, partial, split_rows, split_ptr, n_split_rows, prev,
             improved, B);
       }
@@ -386,13 +441,57 @@ extern "C" int pj_fanout_sweep(const float* old, float* out,
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM and gather depth (gathers per batch U) of the
-// items kernel that a sweep at width B launches.
-extern "C" int pj_fanout_sweep_occupancy(long long B, int vec,
-                                         int* blocks_per_sm,
-                                         int* gather_depth) {
-  const Plan p = plan(B, vec != 0);
+template <typename T>
+int occupancy(long long B, int vec, int* blocks_per_sm, int* gather_depth) {
+  const Plan<T> p = plan<T>(B, vec != 0);
   *gather_depth = p.depth;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, reinterpret_cast<const void*>(p.fn), kThreads, 0);
+}
+
+}  // namespace
+
+// One sweep over V rows: the items kernel (n_pieces pieces of split rows,
+// then every row of at most L in-edges whole), then the split-row
+// combine. B % K != 0 or unaligned rows take the scalar lane path.
+// `pj_fanout_sweep` takes f32 values (old, out, w, partial), and
+// `pj_fanout_sweep_f64` f64 ones.
+extern "C" int pj_fanout_sweep(const float* old, float* out,
+                               const int* indptr, const int* src,
+                               const float* w, const int* pieces,
+                               long long n_pieces, long long V, int L,
+                               float* partial, const int* split_rows,
+                               const int* split_ptr, long long n_split_rows,
+                               const int* prev, int* improved, long long B,
+                               void* stream) {
+  return sweep<float>(old, out, indptr, src, w, pieces, n_pieces, V, L,
+                      partial, split_rows, split_ptr, n_split_rows, prev,
+                      improved, B, stream);
+}
+
+extern "C" int pj_fanout_sweep_f64(const double* old, double* out,
+                                   const int* indptr, const int* src,
+                                   const double* w, const int* pieces,
+                                   long long n_pieces, long long V, int L,
+                                   double* partial, const int* split_rows,
+                                   const int* split_ptr,
+                                   long long n_split_rows, const int* prev,
+                                   int* improved, long long B, void* stream) {
+  return sweep<double>(old, out, indptr, src, w, pieces, n_pieces, V, L,
+                       partial, split_rows, split_ptr, n_split_rows, prev,
+                       improved, B, stream);
+}
+
+// Resident blocks per SM and gather depth (gathers per batch U) of the
+// items kernel that a sweep at width B launches, at f32 and at f64.
+extern "C" int pj_fanout_sweep_occupancy(long long B, int vec,
+                                         int* blocks_per_sm,
+                                         int* gather_depth) {
+  return occupancy<float>(B, vec, blocks_per_sm, gather_depth);
+}
+
+extern "C" int pj_fanout_sweep_occupancy_f64(long long B, int vec,
+                                             int* blocks_per_sm,
+                                             int* gather_depth) {
+  return occupancy<double>(B, vec, blocks_per_sm, gather_depth);
 }

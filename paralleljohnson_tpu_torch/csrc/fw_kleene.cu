@@ -71,8 +71,18 @@
 // kleene_plan picks the variant by t; a refused cluster launch raises,
 // it does not fall back.
 //
-// Exactness: each candidate is one exactly rounded f32 add and fminf is
-// exact, and the steps run in the reference's order, so the closure is
+// f64 (`pj_fw_kleene_f64`, `pj_fw_kleene_steps_f64`, precision="f64"):
+// the same design on doubles. A thread's RR rows take 2 RR registers, so
+// at t = 512 (RR = 32) the tile is 64 registers of the 128 a thread has
+// at 512 threads per SM. A hand-over store still moves 16 bytes, now two
+// whole doubles (st.async of four 32-bit words: each double's low and
+// high word in the same store, so no double arrives in halves): a lane
+// of a row warp sends its quad's 32 bytes as two stores, and a column's
+// RR entries go as RR / 2 pieces per CTA, looped over the warp's lanes.
+// Twice the bytes per step, 8 (rows + cols).
+//
+// Exactness: each candidate is one exactly rounded add (f32 or f64) and
+// the min is exact, and the steps run in the reference's order, so the closure is
 // bitwise the plain PyTorch loop's. A hand-over entry is made ahead of
 // its holder's own update by the same operation on the same operands,
 // and min is idempotent, so making it twice changes no bit. No recursive
@@ -81,10 +91,34 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+// A 16-byte vector of K values: float4 at f32, double2 at f64.
+template <typename T> struct Lane;
+template <> struct Lane<float> {
+  using V = float4;
+  static constexpr int K = 4;
+  static __device__ __forceinline__ float inf() { return CUDART_INF_F; }
+};
+template <> struct Lane<double> {
+  using V = double2;
+  static constexpr int K = 2;
+  static __device__ __forceinline__ double inf() { return CUDART_INF; }
+};
+
+__device__ __forceinline__ float at(const float4& f, int i) {
+  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
+}
+__device__ __forceinline__ double at(const double2& f, int i) {
+  return i == 0 ? f.x : f.y;
+}
+
+__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double vmin(double a, double b) { return fmin(a, b); }
 
 // ---- cluster variant -------------------------------------------------------
 
@@ -111,13 +145,28 @@ __device__ __forceinline__ unsigned in_cta(unsigned addr, int rank) {
 
 // Store 16 bytes into another CTA's shared memory; they count on the
 // mbarrier `bar` of that CTA when they have landed.
-__device__ __forceinline__ void push4(unsigned dst, float v0, float v1,
-                                      float v2, float v3, unsigned bar) {
+__device__ __forceinline__ void push_words(unsigned dst, unsigned w0,
+                                           unsigned w1, unsigned w2,
+                                           unsigned w3, unsigned bar) {
   asm volatile(
       "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
-      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst), "r"(__float_as_uint(v0)),
-      "r"(__float_as_uint(v1)), "r"(__float_as_uint(v2)),
-      "r"(__float_as_uint(v3)), "r"(bar) : "memory");
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst), "r"(w0), "r"(w1), "r"(w2),
+      "r"(w3), "r"(bar) : "memory");
+}
+
+// The 16 bytes at e: four floats, or two doubles (each as its low then
+// its high word, its layout in memory) in one store.
+__device__ __forceinline__ void push16(unsigned dst, const float* e,
+                                       unsigned bar) {
+  push_words(dst, __float_as_uint(e[0]), __float_as_uint(e[1]),
+             __float_as_uint(e[2]), __float_as_uint(e[3]), bar);
+}
+
+__device__ __forceinline__ void push16(unsigned dst, const double* e,
+                                       unsigned bar) {
+  push_words(dst, (unsigned)__double2loint(e[0]),
+             (unsigned)__double2hiint(e[0]), (unsigned)__double2loint(e[1]),
+             (unsigned)__double2hiint(e[1]), bar);
 }
 
 // This CTA's one arrival on `bar` for the next phase, which then
@@ -148,69 +197,85 @@ __device__ __forceinline__ void cluster_wait() {
 
 // A warp of row holders hands its 32 entries of a row (lane l: column
 // tx = 32 w + l) to the 4 CTAs of its column block y: lane l sends its
-// lane quad's 4 entries, one 16-byte store, to row block l % 4. `dst`
-// is the quad's offset in the row buffer slot, `bar` its mbarrier.
-__device__ __forceinline__ void push_row(float e, unsigned dst, unsigned bar,
+// lane quad's 4 entries, one 16-byte store at f32 (two at f64), to row
+// block l % 4. `dst` is the quad's offset in the row buffer slot, `bar`
+// its mbarrier.
+template <typename T>
+__device__ __forceinline__ void push_row(T e, unsigned dst, unsigned bar,
                                          int y) {
+  constexpr int K = Lane<T>::K;
   const int lane = threadIdx.x & 31, quad = lane & ~3;
-  const float e0 = __shfl_sync(0xffffffffu, e, quad);
-  const float e1 = __shfl_sync(0xffffffffu, e, quad + 1);
-  const float e2 = __shfl_sync(0xffffffffu, e, quad + 2);
-  const float e3 = __shfl_sync(0xffffffffu, e, quad + 3);
+  T q[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q[i] = __shfl_sync(0xffffffffu, e, quad + i);
   const int c = (lane & 3) * kColBlocks + y;
-  push4(in_cta(dst, c), e0, e1, e2, e3, in_cta(bar, c));
+  const unsigned d = in_cta(dst, c), b = in_cta(bar, c);
+#pragma unroll
+  for (int h = 0; h < 4 / K; ++h) push16(d + 16 * h, q + K * h, b);
 }
 
 // The warp of column k1's owner thread (lane `owner`) hands the column
 // as step k leaves it to the 4 CTAs of its row block x. The owner stages
 // its entries before the step in `stage`; lane l < RR makes entry l
 // with the step's operation on the same operands the owner's own update
-// uses (the column `ck` and the owner's row entry `rk`); then lane l
-// sends 16 bytes, one store, to column block l / (RR / 4). With
+// uses (the column `ck` and the owner's row entry `rk`); then the column
+// goes as 16-byte pieces, RR / K to each of the 4 column blocks, one per
+// lane (looped where 4 RR / K exceeds a warp: f64 at RR = 32). With
 // `step` false (the state before step 0) the staged entries go as they
 // are.
-template <int RR>
-__device__ __forceinline__ void push_column(const float (&v)[RR], int owner,
-                                            bool step, float rk,
-                                            const float* ck, float* stage,
-                                            unsigned dst, unsigned bar, int x) {
+template <typename T, int RR>
+__device__ __forceinline__ void push_column(const T (&v)[RR], int owner,
+                                            bool step, T rk, const T* ck,
+                                            T* stage, unsigned dst,
+                                            unsigned bar, int x) {
+  using Vec = typename Lane<T>::V;
+  constexpr int K = Lane<T>::K;
+  constexpr int P = RR / K;  // pieces per column block
   const int lane = threadIdx.x & 31;
   if (lane == owner) {
 #pragma unroll
-    for (int q = 0; q < RR; q += 4)
-      *reinterpret_cast<float4*>(stage + q) =
-          make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+    for (int q = 0; q < RR; q += K) {
+      Vec e;
+      T* ev = reinterpret_cast<T*>(&e);
+#pragma unroll
+      for (int i = 0; i < K; ++i) ev[i] = v[q + i];
+      *reinterpret_cast<Vec*>(stage + q) = e;
+    }
   }
   __syncwarp();
   if (step) {
-    const float rko = __shfl_sync(0xffffffffu, rk, owner);
-    if (lane < RR) stage[lane] = fminf(stage[lane], ck[lane] + rko);
+    const T rko = __shfl_sync(0xffffffffu, rk, owner);
+    if (lane < RR) stage[lane] = vmin(stage[lane], ck[lane] + rko);
     __syncwarp();
   }
-  if (lane < kColBlocks * (RR / 4)) {
-    const int c = x * kColBlocks + lane / (RR / 4), q = 4 * (lane % (RR / 4));
-    const float4 e = *reinterpret_cast<const float4*>(stage + q);
-    push4(in_cta(dst + 4 * q, c), e.x, e.y, e.z, e.w, in_cta(bar, c));
+#pragma unroll
+  for (int i = lane; i < kColBlocks * P; i += 32) {
+    const int c = x * kColBlocks + i / P, q = K * (i % P);
+    push16(in_cta(dst + (unsigned)sizeof(T) * q, c), stage + q,
+           in_cta(bar, c));
   }
 }
 
 // The closure on one cluster of 4 x 4 CTAs, each `rows` x `cols` of the
 // (padded) tile, cols threads across and rows / RR down.
-template <int RR>
+template <typename T, int RR>
 __global__ void __launch_bounds__(max_threads(RR), 1)
-kleene_cluster(const float* in, long long ld_in, float* out, long long ld_out,
-               int t, int rows, int cols) {
+kleene_cluster(const T* in, long long ld_in, T* out, long long ld_out, int t,
+               int rows, int cols) {
   static_assert(RR % 4 == 0 && RR <= 32,
-                "a column goes as float4 pieces, one entry per lane");
+                "a column goes as 16-byte pieces, one entry per lane");
+  using Vec = typename Lane<T>::V;
+  constexpr int K = Lane<T>::K;
   // Dynamic shared memory: two mbarriers, rowbuf[2][cols], colbuf[2][rows]
   // and the column owners' stage[rows].
   extern __shared__ __align__(16) unsigned char smem[];
-  float* rowbuf = reinterpret_cast<float*>(smem + 16);
-  float* colbuf = rowbuf + 2 * cols;  // 16-byte aligned: cols % 4 == 0
-  float* stage = colbuf + 2 * rows;
+  T* rowbuf = reinterpret_cast<T*>(smem + 16);
+  T* colbuf = rowbuf + 2 * cols;  // 16-byte aligned: cols % 4 == 0
+  T* stage = colbuf + 2 * rows;
   const unsigned bar0 = smem_u32(smem);
   const unsigned row0 = smem_u32(rowbuf);
   const unsigned col0 = smem_u32(colbuf);
+  constexpr unsigned kSz = sizeof(T);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int x = rank / kColBlocks, y = rank % kColBlocks;  // its blocks
@@ -218,13 +283,13 @@ kleene_cluster(const float* in, long long ld_in, float* out, long long ld_out,
   const int groups = rows / RR;           // thread rows per CTA
   const int i0 = x * rows + ty * RR;      // this thread's first tile row
   const int j = y * cols + tx;            // and its column
-  const int step_bytes = 4 * (rows + cols);
+  const int step_bytes = (int)kSz * (rows + cols);
 
-  float v[RR];
+  T v[RR];
 #pragma unroll
   for (int q = 0; q < RR; ++q) {
     v[q] = (j < t && i0 + q < t) ? in[(long long)(i0 + q) * ld_in + j]
-                                 : __int_as_float(0x7f800000);
+                                 : Lane<T>::inf();
   }
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0)
@@ -238,10 +303,10 @@ kleene_cluster(const float* in, long long ld_in, float* out, long long ld_out,
   cluster.sync();  // every mbarrier is set up before any CTA pushes
 
   // The state before step 0: row 0 and column 0 into slot 0.
-  if (x == 0 && ty == 0) push_row(v[0], row0 + 4 * (tx & ~3), bar0, y);
+  if (x == 0 && ty == 0) push_row(v[0], row0 + kSz * (tx & ~3), bar0, y);
   if (y == 0 && tx < 32)
-    push_column(v, 0, false, 0.f, nullptr, stage + ty * RR, col0 + 4 * ty * RR,
-                bar0, x);
+    push_column<T, RR>(v, 0, false, T(0), nullptr, stage + ty * RR,
+                       col0 + kSz * ty * RR, bar0, x);
 
   for (int g = 0; g * RR < t; ++g) {  // tile rows [g RR, g RR + RR)
 #pragma unroll
@@ -251,8 +316,8 @@ kleene_cluster(const float* in, long long ld_in, float* out, long long ld_out,
       const int s = k & 1;
       wait_phase(bar0 + 8 * s, (k >> 1) & 1);
       if (threadIdx.x == 0 && k + 2 < t) expect(bar0 + 8 * s, step_bytes);
-      const float rk = rowbuf[s * cols + tx];
-      const float* ck = colbuf + s * rows + ty * RR;
+      const T rk = rowbuf[s * cols + tx];
+      const T* ck = colbuf + s * rows + ty * RR;
       // Every thread is done with slot (k + 1) % 2 of step k - 1.
       if (k > 0) cluster_wait();
       const int k1 = k + 1;
@@ -263,21 +328,19 @@ kleene_cluster(const float* in, long long ld_in, float* out, long long ld_out,
         const int g1 = r + 1 < RR ? g : g + 1;
         const int r1 = r + 1 < RR ? r + 1 : 0;  // compile-time
         if (x == g1 / groups && ty == g1 % groups)
-          push_row(fminf(v[r1], ck[r1] + rk),
-                   row0 + 4 * ((s ^ 1) * cols + (tx & ~3)), bar, y);
+          push_row(vmin(v[r1], ck[r1] + rk),
+                   row0 + kSz * ((s ^ 1) * cols + (tx & ~3)), bar, y);
         const int c1 = k1 % cols;
         if (y == k1 / cols && (tx >> 5) == (c1 >> 5))
-          push_column(v, c1 & 31, true, rk, ck, stage + ty * RR,
-                      col0 + 4 * ((s ^ 1) * rows + ty * RR), bar, x);
+          push_column<T, RR>(v, c1 & 31, true, rk, ck, stage + ty * RR,
+                             col0 + kSz * ((s ^ 1) * rows + ty * RR), bar, x);
       }
-      const float4* ck4 = reinterpret_cast<const float4*>(ck);
+      const Vec* ckv = reinterpret_cast<const Vec*>(ck);
 #pragma unroll
-      for (int q = 0; q < RR; q += 4) {
-        const float4 c = ck4[q / 4];
-        v[q] = fminf(v[q], c.x + rk);
-        v[q + 1] = fminf(v[q + 1], c.y + rk);
-        v[q + 2] = fminf(v[q + 2], c.z + rk);
-        v[q + 3] = fminf(v[q + 3], c.w + rk);
+      for (int q = 0; q < RR; q += K) {
+        const Vec c = ckv[q / K];
+#pragma unroll
+        for (int i = 0; i < K; ++i) v[q + i] = vmin(v[q + i], at(c, i) + rk);
       }
       __syncwarp();
       cluster_arrive_relaxed();  // this thread is done with slot k % 2
@@ -289,12 +352,13 @@ kleene_cluster(const float* in, long long ld_in, float* out, long long ld_out,
     if (j < t && i0 + q < t) out[(long long)(i0 + q) * ld_out + j] = v[q];
 }
 
-template <int RR>
+template <typename T, int RR>
 cudaError_t cluster_config(int threads, int smem, void* stream,
                            cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attrs) {
   static const cudaError_t attr_err = cudaFuncSetAttribute(
-      kleene_cluster<RR>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      kleene_cluster<T, RR>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+      1);
   if (attr_err != cudaSuccess) return attr_err;
   if (threads > max_threads(RR)) return cudaErrorInvalidValue;
   *cfg = cudaLaunchConfig_t{};
@@ -315,43 +379,71 @@ cudaError_t cluster_config(int threads, int smem, void* stream,
   return cudaSuccess;
 }
 
-template <int RR>
-cudaError_t launch_cluster(const float* in, long long ld_in, float* out,
+template <typename T, int RR>
+cudaError_t launch_cluster(const T* in, long long ld_in, T* out,
                            long long ld_out, int t, int rows, int cols,
                            int threads, int smem, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attrs[2];
-  cudaError_t err = cluster_config<RR>(threads, smem, stream, &cfg, attrs);
+  cudaError_t err = cluster_config<T, RR>(threads, smem, stream, &cfg, attrs);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&cfg, kleene_cluster<RR>, in, ld_in, out, ld_out,
-                           t, rows, cols);
+  err = cudaLaunchKernelEx(&cfg, kleene_cluster<T, RR>, in, ld_in, out,
+                           ld_out, t, rows, cols);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int RR>
+template <typename T, int RR>
 cudaError_t occupancy_cluster(int threads, int smem, int* clusters) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attrs[2];
-  const cudaError_t err = cluster_config<RR>(threads, smem, nullptr, &cfg,
-                                             attrs);
+  const cudaError_t err = cluster_config<T, RR>(threads, smem, nullptr, &cfg,
+                                                attrs);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(clusters, kleene_cluster<RR>, &cfg);
+  return cudaOccupancyMaxActiveClusters(clusters, kleene_cluster<T, RR>, &cfg);
 }
 
 // The CTAs' shape from the plan (ops/fw.py kleene_plan): 4 x 4 CTAs of
 // `rows` x `cols` over a tile padded to 4 rows = 4 cols >= t, `cols` (a
-// multiple of 32) threads across and rows / RR down, the 4 (RR / 4)
-// 16-byte pieces of a column at most one per lane. Returns RR, or 0 when
-// the shape is not one the kernel takes.
+// multiple of 32) threads across and rows / RR down, at most RR = 32.
+// Returns RR, or 0 when the shape is not one the kernel takes.
+template <typename T>
 int cluster_shape(int t, int rows, int cols, int threads, int smem) {
   if (rows < 1 || cols < 32 || cols % 32 || threads % cols) return 0;
   const int groups = threads / cols, rr = rows / groups;
   if (rows % groups || kRowBlocks * rows != kColBlocks * cols ||
       kRowBlocks * rows < t || kColBlocks * rr > 128 ||
-      smem < 16 + (int)sizeof(float) * (2 * cols + 3 * rows) ||
+      smem < 16 + (int)sizeof(T) * (2 * cols + 3 * rows) ||
       smem > 48 * 1024)
     return 0;
   return rr;
+}
+
+template <typename T>
+int closure(const T* in, long long ld_in, T* out, long long ld_out, int t,
+            int rows, int cols, int threads, int smem, void* stream) {
+  if (t <= 0) return (int)cudaGetLastError();
+  const int rr = cluster_shape<T>(t, rows, cols, threads, smem);
+  if (ld_in < t || ld_out < t || rr == 0) return (int)cudaErrorInvalidValue;
+  switch (rr) {
+    case 8: return (int)launch_cluster<T, 8>(in, ld_in, out, ld_out, t, rows, cols, threads, smem, stream);
+    case 16: return (int)launch_cluster<T, 16>(in, ld_in, out, ld_out, t, rows, cols, threads, smem, stream);
+    case 24: return (int)launch_cluster<T, 24>(in, ld_in, out, ld_out, t, rows, cols, threads, smem, stream);
+    case 32: return (int)launch_cluster<T, 32>(in, ld_in, out, ld_out, t, rows, cols, threads, smem, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int cluster_occupancy(int rows, int cols, int threads, int smem,
+                      int* clusters) {
+  *clusters = 0;
+  switch (cluster_shape<T>(0, rows, cols, threads, smem)) {
+    case 8: return (int)occupancy_cluster<T, 8>(threads, smem, clusters);
+    case 16: return (int)occupancy_cluster<T, 16>(threads, smem, clusters);
+    case 24: return (int)occupancy_cluster<T, 24>(threads, smem, clusters);
+    case 32: return (int)occupancy_cluster<T, 32>(threads, smem, clusters);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // ---- step variant ----------------------------------------------------------
@@ -360,22 +452,47 @@ constexpr int kBX = 32;    // columns per block (one warp wide)
 constexpr int kBY = 8;     // thread rows per block
 constexpr int kRows = 4;   // rows per thread
 
+template <typename T>
 __global__ void __launch_bounds__(kBX * kBY)
-kleene_step(const float* src, long long ld_src, float* dst, long long ld_dst,
-            int t, int k) {
+kleene_step(const T* src, long long ld_src, T* dst, long long ld_dst, int t,
+            int k) {
   const int j = blockIdx.x * kBX + threadIdx.x;
   if (j >= t) return;
-  const float rk = src[(long long)k * ld_src + j];
+  const T rk = src[(long long)k * ld_src + j];
   const int i0 = blockIdx.y * (kBY * kRows) + threadIdx.y;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = i0 + r * kBY;
     if (i < t) {
-      const float cik = src[(long long)i * ld_src + k];
+      const T cik = src[(long long)i * ld_src + k];
       dst[(long long)i * ld_dst + j] =
-          fminf(src[(long long)i * ld_src + j], cik + rk);
+          vmin(src[(long long)i * ld_src + j], cik + rk);
     }
   }
+}
+
+template <typename T>
+int closure_steps(const T* in, long long ld_in, T* out, long long ld_out,
+                  T* buf0, T* buf1, int t, void* stream) {
+  if (t <= 0) return (int)cudaGetLastError();
+  if (ld_in < t || ld_out < t || (t >= 2 && buf0 == nullptr) ||
+      (t >= 3 && buf1 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 block(kBX, kBY);
+  const dim3 grid((unsigned)((t + kBX - 1) / kBX),
+                  (unsigned)((t + kBY * kRows - 1) / (kBY * kRows)));
+  T* bufs[2] = {buf0, buf1};
+  const T* src = in;
+  long long ld = ld_in;
+  for (int k = 0; k < t; ++k) {
+    T* dst = k == t - 1 ? out : bufs[k & 1];
+    const long long ldd = k == t - 1 ? ld_out : (long long)t;
+    kleene_step<T><<<grid, block, 0, s>>>(src, ld, dst, ldd, t, k);
+    src = dst;
+    ld = ldd;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -384,34 +501,33 @@ kleene_step(const float* src, long long ld_src, float* dst, long long ld_dst,
 // (row stride ld_out; may be `in` itself) in one launch of one cluster
 // of 16 CTAs of `rows` x `cols` tile entries, `threads` threads and
 // `smem` bytes of dynamic shared memory each (ops/fw.py kleene_plan).
-// Returns the launch's error, else cudaGetLastError().
+// Returns the launch's error, else cudaGetLastError(). The `_f64` entry
+// points take doubles.
 extern "C" int pj_fw_kleene(const float* in, long long ld_in, float* out,
                             long long ld_out, int t, int rows, int cols,
                             int threads, int smem, void* stream) {
-  if (t <= 0) return (int)cudaGetLastError();
-  const int rr = cluster_shape(t, rows, cols, threads, smem);
-  if (ld_in < t || ld_out < t || rr == 0) return (int)cudaErrorInvalidValue;
-  switch (rr) {
-    case 8: return (int)launch_cluster<8>(in, ld_in, out, ld_out, t, rows, cols, threads, smem, stream);
-    case 16: return (int)launch_cluster<16>(in, ld_in, out, ld_out, t, rows, cols, threads, smem, stream);
-    case 24: return (int)launch_cluster<24>(in, ld_in, out, ld_out, t, rows, cols, threads, smem, stream);
-    case 32: return (int)launch_cluster<32>(in, ld_in, out, ld_out, t, rows, cols, threads, smem, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return closure<float>(in, ld_in, out, ld_out, t, rows, cols, threads, smem,
+                        stream);
+}
+
+extern "C" int pj_fw_kleene_f64(const double* in, long long ld_in,
+                                double* out, long long ld_out, int t,
+                                int rows, int cols, int threads, int smem,
+                                void* stream) {
+  return closure<double>(in, ld_in, out, ld_out, t, rows, cols, threads,
+                         smem, stream);
 }
 
 // Clusters of that shape the card can hold at once, into *clusters
 // (cudaOccupancyMaxActiveClusters); 0 means the launch cannot run.
 extern "C" int pj_fw_kleene_occupancy(int rows, int cols, int threads,
                                       int smem, int* clusters) {
-  *clusters = 0;
-  switch (cluster_shape(0, rows, cols, threads, smem)) {
-    case 8: return (int)occupancy_cluster<8>(threads, smem, clusters);
-    case 16: return (int)occupancy_cluster<16>(threads, smem, clusters);
-    case 24: return (int)occupancy_cluster<24>(threads, smem, clusters);
-    case 32: return (int)occupancy_cluster<32>(threads, smem, clusters);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return cluster_occupancy<float>(rows, cols, threads, smem, clusters);
+}
+
+extern "C" int pj_fw_kleene_occupancy_f64(int rows, int cols, int threads,
+                                          int smem, int* clusters) {
+  return cluster_occupancy<double>(rows, cols, threads, smem, clusters);
 }
 
 // The step variant: the closure of `in` into `out` as above in t kernel
@@ -422,23 +538,12 @@ extern "C" int pj_fw_kleene_occupancy(int rows, int cols, int threads,
 extern "C" int pj_fw_kleene_steps(const float* in, long long ld_in,
                                   float* out, long long ld_out, float* buf0,
                                   float* buf1, int t, void* stream) {
-  if (t <= 0) return (int)cudaGetLastError();
-  if (ld_in < t || ld_out < t || (t >= 2 && buf0 == nullptr) ||
-      (t >= 3 && buf1 == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kBX, kBY);
-  const dim3 grid((unsigned)((t + kBX - 1) / kBX),
-                  (unsigned)((t + kBY * kRows - 1) / (kBY * kRows)));
-  float* bufs[2] = {buf0, buf1};
-  const float* src = in;
-  long long ld = ld_in;
-  for (int k = 0; k < t; ++k) {
-    float* dst = k == t - 1 ? out : bufs[k & 1];
-    const long long ldd = k == t - 1 ? ld_out : (long long)t;
-    kleene_step<<<grid, block, 0, s>>>(src, ld, dst, ldd, t, k);
-    src = dst;
-    ld = ldd;
-  }
-  return (int)cudaGetLastError();
+  return closure_steps<float>(in, ld_in, out, ld_out, buf0, buf1, t, stream);
+}
+
+extern "C" int pj_fw_kleene_steps_f64(const double* in, long long ld_in,
+                                      double* out, long long ld_out,
+                                      double* buf0, double* buf1, int t,
+                                      void* stream) {
+  return closure_steps<double>(in, ld_in, out, ld_out, buf0, buf1, t, stream);
 }

@@ -1,4 +1,5 @@
-// Tropical (min-plus) matrix product on the FP32 pipes of an H100:
+// Tropical (min-plus) matrix product on the FP32 (or FP64) pipes of an
+// H100:
 //
 //     out[i, j] = min over k of d[i, k] + a[k, j]      (+inf is the identity)
 //
@@ -35,10 +36,27 @@
 //   split writes its partial [I, J] to scratch and a second, elementwise
 //   kernel folds the S partials with fminf.
 //
-// Exactness: every entry is the min of exactly rounded f32 sums
-// (fminf(acc, d + a), accumulators start at +inf), and min is exact,
+// Exactness: every entry is the min of exactly rounded sums (fminf /
+// fmin(acc, d + a), accumulators start at +inf), and min is exact,
 // associative and commutative, so any tiling, k order or split gives the
 // same bits as the plain PyTorch version. The build has no fast-math.
+//
+// f64 (`pj_minplus_f64`, precision="f64"): a 4x8 micro-tile of doubles
+// (8x8 doubles would be 128 registers of accumulators alone): 64
+// registers of accumulators, as the f32 8x8 tile, and ~150-170 in all. So
+// only the 16- and 32-row tiles exist at f64, at 5 and 3 blocks per SM
+// (RESIDENT_F64 in ops/minplus.py; minplus_plan never asks f64 for 128
+// rows): a 128-row tile of 4x8 micro-tiles is 512 threads, 128 registers
+// each at one block per SM, and spilled on the H100. A thread's 8 columns are four double2 at
+// tx * 2 + 32 h, so each LDS.128 of a warp still covers 128 contiguous
+// bytes; its 4 rows of d are two double2. The d tile goes in by 8-byte
+// cp.async copies (its transpose), the a tile by 16-byte ones, and the d
+// stage's row pitch is BM + 2 doubles. fmin on doubles is no single
+// instruction on sm_90a: a candidate is DADD, DSETP, FSEL and SEL
+// (cuobjdump, scripts/torch_f64_sass.py), two on the FP64 pipes (64 a
+// clock per SM, half the FP32 rate) and two on the integer ones, four
+// issue slots of the SM's 128 a clock: either way one candidate per SM
+// per half clock per 32 lanes, the same bound.
 //
 // Fixpoint support (ops/minplus.py, minplus_fixpoint): when `improved` is
 // given (and K == J) the product also sets it where any out[i, j] <
@@ -59,27 +77,73 @@ constexpr int kBK = 16;      // k per stage
 constexpr int kStages = 2;
 constexpr unsigned kFull = 0xffffffffu;
 
+// A 16-byte vector of K values: float4 at f32, double2 at f64.
+template <typename T> struct Lane;
+template <> struct Lane<float> {
+  using V = float4;
+  static constexpr int K = 4;
+  static __device__ __forceinline__ float inf() { return CUDART_INF_F; }
+};
+template <> struct Lane<double> {
+  using V = double2;
+  static constexpr int K = 2;
+  static __device__ __forceinline__ double inf() { return CUDART_INF; }
+};
+
+__device__ __forceinline__ float at(const float4& f, int i) {
+  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
+}
+__device__ __forceinline__ double at(const double2& f, int i) {
+  return i == 0 ? f.x : f.y;
+}
+__device__ __forceinline__ float& at(float4& f, int i) {
+  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
+}
+__device__ __forceinline__ double& at(double2& f, int i) {
+  return i == 0 ? f.x : f.y;
+}
+
+__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double vmin(double a, double b) { return fmin(a, b); }
+
+template <typename T>
+__device__ __forceinline__ typename Lane<T>::V inf_vec() {
+  typename Lane<T>::V v;
+#pragma unroll
+  for (int i = 0; i < Lane<T>::K; ++i) at(v, i) = Lane<T>::inf();
+  return v;
+}
+
 // Block shape for BM output rows: 16 thread columns (8 output columns
-// each: tx * 4 + [0, 4) and 64 + tx * 4 + [0, 4)) by R thread rows (TM
+// each: tx * K + 16 K h + [0, K) for h < 8 / K) by R thread rows (TM
 // contiguous output rows each).
-template <int BM>
+template <typename T, int BM>
 struct Tile {
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static_assert(kF32 || BM != 128, "f64 takes 16- and 32-row tiles");
+  static constexpr int K = Lane<T>::K;
   static constexpr int TM = BM == 128 ? 8 : 4;
   static constexpr int R = BM / TM;
   static constexpr int kThreads = 16 * R;
-  static constexpr int kMinBlocks = BM == 128 ? 2 : BM == 32 ? 4 : 7;
-  static constexpr int kDStride = BM + 4;
-  static constexpr int kDFloats = kBK * kDStride;
-  static constexpr int kStageFloats = kDFloats + kBK * kBN;
-  static constexpr int kSmemBytes = kStages * kStageFloats * 4;
+  static constexpr int kMinBlocks =
+      kF32 ? (BM == 128 ? 2 : BM == 32 ? 4 : 7) : (BM == 32 ? 3 : 5);
+  static constexpr int kDStride = BM + K;
+  static constexpr int kDElems = kBK * kDStride;
+  static constexpr int kStageElems = kDElems + kBK * kBN;
+  static constexpr int kSmemBytes = kStages * kStageElems * (int)sizeof(T);
 };
 
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+// One element's asynchronous copy (4 bytes at f32, 8 at f64).
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* smem, const T* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
@@ -104,14 +168,14 @@ __device__ __forceinline__ void raise_flag(bool dropped, int* improved) {
 
 // This thread's share of a stage's copies, fixed for the block. d: the
 // tile elements (row r0 + q * DR, column kk0), q < BM * BK / threads; a
-// (16-byte path): the float4 at (row ka0 + q * AR, column c0). Sources
+// (16-byte path): the vector at (row ka0 + q * AR, column c0). Sources
 // point at the split's first k; a stage for k-tile t adds t * BK.
-template <int BM>
+template <typename T, int BM>
 struct Copies {
-  static constexpr int DR = Tile<BM>::kThreads / kBK;
-  static constexpr int AR = Tile<BM>::kThreads / (kBN / 4);
-  const float* dsrc;
-  const float* asrc;
+  static constexpr int DR = Tile<T, BM>::kThreads / kBK;
+  static constexpr int AR = Tile<T, BM>::kThreads / (kBN / Lane<T>::K);
+  const T* dsrc;
+  const T* asrc;
   int d_rows;   // tile rows left in d from row r0 (<= 0: none)
   int kk0, ka0, c0;
   bool col_ok;  // column c0 of the tile lies inside a (16-byte path)
@@ -120,43 +184,42 @@ struct Copies {
 // Issue the copies of k-tile t of the split into one stage; elements
 // outside [0, I) x [kbeg, kend) or [kbeg, kend) x [0, J) become +inf.
 // `k_left` = kend - (kbeg + t * BK).
-template <int BM, bool VEC>
-__device__ __forceinline__ void load_stage(float* stage, const Copies<BM>& c,
+template <typename T, int BM, bool VEC>
+__device__ __forceinline__ void load_stage(T* stage, const Copies<T, BM>& c,
                                            int t, int k_left, int64_t K,
                                            int64_t J, int64_t j0) {
-  using T = Tile<BM>;
-  using C = Copies<BM>;
-  float* ds = stage + c.kk0 * T::kDStride + threadIdx.x / kBK;
-  const float* src = c.dsrc + t * kBK;
+  using Tl = Tile<T, BM>;
+  using C = Copies<T, BM>;
+  T* ds = stage + c.kk0 * Tl::kDStride + threadIdx.x / kBK;
+  const T* src = c.dsrc + t * kBK;
   const bool k_ok = c.kk0 < k_left;
 #pragma unroll
   for (int q = 0; q < BM / C::DR; ++q) {
     if (k_ok && q * C::DR < c.d_rows)
-      cp_async4(ds + q * C::DR, src + q * C::DR * K);
+      cp_async_elem(ds + q * C::DR, src + q * C::DR * K);
     else
-      ds[q * C::DR] = CUDART_INF_F;
+      ds[q * C::DR] = Lane<T>::inf();
   }
-  float* as = stage + T::kDFloats;
-  const float* asrc = c.asrc + (int64_t)t * kBK * J;
+  T* as = stage + Tl::kDElems;
+  const T* asrc = c.asrc + (int64_t)t * kBK * J;
   if (VEC) {
 #pragma unroll
     for (int q = 0; q < kBK / C::AR; ++q) {
-      float* dst = as + (c.ka0 + q * C::AR) * kBN + c.c0;
+      T* dst = as + (c.ka0 + q * C::AR) * kBN + c.c0;
       if (c.col_ok && c.ka0 + q * C::AR < k_left)
         cp_async16(dst, asrc + q * C::AR * J);
       else
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+        *reinterpret_cast<typename Lane<T>::V*>(dst) = inf_vec<T>();
     }
   } else {
 #pragma unroll 1
-    for (int idx = threadIdx.x; idx < kBK * kBN; idx += T::kThreads) {
+    for (int idx = threadIdx.x; idx < kBK * kBN; idx += Tl::kThreads) {
       const int kk = idx / kBN;
       const int cc = idx % kBN;
       if (kk < k_left && j0 + cc < J)
-        cp_async4(as + idx, asrc + kk * J + cc);
+        cp_async_elem(as + idx, asrc + kk * J + cc);
       else
-        as[idx] = CUDART_INF_F;
+        as[idx] = Lane<T>::inf();
     }
   }
 }
@@ -164,16 +227,21 @@ __device__ __forceinline__ void load_stage(float* stage, const Copies<BM>& c,
 // Block (x, y, z): output columns [128 x, 128 x + 128), rows [BM y, BM y +
 // BM), k in split z: [z * k_split, min(K, (z + 1) * k_split)). Writes
 // out (S == 1) or partial + z * I * J (S > 1).
-template <int BM, bool VEC>
-__global__ void __launch_bounds__(Tile<BM>::kThreads, Tile<BM>::kMinBlocks)
-minplus_tiles(const float* __restrict__ d, const float* __restrict__ a,
-              float* __restrict__ out, int64_t I, int64_t K, int64_t J,
+template <typename T, int BM, bool VEC>
+__global__ void __launch_bounds__(Tile<T, BM>::kThreads,
+                                  Tile<T, BM>::kMinBlocks)
+minplus_tiles(const T* __restrict__ d, const T* __restrict__ a,
+              T* __restrict__ out, int64_t I, int64_t K, int64_t J,
               int64_t k_split, const int* __restrict__ prev,
               int* __restrict__ improved) {
-  using T = Tile<BM>;
-  constexpr int TM = T::TM;
+  using Tl = Tile<T, BM>;
+  using Vec = typename Lane<T>::V;
+  constexpr int TM = Tl::TM;
+  constexpr int KV = Lane<T>::K;  // values per vector
+  constexpr int NH = 8 / KV;      // column vectors per thread
   if (prev != nullptr && *prev == 0) return;
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -186,19 +254,19 @@ minplus_tiles(const float* __restrict__ d, const float* __restrict__ a,
   const int nkt = kend > kbeg ? (int)((kend - kbeg + kBK - 1) / kBK) : 0;
   if (gridDim.z > 1) out += (int64_t)blockIdx.z * I * J;
 
-  float acc[TM][8];
+  T acc[TM][8];
 #pragma unroll
   for (int m = 0; m < TM; ++m)
 #pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = CUDART_INF_F;
+    for (int n = 0; n < 8; ++n) acc[m][n] = Lane<T>::inf();
 
-  Copies<BM> cp;
+  Copies<T, BM> cp;
   cp.kk0 = threadIdx.x % kBK;
   cp.d_rows = (int)min(I - i0 - (int64_t)(threadIdx.x / kBK), (int64_t)BM);
   cp.dsrc = d + (i0 + threadIdx.x / kBK) * K + kbeg + cp.kk0;
   if (VEC) {
-    cp.ka0 = threadIdx.x / (kBN / 4);
-    cp.c0 = 4 * (threadIdx.x % (kBN / 4));
+    cp.ka0 = threadIdx.x / (kBN / KV);
+    cp.c0 = KV * (threadIdx.x % (kBN / KV));
     cp.col_ok = j0 + cp.c0 < J;
     cp.asrc = a + (kbeg + cp.ka0) * J + j0 + cp.c0;
   } else {
@@ -211,8 +279,8 @@ minplus_tiles(const float* __restrict__ d, const float* __restrict__ a,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < nkt)
-      load_stage<BM, VEC>(smem + s * T::kStageFloats, cp, s, k_span - s * kBK,
-                          K, J, j0);
+      load_stage<T, BM, VEC>(smem + s * Tl::kStageElems, cp, s,
+                             k_span - s * kBK, K, J, j0);
     cp_async_commit();
   }
   for (int t = 0; t < nkt; ++t) {
@@ -222,57 +290,63 @@ minplus_tiles(const float* __restrict__ d, const float* __restrict__ a,
     // which every thread has finished (the barrier above).
     const int tn = t + kStages - 1;
     if (tn < nkt)
-      load_stage<BM, VEC>(smem + (tn % kStages) * T::kStageFloats, cp, tn,
-                          k_span - tn * kBK, K, J, j0);
+      load_stage<T, BM, VEC>(smem + (tn % kStages) * Tl::kStageElems, cp, tn,
+                             k_span - tn * kBK, K, J, j0);
     cp_async_commit();
 
-    const float* ds = smem + (t % kStages) * T::kStageFloats + ty * TM;
-    const float* as = smem + (t % kStages) * T::kStageFloats + T::kDFloats +
-                      tx * 4;
+    const T* ds = smem + (t % kStages) * Tl::kStageElems + ty * TM;
+    const T* as = smem + (t % kStages) * Tl::kStageElems + Tl::kDElems +
+                  tx * KV;
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      float dv[TM];
+      T dv[TM];
 #pragma unroll
-      for (int m = 0; m < TM; m += 4) {
-        const float4 x =
-            *reinterpret_cast<const float4*>(ds + kk * T::kDStride + m);
-        dv[m] = x.x;
-        dv[m + 1] = x.y;
-        dv[m + 2] = x.z;
-        dv[m + 3] = x.w;
+      for (int m = 0; m < TM; m += KV) {
+        const Vec x = *reinterpret_cast<const Vec*>(ds + kk * Tl::kDStride + m);
+#pragma unroll
+        for (int i = 0; i < KV; ++i) dv[m + i] = at(x, i);
       }
-      const float4 a0 = *reinterpret_cast<const float4*>(as + kk * kBN);
-      const float4 a1 = *reinterpret_cast<const float4*>(as + kk * kBN + 64);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      T av[8];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const Vec x = *reinterpret_cast<const Vec*>(as + kk * kBN + 16 * KV * h);
+#pragma unroll
+        for (int i = 0; i < KV; ++i) av[KV * h + i] = at(x, i);
+      }
 #pragma unroll
       for (int m = 0; m < TM; ++m)
 #pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] = fminf(acc[m][n], dv[m] + av[n]);
+        for (int n = 0; n < 8; ++n) acc[m][n] = vmin(acc[m][n], dv[m] + av[n]);
     }
   }
   cp_async_wait<0>();
 
-  // Epilogue: rows ty * TM + m, columns tx * 4 + c and 64 + tx * 4 + c.
+  // Epilogue: rows ty * TM + m, columns 16 K h + tx * K + c.
   bool dropped = false;
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
     const int64_t gi = i0 + ty * TM + m;
     if (gi >= I) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int64_t gj = j0 + 64 * h + tx * 4;
-      float* o = out + gi * J + gj;
-      const float* v = &acc[m][4 * h];
+    for (int h = 0; h < NH; ++h) {
+      const int64_t gj = j0 + 16 * KV * h + tx * KV;
+      T* o = out + gi * J + gj;
+      const T* v = &acc[m][KV * h];
       if (VEC) {
-        if (gj < J) *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        if (gj < J) {
+          Vec x;
+#pragma unroll
+          for (int c = 0; c < KV; ++c) at(x, c) = v[c];
+          *reinterpret_cast<Vec*>(o) = x;
+        }
       } else {
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < KV; ++c)
           if (gj + c < J) o[c] = v[c];
       }
       if (improved != nullptr && gridDim.z == 1) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
+        for (int c = 0; c < KV; ++c)
           if (gj + c < J) dropped |= v[c] < __ldg(d + gi * K + gj + c);
       }
     }
@@ -280,38 +354,39 @@ minplus_tiles(const float* __restrict__ d, const float* __restrict__ a,
   if (improved != nullptr && gridDim.z == 1) raise_flag(dropped, improved);
 }
 
-// out = fminf over the S partials [S, n]; with `improved`, also the flag
+// out = min over the S partials [S, n]; with `improved`, also the flag
 // where out < d (d and out share the flat layout: K == J).
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(256)
-fold_splits(const float* __restrict__ partial, int splits, int64_t n,
-            const float* __restrict__ d, float* __restrict__ out,
+fold_splits(const T* __restrict__ partial, int splits, int64_t n,
+            const T* __restrict__ d, T* __restrict__ out,
             const int* __restrict__ prev, int* __restrict__ improved) {
+  using Vec = typename Lane<T>::V;
+  constexpr int KV = Lane<T>::K;
   if (prev != nullptr && *prev == 0) return;
   bool dropped = false;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   if (VEC) {
-    for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n / 4;
-         e += stride) {
-      float4 v = __ldcs(reinterpret_cast<const float4*>(partial) + e);
+    for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+         e < n / KV; e += stride) {
+      Vec v = __ldcs(reinterpret_cast<const Vec*>(partial) + e);
       for (int s = 1; s < splits; ++s) {
-        const float4 x = __ldcs(reinterpret_cast<const float4*>(partial + s * n) + e);
-        v.x = fminf(v.x, x.x);
-        v.y = fminf(v.y, x.y);
-        v.z = fminf(v.z, x.z);
-        v.w = fminf(v.w, x.w);
+        const Vec x = __ldcs(reinterpret_cast<const Vec*>(partial + s * n) + e);
+#pragma unroll
+        for (int i = 0; i < KV; ++i) at(v, i) = vmin(at(v, i), at(x, i));
       }
-      reinterpret_cast<float4*>(out)[e] = v;
+      reinterpret_cast<Vec*>(out)[e] = v;
       if (improved != nullptr) {
-        const float4 o = __ldg(reinterpret_cast<const float4*>(d) + e);
-        dropped |= v.x < o.x || v.y < o.y || v.z < o.z || v.w < o.w;
+        const Vec o = __ldg(reinterpret_cast<const Vec*>(d) + e);
+#pragma unroll
+        for (int i = 0; i < KV; ++i) dropped |= at(v, i) < at(o, i);
       }
     }
   } else {
     for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
          e += stride) {
-      float v = __ldcs(partial + e);
-      for (int s = 1; s < splits; ++s) v = fminf(v, __ldcs(partial + s * n + e));
+      T v = __ldcs(partial + e);
+      for (int s = 1; s < splits; ++s) v = vmin(v, __ldcs(partial + s * n + e));
       out[e] = v;
       if (improved != nullptr) dropped |= v < __ldg(d + e);
     }
@@ -319,32 +394,36 @@ fold_splits(const float* __restrict__ partial, int splits, int64_t n,
   if (improved != nullptr) raise_flag(dropped, improved);
 }
 
-using TilesFn = void (*)(const float*, const float*, float*, int64_t, int64_t,
-                         int64_t, int64_t, const int*, int*);
+template <typename T>
+using TilesFn = void (*)(const T*, const T*, T*, int64_t, int64_t, int64_t,
+                         int64_t, const int*, int*);
 
 // The tile kernel for BM rows, with its dynamic shared memory allowed
 // (once per kernel: above 48 KB it must be).
-template <int BM, bool VEC>
-cudaError_t tiles_kernel(TilesFn* fn) {
+template <typename T, int BM, bool VEC>
+cudaError_t tiles_kernel(TilesFn<T>* fn) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      minplus_tiles<BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile<BM>::kSmemBytes);
-  *fn = minplus_tiles<BM, VEC>;
+      minplus_tiles<T, BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tile<T, BM>::kSmemBytes);
+  *fn = minplus_tiles<T, BM, VEC>;
   return attr;
 }
 
-template <int BM>
-cudaError_t tiles_fn(bool vec, TilesFn* fn, int* threads, int* smem) {
-  *threads = Tile<BM>::kThreads;
-  *smem = Tile<BM>::kSmemBytes;
-  return vec ? tiles_kernel<BM, true>(fn) : tiles_kernel<BM, false>(fn);
+template <typename T, int BM>
+cudaError_t tiles_fn(bool vec, TilesFn<T>* fn, int* threads, int* smem) {
+  *threads = Tile<T, BM>::kThreads;
+  *smem = Tile<T, BM>::kSmemBytes;
+  return vec ? tiles_kernel<T, BM, true>(fn) : tiles_kernel<T, BM, false>(fn);
 }
 
-cudaError_t pick(int rows, bool vec, TilesFn* fn, int* threads, int* smem) {
+template <typename T>
+cudaError_t pick(int rows, bool vec, TilesFn<T>* fn, int* threads, int* smem) {
   switch (rows) {
-    case 16: return tiles_fn<16>(vec, fn, threads, smem);
-    case 32: return tiles_fn<32>(vec, fn, threads, smem);
-    case 128: return tiles_fn<128>(vec, fn, threads, smem);
+    case 16: return tiles_fn<T, 16>(vec, fn, threads, smem);
+    case 32: return tiles_fn<T, 32>(vec, fn, threads, smem);
+    case 128:
+      if constexpr (sizeof(T) == 4) return tiles_fn<T, 128>(vec, fn, threads, smem);
+      else return cudaErrorInvalidValue;  // f64: up to 32 rows
     default: return cudaErrorInvalidValue;
   }
 }
@@ -353,27 +432,21 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-}  // namespace
-
-// One product under a plan (ops/minplus.py, minplus_plan): tiles of
-// `rows` x 128 outputs, `splits` splits of K of `k_split` each (a
-// multiple of 16); with splits > 1, `partial` holds [splits, I, J] and
-// the fold writes out. `prev` and `improved` may be null.
-extern "C" int pj_minplus(const float* d, const float* a, float* out,
-                          float* partial, long long I, long long K,
-                          long long J, int rows, int splits,
-                          long long k_split, const int* prev, int* improved,
-                          void* stream) {
+template <typename T>
+int product(const T* d, const T* a, T* out, T* partial, long long I,
+            long long K, long long J, int rows, int splits, long long k_split,
+            const int* prev, int* improved, void* stream) {
+  constexpr int KV = Lane<T>::K;
   if (I <= 0 || J <= 0) return (int)cudaGetLastError();
   if (splits < 1 || splits > 65535 || k_split < 1 || k_split % kBK != 0 ||
       (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = J % 4 == 0 && aligned16(a) && aligned16(out) &&
+  const bool vec = J % KV == 0 && aligned16(a) && aligned16(out) &&
                    (splits == 1 || aligned16(partial));
-  TilesFn fn;
+  TilesFn<T> fn;
   int threads, smem;
-  const cudaError_t err = pick(rows, vec, &fn, &threads, &smem);
+  const cudaError_t err = pick<T>(rows, vec, &fn, &threads, &smem);
   if (err != cudaSuccess) return (int)err;
   const long long grid_y = (I + rows - 1) / rows;
   if (grid_y > 65535) return (int)cudaErrorInvalidValue;
@@ -383,27 +456,61 @@ extern "C" int pj_minplus(const float* d, const float* a, float* out,
                                  k_split, prev, improved);
   if (splits > 1) {
     const long long n = I * J;
-    const bool fvec = n % 4 == 0 && aligned16(partial) && aligned16(out) &&
+    const bool fvec = n % KV == 0 && aligned16(partial) && aligned16(out) &&
                       (improved == nullptr || aligned16(d));
-    const long long work = fvec ? n / 4 : n;
+    const long long work = fvec ? n / KV : n;
     const unsigned blocks =
         (unsigned)(work / 256 + 1 < 132 * 8 ? work / 256 + 1 : 132 * 8);
     if (fvec)
-      fold_splits<true><<<blocks, 256, 0, s>>>(partial, splits, n, d, out,
-                                               prev, improved);
+      fold_splits<T, true><<<blocks, 256, 0, s>>>(partial, splits, n, d, out,
+                                                  prev, improved);
     else
-      fold_splits<false><<<blocks, 256, 0, s>>>(partial, splits, n, d, out,
-                                                prev, improved);
+      fold_splits<T, false><<<blocks, 256, 0, s>>>(partial, splits, n, d, out,
+                                                   prev, improved);
   }
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM of the tile kernel for `rows` (16-byte path).
-extern "C" int pj_minplus_occupancy(int rows, int* blocks_per_sm) {
-  TilesFn fn;
+template <typename T>
+int occupancy(int rows, int* blocks_per_sm) {
+  TilesFn<T> fn;
   int threads, smem;
-  const cudaError_t err = pick(rows, true, &fn, &threads, &smem);
+  const cudaError_t err = pick<T>(rows, true, &fn, &threads, &smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, reinterpret_cast<const void*>(fn), threads, smem);
+}
+
+}  // namespace
+
+// One product under a plan (ops/minplus.py, minplus_plan): tiles of
+// `rows` x 128 outputs, `splits` splits of K of `k_split` each (a
+// multiple of 16); with splits > 1, `partial` holds [splits, I, J] and
+// the fold writes out. `prev` and `improved` may be null. `pj_minplus`
+// takes f32 values, `pj_minplus_f64` f64 ones.
+extern "C" int pj_minplus(const float* d, const float* a, float* out,
+                          float* partial, long long I, long long K,
+                          long long J, int rows, int splits,
+                          long long k_split, const int* prev, int* improved,
+                          void* stream) {
+  return product<float>(d, a, out, partial, I, K, J, rows, splits, k_split,
+                        prev, improved, stream);
+}
+
+extern "C" int pj_minplus_f64(const double* d, const double* a, double* out,
+                              double* partial, long long I, long long K,
+                              long long J, int rows, int splits,
+                              long long k_split, const int* prev,
+                              int* improved, void* stream) {
+  return product<double>(d, a, out, partial, I, K, J, rows, splits, k_split,
+                         prev, improved, stream);
+}
+
+// Resident blocks per SM of the tile kernel for `rows` (16-byte path).
+extern "C" int pj_minplus_occupancy(int rows, int* blocks_per_sm) {
+  return occupancy<float>(rows, blocks_per_sm);
+}
+
+extern "C" int pj_minplus_occupancy_f64(int rows, int* blocks_per_sm) {
+  return occupancy<double>(rows, blocks_per_sm);
 }

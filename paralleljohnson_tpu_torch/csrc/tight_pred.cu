@@ -59,6 +59,19 @@
 // Arithmetic: __fadd_rn / __fsub_rn / __fmul_rn (never contracted into an
 // FMA) and no fast-math, so the tight test rounds exactly as the plain
 // PyTorch version's f32 ops do, and the result agrees bitwise.
+//
+// f64 (`pj_tight_pred_f64`, precision="f64"): the same schedule on
+// double2 lanes (32 * 2 NV columns a pass: NV = 1 up to B = 64, else 2),
+// __dadd_rn / __dsub_rn / __dmul_rn and a tolerance of 4 DBL_EPSILON, as
+// the plain version takes finfo(float64).eps. A 64-bit image of a double
+// and a 32-bit id do not fit one 64-bit key, so at f64 the least pair is
+// compared as a pair in registers everywhere, and pieces of split rows
+// write it as two words: du (f64) and u (int32) in two scratch arrays
+// (none: +inf and -1; a tight du is finite, so +inf sorts after it). The
+// combine takes their lexicographic minimum with the same comparison, as
+// doubles, so -0.0 and +0.0 still tie and go to the lower id. Each
+// resident block carries more live state than at f32 (a du takes two
+// registers), so the f64 plan keeps one block per SM fewer (Tune).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -70,60 +83,104 @@ constexpr int kWarps = 8;  // warps per block
 constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr long long kNoKey = 0x7fffffffffffffffLL;
-// TOL_SCALE * FLT_EPSILON = 4 * 2^-23.
-constexpr float kTolEps = 4.0f * 1.1920928955078125e-07f;
+
+// A lane's 16-byte vector of K values (float4 at f32, double2 at f64),
+// the int vector of the same K, the tolerance scale TOL_SCALE * eps and
+// the correctly rounded arithmetic of the tight test.
+template <typename T> struct Lane;
+template <> struct Lane<float> {
+  using V = float4;
+  using IV = int4;
+  static constexpr int K = 4;
+  // TOL_SCALE * FLT_EPSILON = 4 * 2^-23.
+  static constexpr float kTolEps = 4.0f * 1.1920928955078125e-07f;
+  static __device__ __forceinline__ float inf() { return CUDART_INF_F; }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float abs(float a) { return fabsf(a); }
+  static __device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
+};
+template <> struct Lane<double> {
+  using V = double2;
+  using IV = int2;
+  static constexpr int K = 2;
+  // TOL_SCALE * DBL_EPSILON = 4 * 2^-52.
+  static constexpr double kTolEps = 4.0 * 2.220446049250313080847e-16;
+  static __device__ __forceinline__ double inf() { return CUDART_INF; }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double abs(double a) { return fabs(a); }
+  static __device__ __forceinline__ double max(double a, double b) { return fmax(a, b); }
+};
 
 // Row gathers per batch (U) and resident blocks per SM of the items
-// kernel, by pass width NV, on the float4 and on the scalar lane path
-// (whose column arithmetic takes more registers).
-template <int NV> struct Tune;
-template <> struct Tune<1> {
+// kernel, by value type and pass width NV, on the vector and on the
+// scalar lane path (whose column arithmetic takes more registers).
+template <typename T, int NV> struct Tune;
+template <> struct Tune<float, 1> {
   static constexpr int U = 2, kBlocks = 5, kScalarBlocks = 4;
 };
-template <> struct Tune<2> {
+template <> struct Tune<float, 2> {
   static constexpr int U = 1, kBlocks = 4, kScalarBlocks = 2;
 };
+template <> struct Tune<double, 1> {
+  static constexpr int U = 2, kBlocks = 4, kScalarBlocks = 3;
+};
+template <> struct Tune<double, 2> {
+  static constexpr int U = 1, kBlocks = 3, kScalarBlocks = 2;
+};
 
-// Columns of one pass: 128 * NV starting at col0. VEC (B % 4 == 0, 16-byte
-// aligned rows): group q of a lane is the float4 at col0 + 4 (lane + 32 q).
-// Scalar: element i of group q is column col0 + lane + 32 (4 q + i).
-template <bool VEC>
+// Columns of one pass: 32 * K * NV starting at col0. VEC (B % K == 0,
+// 16-byte aligned rows): group q of a lane is the vector at
+// col0 + K (lane + 32 q). Scalar: element i of group q is column
+// col0 + lane + 32 (K q + i).
+template <int K, bool VEC>
 __device__ __forceinline__ int64_t col_of(int64_t col0, int lane, int q,
                                           int i) {
-  return VEC ? col0 + 4 * (lane + 32 * q) + i : col0 + lane + 32 * (4 * q + i);
-}
-
-__device__ __forceinline__ float4 inf4() {
-  return make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, CUDART_INF_F);
+  return VEC ? col0 + K * (lane + 32 * q) + i : col0 + lane + 32 * (K * q + i);
 }
 
 __device__ __forceinline__ float& at(float4& f, int i) {
   return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
 }
-
+__device__ __forceinline__ double& at(double2& f, int i) {
+  return i == 0 ? f.x : f.y;
+}
 __device__ __forceinline__ int& at(int4& f, int i) {
   return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
 }
+__device__ __forceinline__ int& at(int2& f, int i) {
+  return i == 0 ? f.x : f.y;
+}
 
-__device__ __forceinline__ int at(const int4& f, int i) {
-  return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
+template <typename V, typename S>
+__device__ __forceinline__ V splat(S x) {
+  V v;
+  constexpr int K = sizeof(V) / sizeof(S);
+#pragma unroll
+  for (int i = 0; i < K; ++i) at(v, i) = x;
+  return v;
 }
 
 // Lane's columns of `row` (+inf outside [0, B)).
-template <int NV, bool VEC>
-__device__ __forceinline__ void load_row(const float* __restrict__ row,
+template <typename T, int NV, bool VEC>
+__device__ __forceinline__ void load_row(const T* __restrict__ row,
                                          int64_t col0, int lane, int64_t B,
-                                         float4 (&f)[NV]) {
+                                         typename Lane<T>::V (&f)[NV]) {
+  using L = Lane<T>;
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
     if (VEC) {
-      const int64_t c = col_of<true>(col0, lane, q, 0);
-      f[q] = c < B ? __ldg(reinterpret_cast<const float4*>(row + c)) : inf4();
+      const int64_t c = col_of<L::K, true>(col0, lane, q, 0);
+      f[q] = c < B ? __ldg(reinterpret_cast<const typename L::V*>(row + c))
+                   : splat<typename L::V>(L::inf());
     } else {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int64_t c = col_of<false>(col0, lane, q, i);
-        at(f[q], i) = c < B ? __ldg(row + c) : CUDART_INF_F;
+      for (int i = 0; i < L::K; ++i) {
+        const int64_t c = col_of<L::K, false>(col0, lane, q, i);
+        at(f[q], i) = c < B ? __ldg(row + c) : L::inf();
       }
     }
   }
@@ -136,7 +193,7 @@ __device__ __forceinline__ int image(float x) {
   return bits >= 0 ? bits : bits ^ 0x7fffffff;
 }
 
-// The key of (du, u) (u < 0: none), ordered lexicographically as a
+// The f32 key of (du, u) (u < 0: none), ordered lexicographically as a
 // signed 64-bit int.
 __device__ __forceinline__ long long pack(float du, int u) {
   return u < 0 ? kNoKey
@@ -145,18 +202,29 @@ __device__ __forceinline__ long long pack(float du, int u) {
 }
 
 // The least (du, u) of a column so far; u < 0 while no in-edge was tight.
+template <typename T>
 struct Best {
-  float du;
+  T du;
   int u;
 };
+
+// Whether (du, u) comes before b: du compared as a float (so -0.0 and
+// +0.0 tie), then the id. A tight du is finite, so none (+inf, -1) comes
+// after every tight pair and two nones tie.
+template <typename T>
+__device__ __forceinline__ bool before(T du, int u, const Best<T>& b) {
+  return du < b.du || (du == b.du && u < b.u);
+}
 
 // Tolerance of a row's entry dv; -1 when dv is not finite, so that no
 // candidate passes (|cand - dv| >= 0 > -1). Otherwise it is finite, so a
 // candidate that is not finite fails too (|cand - dv| is inf or NaN):
 // the plain version's isfinite(cand) needs no test of its own.
-__device__ __forceinline__ float tolerance(float dv) {
-  return fabsf(dv) < CUDART_INF_F ? __fmul_rn(kTolEps, fmaxf(fabsf(dv), 1.0f))
-                                  : -1.0f;
+template <typename T>
+__device__ __forceinline__ T tolerance(T dv) {
+  using L = Lane<T>;
+  return L::abs(dv) < L::inf() ? L::mul(L::kTolEps, L::max(L::abs(dv), T(1)))
+                               : T(-1);
 }
 
 __device__ __forceinline__ int pred_of(long long key) {
@@ -173,38 +241,99 @@ __device__ __forceinline__ float du_of(long long key) {
 // for none. Without sources (is_source unused), u. With them: -1 at the
 // column's source; else -1 noting `uncovered` when dv is finite and no
 // in-edge was tight, or u noting `nondescending` when du is not < dv.
-__device__ __forceinline__ int settle(float du, int u, float dv,
-                                      bool is_source, bool with_sources,
-                                      bool& uncovered, bool& nondescending) {
+template <typename T>
+__device__ __forceinline__ int settle(T du, int u, T dv, bool is_source,
+                                      bool with_sources, bool& uncovered,
+                                      bool& nondescending) {
   if (!with_sources) return u;
   if (is_source) return -1;
   if (u < 0) {
-    uncovered |= fabsf(dv) < CUDART_INF_F;
+    uncovered |= Lane<T>::abs(dv) < Lane<T>::inf();
     return -1;
   }
   nondescending |= !(du < dv);
   return u;
 }
 
-// Whether `row` is the source of each of a lane's four columns of group
-// q (one int4 load on the VEC path; sources null: none is).
-template <bool VEC>
-__device__ __forceinline__ int4 source_rows(const int* __restrict__ sources,
-                                            int64_t col0, int lane, int q,
-                                            int64_t B) {
-  int4 s = make_int4(-1, -1, -1, -1);
+// The source of each of a lane's K columns of group q (one int vector
+// load on the VEC path; sources null: none is).
+template <typename T, bool VEC>
+__device__ __forceinline__ typename Lane<T>::IV source_rows(
+    const int* __restrict__ sources, int64_t col0, int lane, int q,
+    int64_t B) {
+  using L = Lane<T>;
+  typename L::IV s = splat<typename L::IV>(-1);
   if (sources == nullptr) return s;
   if (VEC) {
-    const int64_t c = col_of<true>(col0, lane, q, 0);
-    if (c < B) s = __ldg(reinterpret_cast<const int4*>(sources + c));
+    const int64_t c = col_of<L::K, true>(col0, lane, q, 0);
+    if (c < B) s = __ldg(reinterpret_cast<const typename L::IV*>(sources + c));
   } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t c = col_of<false>(col0, lane, q, i);
+    for (int i = 0; i < L::K; ++i) {
+      const int64_t c = col_of<L::K, false>(col0, lane, q, i);
       if (c < B) at(s, i) = __ldg(sources + c);
     }
   }
   return s;
+}
+
+// Where pieces of split rows leave their least pairs: an int64 key per
+// column at f32 (`key`), du and u as two words at f64 (`du`, `u`).
+struct Partial {
+  long long* key;
+  double* du;
+  int* u;
+};
+
+// Store piece k's least pairs of the K columns of group q.
+template <int NV, bool VEC>
+__device__ __forceinline__ void store_partial(const Partial& p, int64_t k,
+                                              int64_t B, int64_t col0,
+                                              int lane, int q,
+                                              Best<float> (&best)[NV][4]) {
+  long long* out = p.key + k * B;
+  long long key[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) key[i] = pack(best[q][i].du, best[q][i].u);
+  const int64_t c = col_of<4, VEC>(col0, lane, q, 0);
+  if (VEC) {
+    if (c < B) {
+      reinterpret_cast<longlong2*>(out + c)[0] = make_longlong2(key[0], key[1]);
+      reinterpret_cast<longlong2*>(out + c)[1] = make_longlong2(key[2], key[3]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int64_t ci = col_of<4, false>(col0, lane, q, i);
+      if (ci < B) out[ci] = key[i];
+    }
+  }
+}
+
+template <int NV, bool VEC>
+__device__ __forceinline__ void store_partial(const Partial& p, int64_t k,
+                                              int64_t B, int64_t col0,
+                                              int lane, int q,
+                                              Best<double> (&best)[NV][2]) {
+  double* du = p.du + k * B;
+  int* u = p.u + k * B;
+  const int64_t c = col_of<2, VEC>(col0, lane, q, 0);
+  if (VEC) {
+    if (c < B) {
+      *reinterpret_cast<double2*>(du + c) =
+          make_double2(best[q][0].du, best[q][1].du);
+      *reinterpret_cast<int2*>(u + c) = make_int2(best[q][0].u, best[q][1].u);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t ci = col_of<2, false>(col0, lane, q, i);
+      if (ci < B) {
+        du[ci] = best[q][i].du;
+        u[ci] = best[q][i].u;
+      }
+    }
+  }
 }
 
 // Lane 0 of a warp in which any lane saw `seen` sets *flag (see the top).
@@ -213,19 +342,22 @@ __device__ __forceinline__ void raise_flag(bool seen, int lane, int* flag) {
 }
 
 // One warp per item. Warps below n_pieces take piece k of a split row
-// from the table (row, first edge, end edge) and store partial[k]; warp
-// n_pieces + v takes row v whole and stores pred[v], unless v has more
-// than L in-edges (its pieces cover it). Per lane, U row gathers (NV
-// float4 each) are issued back to back, then tested.
-template <int NV, bool VEC, int U>
-__global__ void __launch_bounds__(kThreads, VEC ? Tune<NV>::kBlocks
-                                                : Tune<NV>::kScalarBlocks)
-pred_items(const float* __restrict__ dist, int* __restrict__ pred,
-           const int* __restrict__ src, const float* __restrict__ w,
+// from the table (row, first edge, end edge) and store its partial;
+// warp n_pieces + v takes row v whole and stores pred[v], unless v has
+// more than L in-edges (its pieces cover it). Per lane, U row gathers
+// (NV vectors each) are issued back to back, then tested.
+template <typename T, int NV, bool VEC, int U>
+__global__ void __launch_bounds__(kThreads, VEC ? Tune<T, NV>::kBlocks
+                                                : Tune<T, NV>::kScalarBlocks)
+pred_items(const T* __restrict__ dist, int* __restrict__ pred,
+           const int* __restrict__ src, const T* __restrict__ w,
            const int* __restrict__ indptr, const int* __restrict__ pieces,
-           int64_t n_pieces, int64_t V, int L, long long* __restrict__ partial,
+           int64_t n_pieces, int64_t V, int L, Partial partial,
            const int* __restrict__ sources, int* __restrict__ flags,
            int64_t B) {
+  using Ln = Lane<T>;
+  using Vec = typename Ln::V;
+  constexpr int K = Ln::K;
   const int lane = threadIdx.x & 31;
   const int64_t k = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   int64_t row;
@@ -243,43 +375,46 @@ pred_items(const float* __restrict__ dist, int* __restrict__ pred,
     if (e1 - e0 > L) return;
   }
   bool uncovered = false, nondescending = false;
-  for (int64_t col0 = 0; col0 < B; col0 += 128 * NV) {
-    float4 dv[NV];
-    load_row<NV, VEC>(dist + row * B, col0, lane, B, dv);
-    Best best[NV][4];
+  for (int64_t col0 = 0; col0 < B; col0 += 32 * K * NV) {
+    Vec dv[NV];
+    load_row<T, NV, VEC>(dist + row * B, col0, lane, B, dv);
+    Best<T> best[NV][K];
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) best[q][i] = {CUDART_INF_F, -1};
+      for (int i = 0; i < K; ++i) best[q][i] = {Ln::inf(), -1};
     }
     for (int eb = e0; eb < e1; eb += 32) {
       const int n = min(32, e1 - eb);
       const int my_u = lane < n ? __ldg(src + eb + lane) : 0;
-      const float my_w = lane < n ? __ldg(w + eb + lane) : 0.0f;
+      const T my_w = lane < n ? __ldg(w + eb + lane) : T(0);
       for (int j = 0; j < n; j += U) {
-        float4 g[U][NV];
+        Vec g[U][NV];
         int uj[U];
-        float wj[U];
+        T wj[U];
 #pragma unroll
         for (int t = 0; t < U; ++t) {
           uj[t] = __shfl_sync(kFull, my_u, (j + t) & 31);
           wj[t] = __shfl_sync(kFull, my_w, (j + t) & 31);
           if (j + t < n)
-            load_row<NV, VEC>(dist + (int64_t)uj[t] * B, col0, lane, B, g[t]);
+            load_row<T, NV, VEC>(dist + (int64_t)uj[t] * B, col0, lane, B,
+                                 g[t]);
         }
 #pragma unroll
         for (int q = 0; q < NV; ++q) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float d = at(dv[q], i);
-            const float tol = tolerance(d);
-            Best b = best[q][i];
+          for (int i = 0; i < K; ++i) {
+            const T d = at(dv[q], i);
+            const T tol = tolerance(d);
+            Best<T> b = best[q][i];
 #pragma unroll
             for (int t = 0; t < U; ++t) {
               if (j + t < n) {
-                const float du = at(g[t][q], i);
-                const float cand = __fadd_rn(du, wj[t]);
-                if (fabsf(__fsub_rn(cand, d)) <= tol &&
+                const T du = at(g[t][q], i);
+                const T cand = Ln::add(du, wj[t]);
+                // before(), written out: through the helper the f32
+                // pass ran 10-20% slower on the H100 (PERF.md, PR 16).
+                if (Ln::abs(Ln::sub(cand, d)) <= tol &&
                     (du < b.du || (du == b.du && uj[t] < b.u)))
                   b = {du, uj[t]};
               }
@@ -293,43 +428,24 @@ pred_items(const float* __restrict__ dist, int* __restrict__ pred,
       int* out = pred + row * B;
 #pragma unroll
       for (int q = 0; q < NV; ++q) {
-        const int4 srcs = source_rows<VEC>(sources, col0, lane, q, B);
-        int4 p;
+        typename Ln::IV srcs = source_rows<T, VEC>(sources, col0, lane, q, B);
+        typename Ln::IV p;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int64_t c = col_of<VEC>(col0, lane, q, i);
+        for (int i = 0; i < K; ++i) {
+          const int64_t c = col_of<K, VEC>(col0, lane, q, i);
           at(p, i) = c < B ? settle(best[q][i].du, best[q][i].u, at(dv[q], i),
                                     at(srcs, i) == row, sources != nullptr,
                                     uncovered, nondescending)
                            : -1;
           if (!VEC && c < B) out[c] = at(p, i);
         }
-        const int64_t c = col_of<VEC>(col0, lane, q, 0);
-        if (VEC && c < B) *reinterpret_cast<int4*>(out + c) = p;
+        const int64_t c = col_of<K, VEC>(col0, lane, q, 0);
+        if (VEC && c < B) *reinterpret_cast<typename Ln::IV*>(out + c) = p;
       }
     } else {
-      long long* out = partial + k * B;
 #pragma unroll
-      for (int q = 0; q < NV; ++q) {
-        long long key[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) key[i] = pack(best[q][i].du, best[q][i].u);
-        const int64_t c = col_of<VEC>(col0, lane, q, 0);
-        if (VEC) {
-          if (c < B) {
-            reinterpret_cast<longlong2*>(out + c)[0] =
-                make_longlong2(key[0], key[1]);
-            reinterpret_cast<longlong2*>(out + c)[1] =
-                make_longlong2(key[2], key[3]);
-          }
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int64_t ci = col_of<false>(col0, lane, q, i);
-            if (ci < B) out[ci] = key[i];
-          }
-        }
-      }
+      for (int q = 0; q < NV; ++q)
+        store_partial<NV, VEC>(partial, k, B, col0, lane, q, best);
     }
   }
   if (whole && sources != nullptr) {
@@ -338,16 +454,41 @@ pred_items(const float* __restrict__ dist, int* __restrict__ pred,
   }
 }
 
-// Split rows: pred[v] from the least of v's pieces' keys, settled as a
+// The least pair of column c of a split row over its pieces p0 .. p1-1.
+__device__ __forceinline__ Best<float> least(const Partial& part, int p0,
+                                             int p1, int64_t B, int64_t c,
+                                             float) {
+  long long best = kNoKey;
+#pragma unroll 4
+  for (int p = p0; p < p1; ++p) {
+    const long long key = __ldg(part.key + (int64_t)p * B + c);
+    best = key < best ? key : best;
+  }
+  return {du_of(best), pred_of(best)};
+}
+
+__device__ __forceinline__ Best<double> least(const Partial& part, int p0,
+                                              int p1, int64_t B, int64_t c,
+                                              double) {
+  Best<double> best = {CUDART_INF, -1};
+#pragma unroll 4
+  for (int p = p0; p < p1; ++p) {
+    const double du = __ldg(part.du + (int64_t)p * B + c);
+    const int u = __ldg(part.u + (int64_t)p * B + c);
+    if (before(du, u, best)) best = {du, u};
+  }
+  return best;
+}
+
+// Split rows: pred[v] from the least of v's pieces' pairs, settled as a
 // whole row is; one warp per row, every column (four per lane at a time
-// on the VEC path).
-template <bool VEC>
+// on the f32 VEC path, one on the others).
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-combine_split_rows(int* __restrict__ pred,
-                   const long long* __restrict__ partial,
+combine_split_rows(int* __restrict__ pred, Partial partial,
                    const int* __restrict__ split_rows,
                    const int* __restrict__ split_ptr, int64_t n_rows,
-                   const float* __restrict__ dist,
+                   const T* __restrict__ dist,
                    const int* __restrict__ sources, int* __restrict__ flags,
                    int64_t B) {
   const int64_t r = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -357,21 +498,22 @@ combine_split_rows(int* __restrict__ pred,
   const int p0 = __ldg(split_ptr + r);
   const int p1 = __ldg(split_ptr + r + 1);
   bool uncovered = false, nondescending = false;
-  if (VEC) {
+  if constexpr (VEC && sizeof(T) == 4) {
     for (int64_t c = 4 * lane; c < B; c += 128) {
       long long best[4] = {kNoKey, kNoKey, kNoKey, kNoKey};
 #pragma unroll 4
       for (int p = p0; p < p1; ++p) {
         const longlong2* keys =
-            reinterpret_cast<const longlong2*>(partial + (int64_t)p * B + c);
+            reinterpret_cast<const longlong2*>(partial.key + (int64_t)p * B + c);
         const longlong2 a = __ldg(keys), b = __ldg(keys + 1);
         best[0] = a.x < best[0] ? a.x : best[0];
         best[1] = a.y < best[1] ? a.y : best[1];
         best[2] = b.x < best[2] ? b.x : best[2];
         best[3] = b.y < best[3] ? b.y : best[3];
       }
-      float4 dv = __ldg(reinterpret_cast<const float4*>(dist + row * B + c));
-      const int4 srcs = source_rows<true>(sources, c, 0, 0, B);
+      const float* drow = reinterpret_cast<const float*>(dist) + row * B;
+      float4 dv = __ldg(reinterpret_cast<const float4*>(drow + c));
+      int4 srcs = source_rows<float, true>(sources, c, 0, 0, B);
       int4 p;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -382,14 +524,9 @@ combine_split_rows(int* __restrict__ pred,
     }
   } else {
     for (int64_t c = lane; c < B; c += 32) {
-      long long best = kNoKey;
-#pragma unroll 4
-      for (int p = p0; p < p1; ++p) {
-        const long long key = __ldg(partial + (int64_t)p * B + c);
-        best = key < best ? key : best;
-      }
+      const Best<T> best = least(partial, p0, p1, B, c, T(0));
       pred[row * B + c] =
-          settle(du_of(best), pred_of(best), __ldg(dist + row * B + c),
+          settle(best.du, best.u, __ldg(dist + row * B + c),
                  sources != nullptr && __ldg(sources + c) == row,
                  sources != nullptr, uncovered, nondescending);
     }
@@ -400,64 +537,62 @@ combine_split_rows(int* __restrict__ pred,
   }
 }
 
-using ItemsFn = void (*)(const float*, int*, const int*, const float*,
-                         const int*, const int*, int64_t, int64_t, int,
-                         long long*, const int*, int*, int64_t);
+template <typename T>
+using ItemsFn = void (*)(const T*, int*, const int*, const T*, const int*,
+                         const int*, int64_t, int64_t, int, Partial,
+                         const int*, int*, int64_t);
 
+template <typename T>
 struct Plan {
-  ItemsFn fn;
+  ItemsFn<T> fn;
   int depth;  // gathers per batch U
 };
 
-template <int NV>
-Plan plan_nv(bool vec) {
-  constexpr int U = Tune<NV>::U;
-  if (vec) return {pred_items<NV, true, U>, U};
-  return {pred_items<NV, false, U>, U};
+template <typename T, int NV>
+Plan<T> plan_nv(bool vec) {
+  constexpr int U = Tune<T, NV>::U;
+  if (vec) return {pred_items<T, NV, true, U>, U};
+  return {pred_items<T, NV, false, U>, U};
 }
 
-// NV by B: one 128-column pass up to B = 128, else 256-column passes.
-Plan plan(int64_t B, bool vec) {
-  return B <= 128 ? plan_nv<1>(vec) : plan_nv<2>(vec);
+// NV by B: one pass of 32 K columns up to B = 32 K (128 at f32, 64 at
+// f64), else passes of 64 K columns.
+template <typename T>
+Plan<T> plan(int64_t B, bool vec) {
+  return B <= 32 * Lane<T>::K ? plan_nv<T, 1>(vec) : plan_nv<T, 2>(vec);
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-}  // namespace
-
-// One pass over V rows: the items kernel (n_pieces pieces of split rows,
-// then every row of at most L in-edges whole), then the split-row
-// combine. B % 4 != 0 or unaligned rows take the scalar lane path.
-// `sources` and `flags` are both null (no source mask, no flags) or both
-// given (flags zeroed by the caller).
-extern "C" int pj_tight_pred(const float* dist, int* pred, const int* indptr,
-                             const int* src, const float* w, const int* pieces,
-                             long long n_pieces, long long V, int L,
-                             long long* partial, const int* split_rows,
-                             const int* split_ptr, long long n_split_rows,
-                             const int* sources, int* flags, long long B,
-                             void* stream) {
+template <typename T>
+int pass(const T* dist, int* pred, const int* indptr, const int* src,
+         const T* w, const int* pieces, long long n_pieces, long long V,
+         int L, Partial partial, const int* split_rows, const int* split_ptr,
+         long long n_split_rows, const int* sources, int* flags, long long B,
+         void* stream) {
   if (B > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const bool vec = B % 4 == 0 && aligned16(dist) && aligned16(pred) &&
-                     aligned16(partial) && aligned16(sources);
+    const bool vec = B % Lane<T>::K == 0 && aligned16(dist) &&
+                     aligned16(pred) && aligned16(partial.key) &&
+                     aligned16(partial.du) && aligned16(partial.u) &&
+                     aligned16(sources);
     const long long n_items = n_pieces + V;
     if (n_items > 0) {
       const unsigned grid = (unsigned)((n_items + kWarps - 1) / kWarps);
-      plan(B, vec).fn<<<grid, kThreads, 0, s>>>(
+      plan<T>(B, vec).fn<<<grid, kThreads, 0, s>>>(
           dist, pred, src, w, indptr, pieces, n_pieces, V, L, partial,
           sources, flags, B);
     }
     if (n_split_rows > 0) {
       const unsigned grid = (unsigned)((n_split_rows + kWarps - 1) / kWarps);
       if (vec) {
-        combine_split_rows<true><<<grid, kThreads, 0, s>>>(
+        combine_split_rows<T, true><<<grid, kThreads, 0, s>>>(
             pred, partial, split_rows, split_ptr, n_split_rows, dist, sources,
             flags, B);
       } else {
-        combine_split_rows<false><<<grid, kThreads, 0, s>>>(
+        combine_split_rows<T, false><<<grid, kThreads, 0, s>>>(
             pred, partial, split_rows, split_ptr, n_split_rows, dist, sources,
             flags, B);
       }
@@ -466,12 +601,57 @@ extern "C" int pj_tight_pred(const float* dist, int* pred, const int* indptr,
   return (int)cudaGetLastError();
 }
 
-// Resident blocks per SM and gathers per batch (U) of the items kernel
-// that a pass at width B launches.
-extern "C" int pj_tight_pred_occupancy(long long B, int vec,
-                                       int* blocks_per_sm, int* gather_depth) {
-  const Plan p = plan(B, vec != 0);
+template <typename T>
+int occupancy(long long B, int vec, int* blocks_per_sm, int* gather_depth) {
+  const Plan<T> p = plan<T>(B, vec != 0);
   *gather_depth = p.depth;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, reinterpret_cast<const void*>(p.fn), kThreads, 0);
+}
+
+}  // namespace
+
+// One pass over V rows: the items kernel (n_pieces pieces of split rows,
+// then every row of at most L in-edges whole), then the split-row
+// combine. B % K != 0 or unaligned rows take the scalar lane path.
+// `sources` and `flags` are both null (no source mask, no flags) or both
+// given (flags zeroed by the caller). f32: `partial` holds the pieces'
+// int64 keys [n_pieces, B]; f64 (`pj_tight_pred_f64`): `partial_du`
+// (f64) and `partial_u` (int32), each [n_pieces, B].
+extern "C" int pj_tight_pred(const float* dist, int* pred, const int* indptr,
+                             const int* src, const float* w, const int* pieces,
+                             long long n_pieces, long long V, int L,
+                             long long* partial, const int* split_rows,
+                             const int* split_ptr, long long n_split_rows,
+                             const int* sources, int* flags, long long B,
+                             void* stream) {
+  return pass<float>(dist, pred, indptr, src, w, pieces, n_pieces, V, L,
+                     Partial{partial, nullptr, nullptr}, split_rows,
+                     split_ptr, n_split_rows, sources, flags, B, stream);
+}
+
+extern "C" int pj_tight_pred_f64(const double* dist, int* pred,
+                                 const int* indptr, const int* src,
+                                 const double* w, const int* pieces,
+                                 long long n_pieces, long long V, int L,
+                                 double* partial_du, int* partial_u,
+                                 const int* split_rows, const int* split_ptr,
+                                 long long n_split_rows, const int* sources,
+                                 int* flags, long long B, void* stream) {
+  return pass<double>(dist, pred, indptr, src, w, pieces, n_pieces, V, L,
+                      Partial{nullptr, partial_du, partial_u}, split_rows,
+                      split_ptr, n_split_rows, sources, flags, B, stream);
+}
+
+// Resident blocks per SM and gathers per batch (U) of the items kernel
+// that a pass at width B launches, at f32 and at f64.
+extern "C" int pj_tight_pred_occupancy(long long B, int vec,
+                                       int* blocks_per_sm, int* gather_depth) {
+  return occupancy<float>(B, vec, blocks_per_sm, gather_depth);
+}
+
+extern "C" int pj_tight_pred_occupancy_f64(long long B, int vec,
+                                           int* blocks_per_sm,
+                                           int* gather_depth) {
+  return occupancy<double>(B, vec, blocks_per_sm, gather_depth);
 }

@@ -125,7 +125,8 @@ def finalize_solve(
     ``plan``, ``solve`` and ``trajectory`` records. Returns the roofline
     dict (also left on ``stats.roofline``)."""
     platform = current_platform(device)
-    roof = attribute_stats(stats, platform=platform)
+    roof = attribute_stats(stats, platform=platform,
+                           precision=getattr(config, "precision", "f32"))
     stats.roofline = roof
     if telemetry is not None and roof:
         telemetry.progress(roofline_bound=roof.get("bound"))

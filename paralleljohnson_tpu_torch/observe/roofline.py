@@ -22,6 +22,11 @@ PLATFORM_PEAKS: dict[str, dict] = {
     "cuda": {"mem_gbps": 3350.0, "flops_gflops": 67000.0},
     "cpu": {"mem_gbps": 20.0, "flops_gflops": 100.0},
 }
+# f64 compute (GFLOP/s) where it differs from the f32 row: the H100 SXM5's
+# 34 TFLOP/s FP64 outside the tensor cores (datasheet, an FMA counted as
+# two operations), half its FP32 rate. A precision="f64" solve is
+# classified against it.
+F64_PEAK_GFLOPS: dict[str, float] = {"cuda": 34000.0}
 
 # A solve whose host-side IO (downloads + pipeline waits, net of what
 # the overlap hid) exceeds this fraction of the wall is host-IO-bound
@@ -31,8 +36,14 @@ HOST_IO_DOMINANCE = 0.5
 BOUND_KINDS = ("hbm", "mxu", "host-io", "unknown")
 
 
-def peaks_for(platform: str) -> dict:
-    return PLATFORM_PEAKS.get(platform, PLATFORM_PEAKS["cpu"])
+def peaks_for(platform: str, precision: str = "f32") -> dict:
+    """``{"mem_gbps", "flops_gflops"}`` of ``platform`` for distances of
+    ``precision`` ("f32" or "f64"): at f64 the compute peak is
+    ``F64_PEAK_GFLOPS``'s where it lists the platform."""
+    row = PLATFORM_PEAKS.get(platform, PLATFORM_PEAKS["cpu"])
+    if precision == "f64" and platform in F64_PEAK_GFLOPS:
+        return {**row, "flops_gflops": F64_PEAK_GFLOPS[platform]}
+    return row
 
 
 def classify(
@@ -43,14 +54,16 @@ def classify(
     host_io_s: float = 0.0,
     wall_s: float | None = None,
     platform: str = "cpu",
+    precision: str = "f32",
 ) -> dict:
     """One roofline classification.
 
     Returns ``{"bound": "hbm"|"mxu"|"host-io"|"unknown", ...}`` with the
     derived times (``t_hbm_s``, ``t_mxu_s``), the arithmetic intensity
     against the platform's ridge point, the roofline floor, and a
-    one-line ``why``."""
-    peaks = peaks_for(platform)
+    one-line ``why``. ``precision`` picks the compute peak
+    (:func:`peaks_for`)."""
+    peaks = peaks_for(platform, precision)
     out: dict = {"platform": platform, "bound": "unknown", "peaks": peaks}
     if wall_s and host_io_s and host_io_s >= HOST_IO_DOMINANCE * wall_s:
         out["bound"] = "host-io"
@@ -98,11 +111,11 @@ def classify(
     return out
 
 
-def attribute_stats(stats, *, platform: str) -> dict:
+def attribute_stats(stats, *, platform: str, precision: str = "f32") -> dict:
     """Roofline-classify one completed solve from its SolverStats: the
     accumulated analytic cost (``stats.analytic_cost``) against the
     measured compute phases, with the pipeline's residual host-IO time
-    competing for the bound."""
+    competing for the bound; the compute peak is ``precision``'s."""
     g = lambda k, d=None: getattr(stats, k, d)  # noqa: E731
     phase_seconds = dict(g("phase_seconds", {}) or {})
     compute_s = sum(
@@ -126,4 +139,5 @@ def attribute_stats(stats, *, platform: str) -> dict:
         host_io_s=host_io_s,
         wall_s=wall_s or None,
         platform=platform,
+        precision=precision,
     )

@@ -12,6 +12,11 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a`` (Hopper), ``-O3``, and
 deliberately no ``--use_fast_math``: flushing subnormals to zero or
 approximate adds would break the bitwise agreement with the plain
 PyTorch versions.
+
+Every source has an f32 and an f64 version of each entry point
+(``pj_<name>`` and ``pj_<name>_f64``, one template instantiated twice);
+a wrapper takes the one of its call's value type (:func:`value_type`,
+:func:`entry`).
 """
 
 from __future__ import annotations
@@ -41,8 +46,10 @@ _L = ctypes.c_longlong
 _I = ctypes.c_int
 # C functions and their argument types, per source file. Each source's
 # launch entry point is ``pj_<name>`` (``fw_kleene`` has a second one),
-# its last argument the stream.
-SIGNATURES = {
+# its last argument the stream; each has an ``_f64`` twin with the same
+# arguments (doubles where the f32 one takes floats), but
+# ``pj_tight_pred_f64``, whose split rows' partials are two arrays.
+_F32_SIGNATURES = {
     "fanout_sweep": {
         "pj_fanout_sweep": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P,
                             _L, _P, _P, _L, _P),
@@ -63,6 +70,21 @@ SIGNATURES = {
         "pj_tight_pred_occupancy": (_L, _I, _P, _P),
     },
 }
+_F64_EXTRA_ARGS = {"pj_tight_pred": (10, _P)}  # partial_du, partial_u
+
+
+def _with_f64(fns: dict) -> dict:
+    out = dict(fns)
+    for fn, args in fns.items():
+        at = _F64_EXTRA_ARGS.get(fn)
+        out[f"{fn}_f64"] = (args if at is None
+                            else args[:at[0]] + (at[1],) + args[at[0]:])
+    return out
+
+
+SIGNATURES = {name: _with_f64(fns) for name, fns in _F32_SIGNATURES.items()}
+# The value types the kernels take, and the entry-point suffix of each.
+VALUE_TYPES = {torch.float32: "", torch.float64: "_f64"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -187,6 +209,22 @@ def launch(name: str, *args, device: torch.device, entry: str = "") -> None:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {err}"
         )
+
+
+def value_type(t: torch.Tensor, what: str) -> torch.dtype:
+    """The value type of a kernel call: ``t``'s dtype, f32 or f64
+    (``TypeError`` otherwise). Every other float argument of the call is
+    then checked for the same dtype (:func:`check`)."""
+    if t.dtype not in VALUE_TYPES:
+        raise TypeError(f"{what} must be torch.float32 or torch.float64, "
+                        f"got {t.dtype}")
+    return t.dtype
+
+
+def entry(fn: str, dtype: torch.dtype) -> str:
+    """The C entry point ``fn`` for values of ``dtype``: ``fn`` itself
+    at f32, ``fn + "_f64"`` at f64."""
+    return fn + VALUE_TYPES[dtype]
 
 
 def check(t: torch.Tensor, what: str, dtype: torch.dtype, device: torch.device,

@@ -139,9 +139,10 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
     writes nothing (``fanout_fixpoint`` chains sweeps on it).
 
     CUDA tensors run the hand kernel (``csrc/fanout_sweep.cu``) over
-    ``items`` (a :class:`WorkItems`; built from ``indptr_in`` when None);
-    ``scratch`` is its f32[items.n_split, B] partial-minimum buffer
-    (allocated when None). Each call counts one in
+    ``items`` (a :class:`WorkItems`; built from ``indptr_in`` when None),
+    in ``dist``'s dtype, f32 or f64 (``w_in``, ``out`` and ``scratch``
+    must have it too); ``scratch`` is its [items.n_split, B]
+    partial-minimum buffer (allocated when None). Each call counts one in
     ``fanout_sweep.launches``: one sweep, which is the items kernel and,
     when the layout has split rows, the combine kernel after it. A sweep
     skipped on ``prev`` launches both all the same (they return at entry)
@@ -161,10 +162,11 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
         return out, improved
     if dev.type != "cuda":
         raise ValueError(f"fanout_sweep takes cpu or cuda tensors, got {dev}")
-    _cuda.check(dist, "dist", torch.float32, dev, 2)
+    dt = _cuda.value_type(dist, "dist")
+    _cuda.check(dist, "dist", dt, dev, 2)
     _cuda.check(indptr_in, "indptr_in", torch.int32, dev, 1)
     _cuda.check(src_in, "src_in", torch.int32, dev, 1)
-    _cuda.check(w_in, "w_in", torch.float32, dev, 1)
+    _cuda.check(w_in, "w_in", dt, dev, 1)
     v, b = dist.shape
     if indptr_in.shape[0] != v + 1 or src_in.shape != w_in.shape:
         raise ValueError(
@@ -180,14 +182,13 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
     if out is None:
         out = torch.empty_like(dist)
     else:
-        _cuda.check(out, "out", torch.float32, dev, 2)
+        _cuda.check(out, "out", dt, dev, 2)
         if out.shape != dist.shape or out.data_ptr() == dist.data_ptr():
             raise ValueError("out must be a separate tensor shaped like dist")
     if scratch is None:
-        scratch = torch.empty((items.n_split, b), dtype=torch.float32,
-                              device=dev)
+        scratch = torch.empty((items.n_split, b), dtype=dt, device=dev)
     else:
-        _cuda.check(scratch, "scratch", torch.float32, dev, 2)
+        _cuda.check(scratch, "scratch", dt, dev, 2)
         if scratch.shape != (items.n_split, b):
             raise ValueError(f"scratch must be [{items.n_split}, {b}], got "
                              f"{tuple(scratch.shape)}")
@@ -205,7 +206,7 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
         items.n_split, v, items.item_edges, scratch.data_ptr(),
         items.split_rows.data_ptr(), items.split_ptr.data_ptr(),
         items.split_rows.shape[0], prev.data_ptr(), improved.data_ptr(), b,
-        device=dev,
+        device=dev, entry=_cuda.entry("pj_fanout_sweep", dt),
     )
     bump(fanout_sweep, "launches")
     return out, improved
@@ -214,14 +215,15 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
 fanout_sweep.launches = 0
 
 
-def occupancy(b: int, *, vec: bool = True) -> dict:
+def occupancy(b: int, *, vec: bool = True,
+              dtype: torch.dtype = torch.float32) -> dict:
     """Resident blocks per SM and gather depth (row gathers in flight per
-    lane, U) of the items kernel a sweep of width ``b`` launches (needs
-    the card)."""
+    lane, U) of the items kernel a sweep of width ``b`` in ``dtype``
+    launches (needs the card)."""
     blocks, depth = ctypes.c_int(0), ctypes.c_int(0)
-    err = _cuda.lib("fanout_sweep").pj_fanout_sweep_occupancy(
-        b, int(vec), ctypes.byref(blocks), ctypes.byref(depth),
-    )
+    fn = getattr(_cuda.lib("fanout_sweep"),
+                 _cuda.entry("pj_fanout_sweep_occupancy", dtype))
+    err = fn(b, int(vec), ctypes.byref(blocks), ctypes.byref(depth))
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
     return {"blocks_per_sm": blocks.value, "gather_depth": depth.value}

@@ -17,7 +17,8 @@ diagonal block k (the R-Kleene schedule):
 
 The products of steps 2 and 3 go through the hand min-plus kernel
 (``ops.minplus.minplus_kernel``) on the card and the plain product on
-the CPU. Each candidate is one f32 add and min is exact, so the products
+the CPU, in the matrix's dtype (f32, or f64 at ``precision="f64"``).
+Each candidate is one add in that dtype and min is exact, so the products
 are order-independent, and the Kleene steps keep the reference's order
 and its read-before-write: the closure is bitwise the reference's on
 float weights, not only on integers. Negative edges are handled natively;
@@ -54,10 +55,11 @@ FW_TILE = 512
 # (relax.minplus's broadcast intermediate). It changes no bit.
 FW_KBLOCK = 32
 
-# Largest [rows, Vp] f32 temporary of one trailing product: the trailing
-# update runs in row blocks of whole tiles below it (one product per
-# k-step up to Vp = 8192 at t = 512; every row block reads the same
-# panels and min is exact, so the blocking changes no bit).
+# Largest [rows, Vp] temporary (in bytes) of one trailing product: the
+# trailing update runs in row blocks of whole tiles below it (one product
+# per k-step up to Vp = 8192 at t = 512 in f32, 4096 in f64; every row
+# block reads the same panels and min is exact, so the blocking changes
+# no bit).
 FW_TRAIL_BYTES = 1 << 28
 
 # The Kleene kernel (csrc/fw_kleene.cu). Its cluster variant closes
@@ -67,7 +69,11 @@ FW_TRAIL_BYTES = 1 << 28
 # a row goes to 4 CTAs as one 16-byte store per lane). Each CTA is
 # KLEENE_THREAD_ROWS threads down, each thread holding RR tile rows of
 # one column in registers, for the RR of KLEENE_ROWS it is built for.
-# Its step variant runs blocks of 32 x 8 threads over 32 tile rows.
+# Its step variant runs blocks of 32 x 8 threads over 32 tile rows. At
+# f64 a thread's RR rows take 2 RR registers: RR = 32 holds 64 of the 128
+# a thread has at 512 threads per SM (124 used, no spill: ptxas on the
+# H100), so the cluster closes the same tiles at both value types
+# (chip_smoke's phase 1 holds ptxas to no spill and no stack frame).
 KLEENE_ROWS = (8, 16, 24, 32)
 KLEENE_CLUSTER = 16
 KLEENE_CTAS_DOWN = 4
@@ -121,13 +127,13 @@ def tile_kleene(d: torch.Tensor) -> torch.Tensor:
     return m.clone() if m is d else m
 
 
-def _check_tile(x: torch.Tensor, what: str, t: int, dev) -> None:
-    """A [t, t] f32 view on ``dev`` with unit column stride (rows may be
-    strided: a diagonal tile of a larger matrix)."""
+def _check_tile(x: torch.Tensor, what: str, t: int, dev, dtype) -> None:
+    """A [t, t] ``dtype`` view on ``dev`` with unit column stride (rows
+    may be strided: a diagonal tile of a larger matrix)."""
     if x.device != dev:
         raise ValueError(f"{what} is on {x.device}, expected {dev}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{what} must be torch.float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != (t, t):
         raise ValueError(f"{what} must be [{t}, {t}], got {tuple(x.shape)}")
     if t > 0 and (x.stride(1) != 1 or x.stride(0) < t):
@@ -143,7 +149,8 @@ class KleenePlan(NamedTuple):
     of dynamic shared memory (the hand-over buffers and their
     mbarriers). "step": t launches of a grid of ``threads``-thread
     blocks over ``rows`` x ``cols`` of the tile each, no shared memory,
-    through an f32[2, t, t] scratch (``cluster`` is 1)."""
+    through a [2, t, t] scratch (``cluster`` is 1). ``itemsize``: the
+    values' bytes, 4 (f32) or 8 (f64), which pick the kernel."""
 
     variant: str
     cluster: int
@@ -151,24 +158,27 @@ class KleenePlan(NamedTuple):
     cols: int
     threads: int
     smem_bytes: int
+    itemsize: int = 4
 
 
-def kleene_plan(t: int) -> KleenePlan:
-    """The Kleene kernel's plan for a [t, t] tile, a pure function of the
-    shape: the cluster variant up to ``KLEENE_CLUSTER_MAX_T`` (every
-    default FW tile), with the fewest rows per thread of ``KLEENE_ROWS``
-    that cover t; the step variant above (a choice by shape, not a
-    fallback)."""
-    t = int(t)
+def kleene_plan(t: int, itemsize: int = 4) -> KleenePlan:
+    """The Kleene kernel's plan for a [t, t] tile of values of
+    ``itemsize`` bytes (4 or 8), a pure function of the shape and type:
+    the cluster variant up to ``KLEENE_CLUSTER_MAX_T`` (every default FW
+    tile), with the fewest rows per thread of ``KLEENE_ROWS`` that cover
+    t, its shared memory sized by ``itemsize``; the step variant above (a
+    choice by shape, not a fallback)."""
+    t, itemsize = int(t), int(itemsize)
     if t > KLEENE_CLUSTER_MAX_T:
         return KleenePlan("step", 1, KLEENE_STEP_ROWS, 32, KLEENE_STEP_THREADS,
-                          0)
+                          0, itemsize)
     rr = next(r for r in KLEENE_ROWS
               if KLEENE_CTAS_DOWN * KLEENE_THREAD_ROWS * r >= t)
     padded = KLEENE_CTAS_DOWN * KLEENE_THREAD_ROWS * rr
     rows, cols = padded // KLEENE_CTAS_DOWN, padded // KLEENE_CTAS_ACROSS
     return KleenePlan("cluster", KLEENE_CLUSTER, rows, cols,
-                      KLEENE_THREAD_ROWS * cols, 16 + 4 * (2 * cols + 3 * rows))
+                      KLEENE_THREAD_ROWS * cols,
+                      16 + itemsize * (2 * cols + 3 * rows), itemsize)
 
 
 @functools.lru_cache(maxsize=None)
@@ -177,10 +187,12 @@ def cluster_occupancy(plan: KleenePlan, device: int) -> int:
     hold at once (``cudaOccupancyMaxActiveClusters``). 0 means the launch
     cannot run."""
     n = ctypes.c_int(0)
+    dtype = torch.float64 if plan.itemsize == 8 else torch.float32
+    fn = getattr(_cuda.lib("fw_kleene"),
+                 _cuda.entry("pj_fw_kleene_occupancy", dtype))
     with torch.cuda.device(device):
-        err = _cuda.lib("fw_kleene").pj_fw_kleene_occupancy(
-            plan.rows, plan.cols, plan.threads, plan.smem_bytes,
-            ctypes.byref(n))
+        err = fn(plan.rows, plan.cols, plan.threads, plan.smem_bytes,
+                 ctypes.byref(n))
     if err != 0:
         raise RuntimeError(f"cluster occupancy query failed: cudaError {err}")
     return n.value
@@ -191,10 +203,11 @@ def fw_kleene(d: torch.Tensor, *, out=None, scratch=None) -> torch.Tensor:
     kernel (``csrc/fw_kleene.cu``) for CUDA tensors; :func:`tile_kleene`
     for CPU tensors. ``d`` and ``out`` may be row-strided views of a
     larger matrix (a diagonal tile), and ``out`` may be ``d`` itself (in
-    place). :func:`kleene_plan` (t) picks the variant. ``scratch`` is
-    the step variant's f32[2, t, t] buffers (allocated when None); the
-    cluster variant needs none and ignores it. Returns ``out`` (a new
-    [t, t] tensor when None).
+    place). :func:`kleene_plan` (t, the itemsize) picks the variant. The
+    tile is f32 or f64, and ``out`` and ``scratch`` of its dtype.
+    ``scratch`` is the step variant's [2, t, t] buffers (allocated when
+    None); the cluster variant needs none and ignores it. Returns ``out``
+    (a new [t, t] tensor when None).
 
     Each CUDA call counts one in ``fw_kleene.launches``: one closure, one
     cluster launch or the step variant's t launches. A cluster the card
@@ -208,12 +221,13 @@ def fw_kleene(d: torch.Tensor, *, out=None, scratch=None) -> torch.Tensor:
     dev = d.device
     if dev.type != "cuda":
         raise ValueError(f"fw_kleene takes cpu or cuda tensors, got {dev}")
-    _check_tile(d, "d", t, dev)
+    dt = _cuda.value_type(d, "d")
+    _check_tile(d, "d", t, dev, dt)
     if out is None:
-        out = torch.empty((t, t), dtype=torch.float32, device=dev)
+        out = torch.empty((t, t), dtype=dt, device=dev)
     else:
-        _check_tile(out, "out", t, dev)
-    plan = kleene_plan(t)
+        _check_tile(out, "out", t, dev, dt)
+    plan = kleene_plan(t, d.element_size())
     if plan.variant == "cluster":
         index = torch.cuda.current_device() if dev.index is None else dev.index
         if cluster_occupancy(plan, index) < 1:
@@ -221,19 +235,20 @@ def fw_kleene(d: torch.Tensor, *, out=None, scratch=None) -> torch.Tensor:
                                f"cluster: {plan}")
         _cuda.launch("fw_kleene", d.data_ptr(), d.stride(0), out.data_ptr(),
                      out.stride(0), t, plan.rows, plan.cols, plan.threads,
-                     plan.smem_bytes, device=dev)
+                     plan.smem_bytes, device=dev,
+                     entry=_cuda.entry("pj_fw_kleene", dt))
     else:
         if scratch is None:
-            scratch = torch.empty((2, t, t), dtype=torch.float32, device=dev)
+            scratch = torch.empty((2, t, t), dtype=dt, device=dev)
         else:
-            _cuda.check(scratch, "scratch", torch.float32, dev, 3)
+            _cuda.check(scratch, "scratch", dt, dev, 3)
             if tuple(scratch.shape) != (2, t, t):
                 raise ValueError(f"scratch must be [2, {t}, {t}], got "
                                  f"{list(scratch.shape)}")
         _cuda.launch("fw_kleene", d.data_ptr(), d.stride(0), out.data_ptr(),
                      out.stride(0), scratch[0].data_ptr(),
                      scratch[1].data_ptr(), t, device=dev,
-                     entry="pj_fw_kleene_steps")
+                     entry=_cuda.entry("pj_fw_kleene_steps", dt))
     bump(fw_kleene, "launches")
     return out
 
@@ -276,12 +291,14 @@ def fw_apsp_blocked(a: torch.Tensor, *, tile: int = FW_TILE,
     nb = vp // tile
     dev = a.device
     scratch = (torch.empty((2, tile, tile), dtype=a.dtype, device=dev)
-               if dev.type == "cuda" and kleene_plan(tile).variant == "step"
+               if dev.type == "cuda"
+               and kleene_plan(tile, a.element_size()).variant == "step"
                else None)
     if nb == 1:
         fw_kleene(a, out=a, scratch=scratch)
         return a, _negative_diagonal(a)
-    rows = tile * max(1, min(nb, FW_TRAIL_BYTES // (4 * vp * tile)))
+    rows = tile * max(1, min(nb, FW_TRAIL_BYTES
+                             // (a.element_size() * vp * tile)))
     row_tmp = torch.empty((tile, vp), dtype=a.dtype, device=dev)
     col_tmp = torch.empty((vp, tile), dtype=a.dtype, device=dev)
     trail_tmp = torch.empty((rows, vp), dtype=a.dtype, device=dev)

@@ -7,7 +7,8 @@ the identity. It serves the dense fan-out (``relax.dense_fanout``) and
 min-plus squaring (``relax.apsp_minplus_squaring``) through their
 ``mp=`` argument, and the iterate regime's loop through
 :func:`minplus_fixpoint`. The kernel (``csrc/minplus.cu``) runs on the
-FP32 pipes of the card; see its header for the design.
+FP32 pipes of the card at f32 and on the FP64 pipes at f64; see its
+header for the design.
 """
 
 from __future__ import annotations
@@ -25,11 +26,15 @@ from paralleljohnson_tpu_torch.ops.relax import minplus as _minplus
 
 # The kernel's tiles: `rows` x TILE_COLS outputs per block, rows in
 # TILE_ROWS, K in stages of TILE_K. RESIDENT is each tile's resident
-# blocks per SM (its launch bounds; chip_smoke.py checks it on the card).
+# blocks per SM at f32 (its launch bounds; chip_smoke.py checks it on the
+# card), RESIDENT_F64 the same at f64, whose 4x8 micro-tile of doubles
+# takes ~150-170 registers a thread: f64 has no 128-row tile (512 threads
+# at 128 registers each spilled), its plan takes 32 rows there.
 TILE_ROWS = (16, 32, 128)
 TILE_COLS = 128
 TILE_K = 16
 RESIDENT = {16: 7, 32: 4, 128: 2}
+RESIDENT_F64 = {16: 5, 32: 3}
 # Streaming multiprocessors of an H100 SXM.
 SMS = 132
 # Split-K limits: at most 16 splits (the partials' traffic stays a small
@@ -56,27 +61,32 @@ class MinplusPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=1024)
-def minplus_plan(i: int, k: int, j: int) -> MinplusPlan:
-    """The kernel's plan for an [i, k] x [k, j] product, a pure function
-    of the shape (tuned on the H100 at the dense route's shapes; PERF.md).
+def minplus_plan(i: int, k: int, j: int, itemsize: int = 4) -> MinplusPlan:
+    """The kernel's plan for an [i, k] x [k, j] product of values of
+    ``itemsize`` bytes (4 or 8), a pure function of the shape (tuned on
+    the H100 at the dense route's shapes at f32; PERF.md).
 
     Tile rows: 16 for i <= 16, 32 for i <= 128, so a narrow source batch
     is neither padded to a wide tile nor left with a handful of blocks;
     above that the 128-row tile (an 8x8 micro-tile per thread, the most
-    math per shared-memory read) unless 32-row tiles pad fewer rows. K
+    math per shared-memory read) unless 32-row tiles pad fewer rows, or
+    the values are f64 (32 rows: ``RESIDENT_F64``). K
     is split as many times as the card's resident block slots (``SMS`` x
-    ``RESIDENT``) can take more copies of the output tiles, at most
+    ``RESIDENT``, or ``RESIDENT_F64``) can take more copies of the output
+    tiles, at most
     ``MAX_SPLITS`` times and no split shallower than ``MIN_SPLIT_K``;
     splits that would be empty are dropped."""
     n = max(i, 1)
     if n <= 16:
         rows = 16
-    elif n <= 128 or -(-n // 32) * 32 < -(-n // 128) * 128:
+    elif (n <= 128 or itemsize == 8
+          or -(-n // 32) * 32 < -(-n // 128) * 128):
         rows = 32
     else:
         rows = 128
     tiles = -(-n // rows) * -(-max(j, 1) // TILE_COLS)
-    splits = min(MAX_SPLITS, max(1, SMS * RESIDENT[rows] // tiles),
+    resident = RESIDENT_F64 if itemsize == 8 else RESIDENT
+    splits = min(MAX_SPLITS, max(1, SMS * resident[rows] // tiles),
                  max(1, k // MIN_SPLIT_K))
     k_split = TILE_K * max(1, math.ceil(math.ceil(k / splits) / TILE_K))
     return MinplusPlan(rows, max(1, -(-k // k_split)), k_split)
@@ -91,14 +101,15 @@ def minplus_plain(d: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
 def minplus_kernel(d: torch.Tensor, a: torch.Tensor, *, out=None,
                    improved=None, prev=None, scratch=None) -> torch.Tensor:
     """Min-plus product through the hand CUDA kernel for CUDA tensors;
-    the plain version for CPU tensors. Takes f32 [I, K] and [K, J],
-    returns f32 [I, J] (``out`` when given, else a new tensor).
+    the plain version for CPU tensors. Takes [I, K] and [K, J] of one
+    dtype, f32 or f64, and returns [I, J] in it (``out`` when given, else
+    a new tensor).
 
     ``improved``, an int32[1] flag (K == J only), is set to 1 when any
     out[i, j] < d[i, j]; it is not reset here. ``prev``, an int32[1]
     flag: when it holds 0 the product is skipped and writes nothing
     (:func:`minplus_fixpoint` chains products on it). ``scratch`` is the
-    split-K partials' f32[splits, I, J] under :func:`minplus_plan`
+    split-K partials' [splits, I, J] under :func:`minplus_plan`
     (allocated when None and the plan splits K).
 
     Each CUDA call counts one in ``minplus_kernel.launches`` (the tile
@@ -114,8 +125,9 @@ def minplus_kernel(d: torch.Tensor, a: torch.Tensor, *, out=None,
     dev = d.device
     if dev.type != "cuda":
         raise ValueError(f"minplus_kernel takes cpu or cuda tensors, got {dev}")
-    _cuda.check(d, "d", torch.float32, dev, 2)
-    _cuda.check(a, "a", torch.float32, dev, 2)
+    dt = _cuda.value_type(d, "d")
+    _cuda.check(d, "d", dt, dev, 2)
+    _cuda.check(a, "a", dt, dev, 2)
     i, k = d.shape
     k2, j = a.shape
     if k != k2:
@@ -123,9 +135,9 @@ def minplus_kernel(d: torch.Tensor, a: torch.Tensor, *, out=None,
             f"minplus shapes disagree: {tuple(d.shape)} x {tuple(a.shape)}"
         )
     if out is None:
-        out = torch.empty((i, j), dtype=torch.float32, device=dev)
+        out = torch.empty((i, j), dtype=dt, device=dev)
     else:
-        _cuda.check(out, "out", torch.float32, dev, 2)
+        _cuda.check(out, "out", dt, dev, 2)
         if out.shape != (i, j) or out.data_ptr() in (d.data_ptr(),
                                                      a.data_ptr()):
             raise ValueError(f"out must be a separate [{i}, {j}] tensor")
@@ -134,13 +146,13 @@ def minplus_kernel(d: torch.Tensor, a: torch.Tensor, *, out=None,
             _cuda.check(flag, what, torch.int32, dev, 1)
     if improved is not None and k != j:
         raise ValueError(f"the improved flag needs K == J, got {k} and {j}")
-    plan = minplus_plan(i, k, j)
+    plan = minplus_plan(i, k, j, d.element_size())
     if plan.splits > 1:
         shape = (plan.splits, i, j)
         if scratch is None:
-            scratch = torch.empty(shape, dtype=torch.float32, device=dev)
+            scratch = torch.empty(shape, dtype=dt, device=dev)
         else:
-            _cuda.check(scratch, "scratch", torch.float32, dev, 3)
+            _cuda.check(scratch, "scratch", dt, dev, 3)
             if scratch.shape != shape:
                 raise ValueError(f"scratch must be {list(shape)}, got "
                                  f"{list(scratch.shape)}")
@@ -149,6 +161,7 @@ def minplus_kernel(d: torch.Tensor, a: torch.Tensor, *, out=None,
         scratch.data_ptr() if plan.splits > 1 else None, i, k, j, plan.rows,
         plan.splits, plan.k_split, None if prev is None else prev.data_ptr(),
         None if improved is None else improved.data_ptr(), device=dev,
+        entry=_cuda.entry("pj_minplus", dt),
     )
     bump(minplus_kernel, "launches")
     return out
@@ -157,11 +170,13 @@ def minplus_kernel(d: torch.Tensor, a: torch.Tensor, *, out=None,
 minplus_kernel.launches = 0
 
 
-def occupancy(rows: int) -> int:
-    """Resident blocks per SM of the tile kernel for ``rows`` (needs the
-    card)."""
+def occupancy(rows: int, dtype: torch.dtype = torch.float32) -> int:
+    """Resident blocks per SM of the tile kernel for ``rows`` in
+    ``dtype`` (needs the card)."""
     blocks = ctypes.c_int(0)
-    err = _cuda.lib("minplus").pj_minplus_occupancy(rows, ctypes.byref(blocks))
+    fn = getattr(_cuda.lib("minplus"),
+                 _cuda.entry("pj_minplus_occupancy", dtype))
+    err = fn(rows, ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
     return blocks.value
@@ -187,7 +202,7 @@ def minplus_fixpoint(d0, a, *, max_iter: int):
     if max_iter <= 0:
         return d0, 0, True
     dev = d0.device
-    plan = minplus_plan(b, v, v)
+    plan = minplus_plan(b, v, v, d0.element_size())
     scratch = (torch.empty((plan.splits, b, v), dtype=d0.dtype, device=dev)
                if dev.type == "cuda" and plan.splits > 1 else None)
     bufs = (d0, torch.empty_like(d0))

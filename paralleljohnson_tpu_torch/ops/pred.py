@@ -132,8 +132,11 @@ def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None,
     :func:`tree_flags_plain`).
 
     CUDA tensors run the hand kernel (``csrc/tight_pred.cu``) over
-    ``items`` (a ``WorkItems``; built from ``indptr_in`` when None), with
-    an int64[items.n_split, B] scratch for the split rows' partial keys;
+    ``items`` (a ``WorkItems``; built from ``indptr_in`` when None), in
+    ``dist_vm``'s dtype, f32 or f64 (``w_in`` must have it too), with a
+    scratch for the split rows' partial least pairs: int64[items.n_split,
+    B] keys at f32, an f64 and an int32 [items.n_split, B] (du and u) at
+    f64;
     each call counts one in ``tight_pred_pass.launches`` (the items kernel
     and, when the layout has split rows, the combine kernel). CPU tensors
     run :func:`tight_pred_pass_plain` over the CSC's edges (then
@@ -150,10 +153,11 @@ def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None,
         return pred.t().contiguous(), flags
     if dev.type != "cuda":
         raise ValueError(f"tight_pred_pass takes cpu or cuda tensors, got {dev}")
-    _cuda.check(dist_vm, "dist_vm", torch.float32, dev, 2)
+    dt = _cuda.value_type(dist_vm, "dist_vm")
+    _cuda.check(dist_vm, "dist_vm", dt, dev, 2)
     _cuda.check(indptr_in, "indptr_in", torch.int32, dev, 1)
     _cuda.check(src_in, "src_in", torch.int32, dev, 1)
-    _cuda.check(w_in, "w_in", torch.float32, dev, 1)
+    _cuda.check(w_in, "w_in", dt, dev, 1)
     v, b = dist_vm.shape
     if indptr_in.shape[0] != v + 1 or src_in.shape != w_in.shape:
         raise ValueError(
@@ -177,13 +181,20 @@ def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None,
         flags = torch.zeros(2, dtype=torch.int32, device=dev)
         src_ptr, flags_ptr = sources.data_ptr(), flags.data_ptr()
     out = torch.empty((v, b), dtype=torch.int32, device=dev)
-    scratch = torch.empty((items.n_split, b), dtype=torch.int64, device=dev)
+    if dt == torch.float32:  # one int64 key per (piece, column)
+        partial = (torch.empty((items.n_split, b), dtype=torch.int64,
+                               device=dev),)
+    else:  # du and u, two words
+        partial = (torch.empty((items.n_split, b), dtype=dt, device=dev),
+                   torch.empty((items.n_split, b), dtype=torch.int32,
+                               device=dev))
     _cuda.launch(
         "tight_pred", dist_vm.data_ptr(), out.data_ptr(), indptr_in.data_ptr(),
         src_in.data_ptr(), w_in.data_ptr(), items.pieces.data_ptr(),
-        items.n_split, v, items.item_edges, scratch.data_ptr(),
+        items.n_split, v, items.item_edges, *(x.data_ptr() for x in partial),
         items.split_rows.data_ptr(), items.split_ptr.data_ptr(),
         items.split_rows.shape[0], src_ptr, flags_ptr, b, device=dev,
+        entry=_cuda.entry("pj_tight_pred", dt),
     )
     bump(tight_pred_pass, "launches")
     return out if flags is None else (out, flags)
@@ -192,12 +203,14 @@ def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None,
 tight_pred_pass.launches = 0
 
 
-def occupancy(b: int, *, vec: bool = True) -> dict:
+def occupancy(b: int, *, vec: bool = True,
+              dtype: torch.dtype = torch.float32) -> dict:
     """Resident blocks per SM and gathers per batch of the ``tight_pred``
-    items kernel at width ``b`` (on the card)."""
+    items kernel at width ``b`` in ``dtype`` (on the card)."""
     blocks, depth = ctypes.c_int(0), ctypes.c_int(0)
-    err = _cuda.lib("tight_pred").pj_tight_pred_occupancy(
-        b, int(vec), ctypes.byref(blocks), ctypes.byref(depth))
+    fn = getattr(_cuda.lib("tight_pred"),
+                 _cuda.entry("pj_tight_pred_occupancy", dtype))
+    err = fn(b, int(vec), ctypes.byref(blocks), ctypes.byref(depth))
     if err != 0:
         raise RuntimeError(f"tight_pred occupancy query failed: cudaError {err}")
     return {"blocks_per_sm": blocks.value, "gather_depth": depth.value}

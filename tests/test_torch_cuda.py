@@ -108,11 +108,11 @@ SWEEP_GRAPHS = {
 
 
 @pytest.mark.parametrize("graph", sorted(SWEEP_GRAPHS))
-@pytest.mark.parametrize("b", [1, 5, 128, 200, 512, 700])
+@pytest.mark.parametrize("b", [1, 5, 128, 200, 301, 512, 700])
 def test_fanout_sweep_kernel_equals_plain(cuda, b, graph):
     """B=1/5 take the scalar lane path, 128/200/512/700 the float4 path
     (B % 4 == 0); 200 has a ragged pass, 700 a second 512-column pass
-    inside the warp. The hub graph splits its hub and the L + 1 row into
+    inside the warp; 301 the scalar path at four groups a lane. The hub graph splits its hub and the L + 1 row into
     pieces, so the partial-minimum pass and the combine run against the
     plain version."""
     g = SWEEP_GRAPHS[graph]()
@@ -316,8 +316,10 @@ def test_minplus_rejects_bad_inputs(cuda):
     d = torch.zeros((4, 5), device=cuda)
     with pytest.raises(ValueError, match="disagree"):
         minplus_kernel(d, torch.zeros((6, 3), device=cuda))
-    with pytest.raises(TypeError):
-        minplus_kernel(d.double(), torch.zeros((5, 3), device=cuda).double())
+    with pytest.raises(TypeError):  # one value type per call
+        minplus_kernel(d.double(), torch.zeros((5, 3), device=cuda))
+    with pytest.raises(TypeError):  # f32 or f64 only
+        minplus_kernel(d.half(), torch.zeros((5, 3), device=cuda).half())
     with pytest.raises(ValueError, match="contiguous"):
         minplus_kernel(torch.zeros((5, 4), device=cuda).t(),
                        torch.zeros((5, 3), device=cuda))
@@ -724,6 +726,234 @@ def test_batch_apsp_on_card_equals_cpu(cuda, negative):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(johnson.to_numpy(a.dist),
                                       johnson.to_numpy(b.dist))
+
+
+# -- precision="f64": each hand kernel's f64 version against its plain f64
+# version, and f64 solves on the card against the CPU ---------------------
+
+
+@pytest.mark.parametrize("graph", sorted(SWEEP_GRAPHS))
+@pytest.mark.parametrize("b", [1, 5, 64, 128, 200, 256, 301, 512, 700])
+def test_fanout_sweep_f64_kernel_equals_plain(cuda, b, graph):
+    """The f64 sweep (double2 lanes: 64, 128 or 256 columns a pass) on
+    the f32 test's graphs and widths and the f64 pass edges (64, 256):
+    bitwise the plain f64 sweep, the same flag, one launch."""
+    g = SWEEP_GRAPHS[graph]()
+    layout = _layout(g, cuda)
+    layout = (layout[0], layout[1], layout[2].double())
+    items = fs.build_work_items(layout[0])
+    sources = np.random.default_rng(b).integers(0, g.num_nodes, b)
+    d = _dist0(sources, g.num_nodes, b, cuda).double()
+    for _ in range(3):
+        d, _ = fs.fanout_sweep_plain(d, *layout)
+    before = fs.fanout_sweep.launches
+    got, flag = fs.fanout_sweep(d, *layout, items=items)
+    want, imp = fs.fanout_sweep_plain(d, *layout)
+    torch.cuda.synchronize()
+    assert fs.fanout_sweep.launches == before + 1
+    assert got.dtype == torch.float64
+    assert torch.equal(got, want)
+    assert bool(flag.item()) == bool(imp)
+
+
+def test_fanout_fixpoint_f64_on_card_equals_cpu(cuda):
+    g = pjt.load_graph("grid:rows=30,cols=40,seed=7")
+    sources = np.arange(0, g.num_nodes, 97)
+    b = len(sources)
+
+    def run(dev):
+        ip, s, w = _layout(g, dev)
+        return fs.fanout_fixpoint(_dist0(sources, g.num_nodes, b, dev).double(),
+                                  ip, s, w.double(), max_iter=g.num_nodes)
+
+    want, it_w, imp_w = run("cpu")
+    got, it, imp = run(cuda)
+    assert torch.equal(got.cpu(), want)
+    assert (it, imp) == (it_w, imp_w)
+
+
+@pytest.mark.parametrize("shape", MINPLUS_SHAPES)
+def test_minplus_f64_kernel_equals_plain(cuda, shape):
+    """The f64 product (4x8 double micro-tiles) on every shape of the f32
+    test: bitwise, with +inf and negative finite entries."""
+    i, k, j = shape
+    rng = np.random.default_rng(sum(shape))
+    d, a = _operands(rng, i, k, j)
+    d[(rng.random((i, k)) < 0.2) & np.isfinite(d)] *= -3
+    d = torch.as_tensor(d.astype(np.float64) + rng.random((i, k)) * 1e-9)
+    a = torch.as_tensor(a).double()
+    d, a = d.to(cuda), a.to(cuda)
+    before = minplus_kernel.launches
+    got = minplus_kernel(d, a)
+    torch.cuda.synchronize()
+    assert minplus_kernel.launches == before + 1
+    assert got.dtype == torch.float64
+    assert torch.equal(got, minplus_plain(d, a))
+
+
+@pytest.mark.parametrize("v", [300, 1024])
+def test_minplus_f64_squaring_and_fixpoint(cuda, v):
+    """``d is a`` (squaring) and the grouped iterate fixpoint at f64,
+    against the plain versions."""
+    rng = np.random.default_rng(v)
+    d, _ = _operands(rng, v, v, 1)
+    d = torch.as_tensor(d).double().to(cuda)
+    d.fill_diagonal_(0.0)
+    assert torch.equal(minplus_kernel(d, d), minplus_plain(d, d))
+    src = torch.as_tensor(rng.choice(v, 16, replace=False)).to(cuda)
+    d0 = relax.multi_source_init(src, v, torch.float64)
+    want, it_w, imp_w = relax.dense_fanout(d.cpu(), src.cpu(), max_iter=v)
+    got, it, imp = minplus_fixpoint(d0, d, max_iter=v)
+    assert torch.equal(got.cpu(), want) and (it, imp) == (it_w, imp_w)
+
+
+def test_minplus_f64_occupancy(cuda):
+    """Each f64 tile kernel keeps the resident blocks per SM that
+    ``minplus_plan`` counts on at f64."""
+    for rows, blocks in mp_mod.RESIDENT_F64.items():
+        assert mp_mod.occupancy(rows, torch.float64) >= blocks, rows
+
+
+def test_fanout_sweep_f64_occupancy(cuda):
+    for b in (64, 128, 256, 512):
+        for vec in (True, False):
+            o = fs.occupancy(b, vec=vec, dtype=torch.float64)
+            assert o["blocks_per_sm"] >= 2, (b, vec)
+
+
+@pytest.mark.parametrize("graph", sorted(PRED_GRAPHS))
+@pytest.mark.parametrize("b", [1, 5, 64, 128, 200, 256, 512])
+def test_tight_pred_f64_kernel_equals_plain(cuda, b, graph):
+    """The f64 pass (pairs compared in registers, split rows' partials as
+    du and u) on converged f64 distances with zero-weight ties and -0.0:
+    trees bitwise the plain f64 pass; with the sources, the mask and the
+    flags equal ``tree_flags_plain``'s."""
+    g = PRED_GRAPHS[graph]()
+    ip, s, w = _layout(g, cuda)
+    layout = (ip, s, w.double())
+    items = fs.build_work_items(ip)
+    d, sources = _converged(g, b, (ip, s, w), items)
+    d = d.double()
+    d, _, _ = fs.fanout_fixpoint(d, *layout, max_iter=g.num_nodes,
+                                 items=items)
+    odd = torch.arange(g.num_nodes, device=cuda).unsqueeze(1) % 2 == 1
+    d[(d == 0) & odd] = -0.0
+    before = pred_mod.tight_pred_pass.launches
+    got = pred_mod.tight_pred_pass(d, *layout, items=items)
+    got_s, flags = pred_mod.tight_pred_pass(d, *layout, items=items,
+                                            sources=sources)
+    torch.cuda.synchronize()
+    assert pred_mod.tight_pred_pass.launches == before + 2
+    dt = d.t().contiguous()
+    coo = _coo(g, cuda)
+    plain = pred_mod.tight_pred_pass_plain(dt, coo[0], coo[1],
+                                           coo[2].double())
+    assert torch.equal(got, plain.t())
+    want_s, want_flags = pred_mod.tree_flags_plain(plain, dt, sources)
+    assert torch.equal(got_s.t(), want_s)
+    assert flags.tolist() == want_flags.tolist()
+
+
+@pytest.mark.parametrize("negative_diagonal", [False, True])
+@pytest.mark.parametrize("t", [128, 200, 256, 384, 512, 1024])
+def test_fw_kleene_f64_on_card_equals_plain(cuda, t, negative_diagonal):
+    """The f64 Kleene closure (the cluster variant up to t = 512, whole
+    doubles in each hand-over store; the step variant at 1024) bitwise
+    ``tile_kleene`` at f64, also in place on a strided diagonal tile."""
+    from paralleljohnson_tpu_torch.ops import fw
+
+    assert fw.kleene_plan(t, 8).variant == (
+        "cluster" if t <= fw.KLEENE_CLUSTER_MAX_T else "step")
+    m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=negative_diagonal)
+                        ).double()
+    m[torch.isfinite(m)] += 1e-9  # not representable in f32
+    want = fw.tile_kleene(m)
+    before = fw.fw_kleene.launches
+    got = fw.fw_kleene(m.to(cuda))
+    torch.cuda.synchronize()
+    assert fw.fw_kleene.launches == before + 1
+    assert got.dtype == torch.float64
+    assert torch.equal(got.cpu(), want)
+    big = torch.full((t + 64, t + 64), 7.0, dtype=torch.float64, device=cuda)
+    tile = big[32:32 + t, 16:16 + t]
+    tile.copy_(m)
+    fw.fw_kleene(tile, out=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(tile.cpu(), want)
+
+
+def test_f64_kernels_reject_mixed_types(cuda):
+    g = pjt.load_graph("rmat:scale=6,ef=4,seed=0")
+    ip, s, w = _layout(g, cuda)
+    d = torch.zeros((g.num_nodes, 4), dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError):
+        fs.fanout_sweep(d, ip, s, w)            # f32 weights
+    with pytest.raises(TypeError):
+        pred_mod.tight_pred_pass(d, ip, s, w)
+    with pytest.raises(TypeError):
+        fs.fanout_sweep(d, ip, s, w.double(), out=torch.empty_like(d).float())
+    from paralleljohnson_tpu_torch.ops import fw
+
+    with pytest.raises(TypeError):
+        fw.fw_kleene(torch.zeros((8, 8), dtype=torch.float64, device=cuda),
+                     out=torch.zeros((8, 8), device=cuda))
+
+
+F64_SOLVES = [
+    ("rmat:scale=10,ef=8,seed=2", {}, {}, "pallas-vm"),
+    ("grid:rows=30,cols=30,neg=0.2,seed=2", {}, {}, "pallas-vm"),
+    ("dag:n=300,p=0.05,neg=0.4,seed=3", {}, dict(predecessors=True),
+     "pallas-vm+pred"),
+    ("er:n=300,p=0.1,seed=1", dict(fw=False), {}, "dense-squaring-pallas"),
+    ("er:n=300,p=0.1,seed=1", dict(fw=False),
+     dict(sources=np.arange(0, 300, 7)), "dense-iterate-pallas"),
+    ("er:n=700,p=0.1,seed=4", {}, dict(predecessors=True), "fw-tile+pred"),
+]
+
+
+@pytest.mark.parametrize("spec,cfg,kw,route", F64_SOLVES)
+def test_f64_solve_on_card_equals_cpu(cuda, spec, cfg, kw, route):
+    """``precision="f64"`` on the card through each hand route: float64
+    rows (and trees) bitwise the CPU's f64 solve, with the route's
+    kernels launched; nothing raises for the precision."""
+    from paralleljohnson_tpu_torch.ops import kernel_launches
+
+    g = pjt.load_graph(spec)
+    c = pjt.SolverConfig(precision="f64", mesh_shape=(1,), **cfg)
+    want = pjt.ParallelJohnsonSolver(c, device="cpu").solve(g, **kw)
+    before = kernel_launches()
+    got = pjt.ParallelJohnsonSolver(c, device=cuda).solve(g, **kw)
+    after = kernel_launches()
+    assert got.stats.routes_by_phase["fanout"] == route
+    assert got.stats.routes_by_phase == want.stats.routes_by_phase
+    assert got.matrix.dtype == np.float64
+    np.testing.assert_array_equal(got.matrix, want.matrix)
+    needs = {"pallas-vm": ["fanout_sweep"], "dense": ["minplus"],
+             "fw-tile": ["fw_kleene", "minplus"]}
+    for prefix, names in needs.items():
+        if route.startswith(prefix):
+            for name in names:
+                assert after[name] > before[name], name
+    if kw.get("predecessors"):
+        assert after["tight_pred"] > before["tight_pred"]
+        np.testing.assert_array_equal(johnson.to_numpy(got.predecessors),
+                                      johnson.to_numpy(want.predecessors))
+        validate_pred_tree(g, johnson.to_numpy(got.dist),
+                           johnson.to_numpy(got.predecessors), got.sources)
+
+
+def test_f64_batch_apsp_on_card_equals_cpu(cuda):
+    graphs = [pjt.load_graph(f"er:n={24 + i},p=0.15,seed={i}")
+              for i in range(16)]
+    graphs[5] = pjt.load_graph("dag:n=40,p=0.2,neg=0.4,seed=5")
+    c = pjt.SolverConfig(precision="f64")
+    want = pjt.ParallelJohnsonSolver(c, device="cpu").solve_batch(graphs)
+    before = fs.fanout_sweep.launches
+    got = pjt.ParallelJohnsonSolver(c, device=cuda).solve_batch(graphs)
+    assert fs.fanout_sweep.launches > before
+    for a, b in zip(got, want):
+        assert a.matrix.dtype == np.float64
+        np.testing.assert_array_equal(a.matrix, b.matrix)
 
 
 def _scrambled_grid(rows):
