@@ -238,14 +238,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
  25. ``precision="f64"`` on the card (``drive_f64``), on phases 2-5's
      graphs: each kernel's f64 version against its plain f64 version
      (``torch.equal``, the same flags): the sweep on R-MAT-20 at B = 128
-     and 512 and on the hub graph at B = 1, 5, 128, 200, 512, the
+     and 512 with the main path's hub flags (the sources whose rows the
+     f64 kernel keeps in L2), on the grid at B = 256 (no hubs) and on
+     the hub graph at B = 1, 5, 128, 200, 512, the
      min-plus product at phase 2's shapes, ``tight_pred`` on R-MAT-20's
      converged f64 fan-out (flags [0, 0]), the Kleene closure at t =
      128-512 (one cluster launch) and 1024 (the step variant), with and
      without a negative diagonal; every f64 instantiation's ptxas
      registers (phase 1: no spill, no stack frame) and resident blocks;
      the f64 kernels' times beside their plain versions and bounds (8
-     bytes a value, FP64 instructions at 17e12/s); then, each path
+     bytes a value, FP64 instructions at 17e12/s; the sweep's at those
+     three widths, each beside its hub set's size, bytes and edge
+     share); then, each path
      counted from 0, ``solve()`` at f64 on R-MAT-20 over phase 3's 512
      sources (``pallas-vm``) and the grid over phase 4's 256
      (``frontier``, ``pallas-vm``), 2 rows each against scipy in f64
@@ -2874,8 +2878,10 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
               build_logs) -> tuple[dict, dict]:
     """Phase 25: ``precision="f64"`` on the card, on phases 2-5's graphs
     (no new generation). Each f64 kernel against its plain f64 version
-    (``torch.equal``, the same flags) at phase 2's shapes; the f64
-    kernels' times and bounds; then, each path counted from 0: R-MAT-20
+    (``torch.equal``, the same flags) at phase 2's shapes, the sweep with
+    the main path's hub flags; the f64 kernels' times and bounds (the
+    sweep also on the grid at B = 256); then, each path counted from 0:
+    R-MAT-20
     over phase 3's 512 sources (``pallas-vm``) and the grid over phase
     4's 256 (``frontier``, ``pallas-vm``), 2 rows each against scipy in
     f64; ER-1024 on ``fw-tile`` and ``dense-squaring-pallas`` against
@@ -2914,14 +2920,15 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
                                  "tight_pred"}:
         raise AssertionError(f"f64 instantiations: spills {bad}, built "
                              f"{sorted(templates)}")
-    occ = {"sweep": {f"B{b}": fs.occupancy(b, dtype=f64)
-                     for b in (64, 128, 256, 512)},
+    occ = {"sweep": {f"B{b}{kind}": fs.occupancy(b, dtype=f64,
+                                                 hubs=kind == "_hubs")
+                     for b in (64, 128, 256, 512) for kind in ("", "_hubs")},
            "minplus": {f"rows{r}": mp_mod.occupancy(r, f64)
-                       for r in mp_mod.RESIDENT_F64},
+                       for r in mp_mod.TILE_ROWS_F64},
            "tight_pred": {f"B{b}": pred_mod.occupancy(b, dtype=f64)
                           for b in (64, 128, 512)}}
-    low = [r for r, n in zip(mp_mod.RESIDENT_F64, occ["minplus"].values())
-           if n < mp_mod.RESIDENT_F64[r]]
+    low = [r for r in mp_mod.TILE_ROWS_F64
+           if occ["minplus"][f"rows{r}"] < mp_mod.RESIDENT_F64[r]]
     if low or any(o["blocks_per_sm"] < 2 for o in occ["sweep"].values()):
         raise AssertionError(f"f64 occupancy below the plans': {occ}")
     emit({"phase": "f64_build", "occupancy": occ})
@@ -2932,13 +2939,27 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
                           device=dev).upload(g)
         return dg.by_dst(), dg.work_items(), dg
 
-    def sweep_equal(d, lay, itm, label):
+    def sweep_equal(d, lay, itm, label, hubs=None):
         want, imp = fs.fanout_sweep_plain(d, *lay)
-        got, flag = fs.fanout_sweep(d, *lay, items=itm)
+        got, flag = fs.fanout_sweep(d, *lay, items=itm, hubs=hubs)
         torch.cuda.synchronize()
         if not torch.equal(got, want) or bool(flag.item()) != bool(imp):
             raise AssertionError(f"f64 fanout_sweep disagrees on {label}")
         return max_abs_err(got, want), want
+
+    def hub_set(dg, b):
+        """The main path's hub flags at width b (cached on the device
+        graph; None without hubs) and the set's size, bytes one pass wide
+        and edge share."""
+        flags = dg.hub_flags(b)
+        if flags is None:
+            return None, {"hub_sources": 0, "hub_bytes": 0,
+                          "hub_edge_share": 0.0}
+        src = dg.by_dst()[1]
+        n = int(torch.unique(src[flags.bool()]).numel())
+        return flags, {"hub_sources": n,
+                       "hub_bytes": n * fs.hub_row_bytes(b),
+                       "hub_edge_share": float(flags.sum()) / src.numel()}
 
     checks = {"fanout_sweep": [], "minplus": [], "tight_pred": [],
               "fw_kleene": []}
@@ -2956,10 +2977,13 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
         d[src, torch.arange(b, device=dev)] = 0.0
         for _ in range(3):
             d, _ = fs.fanout_sweep_plain(d, *lay)
-        err, _ = sweep_equal(d, lay, itm, f"R-MAT-20 B={b}")
+        hubs, hub_row = hub_set(dg, b)
+        if hubs is None:
+            raise AssertionError(f"R-MAT-20 has no f64 hub set at B={b}")
+        err, _ = sweep_equal(d, lay, itm, f"R-MAT-20 B={b}", hubs)
         errs["fanout_sweep"].append(err)
         checks["fanout_sweep"].append({"graph": "rmat20", "B": b,
-                                       "equal": True})
+                                       "equal": True, **hub_row})
         conv, sweeps, _ = fs.fanout_fixpoint(d, *lay, max_iter=v, items=itm)
         got, flags = pred_mod.tight_pred_pass(conv, *lay, items=itm,
                                               sources=src)
@@ -2978,8 +3002,23 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
         checks["tight_pred"].append({"graph": "rmat20", "B": b,
                                      "equal": True, "flags": flags.tolist(),
                                      "sweeps_to_fixpoint": sweeps})
-        states[b] = (d, conv, src)
+        states[b] = (d, conv, src, hubs, hub_row)
         del dt, plain, want, bare, got
+    # The grid at phase 4's width and sources (its own weights: the same
+    # gathers as the reweighted fan-out's): no hubs, one pass.
+    grid_lay, grid_itm, grid_dg = upload64(grid)
+    d = torch.full((grid.num_nodes, len(gsrc)), float("inf"), dtype=f64,
+                   device=dev)
+    d[torch.as_tensor(gsrc, device=dev), torch.arange(len(gsrc),
+                                                      device=dev)] = 0.0
+    for _ in range(3):
+        d, _ = fs.fanout_sweep_plain(d, *grid_lay)
+    grid_hubs, grid_hub_row = hub_set(grid_dg, len(gsrc))
+    err, _ = sweep_equal(d, grid_lay, grid_itm, "the grid B=256", grid_hubs)
+    errs["fanout_sweep"].append(err)
+    checks["fanout_sweep"].append({"graph": "grid512", "B": len(gsrc),
+                                   "equal": True, **grid_hub_row})
+    grid_state = (d, grid_hubs, grid_hub_row)
     hub_lay, hub_itm, _ = upload64(hub)
     for b in (1, 5, 128, 200, 512):
         src = torch.as_tensor(rng.integers(0, hub.num_nodes, b)).to(dev)
@@ -3045,27 +3084,42 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
     # the FP64 pipes, PEAK_F64_INSTR_S).
     one = torch.ones(1, dtype=torch.int32, device=dev)
     timings = {}
-    for b, (d, conv, src) in states.items():
-        out = torch.empty_like(d)
+
+    def time_sweep(key, d, lay, itm, hubs, hub_row, reps):
+        """The f64 sweep on the main path's configuration (its hub
+        flags), alternating two buffers as the fixpoint does."""
+        v, b = d.shape
+        e = lay[1].shape[0]
+        bufs = (d.clone(), torch.empty_like(d))
         flags = torch.zeros(64 * fs.FLAG_STRIDE, dtype=torch.int32,
                             device=dev)
         words = iter(range(0, flags.numel(), fs.FLAG_STRIDE))
         scratch = torch.empty((itm.n_split, b), dtype=f64, device=dev)
+        turn = iter(range(1 << 20))
 
         def sweep():
-            j = next(words)
-            fs.fanout_sweep(d, *lay, items=itm, out=out,
-                            improved=flags[j:j + 1], prev=one,
-                            scratch=scratch)
+            j, r = next(words), next(turn)
+            fs.fanout_sweep(bufs[r % 2], *lay, items=itm,
+                            out=bufs[(r + 1) % 2], improved=flags[j:j + 1],
+                            prev=one, scratch=scratch, hubs=hubs)
 
         bms, by = bound(8 * 2 * v * b + 4 * (v + 1) + 12 * e, 2 * e * b,
                         instr_s=PEAK_F64_INSTR_S)
-        timings[f"fanout_sweep_B{b}"] = {
-            "ms": event_ms(sweep, reps=10),
+        timings[key] = {
+            "ms": event_ms(sweep, reps=reps),
             "plain_ms": event_ms(lambda: fs.fanout_sweep_plain(d, *lay),
                                  reps=1),
             "bound_ms": bms, "bound_by": by,
-            "gather_depth": fs.occupancy(b, dtype=f64)["gather_depth"]}
+            "gather_depth": fs.occupancy(b, dtype=f64,
+                                         hubs=hubs is not None)[
+                                             "gather_depth"],
+            **hub_row}
+
+    time_sweep(f"fanout_sweep_grid_B{len(gsrc)}", *grid_state[:1], grid_lay,
+               grid_itm, *grid_state[1:], reps=20)
+    del grid_state, grid_lay, grid_itm, grid_dg
+    for b, (d, conv, src, hubs, hub_row) in states.items():
+        time_sweep(f"fanout_sweep_B{b}", d, lay, itm, hubs, hub_row, reps=10)
         dt = conv.t().contiguous()
         bms, by = bound(8 * v * b + 4 * v * b + 4 * (v + 1) + 12 * e
                         + 24 * itm.n_split * b, 4 * e * b,
@@ -3078,7 +3132,7 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
                 reps=1, warmup=0),
             "bound_ms": bms, "bound_by": by,
             "occupancy": pred_mod.occupancy(b, dtype=f64)}
-        del out, scratch, dt
+        del dt
     for (i, k, j) in MINPLUS_SHAPES[:4]:
         g_rng = np.random.default_rng(7)
         dm = torch.as_tensor(g_rng.random((i, k))).to(dev)

@@ -101,6 +101,8 @@ from paralleljohnson_tpu_torch.ops.fanout_sweep import (
     WorkItems,
     build_in_edge_layout,
     fanout_fixpoint,
+    hub_flags,
+    hub_row_bytes,
 )
 from paralleljohnson_tpu_torch.ops.minplus import (
     MAX_SPLITS,
@@ -371,6 +373,21 @@ class TorchDeviceGraph:
     def work_items(self) -> WorkItems:
         """The sweep kernel's work items over the in-edge CSC."""
         return self._in_edges()["work_items"]
+
+    def hub_flags(self, b: int):
+        """The f64 sweep's per-edge hub flags over the in-edge CSC at
+        width ``b`` (``fanout_sweep.hub_flags``), built once per graph and
+        pass width and cached with the work items. None at f32, on the
+        CPU, where no kernel reads them, and on a graph without hubs."""
+        dtype = self.weights.dtype
+        if dtype != torch.float64 or self.device.type != "cuda":
+            return None
+        # The set depends on the width only through one pass's bytes.
+        key = ("hubs", hub_row_bytes(b))
+        if key not in self._struct_cache:
+            self._struct_cache[key] = hub_flags(
+                self._in_edges()["src_in"], self.num_nodes, b, dtype)
+        return self._struct_cache[key]
 
     def fanout_layout(self):
         """``(by_dst(), work_items())`` from ONE read of the structure
@@ -1555,7 +1572,8 @@ class TorchBackend(Backend):
         (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
         dist_vm, iters, improving = fanout_fixpoint(
             self._dist0_vm(dgraph.num_nodes, ctx.sources), indptr_in, src_in,
-            w_in, max_iter=ctx.max_iter, items=items)
+            w_in, max_iter=ctx.max_iter, items=items,
+            hubs=dgraph.hub_flags(b))
         ctx.dist_vm = dist_vm
         res = self._sweep_result(dgraph, dist_vm.t().contiguous(), iters,
                                  improving, b, "pallas-vm")

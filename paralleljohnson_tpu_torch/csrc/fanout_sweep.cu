@@ -19,6 +19,25 @@
 // in the same registers. The f64 plan takes NV by B on that narrower
 // pass (plan below); its partial minima are f64 too.
 //
+// At f64 the gathered rows are twice the bytes and the sweep reads them
+// at about the HBM rate, though the gather is skewed: on R-MAT-20 the 1%
+// of sources with the most out-edges are the source of half the edges.
+// Their rows, one pass wide, fit in the 50 MB L2, but the 8.6 GB a sweep
+// at B = 512 streams through it (own rows, output, cold gathers) flushes
+// them under plain LRU. So the f64 kernel takes per-edge hub flags
+// (ops/fanout_sweep.py, hub_flags: the sources with the most out-edges,
+// whose rows one pass wide fill a fixed share of the L2) and sets each
+// access's L2 eviction priority (createpolicy, ld/st .L2::cache_hint;
+// sm_80 and later): a gather from a hub is kept (evict_last), every
+// other gather, the own-row read and the stores go first (evict_first).
+// A graph without hubs (a grid) gets no flags and plain loads: there the
+// hinted loads were slower than the read-only path (PERF.md). And the f64
+// column passes run on the grid (blockIdx.y is the pass) instead of one
+// after the other in each warp, so a hub's footprint at any moment is one
+// pass of its row, not the whole row; with hubs a pass is at most 128
+// columns (1 KB of a row). The f32 kernel keeps its plain loads and its
+// in-warp pass loop.
+//
 // Bound on the H100: bytes. At least the [V, B] read and the [V, B] write
 // plus the CSC (4(V+1) + (4 + s)E bytes, s the value size); at most
 // E*B*s bytes of gathered rows when no gathered row hits in cache. What
@@ -84,6 +103,9 @@ template <> struct Lane<double> {
   static __device__ __forceinline__ double inf() { return CUDART_INF; }
 };
 
+template <typename T>
+constexpr bool kF64 = sizeof(T) == 8;
+
 __device__ __forceinline__ float& at(float4& f, int i) {
   return i == 0 ? f.x : i == 1 ? f.y : i == 2 ? f.z : f.w;
 }
@@ -113,43 +135,106 @@ __device__ __forceinline__ int64_t col_of(int64_t col0, int lane, int q,
   return VEC ? col0 + K * (lane + 32 * q) + i : col0 + lane + 32 * (K * q + i);
 }
 
-// Lane's columns of `row` (+inf outside [0, B)).
-template <typename T, int NV, bool VEC>
+// L2 eviction policies (the f64 kernel with hubs): made once per thread,
+// handed to each load or store. `keep` lines are evicted last, `stream`
+// lines first.
+__device__ __forceinline__ uint64_t l2_keep() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_stream() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ double2 ld_hint(const double2* p, uint64_t pol) {
+  double2 v;
+  asm("ld.global.nc.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
+      : "=d"(v.x), "=d"(v.y)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ double ld_hint(const double* p, uint64_t pol) {
+  double v;
+  asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;"
+      : "=d"(v)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ void st_hint(double2* p, double2 v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.v2.f64 [%0], {%1, %2}, %3;"
+               ::"l"(p), "d"(v.x), "d"(v.y), "l"(pol)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_hint(double* p, double v, uint64_t pol) {
+  asm volatile("st.global.L2::cache_hint.f64 [%0], %1, %2;"
+               ::"l"(p), "d"(v), "l"(pol)
+               : "memory");
+}
+
+// A load or store under the L2 policy `pol` (L2), or through the
+// read-only path and plainly (the f32 kernel, and the f64 one without
+// hubs).
+template <bool L2, typename T>
+__device__ __forceinline__ T load(const T* p, uint64_t pol) {
+  if constexpr (L2) return ld_hint(p, pol);
+  else return __ldg(p);
+}
+
+template <bool L2, typename T>
+__device__ __forceinline__ void store(T* p, T v, uint64_t pol) {
+  if constexpr (L2) st_hint(p, v, pol);
+  else *p = v;
+}
+
+// Lane's columns of `row` (+inf outside [0, B)), under the L2 policy
+// `pol` when L2.
+template <typename T, int NV, bool VEC, bool L2>
 __device__ __forceinline__ void load_row(const T* __restrict__ row,
                                          int64_t col0, int lane, int64_t B,
-                                         typename Lane<T>::V (&f)[NV]) {
+                                         typename Lane<T>::V (&f)[NV],
+                                         uint64_t pol) {
   using L = Lane<T>;
+  using Vec = typename L::V;
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
     if (VEC) {
       const int64_t c = col_of<L::K, true>(col0, lane, q, 0);
-      f[q] = c < B ? __ldg(reinterpret_cast<const typename L::V*>(row + c))
+      f[q] = c < B ? load<L2>(reinterpret_cast<const Vec*>(row + c), pol)
                    : inf_vec<T>();
     } else {
 #pragma unroll
       for (int i = 0; i < L::K; ++i) {
         const int64_t c = col_of<L::K, false>(col0, lane, q, i);
-        at(f[q], i) = c < B ? __ldg(row + c) : L::inf();
+        at(f[q], i) = c < B ? load<L2>(row + c, pol) : L::inf();
       }
     }
   }
 }
 
-template <typename T, int NV, bool VEC>
+template <typename T, int NV, bool VEC, bool L2>
 __device__ __forceinline__ void store_row(T* __restrict__ row, int64_t col0,
                                           int lane, int64_t B,
-                                          typename Lane<T>::V (&f)[NV]) {
+                                          typename Lane<T>::V (&f)[NV],
+                                          uint64_t pol) {
   using L = Lane<T>;
+  using Vec = typename L::V;
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
     if (VEC) {
       const int64_t c = col_of<L::K, true>(col0, lane, q, 0);
-      if (c < B) *reinterpret_cast<typename L::V*>(row + c) = f[q];
+      if (c < B) store<L2>(reinterpret_cast<Vec*>(row + c), f[q], pol);
     } else {
 #pragma unroll
       for (int i = 0; i < L::K; ++i) {
         const int64_t c = col_of<L::K, false>(col0, lane, q, i);
-        if (c < B) row[c] = at(f[q], i);
+        if (c < B) store<L2>(row + c, at(f[q], i), pol);
       }
     }
   }
@@ -183,16 +268,18 @@ __device__ __forceinline__ void fold(typename Lane<T>::V& acc,
 // End of a pass: a whole row folds old[v] in last (the min does not
 // depend on order) and notes whether any column dropped below it; old is
 // read only here, so it holds no registers during the edge loop. Then
-// the pass's columns are stored (to out[v], or to partial[slot]).
-template <typename T, int NV, bool VEC>
+// the pass's columns are stored (to out[v], or to partial[slot]); with
+// L2 both stream through the L2 (`pol`).
+template <typename T, int NV, bool VEC, bool L2>
 __device__ __forceinline__ bool finish_pass(const T* __restrict__ own,
                                             T* __restrict__ dst, bool whole,
                                             int64_t col0, int lane, int64_t B,
-                                            typename Lane<T>::V (&acc)[NV]) {
+                                            typename Lane<T>::V (&acc)[NV],
+                                            uint64_t pol) {
   bool dropped = false;
   if (whole) {
     typename Lane<T>::V init[NV];
-    load_row<T, NV, VEC>(own, col0, lane, B, init);
+    load_row<T, NV, VEC, L2>(own, col0, lane, B, init, pol);
     dropped = any_drop<T, NV, VEC>(col0, lane, B, acc, init);
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
@@ -201,7 +288,7 @@ __device__ __forceinline__ bool finish_pass(const T* __restrict__ own,
         at(acc[q], i) = vmin(at(init[q], i), at(acc[q], i));
     }
   }
-  store_row<T, NV, VEC>(dst, col0, lane, B, acc);
+  store_row<T, NV, VEC, L2>(dst, col0, lane, B, acc, pol);
   return dropped;
 }
 
@@ -220,8 +307,9 @@ __device__ __forceinline__ void raise_flag(bool dropped, int lane,
 // from the table (row, first edge, end edge) and store partial[k]; warp
 // n_pieces + v takes row v whole and stores out[v], unless v has more
 // than L in-edges (its pieces cover it). False: nothing to do. A whole
-// row's own old[v] is prefetched into L2 first (it is folded in last),
-// so the chain of dependent loads is indptr, (src, w), the gathers.
+// row's own old[v], columns [c0, c1), is prefetched into L2 first (it is
+// folded in last), so the chain of dependent loads is indptr, (src, w),
+// the gathers.
 struct Item {
   int64_t row;
   int e0, e1;
@@ -232,7 +320,7 @@ template <typename T>
 __device__ __forceinline__ bool fetch_item(
     const int* __restrict__ indptr, const int* __restrict__ pieces,
     int64_t n_pieces, int64_t V, int L, const T* __restrict__ old, int64_t B,
-    int lane, int64_t k, Item& it) {
+    int64_t c0, int64_t c1, int lane, int64_t k, Item& it) {
   constexpr int K = Lane<T>::K;
   if (k < n_pieces) {
     it.row = __ldg(pieces + 3 * k);
@@ -243,7 +331,8 @@ __device__ __forceinline__ bool fetch_item(
   }
   const int64_t v = k - n_pieces;
   if (v >= V) return false;
-  for (int64_t c = K * lane; c < B; c += 32 * K) prefetch_l2(old + v * B + c);
+  for (int64_t c = c0 + K * lane; c < c1; c += 32 * K)
+    prefetch_l2(old + v * B + c);
   it.row = v;
   it.e0 = __ldg(indptr + v);
   it.e1 = __ldg(indptr + v + 1);
@@ -256,42 +345,61 @@ __device__ __forceinline__ bool fetch_item(
 // more registers: at NV >= 2 it holds 2 blocks per SM instead of
 // spilling. The registers per NV are the same at both value types (a
 // vector is 16 bytes either way); f64 weights take two per gather.
-template <typename T, int NV, bool VEC, int U>
+//
+// At f64 blockIdx.y is the column pass. L2 (f64 with hub flags): bit 31
+// of a lane's source id carries the edge's flag (`hub`, one byte per
+// edge) to the lane that gathers the row, which it keeps in L2
+// (evict_last); every other access streams (evict_first).
+template <typename T, int NV, bool VEC, int U, bool L2>
 __global__ void __launch_bounds__(kThreads, NV >= 4 || (!VEC && NV >= 2) ? 2 : 3)
 sweep_items(const T* __restrict__ old, T* __restrict__ out,
             const int* __restrict__ src, const T* __restrict__ w,
+            const unsigned char* __restrict__ hub,
             const int* __restrict__ indptr, const int* __restrict__ pieces,
             int64_t n_pieces, int64_t V, int L, T* __restrict__ partial,
             const int* __restrict__ prev, int* __restrict__ improved,
             int64_t B) {
   using Vec = typename Lane<T>::V;
   constexpr int K = Lane<T>::K;
+  constexpr bool kGridPasses = kF64<T>;
+  constexpr int64_t kPass = 32 * K * NV;
   if (*prev == 0) return;
   const int lane = threadIdx.x & 31;
   const int64_t k = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int64_t c0 = kGridPasses ? (int64_t)blockIdx.y * kPass : 0;
+  const int64_t c1 = kGridPasses ? min(B, c0 + kPass) : B;
   Item it;
-  if (!fetch_item<T>(indptr, pieces, n_pieces, V, L, old, B, lane, k, it))
+  if (!fetch_item<T>(indptr, pieces, n_pieces, V, L, old, B, c0, c1, lane, k,
+                     it))
     return;
+  uint64_t keep = 0, stream = 0;
+  if constexpr (L2) {
+    keep = l2_keep();
+    stream = l2_stream();
+  }
   const bool whole = it.whole;
   T* dst = whole ? out + it.row * B : partial + k * B;
   bool dropped = false;
-  for (int64_t col0 = 0; col0 < B; col0 += 32 * K * NV) {
+  for (int64_t col0 = c0; col0 < c1; col0 += kPass) {
     Vec acc[NV];
 #pragma unroll
     for (int q = 0; q < NV; ++q) acc[q] = inf_vec<T>();
     for (int eb = it.e0; eb < it.e1; eb += 32) {
       const int n = min(32, it.e1 - eb);
-      const int my_u = lane < n ? __ldg(src + eb + lane) : 0;
+      int my_u = lane < n ? __ldg(src + eb + lane) : 0;
+      if (L2 && lane < n && __ldg(hub + eb + lane)) my_u |= INT32_MIN;
       const T my_w = lane < n ? __ldg(w + eb + lane) : T(0);
       for (int j = 0; j < n; j += U) {
         Vec g[U][NV];
         T wj[U];
 #pragma unroll
         for (int t = 0; t < U; ++t) {
-          const int u = __shfl_sync(kFull, my_u, (j + t) & 31);
+          const int p = __shfl_sync(kFull, my_u, (j + t) & 31);
+          const int u = L2 ? p & INT32_MAX : p;
           wj[t] = __shfl_sync(kFull, my_w, (j + t) & 31);
           if (j + t < n)
-            load_row<T, NV, VEC>(old + (int64_t)u * B, col0, lane, B, g[t]);
+            load_row<T, NV, VEC, L2>(old + (int64_t)u * B, col0, lane, B,
+                                     g[t], p < 0 ? keep : stream);
         }
 #pragma unroll
         for (int t = 0; t < U; ++t) {
@@ -302,8 +410,8 @@ sweep_items(const T* __restrict__ old, T* __restrict__ out,
         }
       }
     }
-    dropped |= finish_pass<T, NV, VEC>(old + it.row * B, dst, whole, col0,
-                                       lane, B, acc);
+    dropped |= finish_pass<T, NV, VEC, L2>(old + it.row * B, dst, whole,
+                                           col0, lane, B, acc, stream);
   }
   if (whole) raise_flag(dropped, lane, improved);
 }
@@ -357,14 +465,16 @@ combine_split_rows(const T* __restrict__ old, T* __restrict__ out,
 }
 
 template <typename T>
-using ItemsFn = void (*)(const T*, T*, const int*, const T*, const int*,
-                         const int*, int64_t, int64_t, int, T*, const int*,
-                         int*, int64_t);
+using ItemsFn = void (*)(const T*, T*, const int*, const T*,
+                         const unsigned char*, const int*, const int*,
+                         int64_t, int64_t, int, T*, const int*, int*,
+                         int64_t);
 
 template <typename T>
 struct Plan {
   ItemsFn<T> fn;
   int depth;  // gathers per batch U
+  int pass;   // columns per pass: 32 K NV
 };
 
 // Gathers per batch U. At f32, 16 vectors per lane in flight at most:
@@ -386,22 +496,35 @@ template <bool VEC> struct Depth<double, 4, VEC> {
 };
 template <> struct Depth<float, 4, false> { static constexpr int U = 3; };
 
-template <typename T, int NV>
+template <typename T, int NV, bool L2>
 Plan<T> plan_nv(bool vec) {
   constexpr int UV = Depth<T, NV, true>::U, US = Depth<T, NV, false>::U;
-  if (vec) return {sweep_items<T, NV, true, UV>, UV};
-  return {sweep_items<T, NV, false, US>, US};
+  constexpr int kPass = 32 * Lane<T>::K * NV;
+  if (vec) return {sweep_items<T, NV, true, UV, L2>, UV, kPass};
+  return {sweep_items<T, NV, false, US, L2>, US, kPass};
+}
+
+// The L2 kernel exists at f64 and NV <= 2 only (plan below).
+template <typename T, int NV>
+Plan<T> plan_nv(bool vec, bool l2) {
+  if constexpr (kF64<T> && NV <= 2) {
+    if (l2) return plan_nv<T, NV, true>(vec);
+  }
+  return plan_nv<T, NV, false>(vec);
 }
 
 // NV by B: one pass of 32 K, 64 K or 128 K columns (128, 256, 512 at
 // f32; 64, 128, 256 at f64); wider B loops over the widest pass inside
-// the warp.
+// the warp (f32) or on the grid (f64). With hubs (l2) the f64 passes are
+// at most 128 columns wide: a hub's row is 1 KB a pass, so twice the hubs
+// fit the same L2 bytes (at R-MAT-20 B = 512: 15.6 ms against 17.9 ms
+// with 256-column passes; PERF.md).
 template <typename T>
-Plan<T> plan(int64_t B, bool vec) {
+Plan<T> plan(int64_t B, bool vec, bool l2) {
   constexpr int K = Lane<T>::K;
-  if (B <= 32 * K) return plan_nv<T, 1>(vec);
-  if (B <= 64 * K) return plan_nv<T, 2>(vec);
-  return plan_nv<T, 4>(vec);
+  if (B <= 32 * K) return plan_nv<T, 1>(vec, l2);
+  if (B <= 64 * K || (kF64<T> && l2)) return plan_nv<T, 2>(vec, l2);
+  return plan_nv<T, 4>(vec, l2);
 }
 
 bool aligned16(const void* p) {
@@ -410,7 +533,8 @@ bool aligned16(const void* p) {
 
 template <typename T>
 int sweep(const T* old, T* out, const int* indptr, const int* src, const T* w,
-          const int* pieces, long long n_pieces, long long V, int L,
+          const unsigned char* hub, const int* pieces, long long n_pieces,
+          long long V, int L,
           T* partial, const int* split_rows, const int* split_ptr,
           long long n_split_rows, const int* prev, int* improved, long long B,
           void* stream) {
@@ -420,10 +544,13 @@ int sweep(const T* old, T* out, const int* indptr, const int* src, const T* w,
                      aligned16(partial);
     const long long n_items = n_pieces + V;
     if (n_items > 0) {
-      const unsigned grid = (unsigned)((n_items + kWarps - 1) / kWarps);
-      plan<T>(B, vec).fn<<<grid, kThreads, 0, s>>>(
-          old, out, src, w, indptr, pieces, n_pieces, V, L, partial, prev,
-          improved, B);
+      // At f64 the column passes are the grid's y (pass 0 first).
+      const Plan<T> p = plan<T>(B, vec, hub != nullptr);
+      const dim3 grid((unsigned)((n_items + kWarps - 1) / kWarps),
+                      kF64<T> ? (unsigned)((B + p.pass - 1) / p.pass) : 1u);
+      p.fn<<<grid, kThreads, 0, s>>>(old, out, src, w, hub, indptr, pieces,
+                                     n_pieces, V, L, partial, prev, improved,
+                                     B);
     }
     if (n_split_rows > 0) {
       const unsigned grid = (unsigned)((n_split_rows + kWarps - 1) / kWarps);
@@ -442,8 +569,9 @@ int sweep(const T* old, T* out, const int* indptr, const int* src, const T* w,
 }
 
 template <typename T>
-int occupancy(long long B, int vec, int* blocks_per_sm, int* gather_depth) {
-  const Plan<T> p = plan<T>(B, vec != 0);
+int occupancy(long long B, int vec, int hubs, int* blocks_per_sm,
+              int* gather_depth) {
+  const Plan<T> p = plan<T>(B, vec != 0, hubs != 0);
   *gather_depth = p.depth;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, reinterpret_cast<const void*>(p.fn), kThreads, 0);
@@ -455,7 +583,9 @@ int occupancy(long long B, int vec, int* blocks_per_sm, int* gather_depth) {
 // then every row of at most L in-edges whole), then the split-row
 // combine. B % K != 0 or unaligned rows take the scalar lane path.
 // `pj_fanout_sweep` takes f32 values (old, out, w, partial), and
-// `pj_fanout_sweep_f64` f64 ones.
+// `pj_fanout_sweep_f64` f64 ones and the per-edge hub flags (`hub`, one
+// byte per in-edge in CSC order, nonzero: keep the source's row in L2;
+// null: no hubs).
 extern "C" int pj_fanout_sweep(const float* old, float* out,
                                const int* indptr, const int* src,
                                const float* w, const int* pieces,
@@ -464,34 +594,36 @@ extern "C" int pj_fanout_sweep(const float* old, float* out,
                                const int* split_ptr, long long n_split_rows,
                                const int* prev, int* improved, long long B,
                                void* stream) {
-  return sweep<float>(old, out, indptr, src, w, pieces, n_pieces, V, L,
-                      partial, split_rows, split_ptr, n_split_rows, prev,
+  return sweep<float>(old, out, indptr, src, w, nullptr, pieces, n_pieces, V,
+                      L, partial, split_rows, split_ptr, n_split_rows, prev,
                       improved, B, stream);
 }
 
 extern "C" int pj_fanout_sweep_f64(const double* old, double* out,
                                    const int* indptr, const int* src,
-                                   const double* w, const int* pieces,
+                                   const double* w, const unsigned char* hub,
+                                   const int* pieces,
                                    long long n_pieces, long long V, int L,
                                    double* partial, const int* split_rows,
                                    const int* split_ptr,
                                    long long n_split_rows, const int* prev,
                                    int* improved, long long B, void* stream) {
-  return sweep<double>(old, out, indptr, src, w, pieces, n_pieces, V, L,
+  return sweep<double>(old, out, indptr, src, w, hub, pieces, n_pieces, V, L,
                        partial, split_rows, split_ptr, n_split_rows, prev,
                        improved, B, stream);
 }
 
 // Resident blocks per SM and gather depth (gathers per batch U) of the
-// items kernel that a sweep at width B launches, at f32 and at f64.
+// items kernel that a sweep at width B launches, at f32 and at f64 (with
+// hub flags or without).
 extern "C" int pj_fanout_sweep_occupancy(long long B, int vec,
                                          int* blocks_per_sm,
                                          int* gather_depth) {
-  return occupancy<float>(B, vec, blocks_per_sm, gather_depth);
+  return occupancy<float>(B, vec, 0, blocks_per_sm, gather_depth);
 }
 
-extern "C" int pj_fanout_sweep_occupancy_f64(long long B, int vec,
+extern "C" int pj_fanout_sweep_occupancy_f64(long long B, int vec, int hubs,
                                              int* blocks_per_sm,
                                              int* gather_depth) {
-  return occupancy<double>(B, vec, blocks_per_sm, gather_depth);
+  return occupancy<double>(B, vec, hubs, blocks_per_sm, gather_depth);
 }

@@ -37,26 +37,23 @@
 //   kernel folds the S partials with fminf.
 //
 // Exactness: every entry is the min of exactly rounded sums (fminf /
-// fmin(acc, d + a), accumulators start at +inf), and min is exact,
+// cand_min(acc, d + a), accumulators start at +inf), and min is exact,
 // associative and commutative, so any tiling, k order or split gives the
 // same bits as the plain PyTorch version. The build has no fast-math.
 //
-// f64 (`pj_minplus_f64`, precision="f64"): a 4x8 micro-tile of doubles
-// (8x8 doubles would be 128 registers of accumulators alone): 64
-// registers of accumulators, as the f32 8x8 tile, and ~150-170 in all. So
-// only the 16- and 32-row tiles exist at f64, at 5 and 3 blocks per SM
-// (RESIDENT_F64 in ops/minplus.py; minplus_plan never asks f64 for 128
-// rows): a 128-row tile of 4x8 micro-tiles is 512 threads, 128 registers
-// each at one block per SM, and spilled on the H100. A thread's 8 columns are four double2 at
-// tx * 2 + 32 h, so each LDS.128 of a warp still covers 128 contiguous
+// f64 (`pj_minplus_f64`, precision="f64"): a 4x4 micro-tile of doubles
+// over 128 threads (16-row tiles, 4 blocks per SM) or 256 (32-row tiles,
+// 2 blocks per SM; RESIDENT_F64 in ops/minplus.py, which never asks f64
+// for 128 rows): 16 warps an SM, where the first f64 kernel's 4x8 tile
+// (~160 registers a thread) held 8. A thread's 4 columns are two double2
+// at tx * 2 + 64 h, so each LDS.128 of a warp still covers 128 contiguous
 // bytes; its 4 rows of d are two double2. The d tile goes in by 8-byte
 // cp.async copies (its transpose), the a tile by 16-byte ones, and the d
 // stage's row pitch is BM + 2 doubles. fmin on doubles is no single
-// instruction on sm_90a: a candidate is DADD, DSETP, FSEL and SEL
-// (cuobjdump, scripts/torch_f64_sass.py), two on the FP64 pipes (64 a
-// clock per SM, half the FP32 rate) and two on the integer ones, four
-// issue slots of the SM's 128 a clock: either way one candidate per SM
-// per half clock per 32 lanes, the same bound.
+// instruction on sm_90a (cand_min below): the candidate is DADD, DSETP
+// and two FSELs, two on the FP64 pipes (64 a clock per SM) and two on the
+// FP32 ones, four issue slots of the SM's four a clock: either way 32
+// candidates per SM per clock, the FP64 bound.
 //
 // Fixpoint support (ops/minplus.py, minplus_fixpoint): when `improved` is
 // given (and K == J) the product also sets it where any out[i, j] <
@@ -106,6 +103,19 @@ __device__ __forceinline__ double& at(double2& f, int i) {
 __device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
 __device__ __forceinline__ double vmin(double a, double b) { return fmin(a, b); }
 
+// A candidate c into its accumulator. f32: fminf, one FMNMX. f64: fmin is
+// DSETP.MIN and two selects plus a NaN fix-up and moves on sm_90a, while
+// c < acc ? c : acc is DSETP and two FSELs (scripts/fp64_min_probe.cu: 22
+// against 13 candidates a clock per SM). They agree wherever c is not
+// NaN; a NaN c (an inf - inf sum) loses to acc in both, and acc, from
+// +inf, is never NaN. (A tie of -0.0 and +0.0 keeps the earlier one.)
+__device__ __forceinline__ float cand_min(float acc, float c) {
+  return fminf(acc, c);
+}
+__device__ __forceinline__ double cand_min(double acc, double c) {
+  return c < acc ? c : acc;
+}
+
 template <typename T>
 __device__ __forceinline__ typename Lane<T>::V inf_vec() {
   typename Lane<T>::V v;
@@ -114,19 +124,24 @@ __device__ __forceinline__ typename Lane<T>::V inf_vec() {
   return v;
 }
 
-// Block shape for BM output rows: 16 thread columns (8 output columns
-// each: tx * K + 16 K h + [0, K) for h < 8 / K) by R thread rows (TM
-// contiguous output rows each).
+// Block shape for BM output rows: TX = 128 / TN thread columns (TN output
+// columns each: tx * K + TX K h + [0, K) for h < TN / K) by R = BM / TM
+// thread rows (TM contiguous output rows each). A warp is 8 thread
+// columns by 4 thread rows.
 template <typename T, int BM>
 struct Tile {
   static constexpr bool kF32 = sizeof(T) == 4;
-  static_assert(kF32 || BM != 128, "f64 takes 16- and 32-row tiles");
+  static_assert(BM == 16 || BM == 32 || (kF32 && BM == 128),
+                "f32 takes 16-, 32- and 128-row tiles, f64 16 and 32");
   static constexpr int K = Lane<T>::K;
   static constexpr int TM = BM == 128 ? 8 : 4;
+  static constexpr int TN = kF32 ? 8 : 4;
+  static constexpr int TX = kBN / TN;
   static constexpr int R = BM / TM;
-  static constexpr int kThreads = 16 * R;
+  static_assert(TX % 8 == 0 && R % 4 == 0, "whole warps of 8 x 4 threads");
+  static constexpr int kThreads = TX * R;
   static constexpr int kMinBlocks =
-      kF32 ? (BM == 128 ? 2 : BM == 32 ? 4 : 7) : (BM == 32 ? 3 : 5);
+      kF32 ? (BM == 128 ? 2 : BM == 32 ? 4 : 7) : (BM == 32 ? 2 : 4);
   static constexpr int kDStride = BM + K;
   static constexpr int kDElems = kBK * kDStride;
   static constexpr int kStageElems = kDElems + kBK * kBN;
@@ -237,16 +252,18 @@ minplus_tiles(const T* __restrict__ d, const T* __restrict__ a,
   using Tl = Tile<T, BM>;
   using Vec = typename Lane<T>::V;
   constexpr int TM = Tl::TM;
+  constexpr int TN = Tl::TN;
   constexpr int KV = Lane<T>::K;  // values per vector
-  constexpr int NH = 8 / KV;      // column vectors per thread
+  constexpr int NH = TN / KV;     // column vectors per thread
+  constexpr int WX = Tl::TX / 8;  // warps across the tile's columns
   if (prev != nullptr && *prev == 0) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int tx = (warp & 1) * 8 + (lane & 7);
-  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp % WX) * 8 + (lane & 7);
+  const int ty = (warp / WX) * 4 + (lane >> 3);
   const int64_t i0 = (int64_t)blockIdx.y * BM;
   const int64_t j0 = (int64_t)blockIdx.x * kBN;
   const int64_t kbeg = (int64_t)blockIdx.z * k_split;
@@ -254,11 +271,11 @@ minplus_tiles(const T* __restrict__ d, const T* __restrict__ a,
   const int nkt = kend > kbeg ? (int)((kend - kbeg + kBK - 1) / kBK) : 0;
   if (gridDim.z > 1) out += (int64_t)blockIdx.z * I * J;
 
-  T acc[TM][8];
+  T acc[TM][TN];
 #pragma unroll
   for (int m = 0; m < TM; ++m)
 #pragma unroll
-    for (int n = 0; n < 8; ++n) acc[m][n] = Lane<T>::inf();
+    for (int n = 0; n < TN; ++n) acc[m][n] = Lane<T>::inf();
 
   Copies<T, BM> cp;
   cp.kk0 = threadIdx.x % kBK;
@@ -306,22 +323,24 @@ minplus_tiles(const T* __restrict__ d, const T* __restrict__ a,
 #pragma unroll
         for (int i = 0; i < KV; ++i) dv[m + i] = at(x, i);
       }
-      T av[8];
+      T av[TN];
 #pragma unroll
       for (int h = 0; h < NH; ++h) {
-        const Vec x = *reinterpret_cast<const Vec*>(as + kk * kBN + 16 * KV * h);
+        const Vec x =
+            *reinterpret_cast<const Vec*>(as + kk * kBN + Tl::TX * KV * h);
 #pragma unroll
         for (int i = 0; i < KV; ++i) av[KV * h + i] = at(x, i);
       }
 #pragma unroll
       for (int m = 0; m < TM; ++m)
 #pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] = vmin(acc[m][n], dv[m] + av[n]);
+        for (int n = 0; n < TN; ++n)
+          acc[m][n] = cand_min(acc[m][n], dv[m] + av[n]);
     }
   }
   cp_async_wait<0>();
 
-  // Epilogue: rows ty * TM + m, columns 16 K h + tx * K + c.
+  // Epilogue: rows ty * TM + m, columns TX K h + tx * K + c.
   bool dropped = false;
 #pragma unroll
   for (int m = 0; m < TM; ++m) {
@@ -329,7 +348,7 @@ minplus_tiles(const T* __restrict__ d, const T* __restrict__ a,
     if (gi >= I) continue;
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
-      const int64_t gj = j0 + 16 * KV * h + tx * KV;
+      const int64_t gj = j0 + Tl::TX * KV * h + tx * KV;
       T* o = out + gi * J + gj;
       const T* v = &acc[m][KV * h];
       if (VEC) {
@@ -421,9 +440,9 @@ cudaError_t pick(int rows, bool vec, TilesFn<T>* fn, int* threads, int* smem) {
   switch (rows) {
     case 16: return tiles_fn<T, 16>(vec, fn, threads, smem);
     case 32: return tiles_fn<T, 32>(vec, fn, threads, smem);
-    case 128:
+    case 128:  // f32 only
       if constexpr (sizeof(T) == 4) return tiles_fn<T, 128>(vec, fn, threads, smem);
-      else return cudaErrorInvalidValue;  // f64: up to 32 rows
+      else return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -48,7 +48,9 @@ _I = ctypes.c_int
 # launch entry point is ``pj_<name>`` (``fw_kleene`` has a second one),
 # its last argument the stream; each has an ``_f64`` twin with the same
 # arguments (doubles where the f32 one takes floats), but
-# ``pj_tight_pred_f64``, whose split rows' partials are two arrays.
+# ``pj_tight_pred_f64``, whose split rows' partials are two arrays, and
+# ``pj_fanout_sweep_f64`` (and its occupancy query), which also takes the
+# per-edge hub flags.
 _F32_SIGNATURES = {
     "fanout_sweep": {
         "pj_fanout_sweep": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P,
@@ -70,7 +72,10 @@ _F32_SIGNATURES = {
         "pj_tight_pred_occupancy": (_L, _I, _P, _P),
     },
 }
-_F64_EXTRA_ARGS = {"pj_tight_pred": (10, _P)}  # partial_du, partial_u
+# (position, type) of the one argument an f64 entry point adds.
+_F64_EXTRA_ARGS = {"pj_tight_pred": (10, _P),   # partial_du, partial_u
+                   "pj_fanout_sweep": (5, _P),  # hub flags, after w
+                   "pj_fanout_sweep_occupancy": (2, _I)}  # with hubs
 
 
 def _with_f64(fns: dict) -> dict:

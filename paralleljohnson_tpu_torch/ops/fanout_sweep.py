@@ -16,11 +16,16 @@ each: a row of at most that many in-edges is one item, a longer row is
 cut into pieces whose partial minima a second pass combines. Both
 compute the same sweep, so the fixpoint and its iteration count agree
 with ``pallas_fanout``.
+
+At f64 the kernel also takes per-edge hub flags (:func:`hub_flags`):
+the edges whose source is one of the few with the most out-edges, whose
+rows it keeps in the card's L2 while the rest of the sweep streams past.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -35,6 +40,16 @@ ITEM_EDGES = 512
 SWEEPS_PER_SYNC = 16
 # int32 words between two sweeps' flags: one 128-byte cache line.
 FLAG_STRIDE = 32
+# The f64 sweep's hub rows: the L2 bytes their slices, one pass wide, may
+# fill (of the H100's 50 MB; tuned on the card, PERF.md), and the least
+# out-degree a hub has: at least HUB_MIN_OUT_DEGREE and HUB_SKEW times
+# the mean, so that a graph without skew (a grid, a uniform random
+# graph) has none.
+HUB_L2_BYTES = 24 << 20
+HUB_MIN_OUT_DEGREE = 16
+HUB_SKEW = 4
+# ``hubs=AUTO``: the fixpoints build each chunk's hub flags themselves.
+AUTO = "auto"
 
 
 class WorkItems(NamedTuple):
@@ -107,6 +122,58 @@ def build_in_edge_layout(src, dst, num_nodes: int):
     }
 
 
+def pass_columns(b: int, itemsize: int, *, hubs: bool = False) -> int:
+    """Columns of one pass of the sweep kernel at width ``b``: 32 lanes x
+    NV 16-byte vectors of ``16 // itemsize`` values, NV = 1, 2 or 4 by
+    ``b``, and at most 2 for the f64 kernel with hub flags (``plan`` in
+    ``csrc/fanout_sweep.cu``)."""
+    lane = 32 * (16 // itemsize)
+    widest = 2 if hubs and itemsize == 8 else 4
+    return next((lane * nv for nv in (1, 2) if b <= lane * nv), widest * lane)
+
+
+def hub_sources(out_degree, row_bytes: int, *, budget: int = HUB_L2_BYTES,
+                min_degree: int | None = None):
+    """The sources whose rows the f64 sweep keeps in L2: int64 vertex ids
+    in descending out-degree, ties by ascending id, as many as
+    ``budget // row_bytes``, none below ``min_degree`` out-edges (by
+    default the larger of ``HUB_MIN_OUT_DEGREE`` and ``HUB_SKEW`` times
+    the mean). ``out_degree`` is [V], on any device."""
+    deg = out_degree.long()
+    if min_degree is None:
+        mean = float(deg.sum()) / max(1, deg.shape[0])
+        min_degree = max(HUB_MIN_OUT_DEGREE, math.ceil(HUB_SKEW * mean))
+    # Stable, so equal degrees keep ascending ids.
+    order = torch.argsort(-deg, stable=True)[:max(0, budget // row_bytes)]
+    return order[deg[order] >= min_degree]
+
+
+def hub_row_bytes(b: int) -> int:
+    """Bytes of one hub row's slice in one pass of the f64 kernel with hub
+    flags at width ``b``: what a hub holds of the L2 at a time."""
+    return min(b, pass_columns(b, 8, hubs=True)) * 8
+
+
+def hub_flags(src_in, num_nodes: int, b: int, dtype: torch.dtype, *,
+              budget: int = HUB_L2_BYTES):
+    """The f64 sweep's per-edge hub flags over an in-edge CSC: uint8[E],
+    1 where ``src_in[e]`` is one of :func:`hub_sources` for rows one pass
+    (:func:`hub_row_bytes`) of width ``b`` wide, on ``src_in``'s device.
+    None at f32, where the sweep takes no flags, and when no source
+    qualifies: the f64 kernel then loads as the f32 one does."""
+    if dtype != torch.float64:
+        return None
+    row_bytes = hub_row_bytes(b)
+    s = src_in.long()
+    hubs = hub_sources(torch.bincount(s, minlength=num_nodes), row_bytes,
+                       budget=budget)
+    if hubs.numel() == 0:
+        return None
+    is_hub = torch.zeros(num_nodes, dtype=torch.uint8, device=src_in.device)
+    is_hub[hubs] = 1
+    return is_hub[s]
+
+
 def fanout_sweep_plain(dist, indptr_in, src_in, w_in):
     """One Jacobi sweep in plain PyTorch: ``index_select`` of the source
     rows plus ``scatter_reduce("amin", include_self=True)`` into a copy of
@@ -130,7 +197,7 @@ def fanout_sweep_plain(dist, indptr_in, src_in, w_in):
 
 
 def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
-                 improved=None, prev=None, scratch=None):
+                 improved=None, prev=None, scratch=None, hubs=None):
     """One Jacobi sweep into ``out``: returns (out, improved).
 
     ``improved`` is an int32[1] flag set to 1 when an entry dropped
@@ -142,7 +209,9 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
     ``items`` (a :class:`WorkItems`; built from ``indptr_in`` when None),
     in ``dist``'s dtype, f32 or f64 (``w_in``, ``out`` and ``scratch``
     must have it too); ``scratch`` is its [items.n_split, B]
-    partial-minimum buffer (allocated when None). Each call counts one in
+    partial-minimum buffer (allocated when None). At f64, ``hubs`` is
+    :func:`hub_flags`'s uint8[E] (None: no hubs, plain loads); at f32 it
+    must be None. Each call counts one in
     ``fanout_sweep.launches``: one sweep, which is the items kernel and,
     when the layout has split rows, the combine kernel after it. A sweep
     skipped on ``prev`` launches both all the same (they return at entry)
@@ -179,6 +248,13 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
     _cuda.check(items.pieces, "items.pieces", torch.int32, dev, 2)
     _cuda.check(items.split_rows, "items.split_rows", torch.int32, dev, 1)
     _cuda.check(items.split_ptr, "items.split_ptr", torch.int32, dev, 1)
+    if hubs is not None:
+        if dt != torch.float64:
+            raise ValueError("hub flags are taken by the f64 sweep only")
+        _cuda.check(hubs, "hubs", torch.uint8, dev, 1)
+        if hubs.shape != src_in.shape:
+            raise ValueError(f"hubs must be [{src_in.shape[0]}], got "
+                             f"{tuple(hubs.shape)}")
     if out is None:
         out = torch.empty_like(dist)
     else:
@@ -200,9 +276,11 @@ def fanout_sweep(dist, indptr_in, src_in, w_in, *, items=None, out=None,
         prev = torch.ones(1, dtype=torch.int32, device=dev)
     else:
         _cuda.check(prev, "prev", torch.int32, dev, 1)
+    f64 = () if dt != torch.float64 else (
+        None if hubs is None else hubs.data_ptr(),)
     _cuda.launch(
         "fanout_sweep", dist.data_ptr(), out.data_ptr(), indptr_in.data_ptr(),
-        src_in.data_ptr(), w_in.data_ptr(), items.pieces.data_ptr(),
+        src_in.data_ptr(), w_in.data_ptr(), *f64, items.pieces.data_ptr(),
         items.n_split, v, items.item_edges, scratch.data_ptr(),
         items.split_rows.data_ptr(), items.split_ptr.data_ptr(),
         items.split_rows.shape[0], prev.data_ptr(), improved.data_ptr(), b,
@@ -216,33 +294,37 @@ fanout_sweep.launches = 0
 
 
 def occupancy(b: int, *, vec: bool = True,
-              dtype: torch.dtype = torch.float32) -> dict:
+              dtype: torch.dtype = torch.float32, hubs: bool = True) -> dict:
     """Resident blocks per SM and gather depth (row gathers in flight per
     lane, U) of the items kernel a sweep of width ``b`` in ``dtype``
-    launches (needs the card)."""
+    launches, at f64 with hub flags or without (needs the card)."""
     blocks, depth = ctypes.c_int(0), ctypes.c_int(0)
     fn = getattr(_cuda.lib("fanout_sweep"),
                  _cuda.entry("pj_fanout_sweep_occupancy", dtype))
-    err = fn(b, int(vec), ctypes.byref(blocks), ctypes.byref(depth))
+    f64 = (int(hubs),) if dtype == torch.float64 else ()
+    err = fn(b, int(vec), *f64, ctypes.byref(blocks), ctypes.byref(depth))
     if err != 0:
         raise RuntimeError(f"occupancy query failed: cudaError {err}")
     return {"blocks_per_sm": blocks.value, "gather_depth": depth.value}
 
 
 def fanout_fixpoint(dist0, indptr_in, src_in, w_in, *, max_iter: int,
-                    items=None):
+                    items=None, hubs=AUTO):
     """Iterate :func:`fanout_sweep` to its fixpoint, at most ``max_iter``
     sweeps. The same contract as the reference's ``pallas_fanout``:
     (dist [V, B], iterations, still_improving), the last two host values.
     One chunk of :func:`fanout_fixpoint_chunks`: each sweep is Jacobi."""
     return fanout_fixpoint_chunks(
-        dist0, [(indptr_in, src_in, w_in, items)], max_iter=max_iter)
+        dist0, [(indptr_in, src_in, w_in, items)], max_iter=max_iter,
+        hubs=AUTO if hubs is AUTO else [hubs])
 
 
-def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int):
+def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int, hubs=AUTO):
     """:func:`fanout_fixpoint` over an edge list cut into chunks, each a
     ``(indptr_in, src_in, w_in, items)`` in-edge layout (``items`` may
-    be None; built on the card when needed). One sweep launches
+    be None; built on the card when needed). ``hubs`` lists each chunk's
+    :func:`hub_flags`; ``AUTO`` builds them from each chunk's own edges
+    (on the card, at f64). One sweep launches
     :func:`fanout_sweep` once per chunk, in order, each chunk reading
     what the one before it wrote: the chunk-level Gauss-Seidel sweep of
     the reference's ``relax.bellman_ford_sweeps_vm`` (``ops/hopset.py``
@@ -265,11 +347,15 @@ def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int):
         return dist0, 0, improving
     dev = dist0.device
     n = len(chunks)
+    v, b = dist0.shape
+    if hubs is AUTO:
+        hubs = [hub_flags(s, v, b, dist0.dtype) if dev.type == "cuda"
+                else None for _, s, _, _ in chunks]
     if dev.type == "cuda":
         chunks = [(ip, s, w, build_work_items(ip) if it is None else it)
                   for ip, s, w, it in chunks]
-        scratch = torch.empty((max(c[3].n_split for c in chunks),
-                               dist0.shape[1]), dtype=dist0.dtype, device=dev)
+        scratch = torch.empty((max(c[3].n_split for c in chunks), b),
+                              dtype=dist0.dtype, device=dev)
     else:
         scratch = None
     bufs = (dist0, torch.empty_like(dist0))
@@ -292,7 +378,8 @@ def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int):
                              out=bufs[(launch + 1) % 2], improved=flag,
                              prev=prev, scratch=(
                                  None if scratch is None
-                                 else scratch[:items.n_split]))
+                                 else scratch[:items.n_split]),
+                             hubs=hubs[c])
             prev = flag
         got = flags[:FLAG_STRIDE * k:FLAG_STRIDE].tolist()
         bump(fanout_fixpoint, "host_reads")

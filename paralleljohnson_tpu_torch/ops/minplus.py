@@ -25,16 +25,18 @@ from paralleljohnson_tpu_torch.ops.fanout_sweep import FLAG_STRIDE
 from paralleljohnson_tpu_torch.ops.relax import minplus as _minplus
 
 # The kernel's tiles: `rows` x TILE_COLS outputs per block, rows in
-# TILE_ROWS, K in stages of TILE_K. RESIDENT is each tile's resident
-# blocks per SM at f32 (its launch bounds; chip_smoke.py checks it on the
-# card), RESIDENT_F64 the same at f64, whose 4x8 micro-tile of doubles
-# takes ~150-170 registers a thread: f64 has no 128-row tile (512 threads
-# at 128 registers each spilled), its plan takes 32 rows there.
+# TILE_ROWS (TILE_ROWS_F64 at f64), K in stages of TILE_K. RESIDENT is
+# each tile's resident blocks per SM at f32 (its launch bounds;
+# chip_smoke.py checks it on the card), RESIDENT_F64 the same at f64,
+# whose tiles hold a 4x4 micro-tile of doubles a thread over 128 or 256
+# threads: 16 warps an SM at either (a 64-row tile of 512 threads timed
+# no faster on the H100; PERF.md).
 TILE_ROWS = (16, 32, 128)
+TILE_ROWS_F64 = (16, 32)
 TILE_COLS = 128
 TILE_K = 16
 RESIDENT = {16: 7, 32: 4, 128: 2}
-RESIDENT_F64 = {16: 5, 32: 3}
+RESIDENT_F64 = {16: 4, 32: 2}
 # Streaming multiprocessors of an H100 SXM.
 SMS = 132
 # Split-K limits: at most 16 splits (the partials' traffic stays a small
@@ -64,16 +66,16 @@ class MinplusPlan(NamedTuple):
 def minplus_plan(i: int, k: int, j: int, itemsize: int = 4) -> MinplusPlan:
     """The kernel's plan for an [i, k] x [k, j] product of values of
     ``itemsize`` bytes (4 or 8), a pure function of the shape (tuned on
-    the H100 at the dense route's shapes at f32; PERF.md).
+    the H100 at the dense route's shapes, and at f64 also at FW's panel
+    products; PERF.md).
 
     Tile rows: 16 for i <= 16, 32 for i <= 128, so a narrow source batch
     is neither padded to a wide tile nor left with a handful of blocks;
-    above that the 128-row tile (an 8x8 micro-tile per thread, the most
-    math per shared-memory read) unless 32-row tiles pad fewer rows, or
-    the values are f64 (32 rows: ``RESIDENT_F64``). K
-    is split as many times as the card's resident block slots (``SMS`` x
-    ``RESIDENT``, or ``RESIDENT_F64``) can take more copies of the output
-    tiles, at most
+    above that, at f32, the 128-row tile (an 8x8 micro-tile per thread,
+    the most math per shared-memory read) unless 32-row tiles pad fewer
+    rows; at f64 32 rows (``TILE_ROWS_F64``). K is split as many times as
+    the card's resident block slots (``SMS`` x ``RESIDENT``, or
+    ``RESIDENT_F64``) can take more copies of the output tiles, at most
     ``MAX_SPLITS`` times and no split shallower than ``MIN_SPLIT_K``;
     splits that would be empty are dropped."""
     n = max(i, 1)

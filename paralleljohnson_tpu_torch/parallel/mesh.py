@@ -61,6 +61,7 @@ from paralleljohnson_tpu_torch.ops.fanout_sweep import (
     build_in_edge_layout,
     fanout_fixpoint,
     fanout_sweep,
+    hub_flags,
 )
 from paralleljohnson_tpu_torch.ops.gauss_seidel import fanout_gs_body
 from paralleljohnson_tpu_torch.ops.pred import certify_pred, tight_pred_pass
@@ -1050,13 +1051,16 @@ def sharded_fanout_2d(
             w_in, items = wt[lay["order"]].contiguous(), lay["work_items"]
             d = _dist0_vm(mine, num_nodes, w.dtype)
             buf = torch.empty_like(d)
+            hubs = (hub_flags(s_in, num_nodes, d.shape[1], d.dtype)
+                    if d.device.type == "cuda" else None)
         else:
             d = relax.multi_source_init(mine, num_nodes, w.dtype)
         improving = bool(torch.isfinite(d).any())
         i = 0
         while improving and i < max_iter:
             if vm:
-                nd, _ = fanout_sweep(d, ip, s_in, w_in, items=items, out=buf)
+                nd, _ = fanout_sweep(d, ip, s_in, w_in, items=items, out=buf,
+                                     hubs=hubs)
             else:
                 nd = relax.relax_sweep(d, s, t, wt, edge_chunk=edge_chunk)
             comm.all_reduce_min_(nd, ("edges",))

@@ -756,6 +756,90 @@ def test_fanout_sweep_f64_kernel_equals_plain(cuda, b, graph):
     assert bool(flag.item()) == bool(imp)
 
 
+def _hub_set(kind, src_in, v, b):
+    """Per-edge hub flags for the f64 sweep: none (null), every flag 0,
+    the top quarter of the sources by out-degree, every source."""
+    e = src_in.shape[0]
+    if kind == "none":
+        return None
+    if kind in ("zeros", "all"):
+        return torch.full((e,), int(kind == "all"), dtype=torch.uint8,
+                          device=src_in.device)
+    deg = torch.bincount(src_in.long(), minlength=v)
+    row_bytes = fs.hub_row_bytes(b)
+    hubs = fs.hub_sources(deg, row_bytes, budget=row_bytes * max(1, v // 4),
+                          min_degree=1)
+    assert 0 < hubs.numel() < v
+    return torch.isin(src_in.long(), hubs).to(torch.uint8)
+
+
+@pytest.mark.parametrize("hubs", ["none", "zeros", "partial", "all"])
+@pytest.mark.parametrize("b", [128, 301, 512])
+@pytest.mark.parametrize("graph", sorted(SWEEP_GRAPHS))
+def test_fanout_sweep_f64_hub_sets_equal_plain(cuda, graph, b, hubs):
+    """The f64 sweep's L2 policies (hub gathers kept, the rest streamed)
+    and its column passes on the grid change no bit: with a hub set that
+    is empty, partial or every source, over the hub graph's split rows,
+    at B = 301 (scalar lanes, two passes) and 512 (two double2 passes),
+    the rows and the flag are the plain f64 sweep's."""
+    g = SWEEP_GRAPHS[graph]()
+    ip, s, w = _layout(g, cuda)
+    layout = (ip, s, w.double())
+    items = fs.build_work_items(ip)
+    flags = _hub_set(hubs, s, g.num_nodes, b)
+    sources = np.random.default_rng(b + 1).integers(0, g.num_nodes, b)
+    d = _dist0(sources, g.num_nodes, b, cuda).double()
+    for _ in range(2):
+        d, _ = fs.fanout_sweep_plain(d, *layout)
+    want, imp = fs.fanout_sweep_plain(d, *layout)
+    got, flag = fs.fanout_sweep(d, *layout, items=items, hubs=flags)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert bool(flag.item()) == bool(imp)
+    # And inside the fixpoint, sweep after sweep.
+    want_fix = fs.fanout_fixpoint(d.clone(), *layout, max_iter=8,
+                                  hubs=None if flags is None else
+                                  torch.zeros_like(flags))
+    got_fix = fs.fanout_fixpoint(d.clone(), *layout, max_iter=8,
+                                 items=items, hubs=flags)
+    assert torch.equal(got_fix[0], want_fix[0])
+    assert got_fix[1:] == want_fix[1:]
+
+
+def test_fanout_sweep_hub_flags_are_f64_only(cuda):
+    g = pjt.load_graph("rmat:scale=10,ef=8,seed=0")
+    ip, s, w = _layout(g, cuda)
+    d = _dist0([0, 1], g.num_nodes, 2, cuda)
+    flags = torch.ones(s.shape[0], dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="f64"):
+        fs.fanout_sweep(d, ip, s, w, hubs=flags)
+    with pytest.raises(ValueError, match="hubs must be"):
+        fs.fanout_sweep(d.double(), ip, s, w.double(), hubs=flags[1:])
+    with pytest.raises(TypeError):
+        fs.fanout_sweep(d.double(), ip, s, w.double(), hubs=flags.int())
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+def test_hub_flags_cached_with_the_work_items(cuda, precision):
+    """The device graph builds the hub flags once per pass width, at f64
+    only; an R-MAT graph has hubs, and the pallas-vm solve launches the
+    sweep with them."""
+    g = pjt.load_graph("rmat:scale=14,ef=16,seed=0")
+    dg = torch_backend.TorchBackend(pjt.SolverConfig(precision=precision),
+                                    device=cuda).upload(g)
+    flags = dg.hub_flags(512)
+    if precision == "f32":
+        assert flags is None
+        return
+    assert flags.dtype == torch.uint8 and bool(flags.any())
+    # One pass of 128 columns (1 KB of a hub's row) from B = 128 up.
+    assert dg.hub_flags(300) is flags and dg.hub_flags(128) is flags
+    assert dg.hub_flags(64) is not flags
+    src = dg.by_dst()[1]
+    assert torch.equal(flags, fs.hub_flags(src, g.num_nodes, 512,
+                                           torch.float64))
+
+
 def test_fanout_fixpoint_f64_on_card_equals_cpu(cuda):
     g = pjt.load_graph("grid:rows=30,cols=40,seed=7")
     sources = np.arange(0, g.num_nodes, 97)
@@ -791,6 +875,104 @@ def test_minplus_f64_kernel_equals_plain(cuda, shape):
     assert torch.equal(got, minplus_plain(d, a))
 
 
+def _split_plan(k, rows, splits):
+    k_split = 16 * max(1, math.ceil(math.ceil(k / splits) / 16))
+    return mp_mod.MinplusPlan(rows, max(1, -(-k // k_split)), k_split)
+
+
+def _minplus_f64_under(plan, d, a, *, out=None, improved=None, prev=None):
+    """The f64 product under ``plan`` (any tile and split, not only
+    ``minplus_plan``'s), through the kernel's C entry point."""
+    from paralleljohnson_tpu_torch.ops import _cuda
+
+    (i, k), j = d.shape, a.shape[1]
+    if out is None:
+        out = torch.empty((i, j), dtype=torch.float64, device=d.device)
+    scratch = (torch.empty((plan.splits, i, j), dtype=torch.float64,
+                           device=d.device) if plan.splits > 1 else None)
+    _cuda.launch(
+        "minplus", d.data_ptr(), a.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), i, k, j, plan.rows,
+        plan.splits, plan.k_split, None if prev is None else prev.data_ptr(),
+        None if improved is None else improved.data_ptr(), device=d.device,
+        entry="pj_minplus_f64")
+    return out
+
+
+F64_MP_CASES = [((100, 300, 50), ""), ((65, 129, 257), ""),
+                ((1000, 777, 513), "negative"), ((70, 90, 130), "inf_rows"),
+                ((300, 300, 300), "d_is_a")]
+
+
+@pytest.mark.parametrize("shape,case", F64_MP_CASES)
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+@pytest.mark.parametrize("rows", mp_mod.TILE_ROWS_F64)
+def test_minplus_f64_every_tile_and_split(cuda, rows, splits, shape, case):
+    """Every f64 tile under one split or several, on ragged I / J / K,
+    all-+inf rows, negative entries and the aliased squaring ``d is a``:
+    bitwise the plain f64 product."""
+    i, k, j = shape
+    rng = np.random.default_rng(i + k + j + splits)
+    d, a = _operands(rng, i, k, j)
+    d = d.astype(np.float64) + rng.random((i, k)) * 1e-9
+    if case == "negative":
+        d[(rng.random((i, k)) < 0.3) & np.isfinite(d)] *= -3
+    if case == "inf_rows":
+        d[::3] = np.inf
+    d = torch.as_tensor(d).to(cuda)
+    a = torch.as_tensor(a).double().to(cuda)
+    if case == "d_is_a":
+        d.fill_diagonal_(0.0)
+        a = d
+    got = _minplus_f64_under(_split_plan(k, rows, splits), d, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, minplus_plain(d, a))
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+@pytest.mark.parametrize("rows", mp_mod.TILE_ROWS_F64)
+def test_minplus_f64_flags_every_tile(cuda, rows, splits):
+    """The fixpoint's flags under every f64 tile: ``improved`` set where
+    an entry dropped (in the epilogue, or in the fold when K is split),
+    left at 0 at the fixpoint; ``prev`` 0 skips the product, which
+    writes nothing."""
+    v = 300
+    rng = np.random.default_rng(rows + splits)
+    d, _ = _operands(rng, v, v, 1)
+    d = torch.as_tensor(d).double().to(cuda)
+    d.fill_diagonal_(0.0)
+    plan = _split_plan(v, rows, splits)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    improved = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = torch.empty_like(d)
+    _minplus_f64_under(plan, d, d, out=out, prev=one, improved=improved)
+    want = minplus_plain(d, d)
+    assert torch.equal(out, want)
+    assert improved.item() == int(bool((want < d).any())) == 1
+    fix = d.clone()
+    for _ in range(12):
+        fix = minplus_plain(fix, fix)
+    improved.zero_()
+    _minplus_f64_under(plan, fix, fix, out=out, prev=one, improved=improved)
+    assert torch.equal(out, fix) and improved.item() == 0
+    out.fill_(7.0)
+    improved.zero_()
+    _minplus_f64_under(plan, d, d, out=out, prev=torch.zeros_like(one),
+                       improved=improved)
+    torch.cuda.synchronize()
+    assert improved.item() == 0 and bool((out == 7.0).all())
+
+
+def test_minplus_f64_has_only_its_tiles(cuda):
+    """The f64 kernel has the 16- and 32-row tiles and refuses others
+    (the f32 128-row tile among them) without launching."""
+    d = torch.zeros((40, 40), dtype=torch.float64, device=cuda)
+    for rows in (64, 128):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            _minplus_f64_under(_split_plan(40, rows, 1), d, d)
+    assert set(mp_mod.TILE_ROWS_F64) == {16, 32}
+
+
 @pytest.mark.parametrize("v", [300, 1024])
 def test_minplus_f64_squaring_and_fixpoint(cuda, v):
     """``d is a`` (squaring) and the grouped iterate fixpoint at f64,
@@ -817,8 +999,9 @@ def test_minplus_f64_occupancy(cuda):
 def test_fanout_sweep_f64_occupancy(cuda):
     for b in (64, 128, 256, 512):
         for vec in (True, False):
-            o = fs.occupancy(b, vec=vec, dtype=torch.float64)
-            assert o["blocks_per_sm"] >= 2, (b, vec)
+            for hubs in (True, False):
+                o = fs.occupancy(b, vec=vec, dtype=torch.float64, hubs=hubs)
+                assert o["blocks_per_sm"] >= 2, (b, vec, hubs)
 
 
 @pytest.mark.parametrize("graph", sorted(PRED_GRAPHS))
