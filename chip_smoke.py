@@ -207,8 +207,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      ``--device`` (the default), each one's exit code checked and wall
      printed: ``info --json`` (the card's ``nvidia-smi`` line, phase 1's
      four libraries built); ``solve`` on R-MAT-20 over phase 3's first
-     128 sources (``pallas-vm``, rows bitwise phase 3's), on the grid over
-     phase 4's 256 sources with ``--predecessors`` (``pallas-vm+pred``,
+     64 sources (``pallas-vm``, rows bitwise phase 3's), on the grid over
+     phase 4's first 128 sources with ``--predecessors`` (``pallas-vm+pred``,
      rows bitwise phase 13's, trees validated) and on ER-1024 at the
      default config (``fw-tile``, bitwise phase 16's matrix), each with
      ``--output`` and ``--log-stats``, whose ``kernel_launches`` show the
@@ -242,9 +242,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      f64 kernel keeps in L2), on the grid at B = 256 (no hubs) and on
      the hub graph at B = 1, 5, 128, 200, 512, the
      min-plus product at phase 2's shapes, ``tight_pred`` on R-MAT-20's
-     converged f64 fan-out (flags [0, 0]), the Kleene closure at t =
-     128-512 (one cluster launch) and 1024 (the step variant), with and
-     without a negative diagonal; every f64 instantiation's ptxas
+     converged f64 fan-out with the sweep's hub flags and without (flags
+     [0, 0]), the Kleene closure at t = 40-512 (one cluster launch, in
+     rounds of 4 steps per hand-over; at t = 41 and 509 the last round
+     runs past t) and 1024 (the step variant), with
+     and without a negative diagonal, and with -inf entries (equal
+     wherever the plain closure has no NaN); every f64 instantiation's ptxas
      registers (phase 1: no spill, no stack frame) and resident blocks;
      the f64 kernels' times beside their plain versions and bounds (8
      bytes a value, FP64 instructions at 17e12/s; the sweep's at those
@@ -254,7 +257,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      sources (``pallas-vm``) and the grid over phase 4's 256
      (``frontier``, ``pallas-vm``), 2 rows each against scipy in f64
      (rtol 1e-12; 1e-9 through the grid's potentials), ER-1024 on
-     ``fw-tile`` and ``dense-squaring-pallas`` against scipy, the grid
+     ``fw-tile`` and ``dense-squaring-pallas`` against scipy, R-MAT-20
+     with trees over phase 3's sources in one batch (``pallas-vm+pred``,
+     the pass with hub flags: trees and flags those of ``tight_pred_pass_plain``
+     and ``tree_flags_plain`` on the solve's rows, no walk), the grid
      with trees over 64 sources (``pallas-vm+pred``, validated), and
      ``cli.main(["solve", ER_SPEC, "--precision", "f64", ...])`` in
      process, bitwise the ``fw-tile`` solve. Its launches are the
@@ -389,9 +395,11 @@ RMAT_HOP_BETA = 8
 # the late cooldown (PERF.md, Open questions). Every other verdict fails
 # the phase.
 OVERLOAD_PRINTED = ("late cooldown",)
-# Phase 23: the R-MAT-20 command's sources (phase 3's first ones): its
-# --output rows go through zlib at ~20 MB/s, 4 MiB a source.
-CLI_RMAT_SOURCES = 128
+# Phase 23: the R-MAT-20 and the grid commands' sources (phase 3's and
+# phase 4's first ones): their --output rows go through zlib at ~20
+# MB/s, 4 MiB a source on R-MAT-20, 2 MiB and its trees on the grid.
+CLI_RMAT_SOURCES = 64
+CLI_GRID_SOURCES = 128
 # Phase 24: the mesh's ranks, all on the card (gloo between them); the
 # 2-D mesh and its sources; the sources of the direct replicated call;
 # the grid side of the gs-sharded / dia-sharded fan-outs and their
@@ -537,17 +545,18 @@ def ptxas_functions(log: str) -> list[dict]:
 
 def tight_pred_templates(log: str) -> dict:
     """``tight_pred``'s items kernels by template (``NV{nv}_{vec|scalar}
-    _U{u}``) and its combine kernels (``combine_{vec|scalar}``), the f64
-    ones prefixed ``f64_``: registers and spill bytes, from the build
-    log."""
+    _U{u}``, ``_l2`` for the f64 kernel with hub flags) and its combine
+    kernels (``combine_{vec|scalar}``), the f64 ones prefixed ``f64_``:
+    registers and spill bytes, from the build log."""
     out = {}
     for f in ptxas_functions(log):
-        m = re.search(r"pred_itemsI([fd])Li(\d+)ELb([01])ELi(\d+)E",
+        m = re.search(r"pred_itemsI([fd])Li(\d+)ELb([01])ELi(\d+)ELb([01])E",
                       f["function"])
         c = re.search(r"combine_split_rowsI([fd])Lb([01])E", f["function"])
         if m:
             name = (f"{'f64_' if m.group(1) == 'd' else ''}NV{m.group(2)}_"
-                    f"{'vec' if m.group(3) == '1' else 'scalar'}_U{m.group(4)}")
+                    f"{'vec' if m.group(3) == '1' else 'scalar'}_U{m.group(4)}"
+                    f"{'_l2' if m.group(5) == '1' else ''}")
         elif c:
             name = (f"{'f64_' if c.group(1) == 'd' else ''}combine_"
                     f"{'vec' if c.group(2) == '1' else 'scalar'}")
@@ -2485,10 +2494,11 @@ def drive_cli(smi, rmat_sources, rmat_rows, gsrc, grid_pred_rows,
                                        rmat_rows[:CLI_RMAT_SOURCES])):
                 raise AssertionError("cli R-MAT-20 rows differ from phase 3's")
         out.unlink()
-        # 3: the grid with trees, phase 4's 256 sources.
+        # 3: the grid with trees, phase 4's first CLI_GRID_SOURCES.
         out = tmp / "grid.npz"
+        cli_gsrc = gsrc[:CLI_GRID_SOURCES]
         p = run("solve_grid512_pred", "solve", GRID_SPEC, "--sources",
-                ",".join(map(str, gsrc)), "--predecessors", "--output",
+                ",".join(map(str, cli_gsrc)), "--predecessors", "--output",
                 str(out), "--json", "--log-stats")
         report["solve_grid512_pred"] = solved(
             "cli_grid512_pred", p, "pallas-vm+pred",
@@ -2496,10 +2506,10 @@ def drive_cli(smi, rmat_sources, rmat_rows, gsrc, grid_pred_rows,
         grid = pjt.load_graph(GRID_SPEC)
         with np.load(out) as z:
             dist, pred = z["dist"], z["predecessors"]
-        if not np.array_equal(dist, grid_pred_rows):
+        if not np.array_equal(dist, grid_pred_rows[:CLI_GRID_SOURCES]):
             raise AssertionError("cli grid rows differ from phase 13's")
-        check = [0, len(gsrc) - 1]
-        validate_pred_tree(grid, dist[check], pred[check], gsrc[check])
+        check = [0, len(cli_gsrc) - 1]
+        validate_pred_tree(grid, dist[check], pred[check], cli_gsrc[check])
         del dist, pred
         # 4: dense ER-1024 at the default config (fw-tile).
         out = tmp / "er.npz"
@@ -2885,8 +2895,10 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
     over phase 3's 512 sources (``pallas-vm``) and the grid over phase
     4's 256 (``frontier``, ``pallas-vm``), 2 rows each against scipy in
     f64; ER-1024 on ``fw-tile`` and ``dense-squaring-pallas`` against
-    scipy; the grid with trees over 64 sources (``pallas-vm+pred``,
-    validated); ``cli.main([... "--precision", "f64"])`` in process.
+    scipy; R-MAT-20 with trees over phase 3's sources (trees those of the
+    plain pass on its rows); the grid with trees over 64 sources
+    (``pallas-vm+pred``, validated); ``cli.main([... "--precision",
+    "f64"])`` in process.
     Returns (launches by path, the f64 kernels' rows for the
     ``kernels`` line)."""
     import contextlib
@@ -2925,8 +2937,9 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
                      for b in (64, 128, 256, 512) for kind in ("", "_hubs")},
            "minplus": {f"rows{r}": mp_mod.occupancy(r, f64)
                        for r in mp_mod.TILE_ROWS_F64},
-           "tight_pred": {f"B{b}": pred_mod.occupancy(b, dtype=f64)
-                          for b in (64, 128, 512)}}
+           "tight_pred": {f"B{b}{kind}": pred_mod.occupancy(
+                              b, dtype=f64, hubs=kind == "_hubs")
+                          for b in (64, 128, 512) for kind in ("", "_hubs")}}
     low = [r for r in mp_mod.TILE_ROWS_F64
            if occ["minplus"][f"rows{r}"] < mp_mod.RESIDENT_F64[r]]
     if low or any(o["blocks_per_sm"] < 2 for o in occ["sweep"].values()):
@@ -2985,23 +2998,29 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
         checks["fanout_sweep"].append({"graph": "rmat20", "B": b,
                                        "equal": True, **hub_row})
         conv, sweeps, _ = fs.fanout_fixpoint(d, *lay, max_iter=v, items=itm)
-        got, flags = pred_mod.tight_pred_pass(conv, *lay, items=itm,
-                                              sources=src)
         dt = conv.t().contiguous()
         plain = pred_mod.tight_pred_pass_plain(dt, *coo)
         want, want_flags = pred_mod.tree_flags_plain(plain, dt, src)
-        bare = pred_mod.tight_pred_pass(conv, *lay, items=itm)
-        torch.cuda.synchronize()
-        if not (torch.equal(got.t(), want) and torch.equal(bare.t(), plain)
-                and flags.tolist() == want_flags.tolist() == [0, 0]):
-            raise AssertionError(f"f64 tight_pred disagrees on R-MAT-20 "
-                                 f"B={b}: flags {flags.tolist()}, plain "
-                                 f"{want_flags.tolist()}")
-        errs["tight_pred"].append(
-            float((got.t().long() - want.long()).abs().max()))
-        checks["tight_pred"].append({"graph": "rmat20", "B": b,
-                                     "equal": True, "flags": flags.tolist(),
-                                     "sweeps_to_fixpoint": sweeps})
+        # With the main path's hub flags (L2 policies) and without.
+        for h in (hubs, None):
+            got, flags = pred_mod.tight_pred_pass(conv, *lay, items=itm,
+                                                  sources=src, hubs=h)
+            bare = pred_mod.tight_pred_pass(conv, *lay, items=itm, hubs=h)
+            torch.cuda.synchronize()
+            if not (torch.equal(got.t(), want)
+                    and torch.equal(bare.t(), plain)
+                    and flags.tolist() == want_flags.tolist() == [0, 0]):
+                raise AssertionError(
+                    f"f64 tight_pred disagrees on R-MAT-20 B={b} (hubs "
+                    f"{h is not None}): flags {flags.tolist()}, plain "
+                    f"{want_flags.tolist()}")
+            errs["tight_pred"].append(
+                float((got.t().long() - want.long()).abs().max()))
+            checks["tight_pred"].append({"graph": "rmat20", "B": b,
+                                         "hubs": h is not None,
+                                         "equal": True,
+                                         "flags": flags.tolist(),
+                                         "sweeps_to_fixpoint": sweeps})
         states[b] = (d, conv, src, hubs, hub_row)
         del dt, plain, want, bare, got
     # The grid at phase 4's width and sources (its own weights: the same
@@ -3057,20 +3076,30 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
         checks["minplus"].append({"shape": [i, k, j], "case": case,
                                   "tile_rows": p.rows, "splits": p.splits,
                                   "equal": True})
-    for t in (128, 256, 384, 512, KLEENE_STEP_T):
-        for neg in (False, True):
-            m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=neg)
-                                ).double()
+    # The rounds at every RR (t = 40, 41, 200, 500 and 509: +inf padding;
+    # at 41 and 509 the last round runs past t), and a tile with -inf
+    # entries (NaN candidates, which the kernel's min drops and
+    # torch.minimum keeps: equal wherever the plain has none).
+    for t in (40, 41, 128, 200, 256, 384, 500, 509, 512, KLEENE_STEP_T):
+        for case in ("", "negative_diagonal", "minus_inf"):
+            m = torch.as_tensor(fw_tile_matrix(
+                t, t, negative_diagonal=case == "negative_diagonal")).double()
             m[torch.isfinite(m)] += 1e-9  # values f32 cannot hold
+            if case == "minus_inf":
+                m[1, 2] = -float("inf")
             m = m.to(dev)
             got, want = fw.fw_kleene(m), fw.tile_kleene(m)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"f64 fw_kleene disagrees at t={t}")
-            errs["fw_kleene"].append(max_abs_err(got, want))
+            ok = ~torch.isnan(want)
+            if not torch.equal(got[ok], want[ok]):
+                raise AssertionError(f"f64 fw_kleene disagrees at t={t} "
+                                     f"{case}")
+            errs["fw_kleene"].append(max_abs_err(got[ok], want[ok]))
+            plan = fw.kleene_plan(t, 8)
             checks["fw_kleene"].append({
-                "t": t, "variant": fw.kleene_plan(t, 8).variant,
-                "negative_diagonal": neg, "equal": True})
+                "t": t, "variant": plan.variant, "steps": plan.steps,
+                "case": case or "plain", "equal": True,
+                "nan_in_plain": int((~ok).sum())})
     plan512 = fw.kleene_plan(fw.DEFAULT_FW_TILE, 8)
     clusters = fw.cluster_occupancy(plan512, torch.cuda.current_device())
     if clusters < 1:
@@ -3121,17 +3150,21 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
     for b, (d, conv, src, hubs, hub_row) in states.items():
         time_sweep(f"fanout_sweep_B{b}", d, lay, itm, hubs, hub_row, reps=10)
         dt = conv.t().contiguous()
+        # The main path's pass, with the sweep's hub flags. The bound
+        # counts what the function reads and writes, not the flags (an
+        # input of this design only), as the sweep's does.
         bms, by = bound(8 * v * b + 4 * v * b + 4 * (v + 1) + 12 * e
                         + 24 * itm.n_split * b, 4 * e * b,
                         instr_s=PEAK_F64_INSTR_S)
         timings[f"tight_pred_B{b}"] = {
             "ms": event_ms(lambda: pred_mod.tight_pred_pass(
-                conv, *lay, items=itm, sources=src), reps=5),
+                conv, *lay, items=itm, sources=src, hubs=hubs), reps=5),
             "plain_ms": event_ms(lambda: pred_mod.tree_flags_plain(
                 pred_mod.tight_pred_pass_plain(dt, *coo), dt, src),
                 reps=1, warmup=0),
             "bound_ms": bms, "bound_by": by,
-            "occupancy": pred_mod.occupancy(b, dtype=f64)}
+            "occupancy": pred_mod.occupancy(b, dtype=f64, hubs=True),
+            **hub_row}
         del dt
     for (i, k, j) in MINPLUS_SHAPES[:4]:
         g_rng = np.random.default_rng(7)
@@ -3161,7 +3194,7 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
             "ms": event_ms(kleene, reps=10), "card_ms": graph_ms(kleene,
                                                                  reps=3),
             "plain_ms": event_ms(lambda: fw.tile_kleene(m), reps=1),
-            "bound_ms": bms, "bound_by": by}
+            "bound_ms": bms, "bound_by": by, "steps": plan.steps}
         del m, dst, scratch
     emit({"phase": "f64_timing", "device": smi, "timings": timings})
     del states, lay, itm, dg, coo, hub_lay, hub_itm
@@ -3194,7 +3227,40 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
     np.testing.assert_allclose(rows[check], oracle, rtol=1e-12)
     paths["f64_rmat20"]["rows_bitwise_scipy"] = bool(
         np.array_equal(rows[check], oracle))
-    del res, rows
+    del res
+
+    # R-MAT-20 with trees: the f64 pass on the solving path, with the
+    # sweep's hub flags, in one batch of all the sources (the memory
+    # budget alone would take two of 256; the hub instantiation gains at
+    # 512, PERF.md). Rows bitwise the solve's above; trees (and the
+    # flags, [0, 0]: no walk) those of the plain pass and tree check on
+    # those rows (no negative weight: the potentials are 0, the weights
+    # the graph's own).
+    walks = pred_mod.pred_reaches_root.walks
+    res = solve64("f64_rmat20_pred", rmat, rmat_sources,
+                  ("fanout_sweep", "tight_pred"), "pallas-vm+pred",
+                  predecessors=True, source_batch_size=len(rmat_sources))
+    walks = pred_mod.pred_reaches_root.walks - walks
+    if not np.array_equal(to_numpy(res.dist), rows) or walks:
+        raise AssertionError(f"f64 R-MAT-20 with trees: rows differ from "
+                             f"the solve's, or {walks} walks")
+    del rows
+    dg = upload64(rmat)[2]
+    e = rmat.num_real_edges
+    dt = torch.as_tensor(to_numpy(res.dist)).to(dev)
+    srcs = torch.as_tensor(np.asarray(rmat_sources)).to(dev)
+    want, want_flags = pred_mod.tree_flags_plain(
+        pred_mod.tight_pred_pass_plain(
+            dt, dg.src[:e], dg.dst[:e], dg.weights[:e]), dt, srcs)
+    got = torch.as_tensor(to_numpy(res.predecessors)).to(dev)
+    if not torch.equal(got, want) or want_flags.tolist() != [0, 0]:
+        raise AssertionError(f"f64 R-MAT-20 trees differ from the plain "
+                             f"pass's (plain flags {want_flags.tolist()})")
+    paths["f64_rmat20_pred"].update(
+        trees_equal_plain=True, walks=walks,
+        hub_edge_share=float(dg.hub_flags(len(rmat_sources)).sum()) / e)
+    del res, dt, got, want, dg
+    torch.cuda.empty_cache()
 
     res = solve64("f64_grid512", grid, gsrc, ("fanout_sweep",), "pallas-vm")
     if res.stats.routes_by_phase.get("bellman_ford") != "frontier":

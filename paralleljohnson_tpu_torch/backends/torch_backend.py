@@ -1674,11 +1674,14 @@ class TorchBackend(Backend):
         the card), which masks the sources and raises the tree flags, then
         the tree check on them: one host read of the flags, and the
         pointer-doubling walk only when a predecessor is not strictly
-        closer (``ops.pred.certify_pred``)."""
+        closer (``ops.pred.certify_pred``). At f64 on the card the pass
+        takes the sweep's hub flags for its width (None at f32, on the
+        CPU and on a graph without hubs)."""
         (indptr_in, src_in, w_in), items = dgraph.fanout_layout()
         sources = np.asarray(sources).reshape(-1)
         pred, flags = tight_pred_pass(dist_vm, indptr_in, src_in, w_in,
-                                      items=items, sources=sources)
+                                      items=items, sources=sources,
+                                      hubs=dgraph.hub_flags(dist_vm.shape[1]))
         pred, ok = certify_pred(pred.t().contiguous(), dist, sources,
                                 flags=flags)
         return pred, bool(ok)

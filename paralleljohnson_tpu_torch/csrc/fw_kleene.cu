@@ -72,14 +72,48 @@
 // it does not fall back.
 //
 // f64 (`pj_fw_kleene_f64`, `pj_fw_kleene_steps_f64`, precision="f64"):
-// the same design on doubles. A thread's RR rows take 2 RR registers, so
-// at t = 512 (RR = 32) the tile is 64 registers of the 128 a thread has
-// at 512 threads per SM. A hand-over store still moves 16 bytes, now two
-// whole doubles (st.async of four 32-bit words: each double's low and
-// high word in the same store, so no double arrives in halves): a lane
-// of a row warp sends its quad's 32 bytes as two stores, and a column's
-// RR entries go as RR / 2 pieces per CTA, looped over the warp's lanes.
-// Twice the bytes per step, 8 (rows + cols).
+// the cluster in ROUNDS of B = kSteps64 steps per hand-over
+// (`kleene_rounds`; the step variant as at f32). At f64 a step's arithmetic
+// is ~0.5 us on the cluster and its hand-over ~0.7 us (PERF.md), and the
+// first f64 kernel (kleene_cluster on doubles) paid one hand-over and one
+// cluster barrier per step. A thread's RR rows take 2 RR registers: at t
+// = 512 (RR = 32) the tile is 64 of the 128 a thread has at 512 threads
+// per SM, so the rest of the design has ~60 registers to spend. A round
+// is steps k0 .. k0+B-1; what an entry (i, j) needs of it is the column
+// panel C[i, k] = m[i, k] and the row panel R[k, j] = m[k, j], each as
+// the state before step k, for k in the round. Per round, each CTA
+//  1. waits for its slot: its rows k0.. raw (as the last round left
+//     them, [cols][B]), its columns k0.. raw ([B][rows], step-major, so
+//     that 16 bytes are two rows of one step and one load feeds two
+//     independent candidates) and the snapshots of the B x B diagonal
+//     block: entry (i, c) as it was before step min(i, c), off the
+//     diagonal (the panels' values inside the block);
+//  2. turns its raw panels into C and R in place, a thread per line: row
+//     i of the column panel takes steps k0 .. with the block's row
+//     values, column j of the row panel with its column values, in step
+//     order (an entry is final once its own step comes); one CTA barrier;
+//  3. hands the next round over, ahead of its update: the 4 CTAs of the
+//     next columns' block make them from their owners' entries (staged
+//     before the barrier), one entry per thread through the round's B
+//     steps, and push them to their row block (st.async, complete_tx on
+//     the slot's mbarrier); the one of those holding the next diagonal
+//     block runs its B steps in its last warp (in shared memory, an
+//     entry a lane: shuffles in that branch made the kernel spill at
+//     RR = 32) while the rest of the CTA updates, and pushes the
+//     snapshots to all 16; the thread row of the next rows updates those
+//     rows first and pushes them to its column block;
+//  4. updates every register entry with the B candidates C[i, k] +
+//     R[k, j], k ascending, and arrives on the cluster barrier, which the
+//     next round waits on before it pushes into this slot again.
+// So one flight and one cluster barrier per round, not per step. The
+// min at f64 is `c < acc ? c : acc` (vmin). Every entry gets the same
+// candidates, C[i, k] + R[k, j] with both operands as the reference's
+// loop has them before step k, in ascending k; a panel entry or a
+// snapshot is such a value made by the same operations in the same
+// order; an entry a holder updates ahead is updated once. So the
+// rounds are bitwise the one-step closure (tests/test_torch_f64.py holds
+// a plain-torch model of this order to both packages' loops). The f32
+// plan keeps one step per hand-over (kleene_cluster).
 //
 // Exactness: each candidate is one exactly rounded add (f32 or f64) and
 // the min is exact, and the steps run in the reference's order, so the closure is
@@ -117,8 +151,16 @@ __device__ __forceinline__ double at(const double2& f, int i) {
   return i == 0 ? f.x : f.y;
 }
 
+// The candidate min. At f64 a compare and a select (DSETP and two FSEL)
+// in place of fmin (DSETP.MIN, selects and a NaN fix-up: 22 against 13
+// per clock per SM on the H100, scripts/fp64_min_probe.cu). It is exact:
+// `a` is the accumulator, which starts from the input and never holds
+// NaN; a NaN candidate (inf + -inf) loses in both forms; on a tie of
+// -0.0 and +0.0 the accumulator stays, which torch.equal counts equal.
 __device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ double vmin(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ double vmin(double a, double b) {
+  return b < a ? b : a;
+}
 
 // ---- cluster variant -------------------------------------------------------
 
@@ -154,20 +196,13 @@ __device__ __forceinline__ void push_words(unsigned dst, unsigned w0,
       "r"(w3), "r"(bar) : "memory");
 }
 
-// The 16 bytes at e: four floats, or two doubles (each as its low then
-// its high word, its layout in memory) in one store.
+// The 16 bytes at e: four floats in one store.
 __device__ __forceinline__ void push16(unsigned dst, const float* e,
                                        unsigned bar) {
   push_words(dst, __float_as_uint(e[0]), __float_as_uint(e[1]),
              __float_as_uint(e[2]), __float_as_uint(e[3]), bar);
 }
 
-__device__ __forceinline__ void push16(unsigned dst, const double* e,
-                                       unsigned bar) {
-  push_words(dst, (unsigned)__double2loint(e[0]),
-             (unsigned)__double2hiint(e[0]), (unsigned)__double2loint(e[1]),
-             (unsigned)__double2hiint(e[1]), bar);
-}
 
 // This CTA's one arrival on `bar` for the next phase, which then
 // completes when `bytes` more bytes have landed.
@@ -402,18 +437,413 @@ cudaError_t occupancy_cluster(int threads, int smem, int* clusters) {
   return cudaOccupancyMaxActiveClusters(clusters, kleene_cluster<T, RR>, &cfg);
 }
 
+// ---- rounds variant (f64: B steps per hand-over; see the top) -------------
+
+// The rounds kernel's CTAs are KLEENE_THREAD_ROWS (4) thread rows of RR
+// rows down and as many columns across: rows = cols = 4 RR, known at
+// compile time, which keeps offsets out of registers (the tile takes 64
+// of a thread's 128 at RR = 32).
+constexpr int kThreadRows = 4;
+
+// Dynamic shared memory of kleene_rounds<T, RR, B> on a CTA of rows x
+// cols: two mbarriers; two slots, each the row panel [cols][B] (a
+// thread's column: B values in a row), the column panel [B][rows] (a
+// step's column: 16 bytes are two rows, as kleene_cluster's colbuf, so
+// that one load feeds two independent candidates) and the diagonal
+// block's snapshots [B][B]; the column owners' stage [rows][B]; the next
+// diagonal block [B][B] (column-major) and its snapshots [B][B], where
+// the holder makes them.
+template <typename T>
+constexpr int rounds_smem(int rows, int cols, int b) {
+  return 16 + (int)sizeof(T) * (2 * b * (cols + rows + b) + b * rows
+                                + 2 * b * b);
+}
+
+// Two doubles, by value, as one 16-byte push (no register array is
+// addressed, so none goes to local memory).
+__device__ __forceinline__ void push_pair(unsigned dst, double a, double b,
+                                          unsigned bar) {
+  push_words(dst, (unsigned)__double2loint(a), (unsigned)__double2hiint(a),
+             (unsigned)__double2loint(b), (unsigned)__double2hiint(b), bar);
+}
+
+// Push a thread's N doubles e as 16-byte pieces to offset `dst` of the 4
+// CTAs rank0 + stride * c, counting on their mbarrier `bar`.
+template <int N>
+__device__ __forceinline__ void push_to4(const double (&e)[N], unsigned dst,
+                                         unsigned bar, int rank0,
+                                         int stride) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int rank = rank0 + stride * c;
+    const unsigned d = in_cta(dst, rank), b = in_cta(bar, rank);
+#pragma unroll
+    for (int h = 0; h < N / 2; ++h)
+      push_pair(d + 16 * h, e[2 * h], e[2 * h + 1], b);
+  }
+}
+
+// The B steps of a round on its diagonal block `block` ([B][B],
+// column-major, as the last round left it, in place), one entry a lane
+// of the CTA's last warp, through shared memory: snap[i][c] (row-major)
+// gets entry (i, c) as it was before step min(i, c), off the diagonal:
+// the row panel's values above it, the column panel's below (what step 2
+// needs of the block). (Shuffles, or each entry made straight from the
+// raw block, were faster but made the kernel spill at RR = 32; PERF.md.)
+template <typename T, int B>
+__device__ __forceinline__ void close_diag(T* block, T* snap) {
+  static_assert(B * B <= 32, "an entry a lane of one warp");
+  const int e = threadIdx.x - ((int)blockDim.x - 32);
+  const int i = e % B, c = e / B;
+  const bool mine = e < B * B;
+  T m = mine ? block[c * B + i] : T(0);
+#pragma unroll
+  for (int k = 0; k + 1 < B; ++k) {
+    if (mine && i != c && k == min(i, c)) snap[i * B + c] = m;
+    T cand = T(0);
+    if (mine) cand = block[k * B + i] + block[c * B + k];
+    __syncwarp();  // every read of step k is done
+    if (mine) block[c * B + i] = m = vmin(m, cand);
+    __syncwarp();
+  }
+}
+
+// Step 2, one thread per panel line, in place, its B values `stride`
+// apart. A row of the column panel (p[k] = m[i, k0 + k]) takes each
+// step k on its entries right of k with the block's row values; a column
+// of the row panel (p[k] = m[k0 + k, j]) on its entries below k with the
+// block's column values. Entry k is final once step k comes: the state
+// before step k.
+template <typename T, int B>
+__device__ __forceinline__ void panel_line(T* p, int stride, const T* snap,
+                                           bool row) {
+  T cur[B];
+#pragma unroll
+  for (int k = 0; k < B; ++k) cur[k] = p[k * stride];
+#pragma unroll
+  for (int k = 0; k < B - 1; ++k) {
+#pragma unroll
+    for (int c = k + 1; c < B; ++c)
+      cur[c] = row ? vmin(cur[c], cur[k] + snap[k * B + c])
+                   : vmin(cur[c], snap[c * B + k] + cur[k]);
+  }
+#pragma unroll
+  for (int k = 1; k < B; ++k) p[k * stride] = cur[k];
+}
+
+// Step 3 on the thread's rows: only the block of B rows at `only` (< 0:
+// every block), but the block at `skip` (< 0: none). Both fold to
+// constants where the round loop is unrolled. Each entry takes the
+// candidates C[i, k] + R[k, j] in ascending k: k outside, over 16-byte
+// pieces of the thread's column of the row panel (`rcol`, loaded as it
+// is used), the rows inside, K of them a 16-byte load of the column
+// panel (`ck`: step k's column at ck[k * kRows], this thread's rows).
+template <typename T, int RR, int B, int kRows>
+__device__ __forceinline__ void apply_round(T (&v)[RR], const T* ck,
+                                            const T* rcol, int only,
+                                            int skip) {
+  using Vec = typename Lane<T>::V;
+  constexpr int K = Lane<T>::K;
+#pragma unroll
+  for (int h = 0; h < B / K; ++h) {
+    const Vec rv = reinterpret_cast<const Vec*>(rcol)[h];
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const T rk = at(rv, i);
+      const Vec* col = reinterpret_cast<const Vec*>(ck + (K * h + i) * kRows);
+#pragma unroll
+      for (int q = 0; q < RR; q += K) {
+        const int block = q / B * B;
+        if ((only >= 0 && block != only) || block == skip) continue;
+        const Vec c = col[q / K];
+#pragma unroll
+        for (int e = 0; e < K; ++e) v[q + e] = vmin(v[q + e], at(c, e) + rk);
+      }
+    }
+  }
+}
+
+// The next round's columns k1 .. k1+B-1, made by every thread of a CTA
+// of their column block from the owners' entries (`stage`: [rows][B],
+// the state before this round): B / 4 entries (row, c) per thread, one
+// B-step chain each (`round`: this round's column panel `colbuf` and row
+// panel `rowbuf`, columns c1 .. of this CTA, in step order), not B^2
+// steps in the owners' warp. A lane pair makes the 16 bytes of two rows
+// of column c (one shuffle) and the even lane pushes them into the 4
+// CTAs of its row block x (`dst`: the step-major column panel of the
+// next slot). Where the rows hold the next diagonal block (rows
+// diag_row0 .. diag_row0+B-1 of this CTA; < 0: not here) its entries go
+// to `block` ([B][B], column-major).
+template <typename T, int B, int kRows>
+__device__ __forceinline__ void make_columns(
+    const T* stage, bool round, const T* colbuf, const T* rowbuf, int c1,
+    unsigned dst, unsigned bar, int x, int diag_row0, T* block) {
+  static_assert(B % 4 == 0, "every thread takes B / 4 entries");
+  constexpr unsigned kSz = sizeof(T);
+  constexpr int kTrips = B / 4;
+  int c[kTrips], row[kTrips];
+  T cur[kTrips];
+#pragma unroll
+  for (int it = 0; it < kTrips; ++it) {
+    const int p = threadIdx.x + it * 4 * kRows;
+    c[it] = p / kRows;
+    row[it] = p % kRows;
+    cur[it] = stage[row[it] * B + c[it]];
+  }
+  if (round) {
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+#pragma unroll
+      for (int it = 0; it < kTrips; ++it)
+        cur[it] = vmin(cur[it], colbuf[k * kRows + row[it]] +
+                                    rowbuf[(c1 + c[it]) * B + k]);
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < kTrips; ++it) {
+    const T other = __shfl_xor_sync(0xffffffffu, cur[it], 1);
+    if (!(row[it] & 1)) {
+      const T piece[2] = {cur[it], other};
+      push_to4<2>(piece, dst + kSz * (c[it] * kRows + row[it]), bar,
+                     x * kColBlocks, 1);
+    }
+    if (diag_row0 >= 0 && row[it] >= diag_row0 && row[it] < diag_row0 + B)
+      block[c[it] * B + row[it] - diag_row0] = cur[it];
+  }
+}
+
+// The holder of the next diagonal block (a CTA of make_columns with
+// diag_row0 >= 0), after a barrier: its last warp runs the round's steps
+// on the block and pushes the snapshots (`snap`, [B][B]) to all 16 CTAs'
+// next slot (`dst`), 16 bytes at a time. It overlaps the rest of the
+// CTA's update; every CTA then builds its panels from them.
+template <typename T, int B>
+__device__ __forceinline__ void push_snapshots(T* block, T* snap,
+                                               unsigned dst, unsigned bar) {
+  constexpr int K = Lane<T>::K;
+  constexpr int kPieces = B * B / K;
+  if ((int)threadIdx.x < (int)blockDim.x - 32) return;
+  close_diag<T, B>(block, snap);
+  __syncwarp();
+  for (int q = threadIdx.x & 31; q < kPieces * kCluster; q += 32) {
+    const int p = q % kPieces, cta = q / kPieces;
+    push_pair(in_cta(dst + 16 * p, cta), snap[K * p], snap[K * p + 1],
+              in_cta(bar, cta));
+  }
+}
+
+// The owners of columns c1 .. c1+B-1 of this CTA (all thread rows) stage
+// their entries for make_columns.
+template <typename T, int RR, int B>
+__device__ __forceinline__ void stage_columns(const T (&v)[RR], T* stage,
+                                              int c1, int tx, int ty) {
+  if (tx >= c1 && tx < c1 + B) {
+#pragma unroll
+    for (int r = 0; r < RR; ++r) stage[(ty * RR + r) * B + tx - c1] = v[r];
+  }
+}
+
+// The closure on one cluster of 4 x 4 CTAs in rounds of B steps: CTAs of
+// 4 RR x 4 RR entries, 4 thread rows of 4 RR threads (shared memory
+// rounds_smem).
+template <typename T, int RR, int B>
+__global__ void __launch_bounds__(max_threads(RR), 1)
+kleene_rounds(const T* in, long long ld_in, T* out, long long ld_out,
+              int t) {
+  static_assert(RR % B == 0 && B % 2 == 0 && B <= 32 && RR <= 32,
+                "a round is whole 16-byte pieces of a thread's row group");
+  constexpr int Q = RR / B;  // rounds per row group
+  constexpr int kRows = kThreadRows * RR, kCols = kRows;
+  static_assert(Lane<T>::K == 2, "the f64 kernel");
+  constexpr int kSlot = B * (kCols + kRows + B);  // rowbuf, colbuf, diag
+  constexpr unsigned kSz = sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const slots = reinterpret_cast<T*>(smem + 16);
+  T* const stage = slots + 2 * kSlot;  // [kRows][B]
+  T* const block = stage + B * kRows;  // the next diagonal block, [B][B]
+  T* const snap = block + B * B;       // and its snapshots
+  const unsigned bar0 = smem_u32(smem);
+  const unsigned slots0 = smem_u32(slots);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int x = rank / kColBlocks, y = rank % kColBlocks;
+  const int tx = threadIdx.x % kCols, ty = threadIdx.x / kCols;
+  const int i0 = x * kRows + ty * RR;
+  const int j = y * kCols + tx;
+
+  T v[RR];
+#pragma unroll
+  for (int q = 0; q < RR; ++q) {
+    v[q] = (j < t && i0 + q < t) ? in[(long long)(i0 + q) * ld_in + j]
+                                 : Lane<T>::inf();
+  }
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0)
+                 : "memory");
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    expect(bar0, (int)kSz * kSlot);                 // round 0
+    if (t > B) expect(bar0 + 8, (int)kSz * kSlot);  // round 1
+  }
+  cluster.sync();  // every mbarrier is set up before any CTA pushes
+
+  // Round 0's panels and block: the input itself, into slot 0.
+  {
+    constexpr unsigned kColbuf = kSz * B * kCols;
+    if (x == 0 && ty == 0) {
+      T e[B];
+#pragma unroll
+      for (int i = 0; i < B; ++i) e[i] = v[i];
+      push_to4<B>(e, slots0 + kSz * B * tx, bar0, y, kColBlocks);
+    }
+    if (y == 0) {  // uniform over the CTA
+      stage_columns<T, RR, B>(v, stage, 0, tx, ty);
+      __syncthreads();
+      make_columns<T, B, kRows>(stage, false, nullptr, nullptr, 0,
+                                slots0 + kColbuf, bar0, x, x == 0 ? 0 : -1,
+                                block);
+      if (x == 0) {
+        __syncthreads();
+        push_snapshots<T, B>(block, snap, slots0 + kColbuf + kSz * B * kRows,
+                             bar0);
+      }
+    }
+  }
+
+  for (int g = 0; g * RR < t; ++g) {  // tile rows [g RR, g RR + RR)
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int k0 = g * RR + q * B;
+      if (k0 >= t) break;  // uniform over the cluster
+      const int n = k0 / B, s = n & 1;
+      T* const rowbuf = slots + s * kSlot;
+      T* const colbuf = rowbuf + B * kCols;
+      wait_phase(bar0 + 8 * s, (n >> 1) & 1);
+      if (threadIdx.x == 0 && k0 + 2 * B < t)
+        expect(bar0 + 8 * s, (int)kSz * kSlot);
+      const T* round_snap = colbuf + B * kRows;
+      if (threadIdx.x < kRows)
+        panel_line<T, B>(colbuf + threadIdx.x, kRows, round_snap, true);
+      else if (threadIdx.x < kRows + kCols)
+        panel_line<T, B>(rowbuf + B * (threadIdx.x - kRows), 1, round_snap,
+                         false);
+      const int k1 = k0 + B;
+      const int c1 = k1 % kCols;
+      const bool cols_here = k1 < t && y == k1 / kCols;  // CTA-uniform
+      if (cols_here) stage_columns<T, RR, B>(v, stage, c1, tx, ty);
+      __syncthreads();
+      const T* ck = colbuf + ty * RR;
+      const T* rcol = rowbuf + B * tx;
+      // Every thread is done with slot s ^ 1 of round n - 1.
+      if (n > 0) cluster_wait();
+      const int r1 = ((q + 1) % Q) * B;  // next round's rows in a group
+      int skip = -1;  // the block of rows this thread updated ahead
+      const unsigned bar = bar0 + 8 * (s ^ 1);
+      const unsigned next = slots0 + kSz * (s ^ 1) * kSlot;
+      const int g1 = q + 1 < Q ? g : g + 1;
+      // The next round's columns and block, then its rows, as this round
+      // leaves them, ahead of the update.
+      if (cols_here) {
+        const bool block_here = x == g1 / kThreadRows;  // CTA-uniform
+        make_columns<T, B, kRows>(
+            stage, true, colbuf, rowbuf, c1, next + kSz * B * kCols, bar, x,
+            block_here ? (g1 % kThreadRows) * RR + r1 : -1, block);
+        if (block_here) {
+          __syncthreads();
+          push_snapshots<T, B>(block, snap, next + kSz * B * (kCols + kRows),
+                               bar);
+        }
+      }
+      if (k1 < t && x * kThreadRows + ty == g1) {  // uniform: a thread row
+        apply_round<T, RR, B, kRows>(v, ck, rcol, r1, -1);
+        T e[B];
+#pragma unroll
+        for (int i = 0; i < B; ++i) e[i] = v[r1 + i];
+        push_to4<B>(e, next + kSz * B * tx, bar, y, kColBlocks);
+        skip = r1;
+      }
+      apply_round<T, RR, B, kRows>(v, ck, rcol, -1, skip);
+      __syncwarp();
+      cluster_arrive_relaxed();  // this thread is done with slot s
+    }
+  }
+  cluster_wait();
+#pragma unroll
+  for (int q = 0; q < RR; ++q)
+    if (j < t && i0 + q < t) out[(long long)(i0 + q) * ld_out + j] = v[q];
+}
+
+// The launch configuration of kleene_rounds<T, RR, B>: kleene_cluster's.
+template <typename T, int RR, int B>
+cudaError_t rounds_config(int threads, int smem, void* stream,
+                          cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attrs) {
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
+      kleene_rounds<T, RR, B>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+      1);
+  if (attr_err != cudaSuccess) return attr_err;
+  if (threads > max_threads(RR)) return cudaErrorInvalidValue;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((unsigned)kCluster);
+  cfg->blockDim = dim3((unsigned)threads);
+  cfg->dynamicSmemBytes = (size_t)smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = (unsigned)kCluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeClusterSchedulingPolicyPreference;
+  attrs[1].val.clusterSchedulingPolicyPreference =
+      cudaClusterSchedulingPolicySpread;
+  cfg->attrs = attrs;
+  cfg->numAttrs = 2;
+  return cudaSuccess;
+}
+
+template <typename T, int RR, int B>
+cudaError_t launch_rounds(const T* in, long long ld_in, T* out,
+                          long long ld_out, int t, int threads, int smem,
+                          void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[2];
+  cudaError_t err = rounds_config<T, RR, B>(threads, smem, stream, &cfg, attrs);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kleene_rounds<T, RR, B>, in, ld_in, out,
+                           ld_out, t);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, int RR, int B>
+cudaError_t occupancy_rounds(int threads, int smem, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attrs[2];
+  const cudaError_t err = rounds_config<T, RR, B>(threads, smem, nullptr,
+                                                  &cfg, attrs);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, kleene_rounds<T, RR, B>,
+                                        &cfg);
+}
+
 // The CTAs' shape from the plan (ops/fw.py kleene_plan): 4 x 4 CTAs of
 // `rows` x `cols` over a tile padded to 4 rows = 4 cols >= t, `cols` (a
-// multiple of 32) threads across and rows / RR down, at most RR = 32.
-// Returns RR, or 0 when the shape is not one the kernel takes.
+// multiple of 32) threads across and rows / RR down, at most RR = 32;
+// `steps` per hand-over (1: kleene_cluster; B > 1: kleene_rounds, 4 thread
+// rows, its panel lines one thread each). Returns RR, or 0 when the shape
+// is not one the kernel takes.
 template <typename T>
-int cluster_shape(int t, int rows, int cols, int threads, int smem) {
-  if (rows < 1 || cols < 32 || cols % 32 || threads % cols) return 0;
+int cluster_shape(int t, int rows, int cols, int threads, int smem,
+                  int steps) {
+  if (rows < 1 || cols < 32 || cols % 32 || threads % cols || steps < 1)
+    return 0;
   const int groups = threads / cols, rr = rows / groups;
   if (rows % groups || kRowBlocks * rows != kColBlocks * cols ||
-      kRowBlocks * rows < t || kColBlocks * rr > 128 ||
-      smem < 16 + (int)sizeof(T) * (2 * cols + 3 * rows) ||
-      smem > 48 * 1024)
+      kRowBlocks * rows < t || kColBlocks * rr > 128)
+    return 0;
+  const int need = steps == 1
+                       ? 16 + (int)sizeof(T) * (2 * cols + 3 * rows)
+                       : rounds_smem<T>(rows, cols, steps);
+  if (smem < need || smem > 48 * 1024 ||
+      (steps > 1 && (rr % steps || groups != kThreadRows)))
     return 0;
   return rr;
 }
@@ -422,7 +852,7 @@ template <typename T>
 int closure(const T* in, long long ld_in, T* out, long long ld_out, int t,
             int rows, int cols, int threads, int smem, void* stream) {
   if (t <= 0) return (int)cudaGetLastError();
-  const int rr = cluster_shape<T>(t, rows, cols, threads, smem);
+  const int rr = cluster_shape<T>(t, rows, cols, threads, smem, 1);
   if (ld_in < t || ld_out < t || rr == 0) return (int)cudaErrorInvalidValue;
   switch (rr) {
     case 8: return (int)launch_cluster<T, 8>(in, ld_in, out, ld_out, t, rows, cols, threads, smem, stream);
@@ -437,7 +867,7 @@ template <typename T>
 int cluster_occupancy(int rows, int cols, int threads, int smem,
                       int* clusters) {
   *clusters = 0;
-  switch (cluster_shape<T>(0, rows, cols, threads, smem)) {
+  switch (cluster_shape<T>(0, rows, cols, threads, smem, 1)) {
     case 8: return (int)occupancy_cluster<T, 8>(threads, smem, clusters);
     case 16: return (int)occupancy_cluster<T, 16>(threads, smem, clusters);
     case 24: return (int)occupancy_cluster<T, 24>(threads, smem, clusters);
@@ -445,6 +875,41 @@ int cluster_occupancy(int rows, int cols, int threads, int smem,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// The f64 closure and its occupancy, in rounds of kSteps64 steps per
+// hand-over: kleene_rounds at each RR. (One step per hand-over,
+// kleene_cluster<double, 32> with the compare-and-select min, took 128
+// registers and spilled; rounds of 8 spilled at RR = 32 and were slower
+// than rounds of 4 in every form tried; PERF.md §6.)
+constexpr int kSteps64 = 4;
+#define PJ_ROUNDS(F, ...)                                                \
+  switch (rr) {                                                          \
+    case 8: return (int)F<double, 8, kSteps64>(__VA_ARGS__);             \
+    case 16: return (int)F<double, 16, kSteps64>(__VA_ARGS__);           \
+    case 24: return (int)F<double, 24, kSteps64>(__VA_ARGS__);           \
+    case 32: return (int)F<double, 32, kSteps64>(__VA_ARGS__);           \
+    default: return (int)cudaErrorInvalidValue;                          \
+  }
+
+int closure_f64(const double* in, long long ld_in, double* out,
+                long long ld_out, int t, int rows, int cols, int threads,
+                int smem, void* stream) {
+  if (t <= 0) return (int)cudaGetLastError();
+  const int rr =
+      cluster_shape<double>(t, rows, cols, threads, smem, kSteps64);
+  if (ld_in < t || ld_out < t || rr == 0) return (int)cudaErrorInvalidValue;
+  PJ_ROUNDS(launch_rounds, in, ld_in, out, ld_out, t, threads, smem, stream)
+}
+
+int occupancy_f64(int rows, int cols, int threads, int smem,
+                  int* clusters) {
+  *clusters = 0;
+  const int rr =
+      cluster_shape<double>(0, rows, cols, threads, smem, kSteps64);
+  PJ_ROUNDS(occupancy_rounds, threads, smem, clusters)
+}
+
+#undef PJ_ROUNDS
 
 // ---- step variant ----------------------------------------------------------
 
@@ -502,7 +967,8 @@ int closure_steps(const T* in, long long ld_in, T* out, long long ld_out,
 // of 16 CTAs of `rows` x `cols` tile entries, `threads` threads and
 // `smem` bytes of dynamic shared memory each (ops/fw.py kleene_plan).
 // Returns the launch's error, else cudaGetLastError(). The `_f64` entry
-// points take doubles.
+// points take doubles; their plan is sized for rounds of kSteps64 steps
+// (ops/fw.py KLEENE_STEPS_F64, which a test holds equal to it).
 extern "C" int pj_fw_kleene(const float* in, long long ld_in, float* out,
                             long long ld_out, int t, int rows, int cols,
                             int threads, int smem, void* stream) {
@@ -514,8 +980,8 @@ extern "C" int pj_fw_kleene_f64(const double* in, long long ld_in,
                                 double* out, long long ld_out, int t,
                                 int rows, int cols, int threads, int smem,
                                 void* stream) {
-  return closure<double>(in, ld_in, out, ld_out, t, rows, cols, threads,
-                         smem, stream);
+  return closure_f64(in, ld_in, out, ld_out, t, rows, cols, threads, smem,
+                     stream);
 }
 
 // Clusters of that shape the card can hold at once, into *clusters
@@ -527,7 +993,7 @@ extern "C" int pj_fw_kleene_occupancy(int rows, int cols, int threads,
 
 extern "C" int pj_fw_kleene_occupancy_f64(int rows, int cols, int threads,
                                           int smem, int* clusters) {
-  return cluster_occupancy<double>(rows, cols, threads, smem, clusters);
+  return occupancy_f64(rows, cols, threads, smem, clusters);
 }
 
 // The step variant: the closure of `in` into `out` as above in t kernel

@@ -72,6 +72,27 @@
 // doubles, so -0.0 and +0.0 still tie and go to the lower id. Each
 // resident block carries more live state than at f32 (a du takes two
 // registers), so the f64 plan keeps one block per SM fewer (Tune).
+//
+// f64 on a skewed graph (the L2 kernel). The pass gathers the f64
+// sweep's rows over the same CSC, so the sweep's hub flags apply as they
+// are (ops/fanout_sweep.py hub_flags: one byte per in-edge, the sources
+// whose rows, one 128-column pass wide, fill 24 MB of the L2). With
+// flags (`hub`) and more than one pass (B > 128), the items kernel takes
+// the sweep's L2 policies (csrc/fanout_sweep.cu): a hub's row slice is
+// loaded evict_last, every other gather and the own row evict_first, the
+// flag riding bit 31 of the source id through the shuffle (no dependent
+// load); its column passes are the grid's y, pass 0 of every item first,
+// so that a hub's footprint is one pass of its row; and each column's
+// tolerance is made once per pass, beside dv, not per candidate. Without
+// flags, or in one pass, the plain kernel stays as it was (plain loads,
+// the in-warp pass loop, the tolerance per candidate): on R-MAT-20 the
+// tolerance per pass was slower there (B = 512: 23.6 against 21.8 ms,
+// B = 128: 5.10 against 4.67; PERF.md §6), and on the grid hinted
+// loads were (the f64 sweep's, PERF.md). max(|dv|, 1) is
+// `a > 1 ? a : 1` at f64 (as fast as fmax here; exact where it is used,
+// |dv| finite). The test itself
+// rounds as the plain version's f64 ops do (__dadd_rn, __dsub_rn,
+// __dmul_rn; the written-out lexicographic compare).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -112,25 +133,65 @@ template <> struct Lane<double> {
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
   static __device__ __forceinline__ double abs(double a) { return fabs(a); }
-  static __device__ __forceinline__ double max(double a, double b) { return fmax(a, b); }
+  // a is |dv| and finite wherever the tolerance uses it: exact.
+  static __device__ __forceinline__ double max(double a, double b) { return a > b ? a : b; }
 };
 
 // Row gathers per batch (U) and resident blocks per SM of the items
-// kernel, by value type and pass width NV, on the vector and on the
-// scalar lane path (whose column arithmetic takes more registers).
-template <typename T, int NV> struct Tune;
-template <> struct Tune<float, 1> {
+// kernel, by value type, pass width NV and L2 policies (f64 with hub
+// flags), on the vector and on the scalar lane path (whose column
+// arithmetic takes more registers).
+template <typename T, int NV, bool L2> struct Tune;
+template <> struct Tune<float, 1, false> {
   static constexpr int U = 2, kBlocks = 5, kScalarBlocks = 4;
 };
-template <> struct Tune<float, 2> {
+template <> struct Tune<float, 2, false> {
   static constexpr int U = 1, kBlocks = 4, kScalarBlocks = 2;
 };
-template <> struct Tune<double, 1> {
+template <> struct Tune<double, 1, false> {
   static constexpr int U = 2, kBlocks = 4, kScalarBlocks = 3;
 };
-template <> struct Tune<double, 2> {
+template <bool L2> struct Tune<double, 2, L2> {
   static constexpr int U = 1, kBlocks = 3, kScalarBlocks = 2;
 };
+
+// L2 eviction policies and hinted loads (as csrc/fanout_sweep.cu has
+// them; sm_80 and later): `keep` lines are evicted last, `stream` lines
+// first.
+__device__ __forceinline__ uint64_t l2_keep() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_stream() {
+  uint64_t p;
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ double2 ld_hint(const double2* p, uint64_t pol) {
+  double2 v;
+  asm("ld.global.nc.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
+      : "=d"(v.x), "=d"(v.y)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ double ld_hint(const double* p, uint64_t pol) {
+  double v;
+  asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;"
+      : "=d"(v)
+      : "l"(p), "l"(pol));
+  return v;
+}
+
+// A load under the L2 policy `pol` (L2), or through the read-only path.
+template <bool L2, typename T>
+__device__ __forceinline__ T load(const T* p, uint64_t pol) {
+  if constexpr (L2) return ld_hint(p, pol);
+  else return __ldg(p);
+}
 
 // Columns of one pass: 32 * K * NV starting at col0. VEC (B % K == 0,
 // 16-byte aligned rows): group q of a lane is the vector at
@@ -164,23 +225,26 @@ __device__ __forceinline__ V splat(S x) {
   return v;
 }
 
-// Lane's columns of `row` (+inf outside [0, B)).
-template <typename T, int NV, bool VEC>
+// Lane's columns of `row` (+inf outside [0, B)), under the L2 policy
+// `pol` when L2.
+template <typename T, int NV, bool VEC, bool L2 = false>
 __device__ __forceinline__ void load_row(const T* __restrict__ row,
                                          int64_t col0, int lane, int64_t B,
-                                         typename Lane<T>::V (&f)[NV]) {
+                                         typename Lane<T>::V (&f)[NV],
+                                         uint64_t pol = 0) {
   using L = Lane<T>;
 #pragma unroll
   for (int q = 0; q < NV; ++q) {
     if (VEC) {
       const int64_t c = col_of<L::K, true>(col0, lane, q, 0);
-      f[q] = c < B ? __ldg(reinterpret_cast<const typename L::V*>(row + c))
+      f[q] = c < B ? load<L2>(reinterpret_cast<const typename L::V*>(row + c),
+                              pol)
                    : splat<typename L::V>(L::inf());
     } else {
 #pragma unroll
       for (int i = 0; i < L::K; ++i) {
         const int64_t c = col_of<L::K, false>(col0, lane, q, i);
-        at(f[q], i) = c < B ? __ldg(row + c) : L::inf();
+        at(f[q], i) = c < B ? load<L2>(row + c, pol) : L::inf();
       }
     }
   }
@@ -345,12 +409,18 @@ __device__ __forceinline__ void raise_flag(bool seen, int lane, int* flag) {
 // from the table (row, first edge, end edge) and store its partial;
 // warp n_pieces + v takes row v whole and stores pred[v], unless v has
 // more than L in-edges (its pieces cover it). Per lane, U row gathers
-// (NV vectors each) are issued back to back, then tested.
-template <typename T, int NV, bool VEC, int U>
-__global__ void __launch_bounds__(kThreads, VEC ? Tune<T, NV>::kBlocks
-                                                : Tune<T, NV>::kScalarBlocks)
+// (NV vectors each) are issued back to back, then tested. L2 (f64 with
+// hub flags, B > 128): each column's tolerance is made once per pass,
+// blockIdx.y is the column pass, and bit 31 of a lane's source id
+// carries the edge's flag to the lane that gathers the row, which keeps
+// it in L2 (evict_last); the other gathers and the own row stream
+// (evict_first).
+template <typename T, int NV, bool VEC, int U, bool L2>
+__global__ void __launch_bounds__(kThreads, VEC ? Tune<T, NV, L2>::kBlocks
+                                                : Tune<T, NV, L2>::kScalarBlocks)
 pred_items(const T* __restrict__ dist, int* __restrict__ pred,
            const int* __restrict__ src, const T* __restrict__ w,
+           const unsigned char* __restrict__ hub,
            const int* __restrict__ indptr, const int* __restrict__ pieces,
            int64_t n_pieces, int64_t V, int L, Partial partial,
            const int* __restrict__ sources, int* __restrict__ flags,
@@ -358,6 +428,8 @@ pred_items(const T* __restrict__ dist, int* __restrict__ pred,
   using Ln = Lane<T>;
   using Vec = typename Ln::V;
   constexpr int K = Ln::K;
+  constexpr bool kTolPerPass = L2;
+  constexpr int64_t kPass = 32 * K * NV;
   const int lane = threadIdx.x & 31;
   const int64_t k = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   int64_t row;
@@ -374,10 +446,25 @@ pred_items(const T* __restrict__ dist, int* __restrict__ pred,
     e1 = __ldg(indptr + row + 1);
     if (e1 - e0 > L) return;
   }
+  uint64_t keep = 0, stream = 0;
+  if constexpr (L2) {
+    keep = l2_keep();
+    stream = l2_stream();
+  }
+  const int64_t c0 = L2 ? (int64_t)blockIdx.y * kPass : 0;
+  const int64_t c1 = L2 ? min(B, c0 + kPass) : B;
   bool uncovered = false, nondescending = false;
-  for (int64_t col0 = 0; col0 < B; col0 += 32 * K * NV) {
+  for (int64_t col0 = c0; col0 < c1; col0 += kPass) {
     Vec dv[NV];
-    load_row<T, NV, VEC>(dist + row * B, col0, lane, B, dv);
+    load_row<T, NV, VEC, L2>(dist + row * B, col0, lane, B, dv, stream);
+    T tols[NV][K];
+    if constexpr (kTolPerPass) {
+#pragma unroll
+      for (int q = 0; q < NV; ++q) {
+#pragma unroll
+        for (int i = 0; i < K; ++i) tols[q][i] = tolerance(at(dv[q], i));
+      }
+    }
     Best<T> best[NV][K];
 #pragma unroll
     for (int q = 0; q < NV; ++q) {
@@ -386,7 +473,8 @@ pred_items(const T* __restrict__ dist, int* __restrict__ pred,
     }
     for (int eb = e0; eb < e1; eb += 32) {
       const int n = min(32, e1 - eb);
-      const int my_u = lane < n ? __ldg(src + eb + lane) : 0;
+      int my_u = lane < n ? __ldg(src + eb + lane) : 0;
+      if (L2 && lane < n && __ldg(hub + eb + lane)) my_u |= INT32_MIN;
       const T my_w = lane < n ? __ldg(w + eb + lane) : T(0);
       for (int j = 0; j < n; j += U) {
         Vec g[U][NV];
@@ -394,18 +482,19 @@ pred_items(const T* __restrict__ dist, int* __restrict__ pred,
         T wj[U];
 #pragma unroll
         for (int t = 0; t < U; ++t) {
-          uj[t] = __shfl_sync(kFull, my_u, (j + t) & 31);
+          const int p = __shfl_sync(kFull, my_u, (j + t) & 31);
+          uj[t] = L2 ? p & INT32_MAX : p;
           wj[t] = __shfl_sync(kFull, my_w, (j + t) & 31);
           if (j + t < n)
-            load_row<T, NV, VEC>(dist + (int64_t)uj[t] * B, col0, lane, B,
-                                 g[t]);
+            load_row<T, NV, VEC, L2>(dist + (int64_t)uj[t] * B, col0, lane,
+                                     B, g[t], p < 0 ? keep : stream);
         }
 #pragma unroll
         for (int q = 0; q < NV; ++q) {
 #pragma unroll
           for (int i = 0; i < K; ++i) {
             const T d = at(dv[q], i);
-            const T tol = tolerance(d);
+            const T tol = kTolPerPass ? tols[q][i] : tolerance(d);
             Best<T> b = best[q][i];
 #pragma unroll
             for (int t = 0; t < U; ++t) {
@@ -538,28 +627,40 @@ combine_split_rows(int* __restrict__ pred, Partial partial,
 }
 
 template <typename T>
-using ItemsFn = void (*)(const T*, int*, const int*, const T*, const int*,
-                         const int*, int64_t, int64_t, int, Partial,
-                         const int*, int*, int64_t);
+using ItemsFn = void (*)(const T*, int*, const int*, const T*,
+                         const unsigned char*, const int*, const int*,
+                         int64_t, int64_t, int, Partial, const int*, int*,
+                         int64_t);
 
 template <typename T>
 struct Plan {
   ItemsFn<T> fn;
   int depth;  // gathers per batch U
+  int pass;   // columns per pass: 32 K NV
+  bool l2;    // the L2 policies, passes on the grid's y
 };
 
-template <typename T, int NV>
+template <typename T, int NV, bool L2>
 Plan<T> plan_nv(bool vec) {
-  constexpr int U = Tune<T, NV>::U;
-  if (vec) return {pred_items<T, NV, true, U>, U};
-  return {pred_items<T, NV, false, U>, U};
+  constexpr int U = Tune<T, NV, L2>::U;
+  constexpr int kPass = 32 * Lane<T>::K * NV;
+  if (vec) return {pred_items<T, NV, true, U, L2>, U, kPass, L2};
+  return {pred_items<T, NV, false, U, L2>, U, kPass, L2};
 }
 
 // NV by B: one pass of 32 K columns up to B = 32 K (128 at f32, 64 at
-// f64), else passes of 64 K columns.
+// f64), else passes of 64 K columns: in the warp, or, at f64 with hubs
+// (l2) and more than one pass, on the grid's y with the L2 policies. One
+// 128-column pass with the policies lost to the plain kernel on R-MAT-20
+// (B = 128: 5.04 against 4.67 ms; PERF.md §6).
 template <typename T>
-Plan<T> plan(int64_t B, bool vec) {
-  return B <= 32 * Lane<T>::K ? plan_nv<T, 1>(vec) : plan_nv<T, 2>(vec);
+Plan<T> plan(int64_t B, bool vec, bool l2) {
+  constexpr int K = Lane<T>::K;
+  if (B <= 32 * K) return plan_nv<T, 1, false>(vec);
+  if constexpr (sizeof(T) == 8) {
+    if (l2 && B > 64 * K) return plan_nv<T, 2, true>(vec);
+  }
+  return plan_nv<T, 2, false>(vec);
 }
 
 bool aligned16(const void* p) {
@@ -568,10 +669,10 @@ bool aligned16(const void* p) {
 
 template <typename T>
 int pass(const T* dist, int* pred, const int* indptr, const int* src,
-         const T* w, const int* pieces, long long n_pieces, long long V,
-         int L, Partial partial, const int* split_rows, const int* split_ptr,
-         long long n_split_rows, const int* sources, int* flags, long long B,
-         void* stream) {
+         const T* w, const unsigned char* hub, const int* pieces,
+         long long n_pieces, long long V, int L, Partial partial,
+         const int* split_rows, const int* split_ptr, long long n_split_rows,
+         const int* sources, int* flags, long long B, void* stream) {
   if (B > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool vec = B % Lane<T>::K == 0 && aligned16(dist) &&
@@ -580,10 +681,12 @@ int pass(const T* dist, int* pred, const int* indptr, const int* src,
                      aligned16(sources);
     const long long n_items = n_pieces + V;
     if (n_items > 0) {
-      const unsigned grid = (unsigned)((n_items + kWarps - 1) / kWarps);
-      plan<T>(B, vec).fn<<<grid, kThreads, 0, s>>>(
-          dist, pred, src, w, indptr, pieces, n_pieces, V, L, partial,
-          sources, flags, B);
+      const Plan<T> p = plan<T>(B, vec, hub != nullptr);
+      const dim3 grid((unsigned)((n_items + kWarps - 1) / kWarps),
+                      p.l2 ? (unsigned)((B + p.pass - 1) / p.pass) : 1u);
+      p.fn<<<grid, kThreads, 0, s>>>(dist, pred, src, w, hub, indptr, pieces,
+                                     n_pieces, V, L, partial, sources, flags,
+                                     B);
     }
     if (n_split_rows > 0) {
       const unsigned grid = (unsigned)((n_split_rows + kWarps - 1) / kWarps);
@@ -602,8 +705,9 @@ int pass(const T* dist, int* pred, const int* indptr, const int* src,
 }
 
 template <typename T>
-int occupancy(long long B, int vec, int* blocks_per_sm, int* gather_depth) {
-  const Plan<T> p = plan<T>(B, vec != 0);
+int occupancy(long long B, int vec, int hubs, int* blocks_per_sm,
+              int* gather_depth) {
+  const Plan<T> p = plan<T>(B, vec != 0, hubs != 0);
   *gather_depth = p.depth;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, reinterpret_cast<const void*>(p.fn), kThreads, 0);
@@ -617,7 +721,9 @@ int occupancy(long long B, int vec, int* blocks_per_sm, int* gather_depth) {
 // `sources` and `flags` are both null (no source mask, no flags) or both
 // given (flags zeroed by the caller). f32: `partial` holds the pieces'
 // int64 keys [n_pieces, B]; f64 (`pj_tight_pred_f64`): `partial_du`
-// (f64) and `partial_u` (int32), each [n_pieces, B].
+// (f64) and `partial_u` (int32), each [n_pieces, B], and the per-edge hub
+// flags (`hub`, one byte per in-edge in CSC order, nonzero: keep the
+// source's row in L2; null: no hubs, plain loads).
 extern "C" int pj_tight_pred(const float* dist, int* pred, const int* indptr,
                              const int* src, const float* w, const int* pieces,
                              long long n_pieces, long long V, int L,
@@ -625,33 +731,35 @@ extern "C" int pj_tight_pred(const float* dist, int* pred, const int* indptr,
                              const int* split_ptr, long long n_split_rows,
                              const int* sources, int* flags, long long B,
                              void* stream) {
-  return pass<float>(dist, pred, indptr, src, w, pieces, n_pieces, V, L,
-                     Partial{partial, nullptr, nullptr}, split_rows,
+  return pass<float>(dist, pred, indptr, src, w, nullptr, pieces, n_pieces, V,
+                     L, Partial{partial, nullptr, nullptr}, split_rows,
                      split_ptr, n_split_rows, sources, flags, B, stream);
 }
 
 extern "C" int pj_tight_pred_f64(const double* dist, int* pred,
                                  const int* indptr, const int* src,
-                                 const double* w, const int* pieces,
-                                 long long n_pieces, long long V, int L,
-                                 double* partial_du, int* partial_u,
-                                 const int* split_rows, const int* split_ptr,
-                                 long long n_split_rows, const int* sources,
-                                 int* flags, long long B, void* stream) {
-  return pass<double>(dist, pred, indptr, src, w, pieces, n_pieces, V, L,
+                                 const double* w, const unsigned char* hub,
+                                 const int* pieces, long long n_pieces,
+                                 long long V, int L, double* partial_du,
+                                 int* partial_u, const int* split_rows,
+                                 const int* split_ptr, long long n_split_rows,
+                                 const int* sources, int* flags, long long B,
+                                 void* stream) {
+  return pass<double>(dist, pred, indptr, src, w, hub, pieces, n_pieces, V, L,
                       Partial{nullptr, partial_du, partial_u}, split_rows,
                       split_ptr, n_split_rows, sources, flags, B, stream);
 }
 
 // Resident blocks per SM and gathers per batch (U) of the items kernel
-// that a pass at width B launches, at f32 and at f64.
+// that a pass at width B launches, at f32 and at f64 (with hub flags or
+// without).
 extern "C" int pj_tight_pred_occupancy(long long B, int vec,
                                        int* blocks_per_sm, int* gather_depth) {
-  return occupancy<float>(B, vec, blocks_per_sm, gather_depth);
+  return occupancy<float>(B, vec, 0, blocks_per_sm, gather_depth);
 }
 
-extern "C" int pj_tight_pred_occupancy_f64(long long B, int vec,
+extern "C" int pj_tight_pred_occupancy_f64(long long B, int vec, int hubs,
                                            int* blocks_per_sm,
                                            int* gather_depth) {
-  return occupancy<double>(B, vec, blocks_per_sm, gather_depth);
+  return occupancy<double>(B, vec, hubs, blocks_per_sm, gather_depth);
 }

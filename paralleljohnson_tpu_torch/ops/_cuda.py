@@ -47,10 +47,10 @@ _I = ctypes.c_int
 # C functions and their argument types, per source file. Each source's
 # launch entry point is ``pj_<name>`` (``fw_kleene`` has a second one),
 # its last argument the stream; each has an ``_f64`` twin with the same
-# arguments (doubles where the f32 one takes floats), but
-# ``pj_tight_pred_f64``, whose split rows' partials are two arrays, and
-# ``pj_fanout_sweep_f64`` (and its occupancy query), which also takes the
-# per-edge hub flags.
+# arguments (doubles where the f32 one takes floats) and the ones
+# ``_F64_EXTRA_ARGS`` adds: the sweep's and ``tight_pred``'s per-edge hub
+# flags (and their occupancy queries' "with hubs") and ``tight_pred``'s
+# second array of split-row partials.
 _F32_SIGNATURES = {
     "fanout_sweep": {
         "pj_fanout_sweep": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _P, _P, _P,
@@ -72,18 +72,22 @@ _F32_SIGNATURES = {
         "pj_tight_pred_occupancy": (_L, _I, _P, _P),
     },
 }
-# (position, type) of the one argument an f64 entry point adds.
-_F64_EXTRA_ARGS = {"pj_tight_pred": (10, _P),   # partial_du, partial_u
-                   "pj_fanout_sweep": (5, _P),  # hub flags, after w
-                   "pj_fanout_sweep_occupancy": (2, _I)}  # with hubs
+# (position, type) of each argument an f64 entry point adds, inserted in
+# this order.
+_F64_EXTRA_ARGS = {
+    "pj_tight_pred": ((5, _P), (11, _P)),     # hub flags after w; partial_u
+    "pj_tight_pred_occupancy": ((2, _I),),     # with hubs
+    "pj_fanout_sweep": ((5, _P),),             # hub flags, after w
+    "pj_fanout_sweep_occupancy": ((2, _I),),   # with hubs
+}
 
 
 def _with_f64(fns: dict) -> dict:
     out = dict(fns)
     for fn, args in fns.items():
-        at = _F64_EXTRA_ARGS.get(fn)
-        out[f"{fn}_f64"] = (args if at is None
-                            else args[:at[0]] + (at[1],) + args[at[0]:])
+        for at, kind in _F64_EXTRA_ARGS.get(fn, ()):
+            args = args[:at] + (kind,) + args[at:]
+        out[f"{fn}_f64"] = args
     return out
 
 

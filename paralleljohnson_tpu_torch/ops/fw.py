@@ -73,8 +73,12 @@ FW_TRAIL_BYTES = 1 << 28
 # f64 a thread's RR rows take 2 RR registers: RR = 32 holds 64 of the 128
 # a thread has at 512 threads per SM (124 used, no spill: ptxas on the
 # H100), so the cluster closes the same tiles at both value types
-# (chip_smoke's phase 1 holds ptxas to no spill and no stack frame).
+# (chip_smoke's phase 1 holds ptxas to no spill and no stack frame). At
+# f64 the cluster hands over KLEENE_STEPS_F64 steps at once (the kernel's
+# rounds, built for that count only, its kSteps64: rounds of 8 spilled at
+# RR = 32 and were slower, PERF.md; f32 one step at a time).
 KLEENE_ROWS = (8, 16, 24, 32)
+KLEENE_STEPS_F64 = 4
 KLEENE_CLUSTER = 16
 KLEENE_CTAS_DOWN = 4
 KLEENE_CTAS_ACROSS = 4
@@ -150,7 +154,9 @@ class KleenePlan(NamedTuple):
     mbarriers). "step": t launches of a grid of ``threads``-thread
     blocks over ``rows`` x ``cols`` of the tile each, no shared memory,
     through a [2, t, t] scratch (``cluster`` is 1). ``itemsize``: the
-    values' bytes, 4 (f32) or 8 (f64), which pick the kernel."""
+    values' bytes, 4 (f32) or 8 (f64), which pick the kernel. ``steps``:
+    the cluster's steps per hand-over (1; the f64 cluster's rounds of
+    ``KLEENE_STEPS_F64``), 1 for the step variant."""
 
     variant: str
     cluster: int
@@ -159,6 +165,20 @@ class KleenePlan(NamedTuple):
     threads: int
     smem_bytes: int
     itemsize: int = 4
+    steps: int = 1
+
+
+def kleene_smem(rows: int, cols: int, itemsize: int, steps: int) -> int:
+    """Dynamic shared memory of the cluster kernel (``csrc/fw_kleene.cu``)
+    on a CTA of ``rows`` x ``cols``: two mbarriers (16 bytes) and, at one
+    step per hand-over, two row slots, two column slots and the column
+    owners' stage; in rounds of ``steps``, two slots of the row panel,
+    the column panel and the diagonal block's snapshots, the stage, the
+    next diagonal block and its snapshots."""
+    if steps == 1:
+        return 16 + itemsize * (2 * cols + 3 * rows)
+    return 16 + itemsize * (2 * steps * (cols + rows + steps)
+                            + steps * rows + 2 * steps * steps)
 
 
 def kleene_plan(t: int, itemsize: int = 4) -> KleenePlan:
@@ -166,19 +186,22 @@ def kleene_plan(t: int, itemsize: int = 4) -> KleenePlan:
     ``itemsize`` bytes (4 or 8), a pure function of the shape and type:
     the cluster variant up to ``KLEENE_CLUSTER_MAX_T`` (every default FW
     tile), with the fewest rows per thread of ``KLEENE_ROWS`` that cover
-    t, its shared memory sized by ``itemsize``; the step variant above (a
-    choice by shape, not a fallback)."""
+    t, its steps per hand-over (1 at f32, ``KLEENE_STEPS_F64`` at f64)
+    and its shared memory sized by both; the step variant above (a choice
+    by shape, not a fallback)."""
     t, itemsize = int(t), int(itemsize)
     if t > KLEENE_CLUSTER_MAX_T:
         return KleenePlan("step", 1, KLEENE_STEP_ROWS, 32, KLEENE_STEP_THREADS,
                           0, itemsize)
     rr = next(r for r in KLEENE_ROWS
               if KLEENE_CTAS_DOWN * KLEENE_THREAD_ROWS * r >= t)
+    steps = KLEENE_STEPS_F64 if itemsize == 8 else 1
     padded = KLEENE_CTAS_DOWN * KLEENE_THREAD_ROWS * rr
     rows, cols = padded // KLEENE_CTAS_DOWN, padded // KLEENE_CTAS_ACROSS
     return KleenePlan("cluster", KLEENE_CLUSTER, rows, cols,
                       KLEENE_THREAD_ROWS * cols,
-                      16 + itemsize * (2 * cols + 3 * rows), itemsize)
+                      kleene_smem(rows, cols, itemsize, steps), itemsize,
+                      steps)
 
 
 @functools.lru_cache(maxsize=None)

@@ -122,8 +122,20 @@ def tree_flags_plain(pred, dist, sources):
     return pred, torch.stack([uncovered, nondescending]).to(torch.int32)
 
 
+def _check_hubs(hubs, src_in, dtype) -> None:
+    """Hub flags as the f64 sweep takes them: uint8[E] over the in-edge
+    CSC, with f64 distances."""
+    if dtype != torch.float64:
+        raise ValueError("hub flags are taken by the f64 pass only")
+    if hubs.dtype != torch.uint8:
+        raise TypeError(f"hubs must be torch.uint8, got {hubs.dtype}")
+    if hubs.dim() != 1 or hubs.shape[0] != src_in.shape[0]:
+        raise ValueError(f"hubs must be [{src_in.shape[0]}], got "
+                         f"{tuple(hubs.shape)}")
+
+
 def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None,
-                    sources=None):
+                    sources=None, hubs=None):
     """The tight-edge pass on vertex-major distances ``dist_vm`` [V, B]
     and the in-edge CSC (``indptr_in``, ``src_in``, ``w_in``) the fan-out
     sweep pulls over. Returns int32 ``pred_vm`` [V, B], ``NO_PRED`` where
@@ -138,10 +150,17 @@ def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None,
     B] keys at f32, an f64 and an int32 [items.n_split, B] (du and u) at
     f64;
     each call counts one in ``tight_pred_pass.launches`` (the items kernel
-    and, when the layout has split rows, the combine kernel). CPU tensors
-    run :func:`tight_pred_pass_plain` over the CSC's edges (then
-    :func:`tree_flags_plain`), ``items`` unused, and count nothing."""
+    and, when the layout has split rows, the combine kernel). ``hubs``
+    (f64 only): the sweep's per-edge hub flags
+    (``fanout_sweep.hub_flags``, uint8[E] over the CSC), with which the
+    kernel keeps the hubs' rows in L2 where B takes more than one
+    128-column pass (B > 128; None, or B <= 128: plain loads); it changes
+    no bit of the result. CPU tensors run :func:`tight_pred_pass_plain`
+    over the CSC's edges (then :func:`tree_flags_plain`), ``items`` and
+    the flags' values unused, and count nothing."""
     dev = dist_vm.device
+    if hubs is not None:
+        _check_hubs(hubs, src_in, dist_vm.dtype)
     if dev.type == "cpu":
         pred = tight_pred_pass_plain(
             dist_vm.t(), src_in, _rows_of_edges(indptr_in, src_in.shape[0]),
@@ -170,6 +189,8 @@ def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None,
     _cuda.check(items.pieces, "items.pieces", torch.int32, dev, 2)
     _cuda.check(items.split_rows, "items.split_rows", torch.int32, dev, 1)
     _cuda.check(items.split_ptr, "items.split_ptr", torch.int32, dev, 1)
+    if hubs is not None:
+        _cuda.check(hubs, "hubs", torch.uint8, dev, 1)
     flags = src_ptr = flags_ptr = None
     if sources is not None:
         sources = torch.as_tensor(sources).reshape(-1)
@@ -184,13 +205,15 @@ def tight_pred_pass(dist_vm, indptr_in, src_in, w_in, *, items=None,
     if dt == torch.float32:  # one int64 key per (piece, column)
         partial = (torch.empty((items.n_split, b), dtype=torch.int64,
                                device=dev),)
-    else:  # du and u, two words
+        hub = ()
+    else:  # du and u, two words; the hub flags
         partial = (torch.empty((items.n_split, b), dtype=dt, device=dev),
                    torch.empty((items.n_split, b), dtype=torch.int32,
                                device=dev))
+        hub = (None if hubs is None else hubs.data_ptr(),)
     _cuda.launch(
         "tight_pred", dist_vm.data_ptr(), out.data_ptr(), indptr_in.data_ptr(),
-        src_in.data_ptr(), w_in.data_ptr(), items.pieces.data_ptr(),
+        src_in.data_ptr(), w_in.data_ptr(), *hub, items.pieces.data_ptr(),
         items.n_split, v, items.item_edges, *(x.data_ptr() for x in partial),
         items.split_rows.data_ptr(), items.split_ptr.data_ptr(),
         items.split_rows.shape[0], src_ptr, flags_ptr, b, device=dev,
@@ -204,13 +227,15 @@ tight_pred_pass.launches = 0
 
 
 def occupancy(b: int, *, vec: bool = True,
-              dtype: torch.dtype = torch.float32) -> dict:
+              dtype: torch.dtype = torch.float32, hubs: bool = False) -> dict:
     """Resident blocks per SM and gathers per batch of the ``tight_pred``
-    items kernel at width ``b`` in ``dtype`` (on the card)."""
+    items kernel at width ``b`` in ``dtype``, at f64 with hub flags or
+    without (on the card)."""
     blocks, depth = ctypes.c_int(0), ctypes.c_int(0)
     fn = getattr(_cuda.lib("tight_pred"),
                  _cuda.entry("pj_tight_pred_occupancy", dtype))
-    err = fn(b, int(vec), ctypes.byref(blocks), ctypes.byref(depth))
+    f64 = (int(hubs),) if dtype == torch.float64 else ()
+    err = fn(b, int(vec), *f64, ctypes.byref(blocks), ctypes.byref(depth))
     if err != 0:
         raise RuntimeError(f"tight_pred occupancy query failed: cudaError {err}")
     return {"blocks_per_sm": blocks.value, "gather_depth": depth.value}

@@ -5,6 +5,7 @@ then blocked Floyd-Warshall on the dense graphs beside squaring.
 
     python3 scripts/torch_fw_kleene_timing.py [--baseline OLD.cu]
         [--variant NEW.cu ...] [--solve-runs 2]
+        [--f64-baseline OLD.cu ...] [--f64-variant NEW.cu ...] [--f64-only]
 
 1. Builds. The current source through the port's build; ``--baseline``
    names a source with the step kernel's C entry point, ``pj_fw_kleene(
@@ -34,6 +35,20 @@ then blocked Floyd-Warshall on the dense graphs beside squaring.
    (``fw-tile``) with the current kernel and with the baseline in its
    place, and ER-2048 on ``dense-squaring-pallas``, in turns,
    ``--solve-runs`` times each, on the host clock; rows bitwise equal.
+6. f64 (``pj_fw_kleene_f64``): the current kernel (in rounds of
+   ``KLEENE_STEPS_F64`` steps per hand-over), beside each
+   ``--f64-baseline`` (a source whose ``pj_fw_kleene_f64`` and
+   ``pj_fw_kleene_steps_f64`` have the first f64 kernel's C entry points
+   (the current ones too; its plan is the f32 one, one step per
+   hand-over): ``git show f3bebf2:paralleljohnson_tpu_torch/
+   csrc/fw_kleene.cu``, or that file with another min) and each
+   ``--f64-variant`` (the current entry points, e.g. another layout or
+   closure, under the same plan): each bitwise
+   ``tile_kleene`` at f64 at t = 128, 200, 256, 384, 512 (and the step
+   variants at 1024), with and without a negative diagonal; then timed in
+   turns at t = 512 (back to back and from CUDA-graph replays) and, the
+   step variants, at t = 1024, beside the FP64 bound and the cluster's
+   floor. ``--f64-only`` runs this part alone.
 
 Prints the card's name and power limit, then one JSON line per part.
 """
@@ -53,8 +68,8 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tests"))
 
 from chip_smoke import (  # noqa: E402
-    ER_SPEC, FW_SPEC, PEAK_F32_INSTR_S, bound, event_ms, graph_ms,
-    ptxas_functions, solver_on, sync_time,
+    ER_SPEC, FW_SPEC, PEAK_F32_INSTR_S, PEAK_F64_INSTR_S, bound, event_ms,
+    graph_ms, ptxas_functions, solver_on, sync_time,
 )
 from test_torch_cuda import fw_tile_matrix  # noqa: E402
 
@@ -265,6 +280,131 @@ def solves(fns: dict, runs: int) -> None:
             raise AssertionError(f"{label}: rows differ: {equal}")
 
 
+def f64_kernels(baselines: list[Path], variants: list[Path],
+                tmp: str) -> dict:
+    """Part 6's kernels by name: (closure at t, step variant), each a
+    function of (d, out, scratch)."""
+    import torch
+
+    from paralleljohnson_tpu_torch.ops import _cuda, fw
+
+    f64 = torch.float64
+    builds = {"current": [f for f in ptxas_functions(
+        _cuda.build_all()["fw_kleene"]) if "Id" in f["function"]]}
+    fns = {"current": lambda d, out, scratch: fw.fw_kleene(
+        d, out=out, scratch=scratch)}
+    for k, path in enumerate(variants):
+        lib, builds[f"variant{k}:{path.name}"] = build(
+            path, tmp, f"fw_kleene_f64_variant{k}")
+        lib.pj_fw_kleene_f64.argtypes = list(
+            _cuda.SIGNATURES["fw_kleene"]["pj_fw_kleene_f64"])
+
+        def variant(d, out, scratch, lib=lib):
+            t = d.shape[0]
+            if t > fw.KLEENE_CLUSTER_MAX_T:
+                return fw.fw_kleene(d, out=out, scratch=scratch)
+            out = torch.empty((t, t), dtype=f64, device=d.device) \
+                if out is None else out
+            p = fw.kleene_plan(t, 8)
+            err = lib.pj_fw_kleene_f64(
+                d.data_ptr(), d.stride(0), out.data_ptr(), out.stride(0),
+                t, p.rows, p.cols, p.threads, p.smem_bytes,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"variant launch failed: {err}")
+            return out
+        fns[f"variant{k}:{path.name}"] = variant
+    for k, path in enumerate(baselines):
+        name = f"baseline{k}:{path.name}"
+        lib, builds[name] = build(path, tmp, f"fw_kleene_f64_baseline{k}")
+        lib.pj_fw_kleene_f64.argtypes = list(
+            _cuda.SIGNATURES["fw_kleene"]["pj_fw_kleene"])
+        lib.pj_fw_kleene_steps_f64.argtypes = list(
+            _cuda.SIGNATURES["fw_kleene"]["pj_fw_kleene_steps"])
+
+        def first(d, out, scratch, lib=lib):
+            t = d.shape[0]
+            out = torch.empty((t, t), dtype=f64, device=d.device) \
+                if out is None else out
+            stream = torch.cuda.current_stream().cuda_stream
+            if t <= fw.KLEENE_CLUSTER_MAX_T:
+                p = fw.kleene_plan(t)  # one step per hand-over: its shape
+                err = lib.pj_fw_kleene_f64(
+                    d.data_ptr(), d.stride(0), out.data_ptr(), out.stride(0),
+                    t, p.rows, p.cols, p.threads,
+                    16 + 8 * (2 * p.cols + 3 * p.rows), stream)
+            else:
+                if scratch is None:
+                    scratch = torch.empty((2, t, t), dtype=f64,
+                                          device=d.device)
+                err = lib.pj_fw_kleene_steps_f64(
+                    d.data_ptr(), d.stride(0), out.data_ptr(), out.stride(0),
+                    scratch[0].data_ptr(), scratch[1].data_ptr(), t, stream)
+            if err:
+                raise RuntimeError(f"{name} launch failed: cudaError {err}")
+            return out
+        fns[name] = first
+    print(json.dumps({"f64_builds": builds}), flush=True)
+    return fns
+
+
+def f64_part(baselines: list[Path], variants: list[Path], tmp: str) -> None:
+    """Part 6."""
+    import torch
+
+    from paralleljohnson_tpu_torch.ops import fw
+
+    dev = torch.device("cuda")
+    f64 = torch.float64
+    fns = f64_kernels(baselines, variants, tmp)
+    rows = []
+    for t in CHECK_T + (1024,):
+        for neg in (False, True):
+            m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=neg)
+                                ).double()
+            m[torch.isfinite(m)] += 1e-9  # values f32 cannot hold
+            want = fw.tile_kleene(m)
+            for name, fn in fns.items():
+                got = fn(m.to(dev), None, None).cpu()
+                row = {"kernel": name, "t": t, "negative_diagonal": neg,
+                       "equal": torch.equal(got, want)}
+                rows.append(row)
+                if not row["equal"]:
+                    print(json.dumps({"f64_checks": rows}), flush=True)
+                    raise AssertionError(f"{name} disagrees with "
+                                         f"tile_kleene: {row}")
+    print(json.dumps({"f64_checks": rows}), flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for t in (fw.KLEENE_CLUSTER_MAX_T, 1024):
+        m = torch.as_tensor(fw_tile_matrix(t, t)).double().to(dev)
+        dst = torch.empty((t, t), dtype=f64, device=dev)
+        scratch = torch.empty((2, t, t), dtype=f64, device=dev)
+        kernels = dict(fns)
+        if t > fw.KLEENE_CLUSTER_MAX_T:  # the port's one step variant
+            kernels = {"step": fns["current"],
+                       **{n: f for n, f in fns.items()
+                          if n.startswith("baseline")}}
+        names = list(kernels)
+        res = {}
+        for name in names + names[::-1]:
+            call = lambda: kernels[name](m, dst, scratch)
+            res.setdefault(name, {"ms": [], "card_ms": []})
+            res[name]["ms"].append(event_ms(call, reps=20))
+            res[name]["card_ms"].append(graph_ms(call, reps=5))
+        bms, by = bound(16 * t * t, 2 * t ** 3, instr_s=PEAK_F64_INSTR_S)
+        row = {"f64_t": t, "bound_ms": bms, "bound_by": by, "kernels": res}
+        if t <= fw.KLEENE_CLUSTER_MAX_T:
+            plan = fw.kleene_plan(t, 8)
+            row["plan"] = plan._asdict()
+            row["cluster_floor_ms"] = 2 * t ** 3 / (
+                PEAK_F64_INSTR_S * plan.cluster / sms) * 1e3
+            row["clusters_on_card"] = fw.cluster_occupancy(plan,
+                                                           dev.index or 0)
+        print(json.dumps(row), flush=True)
+        del m, dst, scratch
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -272,6 +412,9 @@ def main() -> int:
     ap.add_argument("--baseline", type=Path)
     ap.add_argument("--variant", type=Path, action="append", default=[])
     ap.add_argument("--solve-runs", type=int, default=2)
+    ap.add_argument("--f64-baseline", type=Path, action="append", default=[])
+    ap.add_argument("--f64-variant", type=Path, action="append", default=[])
+    ap.add_argument("--f64-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False: this script times the "
@@ -283,12 +426,14 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        fns = kernels(args.baseline, args.variant, tmp)
-        plans()
-        checks(fns)
-        times(fns)
-        if args.solve_runs:
-            solves(fns, args.solve_runs)
+        if not args.f64_only:
+            fns = kernels(args.baseline, args.variant, tmp)
+            plans()
+            checks(fns)
+            times(fns)
+            if args.solve_runs:
+                solves(fns, args.solve_runs)
+        f64_part(args.f64_baseline, args.f64_variant, tmp)
     return 0
 
 

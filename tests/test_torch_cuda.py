@@ -1004,17 +1004,24 @@ def test_fanout_sweep_f64_occupancy(cuda):
                 assert o["blocks_per_sm"] >= 2, (b, vec, hubs)
 
 
+@pytest.mark.parametrize("hubs", ["none", "zeros", "partial", "all"])
 @pytest.mark.parametrize("graph", sorted(PRED_GRAPHS))
-@pytest.mark.parametrize("b", [1, 5, 64, 128, 200, 256, 512])
-def test_tight_pred_f64_kernel_equals_plain(cuda, b, graph):
+@pytest.mark.parametrize("b", [1, 5, 7, 64, 128, 200, 256, 512])
+def test_tight_pred_f64_kernel_equals_plain(cuda, b, graph, hubs):
     """The f64 pass (pairs compared in registers, split rows' partials as
     du and u) on converged f64 distances with zero-weight ties and -0.0:
     trees bitwise the plain f64 pass; with the sources, the mask and the
-    flags equal ``tree_flags_plain``'s."""
+    flags equal ``tree_flags_plain``'s. With hub flags (none, all 0, the
+    top quarter of the sources, every source) the L2 kernel's passes on
+    the grid, its hinted loads and the flag in bit 31 of the source id
+    change no bit: at B = 1, 5, 7 (scalar lanes), 64 (one pass), 128,
+    200, 256, 512 (two to four 128-column passes), over the hub graph's
+    split rows."""
     g = PRED_GRAPHS[graph]()
     ip, s, w = _layout(g, cuda)
     layout = (ip, s, w.double())
     items = fs.build_work_items(ip)
+    flags_in = _hub_set(hubs, s, g.num_nodes, b)
     d, sources = _converged(g, b, (ip, s, w), items)
     d = d.double()
     d, _, _ = fs.fanout_fixpoint(d, *layout, max_iter=g.num_nodes,
@@ -1022,9 +1029,9 @@ def test_tight_pred_f64_kernel_equals_plain(cuda, b, graph):
     odd = torch.arange(g.num_nodes, device=cuda).unsqueeze(1) % 2 == 1
     d[(d == 0) & odd] = -0.0
     before = pred_mod.tight_pred_pass.launches
-    got = pred_mod.tight_pred_pass(d, *layout, items=items)
+    got = pred_mod.tight_pred_pass(d, *layout, items=items, hubs=flags_in)
     got_s, flags = pred_mod.tight_pred_pass(d, *layout, items=items,
-                                            sources=sources)
+                                            sources=sources, hubs=flags_in)
     torch.cuda.synchronize()
     assert pred_mod.tight_pred_pass.launches == before + 2
     dt = d.t().contiguous()
@@ -1037,32 +1044,172 @@ def test_tight_pred_f64_kernel_equals_plain(cuda, b, graph):
     assert flags.tolist() == want_flags.tolist()
 
 
-@pytest.mark.parametrize("negative_diagonal", [False, True])
-@pytest.mark.parametrize("t", [128, 200, 256, 384, 512, 1024])
-def test_fw_kleene_f64_on_card_equals_plain(cuda, t, negative_diagonal):
-    """The f64 Kleene closure (the cluster variant up to t = 512, whole
-    doubles in each hand-over store; the step variant at 1024) bitwise
-    ``tile_kleene`` at f64, also in place on a strided diagonal tile."""
+@pytest.mark.parametrize("case", ["plain", "negative_diagonal", "minus_inf"])
+@pytest.mark.parametrize("t", [40, 41, 128, 200, 256, 384, 500, 509, 512,
+                               1024])
+def test_fw_kleene_f64_on_card_equals_plain(cuda, t, case):
+    """The f64 Kleene closure (the cluster in rounds of KLEENE_STEPS_F64
+    steps per hand-over up to t = 512, at RR = 8, 16, 24 and 32 rows a
+    thread, with +inf padding at t = 40, 41, 200, 500 and 509, and a last
+    round that runs past t into it at 41 and 509, which no multiple of
+    the round is; the step variant at 1024) bitwise ``tile_kleene`` at
+    f64, also in place on a
+    strided diagonal tile. With -inf entries a candidate is NaN (inf +
+    -inf), which the kernel's min drops and ``torch.minimum`` keeps: the
+    closures agree wherever the plain one has no NaN, as at f32."""
     from paralleljohnson_tpu_torch.ops import fw
 
-    assert fw.kleene_plan(t, 8).variant == (
+    plan = fw.kleene_plan(t, 8)
+    assert plan.variant == (
         "cluster" if t <= fw.KLEENE_CLUSTER_MAX_T else "step")
-    m = torch.as_tensor(fw_tile_matrix(t, t, negative_diagonal=negative_diagonal)
-                        ).double()
+    assert plan.steps == (fw.KLEENE_STEPS_F64 if plan.variant == "cluster"
+                          else 1)
+    m = torch.as_tensor(fw_tile_matrix(
+        t, t, negative_diagonal=case == "negative_diagonal")).double()
     m[torch.isfinite(m)] += 1e-9  # not representable in f32
+    if case == "minus_inf":
+        m[1, 2] = m[t - 3, 0] = -float("inf")
     want = fw.tile_kleene(m)
+    ok = ~torch.isnan(want)
+    assert bool(ok.all()) == (case != "minus_inf")
     before = fw.fw_kleene.launches
     got = fw.fw_kleene(m.to(cuda))
     torch.cuda.synchronize()
     assert fw.fw_kleene.launches == before + 1
     assert got.dtype == torch.float64
-    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu()[ok], want[ok])
+    assert not bool(got.isnan().any())
     big = torch.full((t + 64, t + 64), 7.0, dtype=torch.float64, device=cuda)
     tile = big[32:32 + t, 16:16 + t]
     tile.copy_(m)
     fw.fw_kleene(tile, out=tile)
     torch.cuda.synchronize()
-    assert torch.equal(tile.cpu(), want)
+    assert torch.equal(tile.cpu()[ok], want[ok])
+    rest = big.clone()
+    rest[32:32 + t, 16:16 + t] = 7.0
+    assert bool((rest == 7.0).all())
+
+
+def test_fw_kleene_f64_plans_launch_on_card(cuda):
+    """Every f64 cluster plan launches (the card holds its cluster), and
+    the f64 entry point refuses a plan whose shared memory is sized for
+    one step per hand-over (the f32 plan's), not for its rounds."""
+    from paralleljohnson_tpu_torch.ops import _cuda, fw
+
+    for t in (128, 256, 384, 512):
+        plan = fw.kleene_plan(t, 8)
+        assert fw.cluster_occupancy(plan, torch.cuda.current_device()) >= 1
+    plan = fw.kleene_plan(512, 8)
+    one_step = 16 + 8 * (2 * plan.cols + 3 * plan.rows)
+    assert one_step < plan.smem_bytes
+    m = torch.zeros((512, 512), dtype=torch.float64, device=cuda)
+    fn = _cuda.lib("fw_kleene").pj_fw_kleene_f64
+    stream = torch.cuda.current_stream().cuda_stream
+    assert fn(m.data_ptr(), 512, m.data_ptr(), 512, 512, plan.rows,
+              plan.cols, plan.threads, one_step, stream) != 0
+    assert fn(m.data_ptr(), 512, m.data_ptr(), 512, 512, plan.rows,
+              plan.cols, plan.threads, plan.smem_bytes, stream) == 0
+    torch.cuda.synchronize()
+
+
+def _tie_graph(hub_low):
+    """R-MAT-12 with zero-weight ties, and a gadget: a new source S with
+    edges of weight 1 to a hub h (one of the 8 sources with the most
+    out-edges) and to a vertex n with at most two out-edges, and both to
+    a new vertex Z with weight 1, so that Z has two tight in-edges with
+    equal du. ``hub_low``: h's id is the lower of the two (else n's).
+    Returns (graph, S, Z, h, n)."""
+    g = _zero_ties(SWEEP_GRAPHS["rmat12"]())
+    v, e = g.num_nodes, g.num_real_edges
+    deg = np.bincount(g.src[:e], minlength=v)
+    top = np.argsort(-deg, kind="stable")[:8]
+    h = int(top.min() if hub_low else top.max())
+    few = np.flatnonzero((deg >= 1) & (deg <= 2))
+    n = int(few[few > h][0] if hub_low else few[few < h][0])
+    s_, z = v, v + 1
+    src = np.concatenate([g.src[:e], [s_, s_, h, n]])
+    dst = np.concatenate([g.indices[:e], [h, n, z, z]])
+    w = np.concatenate([g.weights[:e], np.ones(4, np.float32)])
+    return type(g).from_edges(src, dst, w, v + 2), s_, z, h, n
+
+
+@pytest.mark.parametrize("hub_low", [True, False])
+@pytest.mark.parametrize("b", [1, 7, 64, 128, 512])
+def test_tight_pred_f64_hub_ties_go_to_the_lower_id(cuda, b, hub_low):
+    """Equal du from a hub (flagged, kept in L2) and a non-hub source:
+    the lower id wins, with the flags and without (the flag rides bit 31
+    of the source id and must not enter the compare), as in the plain
+    pass; the gadget's source is column 0."""
+    g, s_, z, h, n = _tie_graph(hub_low)
+    ip, s, w = _layout(g, cuda)
+    layout = (ip, s, w.double())
+    items = fs.build_work_items(ip)
+    hubs = fs.hub_flags(s, g.num_nodes, b, torch.float64,
+                        budget=fs.hub_row_bytes(b) * 8)
+    is_hub = torch.zeros(g.num_nodes, dtype=torch.bool, device=cuda)
+    is_hub[s.long()[hubs.bool()]] = True
+    assert bool(is_hub[h]) and not bool(is_hub[n])
+    sources = np.concatenate([[s_], np.random.default_rng(b).choice(
+        np.flatnonzero(np.diff(g.indptr)), b - 1)])
+    d = _dist0(sources, g.num_nodes, b, cuda).double()
+    d, _, _ = fs.fanout_fixpoint(d, *layout, max_iter=g.num_nodes,
+                                 items=items)
+    assert float(d[h, 0]) == float(d[n, 0]) == 1.0
+    dt = d.t().contiguous()
+    coo = _coo(g, cuda)
+    plain = pred_mod.tight_pred_pass_plain(dt, coo[0], coo[1],
+                                           coo[2].double())
+    assert int(plain[0, z]) == min(h, n)
+    want_s, want_flags = pred_mod.tree_flags_plain(plain, dt, sources)
+    for flags_in in (hubs, None):
+        got = pred_mod.tight_pred_pass(d, *layout, items=items, hubs=flags_in)
+        got_s, flags = pred_mod.tight_pred_pass(
+            d, *layout, items=items, sources=sources, hubs=flags_in)
+        torch.cuda.synchronize()
+        assert int(got[z, 0]) == min(h, n)
+        assert torch.equal(got, plain.t())
+        assert torch.equal(got_s.t(), want_s)
+        assert flags.tolist() == want_flags.tolist()
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+def test_extract_hands_the_hub_flags_to_the_pass(cuda, precision,
+                                                  monkeypatch):
+    """A solve with trees passes the device graph's hub flags for the
+    batch's width to the tight-edge pass at f64 (an R-MAT graph has
+    hubs), None at f32; the trees are the same either way."""
+    g = pjt.load_graph("rmat:scale=14,ef=16,seed=0")
+    seen = []
+    real = torch_backend.tight_pred_pass
+
+    def spy(dist_vm, *args, **kw):
+        seen.append((dist_vm.shape[1], kw.get("hubs")))
+        return real(dist_vm, *args, **kw)
+
+    def solve():
+        backend = torch_backend.TorchBackend(
+            pjt.SolverConfig(precision=precision, mesh_shape=(1,)),
+            device=cuda)
+        res = pjt.ParallelJohnsonSolver(backend=backend).solve(
+            g, np.arange(0, 4096, 16), predecessors=True)
+        assert res.stats.routes_by_phase["fanout"].endswith("+pred")
+        return backend, res
+
+    monkeypatch.setattr(torch_backend, "tight_pred_pass", spy)
+    backend, res = solve()
+    assert len(seen) == 1 and seen[0][0] == 256
+    hubs = seen[0][1]
+    if precision == "f32":
+        assert hubs is None
+        return
+    assert hubs is not None and hubs.dtype == torch.uint8
+    assert torch.equal(hubs, backend.upload(g).hub_flags(256))
+    # The same solve with the pass's plain loads: the same trees.
+    monkeypatch.setattr(torch_backend, "tight_pred_pass",
+                        lambda *a, **kw: real(*a, **{**kw, "hubs": None}))
+    _, plain = solve()
+    np.testing.assert_array_equal(johnson.to_numpy(res.predecessors),
+                                  johnson.to_numpy(plain.predecessors))
 
 
 def test_f64_kernels_reject_mixed_types(cuda):

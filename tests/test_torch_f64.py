@@ -138,6 +138,25 @@ for tag in ("dag", "cycle"):
     out[f"kleene_{tag}_in"] = m
     out[f"kleene_{tag}"] = np.asarray(tile_kleene(jnp.asarray(m)))
 
+# The tiles of the rounds-order model (test_kleene_rounds_order_*): t in
+# (16, 40, 42, 128), +inf holes, negative entries, and with a negative
+# 2-cycle (a negative diagonal); closed at f64 and at f32.
+for t in (16, 40, 42, 128):
+    for neg in (0, 1):
+        rng = np.random.default_rng(100 * t + neg)
+        p = rng.random(t) * 4
+        m = rng.random((t, t)) * 10 + p[:, None] - p[None, :] + 1e-9
+        m[rng.random((t, t)) < 0.7] = np.inf
+        np.fill_diagonal(m, 0.0)
+        if neg:
+            m[t - 2, t - 1], m[t - 1, t - 2] = -1.5, 0.25
+            m[3, 5], m[5, 3] = -3.0, 1.0
+        tag = f"korder_{t}_{neg}"
+        out[f"{tag}_in"] = m
+        out[f"{tag}_f64"] = np.asarray(tile_kleene(jnp.asarray(m)))
+        out[f"{tag}_f32"] = np.asarray(tile_kleene(jnp.asarray(
+            m.astype(np.float32))))
+
 # solve() on pinned routes at f64: a negative DAG (float and integer
 # weights), a negative grid with trees, a dense ER on the FW route.
 solves = {
@@ -257,6 +276,59 @@ def test_kleene_f64_bitwise_equals_reference(ref, tag):
     assert got.dtype == torch.float64
     np.testing.assert_array_equal(got.numpy(), ref[f"kleene_{tag}"])
     assert (np.diagonal(got.numpy()) < 0).any() == (tag == "cycle")
+
+
+def kleene_rounds(m, b):
+    """The order of the f64 Kleene kernel's rounds (``csrc/fw_kleene.cu``,
+    ``kleene_rounds``) in plain torch, steps k0 .. k0+b-1 a round: the b
+    steps on the diagonal block, keeping each entry (i, c) as it was
+    before step min(i, c); the column panel's rows and the row panel's
+    columns taken through the round's steps in order with those values;
+    then every entry takes the b candidates C[:, k] + R[k, :], k
+    ascending. As in the kernel, a t that is no multiple of b is padded
+    with +inf rows and columns, and the last round runs its b steps, past
+    t into the padding."""
+    t = m.shape[0]
+    tp = -(-t // b) * b
+    m = torch.nn.functional.pad(m, (0, tp - t, 0, tp - t),
+                                value=float("inf"))
+    for k0 in range(0, tp, b):
+        blk = slice(k0, k0 + b)
+        d = m[blk, blk].clone()
+        snap = d.clone()
+        for k in range(b):
+            snap[k, k + 1:] = d[k, k + 1:]
+            snap[k + 1:, k] = d[k + 1:, k]
+            d = torch.minimum(d, d[:, k:k + 1] + d[k:k + 1, :])
+        c, r = m[:, blk].clone(), m[blk, :].clone()
+        for k in range(b):
+            for j in range(k + 1, b):
+                c[:, j] = torch.minimum(c[:, j], c[:, k] + snap[k, j])
+                r[j, :] = torch.minimum(r[j, :], snap[j, k] + r[k, :])
+        for k in range(b):
+            m = torch.minimum(m, c[:, k:k + 1] + r[k:k + 1, :])
+    return m[:t, :t]
+
+
+@pytest.mark.parametrize("neg", [0, 1])
+@pytest.mark.parametrize("t", [16, 40, 42, 128])
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_kleene_rounds_order_bitwise_equals_reference(ref, dtype, b, t, neg):
+    """The rounds' order changes no bit: bitwise ``fw.tile_kleene`` (the
+    plain loop, one step at a time) and the JAX package's ``tile_kleene``
+    (at f64 with x64 on, and at f32), with a last round that runs past t
+    into +inf padding (t = 42 at b = 4 and 8), negative
+    entries and +inf holes, and a negative diagonal."""
+    tag = f"korder_{t}_{neg}"
+    m = torch.as_tensor(ref[f"{tag}_in"])
+    if dtype == "f32":
+        m = m.float()
+    got = kleene_rounds(m, b)
+    assert got.dtype == m.dtype
+    assert torch.equal(got, port_fw.tile_kleene(m))
+    np.testing.assert_array_equal(got.numpy(), ref[f"{tag}_{dtype}"])
+    assert (np.diagonal(got.numpy()) < 0).any() == bool(neg)
 
 
 @pytest.mark.parametrize("tag", ["dag_float", "dag_int", "grid_pred",

@@ -1,6 +1,7 @@
 """The f64 kernels' host-side plans, on the CPU: the fan-out sweep's hub
-set (the sources whose rows the f64 kernel keeps in L2) and the f64
-min-plus launch plan. The kernels themselves are held against their plain
+set (the sources whose rows the f64 kernel keeps in L2, which the f64
+tight-edge pass takes too), the f64 min-plus launch plan and the f64
+Kleene closure's rounds. The kernels themselves are held against their plain
 versions on the card (``tests/test_torch_cuda.py``); here the pure
 functions that choose what they are given."""
 
@@ -11,7 +12,9 @@ import torch
 import paralleljohnson_tpu_torch as pjt
 from paralleljohnson_tpu_torch.backends.torch_backend import TorchBackend
 from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
+from paralleljohnson_tpu_torch.ops import fw
 from paralleljohnson_tpu_torch.ops import minplus as mp
+from paralleljohnson_tpu_torch.ops import pred as pm
 
 F64 = torch.float64
 
@@ -167,3 +170,105 @@ def test_f64_minplus_plan_keeps_narrow_batches_on_narrow_tiles():
     # f32's plans are not the f64 ones.
     assert mp.minplus_plan(1024, 1024, 1024, 4).rows == 128
 
+
+
+# -- the f64 Kleene closure's rounds (csrc/fw_kleene.cu kleene_rounds) ----
+
+
+@pytest.mark.parametrize("t", [1, 16, 40, 100, 128, 200, 256, 384, 500, 512])
+def test_f64_kleene_plan_hands_over_in_rounds(t):
+    """At f64 the cluster takes KLEENE_STEPS_F64 steps per hand-over (a
+    divisor of its rows per thread, so a round is whole rows of one
+    thread), with the rounds' shared memory: two slots of the row panel,
+    the column panel and the diagonal block's snapshots, the stage, the
+    next block and its snapshots, inside the 48 KB a launch takes without opting in; at f32
+    one step, as before."""
+    plan, plan32 = fw.kleene_plan(t, 8), fw.kleene_plan(t)
+    rr = plan.rows // fw.KLEENE_THREAD_ROWS
+    assert (plan.variant, plan.rows, plan.cols, plan.threads) == (
+        plan32.variant, plan32.rows, plan32.cols, plan32.threads)
+    assert plan32.steps == 1 and plan.steps == fw.KLEENE_STEPS_F64 == 4
+    assert rr % plan.steps == 0
+    b = plan.steps
+    assert plan.smem_bytes == 16 + 8 * (2 * b * (plan.rows + plan.cols + b)
+                                        + b * plan.rows + 2 * b * b)
+    assert plan.smem_bytes <= 48 * 1024
+    # Every panel line has a thread of its own.
+    assert plan.rows + plan.cols <= plan.threads
+
+
+def test_f64_kleene_steps_match_the_kernel():
+    """The plan sizes the rounds' shared memory with KLEENE_STEPS_F64;
+    the kernel's entry points take no count and build their rounds with
+    kSteps64 (``csrc/fw_kleene.cu``): the two constants agree."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fw.__file__).resolve().parent.parent / "csrc"
+           / "fw_kleene.cu").read_text()
+    found = re.findall(r"constexpr int kSteps64 = (\d+);", src)
+    assert found == [str(fw.KLEENE_STEPS_F64)]
+
+
+# -- the f64 tight-edge pass's hub flags (ops/pred.py tight_pred_pass) ----
+
+
+def _pred_case(b):
+    g = pjt.load_graph("rmat:scale=9,ef=8,seed=3")
+    e = g.num_real_edges
+    lay = fs.build_in_edge_layout(torch.as_tensor(g.src[:e]),
+                                  torch.as_tensor(g.indices[:e]), g.num_nodes)
+    w_in = torch.as_tensor(g.weights[:e]).double()[lay["order"]].contiguous()
+    layout = (lay["indptr_in"], lay["src_in"], w_in)
+    sources = np.random.default_rng(b).choice(g.num_nodes, b, replace=False)
+    d = torch.full((g.num_nodes, b), float("inf"), dtype=F64)
+    d[torch.as_tensor(sources), torch.arange(b)] = 0.0
+    d = fs.fanout_fixpoint(d, *layout, max_iter=g.num_nodes)[0]
+    return g, layout, d, sources
+
+
+@pytest.mark.parametrize("kind", ["zeros", "hubs", "all"])
+@pytest.mark.parametrize("b", [1, 7, 64, 128])
+def test_tight_pred_hub_flags_change_nothing_on_cpu(b, kind):
+    """On CPU tensors the pass takes the plain version and the flags'
+    values are unused: trees and tree flags equal the call without them."""
+    g, layout, d, sources = _pred_case(b)
+    src_in = layout[1]
+    if kind == "hubs":
+        hubs = fs.hub_flags(src_in, g.num_nodes, b, F64,
+                            budget=fs.hub_row_bytes(b) * 16)
+        assert hubs is not None and 0 < int(hubs.sum()) < src_in.shape[0]
+    else:
+        hubs = torch.full(src_in.shape, int(kind == "all"), dtype=torch.uint8)
+    want = pm.tight_pred_pass(d, *layout)
+    assert torch.equal(pm.tight_pred_pass(d, *layout, hubs=hubs), want)
+    want_s, want_f = pm.tight_pred_pass(d, *layout, sources=sources)
+    got_s, got_f = pm.tight_pred_pass(d, *layout, sources=sources, hubs=hubs)
+    assert torch.equal(got_s, want_s) and got_f.tolist() == want_f.tolist()
+
+
+def test_tight_pred_rejects_bad_hub_flags():
+    """Hub flags are uint8[E] over the CSC, for f64 distances only, on
+    either device."""
+    g, layout, d, _ = _pred_case(4)
+    e = layout[1].shape[0]
+    ok = torch.zeros(e, dtype=torch.uint8)
+    with pytest.raises(TypeError, match="uint8"):
+        pm.tight_pred_pass(d, *layout, hubs=ok.int())
+    with pytest.raises(TypeError, match="uint8"):
+        pm.tight_pred_pass(d, *layout, hubs=ok.bool())
+    with pytest.raises(ValueError, match=f"hubs must be \\[{e}\\]"):
+        pm.tight_pred_pass(d, *layout, hubs=ok[1:])
+    with pytest.raises(ValueError, match="hubs must be"):
+        pm.tight_pred_pass(d, *layout, hubs=ok.reshape(1, -1))
+    with pytest.raises(ValueError, match="f64"):
+        pm.tight_pred_pass(d.float(), layout[0], layout[1],
+                           layout[2].float(), hubs=ok)
+
+
+def test_extract_takes_no_hub_flags_on_cpu():
+    """The backend's f64 graph has no hub flags on the CPU (the pass runs
+    its plain version there), so ``_extract`` hands the pass None."""
+    g = pjt.load_graph("rmat:scale=10,ef=16,seed=0")
+    dg = TorchBackend(pjt.SolverConfig(precision="f64"), device="cpu").upload(g)
+    assert dg.hub_flags(512) is None
