@@ -265,10 +265,27 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      ``cli.main(["solve", ER_SPEC, "--precision", "f64", ...])`` in
      process, bitwise the ``fw-tile`` solve. Its launches are the
      ``_f64`` rows of the ``kernels`` line, not the f32 rows'.
+ 26. ``precision="f64"`` above the solver (``drive_f64_layers``), each
+     path held bitwise to phase 25's single-card f64 rows (or a
+     single-card f64 solve of its own sources) and printed with its
+     wall and launches: the mesh on 4 ranks sharing the card (R-MAT-20
+     over phase 3's sources on ``sharded-1d``, each rank's f64 hub set on
+     a quarter of the L2 budget beside the whole budget's; its first 64
+     with trees on the 2 x 2 mesh, ``sharded-2d+pred``; the grid with
+     ``edge_shard=True`` and trees over phase 25's 64 tree sources),
+     trees validated; the fleet (2 in-process workers over the grid's
+     first 32 sources, the plan's config at f64); an f64 checkpoint of a
+     40 x 40 integer lattice repaired (10 parts: the boundary core closes
+     on the f64 min-plus); a store from an f64 solve's checkpoint of
+     phase 21's ER graph served host-forced and device-forced (cold
+     hits, scheduled misses, then hot hits); ``approx_apsp`` on R-MAT-20
+     in f64 with a hopset of 4 pivots and 8 hops (every certified
+     interval holding the f64 row) and ``solve_with_budget`` at error
+     budget 0 (the exact plan). Its launches count in the ``_f64`` rows.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-22, 24 and 25 on its own (a
+phases 3-5 together, then each path of phases 9-22 and 24-26 on its own (a
 worker subprocess's launches are not seen: phase 19 counts the
 in-process fleet; phase 24's paths are summed under ``mesh``, its two
 processes print their own), and phase 23's solves each in a process of
@@ -412,6 +429,28 @@ MESH_GRID_SIDE = 64
 MESH_GRID_SOURCES = 64
 MESH_CHILD_SPEC = "rmat:scale=16,ef=16,seed=0"
 MESH_CHILD_SOURCES = 64
+# Phase 26: precision="f64" above the solver, on earlier phases' graphs.
+# The mesh: R-MAT-20 over phase 3's sources on MESH_RANKS ranks, its first
+# F64_MESH_2D_SOURCES with trees on MESH_2D, the grid with edge_shard and
+# trees over phase 25's 64 tree sources. The fleet: F64_FLEET_WORKERS
+# in-process workers over the grid's first F64_FLEET_SOURCES sources in
+# leases of F64_FLEET_LEASE. The repair: phase 20's lattice generator cut
+# to F64_REPAIR_SIDE (its f64 checkpoint writes at 80 x 80 would take
+# ~50 s) in F64_REPAIR_PARTS parts, so that the boundary core (384
+# vertices) closes on dense-iterate-pallas, the f64 min-plus. Serving:
+# phase 21's ER graph, F64_SERVE_STORED sources in the store,
+# F64_SERVE_QUERIES requests twice (cold and scheduled, then hot). Approx:
+# phase 22's R-MAT-20 hopset shape over F64_APPROX_SOURCES sources.
+F64_MESH_2D_SOURCES = 64
+F64_FLEET_SOURCES = 32
+F64_FLEET_LEASE = 16
+F64_FLEET_WORKERS = 2
+F64_REPAIR_SIDE = 40
+F64_REPAIR_PARTS = 10
+F64_REPAIR_K = 12
+F64_SERVE_STORED = 256
+F64_SERVE_QUERIES = 256
+F64_APPROX_SOURCES = 16
 # Phase 18 leaves the configs phases 21-23 drive themselves.
 BENCH_OWN_PHASE = ("serve_queries", "serve_overload", "approx_apsp",
                    "serve_fleet")
@@ -2900,7 +2939,9 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
     (``pallas-vm+pred``, validated); ``cli.main([... "--precision",
     "f64"])`` in process.
     Returns (launches by path, the f64 kernels' rows for the
-    ``kernels`` line)."""
+    ``kernels`` line, the single-card f64 rows phase 26 is held to:
+    R-MAT-20's over phase 3's sources, the grid's over the 64 tree
+    sources)."""
     import contextlib
     import io
     import tempfile
@@ -3244,6 +3285,7 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
     if not np.array_equal(to_numpy(res.dist), rows) or walks:
         raise AssertionError(f"f64 R-MAT-20 with trees: rows differ from "
                              f"the solve's, or {walks} walks")
+    ref64 = {"rmat_rows": rows}  # phase 26's single-card f64 rows
     del rows
     dg = upload64(rmat)[2]
     e = rmat.num_real_edges
@@ -3298,6 +3340,7 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
                   predecessors=True)
     validate_pred_tree(grid, to_numpy(res.dist)[:4],
                        to_numpy(res.predecessors)[:4], psrc[:4])
+    ref64.update(grid_pred_sources=psrc, grid_pred_rows=to_numpy(res.dist))
     del res
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3333,7 +3376,297 @@ def drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc, er, hub,
                       ("fw_kleene", f"fw_kleene_cluster_t{fw.DEFAULT_FW_TILE}")):
         rows[name] = dict(timings[key], max_abs_err=max(errs[name]),
                           timed=key)
-    return launches, rows
+    return launches, rows, ref64
+
+
+def drive_f64_layers(dev, rmat, rmat_sources, grid, ref64) -> dict:
+    """Phase 26: ``precision="f64"`` above the solver on the card, each
+    path counted from 0 and printed with its wall and launches, its rows
+    held bitwise to the single-card f64 solve (phase 25's rows in
+    ``ref64``, or a single-card f64 solve of the path's own sources):
+    (a) the mesh on ``MESH_RANKS`` ranks sharing the card: R-MAT-20 over
+    phase 3's sources (``sharded-1d``; each rank's hub flags on a
+    ``1 / MESH_RANKS`` share of the L2 budget, printed beside the whole
+    budget's set), the first ``F64_MESH_2D_SOURCES`` with trees on
+    ``MESH_2D`` (``sharded-2d+pred``: ``tight_pred`` on each source
+    group's rank) and the grid with ``edge_shard=True`` and trees over
+    phase 25's tree sources (``edge-sharded``, ``sharded-1d+pred``),
+    trees validated; (b) the fleet, its plan's config at f64, in-process
+    workers over the grid; (c) an f64 checkpoint repaired (closures on
+    the f64 min-plus); (d) a store from an f64 solve's checkpoint served
+    host-forced and device-forced (cold hits, scheduled misses, then hot
+    hits); (e) ``approx_apsp`` on R-MAT-20 in f64 with a small hopset
+    (every certified interval holding the f64 row) and
+    ``solve_with_budget(error_budget=0)`` (the exact plan). Returns the
+    launches by path."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch import distributed
+    from paralleljohnson_tpu_torch.distributed.launch import (
+        run_in_process_fleet,
+    )
+    from paralleljohnson_tpu_torch.graphs import erdos_renyi, grid2d
+    from paralleljohnson_tpu_torch.incremental import (
+        IncrementalState, repair_checkpoint,
+    )
+    from paralleljohnson_tpu_torch.ops import fanout_sweep as fs
+    from paralleljohnson_tpu_torch.ops import hopset as hs
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+    from paralleljohnson_tpu_torch.serve import QueryEngine, TileStore
+    from paralleljohnson_tpu_torch.solver import approx
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+    from paralleljohnson_tpu_torch.utils.checkpoint import (
+        BatchCheckpointer, graph_digest,
+    )
+    from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
+
+    launches: dict = {}
+    counted = counter(launches)
+    t_phase = time.perf_counter()
+    cfg64 = pjt.SolverConfig(precision="f64")
+
+    def one_card(g, sources):
+        with solver_on(dev, precision="f64") as solver:
+            return to_numpy(solver.solve(g, sources).dist)
+
+    def done(path, secs, **kw):
+        row = {"phase": "f64_layer", "path": path, "seconds": secs,
+               "launches": launches[path], **kw}
+        emit(row)
+
+    def bitwise(path, got, want):
+        got = np.asarray(got)
+        if got.dtype != np.float64 or not np.array_equal(got, want):
+            raise AssertionError(f"{path}: {got.dtype} rows differ from the "
+                                 "single-card f64 solve's")
+
+    def mesh_solve(path, g, sources, routes, needs, **kw):
+        with solver_on(dev, precision="f64", **kw) as solver:
+            res, secs = counted(path, lambda: solver.solve(
+                g, sources, predecessors="pred" in path), needs=needs)
+            mesh = solver.backend._mesh()
+            info = {"routes": dict(res.stats.routes_by_phase),
+                    "mesh": mesh.describe(),
+                    "collective_s": mesh.collective_s,
+                    "phase_seconds": dict(res.stats.phase_seconds)}
+        if info["routes"] != routes:
+            raise AssertionError(f"{path} took {info['routes']}")
+        return res, secs, info
+
+    # (a) the mesh.
+    saved = os.environ.get(mesh_mod.MESH_DEVICES_ENV)
+    os.environ[mesh_mod.MESH_DEVICES_ENV] = f"{dev.type}:0*{MESH_RANKS}"
+    try:
+        res, secs, info = mesh_solve(
+            "f64_mesh_rmat20", rmat, rmat_sources, {"fanout": "sharded-1d"},
+            ("fanout_sweep",), mesh_shape=(MESH_RANKS,))
+        bitwise("f64_mesh_rmat20", to_numpy(res.dist), ref64["rmat_rows"])
+        del res
+        # Each rank's hub set under the one rule, beside the set the whole
+        # budget would take (host arithmetic over the out-degrees).
+        e = rmat.num_real_edges
+        deg = torch.as_tensor(np.bincount(rmat.src[:e],
+                                          minlength=rmat.num_nodes))
+        per = -(-len(rmat_sources) // MESH_RANKS)
+        row_bytes = fs.hub_row_bytes(per)
+        hubs = {}
+        for label, budget in (("rank", fs.HUB_L2_BYTES // MESH_RANKS),
+                              ("whole_l2", fs.HUB_L2_BYTES)):
+            h = fs.hub_sources(deg, row_bytes, budget=budget)
+            hubs[label] = {"budget_bytes": budget, "hubs": int(h.numel()),
+                           "edge_share": float(deg[h].sum()) / e}
+        done("f64_mesh_rmat20", secs, hub_sets=hubs, **info)
+
+        src2d = rmat_sources[:F64_MESH_2D_SOURCES]
+        res, secs, info = mesh_solve(
+            "f64_mesh_rmat20_2d_pred", rmat, src2d,
+            {"fanout": "sharded-2d+pred"}, ("fanout_sweep", "tight_pred"),
+            mesh_shape=MESH_2D)
+        rows, pred = to_numpy(res.dist), to_numpy(res.predecessors)
+        bitwise("f64_mesh_rmat20_2d_pred", rows,
+                ref64["rmat_rows"][:F64_MESH_2D_SOURCES])
+        groups = MESH_2D[0]
+        check = sorted({0, len(src2d) // groups, len(src2d) - 1})
+        validate_pred_tree(rmat, rows[check], pred[check], src2d[check])
+        done("f64_mesh_rmat20_2d_pred", secs, trees_checked=len(check),
+             **info)
+        del res, rows, pred
+
+        psrc = ref64["grid_pred_sources"]
+        res, secs, info = mesh_solve(
+            "f64_mesh_grid512_pred", grid, psrc,
+            {"bellman_ford": "edge-sharded", "fanout": "sharded-1d+pred"},
+            ("fanout_sweep", "tight_pred"), mesh_shape=(MESH_RANKS,),
+            edge_shard=True)
+        rows, pred = to_numpy(res.dist), to_numpy(res.predecessors)
+        bitwise("f64_mesh_grid512_pred", rows, ref64["grid_pred_rows"])
+        per = -(-len(psrc) // MESH_RANKS)
+        check = sorted({min(r * per + k, len(psrc) - 1)
+                        for r in range(MESH_RANKS) for k in (0, per - 1)})
+        validate_pred_tree(grid, rows[check], pred[check], psrc[check])
+        done("f64_mesh_grid512_pred", secs, trees_checked=len(check), **info)
+        del res, rows, pred
+    finally:
+        if saved is None:
+            os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
+        else:
+            os.environ[mesh_mod.MESH_DEVICES_ENV] = saved
+    torch.cuda.empty_cache()
+
+    root = Path(tempfile.mkdtemp(prefix="pj-f64-layers-"))
+    try:
+        # (b) the fleet over the grid, its plan at f64.
+        coord = distributed.plan_fleet(
+            root / "fleet", GRID_SPEC, n_workers=F64_FLEET_WORKERS,
+            num_sources=F64_FLEET_SOURCES, lease_sources=F64_FLEET_LEASE,
+            config={"source_batch_size": F64_FLEET_LEASE,
+                    "precision": "f64"})
+        report, secs = counted("f64_fleet", lambda: run_in_process_fleet(
+            coord, F64_FLEET_WORKERS, device=dev), needs=("fanout_sweep",))
+        rows = distributed.fleet_rows(coord.dir)
+        if not report.ok or sorted(rows) != list(range(F64_FLEET_SOURCES)):
+            raise AssertionError(f"f64 fleet: {report.as_dict()}")
+        bitwise("f64_fleet", np.stack([rows[s] for s in sorted(rows)]),
+                one_card(grid, np.arange(F64_FLEET_SOURCES)))
+        done("f64_fleet", secs, leases=report.leases_committed,
+             workers=F64_FLEET_WORKERS)
+        del rows
+
+        # (c) an f64 checkpoint repaired.
+        g = grid2d(F64_REPAIR_SIDE, F64_REPAIR_SIDE, seed=17)
+        g = g.astype(np.float64).with_weights(
+            np.maximum(1.0, np.rint(g.weights)).astype(np.float64))
+        n = g.num_nodes
+        ck_dir = str(root / "repair")
+        cfg = pjt.SolverConfig(checkpoint_dir=ck_dir, precision="f64",
+                               source_batch_size=max(16, n // 16))
+        pjt.ParallelJohnsonSolver(cfg, device=dev).solve(g)
+
+        def attach():
+            st = IncrementalState.build(g, num_parts=F64_REPAIR_PARTS,
+                                        config=cfg, device=dev)
+            st.save(BatchCheckpointer(ck_dir, graph_key=graph_digest(g)).dir)
+            return st
+
+        state, attach_s = counted("f64_incremental_attach", attach,
+                                  needs=("minplus",))
+        done("f64_incremental_attach", attach_s,
+             core=int(state.boundary.size),
+             core_dtype=str(state.core_closed.dtype))
+        target = int(np.bincount(state.labels).argmax())
+        e = g.num_real_edges
+        within = np.flatnonzero((state.labels[g.src[:e]] == target)
+                                & (state.labels[g.indices[:e]] == target))
+        idx = np.random.default_rng(5).choice(
+            within, size=min(F64_REPAIR_K, within.size), replace=False)
+        updates = [(int(g.src[i]), int(g.indices[i]),
+                    1.0 if j % 2 == 0 else float(g.weights[i]) + 3.0)
+                   for j, i in enumerate(idx)]
+        result, secs = counted("f64_repair", lambda: repair_checkpoint(
+            ck_dir, g, updates, config=cfg, state=state, device=dev),
+            needs=("minplus",))
+        new_g, _ = g.apply_edge_updates(updates)
+        want = one_card(new_g, None)
+        ck = BatchCheckpointer(ck_dir, graph_key=graph_digest(new_g))
+        man = ck.manifest()
+        if len(man) != n:
+            raise AssertionError(f"f64 repair covers {len(man)} of {n}")
+        for fn in sorted({f for _b, f in man.values()}):
+            srcs = ck.batch_sources(fn)
+            bitwise("f64_repair", ck.load(int(man[int(srcs[0])][0]),
+                                          srcs)[0], want[srcs])
+        done("f64_repair", secs, dirty_parts=result.dirty_parts_closed,
+             parts=result.parts_total, rows_recomputed=result.rows_recomputed,
+             expand_s=result.as_dict().get("expand_s"))
+        del want
+
+        # (d) serving from an f64 solve's checkpoint.
+        sg = erdos_renyi(SERVE_N, 8 / SERVE_N, seed=13)
+        stored = np.arange(0, SERVE_N, SERVE_N // F64_SERVE_STORED)
+        pjt.ParallelJohnsonSolver(pjt.SolverConfig(
+            precision="f64", checkpoint_dir=str(root / "store_off")),
+            device=dev).solve(sg, stored)
+        shutil.copytree(root / "store_off", root / "store_on")
+        rng = np.random.default_rng(26)
+        reqs = [{"id": i, "source": int(s),
+                 "dst": [int(t) for t in rng.integers(0, SERVE_N, 4)]}
+                for i, s in enumerate(rng.integers(0, SERVE_N,
+                                                   F64_SERVE_QUERIES))]
+        qsrc = np.unique([r["source"] for r in reqs])
+
+        def serve_both():
+            out, lookups = [], []
+            for mode in ("off", "on"):
+                engine = QueryEngine(sg, TileStore(
+                    root / f"store_{mode}", sg, hot_rows=2 * len(qsrc)),
+                    config=cfg64, device=dev, device_lookup=mode,
+                    stats_interval_s=0)
+                try:
+                    out.append([engine.query_batch([dict(r) for r in reqs])
+                                for _ in range(2)])
+                    lookups.append(engine.stats.device_lookups)
+                finally:
+                    engine.close()
+            return out, lookups
+
+        (answers, lookups), secs = counted("f64_serve", serve_both,
+                                           needs=("fanout_sweep",))
+        if json.dumps(answers[0], sort_keys=True) != json.dumps(
+                answers[1], sort_keys=True) or lookups[0] or not lookups[1]:
+            raise AssertionError(f"f64 serving: host and device answers "
+                                 f"differ, or device lookups {lookups}")
+        want = one_card(sg, qsrc)
+        at = {int(s): i for i, s in enumerate(qsrc)}
+        for r in answers[0][0] + answers[0][1]:
+            exact = [float(want[at[r["source"]], t]) for t in r["dst"]]
+            if r["distances"] != exact:
+                raise AssertionError(f"f64 serving: {r} is not the solve's")
+        done("f64_serve", secs, queries=2 * 2 * len(reqs),
+             stored=len(stored), device_lookups=lookups[1])
+        del want
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) the approximate tier on R-MAT-20 in f64.
+    rmat64 = rmat.astype(np.float64)
+    asrc = rmat_sources[:F64_APPROX_SOURCES]
+
+    def approx_run():
+        hop = hs.build_hopset(rmat64, epsilon=0.5, k=RMAT_HOP_K,
+                              beta=RMAT_HOP_BETA, seed=0, device=dev)
+        return approx.approx_apsp(rmat64, asrc, config=cfg64, hopset=hop,
+                                  device=dev)
+
+    res, secs = counted("f64_approx_rmat20", approx_run,
+                        needs=("fanout_sweep",))
+    exact = ref64["rmat_rows"][:F64_APPROX_SOURCES]
+    cert = np.isfinite(res.max_error)
+    pinned = cert & ~(np.isinf(res.dist) & np.isinf(exact))
+    if not np.all(np.abs(res.dist[pinned] - exact[pinned])
+                  <= res.max_error[pinned]):
+        raise AssertionError("f64 approx: an interval misses the f64 row")
+    done("f64_approx_rmat20", secs, certified_share=float(cert.mean()),
+         converged=bool(res.converged),
+         construction_s=res.hopset.construction_s,
+         query_s=res.stats.get("query_s"))
+    (got, dec), secs = counted("f64_approx_exact", lambda: (
+        approx.solve_with_budget(rmat64, asrc, config=cfg64,
+                                 error_budget=0.0, device=dev)),
+        needs=("fanout_sweep",))
+    if dec.chosen.plan.name != "exact":
+        raise AssertionError(f"error budget 0 took {dec.chosen.plan.name}")
+    bitwise("f64_approx_exact", to_numpy(got.dist), exact)
+    done("f64_approx_exact", secs, plan=dec.chosen.plan.name)
+    del res, got, rmat64
+    emit({"phase": "f64_layers", "paths": sorted(launches),
+          "phase26_s": time.perf_counter() - t_phase})
+    return launches
 
 
 def main() -> int:
@@ -3985,8 +4318,12 @@ def main() -> int:
                               gsrc, grid_pred_rows))
     # -- phase 25: precision="f64" on the card ------------------------------
     torch.cuda.empty_cache()
-    f64_paths, f64_rows = drive_f64(dev, smi, rmat, rmat_sources, grid, gsrc,
-                                    er, hub, logs)
+    f64_paths, f64_rows, ref64 = drive_f64(dev, smi, rmat, rmat_sources,
+                                           grid, gsrc, er, hub, logs)
+    # -- phase 26: precision="f64" above the solver ------------------------
+    torch.cuda.empty_cache()
+    f64_paths.update(drive_f64_layers(dev, rmat, rmat_sources, grid, ref64))
+    del ref64
     names = ("fanout_sweep", "minplus", "tight_pred", "fw_kleene")
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in names}

@@ -107,6 +107,7 @@ def _worker_cmd(
     coordinator_dir: Path, worker_id: str, *,
     device="cuda",
     self_kill_after_claims: int | None = None,
+    hold_until: Path | None = None,
 ) -> list[str]:
     cmd = [
         sys.executable, "-m", "paralleljohnson_tpu_torch.distributed.worker",
@@ -115,6 +116,8 @@ def _worker_cmd(
     ]
     if self_kill_after_claims is not None:
         cmd += ["--self-kill-after-claims", str(self_kill_after_claims)]
+    if hold_until is not None:
+        cmd += ["--hold-until", str(hold_until)]
     return cmd
 
 
@@ -159,7 +162,11 @@ def launch_local_fleet(
 
     ``self_kill``: ``{worker_id: n_claims}`` fault injection — that
     worker SIGKILLs itself mid-lease after its n-th claim (the
-    host-loss drill the dryrun and tests run).
+    host-loss drill the dryrun and tests run). The other workers start
+    at once but claim nothing until every such worker has exited
+    (``--hold-until``), so each dies holding a lease and the drill
+    always has one to requeue; the JAX package's launcher lets them
+    race, and its survivors can drain every lease first.
     """
     from paralleljohnson_tpu_torch.utils.procs import graceful_stop
 
@@ -174,6 +181,10 @@ def launch_local_fleet(
     procs: dict[str, subprocess.Popen] = {}
     logs = {}
     requeue_events = 0
+    killed = [w for w in worker_ids if w in (self_kill or {})]
+    hold = coord.dir / "logs" / "drill.go" if killed else None
+    if hold is not None:
+        hold.unlink(missing_ok=True)
     try:
         for wid in worker_ids:
             log = open(coord.dir / "logs" / f"{wid}.log", "ab")
@@ -182,10 +193,14 @@ def launch_local_fleet(
                 _worker_cmd(
                     coord.dir, wid, device=device,
                     self_kill_after_claims=(self_kill or {}).get(wid),
+                    hold_until=None if wid in killed else hold,
                 ),
                 env=wenv, stdout=log, stderr=subprocess.STDOUT,
             )
         while True:
+            if (hold is not None and not hold.exists()
+                    and all(procs[w].poll() is not None for w in killed)):
+                hold.touch()  # the drill's workers are dead: go
             for ev in coord.reap():
                 if ev["ev"] == "requeued":
                     requeue_events += 1

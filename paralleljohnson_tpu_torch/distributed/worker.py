@@ -69,6 +69,7 @@ def run_worker(
     self_kill_after_claims: int | None = None,
     tune_dir: str | Path | None = None,
     device="cuda",
+    hold_until: str | Path | None = None,
 ) -> dict:
     """Claim-solve-commit until the fleet is done (or ``max_leases``).
 
@@ -89,6 +90,11 @@ def run_worker(
     injection the requeue tests and the fleet dryrun use (an abrupt
     death with a lease held and no cleanup, exactly like a crashed or
     OOM-killed host).
+
+    ``hold_until``: a file whose existence the worker waits for (at most
+    ``idle_timeout_s``, heartbeating) before its first claim. The local
+    launcher's kill drill holds its survivors with it until the worker
+    it kills has died holding its lease.
 
     Returns (and persists to ``<coord>/workers/<id>.summary.json``) a
     summary: leases committed, sources solved, edges relaxed, stale
@@ -174,6 +180,14 @@ def run_worker(
             _cuda.build_all()
             summary["kernel_build_s"] = round(
                 time.perf_counter() - t_build, 6)
+
+        held_since = time.perf_counter()
+        while hold_until is not None and not Path(hold_until).exists():
+            if time.perf_counter() - held_since > idle_timeout_s:
+                raise TimeoutError(
+                    f"worker {worker_id}: {hold_until} did not appear "
+                    f"within {idle_timeout_s:.0f}s")
+            time.sleep(poll_s)
 
         idle_since = None
         while True:
@@ -318,6 +332,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--self-kill-after-claims", type=int, default=None,
                     help="TEST HOOK: SIGKILL self after the Nth claim, "
                          "lease held (deterministic host-loss injection)")
+    ap.add_argument("--hold-until", default=None, metavar="FILE",
+                    help="wait for FILE to exist before the first claim "
+                         "(the launcher's kill drill)")
     ap.add_argument("--tune-dir", default=None,
                     help="idle-capacity tuning: when the solve "
                          "coordinator has no claimable lease, drain one "
@@ -339,6 +356,7 @@ def main(argv: list[str] | None = None) -> int:
             self_kill_after_claims=args.self_kill_after_claims,
             tune_dir=args.tune_dir,
             device=args.device,
+            hold_until=args.hold_until,
         )
     except (CoordinatorError, ValueError, FileNotFoundError) as e:
         print(f"error: {e}", file=sys.stderr)

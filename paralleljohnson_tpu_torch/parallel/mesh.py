@@ -14,6 +14,10 @@ all-reduce over its ``"edges"`` group merges the partial relaxations
 (exact: relaxation is monotone, so the minimum of the per-slice Jacobi
 sweeps is the full Jacobi sweep).
 
+At f64 every rank on a card hands the sweep and the tree pass the hub
+flags of its own block by one rule (:func:`rank_hub_flags`: the L2
+budget divided among the ranks that share the card).
+
 A :class:`Mesh` lists one ``torch.device`` per rank. In one process,
 every rank is a thread of the caller (:meth:`Mesh.run`) with its own
 process group per collective axis (``ProcessGroupGloo`` over a shared
@@ -58,6 +62,7 @@ import torch.distributed as tdist
 from paralleljohnson_tpu_torch.ops import relax
 from paralleljohnson_tpu_torch.ops.dia import dia_fixpoint
 from paralleljohnson_tpu_torch.ops.fanout_sweep import (
+    HUB_L2_BYTES,
     build_in_edge_layout,
     fanout_fixpoint,
     fanout_sweep,
@@ -255,6 +260,14 @@ class Mesh:
             else:
                 why.append("gloo: CPU ranks")
         return f"{head} on {on}" + (f" ({'; '.join(why)})" if why else "")
+
+    def sharing(self, rank: int) -> int:
+        """The ranks of this process's mesh on ``rank``'s device, itself
+        included (1 on a multi-process mesh: one rank per process, each on
+        a card of its own)."""
+        if self.multiprocess:
+            return 1
+        return self.devices.count(self.devices[rank])
 
     def as_sources_mesh(self) -> "Mesh":
         """A 1-D ``"sources"`` mesh over the same ranks (what the
@@ -712,11 +725,29 @@ class _Placer:
         self._memo: dict = {}
 
     def __call__(self, obj, dev: torch.device, key: str):
+        return self.made(key, dev, lambda: _to(obj, dev))
+
+    def made(self, key: str, dev: torch.device, make: Callable):
+        """``make()``'s result, made once per (``key``, device)."""
         with self._lock:
             got = self._memo.get((key, dev))
             if got is None:
-                got = self._memo[(key, dev)] = _to(obj, dev)
+                got = self._memo[(key, dev)] = make()
             return got
+
+
+def rank_hub_flags(comm, src_in, num_nodes: int, b: int, dtype):
+    """The f64 sweep's hub flags (``fanout_sweep.hub_flags``) for one
+    rank's [V, ``b``] block over the in-edge CSC it sweeps, the rule of
+    every sharded route: built on a card, with the L2 budget
+    ``HUB_L2_BYTES`` divided among the ranks that share it (four ranks on
+    one card claim a quarter each, as ``suggested_source_batch`` divides
+    the card's memory); None on the CPU and at f32, where no kernel reads
+    them. The flags change no bit of the rows."""
+    if comm.device.type != "cuda":
+        return None
+    return hub_flags(src_in, num_nodes, b, dtype,
+                     budget=HUB_L2_BYTES // comm.mesh.sharing(comm.rank))
 
 
 def _to(obj, dev):
@@ -980,8 +1011,11 @@ def sharded_tight_pred(
         rows = dist[g * per:(g + 1) * per].to(dev)
         mine = torch.as_tensor(srcs[g * per:(g + 1) * per], device=dev)
         ip, s_in, w_in, items = place(in_edges, dev, "in_edges")
+        hubs = place.made("hubs", dev, lambda: rank_hub_flags(
+            comm, s_in, num_nodes, per, rows.dtype))
         pred_vm, flags = tight_pred_pass(rows.t().contiguous(), ip, s_in,
-                                         w_in, items=items, sources=mine)
+                                         w_in, items=items, sources=mine,
+                                         hubs=hubs)
         pred, ok = certify_pred(pred_vm.t().contiguous(), rows, mine,
                                 flags=flags)
         block = _gathered(comm, pred, False)
@@ -1051,8 +1085,7 @@ def sharded_fanout_2d(
             w_in, items = wt[lay["order"]].contiguous(), lay["work_items"]
             d = _dist0_vm(mine, num_nodes, w.dtype)
             buf = torch.empty_like(d)
-            hubs = (hub_flags(s_in, num_nodes, d.shape[1], d.dtype)
-                    if d.device.type == "cuda" else None)
+            hubs = rank_hub_flags(comm, s_in, num_nodes, per, d.dtype)
         else:
             d = relax.multi_source_init(mine, num_nodes, w.dtype)
         improving = bool(torch.isfinite(d).any())
@@ -1153,9 +1186,11 @@ def sharded_fanout(
         pred = None
         if vm:
             ip, s_in, w_in, items = place(in_edges, dev, "in_edges")
+            hubs = place.made("hubs", dev, lambda: rank_hub_flags(
+                comm, s_in, num_nodes, per, w_in.dtype))
             d_vm, iters, improving = fanout_fixpoint(
                 _dist0_vm(mine, num_nodes, w_in.dtype), ip, s_in, w_in,
-                max_iter=max_iter, items=items)
+                max_iter=max_iter, items=items, hubs=hubs)
             d = d_vm.t().contiguous()
             del d_vm
         else:

@@ -1873,3 +1873,243 @@ def test_mesh_nccl_on_distinct_cards(cuda, monkeypatch):
                                     device=cuda).solve(g2, np.arange(9))
     np.testing.assert_array_equal(dist.cpu().numpy(),
                                   johnson.to_numpy(one.dist))
+
+
+# -- precision="f64" above the solver on the card ----------------------------
+
+
+@pytest.fixture
+def four_ranks(cuda, monkeypatch):
+    """Four mesh ranks sharing the card (gloo, staged through page-locked
+    host buffers), every collective bounded by 60 s."""
+    monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0*4")
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 60.0)
+    return cuda
+
+
+F64_RMAT = "rmat:scale=12,ef=8,seed=4"
+F64_GRID = "grid:rows=48,cols=40,neg=0.2,seed=6"
+F64_MESH = [
+    (F64_RMAT, dict(mesh_shape=(4,)), np.arange(0, 4096, 61)[:40], False,
+     {"fanout": "sharded-1d"}),
+    (F64_RMAT, dict(mesh_shape=(2, 2)), np.arange(0, 4096, 61)[:40], False,
+     {"fanout": "sharded-2d"}),
+    (F64_GRID, dict(mesh_shape=(4,), edge_shard=True),
+     np.arange(0, 1920, 37)[:32], True,
+     {"bellman_ford": "edge-sharded", "fanout": "sharded-1d+pred"}),
+    # 150 rows per source group: the tree pass takes the hub flags.
+    (F64_RMAT, dict(mesh_shape=(2, 2)), np.arange(0, 4096, 13)[:300], True,
+     {"fanout": "sharded-2d+pred"}),
+]
+
+
+@pytest.mark.parametrize("spec,cfg,sources,pred,routes", F64_MESH)
+def test_mesh_f64_on_card_equals_one_card(four_ranks, monkeypatch, spec, cfg,
+                                          sources, pred, routes):
+    """Each sharded route at f64 on four ranks sharing the card: float64
+    rows bitwise the single-card f64 solve's, the f64 sweep (and
+    ``tight_pred`` on each extracting rank) launched, trees valid; every
+    rank's hub flags take a quarter of the L2 budget."""
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+
+    budgets = []
+    real = mesh_mod.hub_flags
+
+    def spy(*args, budget, **kw):
+        budgets.append(budget)
+        return real(*args, budget=budget, **kw)
+
+    monkeypatch.setattr(mesh_mod, "hub_flags", spy)
+    g = pjt.load_graph(spec)
+    want = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(precision="f64", mesh_shape=(1,)),
+        device=four_ranks).solve(g, sources, predecessors=pred)
+    before = _counts()
+    with pjt.ParallelJohnsonSolver(
+            pjt.SolverConfig(precision="f64", **cfg),
+            device=four_ranks) as solver:
+        got = solver.solve(g, sources, predecessors=pred)
+    after = _counts()
+    assert got.stats.routes_by_phase == routes
+    assert got.matrix.dtype == np.float64
+    np.testing.assert_array_equal(got.matrix, want.matrix)
+    assert after["fanout_sweep"] > before["fanout_sweep"]
+    assert budgets and set(budgets) == {fs.HUB_L2_BYTES // 4}
+    if pred:
+        extracting = 2 if len(cfg["mesh_shape"]) == 2 else 4
+        assert after["tight_pred"] == before["tight_pred"] + extracting
+        validate_pred_tree(g, johnson.to_numpy(got.dist),
+                           johnson.to_numpy(got.predecessors), sources)
+
+
+def test_fleet_f64_on_card_equals_one_card(cuda, tmp_path):
+    """The plan's ``precision="f64"`` reaches both in-process workers on
+    the card: shards written and merged at f64 through the f64 sweep, rows
+    bitwise the single-card f64 solve."""
+    from paralleljohnson_tpu_torch import distributed
+    from paralleljohnson_tpu_torch.distributed.launch import (
+        run_in_process_fleet,
+    )
+
+    spec = "er:n=1024,p=0.004,seed=13"
+    cfg = {"source_batch_size": 64, "precision": "f64"}
+    coord = distributed.plan_fleet(tmp_path / "coord", spec, n_workers=2,
+                                   config=cfg)
+    before = fs.fanout_sweep.launches
+    report = run_in_process_fleet(coord, 2, device=cuda)
+    assert report.ok and set(report.worker_rcs.values()) == {0}
+    assert fs.fanout_sweep.launches > before
+    g = pjt.load_graph(spec)
+    mat = pjt.ParallelJohnsonSolver(pjt.SolverConfig(**cfg),
+                                    device=cuda).solve(g).matrix
+    rows = distributed.fleet_rows(coord.dir)
+    assert sorted(rows) == list(range(g.num_nodes))
+    for s, row in rows.items():
+        assert row.dtype == np.float64
+        np.testing.assert_array_equal(row, mat[s], err_msg=f"row {s}")
+
+
+def test_repair_f64_on_card_equals_fresh_solve(cuda, tmp_path):
+    """An f64 checkpoint of an integer-weight float64 lattice repaired on
+    the card: in 10 parts the boundary core (384 vertices) closes on the
+    f64 min-plus (``dense-iterate-pallas``); rows bitwise a fresh
+    single-card f64 solve of the updated graph."""
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.incremental import (
+        IncrementalState, repair_checkpoint,
+    )
+    from paralleljohnson_tpu_torch.utils.checkpoint import (
+        BatchCheckpointer, graph_digest,
+    )
+
+    g = grid2d(40, 40, seed=17).astype(np.float64)
+    g = g.with_weights(np.maximum(1.0, np.rint(g.weights)))
+    cfg = pjt.SolverConfig(checkpoint_dir=str(tmp_path), source_batch_size=64,
+                           precision="f64")
+    pjt.ParallelJohnsonSolver(cfg, device=cuda).solve(g)
+    before = _counts()
+    state = IncrementalState.build(g, num_parts=10, config=cfg, device=cuda)
+    assert state.core_closed.dtype == np.float64
+    state.save(BatchCheckpointer(tmp_path, graph_key=graph_digest(g)).dir)
+    e = g.num_real_edges
+    idx = np.random.default_rng(5).choice(e, 4, replace=False)
+    updates = [(int(g.src[i]), int(g.indices[i]),
+                1.0 if j % 2 == 0 else float(g.weights[i]) + 3.0)
+               for j, i in enumerate(idx)]
+    result = repair_checkpoint(tmp_path, g, updates, config=cfg,
+                               state=state, device=cuda)
+    assert _counts()["minplus"] > before["minplus"]
+    assert result.rows_recomputed > 0
+    new_g, _ = g.apply_edge_updates(updates)
+    mat = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(source_batch_size=64, precision="f64"),
+        device=cuda).solve(new_g).matrix
+    ck = BatchCheckpointer(tmp_path, graph_key=graph_digest(new_g))
+    man = ck.manifest()
+    assert len(man) == g.num_nodes
+    for fn in sorted({f for _b, f in man.values()}):
+        srcs = ck.batch_sources(fn)
+        rows, _ = ck.load(int(man[int(srcs[0])][0]), srcs)
+        assert rows.dtype == np.float64
+        for i, s in enumerate(srcs):
+            np.testing.assert_array_equal(rows[i], mat[int(s)])
+
+
+def test_query_engine_f64_on_card_answers_the_solve(cuda, tmp_path):
+    """A store from an f64 solve's checkpoint on the card: cold hits,
+    scheduled misses (the f64 sweep) and then hot hits, host-forced and
+    device-forced alike, every answer the single-card f64 solve's."""
+    import json
+
+    from paralleljohnson_tpu_torch.graphs import erdos_renyi
+    from paralleljohnson_tpu_torch.serve import QueryEngine, TileStore
+
+    g = erdos_renyi(400, 0.02, seed=5).astype(np.float64)
+    g = g.with_weights(np.random.default_rng(4).uniform(
+        1.0, 10.0, g.weights.shape[0]))
+    cfg = pjt.SolverConfig(precision="f64")
+    mat = pjt.ParallelJohnsonSolver(cfg, device=cuda).solve(g).matrix
+    rng = np.random.default_rng(8)
+    reqs = [{"id": i, "source": int(s),
+             "dst": [int(d) for d in rng.integers(0, 400, 4)]}
+            for i, s in enumerate(rng.integers(0, 400, 64))]
+    outs = []
+    for mode in ("off", "on"):
+        d = tmp_path / mode
+        pjt.ParallelJohnsonSolver(
+            pjt.SolverConfig(precision="f64", checkpoint_dir=str(d)),
+            device=cuda).solve(g, np.arange(0, 400, 2))
+        engine = QueryEngine(g, TileStore(d, g, hot_rows=256), config=cfg,
+                             device=cuda, device_lookup=mode,
+                             stats_interval_s=0)
+        before = fs.fanout_sweep.launches
+        got = [engine.query_batch([dict(r) for r in reqs]) for _ in range(2)]
+        assert fs.fanout_sweep.launches > before  # the odd sources
+        assert (engine.stats.device_lookups > 0) == (mode == "on")
+        engine.close()
+        for r in got[0] + got[1]:
+            assert r["distances"] == [float(mat[r["source"], t])
+                                      for t in r["dst"]]
+        outs.append(json.dumps(got, sort_keys=True))
+    assert outs[0] == outs[1]
+
+
+def test_approx_f64_config_on_card_equals_cpu(cuda):
+    """``approx_apsp`` under an f64 config on the card: estimates and
+    certificates bitwise the CPU's; an error budget of 0 takes the exact
+    plan, its rows bitwise the single-card f64 solve."""
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.solver import approx
+
+    g = grid2d(256, 8, seed=23).astype(np.float64)
+    src = np.arange(0, 2048, 97)
+    cfg = pjt.SolverConfig(precision="f64")
+    card = approx.approx_apsp(g, src, config=cfg, epsilon=0.5, device=cuda)
+    cpu = approx.approx_apsp(g, src, config=cfg, epsilon=0.5, device="cpu")
+    assert card.dist.tobytes() == cpu.dist.tobytes()
+    assert card.max_error.tobytes() == cpu.max_error.tobytes()
+    exact, dec = approx.solve_with_budget(g, src, config=cfg,
+                                          error_budget=0.0, device=cuda)
+    assert dec.chosen.plan.name == "exact"
+    one = pjt.ParallelJohnsonSolver(cfg, device=cuda).solve(g, src)
+    np.testing.assert_array_equal(johnson.to_numpy(exact.dist),
+                                  johnson.to_numpy(one.dist))
+
+
+def test_mesh_f64_nccl_on_distinct_cards(cuda, monkeypatch):
+    """With a card per rank the f64 collectives run on NCCL: the
+    edge-sharded phase 1 and ``sharded-1d`` at f64, rows bitwise one
+    card's; each rank, alone on its card, takes the whole L2 budget for
+    its hub flags."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"NCCL needs two cards per mesh; {n} visible")
+    monkeypatch.delenv("PJ_MESH_DEVICES", raising=False)
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 120.0)
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+
+    budgets = []
+    real = mesh_mod.hub_flags
+
+    def spy(*args, budget, **kw):
+        budgets.append(budget)
+        return real(*args, budget=budget, **kw)
+
+    monkeypatch.setattr(mesh_mod, "hub_flags", spy)
+    ranks = min(n, 4)
+    for spec, kw in ((F64_GRID, dict(edge_shard=True)), (F64_RMAT, {})):
+        g = pjt.load_graph(spec)
+        sources = np.arange(0, g.num_nodes, 37)[:32]
+        want = pjt.ParallelJohnsonSolver(
+            pjt.SolverConfig(precision="f64", mesh_shape=(1,)),
+            device=cuda).solve(g, sources)
+        with pjt.ParallelJohnsonSolver(
+                pjt.SolverConfig(precision="f64", mesh_shape=(ranks,), **kw),
+                device=cuda) as solver:
+            got = solver.solve(g, sources)
+            assert solver.backend._mesh().backends() == ["nccl"]
+        assert got.stats.routes_by_phase["fanout"] == "sharded-1d"
+        np.testing.assert_array_equal(got.matrix, want.matrix)
+    assert budgets and set(budgets) == {fs.HUB_L2_BYTES}
