@@ -282,10 +282,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      in f64 with a hopset of 4 pivots and 8 hops (every certified
      interval holding the f64 row) and ``solve_with_budget`` at error
      budget 0 (the exact plan). Its launches count in the ``_f64`` rows.
+ 27. the default mesh over every card (``drive_every_card``): with two
+     cards or more, ``solve()`` on R-MAT-20 over phase 3's sources under
+     a default ``SolverConfig`` (``mesh_shape=None`` takes every card, a
+     rank per card on NCCL): ``sharded-1d``, rows bitwise phase 3's. With
+     one card it prints one line saying that it did not run and why.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
-phases 3-5 together, then each path of phases 9-22 and 24-26 on its own (a
+phases 3-5 together, then each path of phases 9-22 and 24-27 on its own (a
 worker subprocess's launches are not seen: phase 19 counts the
 in-process fleet; phase 24's paths are summed under ``mesh``, its two
 processes print their own), and phase 23's solves each in a process of
@@ -2908,6 +2913,61 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     return {"mesh": total}
 
 
+def drive_every_card(dev, rmat, rmat_sources, rmat_rows) -> dict:
+    """Phase 27: the default mesh over every card. With ``PJ_MESH_DEVICES``
+    unset, ``solve()`` on R-MAT-20 over phase 3's sources under a default
+    ``SolverConfig`` takes every visible card (``mesh_shape=None``, as the
+    JAX package's default mesh takes every device): route ``sharded-1d``
+    on NCCL groups, a rank per card, rows bitwise phase 3's, the hand
+    sweep launched (path ``every_card``); its meshes are closed after.
+    With one card the default mesh is the one rank that phases 3-26
+    already drove: the phase prints one line saying so and runs nothing.
+    Returns the counts by path ({} with one card)."""
+    import numpy as np
+    import torch
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "every_card", "ran": False,
+              "why": f"{cards} card visible: the default mesh is one rank, "
+                     "which phases 3-26 drove"})
+        return {}
+    launches: dict = {}
+    counted = counter(launches)
+    t_phase = time.perf_counter()
+    saved = os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
+    try:
+        with pjt.ParallelJohnsonSolver(pjt.SolverConfig(),
+                                       device=dev) as solver:
+            res, secs = counted("every_card",
+                                lambda: solver.solve(rmat, rmat_sources),
+                                needs=("fanout_sweep",))
+            mesh = solver.backend._mesh()
+            report = {"mesh": mesh.describe(), "backends": mesh.backends(),
+                      "routes": dict(res.stats.routes_by_phase),
+                      "seconds": secs,
+                      "phase_seconds": dict(res.stats.phase_seconds),
+                      "collective_s": mesh.collective_s}
+        if mesh.size != cards or mesh.backends() != ["nccl"]:
+            raise AssertionError(f"default mesh: {report}")
+        if report["routes"] != {"fanout": "sharded-1d"}:
+            raise AssertionError(f"default mesh routes: {report}")
+        if not np.array_equal(to_numpy(res.dist), rmat_rows):
+            raise AssertionError("default-mesh R-MAT-20 rows differ from "
+                                 "phase 3's")
+    finally:
+        if saved is not None:
+            os.environ[mesh_mod.MESH_DEVICES_ENV] = saved
+    emit({"phase": "every_card", "ran": True, "cards": cards, **report,
+          "launches": launches["every_card"],
+          "phase27_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def f64_templates(logs: dict) -> dict:
     """Registers and spill bytes of every f64 instantiation of the four
     kernel sources (template argument ``double``: ``...Id...`` in the
@@ -4324,6 +4384,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     f64_paths.update(drive_f64_layers(dev, rmat, rmat_sources, grid, ref64))
     del ref64
+    # -- phase 27: the default mesh over every card -------------------------
+    by_path.update(drive_every_card(dev, rmat, rmat_sources, rmat_rows))
     names = ("fanout_sweep", "minplus", "tight_pred", "fw_kleene")
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in names}

@@ -149,8 +149,14 @@ def _sz(config: str, key: str, preset: str):
 
 
 def _n_chips() -> int:
-    """Devices one solve of the port uses: one card (or the host)."""
-    return 1
+    """Devices a default solve of the port uses, as the JAX package counts
+    every device: the distinct devices of the default mesh on the bench's
+    device (every card; the host is one)."""
+    import torch
+
+    from paralleljohnson_tpu_torch.parallel.mesh import default_devices
+
+    return len(set(default_devices(torch.device(_BENCH_DEVICE.get()).type)))
 
 
 def _platform(backend: str) -> str:

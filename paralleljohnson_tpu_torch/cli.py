@@ -16,10 +16,12 @@ Exit codes: 0 ok; 1 error (an ``error:`` line on stderr); 2 negative
 cycle; 3 corruption, an abandoned stage, or an incomplete fleet.
 
 Where the port differs from the JAX package: ``--backend`` is ``torch``
-(default), ``numpy`` or ``cpp``; ``--mesh-shape`` spreads a solve over
-the first ranks ``parallel.mesh.visible_devices`` lists (every card;
-one rank on the CPU unless ``PJ_MESH_DEVICES`` lists more), and without
-it a solve takes one rank, not every device; ``--precision f64``
+(default), ``numpy`` or ``cpp``; a solve takes every rank device
+``parallel.mesh.visible_devices`` lists (every card, as the JAX package
+takes every device; one rank on the CPU unless ``PJ_MESH_DEVICES`` lists
+more; one card at ``--precision f64``, where a mesh of several cards is
+an open fault), and ``--mesh-shape N`` the first N of them
+(``--mesh-shape 1``: one card); ``--precision f64``
 runs the hand kernels' f64 versions on the card; ``--profile`` writes a
 ``torch.profiler`` trace; ``--compilation-cache-dir`` is the directory
 the hand kernels are built into; ``bench`` exits 1 when a row carries
@@ -70,9 +72,11 @@ def _add_common(p: argparse.ArgumentParser) -> None:
               "(the CUDA kernels on the card), false = the JAX package's "
               "XLA routes in plain PyTorch")
     p.add_argument("--mesh-shape", default=None, metavar="N[,M...]",
-                   help="ranks along the sources mesh axis (e.g. 4); N,M "
-                        "is a 2-D sources x edges mesh (rank devices: every "
-                        "card, or $PJ_MESH_DEVICES)")
+                   help="ranks along the sources mesh axis (e.g. 4; 1 "
+                        "for one card); N,M is a 2-D sources x edges mesh "
+                        "(rank devices: every card, or $PJ_MESH_DEVICES); "
+                        "without it a solve takes every rank device "
+                        "(one card at --precision f64)")
     p.add_argument("--fanout-layout", default="auto",
                    choices=["auto", "source_major", "vertex_major"],
                    help="sparse fan-out data layout (auto = vertex_major)")

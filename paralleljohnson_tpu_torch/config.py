@@ -36,9 +36,11 @@ class SolverConfig:
         route (each hand kernel has an f64 version on the card).
       source_batch_size: sources per fan-out call; ``None`` sizes the
         batch from the device's free memory (``suggested_source_batch``).
-      mesh_shape: ``None`` (one rank, unless ``PJ_MESH_DEVICES`` lists
-        more: ``parallel.mesh.default_devices``; the JAX package takes
-        every device), ``(n,)`` a 1-D "sources" mesh of the first n
+      mesh_shape: ``None`` every rank device (every card on cuda, as
+        the JAX package takes every device, but one card at f64; one rank
+        on the CPU; or the ranks ``PJ_MESH_DEVICES`` lists:
+        ``parallel.mesh.default_devices``),
+        ``(n,)`` a 1-D "sources" mesh of the first n
         cards or listed ranks (route ``sharded-1d`` from n = 2) or
         ``(n_s, n_e)`` a 2-D ("sources", "edges") mesh (``sharded-2d``).
       edge_shard: on a mesh of more than one rank, B=1 Bellman-Ford

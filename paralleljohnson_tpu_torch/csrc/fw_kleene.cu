@@ -127,6 +127,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "once_per_device.h"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -391,9 +393,11 @@ template <typename T, int RR>
 cudaError_t cluster_config(int threads, int smem, void* stream,
                            cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attrs) {
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      kleene_cluster<T, RR>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-      1);
+  const cudaError_t attr_err = once_per_device([] {
+    return cudaFuncSetAttribute(kleene_cluster<T, RR>,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                1);
+  });
   if (attr_err != cudaSuccess) return attr_err;
   if (threads > max_threads(RR)) return cudaErrorInvalidValue;
   *cfg = cudaLaunchConfig_t{};
@@ -778,9 +782,11 @@ kleene_rounds(const T* in, long long ld_in, T* out, long long ld_out,
 template <typename T, int RR, int B>
 cudaError_t rounds_config(int threads, int smem, void* stream,
                           cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attrs) {
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      kleene_rounds<T, RR, B>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-      1);
+  const cudaError_t attr_err = once_per_device([] {
+    return cudaFuncSetAttribute(kleene_rounds<T, RR, B>,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                1);
+  });
   if (attr_err != cudaSuccess) return attr_err;
   if (threads > max_threads(RR)) return cudaErrorInvalidValue;
   *cfg = cudaLaunchConfig_t{};

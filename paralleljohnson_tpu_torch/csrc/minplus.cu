@@ -65,6 +65,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "once_per_device.h"
+
 namespace {
 
 constexpr int kBN = 128;     // output columns per block
@@ -418,12 +420,14 @@ using TilesFn = void (*)(const T*, const T*, T*, int64_t, int64_t, int64_t,
                          int64_t, const int*, int*);
 
 // The tile kernel for BM rows, with its dynamic shared memory allowed
-// (once per kernel: above 48 KB it must be).
+// (once per kernel and device: above 48 KB it must be).
 template <typename T, int BM, bool VEC>
 cudaError_t tiles_kernel(TilesFn<T>* fn) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      minplus_tiles<T, BM, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile<T, BM>::kSmemBytes);
+  const cudaError_t attr = once_per_device([] {
+    return cudaFuncSetAttribute(minplus_tiles<T, BM, VEC>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Tile<T, BM>::kSmemBytes);
+  });
   *fn = minplus_tiles<T, BM, VEC>;
   return attr;
 }

@@ -2,17 +2,21 @@
 
 ``plan_fleet`` writes the coordinator plan (graph digest, lease table);
 ``launch_local_fleet`` runs N worker **subprocesses on this host**, each
-on ``device`` (the card by default: several processes share one card,
-each with its own CUDA context — the environment is inherited as it is,
-``CUDA_VISIBLE_DEVICES`` included), monitors them with a reap loop (a
-dead worker's lapsed leases re-queue to survivors), and finishes by
-unioning the shard manifests into ``fleet_manifest.json``.
+one mesh rank on ``device`` (``cuda``: the first card
+``CUDA_VISIBLE_DEVICES`` leaves visible; several processes share it,
+each with its own CUDA context), monitors them with a reap loop (a dead
+worker's lapsed leases re-queue to survivors), and finishes by unioning
+the shard manifests into ``fleet_manifest.json``. The one rank is set in
+the workers' environment (``PJ_MESH_DEVICES``), as the JAX package's
+launcher puts each local worker on one CPU device: N local workers never
+each build NCCL groups over the same cards.
 
 A multi-host fleet uses the SAME coordinator over a filesystem the hosts
 share but not this launcher: each host runs one worker process directly
 (``python -m paralleljohnson_tpu_torch.distributed.worker <dir>
---worker-id host<i>``) under its own process manager; the CLI's ``fleet
-status`` and ``fleet resume`` work on that dir unchanged.
+--worker-id host<i>``) under its own process manager, and that worker's
+solves take every card of its host (``mesh_shape=None``); the CLI's
+``fleet status`` and ``fleet resume`` work on that dir unchanged.
 """
 
 from __future__ import annotations
@@ -121,14 +125,18 @@ def _worker_cmd(
     return cmd
 
 
-def _worker_env(env: dict | None) -> dict:
+def _worker_env(env: dict | None, device="cuda") -> dict:
     """Subprocess environment: inherit (the device is the worker's
-    ``--device`` argument, not the environment) and make the package
-    importable even when run from a checkout."""
+    ``--device`` argument), pin the worker's mesh to one rank on that
+    device (``PJ_MESH_DEVICES``; ``cuda`` is ``cuda:0``), and make the
+    package importable even when run from a checkout."""
     import paralleljohnson_tpu_torch
+    from paralleljohnson_tpu_torch.parallel.mesh import MESH_DEVICES_ENV
 
     out = dict(os.environ)
     out.update(env or {})
+    dev = str(device)
+    out[MESH_DEVICES_ENV] = "cuda:0" if dev == "cuda" else dev
     repo_root = str(Path(paralleljohnson_tpu_torch.__file__).resolve().parent.parent)
     parts = [repo_root] + [
         p for p in out.get("PYTHONPATH", "").split(os.pathsep) if p
@@ -148,9 +156,10 @@ def launch_local_fleet(
     self_kill: dict | None = None,
     device="cuda",
 ) -> FleetReport:
-    """Run ``n_workers`` local worker subprocesses on ``device`` to
-    completion (a worker that cannot reach it exits non-zero, which
-    ``worker_rcs`` shows).
+    """Run ``n_workers`` local worker subprocesses to completion, each
+    one mesh rank on ``device`` (``cuda``: ``cuda:0`` for every worker;
+    :func:`_worker_env`); a worker that cannot reach it exits non-zero,
+    which ``worker_rcs`` shows.
 
     The monitor loop reaps lapsed leases every ``poll_s`` (a SIGKILLed
     worker's heartbeat goes stale, its range re-queues to survivors —
@@ -175,7 +184,7 @@ def launch_local_fleet(
         else Coordinator(coordinator)
     )
     worker_ids = [f"w{i}" for i in range(n_workers)]
-    wenv = _worker_env(env)
+    wenv = _worker_env(env, device)
     (coord.dir / "logs").mkdir(exist_ok=True)
     t0 = time.perf_counter()
     procs: dict[str, subprocess.Popen] = {}

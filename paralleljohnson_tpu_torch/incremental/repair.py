@@ -672,6 +672,8 @@ def prepare_repair(
                 total_sources=v, reason="negative cycle created by update",
             )
             raise
+        finally:
+            sub_solver.close()  # the closures' mesh groups, if any
         plan.closures_s = time.perf_counter() - t0
         plan.state_new = state_new
 

@@ -116,8 +116,10 @@ def close_subgraph(sub: CSRGraph, config=None, *, solver=None,
         sub = CSRGraph(indptr=indptr, indices=sub.indices,
                        weights=sub.weights)
     if solver is None:
-        solver = closure_solver(config, device=device)
-    res = solver.solve(sub)
+        with closure_solver(config, device=device) as own:
+            res = own.solve(sub)
+    else:
+        res = solver.solve(sub)
     # ``matrix`` is a host copy, whichever device the rows were on.
     return np.asarray(res.matrix, dtype=sub.dtype)[:n, :n]
 
@@ -239,18 +241,18 @@ class IncrementalState:
             core_closed=np.zeros((0, 0), graph.dtype),
         )
         parts, lids, blocal, bcore = state.indices()
-        solver = closure_solver(config, device=device)
-        for p, verts in zip(part_ids, parts):
-            sel = _within_selector(labels, src, dst, p)
-            state.part_digests.append(
-                compute_part_digest(verts, lids, src, dst, w, sel)
-            )
-            state.locals_closed.append(
-                close_part(graph, verts, lids, sel, config=config,
-                           solver=solver)
-            )
-        state.core_closed = close_core(state, graph, config=config,
-                                       solver=solver)
+        with closure_solver(config, device=device) as solver:
+            for p, verts in zip(part_ids, parts):
+                sel = _within_selector(labels, src, dst, p)
+                state.part_digests.append(
+                    compute_part_digest(verts, lids, src, dst, w, sel)
+                )
+                state.locals_closed.append(
+                    close_part(graph, verts, lids, sel, config=config,
+                               solver=solver)
+                )
+            state.core_closed = close_core(state, graph, config=config,
+                                           solver=solver)
         return state
 
     # -- persistence ---------------------------------------------------------

@@ -36,9 +36,11 @@ DEFAULT_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # Where the libraries are built and loaded from: ``set_build_dir``
 # (``SolverConfig.compilation_cache_dir`` / ``$PJ_COMPILE_CACHE``).
 BUILD_DIR = DEFAULT_BUILD_DIR
+# ``-I``: the headers the sources share (``csrc/*.h``), also for a copy of
+# a source compiled from elsewhere (the timing scripts' variants).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", f"-I{CSRC}",
 )
 
 _P = ctypes.c_void_p
@@ -134,6 +136,7 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.h")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

@@ -24,23 +24,35 @@ process group per collective axis (``ProcessGroupGloo`` over a shared
 ``HashStore``, or ``ProcessGroupNCCL`` when every rank of the group is on
 a card of its own) and, on a card, its own stream. Gloo takes host
 tensors: rank tensors on a card are staged through page-locked host
-buffers. After ``multihost.initialize()`` a mesh from
-``multihost.global_mesh()`` has one rank per process and runs its
-collectives on the default process group.
+buffers. A run makes its NCCL communicators before any rank does work:
+every rank builds its groups, then all connect them together
+(``eager_connect_single_device``) between two barriers. After
+``multihost.initialize()`` a mesh from ``multihost.global_mesh()`` has
+one rank per process and runs its collectives on the default process
+group.
 
-Rank devices: ``PJ_MESH_DEVICES`` lists them, e.g.
-``cuda:0,cuda:0,cuda:0,cuda:0``, ``cuda:0*4`` or ``cpu*8`` (ranks may
+Rank devices: ``mesh_shape=None`` takes every rank device, as the JAX
+package's ``make_mesh(None)`` takes every device: on cuda every card
+``CUDA_VISIBLE_DEVICES`` leaves visible (a rank per card, NCCL), on cpu
+one rank (torch sees one CPU device); at f64 one card, while f64 on a
+mesh of several cards is an open fault (:func:`default_devices`). A mesh
+of an explicit shape takes the first of them. ``PJ_MESH_DEVICES`` lists the rank devices instead,
+e.g. ``cuda:0,cuda:0,cuda:0,cuda:0``, ``cuda:0*4`` or ``cpu*8`` (ranks may
 share a device; the counterpart of the JAX package's
-``--xla_force_host_platform_device_count``); else a mesh of an explicit
-shape takes the first cards on ``cuda``, and ``mesh_shape=None`` is one
-rank on either device type (the JAX package takes every device; here a
-host's cards join a mesh only when asked). ``DEFAULT_TIMEOUT_S`` bounds
-every collective. A rank that raises releases the others: they leave at
+``--xla_force_host_platform_device_count``).
+
+``DEFAULT_TIMEOUT_S`` bounds every gloo collective, and a run's ranks
+together by ``JOIN_GRACE_S`` more; an NCCL group's own timeout is longer
+still (``NCCL_MARGIN_S``), because its watchdog takes the whole process
+down when it fires: past the run's limit the caller aborts the run's
+NCCL communicators, which ends the collectives still waiting, and raises
+``TimeoutError``. A rank that raises releases the others: they leave at
 their next collective, the collectives they wait in are completed with
-dummy contributions, and the first error surfaces in the caller.
-:meth:`Mesh.close` shuts a mesh's process groups down; whatever meshes
-are still open when the interpreter exits are closed then, so no
-communicator is left to a destructor.
+dummy contributions on the failing rank's own device, the run's NCCL
+communicators are aborted, and the first error surfaces in the caller;
+the next run builds fresh groups. :meth:`Mesh.close` shuts a mesh's
+process groups down; whatever meshes are still open when the interpreter
+exits are closed then, so no communicator is left to a destructor.
 """
 
 from __future__ import annotations
@@ -81,6 +93,9 @@ DEFAULT_TIMEOUT_S = 300.0
 # Seconds a rank thread may outlive the collective timeout before the
 # caller gives up on it.
 JOIN_GRACE_S = 30.0
+# Seconds an NCCL group's own timeout (its watchdog's) exceeds a run's
+# limit, so the run's abort always comes first.
+NCCL_MARGIN_S = 60.0
 
 _mesh_ids = itertools.count()
 # NCCL groups are built one at a time: the constructor does not wait for
@@ -138,13 +153,21 @@ def visible_devices(device_type: str | None = None) -> list[torch.device]:
     return [torch.device(device_type)]
 
 
-def default_devices(device_type: str | None = None) -> list[torch.device]:
-    """The ranks of ``mesh_shape=None``: the devices ``PJ_MESH_DEVICES``
-    lists, else one rank (the first of :func:`visible_devices`). Unlike
-    the JAX package, which takes every device, a host's cards join a mesh
-    only where a caller asks for them."""
-    device_type = _resolve_type(device_type)
-    return _listed_devices(device_type) or visible_devices(device_type)[:1]
+def default_devices(device_type: str | None = None, *,
+                    precision: str = "f32") -> list[torch.device]:
+    """The ranks of ``mesh_shape=None``: every rank device
+    :func:`visible_devices` gives, as the JAX package's ``make_mesh(None)``
+    takes every device: on cuda every card ``CUDA_VISIBLE_DEVICES`` leaves
+    visible, on cpu one rank (``PJ_MESH_DEVICES`` may list more on
+    either). At ``precision="f64"`` without ``PJ_MESH_DEVICES``, the first
+    of them only: f64 on a mesh of several cards is an open fault (on four
+    H100s a solve with trees failed and an R-MAT-20 solve did not finish),
+    so a default f64 solve stays on one card; an explicit shape still
+    takes the cards."""
+    devices = visible_devices(device_type)
+    if precision == "f64" and not _listed_devices(_resolve_type(device_type)):
+        return devices[:1]
+    return devices
 
 
 def _device_type(device) -> str | None:
@@ -285,12 +308,13 @@ class Mesh:
         members = self.members(rank, key)
         return members[0], members
 
-    def _make_groups(self, rank: int) -> None:
+    def _make_groups(self, rank: int) -> list:
         """This rank's process groups, built in a fixed order (every
         member builds its groups at the start of a run, so no build waits
-        on a rank that is inside a collective)."""
-        timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+        on a rank that is inside a collective). Returns the NCCL groups
+        built now (their communicators are made at connection)."""
         gen = self._generation
+        built = []
         for key in self.group_keys():
             if (gen, key, rank) in self._pgs:
                 continue
@@ -301,38 +325,74 @@ class Mesh:
             me = members.index(rank)
             if backend == "nccl":
                 opts = tdist.ProcessGroupNCCL.Options()
-                opts._timeout = timeout
+                # The watchdog takes the whole process down when a
+                # collective outlives this: it must outlive the run's
+                # own limit, past which run() aborts the groups.
+                opts._timeout = datetime.timedelta(
+                    seconds=DEFAULT_TIMEOUT_S + JOIN_GRACE_S + NCCL_MARGIN_S)
                 with _nccl_build_lock:
                     pg = tdist.ProcessGroupNCCL(store, me, len(members), opts)
+                built.append(pg)
             else:
                 # The ranks are threads of this process: loopback, whatever
                 # the host's name resolves to.
                 opts = tdist.ProcessGroupGloo._Options()
-                opts._timeout = timeout
+                opts._timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
                 opts._devices = [tdist.ProcessGroupGloo.create_device(
                     hostname="127.0.0.1")]
                 pg = tdist.ProcessGroupGloo(store, me, len(members), opts)
             self._pgs[(gen, key, rank)] = (pg, backend, members)
         _open_meshes.add(self)
+        return built
 
-    def _reset_groups(self) -> None:
-        """Drop the groups of a run whose ranks did not all leave (a
-        thread may still be inside one, so they are not shut down): the
-        next run builds fresh ones under a new prefix."""
+    def _take_groups(self) -> list:
+        """This mesh's groups, dropped from it (a later run builds fresh
+        ones under a new prefix)."""
         with self._lock:
+            pgs, self._pgs = self._pgs, {}
             self._generation += 1
-            self._pgs = {}
+        _open_meshes.discard(self)
+        return list(pgs.values())
+
+    def _abort_groups(self, *, left: bool) -> None:
+        """Drop this mesh's groups after a failed run (``left``: every
+        rank has left its collectives) or a timed-out one (a rank may
+        still be inside one). NCCL communicators are aborted, which ends
+        the collectives still in flight or waiting for a peer that never
+        posts (a shutdown would wait for them), in a thread of their own
+        bounded by ``JOIN_GRACE_S``. Gloo groups are shut down once every
+        rank has left, else dropped."""
+        groups = self._take_groups()
+        nccl = [pg for pg, backend, _ in groups if backend == "nccl"]
+        if left:
+            for pg, backend, _ in groups:
+                if backend != "nccl":
+                    pg.shutdown()
+        if not nccl:
+            return
+
+        def abort():
+            # The aborts as one NCCL group, as torch's own abort of every
+            # group does, so that one communicator's abort does not wait
+            # on another's.
+            nccl[0]._group_start()
+            try:
+                for pg in nccl:
+                    pg.abort()
+            finally:
+                nccl[0]._group_end()
+
+        t = threading.Thread(target=abort, daemon=True,
+                             name=f"mesh{self._id}-abort")
+        t.start()
+        t.join(JOIN_GRACE_S)
 
     def close(self) -> None:
         """Shut this mesh's process groups down now (NCCL communicators
         are released here, not by a destructor whenever the mesh is
         collected), and those of its 1-D view; a later run builds fresh
         groups."""
-        with self._lock:
-            pgs, self._pgs = self._pgs, {}
-            self._generation += 1
-        _open_meshes.discard(self)
-        for pg, _, _ in pgs.values():
+        for pg, _, _ in self._take_groups():
             pg.shutdown()
         if self._sources_mesh is not None:
             self._sources_mesh.close()
@@ -364,7 +424,9 @@ class Mesh:
         before the thread returns). Returns the results by local rank.
         The first error of a rank raises here, after every rank has left;
         a rank that does not finish within the collective timeout plus
-        ``JOIN_GRACE_S`` raises ``TimeoutError``."""
+        ``JOIN_GRACE_S`` raises ``TimeoutError``, after the run's NCCL
+        communicators are aborted (which ends the collectives the other
+        ranks wait in)."""
         ranks = self.local_ranks
         caller = {d: torch.cuda.current_stream(d)
                   for d in {self.devices[r] for r in ranks}
@@ -373,15 +435,23 @@ class Mesh:
         results: dict = {}
         errors: dict = {}
         comms = {r: RankComm(self, r, state) for r in ranks}
+        threaded = len(ranks) > 1
+        if threaded:
+            with self._lock:
+                if self._store is None:
+                    self._store = tdist.HashStore()
+        connect = (self._connector(ranks, state)
+                   if threaded and not self.multiprocess else None)
 
         def main(rank):
             dev = self.devices[rank]
             comm = comms[rank]
             try:
-                if self.size > 1 and not self.multiprocess:
-                    self._make_groups(rank)
                 if dev.type == "cuda":
                     torch.cuda.set_device(dev)
+                if connect is not None:
+                    connect(rank)
+                if dev.type == "cuda":
                     s = self.stream(rank)
                     s.wait_stream(caller[dev])
                     with torch.cuda.stream(s):
@@ -393,12 +463,9 @@ class Mesh:
                 errors[rank] = e
                 state.abandon(rank)
 
-        if len(ranks) == 1:
+        if not threaded:
             main(ranks[0])
         else:
-            with self._lock:
-                if self._store is None:
-                    self._store = tdist.HashStore()
             threads = [threading.Thread(target=main, args=(r,), daemon=True,
                                         name=f"{label}-rank{r}")
                        for r in ranks]
@@ -410,11 +477,12 @@ class Mesh:
                 t.join(max(0.0, deadline - time.monotonic()))
             stuck = [t.name for t in threads if t.is_alive()]
             if stuck:
-                self._reset_groups()
+                state.fail()
+                self._abort_groups(left=False)
                 raise TimeoutError(f"{label}: ranks {stuck} still running "
                                    f"after {limit:.0f} s")
         if errors:
-            self.close()  # every rank has left its collectives
+            self._abort_groups(left=True)
             root = [e for e in errors.values()
                     if not isinstance(e, MeshAborted)]
             raise (root or list(errors.values()))[0]
@@ -423,6 +491,29 @@ class Mesh:
         for d, s in caller.items():
             _record_stream(out, s)
         return out
+
+    def _connector(self, ranks, state):
+        """``connect(rank)``, run first in each rank thread: the rank's
+        process groups, then, once every rank has built its own, the NCCL
+        ones' communicators, all made together before any rank does
+        work. Made lazily, at each group's first collective, they were
+        made while sibling ranks still ran kernels and copies, and two
+        runs in ten of the mesh card tests on four cards died on a
+        segmentation fault inside such a first collective (whether that
+        was the cause is not shown: no run since has crashed)."""
+        fence = threading.Barrier(len(ranks), timeout=DEFAULT_TIMEOUT_S)
+        state.fences.append(fence)
+
+        def connect(rank):
+            built = self._make_groups(rank)
+            try:
+                fence.wait()
+                for pg in built:
+                    pg.eager_connect_single_device(self.devices[rank])
+                fence.wait()
+            except threading.BrokenBarrierError:
+                raise MeshAborted("another rank of the mesh failed") from None
+        return connect
 
 
 @atexit.register
@@ -458,6 +549,15 @@ class _RunState:
         self.lock = threading.Lock()
         self.failed = False
         self.log: dict = {}  # (key, gid) -> {rank: [spec, ...]}
+        self.fences: list = []  # barriers the ranks may wait at
+
+    def fail(self) -> None:
+        """Mark the run failed: every rank leaves at its next collective
+        (or barrier)."""
+        with self.lock:
+            self.failed = True
+        for fence in self.fences:
+            fence.abort()
 
     def post(self, rank: int, key: tuple, gid: int, spec: tuple) -> None:
         with self.lock:
@@ -470,8 +570,8 @@ class _RunState:
         mesh = self.mesh
         if mesh.multiprocess:
             return
+        self.fail()
         with self.lock:
-            self.failed = True
             owed = []
             for (key, gid), by_rank in self.log.items():
                 if rank not in mesh.members(gid, key):
@@ -481,12 +581,16 @@ class _RunState:
                 owed += [(key, spec) for spec in longest[len(mine):]]
                 mine.extend(longest[len(mine):])
         works = []
-        for key, (kind, shape, dtype, dev) in owed:
+        for key, (kind, shape, dtype, _) in owed:
             entry = mesh._pgs.get((mesh._generation, key, rank))
             if entry is None:
                 continue
             pg, backend, members = entry
-            where = dev if backend == "nccl" else torch.device("cpu")
+            # This rank's own card (a spec may be a peer's): a tensor on
+            # another card would make the group a second communicator
+            # there, which its peers never join.
+            where = (mesh.devices[rank] if backend == "nccl"
+                     else torch.device("cpu"))
             x = torch.zeros(shape, dtype=dtype, device=where)
             try:
                 if kind == "all_gather":
@@ -614,13 +718,14 @@ class RankComm:
 
 
 def make_mesh(mesh_shape: tuple[int, ...] | None = None,
-              axis_name: str = "sources", *, device=None) -> Mesh:
+              axis_name: str = "sources", *, device=None,
+              precision: str = "f32") -> Mesh:
     """1-D mesh over ``axis_name`` (``"sources"`` for the fan-out,
     ``"edges"`` for edge-sharded Bellman-Ford). ``mesh_shape=None`` takes
-    :func:`default_devices` of ``device``'s type; ``(n,)`` the first n of
-    :func:`visible_devices`."""
+    :func:`default_devices` of ``device``'s type at ``precision``;
+    ``(n,)`` the first n of :func:`visible_devices`."""
     if mesh_shape is None:
-        devices = default_devices(_device_type(device))
+        devices = default_devices(_device_type(device), precision=precision)
     else:
         devices = visible_devices(_device_type(device))
         n = int(np.prod(mesh_shape))
@@ -634,9 +739,10 @@ def make_mesh(mesh_shape: tuple[int, ...] | None = None,
 
 
 def make_edge_mesh(mesh_shape: tuple[int, ...] | None = None, *,
-                   device=None) -> Mesh:
+                   device=None, precision: str = "f32") -> Mesh:
     """1-D mesh over an ``"edges"`` axis (edge-sharded kernels)."""
-    return make_mesh(mesh_shape, axis_name="edges", device=device)
+    return make_mesh(mesh_shape, axis_name="edges", device=device,
+                     precision=precision)
 
 
 def make_mesh_2d(mesh_shape: tuple[int, int], *, device=None) -> Mesh:
@@ -718,11 +824,21 @@ def in_edge_layout(src, dst, w, num_nodes: int):
 
 class _Placer:
     """Copies of the caller's tensors on each rank device, made once per
-    device for a whole run (ranks that share a device share the copy)."""
+    device for a whole run (ranks that share a device share the copy).
+    Given a mesh, the copies of ``objs`` (by key) are made at once, in the
+    caller's thread, before the run: no rank thread copies between cards,
+    so none copies from a card whose peers already wait in a collective
+    (on four H100s a rank that copied the in-edge CSC from the caller's
+    card while the other ranks waited in an NCCL all-gather never
+    returned from the copy)."""
 
-    def __init__(self):
+    def __init__(self, mesh: Mesh | None = None, **objs):
         self._lock = threading.Lock()
         self._memo: dict = {}
+        if mesh is not None:
+            for r in mesh.local_ranks:
+                for key, obj in objs.items():
+                    self(obj, mesh.devices[r], key)
 
     def __call__(self, obj, dev: torch.device, key: str):
         return self.made(key, dev, lambda: _to(obj, dev))
@@ -831,12 +947,15 @@ def edge_sharded_bellman_ford(
         dst = torch.cat([dst, dst.new_zeros(pad)])
         w = torch.cat([w, w.new_full((pad,), float("inf"))])
     per = (e + pad) // n
-    place = _Placer()
+    place = _Placer(mesh, dist0=dist0)
+    # Each rank's edge slice on its device, copied before the run (see
+    # _Placer).
+    slices = {r: tuple(x[r * per:(r + 1) * per].to(mesh.devices[r])
+                       for x in (src, dst, w)) for r in mesh.local_ranks}
 
     def body(comm):
-        r, dev = comm.rank, comm.device
-        lo, hi = r * per, (r + 1) * per
-        s, t, wt = (x[lo:hi].to(dev) for x in (src, dst, w))
+        dev = comm.device
+        s, t, wt = slices[comm.rank]
         d = place(dist0, dev, "dist0").clone()
         improving = bool(torch.isfinite(d).any())
         i = 0
@@ -888,7 +1007,7 @@ def sharded_gs_fanout(
     b = srcs.shape[0]
     srcs, pad = _pad_sources(srcs, n)
     per = (b + pad) // n
-    place = _Placer()
+    place = _Placer(mesh, gs=(src_blk, dstl_blk, w_blk, rank))
 
     def body(comm):
         dev = comm.device
@@ -943,7 +1062,7 @@ def sharded_dia_fanout(
     srcs, pad = _pad_sources(srcs, n)
     per = (b + pad) // n
     offsets = tuple(offsets)
-    place = _Placer()
+    place = _Placer(mesh, w_diag=w_diag)
 
     def body(comm):
         dev = comm.device
@@ -1001,14 +1120,26 @@ def sharded_tight_pred(
     per = (b + pad) // ns
     if in_edges is None:
         in_edges = in_edge_layout(src, dst, w, num_nodes)
-    place = _Placer()
+    place = _Placer(mesh, in_edges=in_edges)
+
+    def extracts(r):
+        return not (mesh.coords(r).get("edges", 0)
+                    and "sources" in mesh.axis_names)
+
+    # Each extracting rank's rows on its device, copied before the run
+    # (see _Placer).
+    rows_of = {}
+    for r in mesh.local_ranks:
+        if extracts(r):
+            g = mesh.coords(r).get("sources", r)
+            rows_of[r] = dist[g * per:(g + 1) * per].to(mesh.devices[r])
 
     def body(comm):
         g = comm.coords.get("sources", comm.rank)
-        if comm.coords.get("edges", 0) and "sources" in comm.mesh.axis_names:
+        if not extracts(comm.rank):
             return None, comm.gather_ints([1])
         dev = comm.device
-        rows = dist[g * per:(g + 1) * per].to(dev)
+        rows = rows_of[comm.rank]
         mine = torch.as_tensor(srcs[g * per:(g + 1) * per], device=dev)
         ip, s_in, w_in, items = place(in_edges, dev, "in_edges")
         hubs = place.made("hubs", dev, lambda: rank_hub_flags(
@@ -1073,12 +1204,19 @@ def sharded_fanout_2d(
         w = torch.cat([w, w.new_full((epad,), float("inf"))])
     eper = (e + epad) // ne
     vm = layout == "vertex_major"
+    # Each rank's edge slice on its device, copied before the run (see
+    # _Placer).
+    slices = {}
+    for r in mesh.local_ranks:
+        k = mesh.coords(r)["edges"]
+        slices[r] = tuple(x[k * eper:(k + 1) * eper].to(mesh.devices[r])
+                          for x in (src, dst, w))
 
     def body(comm):
         g, k = comm.coords["sources"], comm.coords["edges"]
         dev = comm.device
         mine = torch.as_tensor(srcs[g * per:(g + 1) * per], device=dev)
-        s, t, wt = (x[k * eper:(k + 1) * eper].to(dev) for x in (src, dst, w))
+        s, t, wt = slices[comm.rank]
         if vm:
             lay = build_in_edge_layout(s, t, num_nodes)
             ip, s_in = lay["indptr_in"], lay["src_in"]
@@ -1177,7 +1315,8 @@ def sharded_fanout(
     vm = layout == "vertex_major" and not with_pred
     if vm and in_edges is None:
         in_edges = in_edge_layout(src, dst, w, num_nodes)
-    place = _Placer()
+    place = (_Placer(mesh, in_edges=in_edges) if vm
+             else _Placer(mesh, coo=(src, dst, w)))
 
     def body(comm):
         dev = comm.device

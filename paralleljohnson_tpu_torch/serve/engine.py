@@ -1126,7 +1126,8 @@ class QueryEngine:
         self._stats_thread.start()
 
     def close(self) -> None:
-        """Stop the periodic writer and persist the final serving
+        """Stop the periodic writer, release the solver's mesh groups
+        (``ParallelJohnsonSolver.close``), and persist the final serving
         counters next to the store's batches (atomic) so ``pjtpu info
         --serve-store`` / ``pjtpu top`` can report capacity, landmark
         count, and hit rates after the loop exits. Does NOT close the
@@ -1145,6 +1146,7 @@ class QueryEngine:
         if t is not None:
             t.join(timeout=max(1.0, 2 * self.stats_interval_s))
             self._stats_thread = None
+        self.solver.close()  # the misses' mesh groups, if any
         if self.store.ckpt is None:
             return
         try:

@@ -16,11 +16,36 @@ launch counts by path; exits 1 if the phase failed.
 (``chip_smoke.mesh_processes``) with N processes in place of two: a
 process per card where there are N cards, so NCCL; gloo where they
 share. Its rows are held bitwise to a single-card solve.
+
+``--cards`` (two cards or more, e.g. four) drives and times
+the default mesh over every card (``mesh_shape=None``, NCCL, a rank per
+card) against one card (``mesh_shape=(1,)``) in the same process, each
+row held bitwise to the one card's: R-MAT-20 over phase 3's 512 sources
+at f32, without and with trees (the wall, the solve's phase seconds, the
+collectives, and a split of the fan-out into each rank's copy of the
+in-edge CSC, its fixpoint, and the assembly on the caller's card); the
+negative R-MAT-20's phase 1 (``edge-sharded`` against one card's route);
+``sharded-2d+pred`` on a 2 x 2 mesh; an in-process fleet and a
+two-worker local fleet under the default config; a serving miss; an
+incremental repair. Prints the NCCL version and ``nvidia-smi topo -m``,
+and one JSON line per measurement; exits 1 if a check fails. (At f64
+the default mesh is one card: f64 on several cards is an open fault.)
+
+``--first-use`` (two cards or more) times what a caller pays whose solve
+builds the default mesh afresh, against ``mesh_shape=(1,)``, in turns
+(one card, then every card, ``--repeats`` times): a command-line solve
+(``python -m paralleljohnson_tpu_torch solve``, the process's wall from
+start to exit), a fresh solver's solve of a small graph (R-MAT-12, 64
+sources: upload, mesh, NCCL connections and the groups' shutdown
+included), and a fresh serving engine's first miss on the same graph;
+each row bitwise one card's.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import subprocess
 import sys
 import time
@@ -36,6 +61,9 @@ import chip_smoke  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--processes", type=int, default=None)
+    ap.add_argument("--cards", action="store_true")
+    ap.add_argument("--first-use", action="store_true")
+    ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
 
     import numpy as np
@@ -59,6 +87,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.build_all()
     chip_smoke.emit({"build_s": time.perf_counter() - t0})
+    if args.cards or args.first_use:
+        try:
+            (every_card if args.cards else first_use)(dev, args.repeats)
+        except Exception:  # noqa: BLE001 — report and exit non-zero
+            traceback.print_exc()
+            return 1
+        return 0
     if args.processes:
         try:
             chip_smoke.emit(chip_smoke.mesh_processes(args.processes, dev))
@@ -86,6 +121,446 @@ def main() -> int:
         return 1
     chip_smoke.emit({"launches_by_path": launches, "power_limit": smi})
     return 0
+
+
+NEG_SEED = 5  # the negative R-MAT-20's potentials
+FIRST_SPEC = "rmat:scale=12,ef=8,seed=4"  # --first-use's small graph
+FIRST_SOURCES = 64
+FLEET_SOURCES = 256
+FLEET_LEASE = 64
+MISS_SOURCES = 8
+
+
+def _negative(g, seed=NEG_SEED):
+    """``g``'s weights x8 rounded, plus a random integer potential
+    difference p(u) - p(v): negative weights, no negative cycle (a
+    cycle's sum is unchanged), integer sums on every route."""
+    import numpy as np
+
+    p = np.random.default_rng(seed).integers(0, 24, g.num_nodes)
+    w = np.round(g.weights * 8) + p[g.src] - p[g.indices]
+    return g.with_weights(w.astype(np.float32))
+
+
+class _Split:
+    """Wraps the mesh module's placement, fixpoint and assembly with a
+    synchronize after each, timing them by thread (the placement runs in
+    the caller's thread before the ranks start, the fixpoints in the rank
+    threads): what a split run spends where (the syncs cost the run its
+    overlap, so the wall is taken from runs without it)."""
+
+    def __init__(self, mesh_mod):
+        import threading
+
+        import torch
+
+        self.mod, self.torch = mesh_mod, torch
+        self.lock = threading.Lock()
+        self.seconds: dict = {}
+        self.saved = {}
+
+    def _add(self, key, secs):
+        import threading
+
+        name = threading.current_thread().name
+        with self.lock:
+            per = self.seconds.setdefault(key, {})
+            per[name] = per.get(name, 0.0) + secs
+
+    def _wrap(self, fn, key, dev_of):
+        torch = self.torch
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize(dev_of(args, kw, out))
+            self._add(key, time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __enter__(self):
+        mod = self.mod
+        self.saved = {"place": mod._Placer.__call__,
+                      "fixpoint": mod.fanout_fixpoint,
+                      "assemble": mod._assemble}
+        place = self._wrap(self.saved["place"], "copy_to_rank_s",
+                           lambda a, kw, out: a[2])
+        mod._Placer.__call__ = lambda slf, obj, dev, key: place(
+            slf, obj, dev, key)
+        mod.fanout_fixpoint = self._wrap(
+            self.saved["fixpoint"], "fixpoint_s",
+            lambda a, kw, out: out[0].device)
+        mod._assemble = self._wrap(self.saved["assemble"], "assembly_s",
+                                   lambda a, kw, out: a[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._Placer.__call__ = self.saved["place"]
+        self.mod.fanout_fixpoint = self.saved["fixpoint"]
+        self.mod._assemble = self.saved["assemble"]
+
+
+def every_card(dev, repeats: int) -> None:
+    """``--cards``: see the module docstring. Raises on a failed check."""
+    import shutil
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch import distributed
+    from paralleljohnson_tpu_torch.distributed.launch import (
+        run_in_process_fleet,
+    )
+    from paralleljohnson_tpu_torch.graphs import grid2d
+    from paralleljohnson_tpu_torch.incremental import (
+        IncrementalState, repair_checkpoint,
+    )
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+    from paralleljohnson_tpu_torch.serve import QueryEngine, TileStore
+    from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+    from paralleljohnson_tpu_torch.utils.checkpoint import (
+        BatchCheckpointer, graph_digest,
+    )
+    from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"--cards needs two cards or more; {cards} "
+                             "visible")
+    os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60).stdout
+    chip_smoke.emit({"cards": cards, "nccl": ".".join(
+        map(str, torch.cuda.nccl.version())), "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "topo": [ln.rstrip() for ln in topo.splitlines() if ln.strip()]})
+    sync = chip_smoke.sync_time
+
+    def one(**kw):
+        return chip_smoke.solver_on(dev, **kw)
+
+    def every(**kw):
+        return pjt.ParallelJohnsonSolver(pjt.SolverConfig(**kw), device=dev)
+
+    def walls(solver, *args, **kw):
+        """(the last result, host seconds of each of ``repeats`` solves
+        after a warm-up, the last solve's phase seconds)."""
+        solver.solve(*args, **kw)
+        secs = []
+        for _ in range(repeats):
+            res, s = sync(lambda: solver.solve(*args, **kw))
+            secs.append(s)
+        return res, secs, dict(res.stats.phase_seconds)
+
+    def same(got, want, label):
+        if not np.array_equal(got, want):
+            bad = np.argwhere(got != want)[:4].tolist()
+            raise AssertionError(f"{label}: rows differ from one card's at "
+                                 f"{bad}")
+
+    rmat = pjt.load_graph(chip_smoke.RMAT_SPEC)
+    sources = np.sort(np.random.default_rng(1).choice(
+        rmat.num_nodes, 512, replace=False))
+    # -- R-MAT-20, 512 sources: f32 without and with trees --------------------
+    for label, kw, trees in (("f32", {}, False), ("f32_trees", {}, True)):
+        with one(**kw) as s1:
+            r1, w1, p1 = walls(s1, rmat, sources, predecessors=trees)
+        want, want_pred = to_numpy(r1.dist), None
+        if trees:
+            want_pred = to_numpy(r1.predecessors)
+        route1 = dict(r1.stats.routes_by_phase)
+        del r1
+        with every(**kw) as sn:
+            rn, wn, pn = walls(sn, rmat, sources, predecessors=trees)
+            mesh = sn.backend._mesh()
+            coll = mesh.collective_s
+            with _Split(mesh_mod) as split:
+                c0 = mesh.collective_s
+                _, split_s = sync(lambda: sn.solve(rmat, sources,
+                                                   predecessors=trees))
+                split_coll = mesh.collective_s - c0
+            describe, backends = mesh.describe(), mesh.backends()
+        routes = dict(rn.stats.routes_by_phase)
+        want_route = "sharded-1d+pred" if trees else "sharded-1d"
+        if mesh.size != cards or backends != ["nccl"] or routes != {
+                "fanout": want_route}:
+            raise AssertionError(f"{label}: {describe} {backends} {routes}")
+        same(to_numpy(rn.dist), want, f"R-MAT-20 {label}")
+        extra = {}
+        if trees:
+            pred = to_numpy(rn.predecessors)
+            extra["pred_bitwise_one_card"] = bool(np.array_equal(pred,
+                                                                 want_pred))
+            check = np.arange(0, len(sources), 37)
+            validate_pred_tree(rmat, to_numpy(rn.dist)[check], pred[check],
+                               sources[check])
+            extra["trees_checked"] = len(check)
+        chip_smoke.emit({
+            "path": f"rmat20_{label}", "sources": len(sources),
+            "one_card": {"route": route1, "wall_s": w1, "phases": p1},
+            "every_card": {"route": routes, "mesh": describe, "wall_s": wn,
+                           "phases": pn,
+                           "collective_s_per_solve": coll / (repeats + 1)},
+            "split_run": {"wall_s": split_s, "collective_s": split_coll,
+                          **split.seconds},
+            "rows_bitwise_one_card": True, **extra})
+        del rn, want, want_pred
+        torch.cuda.empty_cache()
+    # -- the negative R-MAT-20: phase 1 ---------------------------------------
+    neg = _negative(rmat)
+    src64 = sources[:64]
+    with one() as s1:
+        r1, w1, p1 = walls(s1, neg, src64)
+    with every() as sn:
+        rn, wn, pn = walls(sn, neg, src64)
+        emesh = sn.backend._edge_mesh()
+        ecoll = emesh.collective_s / (repeats + 1)
+    if rn.stats.routes_by_phase.get("bellman_ford") != "edge-sharded":
+        raise AssertionError(f"negative R-MAT-20: {rn.stats.routes_by_phase}")
+    same(to_numpy(rn.dist), to_numpy(r1.dist), "negative R-MAT-20")
+    same(to_numpy(rn.potentials), to_numpy(r1.potentials),
+         "negative R-MAT-20 potentials")
+    chip_smoke.emit({
+        "path": "rmat20_negative_phase1", "sources": len(src64),
+        "one_card": {"routes": dict(r1.stats.routes_by_phase),
+                     "iterations": dict(r1.stats.iterations_by_phase),
+                     "wall_s": w1, "phases": p1},
+        "every_card": {"routes": dict(rn.stats.routes_by_phase),
+                       "iterations": dict(rn.stats.iterations_by_phase),
+                       "wall_s": wn, "phases": pn,
+                       "edge_mesh": emesh.describe(),
+                       "phase1_collective_s": ecoll},
+        "rows_bitwise_one_card": True})
+    del neg, r1, rn
+    # -- sharded-2d+pred on a 2 x 2 mesh --------------------------------------
+    if cards >= 4:
+        with one() as s1:
+            r1, w1, p1 = walls(s1, rmat, src64, predecessors=True)
+        with every(mesh_shape=(2, 2)) as sn:
+            rn, wn, pn = walls(sn, rmat, src64, predecessors=True)
+            m2 = sn.backend._mesh()
+            coll2 = m2.collective_s / (repeats + 1)
+            d2 = m2.describe()
+        if rn.stats.routes_by_phase != {"fanout": "sharded-2d+pred"}:
+            raise AssertionError(f"2-D: {rn.stats.routes_by_phase}")
+        same(to_numpy(rn.dist), to_numpy(r1.dist), "2-D R-MAT-20")
+        validate_pred_tree(rmat, to_numpy(rn.dist), to_numpy(rn.predecessors),
+                           src64)
+        chip_smoke.emit({
+            "path": "rmat20_sharded_2d_pred", "sources": len(src64),
+            "one_card": {"routes": dict(r1.stats.routes_by_phase),
+                         "wall_s": w1, "phases": p1},
+            "every_card": {"routes": dict(rn.stats.routes_by_phase),
+                           "mesh": d2, "wall_s": wn, "phases": pn,
+                           "collective_s_per_solve": coll2},
+            "rows_bitwise_one_card": True, "trees_valid": True})
+        del r1, rn
+    torch.cuda.empty_cache()
+    # -- the fleet under the default config ----------------------------------
+    grid = pjt.load_graph(chip_smoke.GRID_SPEC)
+    fsrc = np.arange(FLEET_SOURCES)
+    with one() as s1:
+        want = s1.solve(grid, fsrc).matrix
+    root = Path(tempfile.mkdtemp(prefix="pj-cards-"))
+    try:
+        out = {}
+        for label, workers in (("in_process", 2), ("local_fleet", 2)):
+            coord = distributed.plan_fleet(
+                root / label, chip_smoke.GRID_SPEC, n_workers=workers,
+                num_sources=FLEET_SOURCES, lease_sources=FLEET_LEASE)
+            if label == "in_process":
+                report, secs = sync(lambda: run_in_process_fleet(
+                    coord, workers, device=dev))
+            else:
+                report, secs = sync(lambda: distributed.launch_local_fleet(
+                    coord, workers, poll_s=0.25, timeout_s=300, device=dev))
+            if not report.ok or set(report.worker_rcs.values()) != {0}:
+                raise AssertionError(f"{label}: {report.as_dict()}")
+            rows = distributed.fleet_rows(coord.dir)
+            for s in fsrc:
+                same(rows[int(s)], want[s], f"{label} source {s}")
+            devices = sorted({json.loads(coord.worker_summary_path(
+                w).read_text()).get("device", "?") for w in report.worker_rcs})
+            out[label] = {"wall_s": secs, "workers": workers,
+                          "leases": report.leases_total,
+                          "worker_devices": devices}
+        chip_smoke.emit({"path": "fleet_default_config",
+                         "spec": chip_smoke.GRID_SPEC,
+                         "sources": FLEET_SOURCES, **out,
+                         "rows_bitwise_one_card": True})
+        # -- a serving miss ----------------------------------------------------
+        miss = grid.num_nodes // 2 + np.arange(MISS_SOURCES)
+        with one() as s1:
+            want = s1.solve(grid, miss).matrix
+        engine = QueryEngine(grid, TileStore(None, grid), stats_interval_s=0,
+                             device=dev)
+        try:
+            first, first_s = sync(lambda: engine.query(int(miss[0])))
+            batch, batch_s = sync(lambda: engine.query_batch(
+                [{"source": int(s)} for s in miss[1:]]))
+            mesh = engine.solver.backend._mesh()
+            describe = mesh.describe()
+        finally:
+            engine.close()
+        same(np.asarray(first["distances"], np.float32), want[0],
+             "serving miss")
+        for i, ans in enumerate(batch, start=1):
+            same(np.asarray(ans["distances"], np.float32), want[i],
+                 f"serving miss {i}")
+        chip_smoke.emit({"path": "serve_miss", "spec": chip_smoke.GRID_SPEC,
+                         "mesh": describe, "one_miss_s": first_s,
+                         "batch_of_misses": len(miss) - 1,
+                         "batch_s": batch_s, "rows_bitwise_one_card": True})
+        # -- an incremental repair ---------------------------------------------
+        g = grid2d(chip_smoke.REPAIR_SIDE, chip_smoke.REPAIR_SIDE, seed=17)
+        g = g.with_weights(np.maximum(1.0, np.rint(g.weights)).astype(
+            np.float32))
+        ck = root / "repair"
+        cfg = pjt.SolverConfig(checkpoint_dir=str(ck))
+        with pjt.ParallelJohnsonSolver(cfg, device=dev) as s:
+            _, solve_s = sync(lambda: s.solve(g))
+
+        def attach():
+            st = IncrementalState.build(g, config=cfg, device=dev)
+            st.save(BatchCheckpointer(ck, graph_key=graph_digest(g)).dir)
+            return st
+
+        state, attach_s = sync(attach)
+        target = int(np.bincount(state.labels).argmax())
+        e = g.num_real_edges
+        within = np.flatnonzero((state.labels[g.src[:e]] == target)
+                                & (state.labels[g.indices[:e]] == target))
+        idx = np.random.default_rng(5).choice(
+            within, size=min(chip_smoke.REPAIR_K, within.size),
+            replace=False)
+        updates = [(int(g.src[i]), int(g.indices[i]),
+                    1.0 if j % 2 == 0 else float(g.weights[i]) + 3.0)
+                   for j, i in enumerate(idx)]
+        new_g, _ = g.apply_edge_updates(updates)
+        with one() as s1:
+            want = s1.solve(new_g).matrix
+        result, repair_s = sync(lambda: repair_checkpoint(
+            ck, g, updates, config=cfg, state=state, device=dev))
+        ckp = BatchCheckpointer(ck, graph_key=graph_digest(new_g))
+        man = ckp.manifest()
+        for fn in sorted({f for _b, f in man.values()}):
+            srcs = ckp.batch_sources(fn)
+            loaded = ckp.load(int(man[int(srcs[0])][0]), srcs)
+            same(loaded[0], want[srcs], f"repaired batch {fn}")
+        chip_smoke.emit({"path": "repair_default_config",
+                         "V": g.num_nodes, "k_updates": len(updates),
+                         "solve_s": solve_s, "attach_s": attach_s,
+                         "repair_s": repair_s,
+                         "closures_s": result.closures_s,
+                         "parts_closed": result.dirty_parts_closed,
+                         "rows_bitwise_one_card": True})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def first_use(dev, repeats: int) -> None:
+    """``--first-use``: see the module docstring. Raises on a failed
+    check."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import paralleljohnson_tpu_torch as pjt
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+    from paralleljohnson_tpu_torch.serve import QueryEngine, TileStore
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"--first-use needs two cards or more; {cards} "
+                             "visible")
+    os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
+    shapes = {"one_card": (1,), "every_card": None}
+    sync = chip_smoke.sync_time
+
+    def same(got, want, label):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: rows differ from one card's")
+
+    root = Path(tempfile.mkdtemp(prefix="pj-first-use-"))
+    try:
+        # -- a command-line solve, start to exit ------------------------------
+        walls = {k: [] for k in shapes}
+        routes, rows = {}, {}
+        for _ in range(repeats):
+            for label, shape in shapes.items():
+                out = root / f"{label}.npz"
+                cmd = [sys.executable, "-m", "paralleljohnson_tpu_torch",
+                       "solve", FIRST_SPEC, "--num-sources",
+                       str(FIRST_SOURCES), "--output", str(out), "--json"]
+                if shape is not None:
+                    cmd += ["--mesh-shape", "1"]
+                t0 = time.perf_counter()
+                proc = subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=300, cwd=ROOT)
+                walls[label].append(time.perf_counter() - t0)
+                if proc.returncode != 0:
+                    raise AssertionError(f"CLI {label}: rc {proc.returncode}"
+                                         f": {proc.stderr[-2000:]}")
+                routes[label] = json.loads(
+                    proc.stdout.strip().splitlines()[-1])["routes_by_phase"]
+                rows[label] = np.load(out)["dist"]
+        same(rows["every_card"], rows["one_card"], "CLI")
+        if routes["every_card"].get("fanout") != "sharded-1d":
+            raise AssertionError(f"CLI default: {routes}")
+        chip_smoke.emit({"path": "first_use_cli", "spec": FIRST_SPEC,
+                         "sources": FIRST_SOURCES, "routes": routes,
+                         "process_wall_s": walls,
+                         "rows_bitwise_one_card": True})
+        # -- a fresh solver on a small graph ----------------------------------
+        g = pjt.load_graph(FIRST_SPEC)
+        src = np.arange(FIRST_SOURCES)
+        secs = {k: [] for k in shapes}
+        rows, meshes = {}, {}
+        for _ in range(repeats):
+            for label, shape in shapes.items():
+                def solve():
+                    with pjt.ParallelJohnsonSolver(
+                            pjt.SolverConfig(mesh_shape=shape),
+                            device=dev) as solver:
+                        res = solver.solve(g, src)
+                        return res, solver.backend._mesh().describe()
+                (res, meshes[label]), t = sync(solve)
+                secs[label].append(t)
+                rows[label] = res.matrix
+        same(rows["every_card"], rows["one_card"], "small graph")
+        chip_smoke.emit({"path": "first_use_small_graph", "spec": FIRST_SPEC,
+                         "sources": FIRST_SOURCES, "mesh": meshes,
+                         "fresh_solver_s": secs,
+                         "rows_bitwise_one_card": True})
+        # -- a fresh engine's first serving miss ------------------------------
+        miss = g.num_nodes // 2
+        secs = {k: [] for k in shapes}
+        rows = {}
+        for _ in range(repeats):
+            for label, shape in shapes.items():
+                engine = QueryEngine(
+                    g, TileStore(None, g), stats_interval_s=0,
+                    config=pjt.SolverConfig(mesh_shape=shape), device=dev)
+                try:
+                    ans, t = sync(lambda: engine.query(miss))
+                    meshes[label] = engine.solver.backend._mesh().describe()
+                finally:
+                    engine.close()
+                secs[label].append(t)
+                rows[label] = np.asarray(ans["distances"], np.float32)
+        same(rows["every_card"], rows["one_card"], "serving miss")
+        chip_smoke.emit({"path": "first_use_serve_miss",
+                         "spec": FIRST_SPEC, "mesh": meshes,
+                         "first_miss_s": secs,
+                         "rows_bitwise_one_card": True})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -40,9 +40,13 @@ from paralleljohnson_tpu_torch.utils.resilience import is_oom_error
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
+    """The card, as one mesh rank whatever the host has (a default config
+    takes every card: the single-card tests hold one card's routes; the
+    mesh tests set their own ranks)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the hand kernels run only on the card")
+    monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0")
     return torch.device("cuda")
 
 
@@ -2113,3 +2117,209 @@ def test_mesh_f64_nccl_on_distinct_cards(cuda, monkeypatch):
         assert got.stats.routes_by_phase["fanout"] == "sharded-1d"
         np.testing.assert_array_equal(got.matrix, want.matrix)
     assert budgets and set(budgets) == {fs.HUB_L2_BYTES}
+
+
+# -- the default mesh over every card (NCCL) ---------------------------------
+
+
+@pytest.fixture
+def every_card(cuda, monkeypatch):
+    """Every visible card as the default mesh (``PJ_MESH_DEVICES`` unset),
+    every collective bounded by 120 s; skips below two cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"the default mesh over every card needs two cards; "
+                    f"{n} visible")
+    monkeypatch.delenv("PJ_MESH_DEVICES", raising=False)
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 120.0)
+    return n
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+@pytest.mark.parametrize("spec,pred,routes", [
+    (F64_RMAT, False, {"fanout": "sharded-1d"}),
+    (F64_RMAT, True, {"fanout": "sharded-1d+pred"}),
+    (F64_GRID, True, {"bellman_ford": "frontier",
+                      "fanout": "sharded-1d+pred"}),
+])
+def test_every_card_default_config(cuda, every_card, precision, spec, pred,
+                                    routes):
+    """A default config at f32 takes every card (a rank per card, NCCL
+    groups), at f64 one card (f64 on several cards is an open fault): the
+    rows bitwise ``mesh_shape=(1,)``'s for the same sources, with and
+    without trees (trees valid); phase 1 on the grid keeps the frontier
+    route, as the reference's gate does; the hand sweep launched; ``with``
+    releases the default mesh's groups."""
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+
+    g = pjt.load_graph(spec)
+    sources = np.arange(0, g.num_nodes, 37)[:96]
+    want = pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(precision=precision, mesh_shape=(1,)),
+        device=cuda).solve(g, sources, predecessors=pred)
+    before = _counts()["fanout_sweep"]
+    with pjt.ParallelJohnsonSolver(pjt.SolverConfig(precision=precision),
+                                   device=cuda) as solver:
+        got = solver.solve(g, sources, predecessors=pred)
+        mesh = solver.backend._mesh()
+        if precision == "f64":
+            assert mesh.devices == (torch.device("cuda", 0),)
+            routes = dict(want.stats.routes_by_phase)
+        else:
+            assert mesh.size == every_card and mesh.backends() == ["nccl"]
+            assert mesh._pgs and mesh in mesh_mod._open_meshes
+    assert not mesh._pgs and mesh not in mesh_mod._open_meshes
+    assert got.stats.routes_by_phase == routes
+    assert _counts()["fanout_sweep"] > before
+    np.testing.assert_array_equal(got.matrix, want.matrix)
+    if pred:
+        validate_pred_tree(g, got.matrix, johnson.to_numpy(got.predecessors),
+                           sources)
+
+
+def test_every_card_build_solve_close_loop(cuda, every_card):
+    """Build, solve and close 20 NCCL meshes in one process (the default
+    mesh, ``mesh_shape=(n,)``, a 2-D mesh where four cards allow it, and
+    ``sharded_fanout(replicate=True)`` on a mesh made directly): every
+    result bitwise one card's, no group left open."""
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+    from paralleljohnson_tpu_torch.parallel import make_mesh, sharded_fanout
+
+    g = pjt.load_graph(F64_RMAT)
+    sources = np.arange(0, g.num_nodes, 61)[:40]
+    want = pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=(1,)),
+                                     device=cuda).solve(g, sources).matrix
+    dg = pjt.get_backend("torch", pjt.SolverConfig(), device=cuda).upload(g)
+    (ip, s_in, w_in), items = dg.fanout_layout()
+    shapes = [None, (every_card,)] + ([(2, 2)] if every_card >= 4 else [])
+    for i in range(20):
+        if i % 4 == 3:
+            mesh = make_mesh(device=cuda)
+            dist, _, _ = sharded_fanout(
+                mesh, sources, dg.src, dg.dst, dg.weights,
+                num_nodes=g.num_nodes, max_iter=g.num_nodes,
+                layout="vertex_major", replicate=True,
+                in_edges=(ip, s_in, w_in, items))
+            mesh.close()
+            np.testing.assert_array_equal(dist.cpu().numpy(), want)
+            assert len(dist.replicas) == every_card
+            continue
+        shape = shapes[i % len(shapes)]
+        with pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=shape),
+                                       device=cuda) as solver:
+            got = solver.solve(g, sources)
+        np.testing.assert_array_equal(got.matrix, want)
+    assert not any(m._pgs for m in mesh_mod._open_meshes)
+
+
+@pytest.mark.parametrize("fail_at", [0, 1])
+def test_every_card_rank_failure(cuda, every_card, fail_at):
+    """A rank that raises before its first collective or between two, on
+    NCCL groups: the other ranks are released (the failing rank posts
+    their collectives with dummy contributions on its own card), the
+    error reaches the caller, the groups are aborted, and the next run on
+    the same mesh builds fresh ones and gives one card's rows; three
+    times over."""
+    from paralleljohnson_tpu_torch.parallel import make_mesh, sharded_fanout
+
+    g = pjt.load_graph(F64_RMAT)
+    sources = np.arange(0, g.num_nodes, 61)[:40]
+    want = pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=(1,)),
+                                     device=cuda).solve(g, sources).matrix
+    dg = pjt.get_backend("torch", pjt.SolverConfig(), device=cuda).upload(g)
+    (ip, s_in, w_in), items = dg.fanout_layout()
+    mesh = make_mesh(device=cuda)
+
+    def body(comm):
+        x = torch.ones(4, device=comm.device)
+        for step in range(2):
+            if comm.rank == 1 and step == fail_at:
+                raise KeyError("rank 1")
+            comm.all_reduce_min_(x)
+        return x
+
+    for _ in range(3):
+        with pytest.raises(KeyError, match="rank 1"):
+            mesh.run(body)
+        assert not mesh._pgs
+        dist, _, _ = sharded_fanout(
+            mesh, sources, dg.src, dg.dst, dg.weights, num_nodes=g.num_nodes,
+            max_iter=g.num_nodes, layout="vertex_major",
+            in_edges=(ip, s_in, w_in, items))
+        np.testing.assert_array_equal(dist.cpu().numpy(), want)
+    mesh.close()
+
+
+def test_every_card_rank_timeout(cuda, every_card, monkeypatch):
+    """A rank that never posts its collective on NCCL groups: past the
+    run's limit the caller gets ``TimeoutError`` (the groups' watchdog,
+    whose own timeout is longer, never takes the process down), the
+    groups are aborted, which releases the ranks waiting in the
+    collective, and a fresh run on the same mesh works."""
+    import threading
+
+    from paralleljohnson_tpu_torch.parallel import make_mesh
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setattr(mesh_mod, "DEFAULT_TIMEOUT_S", 4.0)
+    monkeypatch.setattr(mesh_mod, "JOIN_GRACE_S", 4.0)
+    mesh = make_mesh(device=cuda)
+    release = threading.Event()
+
+    def body(comm):
+        x = torch.full((8,), float(comm.rank), device=comm.device)
+        if comm.rank == 1:
+            release.wait(60)
+            return x
+        comm.all_reduce_min_(x)
+        return float(x.min())  # waits on the card for the collective
+
+    try:
+        with pytest.raises(TimeoutError, match="still running"):
+            mesh.run(body)
+        assert not mesh._pgs
+    finally:
+        release.set()
+
+    def again(comm):
+        x = torch.full((8,), float(comm.rank), device=comm.device)
+        comm.all_reduce_min_(x)
+        return float(x.max())
+
+    assert mesh.run(again) == [0.0] * every_card
+    mesh.close()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_every_card_runs_each_kernel(cuda, every_card, dtype):
+    """Each hand kernel launched on every card of one process, card 0
+    first, bitwise its plain version: a kernel attribute (the min-plus
+    tiles' shared memory above 48 KB, the Kleene cluster's non-portable
+    size) belongs to one card's context and is set once per card, not
+    once per process."""
+    from paralleljohnson_tpu_torch.ops import fw
+
+    rng = np.random.default_rng(5)
+    d, a = _operands(rng, 1024, 1024, 1024)
+    d, a = torch.as_tensor(d).to(dtype), torch.as_tensor(a).to(dtype)
+    m = torch.as_tensor(fw_tile_matrix(512, 512)).to(dtype)
+    g = pjt.load_graph(F64_RMAT)
+    sources = np.arange(0, g.num_nodes, 97)[:32]
+    want_mp, want_kl = minplus_plain(d, a), fw.tile_kleene(m)
+    want = None
+    for i in range(every_card):
+        card = torch.device("cuda", i)
+        assert torch.equal(minplus_kernel(d.to(card), a.to(card)).cpu(),
+                           want_mp)
+        assert torch.equal(fw.fw_kleene(m.to(card)).cpu(), want_kl)
+        with pjt.ParallelJohnsonSolver(pjt.SolverConfig(
+                mesh_shape=(1,), precision="f64" if dtype == torch.float64
+                else "f32"), device=card) as solver:
+            got = solver.solve(g, sources, predecessors=True)
+        assert got.stats.routes_by_phase["fanout"] == "pallas-vm+pred"
+        validate_pred_tree(g, got.matrix, johnson.to_numpy(got.predecessors),
+                           sources)
+        if want is None:
+            want = got.matrix
+        np.testing.assert_array_equal(got.matrix, want)

@@ -527,3 +527,22 @@ def test_subprocess_fleet_kill_requeues_and_completes(tmp_path):
     assert sorted(rows) == list(range(g.num_nodes))
     for s, row in rows.items():
         assert np.array_equal(row, mat[s]), s
+
+
+@pytest.mark.parametrize("device,rank", [("cuda", "cuda:0"),
+                                         ("cuda:2", "cuda:2"),
+                                         ("cpu", "cpu")])
+def test_local_workers_are_one_rank_each(monkeypatch, device, rank):
+    """A local fleet's workers each take one mesh rank on their device,
+    whatever rank list the launcher's own environment holds (the JAX
+    package's launcher puts each local worker on one CPU device), so N
+    workers never each build groups over every card of the host."""
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setenv("PJ_MESH_DEVICES", "cpu*8")
+    env = launch._worker_env({"PJ_MESH_DEVICES": "cuda:0*4"}, device)
+    assert env["PJ_MESH_DEVICES"] == rank
+    monkeypatch.setenv("PJ_MESH_DEVICES", env["PJ_MESH_DEVICES"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert mesh_mod.default_devices(torch.device(device).type) == [
+        torch.device(rank)]

@@ -19,10 +19,11 @@ torch = pytest.importorskip("torch")
 
 from paralleljohnson_tpu import ParallelJohnsonSolver as RefSolver
 from paralleljohnson_tpu import SolverConfig as RefConfig
-from paralleljohnson_tpu.graphs import erdos_renyi, random_dag
+from paralleljohnson_tpu.graphs import erdos_renyi, grid2d, random_dag, rmat
 from paralleljohnson_tpu.parallel import make_mesh as ref_make_mesh
 from paralleljohnson_tpu.parallel import multihost as ref_multihost
 from paralleljohnson_tpu.parallel import sharded_fanout as ref_sharded_fanout
+from paralleljohnson_tpu.utils.paths import validate_pred_tree
 
 import paralleljohnson_tpu_torch as pjt
 from paralleljohnson_tpu_torch import interop
@@ -99,23 +100,44 @@ def test_make_mesh_shapes(monkeypatch):
         make_mesh((4,))
 
 
-def test_default_mesh_is_one_card(monkeypatch):
-    """On a host with several cards ``mesh_shape=None`` is one rank (the
-    cards join a mesh only when a shape or the rank list asks, where the
-    reference takes every device); an explicit shape takes the first
-    cards. No card is touched: a mesh names its devices until it runs."""
+def test_default_mesh_takes_every_card(monkeypatch):
+    """On a host with several cards ``mesh_shape=None`` takes every card,
+    as the reference's ``make_mesh(None)`` takes every device, and its
+    groups are NCCL (a card per rank); the rank list still wins, an
+    explicit shape takes the first cards, and the CPU stays one rank. At
+    f64 the default is the first card (f64 on several cards is an open
+    fault) unless the rank list names more; an explicit shape still takes
+    the cards. No card is touched: a mesh names its devices until it
+    runs."""
     monkeypatch.delenv("PJ_MESH_DEVICES")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(mesh_mod.tdist, "is_nccl_available", lambda: True)
     cards = tuple(torch.device("cuda", i) for i in range(4))
-    one = make_mesh(device="cuda")
-    assert one.devices == cards[:1] and one.backends() == []
-    assert one.describe() == "1-rank sources mesh on cuda:0 x1"
-    assert make_mesh((4,), device="cuda").devices == cards
+    assert mesh_mod.default_devices("cuda") == list(cards)
+    every = make_mesh(device="cuda")
+    assert every.devices == cards and every.backends() == ["nccl"]
+    assert every.describe() == ("4-rank sources mesh on cuda:0, cuda:1, "
+                                "cuda:2, cuda:3 (nccl: a card per rank)")
+    assert mesh_mod.make_edge_mesh(device="cuda").devices == cards
+    assert make_mesh((1,), device="cuda").devices == cards[:1]
+    assert make_mesh((2,), device="cuda").devices == cards[:2]
     assert make_mesh_2d((2, 2), device="cuda").devices == cards
     with pytest.raises(ValueError, match="needs 5 devices; only 4"):
         make_mesh((5,), device="cuda")
+    assert make_mesh(device="cpu").devices == (torch.device("cpu"),)
+    assert mesh_mod.default_devices("cuda", precision="f64") == [cards[0]]
+    assert make_mesh(device="cuda", precision="f64").devices == cards[:1]
+    assert mesh_mod.make_edge_mesh(device="cuda",
+                                   precision="f64").devices == cards[:1]
+    assert make_mesh((4,), device="cuda", precision="f64").devices == cards
     monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0*3")
     assert make_mesh(device="cuda").devices == (cards[0],) * 3
+    assert make_mesh(device="cuda", precision="f64").devices == (cards[0],) * 3
+    assert make_mesh(device="cpu").devices == (torch.device("cpu"),)
+    monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:1,cuda:3")
+    assert mesh_mod.default_devices("cuda") == [cards[1], cards[3]]
+    assert mesh_mod.default_devices("cuda", precision="f64") == [cards[1],
+                                                                 cards[3]]
 
 
 def test_solver_close_shuts_the_mesh_groups():
@@ -186,6 +208,96 @@ def test_solver_uses_mesh_end_to_end():
     numpy_rows = pjt.ParallelJohnsonSolver(
         pjt.SolverConfig(backend="numpy")).solve(_port(g)).matrix
     np.testing.assert_allclose(port.matrix, numpy_rows, rtol=1e-5, atol=1e-5)
+
+
+def test_rank_threads_copy_nothing_between_devices(monkeypatch):
+    """Every copy of the caller's tensors to a rank device is made in the
+    caller's thread before the run, none in a rank thread: on four cards
+    a rank thread that copied the in-edge CSC from the caller's card
+    while its peers waited in an NCCL all-gather never returned. Driven
+    on 8 CPU ranks through edge-sharded phase 1, the sharded fan-out and
+    trees on a 1-D and a 2-D mesh."""
+    import threading
+
+    threads = []
+    real = mesh_mod._to
+
+    def spy(obj, dev):
+        threads.append(threading.current_thread().name)
+        return real(obj, dev)
+
+    monkeypatch.setattr(mesh_mod, "_to", spy)
+    g = _port(_int(random_dag(56, 0.12, negative_fraction=0.4, seed=43)))
+    routes = []
+    for shape in ((8,), (4, 2)):
+        with pjt.ParallelJohnsonSolver(
+                pjt.SolverConfig(mesh_shape=shape, edge_shard=True),
+                device="cpu") as solver:
+            res = solver.solve(g, np.arange(24), predecessors=True)
+        routes.append(dict(res.stats.routes_by_phase))
+    assert routes == [
+        {"bellman_ford": "edge-sharded", "fanout": "sharded-1d+pred"},
+        {"bellman_ford": "edge-sharded", "fanout": "sharded-2d+pred"}]
+    assert threads and set(threads) == {threading.current_thread().name}
+
+
+def _shifted(g, seed):
+    """``g``'s weights x8 rounded, plus a random integer potential
+    difference p(u) - p(v): negative weights, no negative cycle (a
+    cycle's sum is unchanged)."""
+    p = np.random.default_rng(seed).integers(0, 24, g.num_nodes)
+    w = np.round(g.weights * 8) + p[g.src] - p[g.indices]
+    return g.with_weights(w.astype(np.float32))
+
+
+DEFAULT_CASES = {
+    "rmat10": lambda: _int(rmat(10, seed=3)),
+    "rmat10-neg": lambda: _shifted(rmat(10, seed=3), 5),
+    "grid16-neg": lambda: _int(grid2d(16, 16, negative_fraction=0.3,
+                                      seed=7)),
+    "rmat10-float": lambda: rmat(10, seed=3),
+}
+
+
+@pytest.mark.parametrize("trees", [False, True])
+@pytest.mark.parametrize("case", list(DEFAULT_CASES))
+def test_default_config_takes_the_reference_routes(case, trees):
+    """A default config on eight CPU ranks against the reference's
+    default on its eight devices: each phase's route, its sweep count,
+    and the rows (bitwise on integer weights, rtol 1e-6 on float ones).
+    With trees the reference's sharded tight-edge pass fails under this
+    JAX (a scan carry's varying axes) and it falls back to the argmin
+    sweep (``pred-sweep``); the port takes ``sharded-1d+pred``, and both
+    trees are valid."""
+    g = DEFAULT_CASES[case]()
+    sources = np.arange(0, g.num_nodes, 5)[:64]
+    ref = RefSolver(RefConfig(backend="jax")).solve(g, sources,
+                                                   predecessors=trees)
+    port = pjt.ParallelJohnsonSolver(pjt.SolverConfig(), device="cpu")
+    with port:
+        got = port.solve(_port(g), sources, predecessors=trees)
+        assert port.backend._mesh().size == 8
+    want_routes = dict(ref.stats.routes_by_phase)
+    if trees:
+        assert want_routes["fanout"] == "pred-sweep"
+        want_routes["fanout"] = "sharded-1d+pred"
+    assert got.stats.routes_by_phase == want_routes
+    assert want_routes["fanout"].startswith("sharded-1d")
+    assert ("bellman_ford" in want_routes) == g.has_negative_weights
+    if g.has_negative_weights:
+        assert want_routes["bellman_ford"] == "edge-sharded"
+    assert dict(got.stats.iterations_by_phase) == dict(
+        ref.stats.iterations_by_phase)
+    if case.endswith("float"):
+        np.testing.assert_allclose(got.matrix, np.asarray(ref.matrix),
+                                   rtol=1e-6)
+    else:
+        np.testing.assert_array_equal(got.matrix, np.asarray(ref.matrix))
+    if trees:
+        validate_pred_tree(g, got.matrix, np.asarray(got.predecessors),
+                           sources)
+        validate_pred_tree(g, np.asarray(ref.matrix),
+                           np.asarray(ref.predecessors), sources)
 
 
 def test_mesh_subset_and_batching():
@@ -268,3 +380,118 @@ def test_row_sweeps_accounting_exact():
     assert dist.shape == (11, 40)
     assert row_sweeps == int(ref[3])
     assert 11 <= row_sweeps <= iters * 11
+
+
+class _Done:
+    def wait(self):
+        pass
+
+
+class _FakeGroup:
+    """Records what the mesh asks of a process group."""
+
+    def __init__(self, log, name):
+        self.log, self.name = log, name
+
+    def allreduce(self, xs, opts):
+        self.log.append((self.name, "all_reduce", xs[0].device))
+        return _Done()
+
+    def allgather(self, outs, ins):
+        self.log.append((self.name, "all_gather", ins[0].device))
+        return _Done()
+
+    def _group_start(self):
+        self.log.append((self.name, "group_start"))
+
+    def _group_end(self):
+        self.log.append((self.name, "group_end"))
+
+    def abort(self):
+        self.log.append((self.name, "abort"))
+
+    def shutdown(self):
+        self.log.append((self.name, "shutdown"))
+
+
+@pytest.mark.parametrize("backend,where", [("nccl", "meta"), ("gloo", "cpu")])
+def test_abandon_posts_dummies_on_the_failing_ranks_own_device(backend,
+                                                               where):
+    """A failing rank completes the collectives its peers posted with
+    dummy contributions on its OWN device (NCCL) or the host (gloo). On
+    four cards the dummies were made on the peer's card, so the failing
+    rank's group made a second communicator there that no peer joined:
+    the peers hung (and NCCL reported a duplicate GPU). Rank 1 stands on
+    the ``meta`` device here, rank 0 on the CPU."""
+    mesh = mesh_mod.Mesh([torch.device("cpu"), torch.device("meta")],
+                         ("sources",), (2,))
+    log = []
+    key = mesh.axis_names
+    mesh._pgs[(mesh._generation, key, 1)] = (_FakeGroup(log, "r1"), backend,
+                                            [0, 1])
+    state = mesh_mod._RunState(mesh)
+    x = torch.ones(4)  # rank 0's tensors, on the CPU
+    state.post(0, key, 0, ("all_reduce", (4,), x.dtype, x.device))
+    state.post(0, key, 0, ("all_gather", (1, 2), torch.int64, x.device))
+    state.abandon(1)
+    assert state.failed
+    assert log == [("r1", "all_reduce", torch.device(where)),
+                   ("r1", "all_gather", torch.device(where))]
+    with pytest.raises(mesh_mod.MeshAborted):
+        state.post(0, key, 0, ("all_reduce", (4,), x.dtype, x.device))
+
+
+@pytest.mark.parametrize("left", [True, False])
+def test_failed_run_aborts_nccl_groups(left):
+    """After a failed run the mesh aborts its NCCL communicators as one
+    NCCL group (a shutdown waits for collectives a failure left in flight
+    or waiting), shuts its gloo groups down once every rank has left and
+    only drops them when a rank may still be inside one (a timed-out
+    run); either way a later run builds fresh groups."""
+    mesh = mesh_mod.Mesh([torch.device("cpu")] * 4, ("sources", "edges"),
+                         (2, 2))
+    log = []
+    for r in range(4):
+        mesh._pgs[(0, ("edges",), r)] = (_FakeGroup(log, f"e{r}"), "nccl",
+                                         [])
+        mesh._pgs[(0, ("sources", "edges"), r)] = (
+            _FakeGroup(log, f"w{r}"), "gloo", [])
+    mesh._abort_groups(left=left)
+    assert not mesh._pgs and mesh._generation == 1
+    gloo = [(f"w{r}", "shutdown") for r in range(4)] if left else []
+    assert log == gloo + [("e0", "group_start")] + [
+        (f"e{r}", "abort") for r in range(4)] + [("e0", "group_end")]
+
+
+def test_run_past_its_limit_raises_and_the_mesh_recovers(monkeypatch):
+    """A rank that never posts its collective: past the run's limit the
+    caller gets ``TimeoutError``, the groups are dropped (the ranks still
+    waiting leave on their groups' own timeout), and the next run on the
+    same mesh builds fresh groups and completes."""
+    import threading
+
+    monkeypatch.setattr(mesh_mod, "DEFAULT_TIMEOUT_S", 2.0)
+    monkeypatch.setattr(mesh_mod, "JOIN_GRACE_S", 1.0)
+    mesh = make_mesh((4,))
+    release = threading.Event()
+
+    def body(comm):
+        x = torch.full((4,), float(comm.rank))
+        if comm.rank == 1:
+            release.wait(30)
+            return x
+        return comm.all_reduce_min_(x)
+
+    try:
+        with pytest.raises(TimeoutError, match="still running"):
+            mesh.run(body)
+        assert not mesh._pgs
+    finally:
+        release.set()
+
+    def again(comm):
+        return float(comm.all_reduce_min_(
+            torch.full((4,), float(comm.rank))).max())
+
+    assert mesh.run(again) == [0.0] * 4
+    mesh.close()
