@@ -285,8 +285,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
  27. the default mesh over every card (``drive_every_card``): with two
      cards or more, ``solve()`` on R-MAT-20 over phase 3's sources under
      a default ``SolverConfig`` (``mesh_shape=None`` takes every card, a
-     rank per card on NCCL): ``sharded-1d``, rows bitwise phase 3's. With
-     one card it prints one line saying that it did not run and why.
+     rank per card on NCCL): ``sharded-1d``, rows bitwise phase 3's; then
+     under a default ``SolverConfig(precision="f64")`` with trees:
+     ``sharded-1d+pred`` on every card, rows bitwise phase 25's f64 rows,
+     sampled trees valid (path ``every_card_f64``, in the ``_f64`` rows).
+     With one card it prints one line saying that it did not run and
+     why.
 
 Each solving path is driven with the kernels' launch counters (and the
 fixpoints' host reads) set to 0 just before and read just after:
@@ -2913,59 +2917,83 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     return {"mesh": total}
 
 
-def drive_every_card(dev, rmat, rmat_sources, rmat_rows) -> dict:
+def drive_every_card(dev, rmat, rmat_sources, rmat_rows,
+                     rmat_rows_f64) -> tuple[dict, dict]:
     """Phase 27: the default mesh over every card. With ``PJ_MESH_DEVICES``
     unset, ``solve()`` on R-MAT-20 over phase 3's sources under a default
     ``SolverConfig`` takes every visible card (``mesh_shape=None``, as the
     JAX package's default mesh takes every device): route ``sharded-1d``
     on NCCL groups, a rank per card, rows bitwise phase 3's, the hand
-    sweep launched (path ``every_card``); its meshes are closed after.
-    With one card the default mesh is the one rank that phases 3-26
-    already drove: the phase prints one line saying so and runs nothing.
-    Returns the counts by path ({} with one card)."""
+    sweep launched (path ``every_card``). Then the same under a default
+    ``SolverConfig(precision="f64")`` with trees (path
+    ``every_card_f64``): every card again, route ``sharded-1d+pred``, rows
+    bitwise ``rmat_rows_f64`` (phase 25's single-card f64 rows), every
+    37th tree valid, the sweep and ``tight_pred`` launched. Each solver's
+    meshes are closed after. With one card the default mesh is the one
+    rank that phases 3-26 already drove: the phase prints one line saying
+    so and runs nothing. Returns the counts by path, f32 and f64 apart
+    ({} and {} with one card)."""
     import numpy as np
     import torch
 
     import paralleljohnson_tpu_torch as pjt
     from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
     from paralleljohnson_tpu_torch.solver.johnson import to_numpy
+    from paralleljohnson_tpu_torch.utils.paths import validate_pred_tree
 
     cards = torch.cuda.device_count()
     if cards < 2:
         emit({"phase": "every_card", "ran": False,
               "why": f"{cards} card visible: the default mesh is one rank, "
                      "which phases 3-26 drove"})
-        return {}
+        return {}, {}
     launches: dict = {}
     counted = counter(launches)
     t_phase = time.perf_counter()
+    report = {}
     saved = os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
     try:
-        with pjt.ParallelJohnsonSolver(pjt.SolverConfig(),
-                                       device=dev) as solver:
-            res, secs = counted("every_card",
-                                lambda: solver.solve(rmat, rmat_sources),
-                                needs=("fanout_sweep",))
-            mesh = solver.backend._mesh()
-            report = {"mesh": mesh.describe(), "backends": mesh.backends(),
-                      "routes": dict(res.stats.routes_by_phase),
-                      "seconds": secs,
-                      "phase_seconds": dict(res.stats.phase_seconds),
-                      "collective_s": mesh.collective_s}
-        if mesh.size != cards or mesh.backends() != ["nccl"]:
-            raise AssertionError(f"default mesh: {report}")
-        if report["routes"] != {"fanout": "sharded-1d"}:
-            raise AssertionError(f"default mesh routes: {report}")
-        if not np.array_equal(to_numpy(res.dist), rmat_rows):
-            raise AssertionError("default-mesh R-MAT-20 rows differ from "
-                                 "phase 3's")
+        for path, precision, trees, needs, route, want in (
+                ("every_card", "f32", False, ("fanout_sweep",),
+                 "sharded-1d", rmat_rows),
+                ("every_card_f64", "f64", True,
+                 ("fanout_sweep", "tight_pred"), "sharded-1d+pred",
+                 rmat_rows_f64)):
+            with pjt.ParallelJohnsonSolver(pjt.SolverConfig(
+                    precision=precision), device=dev) as solver:
+                res, secs = counted(path, lambda: solver.solve(
+                    rmat, rmat_sources, predecessors=trees), needs=needs)
+                mesh = solver.backend._mesh()
+                row = {"mesh": mesh.describe(), "backends": mesh.backends(),
+                       "routes": dict(res.stats.routes_by_phase),
+                       "seconds": secs,
+                       "phase_seconds": dict(res.stats.phase_seconds),
+                       "collective_s": mesh.collective_s,
+                       "launches": launches[path]}
+            if mesh.size != cards or mesh.backends() != ["nccl"]:
+                raise AssertionError(f"{path} default mesh: {row}")
+            if row["routes"] != {"fanout": route}:
+                raise AssertionError(f"{path} default mesh routes: {row}")
+            rows = to_numpy(res.dist)
+            if not np.array_equal(rows, want):
+                raise AssertionError(f"{path}: default-mesh R-MAT-20 rows "
+                                     f"differ from one card's")
+            if trees:
+                check = np.arange(0, len(rmat_sources), 37)
+                validate_pred_tree(rmat, rows[check],
+                                   to_numpy(res.predecessors)[check],
+                                   np.asarray(rmat_sources)[check])
+                row["trees_checked"] = len(check)
+            report[path] = row
+            del res, rows
+            torch.cuda.empty_cache()
     finally:
         if saved is not None:
             os.environ[mesh_mod.MESH_DEVICES_ENV] = saved
-    emit({"phase": "every_card", "ran": True, "cards": cards, **report,
-          "launches": launches["every_card"],
-          "phase27_s": time.perf_counter() - t_phase})
-    return launches
+    emit({"phase": "every_card", "ran": True, "cards": cards,
+          "paths": report, "phase27_s": time.perf_counter() - t_phase})
+    return ({"every_card": launches["every_card"]},
+            {"every_card_f64": launches["every_card_f64"]})
 
 
 def f64_templates(logs: dict) -> dict:
@@ -4383,9 +4411,12 @@ def main() -> int:
     # -- phase 26: precision="f64" above the solver ------------------------
     torch.cuda.empty_cache()
     f64_paths.update(drive_f64_layers(dev, rmat, rmat_sources, grid, ref64))
-    del ref64
     # -- phase 27: the default mesh over every card -------------------------
-    by_path.update(drive_every_card(dev, rmat, rmat_sources, rmat_rows))
+    every32, every64 = drive_every_card(dev, rmat, rmat_sources, rmat_rows,
+                                        ref64["rmat_rows"])
+    by_path.update(every32)
+    f64_paths.update(every64)
+    del ref64
     names = ("fanout_sweep", "minplus", "tight_pred", "fw_kleene")
     launches = {name: sum(p.get(name, 0) for p in by_path.values())
                 for name in names}

@@ -773,7 +773,7 @@ class TorchBackend(Backend):
     def _mesh(self):
         """The fan-out mesh over this backend's device type:
         ``mesh_shape=(n,)`` or None a 1-D "sources" mesh (None: every
-        card, one card at f64, one rank on the CPU, or the ranks
+        card at either precision, one rank on the CPU, or the ranks
         ``PJ_MESH_DEVICES`` lists: ``parallel.mesh.default_devices``),
         ``(n_s, n_e)`` the 2-D
         ("sources", "edges") mesh. After a sharded failure on CPU ranks
@@ -787,9 +787,7 @@ class TorchBackend(Backend):
                 if shape is not None and len(shape) == 2:
                     cached = mesh_ops.make_mesh_2d(shape, device=self.device)
                 else:
-                    cached = mesh_ops.make_mesh(
-                        shape, device=self.device,
-                        precision=self.config.precision)
+                    cached = mesh_ops.make_mesh(shape, device=self.device)
             self._mesh_cache = cached
         return cached
 
@@ -806,9 +804,8 @@ class TorchBackend(Backend):
         edge-sharded B=1 Bellman-Ford."""
         cached = getattr(self, "_edge_mesh_cache", None)
         if cached is None:
-            cached = mesh_ops.make_edge_mesh(
-                self.config.mesh_shape, device=self.device,
-                precision=self.config.precision)
+            cached = mesh_ops.make_edge_mesh(self.config.mesh_shape,
+                                             device=self.device)
             self._edge_mesh_cache = cached
         return cached
 

@@ -19,10 +19,9 @@ Where the port differs from the JAX package: ``--backend`` is ``torch``
 (default), ``numpy`` or ``cpp``; a solve takes every rank device
 ``parallel.mesh.visible_devices`` lists (every card, as the JAX package
 takes every device; one rank on the CPU unless ``PJ_MESH_DEVICES`` lists
-more; one card at ``--precision f64``, where a mesh of several cards is
-an open fault), and ``--mesh-shape N`` the first N of them
-(``--mesh-shape 1``: one card); ``--precision f64``
-runs the hand kernels' f64 versions on the card; ``--profile`` writes a
+more; at either ``--precision``), and ``--mesh-shape N`` the first N
+of them (``--mesh-shape 1``: one card); ``--precision f64`` runs the
+hand kernels' f64 versions on the card; ``--profile`` writes a
 ``torch.profiler`` trace; ``--compilation-cache-dir`` is the directory
 the hand kernels are built into; ``bench`` exits 1 when a row carries
 ``failed``; ``--log-stats`` lines carry ``kernel_launches``, each hand
@@ -75,8 +74,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="ranks along the sources mesh axis (e.g. 4; 1 "
                         "for one card); N,M is a 2-D sources x edges mesh "
                         "(rank devices: every card, or $PJ_MESH_DEVICES); "
-                        "without it a solve takes every rank device "
-                        "(one card at --precision f64)")
+                        "without it a solve takes every rank device")
     p.add_argument("--fanout-layout", default="auto",
                    choices=["auto", "source_major", "vertex_major"],
                    help="sparse fan-out data layout (auto = vertex_major)")

@@ -37,8 +37,8 @@ class SolverConfig:
       source_batch_size: sources per fan-out call; ``None`` sizes the
         batch from the device's free memory (``suggested_source_batch``).
       mesh_shape: ``None`` every rank device (every card on cuda, as
-        the JAX package takes every device, but one card at f64; one rank
-        on the CPU; or the ranks ``PJ_MESH_DEVICES`` lists:
+        the JAX package takes every device, at f32 and f64; one rank on
+        the CPU; or the ranks ``PJ_MESH_DEVICES`` lists:
         ``parallel.mesh.default_devices``),
         ``(n,)`` a 1-D "sources" mesh of the first n
         cards or listed ranks (route ``sharded-1d`` from n = 2) or

@@ -32,14 +32,13 @@ one rank per process and runs its collectives on the default process
 group.
 
 Rank devices: ``mesh_shape=None`` takes every rank device, as the JAX
-package's ``make_mesh(None)`` takes every device: on cuda every card
-``CUDA_VISIBLE_DEVICES`` leaves visible (a rank per card, NCCL), on cpu
-one rank (torch sees one CPU device); at f64 one card, while f64 on a
-mesh of several cards is an open fault (:func:`default_devices`). A mesh
-of an explicit shape takes the first of them. ``PJ_MESH_DEVICES`` lists the rank devices instead,
-e.g. ``cuda:0,cuda:0,cuda:0,cuda:0``, ``cuda:0*4`` or ``cpu*8`` (ranks may
-share a device; the counterpart of the JAX package's
-``--xla_force_host_platform_device_count``).
+package's ``make_mesh(None)`` takes every device, at either precision:
+on cuda every card ``CUDA_VISIBLE_DEVICES`` leaves visible (a rank per
+card, NCCL), on cpu one rank (torch sees one CPU device). A mesh of an
+explicit shape takes the first of them. ``PJ_MESH_DEVICES`` lists the
+rank devices instead, e.g. ``cuda:0,cuda:0,cuda:0,cuda:0``, ``cuda:0*4``
+or ``cpu*8`` (ranks may share a device; the counterpart of the JAX
+package's ``--xla_force_host_platform_device_count``).
 
 ``DEFAULT_TIMEOUT_S`` bounds every gloo collective, and a run's ranks
 together by ``JOIN_GRACE_S`` more; an NCCL group's own timeout is longer
@@ -153,21 +152,13 @@ def visible_devices(device_type: str | None = None) -> list[torch.device]:
     return [torch.device(device_type)]
 
 
-def default_devices(device_type: str | None = None, *,
-                    precision: str = "f32") -> list[torch.device]:
+def default_devices(device_type: str | None = None) -> list[torch.device]:
     """The ranks of ``mesh_shape=None``: every rank device
     :func:`visible_devices` gives, as the JAX package's ``make_mesh(None)``
-    takes every device: on cuda every card ``CUDA_VISIBLE_DEVICES`` leaves
-    visible, on cpu one rank (``PJ_MESH_DEVICES`` may list more on
-    either). At ``precision="f64"`` without ``PJ_MESH_DEVICES``, the first
-    of them only: f64 on a mesh of several cards is an open fault (on four
-    H100s a solve with trees failed and an R-MAT-20 solve did not finish),
-    so a default f64 solve stays on one card; an explicit shape still
-    takes the cards."""
-    devices = visible_devices(device_type)
-    if precision == "f64" and not _listed_devices(_resolve_type(device_type)):
-        return devices[:1]
-    return devices
+    takes every device, at f32 and f64 alike: on cuda every card
+    ``CUDA_VISIBLE_DEVICES`` leaves visible, on cpu one rank
+    (``PJ_MESH_DEVICES`` may list more on either)."""
+    return visible_devices(device_type)
 
 
 def _device_type(device) -> str | None:
@@ -499,8 +490,10 @@ class Mesh:
         work. Made lazily, at each group's first collective, they were
         made while sibling ranks still ran kernels and copies, and two
         runs in ten of the mesh card tests on four cards died on a
-        segmentation fault inside such a first collective (whether that
-        was the cause is not shown: no run since has crashed)."""
+        segmentation fault inside such a first collective. Made here,
+        one run in 28 still died there, its faulting rank in its first
+        collective while its siblings still swept: the cause is not
+        known (ROADMAP, Queue 3)."""
         fence = threading.Barrier(len(ranks), timeout=DEFAULT_TIMEOUT_S)
         state.fences.append(fence)
 
@@ -718,16 +711,13 @@ class RankComm:
 
 
 def make_mesh(mesh_shape: tuple[int, ...] | None = None,
-              axis_name: str = "sources", *, device=None,
-              precision: str = "f32") -> Mesh:
+              axis_name: str = "sources", *, device=None) -> Mesh:
     """1-D mesh over ``axis_name`` (``"sources"`` for the fan-out,
-    ``"edges"`` for edge-sharded Bellman-Ford). ``mesh_shape=None`` takes
-    :func:`default_devices` of ``device``'s type at ``precision``;
-    ``(n,)`` the first n of :func:`visible_devices`."""
-    if mesh_shape is None:
-        devices = default_devices(_device_type(device), precision=precision)
-    else:
-        devices = visible_devices(_device_type(device))
+    ``"edges"`` for edge-sharded Bellman-Ford) on ``device``'s type.
+    ``mesh_shape=None`` takes every device :func:`visible_devices` gives
+    (:func:`default_devices`); ``(n,)`` the first n of them."""
+    devices = visible_devices(_device_type(device))
+    if mesh_shape is not None:
         n = int(np.prod(mesh_shape))
         if n > len(devices):
             raise ValueError(
@@ -739,10 +729,9 @@ def make_mesh(mesh_shape: tuple[int, ...] | None = None,
 
 
 def make_edge_mesh(mesh_shape: tuple[int, ...] | None = None, *,
-                   device=None, precision: str = "f32") -> Mesh:
+                   device=None) -> Mesh:
     """1-D mesh over an ``"edges"`` axis (edge-sharded kernels)."""
-    return make_mesh(mesh_shape, axis_name="edges", device=device,
-                     precision=precision)
+    return make_mesh(mesh_shape, axis_name="edges", device=device)
 
 
 def make_mesh_2d(mesh_shape: tuple[int, int], *, device=None) -> Mesh:

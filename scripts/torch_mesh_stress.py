@@ -25,11 +25,12 @@ Scenarios (``SCENARIOS``):
   finish, and the process must live on to solve again;
 - ``stuck``: one rank never posts its collective: the caller must get
   ``TimeoutError`` and the process must live on to solve again;
-- ``f64_trees``: the open f64 fault on several cards: R-MAT-12 at f64
-  with trees over 96 sources on an explicit mesh of every card (the
-  default mesh is one card at f64), held bitwise to one card's, with the
-  run's limit at 20 s so a stuck run raises ``TimeoutError`` naming
-  its entry point; not in the default list.
+- ``f64_trees``: R-MAT-12 at f64 with trees over 96 sources under a
+  default ``SolverConfig(precision="f64")`` (the default mesh: every
+  card, NCCL), held bitwise to one card's, trees valid, with the run's
+  limit at 20 s so a stuck run raises ``TimeoutError`` naming its entry
+  point (where a rank thread once copied between cards while its peers
+  waited in an NCCL collective, ROADMAP Queue 3).
 
 Each child runs under ``python -X faulthandler`` and dumps every thread's
 stack 15 s before its time limit; its whole output goes to
@@ -56,7 +57,7 @@ from pathlib import Path
 sys.path.append(str(Path(__file__).resolve().parent.parent))
 
 SCENARIOS = ("loop", "churn", "fail", "fail_first", "open_at_exit",
-             "dropped", "skew", "stuck")
+             "dropped", "skew", "stuck", "f64_trees")
 SPEC = "rmat:scale=12,ef=8,seed=4"
 LOOP_MESHES = 24
 CHURN_S = 35.0
@@ -227,9 +228,12 @@ def scenario(name: str) -> dict:
             want = one.solve(g, sources, predecessors=True)
         print("one card solved", flush=True)
         t0 = time.perf_counter()
-        with pjt.ParallelJohnsonSolver(pjt.SolverConfig(
-                precision="f64", mesh_shape=(n,)), device="cuda") as solver:
+        with pjt.ParallelJohnsonSolver(pjt.SolverConfig(precision="f64"),
+                                       device="cuda") as solver:
             got = solver.solve(g, sources, predecessors=True)
+            mesh = solver.backend._mesh()
+            assert mesh.size == n and mesh.backends() == ["nccl"], \
+                mesh.describe()
         out["solve_s"] = time.perf_counter() - t0
         out["routes"] = dict(got.stats.routes_by_phase)
         np.testing.assert_array_equal(got.matrix, want.matrix)

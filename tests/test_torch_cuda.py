@@ -2145,12 +2145,11 @@ def every_card(cuda, monkeypatch):
 ])
 def test_every_card_default_config(cuda, every_card, precision, spec, pred,
                                     routes):
-    """A default config at f32 takes every card (a rank per card, NCCL
-    groups), at f64 one card (f64 on several cards is an open fault): the
-    rows bitwise ``mesh_shape=(1,)``'s for the same sources, with and
-    without trees (trees valid); phase 1 on the grid keeps the frontier
-    route, as the reference's gate does; the hand sweep launched; ``with``
-    releases the default mesh's groups."""
+    """A default config at f32 and at f64 takes every card (a rank per
+    card, NCCL groups): the rows bitwise ``mesh_shape=(1,)``'s for the
+    same sources, with and without trees (trees valid); phase 1 on the
+    grid keeps the frontier route, as the reference's gate does; the hand
+    sweep launched; ``with`` releases the default mesh's groups."""
     from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
 
     g = pjt.load_graph(spec)
@@ -2163,12 +2162,8 @@ def test_every_card_default_config(cuda, every_card, precision, spec, pred,
                                    device=cuda) as solver:
         got = solver.solve(g, sources, predecessors=pred)
         mesh = solver.backend._mesh()
-        if precision == "f64":
-            assert mesh.devices == (torch.device("cuda", 0),)
-            routes = dict(want.stats.routes_by_phase)
-        else:
-            assert mesh.size == every_card and mesh.backends() == ["nccl"]
-            assert mesh._pgs and mesh in mesh_mod._open_meshes
+        assert mesh.size == every_card and mesh.backends() == ["nccl"]
+        assert mesh._pgs and mesh in mesh_mod._open_meshes
     assert not mesh._pgs and mesh not in mesh_mod._open_meshes
     assert got.stats.routes_by_phase == routes
     assert _counts()["fanout_sweep"] > before

@@ -100,19 +100,24 @@ def test_make_mesh_shapes(monkeypatch):
         make_mesh((4,))
 
 
-def test_default_mesh_takes_every_card(monkeypatch):
-    """On a host with several cards ``mesh_shape=None`` takes every card,
-    as the reference's ``make_mesh(None)`` takes every device, and its
-    groups are NCCL (a card per rank); the rank list still wins, an
-    explicit shape takes the first cards, and the CPU stays one rank. At
-    f64 the default is the first card (f64 on several cards is an open
-    fault) unless the rank list names more; an explicit shape still takes
-    the cards. No card is touched: a mesh names its devices until it
-    runs."""
+def _four_cards(monkeypatch):
+    """A host with four cards, as far as the mesh and the backend look:
+    no card is touched, since a mesh names its devices until it runs."""
     monkeypatch.delenv("PJ_MESH_DEVICES")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.setattr(mesh_mod.tdist, "is_nccl_available", lambda: True)
-    cards = tuple(torch.device("cuda", i) for i in range(4))
+    return tuple(torch.device("cuda", i) for i in range(4))
+
+
+def test_default_mesh_takes_every_card(monkeypatch):
+    """On a host with several cards ``mesh_shape=None`` takes every card,
+    as the reference's ``make_mesh(None)`` takes every device, at f32 and
+    at f64 alike, and its groups are NCCL (a card per rank); the rank list
+    still wins, an explicit shape takes the first cards, and the CPU stays
+    one rank. No card is touched: a mesh names its devices until it
+    runs."""
+    cards = _four_cards(monkeypatch)
     assert mesh_mod.default_devices("cuda") == list(cards)
     every = make_mesh(device="cuda")
     assert every.devices == cards and every.backends() == ["nccl"]
@@ -125,19 +130,57 @@ def test_default_mesh_takes_every_card(monkeypatch):
     with pytest.raises(ValueError, match="needs 5 devices; only 4"):
         make_mesh((5,), device="cuda")
     assert make_mesh(device="cpu").devices == (torch.device("cpu"),)
-    assert mesh_mod.default_devices("cuda", precision="f64") == [cards[0]]
-    assert make_mesh(device="cuda", precision="f64").devices == cards[:1]
-    assert mesh_mod.make_edge_mesh(device="cuda",
-                                   precision="f64").devices == cards[:1]
-    assert make_mesh((4,), device="cuda", precision="f64").devices == cards
+
+    def backend_meshes(**cfg):
+        backend = pjt.get_backend("torch", pjt.SolverConfig(**cfg),
+                                  device="cuda")
+        return backend._mesh().devices, backend._edge_mesh().devices
+
+    for precision in ("f32", "f64"):
+        assert backend_meshes(precision=precision) == (cards, cards)
+        assert backend_meshes(precision=precision,
+                              mesh_shape=(2,)) == (cards[:2], cards[:2])
     monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0*3")
     assert make_mesh(device="cuda").devices == (cards[0],) * 3
-    assert make_mesh(device="cuda", precision="f64").devices == (cards[0],) * 3
+    assert backend_meshes(precision="f64") == ((cards[0],) * 3,) * 2
     assert make_mesh(device="cpu").devices == (torch.device("cpu"),)
     monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:1,cuda:3")
     assert mesh_mod.default_devices("cuda") == [cards[1], cards[3]]
-    assert mesh_mod.default_devices("cuda", precision="f64") == [cards[1],
-                                                                 cards[3]]
+    assert backend_meshes(precision="f64") == ((cards[1], cards[3]),) * 2
+
+
+def test_default_f64_config_takes_four_nccl_ranks(monkeypatch):
+    """A default ``SolverConfig(precision="f64")`` on a host with four
+    cards builds a four-rank mesh on NCCL groups, a rank per card, for
+    the fan-out and for edge-sharded phase 1 alike: the f64 default is
+    every card, as the reference's ``make_mesh(None)`` is every device
+    under x64."""
+    cards = _four_cards(monkeypatch)
+    solver = pjt.ParallelJohnsonSolver(pjt.SolverConfig(precision="f64"),
+                                       device="cuda")
+    for mesh in (solver.backend._mesh(), solver.backend._edge_mesh()):
+        assert mesh.devices == cards and mesh.size == 4
+        assert mesh.backends() == ["nccl"]
+    assert solver.backend._sources_axis_size() == 4
+
+
+@pytest.mark.parametrize("name", ["make_mesh", "make_edge_mesh",
+                                  "make_mesh_2d"])
+def test_mesh_constructors_take_the_references_arguments(name):
+    """Each mesh constructor takes the reference's arguments, in its
+    order, with its defaults, and nothing more but the port's keyword-only
+    ``device``: no precision decides which devices a mesh takes."""
+    import inspect
+
+    import paralleljohnson_tpu.parallel.mesh as ref_mesh_mod
+
+    def params(fn):
+        return [(p.name, p.kind, p.default)
+                for p in inspect.signature(fn).parameters.values()]
+
+    port = params(getattr(mesh_mod, name))
+    assert port[-1] == ("device", inspect.Parameter.KEYWORD_ONLY, None)
+    assert port[:-1] == params(getattr(ref_mesh_mod, name))
 
 
 def test_solver_close_shuts_the_mesh_groups():
