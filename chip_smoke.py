@@ -273,8 +273,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      a quarter of the L2 budget beside the whole budget's; its first 64
      with trees on the 2 x 2 mesh, ``sharded-2d+pred``; the grid with
      ``edge_shard=True`` and trees over phase 25's 64 tree sources),
-     trees validated; the fleet (2 in-process workers over the grid's
-     first 32 sources, the plan's config at f64); an f64 checkpoint of a
+     trees validated; ``gs-sharded`` and ``dia-sharded`` on phase 24's
+     64 x 64 float-weight lattice over 64 sources, within rtol 1e-12 of
+     the single-card f64 rows and scipy's; the fleet (2 in-process
+     workers over the grid's first 32 sources, the plan's config at
+     f64); an f64 checkpoint of a
      40 x 40 integer lattice repaired (10 parts: the boundary core closes
      on the f64 min-plus); a store from an f64 solve's checkpoint of
      phase 21's ER graph served host-forced and device-forced (cold
@@ -441,7 +444,8 @@ MESH_CHILD_SOURCES = 64
 # Phase 26: precision="f64" above the solver, on earlier phases' graphs.
 # The mesh: R-MAT-20 over phase 3's sources on MESH_RANKS ranks, its first
 # F64_MESH_2D_SOURCES with trees on MESH_2D, the grid with edge_shard and
-# trees over phase 25's 64 tree sources. The fleet: F64_FLEET_WORKERS
+# trees over phase 25's 64 tree sources, gs-sharded and dia-sharded on
+# phase 24's lattice and sources. The fleet: F64_FLEET_WORKERS
 # in-process workers over the grid's first F64_FLEET_SOURCES sources in
 # leases of F64_FLEET_LEASE. The repair: phase 20's lattice generator cut
 # to F64_REPAIR_SIDE (its f64 checkpoint writes at 80 x 80 would take
@@ -3479,7 +3483,10 @@ def drive_f64_layers(dev, rmat, rmat_sources, grid, ref64) -> dict:
     ``MESH_2D`` (``sharded-2d+pred``: ``tight_pred`` on each source
     group's rank) and the grid with ``edge_shard=True`` and trees over
     phase 25's tree sources (``edge-sharded``, ``sharded-1d+pred``),
-    trees validated; (b) the fleet, its plan's config at f64, in-process
+    trees validated, then ``gs-sharded`` and ``dia-sharded`` (plain torch
+    on each rank) on phase 24's float-weight lattice, held within rtol
+    1e-12 to the single-card f64 rows and to scipy's (whether bitwise
+    is printed); (b) the fleet, its plan's config at f64, in-process
     workers over the grid; (c) an f64 checkpoint repaired (closures on
     the f64 min-plus); (d) a store from an f64 solve's checkpoint served
     host-forced and device-forced (cold hits, scheduled misses, then hot
@@ -3492,6 +3499,7 @@ def drive_f64_layers(dev, rmat, rmat_sources, grid, ref64) -> dict:
     from pathlib import Path
 
     import numpy as np
+    import scipy.sparse.csgraph as csgraph
     import torch
 
     import paralleljohnson_tpu_torch as pjt
@@ -3600,6 +3608,29 @@ def drive_f64_layers(dev, rmat, rmat_sources, grid, ref64) -> dict:
         validate_pred_tree(grid, rows[check], pred[check], psrc[check])
         done("f64_mesh_grid512_pred", secs, trees_checked=len(check), **info)
         del res, rows, pred
+
+        lat = pjt.load_graph(f"grid:rows={MESH_GRID_SIDE},"
+                             f"cols={MESH_GRID_SIDE},seed=3")
+        lat_src = np.arange(MESH_GRID_SOURCES)
+        want = one_card(lat, lat_src)
+        oracle = csgraph.dijkstra(lat.to_scipy().astype(np.float64),
+                                  directed=True, indices=lat_src)
+        for path, route, kw in (
+                ("f64_mesh_gs", "gs-sharded", dict(gauss_seidel=True,
+                                                   frontier=False)),
+                ("f64_mesh_dia", "dia-sharded", dict(dia=True))):
+            res, secs, info = mesh_solve(path, lat, lat_src,
+                                         {"fanout": route}, (),
+                                         mesh_shape=(MESH_RANKS,), **kw)
+            rows = to_numpy(res.dist)
+            for label, ref in (("one card", want), ("scipy", oracle)):
+                if rows.dtype != np.float64 or not np.allclose(
+                        rows, ref, rtol=1e-12, atol=0):
+                    raise AssertionError(f"{path}: {rows.dtype} rows not "
+                                         f"within rtol 1e-12 of {label}'s")
+            done(path, secs, bitwise=bool(np.array_equal(rows, want)),
+                 bitwise_scipy=bool(np.array_equal(rows, oracle)), **info)
+            del res, rows
     finally:
         if saved is None:
             os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)

@@ -245,6 +245,27 @@ class SolverStats:
         }
 
 
+def latency_percentiles(samples_ms, pcts=(50, 99)) -> dict:
+    """``{"p50_ms": ..., "p99_ms": ...}`` over a latency sample list, with
+    each estimate's error bound in ``p<N>_err_ms``.
+
+    Routed through the streaming log-bucket histogram
+    (``observe.live.LogHistogram``), so a sample list and the live
+    serving path share one percentile definition: an estimate within one
+    bucket width (~19% relative) of the exact nearest-rank percentile.
+    Takes any iterable (generators too) and any sample count: empty
+    input gives zeros."""
+    from paralleljohnson_tpu_torch.observe.live import LogHistogram
+
+    hist = LogHistogram()
+    hist.record_many(float(s) for s in samples_ms)
+    if hist.count == 0:
+        out = {f"p{p}_ms": 0.0 for p in pcts}
+        out.update({f"p{p}_err_ms": 0.0 for p in pcts})
+        return out
+    return hist.percentiles(pcts)
+
+
 @contextlib.contextmanager
 def phase_timer(stats: SolverStats, phase: str, telemetry=None):
     """Times a phase and labels it for ``torch.profiler`` traces

@@ -30,15 +30,42 @@ Scenarios (``SCENARIOS``):
   card, NCCL), held bitwise to one card's, trees valid, with the run's
   limit at 20 s so a stuck run raises ``TimeoutError`` naming its entry
   point (where a rank thread once copied between cards while its peers
-  waited in an NCCL collective, ROADMAP Queue 3).
+  waited in an NCCL collective, ROADMAP Queue 3);
+- ``skew_first``: the first collective of a fresh mesh reached on skewed
+  arrival, in a loop for ``--budget-s`` seconds: each iteration builds an
+  edge mesh over every card, runs one round of edge-sharded Bellman-Ford
+  on it and closes it (unless ``--no-edge-mesh``), then builds a fresh
+  fan-out mesh on which one rank (iteration k: rank k mod n) posts its
+  first collectives at once (``gather_ints``, then an ``all_gather`` of
+  its [V, b] block of one card's rows) while the others compute their
+  blocks with the hand ``fanout_sweep`` kernel and go on launching it
+  for a skew of 0, 5, 20 or 100 ms (``SKEW_MS``, changing every n
+  iterations) before they post theirs; every rank's gathered rows are
+  held bitwise to one card's. A child that dies is replaced by a fresh
+  one, which goes on from the next iteration; prints the iterations, the
+  iterations a minute, each fatal signal's iteration and the native
+  frames caught, and the crash rate per iteration and per four-card
+  minute. ``--nccl-runtime-connect 0`` sets ``NCCL_RUNTIME_CONNECT`` in
+  the children, ``--cudart-shared`` builds the kernels with ``-cudart
+  shared`` (one shared CUDA runtime instead of one linked into each
+  library), ``--no-edge-mesh`` leaves the edge mesh out: each tests one
+  suspect of the crash on its own; ``--dtype f64`` runs the rows at f64
+  (the fixpoints with their hub flags). An iteration that takes more
+  than ``SKEW_STALL_S`` dumps every thread's stack (the ranks' frames
+  before the run's limit ends them).
 
-Each child runs under ``python -X faulthandler`` and dumps every thread's
-stack 15 s before its time limit; its whole output goes to
-``DIR/<scenario>.log`` (default ``chiprun_out/mesh_stress``). Prints one
-JSON line per scenario (return code, seconds, the signal if one killed
-it, the child's last line) and a summary; exits 1 if any scenario failed.
-Imports the package from ``PYTHONPATH`` first, so it can drive another
-checkout (``PYTHONPATH=OTHER python3 scripts/torch_mesh_stress.py``).
+Each child runs under ``python -X faulthandler``, with
+``scripts/segv_backtrace.c`` preloaded where it builds and gives frames
+on this host (the faulting thread's native frames after every thread's
+Python stack, as ``scripts/torch_mesh_repeat.py`` runs the mesh card
+tests), and dumps every thread's stack 15 s before its time limit; its
+whole output goes to ``DIR/<scenario>.log`` (default
+``chiprun_out/mesh_stress``; ``skew_first_NN.log`` per child). Prints
+one JSON line per scenario (return code, seconds, the signal if one
+killed it, the child's last line) and a summary; exits 1 if any scenario
+failed. Imports the package from ``PYTHONPATH`` first, so it can drive
+another checkout (``PYTHONPATH=OTHER python3
+scripts/torch_mesh_stress.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +74,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -55,15 +83,24 @@ from pathlib import Path
 
 # After PYTHONPATH, so that another checkout given there is the one run.
 sys.path.append(str(Path(__file__).resolve().parent.parent))
+sys.path.append(str(Path(__file__).resolve().parent))
 
 SCENARIOS = ("loop", "churn", "fail", "fail_first", "open_at_exit",
-             "dropped", "skew", "stuck", "f64_trees")
+             "dropped", "skew", "stuck", "f64_trees", "skew_first")
 SPEC = "rmat:scale=12,ef=8,seed=4"
 LOOP_MESHES = 24
 CHURN_S = 35.0
+# skew_first: how long the late ranks go on launching sweeps before they
+# post their first collective, by turns.
+SKEW_MS = (0, 5, 20, 100)
+# skew_first: each collective's limit, so a stuck iteration raises
+# instead of holding the loop for the default 300 s; past SKEW_STALL_S an
+# iteration dumps every thread's stack.
+SKEW_TIMEOUT_S = 30.0
+SKEW_STALL_S = 20.0
 
 
-def _setup():
+def _setup(precision: str = "f32"):
     import numpy as np
     import torch
 
@@ -78,8 +115,10 @@ def _setup():
     dg = pjt.get_backend("torch", pjt.SolverConfig(), device="cuda").upload(g)
     (ip, s_in, w_in), items = dg.fanout_layout()
     sources = np.arange(0, g.num_nodes, 61)[:40]
-    with pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=(1,)),
-                                   device="cuda") as one:
+    if precision == "f64":
+        w_in = w_in.double()
+    with pjt.ParallelJohnsonSolver(pjt.SolverConfig(
+            mesh_shape=(1,), precision=precision), device="cuda") as one:
         want = one.solve(g, sources).matrix
     return dict(np=np, torch=torch, pjt=pjt, mesh_mod=mesh_mod, n=n, g=g,
                 dg=dg, in_edges=(ip, s_in, w_in, items), sources=sources,
@@ -123,8 +162,114 @@ def _failing_body(fail_at: int):
     return body
 
 
-def scenario(name: str) -> dict:
-    env = _setup()
+def skew_first(env, start: int, budget_s: float, *,
+               edge_mesh: bool = True) -> dict:
+    """The ``skew_first`` loop of one child: iterations ``start``,
+    ``start + 1``, ... until ``budget_s`` has passed. Prints
+    ``SKEW_ITER k`` as iteration k starts and ``SKEW_DONE k`` once its
+    rows are held, so the parent knows the iteration a fatal signal
+    ended."""
+    import faulthandler
+
+    import torch
+
+    from paralleljohnson_tpu_torch.ops.fanout_sweep import (
+        fanout_fixpoint,
+        fanout_sweep,
+    )
+    from paralleljohnson_tpu_torch.parallel import edge_sharded_bellman_ford
+
+    mesh_mod, n, g, dg = env["mesh_mod"], env["n"], env["g"], env["dg"]
+    mesh_mod.DEFAULT_TIMEOUT_S = SKEW_TIMEOUT_S
+    mesh_mod.JOIN_GRACE_S = 10.0
+    v = g.num_nodes
+    sources = env["sources"]
+    per = len(sources) // n
+    want = env["want"][:n * per]
+    want_vm = torch.as_tensor(want.T.copy())
+    dtype = want_vm.dtype
+    cards = [torch.device("cuda", i) for i in range(n)]
+    place = mesh_mod._Placer()
+    # Each rank's copy of the in-edge CSC, its one-card rows (what the
+    # first rank posts) and its initial block, made before any mesh.
+    in_edges = [place(env["in_edges"], c, "in_edges") for c in cards]
+    rows = [want_vm[:, r * per:(r + 1) * per].contiguous().to(cards[r])
+            for r in range(n)]
+    dist0 = []
+    for r in range(n):
+        mine = torch.as_tensor(sources[r * per:(r + 1) * per]).to(cards[r])
+        dist0.append(mesh_mod._dist0_vm(mine, v, dtype))
+    zeros = torch.zeros(v, dtype=dtype, device=dg.weights.device)
+    weights = dg.weights.to(dtype)
+    torch.cuda.synchronize()
+
+    def body(first: int, skew_s: float):
+        def run(comm):
+            r = comm.rank
+            iters = 0
+            if r == first:
+                block = rows[r]
+            else:
+                ip, s_in, w_in, items = in_edges[r]
+                block, iters, _ = fanout_fixpoint(
+                    dist0[r].clone(), ip, s_in, w_in, max_iter=v,
+                    items=items)
+                buf = torch.empty_like(block)
+                end = time.perf_counter() + skew_s
+                k = 0
+                while time.perf_counter() < end:
+                    fanout_sweep(block, ip, s_in, w_in, items=items, out=buf)
+                    k += 1
+                    if k % 16 == 0:
+                        torch.cuda.current_stream().synchronize()
+            ranks = comm.gather_ints([r, iters])
+            return ranks, torch.cat(comm.all_gather(block), 1)
+        return run
+
+    t0 = time.perf_counter()
+    k = start
+    while time.perf_counter() - t0 < budget_s:
+        first = k % n
+        skew_ms = SKEW_MS[(k // n) % len(SKEW_MS)]
+        print(f"SKEW_ITER {k} first={first} skew_ms={skew_ms}", flush=True)
+        faulthandler.dump_traceback_later(SKEW_STALL_S)
+        if edge_mesh:
+            emesh = mesh_mod.make_edge_mesh((n,), device="cuda")
+            d, _, improving = edge_sharded_bellman_ford(
+                emesh, zeros, dg.src, dg.dst, weights, max_iter=1)
+            emesh.close()
+            assert not improving and torch.equal(d.cpu(), zeros.cpu())
+        mesh = mesh_mod.make_mesh((n,), device="cuda")
+        got = mesh.run(body(first, skew_ms / 1000.0), label="skew_first")
+        mesh.close()
+        for r, (ranks, gathered) in enumerate(got):
+            assert ranks[:, 0].tolist() == list(range(n)), ranks
+            assert torch.equal(gathered.cpu(), want_vm), f"rank {r}"
+        faulthandler.cancel_dump_traceback_later()
+        print(f"SKEW_DONE {k}", flush=True)
+        k += 1
+    return {"first_iteration": start, "iterations": k - start,
+            "loop_s": time.perf_counter() - t0, "edge_mesh": edge_mesh,
+            "dtype": str(dtype), "cudart": _cudart_maps()}
+
+
+def _cudart_maps() -> list:
+    """The CUDA runtime libraries this process has mapped (one for
+    torch's; a kernel library linked with ``-cudart shared`` adds none)."""
+    try:
+        maps = Path("/proc/self/maps").read_text()
+    except OSError:
+        return []
+    return sorted({line.split()[-1] for line in maps.splitlines()
+                   if "libcudart" in line})
+
+
+def scenario(name: str, args) -> dict:
+    if name == "skew_first" and args.cudart_shared:
+        from paralleljohnson_tpu_torch.ops import _cuda
+
+        _cuda.NVCC_FLAGS = (*_cuda.NVCC_FLAGS, "-cudart", "shared")
+    env = _setup(args.dtype if name == "skew_first" else "f32")
     mesh_mod, n = env["mesh_mod"], env["n"]
     out = {"cards": n}
     if name == "loop":
@@ -239,9 +384,99 @@ def scenario(name: str) -> dict:
         np.testing.assert_array_equal(got.matrix, want.matrix)
         validate_pred_tree(g, got.matrix, to_numpy(got.predecessors),
                            sources)
+    elif name == "skew_first":
+        out.update(skew_first(env, args.start, args.budget_s,
+                              edge_mesh=not args.no_edge_mesh))
     else:
         raise SystemExit(f"unknown scenario {name}")
     return out
+
+
+def _handler(out: Path) -> tuple[dict, dict]:
+    """The native-frame probe of ``torch_mesh_repeat.py`` (on a child that
+    dereferences a null pointer), and the environment the scenarios run
+    in: the handler preloaded where it gave frames."""
+    from torch_mesh_repeat import probe
+
+    found = probe(out)
+    env = dict(os.environ)
+    if "backtrace" in found["works"]:
+        env["LD_PRELOAD"] = found["backtrace"]["lib"]
+    return found, env
+
+
+def run_skew_first(args, out: Path, env: dict) -> dict:
+    """Children of the ``skew_first`` scenario, one after another for
+    ``args.budget_s`` seconds, each going on from the iteration after the
+    last one held (or after the one a child died in)."""
+    from torch_mesh_repeat import FRAME
+
+    env = dict(env, NCCL_DEBUG="WARN", TORCH_SHOW_CPP_STACKTRACES="1")
+    if args.nccl_runtime_connect is not None:
+        env["NCCL_RUNTIME_CONNECT"] = args.nccl_runtime_connect
+    flags = (["--cudart-shared"] if args.cudart_shared else []) + (
+        ["--no-edge-mesh"] if args.no_edge_mesh else []) + [
+        "--dtype", args.dtype]
+    t0 = time.perf_counter()
+    nxt, child, done, bad_starts = 0, 0, 0, 0
+    crashes, errors, loop_s = [], [], 0.0
+    last = ""
+    while True:
+        left = args.budget_s - (time.perf_counter() - t0)
+        if left < 20.0 or bad_starts >= 3:
+            break
+        child += 1
+        log = out / f"skew_first_{child:02d}.log"
+        cmd = [sys.executable, "-X", "faulthandler", __file__,
+               "--scenario", "skew_first", "--timeout", str(left + 120.0),
+               "--start", str(nxt), "--budget-s", str(left), *flags]
+        with open(log, "w") as f:
+            try:
+                rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                    env=env, timeout=left + 180.0).returncode
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+        text = log.read_text(errors="replace")
+        started = [int(x) for x in re.findall(r"^SKEW_ITER (\d+)", text,
+                                              re.M)]
+        held = [int(x) for x in re.findall(r"^SKEW_DONE (\d+)", text, re.M)]
+        done += len(held)
+        stress = re.findall(r"^STRESS (.*)$", text, re.M)
+        if stress:
+            rec = json.loads(stress[-1])
+            loop_s += rec.get("loop_s", 0.0)
+            last = stress[-1][:400]
+        if rc == 0:
+            nxt = (held[-1] + 1) if held else nxt
+            bad_starts = 0
+            continue
+        at = started[-1] if started else None
+        rec = {"child": child, "rc": rc, "iteration": at, "log": str(log),
+               "native_frames": len(FRAME.findall(text))}
+        if isinstance(rc, int) and rc < 0:
+            rec["signal"] = signal.Signals(-rc).name
+            crashes.append(rec)
+        else:
+            errors.append(rec)
+        print(json.dumps({"skew_first_child": rec}), flush=True)
+        if at is None:
+            bad_starts += 1
+        else:
+            nxt, bad_starts = at + 1, 0
+    secs = time.perf_counter() - t0
+    started_n = done + len(crashes) + len([e for e in errors
+                                           if e["iteration"] is not None])
+    return {"scenario": "skew_first", "rc": 1 if crashes or errors else 0,
+            "seconds": secs, "children": child, "iterations": started_n,
+            "held": done, "iterations_per_min": 60.0 * started_n / secs,
+            "crashes": crashes, "errors": errors,
+            "crash_per_iteration": len(crashes) / max(1, started_n),
+            "crashes_per_min": len(crashes) / (secs / 60.0),
+            "nccl_runtime_connect": args.nccl_runtime_connect,
+            "cudart_shared": args.cudart_shared,
+            "edge_mesh": not args.no_edge_mesh, "dtype": args.dtype,
+            "loop_s": loop_s,
+            "last": last}
 
 
 def main() -> int:
@@ -249,22 +484,41 @@ def main() -> int:
     ap.add_argument("--out", default="chiprun_out/mesh_stress")
     ap.add_argument("--only", default=",".join(SCENARIOS))
     ap.add_argument("--scenario", help=argparse.SUPPRESS)
+    ap.add_argument("--start", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--timeout", type=float, default=240.0)
+    ap.add_argument("--budget-s", type=float, default=300.0,
+                    help="skew_first: seconds of iterations")
+    ap.add_argument("--nccl-runtime-connect", default=None,
+                    help="skew_first: NCCL_RUNTIME_CONNECT in the children")
+    ap.add_argument("--cudart-shared", action="store_true",
+                    help="skew_first: kernels linked with -cudart shared")
+    ap.add_argument("--no-edge-mesh", action="store_true",
+                    help="skew_first: no edge mesh before the fan-out mesh")
+    ap.add_argument("--dtype", choices=("f32", "f64"), default="f32",
+                    help="skew_first: the rows' precision")
     args = ap.parse_args()
     if args.scenario:
         import faulthandler
 
         faulthandler.dump_traceback_later(max(5.0, args.timeout - 15.0))
         t0 = time.perf_counter()
-        rec = scenario(args.scenario)
+        rec = scenario(args.scenario, args)
         rec["seconds"] = time.perf_counter() - t0
         print("STRESS " + json.dumps(rec), flush=True)
         return 0
 
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    found, env = _handler(out)
+    print(json.dumps({"probe": found}), flush=True)
     failed = []
     for name in args.only.split(","):
+        if name == "skew_first":
+            rec = run_skew_first(args, out, env)
+            if rec["rc"] != 0:
+                failed.append(name)
+            print(json.dumps(rec), flush=True)
+            continue
         log = out / f"{name}.log"
         t0 = time.perf_counter()
         with open(log, "w") as f:
@@ -272,7 +526,7 @@ def main() -> int:
                 rc = subprocess.run(
                     [sys.executable, "-X", "faulthandler", __file__,
                      "--scenario", name, "--timeout", str(args.timeout)],
-                    stdout=f, stderr=subprocess.STDOUT,
+                    stdout=f, stderr=subprocess.STDOUT, env=env,
                     timeout=args.timeout).returncode
             except subprocess.TimeoutExpired:
                 rc = "timeout"

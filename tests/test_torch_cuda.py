@@ -1894,6 +1894,8 @@ def four_ranks(cuda, monkeypatch):
 
 F64_RMAT = "rmat:scale=12,ef=8,seed=4"
 F64_GRID = "grid:rows=48,cols=40,neg=0.2,seed=6"
+# chip_smoke's phase 24 (e) lattice: float weights, no negative ones.
+F64_LATTICE = "grid:rows=64,cols=64,seed=3"
 F64_MESH = [
     (F64_RMAT, dict(mesh_shape=(4,)), np.arange(0, 4096, 61)[:40], False,
      {"fanout": "sharded-1d"}),
@@ -1905,6 +1907,10 @@ F64_MESH = [
     # 150 rows per source group: the tree pass takes the hub flags.
     (F64_RMAT, dict(mesh_shape=(2, 2)), np.arange(0, 4096, 13)[:300], True,
      {"fanout": "sharded-2d+pred"}),
+    (F64_LATTICE, dict(mesh_shape=(4,), gauss_seidel=True, frontier=False),
+     np.arange(64), False, {"fanout": "gs-sharded"}),
+    (F64_LATTICE, dict(mesh_shape=(4,), dia=True), np.arange(64), False,
+     {"fanout": "dia-sharded"}),
 ]
 
 
@@ -1912,9 +1918,11 @@ F64_MESH = [
 def test_mesh_f64_on_card_equals_one_card(four_ranks, monkeypatch, spec, cfg,
                                           sources, pred, routes):
     """Each sharded route at f64 on four ranks sharing the card: float64
-    rows bitwise the single-card f64 solve's, the f64 sweep (and
+    rows bitwise the single-card f64 solve's (within rtol 1e-12 on the
+    float-weight lattice, and there also scipy's), the f64 sweep (and
     ``tight_pred`` on each extracting rank) launched, trees valid; every
-    rank's hub flags take a quarter of the L2 budget."""
+    rank's hub flags take a quarter of the L2 budget. ``gs-sharded`` and
+    ``dia-sharded`` run plain torch on each rank: no sweep, no flags."""
     from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
 
     budgets = []
@@ -1937,6 +1945,16 @@ def test_mesh_f64_on_card_equals_one_card(four_ranks, monkeypatch, spec, cfg,
     after = _counts()
     assert got.stats.routes_by_phase == routes
     assert got.matrix.dtype == np.float64
+    if routes["fanout"] in ("gs-sharded", "dia-sharded"):
+        import scipy.sparse.csgraph as csgraph
+
+        np.testing.assert_allclose(got.matrix, want.matrix, rtol=1e-12,
+                                   atol=0)
+        oracle = csgraph.dijkstra(g.to_scipy().astype(np.float64),
+                                  directed=True, indices=sources)
+        np.testing.assert_allclose(got.matrix, oracle, rtol=1e-12, atol=0)
+        assert not budgets
+        return
     np.testing.assert_array_equal(got.matrix, want.matrix)
     assert after["fanout_sweep"] > before["fanout_sweep"]
     assert budgets and set(budgets) == {fs.HUB_L2_BYTES // 4}
@@ -2284,6 +2302,72 @@ def test_every_card_rank_timeout(cuda, every_card, monkeypatch):
 
     assert mesh.run(again) == [0.0] * every_card
     mesh.close()
+
+
+@pytest.mark.parametrize("skew_ms", [0, 5, 20, 100])
+def test_every_card_skewed_first_collective(cuda, every_card, skew_ms):
+    """The four-card crash's pattern (``scripts/torch_mesh_stress.py
+    --only skew_first``), once per case on fresh meshes over every card:
+    an edge mesh runs one round of edge-sharded Bellman-Ford and is
+    closed; then on a fresh mesh rank 0 posts its first collectives at
+    once (an integer gather, then an all-gather of its [V, b] block of
+    one card's rows) while the other ranks compute their blocks with the
+    hand sweep and go on launching it for ``skew_ms`` before they post.
+    Every rank's gathered rows bitwise one card's."""
+    import time
+
+    from paralleljohnson_tpu_torch.parallel import (
+        edge_sharded_bellman_ford, make_edge_mesh, make_mesh,
+    )
+
+    g = pjt.load_graph(F64_RMAT)
+    per = 10
+    sources = np.arange(0, g.num_nodes, 61)[:per * every_card]
+    want = pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=(1,)),
+                                     device=cuda).solve(g, sources).matrix
+    want_vm = torch.as_tensor(want.T.copy())
+    dg = pjt.get_backend("torch", pjt.SolverConfig(), device=cuda).upload(g)
+    (ip, s_in, w_in), items = dg.fanout_layout()
+    cards = [torch.device("cuda", i) for i in range(every_card)]
+    layouts = [tuple(x.to(c) for x in (ip, s_in, w_in))
+               + (fs.build_work_items(ip.to(c)),) for c in cards]
+    first_rows = want_vm[:, :per].contiguous().to(cards[0])
+    dist0 = [_dist0(sources[r * per:(r + 1) * per], g.num_nodes, per,
+                    cards[r]) for r in range(every_card)]
+    zeros = torch.zeros(g.num_nodes, device=cuda)
+
+    emesh = make_edge_mesh(device=cuda)
+    d, _, improving = edge_sharded_bellman_ford(
+        emesh, zeros, dg.src, dg.dst, dg.weights, max_iter=1)
+    emesh.close()
+    assert not improving and torch.equal(d.cpu(), zeros.cpu())
+
+    def body(comm):
+        r, iters = comm.rank, 0
+        if r == 0:
+            block = first_rows
+        else:
+            ip_r, s_r, w_r, items_r = layouts[r]
+            block, iters, _ = fs.fanout_fixpoint(
+                dist0[r], ip_r, s_r, w_r, max_iter=g.num_nodes,
+                items=items_r)
+            buf = torch.empty_like(block)
+            end = time.perf_counter() + skew_ms / 1000.0
+            while time.perf_counter() < end:
+                for _ in range(16):
+                    fs.fanout_sweep(block, ip_r, s_r, w_r, items=items_r,
+                                    out=buf)
+                torch.cuda.current_stream().synchronize()
+        ranks = comm.gather_ints([r, iters])
+        return ranks, torch.cat(comm.all_gather(block), 1)
+
+    mesh = make_mesh(device=cuda)
+    got = mesh.run(body)
+    mesh.close()
+    for ranks, gathered in got:
+        assert ranks[:, 0].tolist() == list(range(every_card))
+        assert ranks[0, 1] == 0 and (ranks[1:, 1] > 0).all()
+        assert torch.equal(gathered.cpu(), want_vm)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -29,6 +29,9 @@ from paralleljohnson_tpu.solver import ParallelJohnsonSolver as RefSolver
 from paralleljohnson_tpu.utils import telemetry as ref_tel
 from paralleljohnson_tpu.utils.faults import Fault as RefFault
 from paralleljohnson_tpu.utils.faults import FaultPlan as RefFaultPlan
+from paralleljohnson_tpu.utils.metrics import (
+    latency_percentiles as ref_latency_percentiles,
+)
 
 import paralleljohnson_tpu_torch as pjt
 from paralleljohnson_tpu_torch import interop
@@ -36,7 +39,11 @@ from paralleljohnson_tpu_torch.observe import trace
 from paralleljohnson_tpu_torch.observe.live import MetricsRegistry
 from paralleljohnson_tpu_torch.utils import profiling
 from paralleljohnson_tpu_torch.utils.faults import Fault, FaultPlan
-from paralleljohnson_tpu_torch.utils.metrics import SolverStats, phase_timer
+from paralleljohnson_tpu_torch.utils.metrics import (
+    SolverStats,
+    latency_percentiles,
+    phase_timer,
+)
 from paralleljohnson_tpu_torch.utils.telemetry import (
     NULL_TELEMETRY,
     HeartbeatReporter,
@@ -295,6 +302,30 @@ def test_phase_timer_span_closes_with_the_error():
         "kind": "phase"}
     assert end["status"] == "error" and "dead phase" in end["error"]
     assert stats.phase_seconds["upload"] >= 0
+
+
+@pytest.mark.parametrize("kind", ["seeded", "empty", "generator"])
+def test_latency_percentiles_equals_reference(kind):
+    """``utils.metrics.latency_percentiles``: the same samples through
+    both packages give equal dicts (``p<N>_ms`` and ``p<N>_err_ms``, zeros
+    on empty input), from a list, an empty list or a generator, at the
+    default percentiles and at (10, 50, 90, 99.9)."""
+    rng = np.random.default_rng(22)
+    samples = rng.lognormal(0.0, 1.5, 2000).tolist() + [0.0, 1e-4, 5e7]
+    if kind == "empty":
+        samples = []
+    for pcts in ((50, 99), (10, 50, 90, 99.9)):
+        if kind == "generator":
+            got = latency_percentiles((x for x in samples), pcts)
+            want = ref_latency_percentiles((x for x in samples), pcts)
+        else:
+            got = latency_percentiles(samples, pcts)
+            want = ref_latency_percentiles(samples, pcts)
+        assert got == want
+        assert set(got) == ({f"p{p}_ms" for p in pcts}
+                            | {f"p{p}_err_ms" for p in pcts})
+        if kind == "empty":
+            assert set(got.values()) == {0.0}
 
 
 def test_prom_export_equals_reference(tmp_path):
