@@ -219,8 +219,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      directory answering one query bitwise ``solve()``, ``top --once
      --json --fleet-dir`` over it, and its SIGTERM drain (exit 0).
  24. the mesh (``drive_mesh``, ``parallel.mesh``) on 4 ranks that share
-     the card (``PJ_MESH_DEVICES=cuda:0*4``; gloo between them, staged
-     through page-locked host buffers): ``solve()`` on R-MAT-20 over
+     the card (``PJ_MESH_DEVICES=cuda:0*4``; the in-process exchange
+     between them, device copies on the card, no process group):
+     ``solve()`` on R-MAT-20 over
      phase 3's 512 sources with ``mesh_shape=(4,)`` (``sharded-1d``: the
      hand sweep on each rank), rows bitwise phase 3's; the grid over
      phase 4's sources with ``edge_shard=True`` and trees (phase 1
@@ -232,7 +233,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
      on a 64x64 lattice, bitwise ``pallas-vm``; and two processes under
      ``python -m torch.distributed.run`` (``chip_smoke.py --mesh-child``:
      ``multihost.initialize()``, ``global_mesh()``, ``sharded_fanout``),
-     rows bitwise the single-card solve. Each route, the group backend,
+     rows bitwise the single-card solve (gloo between the processes).
+     Each route, the exchange,
      the rank devices and the phase's seconds are printed; a route that
      ends in ``+1dev-fallback`` fails.
  25. ``precision="f64"`` on the card (``drive_f64``), on phases 2-5's
@@ -268,7 +270,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
  26. ``precision="f64"`` above the solver (``drive_f64_layers``), each
      path held bitwise to phase 25's single-card f64 rows (or a
      single-card f64 solve of its own sources) and printed with its
-     wall and launches: the mesh on 4 ranks sharing the card (R-MAT-20
+     wall and launches: the mesh on 4 ranks sharing the card (no process
+     group built; R-MAT-20
      over phase 3's sources on ``sharded-1d``, each rank's f64 hub set on
      a quarter of the L2 budget beside the whole budget's; its first 64
      with trees on the 2 x 2 mesh, ``sharded-2d+pred``; the grid with
@@ -288,7 +291,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
  27. the default mesh over every card (``drive_every_card``): with two
      cards or more, ``solve()`` on R-MAT-20 over phase 3's sources under
      a default ``SolverConfig`` (``mesh_shape=None`` takes every card, a
-     rank per card on NCCL): ``sharded-1d``, rows bitwise phase 3's; then
+     rank per card, device copies between them, no process group):
+     ``sharded-1d``, rows bitwise phase 3's; then
      under a default ``SolverConfig(precision="f64")`` with trees:
      ``sharded-1d+pred`` on every card, rows bitwise phase 25's f64 rows,
      sampled trees valid (path ``every_card_f64``, in the ``_f64`` rows).
@@ -429,7 +433,7 @@ OVERLOAD_PRINTED = ("late cooldown",)
 # MB/s, 4 MiB a source on R-MAT-20, 2 MiB and its trees on the grid.
 CLI_RMAT_SOURCES = 64
 CLI_GRID_SOURCES = 128
-# Phase 24: the mesh's ranks, all on the card (gloo between them); the
+# Phase 24: the mesh's ranks, all on the card (the in-process exchange); the
 # 2-D mesh and its sources; the sources of the direct replicated call;
 # the grid side of the gs-sharded / dia-sharded fan-outs and their
 # sources; the graph and sources of the two-process run.
@@ -2636,6 +2640,38 @@ def drive_cli(smi, rmat_sources, rmat_rows, gsrc, grid_pred_rows,
     return launches
 
 
+# What an in-process mesh must not build: it trades tensors through its
+# own exchange.
+PROCESS_GROUP_MAKERS = ("ProcessGroupNCCL", "ProcessGroupGloo", "new_group",
+                        "init_process_group", "HashStore")
+
+
+def refuse_process_groups():
+    """Make each ``torch.distributed`` constructor of
+    ``PROCESS_GROUP_MAKERS`` record its name and raise, until the returned
+    ``restore()`` (which may be called more than once). Returns (the
+    names asked for, restore)."""
+    import torch.distributed as tdist
+
+    built: list = []
+    saved = {name: getattr(tdist, name) for name in PROCESS_GROUP_MAKERS
+             if hasattr(tdist, name)}
+
+    def refuse(name):
+        def make(*args, **kw):
+            built.append(name)
+            raise AssertionError(f"an in-process mesh built {name}")
+        return make
+
+    for name in saved:
+        setattr(tdist, name, refuse(name))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(tdist, name, fn)
+    return built, restore
+
+
 def mesh_children(stdout: str) -> list[dict]:
     """The ``MESHCHILD`` records in the launcher's output (each a flat
     JSON object; found anywhere in a line)."""
@@ -2754,8 +2790,8 @@ def mesh_processes(n: int, dev) -> dict:
 def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
                grid_pred_rows) -> dict:
     """Phase 24: the mesh (``parallel.mesh``) on ``MESH_RANKS`` ranks that
-    share the card (``PJ_MESH_DEVICES``; gloo between them, staged through
-    page-locked host buffers), each path counted from 0: (a) ``solve()``
+    share the card (``PJ_MESH_DEVICES``; the in-process exchange between
+    them), each path counted from 0: (a) ``solve()``
     on R-MAT-20 over phase 3's sources, ``mesh_shape=(MESH_RANKS,)``:
     ``sharded-1d``, rows bitwise phase 3's; (b) the grid over phase 4's
     sources with ``edge_shard=True`` and trees: phase 1 ``edge-sharded``,
@@ -2768,7 +2804,8 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
     solve; (f) two processes under ``torch.distributed.run``
     (:func:`mesh_processes`), rows bitwise the single-card solve. Each
     solver's meshes are closed after its path. Fails on a
-    route with ``+1dev-fallback``. Returns the launches by path, summed
+    route with ``+1dev-fallback``, or if (a)-(e) built a process group
+    (:func:`refuse_process_groups`). Returns the launches by path, summed
     over the in-process paths under ``mesh`` (the child processes' are
     printed)."""
     import numpy as np
@@ -2799,7 +2836,8 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
 
     def summary(res, secs, got, label, solver):
         """The path's routes, seconds, mesh, and the host seconds its
-        meshes' slowest rank spent in collectives (staging included).
+        meshes' slowest rank spent in collectives (barrier waits
+        included).
         Closes the solver's meshes."""
         be = solver.backend
         meshes = {"fanout": getattr(be, "_mesh_cache", None),
@@ -2814,6 +2852,7 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
                              if m is not None}}
         solver.close()
 
+    built, restore = refuse_process_groups()
     try:
         mesh = make_mesh(device=dev)
         report["mesh"] = {"describe": mesh.describe(),
@@ -2907,9 +2946,14 @@ def drive_mesh(dev, rmat, rmat_sources, rmat_rows, grid, gsrc,
                                      "pallas-vm's")
             summary(res, secs, got, route, solver)
             del res
+        restore()
+        if built:
+            raise AssertionError(f"the in-process meshes built {built}")
+        report["process_groups_built"] = len(built)
         # (f) two processes under torch.distributed.run.
         report["two_process"] = mesh_processes(2, dev)
     finally:
+        restore()
         if saved is None:
             os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
         else:
@@ -2927,7 +2971,8 @@ def drive_every_card(dev, rmat, rmat_sources, rmat_rows,
     unset, ``solve()`` on R-MAT-20 over phase 3's sources under a default
     ``SolverConfig`` takes every visible card (``mesh_shape=None``, as the
     JAX package's default mesh takes every device): route ``sharded-1d``
-    on NCCL groups, a rank per card, rows bitwise phase 3's, the hand
+    a rank per card, device copies between them and no process group
+    built (:func:`refuse_process_groups`), rows bitwise phase 3's, the hand
     sweep launched (path ``every_card``). Then the same under a default
     ``SolverConfig(precision="f64")`` with trees (path
     ``every_card_f64``): every card again, route ``sharded-1d+pred``, rows
@@ -2956,6 +3001,7 @@ def drive_every_card(dev, rmat, rmat_sources, rmat_rows,
     t_phase = time.perf_counter()
     report = {}
     saved = os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
+    built, restore = refuse_process_groups()
     try:
         for path, precision, trees, needs, route, want in (
                 ("every_card", "f32", False, ("fanout_sweep",),
@@ -2974,7 +3020,7 @@ def drive_every_card(dev, rmat, rmat_sources, rmat_rows,
                        "phase_seconds": dict(res.stats.phase_seconds),
                        "collective_s": mesh.collective_s,
                        "launches": launches[path]}
-            if mesh.size != cards or mesh.backends() != ["nccl"]:
+            if mesh.size != cards or mesh.backends() != ["threads"]:
                 raise AssertionError(f"{path} default mesh: {row}")
             if row["routes"] != {"fanout": route}:
                 raise AssertionError(f"{path} default mesh routes: {row}")
@@ -2992,10 +3038,16 @@ def drive_every_card(dev, rmat, rmat_sources, rmat_rows,
             del res, rows
             torch.cuda.empty_cache()
     finally:
+        restore()
         if saved is not None:
             os.environ[mesh_mod.MESH_DEVICES_ENV] = saved
+    if built:
+        raise AssertionError(f"the every-card meshes built {built}")
     emit({"phase": "every_card", "ran": True, "cards": cards,
-          "paths": report, "phase27_s": time.perf_counter() - t_phase})
+          "paths": report, "process_groups_built": len(built),
+          "peer_access": {f"{a}->{b}": ok for (a, b), ok in
+                          mesh.peer_access().items()},
+          "phase27_s": time.perf_counter() - t_phase})
     return ({"every_card": launches["every_card"]},
             {"every_card_f64": launches["every_card_f64"]})
 
@@ -3555,9 +3607,10 @@ def drive_f64_layers(dev, rmat, rmat_sources, grid, ref64) -> dict:
             raise AssertionError(f"{path} took {info['routes']}")
         return res, secs, info
 
-    # (a) the mesh.
+    # (a) the mesh: no process group (refuse_process_groups).
     saved = os.environ.get(mesh_mod.MESH_DEVICES_ENV)
     os.environ[mesh_mod.MESH_DEVICES_ENV] = f"{dev.type}:0*{MESH_RANKS}"
+    built, restore = refuse_process_groups()
     try:
         res, secs, info = mesh_solve(
             "f64_mesh_rmat20", rmat, rmat_sources, {"fanout": "sharded-1d"},
@@ -3632,10 +3685,13 @@ def drive_f64_layers(dev, rmat, rmat_sources, grid, ref64) -> dict:
                  bitwise_scipy=bool(np.array_equal(rows, oracle)), **info)
             del res, rows
     finally:
+        restore()
         if saved is None:
             os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
         else:
             os.environ[mesh_mod.MESH_DEVICES_ENV] = saved
+    if built:
+        raise AssertionError(f"the f64 in-process meshes built {built}")
     torch.cuda.empty_cache()
 
     root = Path(tempfile.mkdtemp(prefix="pj-f64-layers-"))

@@ -128,8 +128,8 @@ class Backend(abc.ABC):
         backends."""
 
     def close(self) -> None:
-        """Release what outlives a solve (the torch backend's mesh
-        process groups). The backend stays usable. No-op for host
+        """Release what outlives a solve (what the torch backend's meshes
+        keep between runs). The backend stays usable. No-op for host
         backends."""
 
     def stage_rows_async(self, *arrays: Any) -> None:

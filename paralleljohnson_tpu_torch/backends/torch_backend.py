@@ -792,8 +792,8 @@ class TorchBackend(Backend):
         return cached
 
     def close(self) -> None:
-        """Shut the cached meshes' process groups down (a later sharded
-        solve builds fresh ones)."""
+        """Close the cached meshes (``Mesh.close``: what they keep between
+        runs is dropped; a later sharded solve makes it again)."""
         for attr in ("_mesh_cache", "_edge_mesh_cache"):
             mesh = getattr(self, attr, None)
             if mesh is not None:

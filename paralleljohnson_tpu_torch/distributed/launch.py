@@ -9,7 +9,7 @@ worker's lapsed leases re-queue to survivors), and finishes by unioning
 the shard manifests into ``fleet_manifest.json``. The one rank is set in
 the workers' environment (``PJ_MESH_DEVICES``), as the JAX package's
 launcher puts each local worker on one CPU device: N local workers never
-each build NCCL groups over the same cards.
+each run a mesh over the same cards.
 
 A multi-host fleet uses the SAME coordinator over a filesystem the hosts
 share but not this launcher: each host runs one worker process directly

@@ -1,5 +1,6 @@
-"""Mesh layer: source parallelism and edge sharding over ranks on
-``torch.distributed``."""
+"""Mesh layer: source parallelism and edge sharding over ranks (threads
+of one process trading through the mesh's own exchange, or processes on
+``torch.distributed``)."""
 
 from paralleljohnson_tpu_torch.parallel import multihost
 from paralleljohnson_tpu_torch.parallel.mesh import (

@@ -1,4 +1,4 @@
-"""Source parallelism over a mesh of ranks on ``torch.distributed``.
+"""Source parallelism over a mesh of ranks.
 
 The attested multi-chip design (``BASELINE.json:5``): source batches
 sharded across the ranks, the CSR replicated on each, and one
@@ -19,51 +19,47 @@ flags of its own block by one rule (:func:`rank_hub_flags`: the L2
 budget divided among the ranks that share the card).
 
 A :class:`Mesh` lists one ``torch.device`` per rank. In one process,
-every rank is a thread of the caller (:meth:`Mesh.run`) with its own
-process group per collective axis (``ProcessGroupGloo`` over a shared
-``HashStore``, or ``ProcessGroupNCCL`` when every rank of the group is on
-a card of its own) and, on a card, its own stream. Gloo takes host
-tensors: rank tensors on a card are staged through page-locked host
-buffers. A run makes its NCCL communicators before any rank does work:
-every rank builds its groups, then all connect them together
-(``eager_connect_single_device``) between two barriers. After
-``multihost.initialize()`` a mesh from ``multihost.global_mesh()`` has
-one rank per process and runs its collectives on the default process
-group.
+every rank is a thread of the caller (:meth:`Mesh.run`) with, on a card,
+its own stream, and the ranks trade tensors through one in-process
+exchange per collective group (:class:`_Exchange`), as the JAX package's
+collectives are ops inside one program: no process group. Each
+collective posts the rank's tensor and a CUDA event marking it ready,
+meets the group at a barrier, copies each peer's tensor onto the rank's
+own device on its own stream once that event has passed (a MIN
+all-reduce folds ``torch.minimum`` over them in rank order), records
+that it has read and meets the group again; the rank's stream then waits
+until every peer has read its tensor, so no source tensor is reused while
+a peer's copy of it is in flight. Ranks on CPU tensors do the same
+without events. Before the first run over several cards, the caller's
+thread makes the first copy between each ordered pair of them
+(:meth:`Mesh.peer_access`). After ``multihost.initialize()`` a mesh from
+``multihost.global_mesh()`` has one rank per process and runs its
+collectives on the default process group.
 
 Rank devices: ``mesh_shape=None`` takes every rank device, as the JAX
 package's ``make_mesh(None)`` takes every device, at either precision:
 on cuda every card ``CUDA_VISIBLE_DEVICES`` leaves visible (a rank per
-card, NCCL), on cpu one rank (torch sees one CPU device). A mesh of an
+card), on cpu one rank (torch sees one CPU device). A mesh of an
 explicit shape takes the first of them. ``PJ_MESH_DEVICES`` lists the
 rank devices instead, e.g. ``cuda:0,cuda:0,cuda:0,cuda:0``, ``cuda:0*4``
 or ``cpu*8`` (ranks may share a device; the counterpart of the JAX
 package's ``--xla_force_host_platform_device_count``).
 
-``DEFAULT_TIMEOUT_S`` bounds every gloo collective, and a run's ranks
-together by ``JOIN_GRACE_S`` more; an NCCL group's own timeout is longer
-still (``NCCL_MARGIN_S``), because its watchdog takes the whole process
-down when it fires: past the run's limit the caller aborts the run's
-NCCL communicators, which ends the collectives still waiting, and raises
-``TimeoutError``. A rank that raises releases the others: they leave at
-their next collective, the collectives they wait in are completed with
-dummy contributions on the failing rank's own device, the run's NCCL
-communicators are aborted, and the first error surfaces in the caller;
-the next run builds fresh groups. :meth:`Mesh.close` shuts a mesh's
-process groups down; whatever meshes are still open when the interpreter
-exits are closed then, so no communicator is left to a destructor.
+``DEFAULT_TIMEOUT_S``, read when a run starts, bounds every barrier of
+the run, and the run's ranks together by ``JOIN_GRACE_S`` more: past that
+limit the caller breaks the run's barriers and raises ``TimeoutError``. A
+rank that raises breaks them too: the others leave at their next
+collective with :class:`MeshAborted`, and the first error surfaces in
+the caller. Every run makes its barriers afresh, so the next run on the
+same mesh starts clean. :meth:`Mesh.close` drops the ranks' streams.
 """
 
 from __future__ import annotations
 
-import atexit
-import datetime
-import itertools
 import math
 import os
 import threading
 import time
-import weakref
 from typing import Callable
 
 import numpy as np
@@ -92,17 +88,6 @@ DEFAULT_TIMEOUT_S = 300.0
 # Seconds a rank thread may outlive the collective timeout before the
 # caller gives up on it.
 JOIN_GRACE_S = 30.0
-# Seconds an NCCL group's own timeout (its watchdog's) exceeds a run's
-# limit, so the run's abort always comes first.
-NCCL_MARGIN_S = 60.0
-
-_mesh_ids = itertools.count()
-# NCCL groups are built one at a time: the constructor does not wait for
-# its peers (the communicator is made at the first collective) and is
-# not written for concurrent calls from threads of one process.
-_nccl_build_lock = threading.Lock()
-# Meshes that may hold process groups, closed at exit.
-_open_meshes: "weakref.WeakSet[Mesh]" = weakref.WeakSet()
 
 
 class MeshAborted(RuntimeError):
@@ -165,16 +150,6 @@ def _device_type(device) -> str | None:
     return None if device is None else torch.device(device).type
 
 
-def _group_backend(devices) -> str:
-    """``nccl`` when every rank of the group is on a card of its own (and
-    NCCL is built), else ``gloo``."""
-    if (all(d.type == "cuda" for d in devices)
-            and len({d.index for d in devices}) == len(devices)
-            and tdist.is_nccl_available()):
-        return "nccl"
-    return "gloo"
-
-
 class Mesh:
     """Ranks over named axes: ``devices`` holds one ``torch.device`` per
     rank in row-major order of ``shape`` (an ordered axis -> size dict,
@@ -185,7 +160,7 @@ class Mesh:
     other ranks' entries of ``devices`` then only stand for them.
 
     ``collective_s`` sums, over the runs, the host seconds the slowest
-    local rank spent in collectives (staging copies included)."""
+    local rank spent in collectives (barrier waits included)."""
 
     def __init__(self, devices, axis_names, dims, *, world: int | None = None):
         self.devices = tuple(torch.device(d) for d in devices)
@@ -196,13 +171,9 @@ class Mesh:
             raise ValueError(f"{len(self.devices)} devices for a mesh of "
                              f"shape {self.shape}")
         self.world = world
-        self._id = next(_mesh_ids)
-        self._generation = 0
         self._lock = threading.Lock()
-        self._store = None
-        self._pgs: dict = {}
         self._streams: dict = {}
-        self._staging: dict = {}
+        self._peers = None
         self._sources_mesh = None
         self.collective_s = 0.0
 
@@ -240,19 +211,17 @@ class Mesh:
         return keys
 
     def backends(self) -> list[str]:
-        """The process-group backends the mesh's collectives use (none
-        on one rank)."""
+        """What carries the mesh's collectives: ``["threads"]`` (the
+        in-process exchange between rank threads), the default process
+        group's backend on a multi-process mesh, none on one rank."""
         if self.size == 1:
             return []
         if self.multiprocess:
             return [tdist.get_backend()] if tdist.is_initialized() else []
-        return sorted({_group_backend([self.devices[m] for m in
-                                       self.members(r, key)])
-                       for key in self.group_keys()
-                       for r in range(self.size)})
+        return ["threads"]
 
     def describe(self) -> str:
-        """What runs: e.g. ``4-rank sources mesh on cuda:0 x4 (gloo:
+        """What runs: e.g. ``4-rank sources mesh on cuda:0 x4 (threads:
         ranks share a card)``."""
         dims = "x".join(str(n) for n in self.shape.values())
         head = (f"{self.size}-rank {' x '.join(self.axis_names)} mesh"
@@ -262,18 +231,19 @@ class Mesh:
             return (f"{head}, one rank per process "
                     f"({', '.join(self.backends()) or 'uninitialized'})")
         devs = [str(d) for d in self.devices]
-        on = (f"{devs[0]} x{len(devs)}" if len(set(devs)) == 1
-              else ", ".join(devs))
-        why = []
-        for b in self.backends():
-            if b == "nccl":
-                why.append("nccl: a card per rank")
-            elif self.devices[0].type == "cuda":
-                why.append("gloo: ranks share a card, staged through "
-                           "page-locked host buffers")
-            else:
-                why.append("gloo: CPU ranks")
-        return f"{head} on {on}" + (f" ({'; '.join(why)})" if why else "")
+        distinct = len(set(devs))
+        on = f"{devs[0]} x{len(devs)}" if distinct == 1 else ", ".join(devs)
+        if self.size == 1:
+            return f"{head} on {on}"
+        if self.devices[0].type != "cuda":
+            why = "threads: CPU ranks"
+        elif distinct == len(devs):
+            why = "threads: a card per rank, device copies"
+        elif distinct == 1:
+            why = "threads: ranks share a card"
+        else:
+            why = "threads: ranks share cards, device copies"
+        return f"{head} on {on} ({why})"
 
     def sharing(self, rank: int) -> int:
         """The ranks of this process's mesh on ``rank``'s device, itself
@@ -293,98 +263,43 @@ class Mesh:
                                       (self.size,), world=self.world)
         return self._sources_mesh
 
-    # -- process groups, streams and host buffers ---------------------------
+    # -- groups, streams and peer access ------------------------------------
 
     def _group_of(self, rank: int, key: tuple) -> tuple[int, list[int]]:
         members = self.members(rank, key)
         return members[0], members
 
-    def _make_groups(self, rank: int) -> list:
-        """This rank's process groups, built in a fixed order (every
-        member builds its groups at the start of a run, so no build waits
-        on a rank that is inside a collective). Returns the NCCL groups
-        built now (their communicators are made at connection)."""
-        gen = self._generation
-        built = []
-        for key in self.group_keys():
-            if (gen, key, rank) in self._pgs:
-                continue
-            gid, members = self._group_of(rank, key)
-            prefix = f"mesh{self._id}/g{gen}/{'.'.join(key)}/{gid}/"
-            store = tdist.PrefixStore(prefix, self._store)
-            backend = _group_backend([self.devices[m] for m in members])
-            me = members.index(rank)
-            if backend == "nccl":
-                opts = tdist.ProcessGroupNCCL.Options()
-                # The watchdog takes the whole process down when a
-                # collective outlives this: it must outlive the run's
-                # own limit, past which run() aborts the groups.
-                opts._timeout = datetime.timedelta(
-                    seconds=DEFAULT_TIMEOUT_S + JOIN_GRACE_S + NCCL_MARGIN_S)
-                with _nccl_build_lock:
-                    pg = tdist.ProcessGroupNCCL(store, me, len(members), opts)
-                built.append(pg)
-            else:
-                # The ranks are threads of this process: loopback, whatever
-                # the host's name resolves to.
-                opts = tdist.ProcessGroupGloo._Options()
-                opts._timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
-                opts._devices = [tdist.ProcessGroupGloo.create_device(
-                    hostname="127.0.0.1")]
-                pg = tdist.ProcessGroupGloo(store, me, len(members), opts)
-            self._pgs[(gen, key, rank)] = (pg, backend, members)
-        _open_meshes.add(self)
-        return built
-
-    def _take_groups(self) -> list:
-        """This mesh's groups, dropped from it (a later run builds fresh
-        ones under a new prefix)."""
+    def peer_access(self) -> dict:
+        """{(src, dst): peer access} for each ordered pair of distinct
+        cards among this process's ranks. The first time, a copy is made
+        between each pair (which sets up peer access where the pair has
+        it), in the caller's thread: :meth:`run` calls this before its
+        rank threads start, so no rank thread's first copy sets it up
+        while its peers run kernels. A pair without peer access still
+        copies card to card (``cudaMemcpyAsync`` stages the copy)."""
         with self._lock:
-            pgs, self._pgs = self._pgs, {}
-            self._generation += 1
-        _open_meshes.discard(self)
-        return list(pgs.values())
-
-    def _abort_groups(self, *, left: bool) -> None:
-        """Drop this mesh's groups after a failed run (``left``: every
-        rank has left its collectives) or a timed-out one (a rank may
-        still be inside one). NCCL communicators are aborted, which ends
-        the collectives still in flight or waiting for a peer that never
-        posts (a shutdown would wait for them), in a thread of their own
-        bounded by ``JOIN_GRACE_S``. Gloo groups are shut down once every
-        rank has left, else dropped."""
-        groups = self._take_groups()
-        nccl = [pg for pg, backend, _ in groups if backend == "nccl"]
-        if left:
-            for pg, backend, _ in groups:
-                if backend != "nccl":
-                    pg.shutdown()
-        if not nccl:
-            return
-
-        def abort():
-            # The aborts as one NCCL group, as torch's own abort of every
-            # group does, so that one communicator's abort does not wait
-            # on another's.
-            nccl[0]._group_start()
-            try:
-                for pg in nccl:
-                    pg.abort()
-            finally:
-                nccl[0]._group_end()
-
-        t = threading.Thread(target=abort, daemon=True,
-                             name=f"mesh{self._id}-abort")
-        t.start()
-        t.join(JOIN_GRACE_S)
+            if self._peers is None:
+                cards = sorted({self.devices[r].index for r in
+                                self.local_ranks
+                                if self.devices[r].type == "cuda"})
+                peers = {}
+                for a in cards:
+                    for b in cards:
+                        if a != b:
+                            torch.zeros(1, device=torch.device("cuda", a)).to(
+                                torch.device("cuda", b))
+                            torch.cuda.synchronize(a)
+                            torch.cuda.synchronize(b)
+                            peers[(a, b)] = (
+                                torch.cuda.can_device_access_peer(a, b))
+                self._peers = peers
+            return dict(self._peers)
 
     def close(self) -> None:
-        """Shut this mesh's process groups down now (NCCL communicators
-        are released here, not by a destructor whenever the mesh is
-        collected), and those of its 1-D view; a later run builds fresh
-        groups."""
-        for pg, _, _ in self._take_groups():
-            pg.shutdown()
+        """Drop what this mesh keeps between runs, its ranks' streams (and
+        those of its 1-D view); a later run makes them again."""
+        with self._lock:
+            self._streams.clear()
         if self._sources_mesh is not None:
             self._sources_mesh.close()
 
@@ -395,17 +310,6 @@ class Mesh:
                 s = self._streams[rank] = torch.cuda.Stream(self.devices[rank])
             return s
 
-    def staging(self, rank: int, slot: str, shape, dtype) -> torch.Tensor:
-        """A page-locked host buffer of this rank, reused while the
-        shape holds (gloo's side of a collective on card tensors)."""
-        key = (rank, slot)
-        buf = self._staging.get(key)
-        if (buf is None or tuple(buf.shape) != tuple(shape)
-                or buf.dtype != dtype):
-            buf = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
-            self._staging[key] = buf
-        return buf
-
     # -- running one function on every local rank -----------------------------
 
     def run(self, fn: Callable, *, label: str = "mesh") -> list:
@@ -415,24 +319,19 @@ class Mesh:
         before the thread returns). Returns the results by local rank.
         The first error of a rank raises here, after every rank has left;
         a rank that does not finish within the collective timeout plus
-        ``JOIN_GRACE_S`` raises ``TimeoutError``, after the run's NCCL
-        communicators are aborted (which ends the collectives the other
-        ranks wait in)."""
+        ``JOIN_GRACE_S`` raises ``TimeoutError``, after the run's barriers
+        are broken (which releases the ranks waiting at them)."""
         ranks = self.local_ranks
         caller = {d: torch.cuda.current_stream(d)
                   for d in {self.devices[r] for r in ranks}
                   if d.type == "cuda"}
-        state = _RunState(self)
+        state = _RunState()
         results: dict = {}
         errors: dict = {}
         comms = {r: RankComm(self, r, state) for r in ranks}
         threaded = len(ranks) > 1
         if threaded:
-            with self._lock:
-                if self._store is None:
-                    self._store = tdist.HashStore()
-        connect = (self._connector(ranks, state)
-                   if threaded and not self.multiprocess else None)
+            self.peer_access()
 
         def main(rank):
             dev = self.devices[rank]
@@ -440,9 +339,6 @@ class Mesh:
             try:
                 if dev.type == "cuda":
                     torch.cuda.set_device(dev)
-                if connect is not None:
-                    connect(rank)
-                if dev.type == "cuda":
                     s = self.stream(rank)
                     s.wait_stream(caller[dev])
                     with torch.cuda.stream(s):
@@ -452,7 +348,7 @@ class Mesh:
                     results[rank] = fn(comm)
             except BaseException as e:  # noqa: BLE001 — surfaced by run()
                 errors[rank] = e
-                state.abandon(rank)
+                state.fail()
 
         if not threaded:
             main(ranks[0])
@@ -462,18 +358,16 @@ class Mesh:
                        for r in ranks]
             for t in threads:
                 t.start()
-            limit = DEFAULT_TIMEOUT_S + JOIN_GRACE_S
+            limit = state.timeout + JOIN_GRACE_S
             deadline = time.monotonic() + limit
             for t in threads:
                 t.join(max(0.0, deadline - time.monotonic()))
             stuck = [t.name for t in threads if t.is_alive()]
             if stuck:
                 state.fail()
-                self._abort_groups(left=False)
                 raise TimeoutError(f"{label}: ranks {stuck} still running "
                                    f"after {limit:.0f} s")
         if errors:
-            self._abort_groups(left=True)
             root = [e for e in errors.values()
                     if not isinstance(e, MeshAborted)]
             raise (root or list(errors.values()))[0]
@@ -482,37 +376,6 @@ class Mesh:
         for d, s in caller.items():
             _record_stream(out, s)
         return out
-
-    def _connector(self, ranks, state):
-        """``connect(rank)``, run first in each rank thread: the rank's
-        process groups, then, once every rank has built its own, the NCCL
-        ones' communicators, all made together before any rank does
-        work. Made lazily, at each group's first collective, they were
-        made while sibling ranks still ran kernels and copies, and two
-        runs in ten of the mesh card tests on four cards died on a
-        segmentation fault inside such a first collective. Made here,
-        one run in 28 still died there, its faulting rank in its first
-        collective while its siblings still swept: the cause is not
-        known (ROADMAP, Queue 3)."""
-        fence = threading.Barrier(len(ranks), timeout=DEFAULT_TIMEOUT_S)
-        state.fences.append(fence)
-
-        def connect(rank):
-            built = self._make_groups(rank)
-            try:
-                fence.wait()
-                for pg in built:
-                    pg.eager_connect_single_device(self.devices[rank])
-                fence.wait()
-            except threading.BrokenBarrierError:
-                raise MeshAborted("another rank of the mesh failed") from None
-        return connect
-
-
-@atexit.register
-def _close_open_meshes() -> None:
-    for mesh in list(_open_meshes):
-        mesh.close()
 
 
 def _record_stream(obj, stream) -> None:
@@ -529,81 +392,128 @@ def _record_stream(obj, stream) -> None:
             _record_stream(x, stream)
 
 
-class _RunState:
-    """What the ranks of one in-process run share: the log of the
-    collectives each rank posted, by group, and whether a rank failed.
-    A rank that fails (or finds another failed) posts, asynchronously,
-    every collective a peer of its groups has posted and it has not, with
-    dummy contributions, and leaves: each peer is waiting in at most one
-    of them, so all are released."""
+class _Fence:
+    """A reusable barrier over a group's members, as ``threading.Barrier``
+    but for one rule: a passage every member has reached stands. Breaking
+    the fence (a failed rank, a timeout) ends the waits of passages still
+    open and every later wait with ``threading.BrokenBarrierError``, never
+    the wait of a member whose passage is complete (a ``threading.Barrier``
+    broken by a fast member right after it released the others raises in
+    those still waking up)."""
 
-    def __init__(self, mesh: Mesh):
-        self.mesh = mesh
+    def __init__(self, parties: int, timeout: float):
+        self._cond = threading.Condition()
+        self._parties = parties
+        self._timeout = timeout
+        self._count = 0
+        self._passed = 0  # passages complete
+        self._broken = False
+
+    def wait(self) -> None:
+        with self._cond:
+            if self._broken:
+                raise threading.BrokenBarrierError
+            mine = self._passed
+            self._count += 1
+            if self._count == self._parties:
+                self._count = 0
+                self._passed += 1
+                self._cond.notify_all()
+                return
+            if not self._cond.wait_for(
+                    lambda: self._passed != mine or self._broken,
+                    self._timeout):
+                self._broken = True
+                self._cond.notify_all()
+            if self._passed == mine:
+                raise threading.BrokenBarrierError
+
+    def abort(self) -> None:
+        with self._cond:
+            self._broken = True
+            self._cond.notify_all()
+
+
+class _Exchange:
+    """One collective group of one in-process run: a slot per member for
+    what it posts (its spec ``(kind, shape, dtype)``, its tensor and, on a
+    card, the event marking the tensor ready), a slot per member for the
+    event marking its read done, and the two barriers a collective meets
+    at (after the posts, after the reads)."""
+
+    def __init__(self, n: int, timeout: float):
+        self.posts: list = [None] * n
+        self.reads: list = [None] * n
+        self.posted = _Fence(n, timeout)
+        self.read = _Fence(n, timeout)
+
+
+class _RunState:
+    """What the ranks of one in-process run share: an exchange per
+    collective group, the barriers the ranks may wait at, whether a rank
+    failed, and the collective timeout (``DEFAULT_TIMEOUT_S`` when the run
+    started)."""
+
+    def __init__(self):
         self.lock = threading.Lock()
         self.failed = False
-        self.log: dict = {}  # (key, gid) -> {rank: [spec, ...]}
+        self.timeout = DEFAULT_TIMEOUT_S
+        self.exchanges: dict = {}  # (key, gid) -> _Exchange
         self.fences: list = []  # barriers the ranks may wait at
 
     def fail(self) -> None:
-        """Mark the run failed: every rank leaves at its next collective
-        (or barrier)."""
+        """Mark the run failed and break its barriers: every rank leaves
+        the barrier it waits at, or its next collective."""
         with self.lock:
             self.failed = True
-        for fence in self.fences:
+            fences = list(self.fences)
+        for fence in fences:
             fence.abort()
 
-    def post(self, rank: int, key: tuple, gid: int, spec: tuple) -> None:
+    def exchange(self, key: tuple, gid: int, n: int) -> _Exchange:
+        """Group ``(key, gid)``'s exchange of ``n`` members, made at the
+        group's first collective of the run."""
         with self.lock:
             if self.failed:
                 raise MeshAborted("another rank of the mesh failed")
-            self.log.setdefault((key, gid), {}).setdefault(rank, []).append(
-                spec)
-
-    def abandon(self, rank: int) -> None:
-        mesh = self.mesh
-        if mesh.multiprocess:
-            return
-        self.fail()
-        with self.lock:
-            owed = []
-            for (key, gid), by_rank in self.log.items():
-                if rank not in mesh.members(gid, key):
-                    continue
-                mine = by_rank.setdefault(rank, [])
-                longest = max(by_rank.values(), key=len)
-                owed += [(key, spec) for spec in longest[len(mine):]]
-                mine.extend(longest[len(mine):])
-        works = []
-        for key, (kind, shape, dtype, _) in owed:
-            entry = mesh._pgs.get((mesh._generation, key, rank))
-            if entry is None:
-                continue
-            pg, backend, members = entry
-            # This rank's own card (a spec may be a peer's): a tensor on
-            # another card would make the group a second communicator
-            # there, which its peers never join.
-            where = (mesh.devices[rank] if backend == "nccl"
-                     else torch.device("cpu"))
-            x = torch.zeros(shape, dtype=dtype, device=where)
-            try:
-                if kind == "all_gather":
-                    works.append(pg.allgather(
-                        [[torch.empty_like(x) for _ in members]], [x]))
-                else:
-                    works.append(pg.allreduce([x], _min_opts()))
-            except Exception:  # noqa: BLE001 — the peers time out instead
-                pass
-        for w in works:
-            try:
-                w.wait()
-            except Exception:  # noqa: BLE001 — best effort release
-                pass
+            ex = self.exchanges.get((key, gid))
+            if ex is None:
+                ex = self.exchanges[(key, gid)] = _Exchange(n, self.timeout)
+                self.fences += [ex.posted, ex.read]
+            return ex
 
 
-def _min_opts():
-    opts = tdist.AllreduceOptions()
-    opts.reduceOp = tdist.ReduceOp.MIN
-    return opts
+def _event(stream):
+    """An event recorded on ``stream`` now (None off the card)."""
+    if stream is None:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(stream)
+    return ev
+
+
+def _stacked(xs: list, dev: torch.device) -> torch.Tensor:
+    """``xs`` copied in order into one [len(xs), ...] tensor on ``dev``."""
+    out = torch.empty((len(xs), *xs[0].shape), dtype=xs[0].dtype,
+                      device=dev)
+    for row, x in zip(out, xs):
+        row.copy_(x)
+    return out
+
+
+def _min_fold(xs: list, dev: torch.device) -> torch.Tensor:
+    """The elementwise minimum of ``xs``, folded in order into a new
+    tensor on ``dev`` (a tensor on another device is copied here first)."""
+    acc = xs[0].to(dev, copy=True)
+    for x in xs[1:]:
+        torch.minimum(acc, x.to(dev), out=acc)
+    return acc
+
+
+def _for_group(t: torch.Tensor) -> torch.Tensor:
+    """The tensor the default process group takes: a card tensor's host
+    copy under gloo."""
+    return t.cpu() if t.is_cuda and tdist.get_backend() != "nccl" else t
 
 
 class RankComm:
@@ -611,61 +521,83 @@ class RankComm:
     coordinates, and the collectives over mesh axes (the JAX package's
     ``all_gather`` / ``pmin``; the maxima of ``pmax`` are taken on the
     host from :meth:`gather_ints`). Every member of a group must make the
-    same sequence of collective calls."""
+    same sequence of collective calls, with the same shapes and dtypes."""
 
     def __init__(self, mesh: Mesh, rank: int, state: _RunState):
         self.mesh = mesh
         self.rank = rank
         self.device = mesh.devices[rank]
         self.coords = mesh.coords(rank)
-        self.seconds = 0.0  # in collectives, staging included
+        self.seconds = 0.0  # in collectives, barrier waits included
         self._state = state
 
-    def _group(self, axes):
+    def _key(self, axes) -> tuple:
         mesh = self.mesh
         key = mesh.axis_names if axes is None else tuple(axes)
-        if mesh.multiprocess:
-            return key, 0, None, tdist.get_backend(), list(range(mesh.size))
-        if key not in mesh.group_keys():
+        if not mesh.multiprocess and key not in mesh.group_keys():
             raise ValueError(f"no collective group over {key} on {mesh}")
-        gid, members = mesh._group_of(self.rank, key)
-        pg, backend, _ = mesh._pgs[(mesh._generation, key, self.rank)]
-        return key, gid, pg, backend, members
+        return key
 
-    def _post(self, key, gid, kind, t) -> None:
-        self._state.post(self.rank, key, gid,
-                         (kind, tuple(t.shape), t.dtype, t.device))
+    def _meet(self, barrier, what: str) -> None:
+        try:
+            barrier.wait()
+        except threading.BrokenBarrierError:
+            if self._state.failed:
+                raise MeshAborted("another rank of the mesh failed") from None
+            raise TimeoutError(f"{what}: rank {self.rank} waited "
+                               f"{self._state.timeout:.0f} s for its "
+                               "peers") from None
 
-    def _wait(self, work) -> None:
-        work.wait()
-        if self._state.failed:
-            raise MeshAborted("another rank of the mesh failed")
-
-    def _stage(self, t, slot):
-        """The tensor gloo sees: a card tensor's copy in a page-locked
-        host buffer, a host tensor itself."""
-        if not t.is_cuda:
-            return t
-        buf = self.mesh.staging(self.rank, slot, t.shape, t.dtype)
-        buf.copy_(t)
-        return buf
+    def _trade(self, key: tuple, kind: str, t: torch.Tensor,
+               read: Callable) -> object:
+        """One collective of the in-process exchange over ``key``'s group:
+        post ``t`` (with the event marking it ready on this rank's stream),
+        meet; raise ``ValueError`` in every member if the members' specs
+        differ; make this rank's stream wait each peer's event and return
+        ``read(the members' tensors, in rank order)``, run on that stream;
+        record the read, meet again, and make the stream wait every
+        peer's read, so ``t`` is not reused before the peers' copies of it
+        are done."""
+        gid, members = self.mesh._group_of(self.rank, key)
+        ex = self._state.exchange(key, gid, len(members))
+        me = members.index(self.rank)
+        what = f"{kind} over {key}"
+        spec = (kind, tuple(t.shape), t.dtype)
+        stream = torch.cuda.current_stream(t.device) if t.is_cuda else None
+        ex.posts[me] = (spec, t, _event(stream))
+        self._meet(ex.posted, what)
+        for r, (other, _, _) in zip(members, ex.posts):
+            if other != spec:
+                raise ValueError(f"{what}: rank {self.rank} posted {spec}, "
+                                 f"rank {r} posted {other}")
+        if stream is not None:
+            for j, (_, _, ready) in enumerate(ex.posts):
+                if j != me:
+                    stream.wait_event(ready)
+        out = read([x for _, x, _ in ex.posts])
+        ex.reads[me] = _event(stream)
+        self._meet(ex.read, what)
+        if stream is not None:
+            for j, done in enumerate(ex.reads):
+                if j != me:
+                    stream.wait_event(done)
+        return out
 
     def all_reduce_min_(self, t: torch.Tensor, axes=None):
         """``t`` replaced in place by its elementwise minimum over the
         group of ``axes`` (None: the whole mesh). Returns ``t``."""
         if self.mesh.size == 1:
             return t
-        key, gid, pg, backend, _ = self._group(axes)
-        self._post(key, gid, "all_reduce", t)
+        key = self._key(axes)
         t0 = time.perf_counter()
         x = t.contiguous()
-        if backend != "nccl":
-            x = self._stage(x, f"ar{key}")
-        if pg is None:
-            work = tdist.all_reduce(x, op=tdist.ReduceOp.MIN, async_op=True)
+        if self.mesh.multiprocess:
+            x = _for_group(x)
+            tdist.all_reduce(x, op=tdist.ReduceOp.MIN)
         else:
-            work = pg.allreduce([x], _min_opts())
-        self._wait(work)
+            dev = x.device
+            x = self._trade(key, "all_reduce_min", x,
+                            lambda xs: _min_fold(xs, dev))
         if x is not t:
             t.copy_(x)
         self.seconds += time.perf_counter() - t0
@@ -676,23 +608,18 @@ class RankComm:
         rank's device."""
         if self.mesh.size == 1:
             return [t]
-        key, gid, pg, backend, members = self._group(None)
+        key = self._key(None)
         t = t.contiguous()
-        self._post(key, gid, "all_gather", t)
         t0 = time.perf_counter()
-        x = t if backend == "nccl" else self._stage(t, f"agin{key}")
-        if x is t:
-            outs = [torch.empty_like(t) for _ in members]
+        if self.mesh.multiprocess:
+            x = _for_group(t)
+            outs = [torch.empty_like(x) for _ in range(self.mesh.size)]
+            tdist.all_gather(outs, x)
+            outs = [o.to(self.device) for o in outs]
         else:
-            flat = self.mesh.staging(self.rank, f"agout{key}",
-                                     (len(members), *t.shape), t.dtype)
-            outs = list(flat.unbind(0))
-        if pg is None:
-            work = tdist.all_gather(outs, x, async_op=True)
-        else:
-            work = pg.allgather([outs], [x])
-        self._wait(work)
-        outs = [o.to(self.device) for o in outs]
+            outs = list(self._trade(
+                key, "all_gather", t,
+                lambda xs: _stacked(xs, self.device)).unbind(0))
         self.seconds += time.perf_counter() - t0
         return outs
 
@@ -702,9 +629,15 @@ class RankComm:
         row = torch.tensor([int(v) for v in values], dtype=torch.int64)
         if self.mesh.size == 1:
             return row.numpy()[None]
-        if self._group(None)[3] == "nccl":
-            row = row.to(self.device)
-        return torch.stack(self.all_gather(row)).cpu().numpy()
+        if self.mesh.multiprocess:
+            if tdist.get_backend() == "nccl":
+                row = row.to(self.device)
+            return torch.stack(self.all_gather(row)).cpu().numpy()
+        t0 = time.perf_counter()
+        out = self._trade(self._key(None), "gather_ints", row,
+                          lambda xs: torch.stack(xs).numpy())
+        self.seconds += time.perf_counter() - t0
+        return out
 
 
 # -- mesh construction --------------------------------------------------------
@@ -815,11 +748,12 @@ class _Placer:
     """Copies of the caller's tensors on each rank device, made once per
     device for a whole run (ranks that share a device share the copy).
     Given a mesh, the copies of ``objs`` (by key) are made at once, in the
-    caller's thread, before the run: no rank thread copies between cards,
-    so none copies from a card whose peers already wait in a collective
-    (on four H100s a rank that copied the in-edge CSC from the caller's
-    card while the other ranks waited in an NCCL all-gather never
-    returned from the copy)."""
+    caller's thread, before the run: no rank thread copies the caller's
+    tensors, so no such copy runs beside the ranks' kernels and
+    collectives (on four H100s, when the mesh's collectives ran on NCCL
+    groups, a rank that copied the in-edge CSC from the caller's card
+    while the other ranks waited in an all-gather never returned from the
+    copy)."""
 
     def __init__(self, mesh: Mesh | None = None, **objs):
         self._lock = threading.Lock()

@@ -277,7 +277,7 @@ class ParallelJohnsonSolver:
         self._metrics = resolve_metrics(self.config.metrics)
 
     def close(self) -> None:
-        """Release the backend's mesh process groups (``Backend.close``);
+        """Close the backend's meshes (``Backend.close``);
         the solver stays usable. Also on leaving a ``with`` block."""
         self.backend.close()
 

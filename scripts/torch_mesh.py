@@ -18,8 +18,9 @@ process per card where there are N cards, so NCCL; gloo where they
 share. Its rows are held bitwise to a single-card solve.
 
 ``--cards`` (two cards or more, e.g. four) drives and times
-the default mesh over every card (``mesh_shape=None``, NCCL, a rank per
-card) against one card (``mesh_shape=(1,)``) in the same process, each
+the default mesh over every card (``mesh_shape=None``, a rank per card,
+the in-process exchange copying between the cards) against one card
+(``mesh_shape=(1,)``) in the same process, each
 row held bitwise to the one card's, in this order: R-MAT-20 over phase
 3's 512 sources at f64, without and with trees, then at f32 with and
 without trees (the wall, the solve's phase seconds, the collectives,
@@ -35,15 +36,21 @@ card, each on its own copy of the checkpoint); ``--first-use``'s
 in-process rows (a fresh solver, a fresh engine). Every row carries a
 ``brief`` beside one card's: the wall, upload, fan-out, collective and
 assembly seconds where the row has them. Trees are checked with
-``validate_pred_tree``. Prints the NCCL version and ``nvidia-smi topo
--m``, and one JSON line per row; exits 1 if a check fails.
+``validate_pred_tree``. Prints ``nvidia-smi topo -m`` and, first, the
+``--links`` line, then one JSON line per row; exits 1 if a check fails.
+
+``--links`` (two cards or more) prints, for each ordered pair of cards,
+whether it has peer access (``Mesh.peer_access``, which makes the pair's
+first copy) and one timed copy of 256 MiB from one card to the other
+(after an untimed one; host clock around the copy and a synchronize of
+both cards): its seconds and GB/s.
 
 ``--first-use`` (two cards or more) times what a caller pays whose solve
 builds the default mesh afresh, against ``mesh_shape=(1,)``, in turns
 (one card, then every card, ``--repeats`` times): a command-line solve
 (``python -m paralleljohnson_tpu_torch solve``, the process's wall from
 start to exit), a fresh solver's solve of a small graph (R-MAT-12, 64
-sources: upload, mesh, NCCL connections and the groups' shutdown
+sources: upload, mesh, the exchange's first run and the mesh's close
 included), and a fresh serving engine's first miss on the same graph;
 each row bitwise one card's.
 """
@@ -71,6 +78,7 @@ def main() -> int:
     ap.add_argument("--processes", type=int, default=None)
     ap.add_argument("--cards", action="store_true")
     ap.add_argument("--first-use", action="store_true")
+    ap.add_argument("--links", action="store_true")
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
 
@@ -95,6 +103,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _cuda.build_all()
     chip_smoke.emit({"build_s": time.perf_counter() - t0})
+    if args.links:
+        try:
+            links()
+        except Exception:  # noqa: BLE001 — report and exit non-zero
+            traceback.print_exc()
+            return 1
+        return 0
     if args.cards or args.first_use:
         try:
             (every_card if args.cards else first_use)(dev, args.repeats)
@@ -132,6 +147,7 @@ def main() -> int:
 
 
 NEG_SEED = 5  # the negative R-MAT-20's potentials
+LINK_BYTES = 256 << 20  # --links: one copy's size
 FIRST_SPEC = "rmat:scale=12,ef=8,seed=4"  # --first-use's small graph
 FIRST_SOURCES = 64
 FLEET_SOURCES = 256
@@ -261,8 +277,8 @@ def every_card(dev, repeats: int) -> None:
     os.environ.pop(mesh_mod.MESH_DEVICES_ENV, None)
     topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
                           text=True, timeout=60).stdout
-    chip_smoke.emit({"cards": cards, "nccl": ".".join(
-        map(str, torch.cuda.nccl.version())), "torch": torch.__version__,
+    links()
+    chip_smoke.emit({"cards": cards, "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "topo": [ln.rstrip() for ln in topo.splitlines() if ln.strip()]})
     sync = chip_smoke.sync_time
@@ -342,7 +358,7 @@ def every_card(dev, repeats: int) -> None:
                 describe, backends = mesh.describe(), mesh.backends()
             routes = dict(rn.stats.routes_by_phase)
             want_route = "sharded-1d+pred" if trees else "sharded-1d"
-            if mesh.size != cards or backends != ["nccl"] or routes != {
+            if mesh.size != cards or backends != ["threads"] or routes != {
                     "fanout": want_route}:
                 raise AssertionError(
                     f"{label}: {describe} {backends} {routes}")
@@ -591,6 +607,43 @@ def every_card(dev, repeats: int) -> None:
         shutil.rmtree(root, ignore_errors=True)
     if failed:
         raise AssertionError(f"--cards rows failed: {failed}")
+
+
+def links() -> None:
+    """``--links``: see the module docstring. Raises below two cards."""
+    import torch
+
+    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"--links needs two cards or more; {cards} "
+                             "visible")
+    mesh = mesh_mod.Mesh([torch.device("cuda", i) for i in range(cards)],
+                         ("sources",), (cards,))
+    rows = []
+    for (a, b), peer in sorted(mesh.peer_access().items()):
+        src = torch.ones(LINK_BYTES, dtype=torch.uint8,
+                         device=torch.device("cuda", a))
+        dst = torch.empty(LINK_BYTES, dtype=torch.uint8,
+                          device=torch.device("cuda", b))
+        dst.copy_(src)  # untimed
+        torch.cuda.synchronize(a)
+        torch.cuda.synchronize(b)
+        dst.zero_()
+        torch.cuda.synchronize(b)
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        torch.cuda.synchronize(a)
+        torch.cuda.synchronize(b)
+        secs = time.perf_counter() - t0
+        if not bool((dst == 1).all()):
+            raise AssertionError(f"--links: the copy {a} -> {b} differs")
+        rows.append({"src": a, "dst": b, "peer_access": peer,
+                     "bytes": LINK_BYTES, "seconds": secs,
+                     "gb_s": LINK_BYTES / secs / 1e9})
+        del src, dst
+    chip_smoke.emit({"links": rows})
 
 
 def first_use(dev, repeats: int) -> None:

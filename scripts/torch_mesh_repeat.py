@@ -7,11 +7,12 @@ its whole log kept, and catch a native frame if one of them crashes.
 
 Each run is ``python -X faulthandler -m pytest --noconftest
 tests/test_torch_cuda.py -k mesh -v -s`` from the checkout this script
-lies in, with ``NCCL_DEBUG=WARN`` and ``TORCH_SHOW_CPP_STACKTRACES=1``;
-its output goes to ``DIR/run_NN.log`` (default
+lies in, with ``TORCH_SHOW_CPP_STACKTRACES=1``; its output goes to
+``DIR/run_NN.log`` (default
 ``chiprun_out/mesh_repeat``). Meant for a host with several cards, where
-the NCCL cases run (the four-card crash of the first collective of a
-fresh NCCL mesh, ROADMAP Queue 3).
+the cases with a card per rank run (the four-card crash in the first
+collective of a fresh mesh, seen when the mesh's collectives ran on NCCL
+groups, ROADMAP Queue 3).
 
 Before the runs it probes which native tools work on this host, on a
 child that dereferences a null pointer: a core file (``RLIMIT_CORE``
@@ -180,7 +181,7 @@ def main() -> int:
     found = probe(out)
     native = (found["works"] or ["none"])[0]
     print(json.dumps({"probe": found, "native": native}), flush=True)
-    env = dict(os.environ, NCCL_DEBUG="WARN", TORCH_SHOW_CPP_STACKTRACES="1")
+    env = dict(os.environ, TORCH_SHOW_CPP_STACKTRACES="1")
     if native == "backtrace":
         env["LD_PRELOAD"] = found["backtrace"]["lib"]
     test = [sys.executable, "-X", "faulthandler", "-m", "pytest",

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Load the in-process NCCL mesh beyond what the card tests do, one
-scenario per child process, so a fatal signal in one is recorded and the
-others still run.
+"""Load the in-process mesh over several cards beyond what the card tests
+do, one scenario per child process, so a fatal signal in one is recorded
+and the others still run.
 
     python3 scripts/torch_mesh_stress.py [--out DIR] [--only NAME,...]
 
-Needs two cards or more (a card per rank, so the groups are NCCL).
+Needs two cards or more (a card per rank: the rank threads trade tensors
+through the mesh's in-process exchange, by device copies between the
+cards).
 Scenarios (``SCENARIOS``):
 
 - ``loop``: build, solve and close many meshes in one process: 1-D meshes
@@ -14,7 +16,7 @@ Scenarios (``SCENARIOS``):
   to one card's rows;
 - ``churn``: for ``CHURN_S`` seconds, build a mesh over every card, run
   one round (a kernel, a MIN all-reduce, an integer gather) and close it:
-  each round makes and releases the NCCL communicators anew;
+  each round makes a fresh mesh and fresh barriers;
 - ``fail``: a rank raises between two collectives of a run, ten times on
   one mesh, each followed by a good run on the same mesh;
 - ``fail_first``: a rank raises before its first collective;
@@ -27,10 +29,10 @@ Scenarios (``SCENARIOS``):
   ``TimeoutError`` and the process must live on to solve again;
 - ``f64_trees``: R-MAT-12 at f64 with trees over 96 sources under a
   default ``SolverConfig(precision="f64")`` (the default mesh: every
-  card, NCCL), held bitwise to one card's, trees valid, with the run's
-  limit at 20 s so a stuck run raises ``TimeoutError`` naming its entry
-  point (where a rank thread once copied between cards while its peers
-  waited in an NCCL collective, ROADMAP Queue 3);
+  card), held bitwise to one card's, trees valid, with the run's limit
+  at 20 s so a stuck run raises ``TimeoutError`` naming its entry point
+  (where a rank thread once copied between cards while its peers waited
+  in an NCCL collective, ROADMAP Queue 3);
 - ``skew_first``: the first collective of a fresh mesh reached on skewed
   arrival, in a loop for ``--budget-s`` seconds: each iteration builds an
   edge mesh over every card, runs one round of edge-sharded Bellman-Ford
@@ -45,12 +47,8 @@ Scenarios (``SCENARIOS``):
   one, which goes on from the next iteration; prints the iterations, the
   iterations a minute, each fatal signal's iteration and the native
   frames caught, and the crash rate per iteration and per four-card
-  minute. ``--nccl-runtime-connect 0`` sets ``NCCL_RUNTIME_CONNECT`` in
-  the children, ``--cudart-shared`` builds the kernels with ``-cudart
-  shared`` (one shared CUDA runtime instead of one linked into each
-  library), ``--no-edge-mesh`` leaves the edge mesh out: each tests one
-  suspect of the crash on its own; ``--dtype f64`` runs the rows at f64
-  (the fixpoints with their hub flags). An iteration that takes more
+  minute. ``--no-edge-mesh`` leaves the edge mesh out; ``--dtype f64``
+  runs the rows at f64 (the fixpoints with their hub flags). An iteration that takes more
   than ``SKEW_STALL_S`` dumps every thread's stack (the ranks' frames
   before the run's limit ends them).
 
@@ -250,25 +248,10 @@ def skew_first(env, start: int, budget_s: float, *,
         k += 1
     return {"first_iteration": start, "iterations": k - start,
             "loop_s": time.perf_counter() - t0, "edge_mesh": edge_mesh,
-            "dtype": str(dtype), "cudart": _cudart_maps()}
-
-
-def _cudart_maps() -> list:
-    """The CUDA runtime libraries this process has mapped (one for
-    torch's; a kernel library linked with ``-cudart shared`` adds none)."""
-    try:
-        maps = Path("/proc/self/maps").read_text()
-    except OSError:
-        return []
-    return sorted({line.split()[-1] for line in maps.splitlines()
-                   if "libcudart" in line})
+            "dtype": str(dtype)}
 
 
 def scenario(name: str, args) -> dict:
-    if name == "skew_first" and args.cudart_shared:
-        from paralleljohnson_tpu_torch.ops import _cuda
-
-        _cuda.NVCC_FLAGS = (*_cuda.NVCC_FLAGS, "-cudart", "shared")
     env = _setup(args.dtype if name == "skew_first" else "f32")
     mesh_mod, n = env["mesh_mod"], env["n"]
     out = {"cards": n}
@@ -278,7 +261,7 @@ def scenario(name: str, args) -> dict:
             kind = i % 3
             if kind == 0:
                 mesh = mesh_mod.make_mesh((n,), device="cuda")
-                assert mesh.backends() == ["nccl"], mesh.describe()
+                assert mesh.backends() == ["threads"], mesh.describe()
                 _fanout(env, mesh)
                 mesh.close()
                 routes.append("direct")
@@ -336,7 +319,7 @@ def scenario(name: str, args) -> dict:
         mesh_mod.DEFAULT_TIMEOUT_S = 10.0
         mesh_mod.JOIN_GRACE_S = 20.0 if name == "skew" else 5.0
         mesh = mesh_mod.make_mesh((n,), device="cuda")
-        _fanout(env, mesh)  # groups and communicators built
+        _fanout(env, mesh)  # a first run on the mesh
 
         def body(comm):
             x = torch.ones(4, device=comm.device)
@@ -377,7 +360,7 @@ def scenario(name: str, args) -> dict:
                                        device="cuda") as solver:
             got = solver.solve(g, sources, predecessors=True)
             mesh = solver.backend._mesh()
-            assert mesh.size == n and mesh.backends() == ["nccl"], \
+            assert mesh.size == n and mesh.backends() == ["threads"], \
                 mesh.describe()
         out["solve_s"] = time.perf_counter() - t0
         out["routes"] = dict(got.stats.routes_by_phase)
@@ -411,11 +394,8 @@ def run_skew_first(args, out: Path, env: dict) -> dict:
     last one held (or after the one a child died in)."""
     from torch_mesh_repeat import FRAME
 
-    env = dict(env, NCCL_DEBUG="WARN", TORCH_SHOW_CPP_STACKTRACES="1")
-    if args.nccl_runtime_connect is not None:
-        env["NCCL_RUNTIME_CONNECT"] = args.nccl_runtime_connect
-    flags = (["--cudart-shared"] if args.cudart_shared else []) + (
-        ["--no-edge-mesh"] if args.no_edge_mesh else []) + [
+    env = dict(env, TORCH_SHOW_CPP_STACKTRACES="1")
+    flags = (["--no-edge-mesh"] if args.no_edge_mesh else []) + [
         "--dtype", args.dtype]
     t0 = time.perf_counter()
     nxt, child, done, bad_starts = 0, 0, 0, 0
@@ -472,8 +452,6 @@ def run_skew_first(args, out: Path, env: dict) -> dict:
             "crashes": crashes, "errors": errors,
             "crash_per_iteration": len(crashes) / max(1, started_n),
             "crashes_per_min": len(crashes) / (secs / 60.0),
-            "nccl_runtime_connect": args.nccl_runtime_connect,
-            "cudart_shared": args.cudart_shared,
             "edge_mesh": not args.no_edge_mesh, "dtype": args.dtype,
             "loop_s": loop_s,
             "last": last}
@@ -488,10 +466,6 @@ def main() -> int:
     ap.add_argument("--timeout", type=float, default=240.0)
     ap.add_argument("--budget-s", type=float, default=300.0,
                     help="skew_first: seconds of iterations")
-    ap.add_argument("--nccl-runtime-connect", default=None,
-                    help="skew_first: NCCL_RUNTIME_CONNECT in the children")
-    ap.add_argument("--cudart-shared", action="store_true",
-                    help="skew_first: kernels linked with -cudart shared")
     ap.add_argument("--no-edge-mesh", action="store_true",
                     help="skew_first: no edge mesh before the fan-out mesh")
     ap.add_argument("--dtype", choices=("f32", "f64"), default="f32",

@@ -1736,8 +1736,8 @@ def test_cli_serve_listen_answers_and_drains(cuda, tmp_path):
 
 @pytest.fixture
 def two_ranks(cuda, monkeypatch):
-    """Two mesh ranks sharing the card (gloo, staged through page-locked
-    host buffers), every collective bounded by 60 s."""
+    """Two mesh ranks sharing the card (the in-process exchange: device
+    copies on the card), every collective bounded by 60 s."""
     monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0*2")
     monkeypatch.setattr(
         "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 60.0)
@@ -1807,7 +1807,7 @@ def test_mesh_replicate_and_failure_on_card(two_ranks):
     dg = be.upload(g)
     (indptr_in, src_in, w_in), items = dg.fanout_layout()
     mesh = make_mesh(device=two_ranks)
-    assert "gloo: ranks share a card" in mesh.describe()
+    assert "threads: ranks share a card" in mesh.describe()
 
     def run():
         return sharded_fanout(
@@ -1840,11 +1840,13 @@ def test_mesh_replicate_and_failure_on_card(two_ranks):
 
 
 def test_mesh_nccl_on_distinct_cards(cuda, monkeypatch):
-    """With a card per rank the groups are NCCL: ``sharded-1d``, the
-    edge-sharded phase 1 and the all-gather, rows bitwise one card's."""
+    """With a card per rank the in-process exchange copies between the
+    cards (each ordered pair's first copy made before the run):
+    ``sharded-1d``, the edge-sharded phase 1 and the all-gather, rows
+    bitwise one card's."""
     n = torch.cuda.device_count()
     if n < 2:
-        pytest.skip(f"NCCL needs two cards per mesh; {n} visible")
+        pytest.skip(f"a card per rank needs two cards; {n} visible")
     monkeypatch.delenv("PJ_MESH_DEVICES", raising=False)
     monkeypatch.setattr(
         "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 120.0)
@@ -1852,7 +1854,10 @@ def test_mesh_nccl_on_distinct_cards(cuda, monkeypatch):
 
     ranks = min(n, 4)
     mesh = make_mesh((ranks,), device=cuda)
-    assert mesh.backends() == ["nccl"]
+    assert mesh.backends() == ["threads"]
+    assert "threads: a card per rank, device copies" in mesh.describe()
+    assert set(mesh.peer_access()) == {(a, b) for a in range(ranks)
+                                       for b in range(ranks) if a != b}
     g = pjt.load_graph("grid:rows=48,cols=40,neg=0.2,seed=6")
     sources = np.arange(0, g.num_nodes, 37)[:32]
     want = pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=(1,)),
@@ -1879,13 +1884,66 @@ def test_mesh_nccl_on_distinct_cards(cuda, monkeypatch):
                                   johnson.to_numpy(one.dist))
 
 
+@pytest.mark.parametrize("placement", ["shared", "distinct"])
+def test_mesh_gather_source_reused_at_once(cuda, monkeypatch, placement):
+    """No rank's source block is reused while a peer's copy of it is in
+    flight: on four ranks sharing the card (``shared``) or a card each
+    (``distinct``, as many as there are up to four), each rank
+    overwrites its source block right after every ``all_gather``
+    returns, frees it and at once fills a block of the same size (which
+    the caching allocator hands the freed memory), 100 times; every
+    rank's gathered rows stay bitwise one card's (R-MAT-12 rows, each
+    rank's block 32 MiB)."""
+    from paralleljohnson_tpu_torch.parallel import make_mesh
+
+    n = torch.cuda.device_count()
+    if placement == "distinct":
+        if n < 2:
+            pytest.skip(f"a card per rank needs two cards; {n} visible")
+        ranks = min(n, 4)
+        monkeypatch.setenv("PJ_MESH_DEVICES", ",".join(
+            f"cuda:{i}" for i in range(ranks)))
+    else:
+        ranks = 4
+        monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0*4")
+    monkeypatch.setattr(
+        "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 120.0)
+    g = pjt.load_graph(F64_RMAT)
+    per, tile = 64, 32
+    sources = np.arange(0, g.num_nodes, 5)[:per * ranks]
+    want = torch.as_tensor(pjt.ParallelJohnsonSolver(
+        pjt.SolverConfig(mesh_shape=(1,)), device=cuda).solve(
+            g, sources).matrix)
+    blocks = [want[r * per:(r + 1) * per].repeat(tile, 1)
+              for r in range(ranks)]
+    mesh = make_mesh(device=cuda)
+    assert mesh.size == ranks and mesh.backends() == ["threads"]
+    mine = {r: blocks[r].to(mesh.devices[r]) for r in range(ranks)}
+    expect = {d: torch.stack(blocks).to(d) for d in set(mesh.devices)}
+
+    def body(comm):
+        bad = torch.zeros((), dtype=torch.int64, device=comm.device)
+        for _ in range(100):
+            src = mine[comm.rank].clone()
+            got = comm.all_gather(src)
+            src.fill_(float("nan"))
+            del src
+            junk = torch.full_like(mine[comm.rank], -1.0)
+            bad += (torch.stack(got) != expect[comm.device]).sum()
+            del junk, got
+        return int(bad)
+
+    assert mesh.run(body) == [0] * ranks
+    mesh.close()
+
+
 # -- precision="f64" above the solver on the card ----------------------------
 
 
 @pytest.fixture
 def four_ranks(cuda, monkeypatch):
-    """Four mesh ranks sharing the card (gloo, staged through page-locked
-    host buffers), every collective bounded by 60 s."""
+    """Four mesh ranks sharing the card (the in-process exchange: device
+    copies on the card), every collective bounded by 60 s."""
     monkeypatch.setenv("PJ_MESH_DEVICES", "cuda:0*4")
     monkeypatch.setattr(
         "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 60.0)
@@ -2100,13 +2158,13 @@ def test_approx_f64_config_on_card_equals_cpu(cuda):
 
 
 def test_mesh_f64_nccl_on_distinct_cards(cuda, monkeypatch):
-    """With a card per rank the f64 collectives run on NCCL: the
-    edge-sharded phase 1 and ``sharded-1d`` at f64, rows bitwise one
-    card's; each rank, alone on its card, takes the whole L2 budget for
-    its hub flags."""
+    """With a card per rank the f64 collectives copy between the cards
+    (the in-process exchange): the edge-sharded phase 1 and
+    ``sharded-1d`` at f64, rows bitwise one card's; each rank, alone on
+    its card, takes the whole L2 budget for its hub flags."""
     n = torch.cuda.device_count()
     if n < 2:
-        pytest.skip(f"NCCL needs two cards per mesh; {n} visible")
+        pytest.skip(f"a card per rank needs two cards; {n} visible")
     monkeypatch.delenv("PJ_MESH_DEVICES", raising=False)
     monkeypatch.setattr(
         "paralleljohnson_tpu_torch.parallel.mesh.DEFAULT_TIMEOUT_S", 120.0)
@@ -2131,13 +2189,13 @@ def test_mesh_f64_nccl_on_distinct_cards(cuda, monkeypatch):
                 pjt.SolverConfig(precision="f64", mesh_shape=(ranks,), **kw),
                 device=cuda) as solver:
             got = solver.solve(g, sources)
-            assert solver.backend._mesh().backends() == ["nccl"]
+            assert solver.backend._mesh().backends() == ["threads"]
         assert got.stats.routes_by_phase["fanout"] == "sharded-1d"
         np.testing.assert_array_equal(got.matrix, want.matrix)
     assert budgets and set(budgets) == {fs.HUB_L2_BYTES}
 
 
-# -- the default mesh over every card (NCCL) ---------------------------------
+# -- the default mesh over every card ----------------------------------------
 
 
 @pytest.fixture
@@ -2164,12 +2222,11 @@ def every_card(cuda, monkeypatch):
 def test_every_card_default_config(cuda, every_card, precision, spec, pred,
                                     routes):
     """A default config at f32 and at f64 takes every card (a rank per
-    card, NCCL groups): the rows bitwise ``mesh_shape=(1,)``'s for the
+    card, device copies between them): the rows bitwise
+    ``mesh_shape=(1,)``'s for the
     same sources, with and without trees (trees valid); phase 1 on the
     grid keeps the frontier route, as the reference's gate does; the hand
-    sweep launched; ``with`` releases the default mesh's groups."""
-    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
-
+    sweep launched; ``with`` drops the default mesh's streams."""
     g = pjt.load_graph(spec)
     sources = np.arange(0, g.num_nodes, 37)[:96]
     want = pjt.ParallelJohnsonSolver(
@@ -2180,9 +2237,9 @@ def test_every_card_default_config(cuda, every_card, precision, spec, pred,
                                    device=cuda) as solver:
         got = solver.solve(g, sources, predecessors=pred)
         mesh = solver.backend._mesh()
-        assert mesh.size == every_card and mesh.backends() == ["nccl"]
-        assert mesh._pgs and mesh in mesh_mod._open_meshes
-    assert not mesh._pgs and mesh not in mesh_mod._open_meshes
+        assert mesh.size == every_card and mesh.backends() == ["threads"]
+        assert len(mesh._streams) == every_card
+    assert not mesh._streams
     assert got.stats.routes_by_phase == routes
     assert _counts()["fanout_sweep"] > before
     np.testing.assert_array_equal(got.matrix, want.matrix)
@@ -2192,11 +2249,11 @@ def test_every_card_default_config(cuda, every_card, precision, spec, pred,
 
 
 def test_every_card_build_solve_close_loop(cuda, every_card):
-    """Build, solve and close 20 NCCL meshes in one process (the default
-    mesh, ``mesh_shape=(n,)``, a 2-D mesh where four cards allow it, and
-    ``sharded_fanout(replicate=True)`` on a mesh made directly): every
-    result bitwise one card's, no group left open."""
-    from paralleljohnson_tpu_torch.parallel import mesh as mesh_mod
+    """Build, solve and close 20 meshes over the cards in one process (the
+    default mesh, ``mesh_shape=(n,)``, a 2-D mesh where four cards allow
+    it, and ``sharded_fanout(replicate=True)`` on a mesh made directly):
+    every result bitwise one card's, no closed mesh left holding
+    streams."""
     from paralleljohnson_tpu_torch.parallel import make_mesh, sharded_fanout
 
     g = pjt.load_graph(F64_RMAT)
@@ -2206,6 +2263,7 @@ def test_every_card_build_solve_close_loop(cuda, every_card):
     dg = pjt.get_backend("torch", pjt.SolverConfig(), device=cuda).upload(g)
     (ip, s_in, w_in), items = dg.fanout_layout()
     shapes = [None, (every_card,)] + ([(2, 2)] if every_card >= 4 else [])
+    meshes = []
     for i in range(20):
         if i % 4 == 3:
             mesh = make_mesh(device=cuda)
@@ -2215,6 +2273,7 @@ def test_every_card_build_solve_close_loop(cuda, every_card):
                 layout="vertex_major", replicate=True,
                 in_edges=(ip, s_in, w_in, items))
             mesh.close()
+            meshes.append(mesh)
             np.testing.assert_array_equal(dist.cpu().numpy(), want)
             assert len(dist.replicas) == every_card
             continue
@@ -2222,18 +2281,18 @@ def test_every_card_build_solve_close_loop(cuda, every_card):
         with pjt.ParallelJohnsonSolver(pjt.SolverConfig(mesh_shape=shape),
                                        device=cuda) as solver:
             got = solver.solve(g, sources)
+            meshes.append(solver.backend._mesh())
         np.testing.assert_array_equal(got.matrix, want)
-    assert not any(m._pgs for m in mesh_mod._open_meshes)
+    assert not any(m._streams for m in meshes)
 
 
 @pytest.mark.parametrize("fail_at", [0, 1])
 def test_every_card_rank_failure(cuda, every_card, fail_at):
-    """A rank that raises before its first collective or between two, on
-    NCCL groups: the other ranks are released (the failing rank posts
-    their collectives with dummy contributions on its own card), the
-    error reaches the caller, the groups are aborted, and the next run on
-    the same mesh builds fresh ones and gives one card's rows; three
-    times over."""
+    """A rank that raises before its first collective or between two, a
+    rank per card: the other ranks are released (the failing rank breaks
+    the run's barriers), the error reaches the caller, and the next run
+    on the same mesh makes fresh barriers and gives one card's rows;
+    three times over."""
     from paralleljohnson_tpu_torch.parallel import make_mesh, sharded_fanout
 
     g = pjt.load_graph(F64_RMAT)
@@ -2255,7 +2314,6 @@ def test_every_card_rank_failure(cuda, every_card, fail_at):
     for _ in range(3):
         with pytest.raises(KeyError, match="rank 1"):
             mesh.run(body)
-        assert not mesh._pgs
         dist, _, _ = sharded_fanout(
             mesh, sources, dg.src, dg.dst, dg.weights, num_nodes=g.num_nodes,
             max_iter=g.num_nodes, layout="vertex_major",
@@ -2265,11 +2323,10 @@ def test_every_card_rank_failure(cuda, every_card, fail_at):
 
 
 def test_every_card_rank_timeout(cuda, every_card, monkeypatch):
-    """A rank that never posts its collective on NCCL groups: past the
-    run's limit the caller gets ``TimeoutError`` (the groups' watchdog,
-    whose own timeout is longer, never takes the process down), the
-    groups are aborted, which releases the ranks waiting in the
-    collective, and a fresh run on the same mesh works."""
+    """A rank that never posts its collective, a rank per card: the ranks
+    waiting for it leave at their barrier's timeout, past the run's limit
+    the caller gets ``TimeoutError`` naming only the rank that never
+    posted, and a fresh run on the same mesh works."""
     import threading
 
     from paralleljohnson_tpu_torch.parallel import make_mesh
@@ -2289,9 +2346,9 @@ def test_every_card_rank_timeout(cuda, every_card, monkeypatch):
         return float(x.min())  # waits on the card for the collective
 
     try:
-        with pytest.raises(TimeoutError, match="still running"):
+        with pytest.raises(TimeoutError, match="still running") as err:
             mesh.run(body)
-        assert not mesh._pgs
+        assert "rank1" in str(err.value) and "rank0" not in str(err.value)
     finally:
         release.set()
 

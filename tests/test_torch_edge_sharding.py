@@ -206,7 +206,7 @@ def test_backend_2d_mesh_end_to_end():
     cand = {c["plan"]: c for c in
             res.stats.plans_by_phase["fanout"]["candidates"]}
     assert cand["sharded-2d"]["reason"].startswith(
-        "4x2 sources x edges mesh on cpu x8 (gloo")
+        "4x2 sources x edges mesh on cpu x8 (threads: CPU ranks)")
 
 
 def test_2d_mesh_vertex_major_layout():

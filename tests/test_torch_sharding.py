@@ -2,8 +2,8 @@
 package's, on the CPU.
 
 The reference runs on its harness's eight simulated CPU devices; the port
-runs on eight CPU ranks (``PJ_MESH_DEVICES=cpu*8``: eight threads, each
-with its gloo process groups). Each case of ``tests/test_sharding.py``
+runs on eight CPU ranks (``PJ_MESH_DEVICES=cpu*8``: eight threads trading
+tensors through the mesh's in-process exchange). Each case of ``tests/test_sharding.py``
 runs through both packages on the same graph and sources: rows bitwise
 equal on integer weights (else within rtol 1e-5, the reference test's
 tolerance against the oracle), the same flags, and the same exact
@@ -106,23 +106,23 @@ def _four_cards(monkeypatch):
     monkeypatch.delenv("PJ_MESH_DEVICES")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    monkeypatch.setattr(mesh_mod.tdist, "is_nccl_available", lambda: True)
     return tuple(torch.device("cuda", i) for i in range(4))
 
 
 def test_default_mesh_takes_every_card(monkeypatch):
     """On a host with several cards ``mesh_shape=None`` takes every card,
     as the reference's ``make_mesh(None)`` takes every device, at f32 and
-    at f64 alike, and its groups are NCCL (a card per rank); the rank list
-    still wins, an explicit shape takes the first cards, and the CPU stays
+    at f64 alike, and its collectives run on the in-process exchange, a
+    card per rank, device to device; the rank list still wins, an explicit shape takes the first cards, and the CPU stays
     one rank. No card is touched: a mesh names its devices until it
     runs."""
     cards = _four_cards(monkeypatch)
     assert mesh_mod.default_devices("cuda") == list(cards)
     every = make_mesh(device="cuda")
-    assert every.devices == cards and every.backends() == ["nccl"]
+    assert every.devices == cards and every.backends() == ["threads"]
     assert every.describe() == ("4-rank sources mesh on cuda:0, cuda:1, "
-                                "cuda:2, cuda:3 (nccl: a card per rank)")
+                                "cuda:2, cuda:3 (threads: a card per rank, "
+                                "device copies)")
     assert mesh_mod.make_edge_mesh(device="cuda").devices == cards
     assert make_mesh((1,), device="cuda").devices == cards[:1]
     assert make_mesh((2,), device="cuda").devices == cards[:2]
@@ -151,16 +151,18 @@ def test_default_mesh_takes_every_card(monkeypatch):
 
 def test_default_f64_config_takes_four_nccl_ranks(monkeypatch):
     """A default ``SolverConfig(precision="f64")`` on a host with four
-    cards builds a four-rank mesh on NCCL groups, a rank per card, for
-    the fan-out and for edge-sharded phase 1 alike: the f64 default is
-    every card, as the reference's ``make_mesh(None)`` is every device
-    under x64."""
+    cards builds a four-rank mesh, a rank per card, its collectives on
+    the in-process exchange, for the fan-out and for edge-sharded phase 1
+    alike: the f64 default is every card, as the reference's
+    ``make_mesh(None)`` is every device under x64."""
     cards = _four_cards(monkeypatch)
     solver = pjt.ParallelJohnsonSolver(pjt.SolverConfig(precision="f64"),
                                        device="cuda")
     for mesh in (solver.backend._mesh(), solver.backend._edge_mesh()):
         assert mesh.devices == cards and mesh.size == 4
-        assert mesh.backends() == ["nccl"]
+        assert mesh.backends() == ["threads"]
+        assert mesh.describe().endswith("(threads: a card per rank, "
+                                        "device copies)")
     assert solver.backend._sources_axis_size() == 4
 
 
@@ -183,23 +185,32 @@ def test_mesh_constructors_take_the_references_arguments(name):
     assert port[:-1] == params(getattr(ref_mesh_mod, name))
 
 
-def test_solver_close_shuts_the_mesh_groups():
-    """A sharded solve keeps its process groups for the next solve;
-    ``close()``, and leaving a ``with`` block, shut them down (and take
-    the mesh off the list closed at exit); a later solve builds fresh
-    groups and gives the same rows."""
+def test_solver_close_shuts_the_mesh_groups(monkeypatch):
+    """A sharded solve keeps its meshes for the next solve; ``close()``,
+    and leaving a ``with`` block, close them (dropping what the exchange
+    keeps between runs, the ranks' streams on a card); a later solve runs
+    on the same mesh afresh and gives the same rows."""
+    closed = []
+    real = mesh_mod.Mesh.close
+
+    def spy(mesh):
+        closed.append(mesh)
+        real(mesh)
+
+    monkeypatch.setattr(mesh_mod.Mesh, "close", spy)
     g = _port(_int(erdos_renyi(48, 0.1, seed=46)))
     cfg = pjt.SolverConfig(mesh_shape=(8,), dense_threshold=0)
     with pjt.ParallelJohnsonSolver(cfg, device="cpu") as solver:
         first = solver.solve(g, np.arange(16))
         mesh = solver.backend._mesh()
-        assert mesh._pgs and mesh in mesh_mod._open_meshes
+        assert not closed
     assert first.stats.routes_by_phase["fanout"] == "sharded-1d"
-    assert not mesh._pgs and mesh not in mesh_mod._open_meshes
+    assert any(m is mesh for m in closed) and not mesh._streams
+    closed.clear()
     again = solver.solve(g, np.arange(16))
-    assert mesh._pgs
+    assert solver.backend._mesh() is mesh and not closed
     solver.close()
-    assert not mesh._pgs
+    assert any(m is mesh for m in closed)
     _rows_equal(again.matrix, first.matrix, True)
 
 
@@ -425,87 +436,6 @@ def test_row_sweeps_accounting_exact():
     assert 11 <= row_sweeps <= iters * 11
 
 
-class _Done:
-    def wait(self):
-        pass
-
-
-class _FakeGroup:
-    """Records what the mesh asks of a process group."""
-
-    def __init__(self, log, name):
-        self.log, self.name = log, name
-
-    def allreduce(self, xs, opts):
-        self.log.append((self.name, "all_reduce", xs[0].device))
-        return _Done()
-
-    def allgather(self, outs, ins):
-        self.log.append((self.name, "all_gather", ins[0].device))
-        return _Done()
-
-    def _group_start(self):
-        self.log.append((self.name, "group_start"))
-
-    def _group_end(self):
-        self.log.append((self.name, "group_end"))
-
-    def abort(self):
-        self.log.append((self.name, "abort"))
-
-    def shutdown(self):
-        self.log.append((self.name, "shutdown"))
-
-
-@pytest.mark.parametrize("backend,where", [("nccl", "meta"), ("gloo", "cpu")])
-def test_abandon_posts_dummies_on_the_failing_ranks_own_device(backend,
-                                                               where):
-    """A failing rank completes the collectives its peers posted with
-    dummy contributions on its OWN device (NCCL) or the host (gloo). On
-    four cards the dummies were made on the peer's card, so the failing
-    rank's group made a second communicator there that no peer joined:
-    the peers hung (and NCCL reported a duplicate GPU). Rank 1 stands on
-    the ``meta`` device here, rank 0 on the CPU."""
-    mesh = mesh_mod.Mesh([torch.device("cpu"), torch.device("meta")],
-                         ("sources",), (2,))
-    log = []
-    key = mesh.axis_names
-    mesh._pgs[(mesh._generation, key, 1)] = (_FakeGroup(log, "r1"), backend,
-                                            [0, 1])
-    state = mesh_mod._RunState(mesh)
-    x = torch.ones(4)  # rank 0's tensors, on the CPU
-    state.post(0, key, 0, ("all_reduce", (4,), x.dtype, x.device))
-    state.post(0, key, 0, ("all_gather", (1, 2), torch.int64, x.device))
-    state.abandon(1)
-    assert state.failed
-    assert log == [("r1", "all_reduce", torch.device(where)),
-                   ("r1", "all_gather", torch.device(where))]
-    with pytest.raises(mesh_mod.MeshAborted):
-        state.post(0, key, 0, ("all_reduce", (4,), x.dtype, x.device))
-
-
-@pytest.mark.parametrize("left", [True, False])
-def test_failed_run_aborts_nccl_groups(left):
-    """After a failed run the mesh aborts its NCCL communicators as one
-    NCCL group (a shutdown waits for collectives a failure left in flight
-    or waiting), shuts its gloo groups down once every rank has left and
-    only drops them when a rank may still be inside one (a timed-out
-    run); either way a later run builds fresh groups."""
-    mesh = mesh_mod.Mesh([torch.device("cpu")] * 4, ("sources", "edges"),
-                         (2, 2))
-    log = []
-    for r in range(4):
-        mesh._pgs[(0, ("edges",), r)] = (_FakeGroup(log, f"e{r}"), "nccl",
-                                         [])
-        mesh._pgs[(0, ("sources", "edges"), r)] = (
-            _FakeGroup(log, f"w{r}"), "gloo", [])
-    mesh._abort_groups(left=left)
-    assert not mesh._pgs and mesh._generation == 1
-    gloo = [(f"w{r}", "shutdown") for r in range(4)] if left else []
-    assert log == gloo + [("e0", "group_start")] + [
-        (f"e{r}", "abort") for r in range(4)] + [("e0", "group_end")]
-
-
 def test_run_past_its_limit_raises_and_the_mesh_recovers(monkeypatch):
     """A rank that never posts its collective: past the run's limit the
     caller gets ``TimeoutError``, the groups are dropped (the ranks still
@@ -526,9 +456,10 @@ def test_run_past_its_limit_raises_and_the_mesh_recovers(monkeypatch):
         return comm.all_reduce_min_(x)
 
     try:
-        with pytest.raises(TimeoutError, match="still running"):
+        with pytest.raises(TimeoutError, match="still running") as err:
             mesh.run(body)
-        assert not mesh._pgs
+        # The ranks waiting at the barrier left on its own timeout.
+        assert "rank1" in str(err.value) and "rank0" not in str(err.value)
     finally:
         release.set()
 
