@@ -118,6 +118,8 @@ from paralleljohnson_tpu_torch.ops.gauss_seidel import (
 from paralleljohnson_tpu_torch.parallel import mesh as mesh_ops
 from paralleljohnson_tpu_torch.utils import resilience
 from paralleljohnson_tpu_torch.utils.metrics import (
+    Span,
+    program_span,
     warn_if_counter_wrapped,
     warn_if_traj_counter_wrapped,
 )
@@ -204,7 +206,9 @@ class TorchDeviceGraph:
     ``_by_dst_cache`` holds what is gathered from the current weights and
     is dropped by it. ``host_graph`` is the uploaded host CSR (the
     caller's arrays, no copy): the DIA and GS layouts are built from its
-    structure, whose weights go stale after a reweight.
+    structure, whose weights go stale after a reweight. Each cache fill
+    is a ``pj.fanout.layout`` span (:meth:`_fill`) with its ``key``, on
+    the solve's ``telemetry`` too when it has one.
     """
 
     src: torch.Tensor      # int32[E_pad]
@@ -222,17 +226,27 @@ class TorchDeviceGraph:
     _struct_cache: dict = dataclasses.field(
         default_factory=dict, compare=False, repr=False
     )
+    telemetry: object = dataclasses.field(
+        default=None, compare=False, repr=False
+    )
 
     @property
     def device(self) -> torch.device:
         return self.weights.device
 
+    def _fill(self, key):
+        """The span of one layout cache fill."""
+        if not isinstance(key, str):
+            key = "/".join(map(str, key))
+        return program_span(Span.FANOUT_LAYOUT, self.telemetry, key=key)
+
     def indptr_dev(self) -> torch.Tensor:
         """The CSR indptr on the device (int32[V+1]), cached."""
         cached = self._struct_cache.get("indptr")
         if cached is None:
-            cached = torch.as_tensor(self.indptr, dtype=torch.int32).to(
-                self.device)
+            with self._fill("indptr"):
+                cached = torch.as_tensor(self.indptr, dtype=torch.int32).to(
+                    self.device)
             self._struct_cache["indptr"] = cached
         return cached
 
@@ -268,21 +282,23 @@ class TorchDeviceGraph:
             return None
         if struct is None:
             g = self.host_graph
-            host = build_dia_layout(g.indptr, g.indices, g.num_nodes,
-                                    max_offsets=max_offsets)
-            if host is None:
+            with self._fill(key):
+                host = build_dia_layout(g.indptr, g.indices, g.num_nodes,
+                                        max_offsets=max_offsets)
+                struct = None if host is None else {
+                    "offsets": host["offsets"],
+                    "diag_edge": torch.as_tensor(host["diag_edge"]).to(
+                        self.device),
+                    "num_entries": host["num_entries"],
+                }
+            if struct is None:
                 self._struct_cache[key] = "none"
                 return None
-            struct = {
-                "offsets": host["offsets"],
-                "diag_edge": torch.as_tensor(host["diag_edge"]).to(
-                    self.device),
-                "num_entries": host["num_entries"],
-            }
             self._struct_cache[key] = struct
         w_diag = self._by_dst_cache.get(key)
         if w_diag is None:
-            w_diag = self._gather_weights_with_holes(struct["diag_edge"])
+            with self._fill(("w",) + key):
+                w_diag = self._gather_weights_with_holes(struct["diag_edge"])
             self._by_dst_cache[key] = w_diag
         return {**struct, "w_diag": w_diag}
 
@@ -293,20 +309,24 @@ class TorchDeviceGraph:
         key = ("dw", vb)
         struct = self._struct_cache.get(key)
         if struct is None:
-            indices = (self.host_graph.indices if self.host_graph is not None
-                       else self.dst[:self.num_real_edges].cpu().numpy())
-            host = relax.build_dw_layout(self.indptr, indices,
-                                         self.num_nodes, vb=vb)
-            dev = self.device
-            struct = {
-                **{k: torch.as_tensor(host[k]).to(dev)
-                   for k in ("e_src", "e_dst", "edge_order", "blk_of_v")},
-                **{k: host[k] for k in ("vb", "nb", "em")},
-            }
+            with self._fill(key):
+                indices = (self.host_graph.indices
+                           if self.host_graph is not None
+                           else self.dst[:self.num_real_edges].cpu().numpy())
+                host = relax.build_dw_layout(self.indptr, indices,
+                                             self.num_nodes, vb=vb)
+                dev = self.device
+                struct = {
+                    **{k: torch.as_tensor(host[k]).to(dev)
+                       for k in ("e_src", "e_dst", "edge_order",
+                                 "blk_of_v")},
+                    **{k: host[k] for k in ("vb", "nb", "em")},
+                }
             self._struct_cache[key] = struct
         w_tile = self._by_dst_cache.get(key)
         if w_tile is None:
-            w_tile = self._gather_weights_with_holes(struct["edge_order"])
+            with self._fill(("w",) + key):
+                w_tile = self._gather_weights_with_holes(struct["edge_order"])
             self._by_dst_cache[key] = w_tile
         return {**struct, "w_tile": w_tile}
 
@@ -321,27 +341,29 @@ class TorchDeviceGraph:
         struct = self._struct_cache.get(key)
         if struct is None:
             g = self.host_graph
-            host = build_gs_layout(g.indptr, g.indices, None, g.num_nodes,
-                                   vb=vb)
-            dev = self.device
-            struct = {
-                "rank_host": host["rank"],
-                "rank": torch.as_tensor(host["rank"]).to(dev),
-                "src_blk": torch.as_tensor(host["src_blk"]).to(dev),
-                "dstl_blk": torch.as_tensor(host["dstl_blk"]).to(dev),
-                "edge_order": torch.as_tensor(host["edge_order"]).to(dev),
-                # Host int64 per-block real-edge counts, for the exact
-                # work accounting.
-                "real_edges_host": host["real_edges_blk"],
-                "vb": host["vb"],
-                "v_pad": host["v_pad"],
-                "halo": host["halo"],
-                "in_adj": host["in_adj"],
-            }
+            with self._fill(key):
+                host = build_gs_layout(g.indptr, g.indices, None,
+                                       g.num_nodes, vb=vb)
+                dev = self.device
+                struct = {
+                    "rank_host": host["rank"],
+                    "rank": torch.as_tensor(host["rank"]).to(dev),
+                    "src_blk": torch.as_tensor(host["src_blk"]).to(dev),
+                    "dstl_blk": torch.as_tensor(host["dstl_blk"]).to(dev),
+                    "edge_order": torch.as_tensor(host["edge_order"]).to(dev),
+                    # Host int64 per-block real-edge counts, for the exact
+                    # work accounting.
+                    "real_edges_host": host["real_edges_blk"],
+                    "vb": host["vb"],
+                    "v_pad": host["v_pad"],
+                    "halo": host["halo"],
+                    "in_adj": host["in_adj"],
+                }
             self._struct_cache[key] = struct
         w_blk = self._by_dst_cache.get(key)
         if w_blk is None:
-            w_blk = self._gather_weights_with_holes(struct["edge_order"])
+            with self._fill(("w",) + key):
+                w_blk = self._gather_weights_with_holes(struct["edge_order"])
             self._by_dst_cache[key] = w_blk
         return {**struct, "w_blk": w_blk}
 
@@ -349,9 +371,10 @@ class TorchDeviceGraph:
         struct = self._struct_cache.get("in_edges")
         if struct is None:
             e = self.num_real_edges
-            struct = build_in_edge_layout(
-                self.src[:e], self.dst[:e], self.num_nodes
-            )
+            with self._fill("in_edges"):
+                struct = build_in_edge_layout(
+                    self.src[:e], self.dst[:e], self.num_nodes
+                )
             self._struct_cache["in_edges"] = struct
         return struct
 
@@ -359,7 +382,8 @@ class TorchDeviceGraph:
         e = self.num_real_edges
         w_in = self._by_dst_cache.get("w_in")
         if w_in is None:
-            w_in = self.weights[:e][struct["order"]].contiguous()
+            with self._fill("w_in"):
+                w_in = self.weights[:e][struct["order"]].contiguous()
             self._by_dst_cache["w_in"] = w_in
         return struct["indptr_in"], struct["src_in"], w_in
 
@@ -385,8 +409,10 @@ class TorchDeviceGraph:
         # The set depends on the width only through one pass's bytes.
         key = ("hubs", hub_row_bytes(b))
         if key not in self._struct_cache:
-            self._struct_cache[key] = hub_flags(
-                self._in_edges()["src_in"], self.num_nodes, b, dtype)
+            with self._fill(key):
+                flags = hub_flags(self._in_edges()["src_in"],
+                                  self.num_nodes, b, dtype)
+            self._struct_cache[key] = flags
         return self._struct_cache[key]
 
     def fanout_layout(self):
@@ -404,11 +430,14 @@ class TorchDeviceGraph:
         reference's."""
         order = self._struct_cache.get("vm_order")
         if order is None:
-            order = torch.argsort(self.dst, stable=True)
+            with self._fill("vm_order"):
+                order = torch.argsort(self.dst, stable=True)
             self._struct_cache["vm_order"] = order
         cached = self._by_dst_cache.get("vm")
         if cached is None:
-            cached = (self.src[order], self.dst[order], self.weights[order])
+            with self._fill("vm"):
+                cached = (self.src[order], self.dst[order],
+                          self.weights[order])
             self._by_dst_cache["vm"] = cached
         return cached
 
@@ -423,30 +452,34 @@ class TorchDeviceGraph:
         struct = self._struct_cache.get(key)
         if struct is None:
             v_pad = vb * max(1, -(-self.num_nodes // vb))
-            if e >= VMB_DEVICE_BUILD_MIN_EDGES:
-                counts = torch.bincount(
-                    self.dst[:e].long() // vb, minlength=v_pad // vb
-                ).cpu().numpy()
-                lay = relax.build_vm_blocked_layout_device(
-                    self.src[:e], self.dst[:e], self.weights[:e], counts,
-                    vb=vb, ec=ec)
-                self._by_dst_cache[key] = lay.pop("w_ck")
-            else:
-                lay = relax.build_vm_blocked_layout(
-                    self.indptr, self.dst[:e].cpu().numpy(), self.num_nodes,
-                    vb=vb, ec=ec)
-                for name in ("src_ck", "dstl_ck", "edge_order"):
-                    lay[name] = torch.as_tensor(lay[name]).to(self.device)
+            with self._fill(key):
+                if e >= VMB_DEVICE_BUILD_MIN_EDGES:
+                    counts = torch.bincount(
+                        self.dst[:e].long() // vb, minlength=v_pad // vb
+                    ).cpu().numpy()
+                    lay = relax.build_vm_blocked_layout_device(
+                        self.src[:e], self.dst[:e], self.weights[:e], counts,
+                        vb=vb, ec=ec)
+                    self._by_dst_cache[key] = lay.pop("w_ck")
+                else:
+                    lay = relax.build_vm_blocked_layout(
+                        self.indptr, self.dst[:e].cpu().numpy(),
+                        self.num_nodes, vb=vb, ec=ec)
+                    for name in ("src_ck", "dstl_ck", "edge_order"):
+                        lay[name] = torch.as_tensor(lay[name]).to(self.device)
             struct = {**lay, "v_pad": v_pad}
             self._struct_cache[key] = struct
         w_ck = self._by_dst_cache.get(key)
         if w_ck is None:
-            if "order" in struct:
-                w_ck = relax.regather_vm_blocked_weights(
-                    self.weights, struct["order"], struct["slots"],
-                    struct["src_ck"].numel(), tuple(struct["src_ck"].shape))
-            else:
-                w_ck = self._gather_weights_with_holes(struct["edge_order"])
+            with self._fill(("w",) + key):
+                if "order" in struct:
+                    w_ck = relax.regather_vm_blocked_weights(
+                        self.weights, struct["order"], struct["slots"],
+                        struct["src_ck"].numel(),
+                        tuple(struct["src_ck"].shape))
+                else:
+                    w_ck = self._gather_weights_with_holes(
+                        struct["edge_order"])
             self._by_dst_cache[key] = w_ck
         return {**struct, "w_ck": w_ck}
 
@@ -476,18 +509,30 @@ class TorchBackend(Backend):
         return torch.float64 if self.config.precision == "f64" else torch.float32
 
     def upload(self, graph: CSRGraph) -> TorchDeviceGraph:
-        g = graph.pad_edges(self.config.edge_pad_multiple)
-        dev = self.device
+        """The padded COO columns on the device, each host step a span of
+        its own (``pj.upload.pad``, ``.src``, ``.cast``, ``.copy``)."""
+        tel = self.config.telemetry
+        with program_span(Span.UPLOAD_PAD, tel):
+            g = graph.pad_edges(self.config.edge_pad_multiple)
+        with program_span(Span.UPLOAD_SRC, tel):
+            src = g.src
+        with program_span(Span.UPLOAD_CAST, tel):
+            weights = g.weights.astype(self.config.np_dtype)
+        with program_span(Span.UPLOAD_COPY, tel, bytes=(
+                src.nbytes + g.indices.nbytes + weights.nbytes)):
+            dev = self.device
+            src = torch.as_tensor(src, dtype=torch.int32).to(dev)
+            dst = torch.as_tensor(g.indices, dtype=torch.int32).to(dev)
+            weights = torch.as_tensor(weights).to(dev)
         return TorchDeviceGraph(
-            src=torch.as_tensor(g.src, dtype=torch.int32).to(dev),
-            dst=torch.as_tensor(g.indices, dtype=torch.int32).to(dev),
-            weights=torch.as_tensor(
-                g.weights.astype(self.config.np_dtype)
-            ).to(dev),
+            src=src,
+            dst=dst,
+            weights=weights,
             indptr=graph.indptr,
             num_nodes=graph.num_nodes,
             num_real_edges=graph.num_real_edges,
             host_graph=graph,
+            telemetry=tel,
         )
 
     def download_graph(self, dgraph: TorchDeviceGraph) -> CSRGraph:

@@ -32,6 +32,7 @@ import torch
 
 from paralleljohnson_tpu_torch.ops import _cuda, bump
 from paralleljohnson_tpu_torch.ops.relax import edge_chunk_for
+from paralleljohnson_tpu_torch.utils.metrics import Span, program_span
 
 # L: the most in-edges one work item (one warp) takes. Chosen on the card
 # from 128, 256, 512 and 1024 (the times are in PERF.md).
@@ -340,8 +341,10 @@ def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int, hubs=AUTO):
     host reads the group's flags once and stops at the first 0, returning
     the buffer that sweep wrote, as ``lax.while_loop`` would. The last
     group is cut so the cap is exact. Host reads (the first finiteness
-    check and one per group) count in ``fanout_fixpoint.host_reads``."""
-    improving = bool(torch.isfinite(dist0).any())
+    check and one per group) count in ``fanout_fixpoint.host_reads``,
+    each a ``pj.fanout.host_read`` span."""
+    with program_span(Span.FANOUT_HOST_READ):
+        improving = bool(torch.isfinite(dist0).any())
     bump(fanout_fixpoint, "host_reads")
     if not improving or max_iter <= 0:
         return dist0, 0, improving
@@ -381,7 +384,8 @@ def fanout_fixpoint_chunks(dist0, chunks, *, max_iter: int, hubs=AUTO):
                                  else scratch[:items.n_split]),
                              hubs=hubs[c])
             prev = flag
-        got = flags[:FLAG_STRIDE * k:FLAG_STRIDE].tolist()
+        with program_span(Span.FANOUT_HOST_READ):
+            got = flags[:FLAG_STRIDE * k:FLAG_STRIDE].tolist()
         bump(fanout_fixpoint, "host_reads")
         if 0 in got:
             j = got.index(0)

@@ -55,7 +55,12 @@ from paralleljohnson_tpu_torch.graphs import CSRGraph, stack_graphs
 from paralleljohnson_tpu_torch.observe.live import resolve_metrics
 from paralleljohnson_tpu_torch.observe.trace import trace_attrs as _trace_attrs
 from paralleljohnson_tpu_torch.utils import resilience
-from paralleljohnson_tpu_torch.utils.metrics import SolverStats, phase_timer
+from paralleljohnson_tpu_torch.utils.metrics import (
+    SolverStats,
+    Span,
+    phase_timer,
+    program_span,
+)
 from paralleljohnson_tpu_torch.utils.reductions import finite_checksum, xp as _xp
 from paralleljohnson_tpu_torch.utils.telemetry import resolve as _resolve_telemetry
 
@@ -85,15 +90,18 @@ class ValidationError(AssertionError):
     """config.validate=True cross-check against the scipy oracle failed."""
 
 
-def to_numpy(x) -> np.ndarray:
+def to_numpy(x, telemetry=None) -> np.ndarray:
     """Host copy of a tensor (any device) or array. A tensor whose copy
     the backend staged (``TorchBackend.stage_rows_async``) yields that
-    page-locked copy once it has landed."""
+    page-locked copy once it has landed. A tensor's copy is a
+    ``pj.host_table`` span (``bytes``, ``staged``)."""
     if isinstance(x, torch.Tensor):
         staged = getattr(x, "staged_copy", None)
-        if staged is not None:
-            return staged.wait()
-        return x.detach().cpu().numpy()
+        with program_span(Span.HOST_TABLE, telemetry,
+                          bytes=x.nbytes, staged=staged is not None):
+            if staged is not None:
+                return staged.wait()
+            return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
@@ -319,8 +327,9 @@ class ParallelJohnsonSolver:
         )
         tel = self._tel
         tel.progress(op="solve", sources_total=len(sources))
-        with tel.span("solve", op="solve", n_sources=len(sources),
-                      predecessors=predecessors, **_trace_attrs()):
+        with program_span(Span.SOLVE, tel, op="solve",
+                          n_sources=len(sources), predecessors=predecessors,
+                          **_trace_attrs()):
             decision = self._solver_decision(graph, sources)
             if decision.chosen.plan.name == "condensed+fw":
                 res = self._try_condensed(graph, sources, stats,
@@ -417,8 +426,8 @@ class ParallelJohnsonSolver:
         )
         tel = self._tel
         tel.progress(op="solve_reduced", sources_total=len(sources))
-        with tel.span("solve", op="solve_reduced", n_sources=len(sources),
-                      **_trace_attrs()):
+        with program_span(Span.SOLVE, tel, op="solve_reduced",
+                          n_sources=len(sources), **_trace_attrs()):
             return self._solve_reduced_body(graph, sources, stats,
                                             reduce_rows)
 
@@ -433,7 +442,7 @@ class ParallelJohnsonSolver:
             """Un-reweight + reduce; on the pipeline's worker thread at
             depth > 1, behind the next batch's compute."""
             rows = res.dist
-            if graph.has_negative_weights:
+            if self._negative_arcs(graph):
                 rows = _unreweight(rows, h, batch)
             # The download path's memory-hygiene gate: a reducer may
             # materialize the rows on the host.
@@ -466,8 +475,8 @@ class ParallelJohnsonSolver:
         stats = SolverStats()
         tel = self._tel
         tel.progress(op="sssp", source=int(source))
-        with tel.span("solve", op="sssp", source=int(source),
-                      **_trace_attrs()):
+        with program_span(Span.SOLVE, tel, op="sssp", source=int(source),
+                          **_trace_attrs()):
             return self._sssp_body(graph, source, predecessors, stats)
 
     def _sssp_body(self, graph, source, predecessors, stats):
@@ -500,7 +509,7 @@ class ParallelJohnsonSolver:
         predecessors: bool = False,
     ) -> SolveResult:
         """Standalone batched N-source fan-out on a non-negative graph."""
-        if graph.has_negative_weights:
+        if self._negative_arcs(graph):
             raise ValueError(
                 "multi_source requires non-negative weights; use solve()"
             )
@@ -509,16 +518,16 @@ class ParallelJohnsonSolver:
         sources = np.asarray(sources, np.int64)
         tel = self._tel
         tel.progress(op="multi_source", sources_total=len(sources))
-        with tel.span("solve", op="multi_source", n_sources=len(sources),
-                      **_trace_attrs()):
+        with program_span(Span.SOLVE, tel, op="multi_source",
+                          n_sources=len(sources), **_trace_attrs()):
             with phase_timer(stats, "upload", tel):
                 dgraph = self.backend.upload(graph)
             with phase_timer(stats, "fanout", tel):
                 dist, pred = self._fanout(dgraph, sources, stats,
                                           with_pred=predecessors,
                                           graph=graph)
-        self._finish_observability(stats, graph, len(sources),
-                                   label="multi_source")
+            self._finish_observability(stats, graph, len(sources),
+                                       label="multi_source")
         return SolveResult(
             dist=dist,
             sources=sources,
@@ -591,10 +600,11 @@ class ParallelJohnsonSolver:
         ``planner.select``."""
         ctx = types.SimpleNamespace(solver=self, graph=graph, sources=sources,
                                     config=self.config, params={})
-        return planner.select(
-            SOLVER_PLANS, ctx, model=self._solver_model(),
-            platform=self._platform(), num_edges=graph.num_real_edges,
-            batch=len(sources), config=self.config)
+        with program_span(Span.SOLVE_PLAN, self._tel):
+            return planner.select(
+                SOLVER_PLANS, ctx, model=self._solver_model(),
+                platform=self._platform(), num_edges=graph.num_real_edges,
+                batch=len(sources), config=self.config)
 
     def _use_partitioned(self, graph: CSRGraph,
                          sources: np.ndarray) -> tuple[bool, str]:
@@ -642,19 +652,24 @@ class ParallelJohnsonSolver:
         """``observe.finalize_solve`` for a completed solve: the roofline
         on ``stats.roofline`` and, with a profile store, the prediction
         and the records. Observability never fails a solve that already
-        computed its distances: an error here is reported as a warning."""
-        try:
-            observe.finalize_solve(
-                stats, config=self.config,
-                device=getattr(self.backend, "device", None),
-                telemetry=self._tel if self._tel else None, label=label,
-                num_nodes=graph.num_nodes, num_edges=graph.num_real_edges,
-                batch=batch,
-                degree_bias=observe.degree_bias_from_degrees(
-                    np.diff(graph.indptr)))
-        except Exception as e:  # noqa: BLE001 — observability is never fatal
-            warnings.warn(f"profile records dropped: {type(e).__name__}: {e}",
-                          RuntimeWarning, stacklevel=2)
+        computed its distances: an error here is reported as a warning.
+        The degree bias, which only the store's trajectory records read,
+        is computed only where a store is configured."""
+        with program_span(Span.SOLVE_OBSERVE, self._tel):
+            try:
+                store = observe.resolve_profile_dir(self.config.profile_store)
+                observe.finalize_solve(
+                    stats, config=self.config,
+                    device=getattr(self.backend, "device", None),
+                    telemetry=self._tel if self._tel else None, label=label,
+                    num_nodes=graph.num_nodes,
+                    num_edges=graph.num_real_edges, batch=batch,
+                    degree_bias=observe.degree_bias_from_degrees(
+                        np.diff(graph.indptr)) if store else None)
+            except Exception as e:  # noqa: BLE001 — never fatal
+                warnings.warn(
+                    f"profile records dropped: {type(e).__name__}: {e}",
+                    RuntimeWarning, stacklevel=2)
 
     def _try_condensed(self, graph: CSRGraph, sources: np.ndarray,
                        stats: SolverStats, predecessors: bool,
@@ -790,11 +805,18 @@ class ParallelJohnsonSolver:
             )
         return bf
 
+    def _negative_arcs(self, graph: CSRGraph) -> bool:
+        """Whether ``graph`` has a negative arc: a scan of every weight,
+        which decides phase 1 and the un-reweight, in a
+        ``pj.solve.potentials`` span."""
+        with program_span(Span.SOLVE_POTENTIALS, self._tel):
+            return graph.has_negative_weights
+
     def _potentials(self, graph: CSRGraph, dgraph: Any, stats: SolverStats):
         """Phase 1 + reweight: returns (h, reweighted dgraph). h stays on
         the backend's device. No negative weights -> h = 0 is already
         valid, skip."""
-        if not graph.has_negative_weights:
+        if not self._negative_arcs(graph):
             return np.zeros(graph.num_nodes, graph.dtype), dgraph
         with phase_timer(stats, "bellman_ford", self._tel):
             bf = self._run_bf(dgraph, stats, source=None)
@@ -965,8 +987,9 @@ class ParallelJohnsonSolver:
             on the pipeline worker (captured at submit)."""
             if finalize is None:
                 return payload, 0.0
-            with tel.span("finalize", batch=bi, parent=parent,
-                          resumed=resumed, **_trace_attrs()):
+            with program_span(Span.FANOUT_FINALIZE, tel, batch=bi,
+                              parent=parent, resumed=resumed,
+                              **_trace_attrs()):
                 if resumed:
                     return finalize(bi, b, payload, True), 0.0
                 t0 = time.perf_counter()
@@ -1032,6 +1055,68 @@ class ParallelJohnsonSolver:
             stats.overlap_saved_s += max(0.0, dur - wait)
             return bi, b, out, False
 
+        def run_batch(bi, batch):
+            """One batch's kernel stage, its checks and its finalize (inline,
+            or submitted to the pipeline's worker), in a ``pj.fanout.batch``
+            span that closes before the loop yields. Returns (the device OOM
+            that stopped it or None, whether the finalize was submitted, the
+            inline finalize's result)."""
+            nonlocal worker
+
+            def kernel():
+                if with_pred:
+                    return self.backend.multi_source_pred(dgraph, batch)
+                return self.backend.multi_source(dgraph, batch)
+
+            with program_span(Span.FANOUT_BATCH, tel, batch=bi,
+                              width=len(batch)):
+                try:
+                    res = resilience.run_stage(
+                        kernel,
+                        stage="fanout",
+                        policy=policy,
+                        stats=stats,
+                        faults=faults,
+                        batch=bi,
+                        retryable=_transient_error,
+                        telemetry=tel,
+                    )
+                except Exception as e:
+                    if resilience.is_oom_error(e):
+                        return e, False, None
+                    raise
+                stats.accumulate(res, phase="fanout")
+                # Route marker for this batch's stage spans (see _run_bf).
+                tel.event("route", stage="fanout", batch=bi, route=res.route)
+                self._emit_trajectory(res, stage="fanout", batch=bi)
+                if not res.converged:
+                    raise ConvergenceError(
+                        "fan-out hit max_iterations while still improving"
+                    )
+                if faults is not None:
+                    res.dist = faults.poison_rows("fanout", res.dist, batch=bi)
+                resilience.check_rows_sane(
+                    res.dist, batch, route=res.route, iteration=res.iterations
+                )
+                # A batch with nothing to overlap against (the only batch
+                # of the solve) stays inline — single-batch device solves
+                # keep their rows resident.
+                if depth > 1 and (pending or pos + len(batch) < n):
+                    if stage_async is not None:
+                        stage_async(res)
+                    if worker is None:
+                        worker = concurrent.futures.ThreadPoolExecutor(
+                            max_workers=1, thread_name_prefix="pj-pipeline"
+                        )
+                    fut = worker.submit(
+                        run_finalize, bi, batch, res, False,
+                        tel.current_span_id(),
+                    )
+                    pending.append((bi, batch, res, fut))
+                    return None, True, None
+                out, _ = run_finalize(bi, batch, res, False)
+                return None, False, out
+
         try:
             while pos < n:
                 batch = sources[pos : pos + degrader.batch_size]
@@ -1051,85 +1136,39 @@ class ParallelJohnsonSolver:
                         yield batch_idx - 1, batch, out, True
                         continue
 
-                def kernel(b=batch):
-                    if with_pred:
-                        return self.backend.multi_source_pred(dgraph, b)
-                    return self.backend.multi_source(dgraph, b)
-
-                try:
-                    res = resilience.run_stage(
-                        kernel,
-                        stage="fanout",
-                        policy=policy,
-                        stats=stats,
-                        faults=faults,
-                        batch=batch_idx,
-                        retryable=_transient_error,
-                        telemetry=tel,
+                oom, staged, out = run_batch(batch_idx, batch)
+                if oom is not None:
+                    if depth > 1:
+                        del oom  # hold no failed batch's memory
+                        while pending:  # commit the good in-flight work
+                            drained = drain_one()
+                            mark_done()
+                            yield drained
+                        collapse_window()
+                        continue  # retry THIS batch serially, same size
+                    old_size = degrader.batch_size
+                    try:
+                        degrader.degrade(oom)  # re-raises at the floor
+                    finally:
+                        del oom
+                    stats.oom_degradations += 1
+                    tel.event(
+                        "oom_degrade", batch=batch_idx,
+                        old_batch=old_size, new_batch=degrader.batch_size,
                     )
-                except Exception as e:
-                    if resilience.is_oom_error(e):
-                        if depth > 1:
-                            while pending:  # commit the good in-flight work
-                                drained = drain_one()
-                                mark_done()
-                                yield drained
-                            collapse_window()
-                            continue  # retry THIS batch serially, same size
-                        old_size = degrader.batch_size
-                        degrader.degrade(e)  # re-raises at the floor
-                        stats.oom_degradations += 1
-                        tel.event(
-                            "oom_degrade", batch=batch_idx,
-                            old_batch=old_size, new_batch=degrader.batch_size,
-                        )
-                        tel.progress(
-                            oom_degradations=stats.oom_degradations,
-                            current_batch_size=degrader.batch_size,
-                        )
-                        continue  # re-split THIS range smaller; pos unchanged
-                    raise
-                stats.accumulate(res, phase="fanout")
-                # Route marker for this batch's stage spans (see _run_bf).
-                tel.event("route", stage="fanout", batch=batch_idx,
-                          route=res.route)
-                self._emit_trajectory(res, stage="fanout", batch=batch_idx)
-                if not res.converged:
-                    raise ConvergenceError(
-                        "fan-out hit max_iterations while still improving"
+                    tel.progress(
+                        oom_degradations=stats.oom_degradations,
+                        current_batch_size=degrader.batch_size,
                     )
-                if faults is not None:
-                    res.dist = faults.poison_rows(
-                        "fanout", res.dist, batch=batch_idx
-                    )
-                resilience.check_rows_sane(
-                    res.dist, batch, route=res.route, iteration=res.iterations
-                )
-                # A batch with nothing to overlap against (the only batch
-                # of the solve) stays inline — single-batch device solves
-                # keep their rows resident.
-                if depth > 1 and (pending or pos + len(batch) < n):
-                    if stage_async is not None:
-                        stage_async(res)
-                    if worker is None:
-                        worker = concurrent.futures.ThreadPoolExecutor(
-                            max_workers=1, thread_name_prefix="pj-pipeline"
-                        )
-                    fut = worker.submit(
-                        run_finalize, batch_idx, batch, res, False,
-                        tel.current_span_id(),
-                    )
-                    pending.append((batch_idx, batch, res, fut))
-                    pos += len(batch)
-                    batch_idx += 1
+                    continue  # re-split THIS range smaller; pos unchanged
+                pos += len(batch)
+                batch_idx += 1
+                if staged:
                     while len(pending) >= depth:
                         drained = drain_one()
                         mark_done()
                         yield drained
                 else:
-                    out, _ = run_finalize(batch_idx, batch, res, False)
-                    pos += len(batch)
-                    batch_idx += 1
                     mark_done()
                     yield batch_idx - 1, batch, out, False
             while pending:
@@ -1152,7 +1191,8 @@ class ParallelJohnsonSolver:
         if nbytes >= _DOWNLOAD_CLEAR_MIN_BYTES:
             self.backend.clear_caches(dgraph)
         self.backend.stage_rows_async(rows, pred)
-        return to_numpy(rows), None if pred is None else to_numpy(pred)
+        return (to_numpy(rows, self._tel),
+                None if pred is None else to_numpy(pred, self._tel))
 
     def _fanout(
         self,
@@ -1181,7 +1221,7 @@ class ParallelJohnsonSolver:
             checked_save,
         )
 
-        unreweight = h is not None and graph.has_negative_weights
+        unreweight = h is not None and self._negative_arcs(graph)
         ckpt = None
         try_resume = None
         if self.config.checkpoint_dir:

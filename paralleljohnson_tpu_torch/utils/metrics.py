@@ -1,6 +1,7 @@
 """Instrumentation: per-phase wall-clock, iteration counts and the
 edges-relaxed counters, with the JAX package's field names so a stats
-dict reads the same from either package."""
+dict reads the same from either package; and the program's spans
+(:class:`Span`, :func:`program_span`), on the profiler's clock."""
 
 from __future__ import annotations
 
@@ -266,26 +267,85 @@ def latency_percentiles(samples_ms, pcts=(50, 99)) -> dict:
     return hist.percentiles(pcts)
 
 
+class Span:
+    """The solve's step spans, by layer: each is a ``record_function`` on
+    the profiler's clock (the benchmark's per-layer metrics read them by
+    name) and, with telemetry on, a flight-recorder span.
+
+    ``SOLVE`` covers a whole ``solve`` / ``solve_range`` / ``sssp`` /
+    ``multi_source`` / ``solve_reduced`` call; the phases (``upload``,
+    ``bellman_ford``, ``reweight``, ``fanout``, ``batch_apsp``:
+    :func:`phase_timer`) nest in it, and the steps below in those."""
+
+    SOLVE = "pj.solve"
+    # The solver's host work outside the phases.
+    SOLVE_PLAN = "pj.solve.plan"              # the SOLVER_PLANS walk
+    SOLVE_POTENTIALS = "pj.solve.potentials"  # the negative-arc check
+    SOLVE_OBSERVE = "pj.solve.observe"        # roofline, profile records
+    # ``TorchBackend.upload``.
+    UPLOAD_PAD = "pj.upload.pad"      # ``CSRGraph.pad_edges``
+    UPLOAD_SRC = "pj.upload.src"      # the COO source column
+    UPLOAD_CAST = "pj.upload.cast"    # the weights to the solve's dtype
+    UPLOAD_COPY = "pj.upload.copy"    # the host-to-device copies, ``bytes``
+    # The fan-out.
+    FANOUT_LAYOUT = "pj.fanout.layout"        # a device-layout cache fill
+    FANOUT_BATCH = "pj.fanout.batch"          # one source batch's stage
+    FANOUT_FINALIZE = "pj.fanout.finalize"    # one batch's finalize
+    FANOUT_HOST_READ = "pj.fanout.host_read"  # a fixpoint's flag read
+    # ``solver.johnson.to_numpy``: a tensor's rows to the host.
+    HOST_TABLE = "pj.host_table"
+
+
+# The phases of ``phase_timer``: their profiler names are the bare phase
+# names, their flight-recorder spans ``phase:<name>``.
+PHASES = ("upload", "bellman_ford", "reweight", "fanout", "batch_apsp")
+
+# Spans whose flight-recorder record keeps the JAX package's name.
+_FLIGHT_NAMES = {Span.SOLVE: "solve", Span.FANOUT_FINALIZE: "finalize"}
+
+
+def flight_name(name: str) -> str:
+    """The flight-recorder name of the span whose profiler name is
+    ``name``: ``phase:<name>`` for a phase (the phase must not collide
+    with the per-batch ``fanout`` stage spans nested in it), the JAX
+    package's name where it has the span, else ``name`` itself."""
+    if name in PHASES:
+        return f"phase:{name}"
+    return _FLIGHT_NAMES.get(name, name)
+
+
+@contextlib.contextmanager
+def program_span(name: str, telemetry=None, **attrs):
+    """The one span helper of the program: ``name`` as a
+    ``torch.profiler.record_function`` (the profiler's host clock, which
+    is ``time.time_ns``) and, with a telemetry object threaded in
+    (``utils.telemetry``; ``NULL_TELEMETRY`` is falsy), a flight-recorder
+    span :func:`flight_name` with ``attrs``, whose records carry the same
+    clock in ``ns``. Adds no device synchronisation."""
+    import torch
+
+    with torch.profiler.record_function(name):
+        if telemetry:
+            with telemetry.span(flight_name(name), **attrs):
+                yield
+        else:
+            yield
+
+
 @contextlib.contextmanager
 def phase_timer(stats: SolverStats, phase: str, telemetry=None):
-    """Times a phase and labels it for ``torch.profiler`` traces
-    (``record_function``), so device kernels group under their phase;
-    with a telemetry object threaded in (``utils.telemetry``), also a
-    ``phase:<name>`` flight-recorder span and a heartbeat stage update.
+    """Times a phase into ``stats.phase_seconds`` under its
+    :func:`program_span` (the profiler's ``<phase>``, so device kernels
+    group under their phase; the flight recorder's ``phase:<phase>``),
+    with a heartbeat stage update when telemetry is on.
 
     The accumulation is in a ``finally``: a phase whose body raises still
     lands its elapsed time in ``phase_seconds``."""
-    import torch
-
-    tel_span = contextlib.nullcontext()
     if telemetry:  # NULL_TELEMETRY is falsy: the disabled path skips this
         telemetry.progress(stage=phase)
-        # "phase:" prefix: the fanout PHASE must not collide with the
-        # per-batch "fanout" stage spans nested inside it.
-        tel_span = telemetry.span(f"phase:{phase}", kind="phase")
     t0 = time.perf_counter()
     try:
-        with torch.profiler.record_function(phase), tel_span:
+        with program_span(phase, telemetry, kind="phase"):
             yield
     finally:
         stats.phase_seconds[phase] += time.perf_counter() - t0

@@ -3,10 +3,12 @@
 Two mechanisms:
   - :func:`device_trace` — a ``torch.profiler`` trace (host and CUDA
     activity) around any region, exported as a Chrome trace into
-    ``log_dir``; each solver phase is already labelled with
-    ``torch.profiler.record_function`` by ``utils.metrics.phase_timer``,
-    so kernels inside the trace are attributable to bellman_ford /
-    fanout / reweight / upload.
+    ``log_dir``; each solver phase and step is already labelled with
+    ``torch.profiler.record_function`` by ``utils.metrics.program_span``
+    (``upload``, ``fanout``, ..., ``pj.upload.copy``, ``pj.fanout.batch``,
+    ...), so kernels inside the trace are attributable to them.
+    :func:`overlay_traces` lays a flight recorder's Chrome trace of the
+    same run over it, on the same clock.
   - structured phase logs — :func:`log_stats` emits one JSON line per
     solve with per-phase wall-clock, iterations-to-fixpoint,
     edges-relaxed and negative-cycle flags, to stderr or a file.
@@ -52,11 +54,37 @@ def device_trace(log_dir: str | None, telemetry=None):
 
 
 def annotate(name: str):
-    """Named trace scope for ad-hoc regions (phases already get one via
-    ``phase_timer``)."""
-    import torch
+    """Named trace scope for ad-hoc regions (phases and the solve's steps
+    already get one): a ``utils.metrics.program_span`` without
+    telemetry."""
+    from paralleljohnson_tpu_torch.utils.metrics import program_span
 
-    return torch.profiler.record_function(name)
+    return program_span(name)
+
+
+# The process the flight recorder's events take in an overlay.
+FLIGHT_PID = 0
+
+
+def overlay_traces(profile_trace: dict, flight_trace: dict) -> dict:
+    """One trace-event document of a ``torch.profiler`` trace
+    (:func:`device_trace`'s ``trace.json``) with a flight recorder's
+    Chrome trace of the same run (``trace-<label>.json``) laid over it,
+    for one Perfetto view. Both are on the profiler's host clock: the
+    profiler writes microseconds after its ``baseTimeNanoseconds``, the
+    flight trace microseconds since the epoch, so the flight events move
+    by that base, onto a process of their own (``FLIGHT_PID``, named
+    "flight recorder")."""
+    base_us = profile_trace.get("baseTimeNanoseconds", 0) / 1e3
+    events = [{"name": "process_name", "ph": "M", "pid": FLIGHT_PID,
+               "tid": 0, "args": {"name": "flight recorder"}}]
+    for ev in flight_trace["traceEvents"]:
+        ev = dict(ev, pid=FLIGHT_PID)
+        if "ts" in ev:
+            ev["ts"] = ev["ts"] - base_us
+        events.append(ev)
+    return dict(profile_trace,
+                traceEvents=list(profile_trace["traceEvents"]) + events)
 
 
 def log_stats(stats, *, label: str = "solve", stream=None, extra=None) -> dict:

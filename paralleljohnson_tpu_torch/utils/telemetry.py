@@ -11,9 +11,12 @@ package:
   readable record up to the instant of death (open spans mark where it
   died). ``to_chrome_trace()`` exports Perfetto-loadable trace-event
   JSON with each OS thread (main solve loop, pipeline finalize worker,
-  checkpoint writer) on its own track. Spans are host clocks: a span
-  closes where the solve's own code returns, and the port adds no
-  device synchronisation for them.
+  checkpoint writer) on its own track, placed on the profiler's host
+  clock (``ns``), so it lines up with a ``torch.profiler`` trace of the
+  same run. Spans are host clocks: a span closes where the solve's own
+  code returns, and the port adds no device synchronisation for them.
+  The solve's spans open through ``utils.metrics.program_span``, which
+  also labels the profiler's timeline with them.
 - :class:`HeartbeatReporter` — a daemon thread atomically rewriting a
   small progress JSON every ``interval_s``: current stage/batch/attempt,
   batches done, retries, current batch size, pipeline depth, host RSS,
@@ -66,6 +69,13 @@ _EVENT_NAMES_OF_INTEREST = (
 )
 
 
+def profiler_ns() -> int:
+    """Now on the profiler's host clock: ``torch.profiler`` (kineto)
+    stamps its host events in nanoseconds since the epoch, which is
+    ``time.time_ns``."""
+    return time.time_ns()
+
+
 def _thread_label() -> tuple[int, str]:
     t = threading.current_thread()
     return t.ident or 0, t.name
@@ -103,17 +113,21 @@ class Tracer:
 
     Records (one JSON object per line / list entry):
       ``{"type": "meta", "pid", "proc", ["label"], "start_ts",
-         "t": 0.0}``                                              (first)
-      ``{"type": "span_begin", "id", "parent", "name", "t", "tid",
+         "t": 0.0, "ns"}``                                        (first)
+      ``{"type": "span_begin", "id", "parent", "name", "t", "ns", "tid",
          "thread", "attrs"}``
-      ``{"type": "span_end", "id", "t", "status", ["error"]}``
-      ``{"type": "event", "name", "t", "span", "tid", "thread", "attrs"}``
+      ``{"type": "span_end", "id", "t", "ns", "status", ["error"]}``
+      ``{"type": "event", "name", "t", "ns", "span", "tid", "thread",
+         "attrs"}``
 
     ``t`` is monotonic seconds since tracer creation (``perf_counter``
     based — wall-clock steps cannot reorder the story); ``start_ts`` in
-    the meta line anchors it to the epoch. ``proc`` is a unique
-    per-tracer id (pid + random suffix): span ids are only locally
-    unique, so the cross-process trace assembler
+    the meta line anchors it to the epoch. ``ns`` is the same instant on
+    the profiler's host clock (:func:`profiler_ns`), so a span and its
+    ``record_function`` twin of ``utils.metrics.program_span`` line up
+    in one timeline (:func:`chrome_trace_from_records` places by it).
+    ``proc`` is a unique per-tracer id (pid + random suffix): span ids
+    are only locally unique, so the cross-process trace assembler
     (``observe/trace.py``) addresses spans by the *global ref*
     ``"<proc>:<span_id>"`` — :meth:`global_ref` — which is what rides
     the serve wire as the downstream hop's ``parent``. Every line
@@ -137,7 +151,7 @@ class Tracer:
             self.flight_path.parent.mkdir(parents=True, exist_ok=True)
             self._file = open(self.flight_path, "a", encoding="utf-8")
         meta = {"type": "meta", "pid": os.getpid(), "proc": self.proc,
-                "start_ts": time.time(), "t": 0.0}
+                "start_ts": time.time(), "t": 0.0, "ns": profiler_ns()}
         if label is not None:
             meta["label"] = label
         self._emit(meta)
@@ -167,8 +181,8 @@ class Tracer:
         tid, tname = _thread_label()
         rec = {
             "type": "span_begin", "id": span_id, "parent": parent,
-            "name": name, "t": self._now(), "tid": tid, "thread": tname,
-            "attrs": attrs,
+            "name": name, "t": self._now(), "ns": profiler_ns(), "tid": tid,
+            "thread": tname, "attrs": attrs,
         }
         with self._lock:
             self._open[span_id] = rec
@@ -177,7 +191,7 @@ class Tracer:
 
     def _end_span(self, span_id: int, status: str, error: str | None) -> None:
         rec = {"type": "span_end", "id": span_id, "t": self._now(),
-               "status": status}
+               "ns": profiler_ns(), "status": status}
         if error is not None:
             rec["error"] = error
         with self._lock:
@@ -190,8 +204,8 @@ class Tracer:
         tid, tname = _thread_label()
         self._emit({
             "type": "event", "name": name, "t": self._now(),
-            "span": _CURRENT_SPAN.get(), "tid": tid, "thread": tname,
-            "attrs": attrs,
+            "ns": profiler_ns(), "span": _CURRENT_SPAN.get(), "tid": tid,
+            "thread": tname, "attrs": attrs,
         })
 
     def current_span_id(self) -> int | None:
@@ -220,8 +234,8 @@ class Tracer:
         tid, tname = _thread_label()
         rec = {
             "type": "span_begin", "id": span_id, "parent": parent,
-            "name": name, "t": self._now(), "tid": tid, "thread": tname,
-            "attrs": attrs,
+            "name": name, "t": self._now(), "ns": profiler_ns(), "tid": tid,
+            "thread": tname, "attrs": attrs,
         }
         with self._lock:
             self._open[span_id] = rec
@@ -290,11 +304,24 @@ class Tracer:
         return out
 
 
+def _ts_us(rec: dict) -> float:
+    """A record's trace-event time in microseconds: since the epoch on
+    the profiler's clock (``ns``), else since the tracer's creation."""
+    ns = rec.get("ns")
+    return ns / 1e3 if ns is not None else rec["t"] * 1e6
+
+
 def chrome_trace_from_records(records: list[dict]) -> dict:
     """Convert flight-recorder records (a :meth:`Tracer.records` list or
     a parsed JSONL) to trace-event JSON. Offline twin of
     :meth:`Tracer.to_chrome_trace` — ``scripts/trace_summary.py --chrome``
-    runs it on a dead run's flight file."""
+    runs it on a dead run's flight file.
+
+    Events are placed by ``ns`` where the records carry it: ``ts`` is
+    then microseconds since the epoch on the profiler's clock, the clock
+    of a ``torch.profiler`` trace of the same run
+    (``utils.profiling.overlay_traces`` lays the two in one file).
+    Records without it (older flight files) place by ``t``."""
     pid = None
     tids: dict[int, int] = {}
     names: dict[int, str] = {}
@@ -326,20 +353,20 @@ def chrome_trace_from_records(records: list[dict]) -> dict:
         e = ends.get(span_id)
         if e is not None:
             ev = {"name": b["name"], "ph": "X", "pid": pid,
-                  "tid": tid_of(b), "ts": b["t"] * 1e6,
-                  "dur": max(0.0, (e["t"] - b["t"]) * 1e6), "args": args}
+                  "tid": tid_of(b), "ts": _ts_us(b),
+                  "dur": max(0.0, _ts_us(e) - _ts_us(b)), "args": args}
             if e.get("status") == "error":
                 ev["args"]["error"] = e.get("error", "")
         else:
             # Open at death: begin-only so the viewer shows WHERE it died.
             ev = {"name": b["name"], "ph": "B", "pid": pid,
-                  "tid": tid_of(b), "ts": b["t"] * 1e6, "args": args}
+                  "tid": tid_of(b), "ts": _ts_us(b), "args": args}
         events.append(ev)
     for r in records:
         if r.get("type") == "event":
             events.append({
                 "name": r["name"], "ph": "i", "s": "t", "pid": pid,
-                "tid": tid_of(r), "ts": r["t"] * 1e6,
+                "tid": tid_of(r), "ts": _ts_us(r),
                 "args": dict(r.get("attrs") or {}),
             })
     events.sort(key=lambda e: e["ts"])

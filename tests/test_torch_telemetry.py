@@ -75,11 +75,20 @@ def _port(g):
 
 def _tree(records):
     """(span name, parent span name) pairs and event names, as multisets:
-    the flight file's story without ids, times or threads."""
+    the flight file's story without ids, times or threads. The port's
+    step spans (``pj.*``, which the JAX package does not have) are left
+    out, a span under one counted under its nearest other ancestor."""
     begins = {r["id"]: r for r in records if r["type"] == "span_begin"}
+
+    def parent_name(b):
+        parent = b["parent"]
+        while parent and begins[parent]["name"].startswith("pj."):
+            parent = begins[parent]["parent"]
+        return begins[parent]["name"] if parent else None
+
     spans = collections.Counter(
-        (b["name"], begins[b["parent"]]["name"] if b["parent"] else None)
-        for b in begins.values())
+        (b["name"], parent_name(b)) for b in begins.values()
+        if not b["name"].startswith("pj."))
     events = collections.Counter(r["name"] for r in records
                                  if r["type"] == "event")
     return spans, events
